@@ -1,0 +1,47 @@
+"""The PyTorch port imports no JAX, builds nothing at import time, and
+decides about CUDA only when a kernel is launched."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from xfmamba_tpu_torch.kernels import build
+from xfmamba_tpu_torch.models.tops import two_view_xfmamba
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def test_port_imports_no_jax_and_builds_nothing():
+    code = (
+        "import importlib, pkgutil, sys, xfmamba_tpu_torch\n"
+        "for m in pkgutil.walk_packages(xfmamba_tpu_torch.__path__, 'xfmamba_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'xfmamba_tpu'))\n"
+        "assert not bad, bad\n"
+        "from xfmamba_tpu_torch.kernels import build\n"
+        "assert build.library.cache_info().currsize == 0\n"
+        "print('ok', len([n for n in sys.modules if n.startswith('xfmamba_tpu_torch')]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, check=False)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_library_name_is_keyed_on_the_sources():
+    path = build.library_path()
+    assert path.parent == build.BUILD_DIR
+    assert path.name.startswith("libxfm_") and path.suffix == ".so"
+    assert build.library_path() == path
+    assert {p.name for p in build._sources()} == {"nk_scan.cu", "vss_stage.cu"}
+
+
+def test_factory_is_seeded_and_eval():
+    kw = dict(backbone_overrides=dict(depths=(1, 1, 1, 1), dims=8))
+    a = two_view_xfmamba("tiny", seed=3, **kw)
+    b = two_view_xfmamba("tiny", seed=3, **kw)
+    assert not a.training
+    for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
+        assert ka == kb and torch.equal(va, vb)

@@ -1,0 +1,104 @@
+"""Build the CUDA sources of ``xfmamba_tpu_torch/csrc`` and bind them.
+
+All ``csrc/*.cu`` files are compiled by one ``nvcc`` call into a shared
+library with a plain C interface, loaded with ``ctypes``.  The build runs at
+first use, into ``xfmamba_tpu_torch/_build/`` (listed in ``.gitignore``),
+under a name keyed on a hash of the sources and flags, so an edited source
+is rebuilt and an unchanged one is loaded as it is.
+
+Every C entry point returns ``cudaGetLastError()``; `check` turns a non-zero
+status into an exception.  Pointers and the stream are ``c_void_p``: the
+stream is ``torch.cuda.current_stream().cuda_stream``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+# name -> argtypes of every C entry point (all return int: a cudaError_t)
+_SIGNATURES = {
+    "xfm_gemm_nt": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "xfm_layer_norm": [_P, _P, _P, _P, _LL, _I, _I, _I, ctypes.c_float, _P],
+    "xfm_dwconv3_silu": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "xfm_selective_scan": [_P] * 11 + [_I] * 15 + [_P],
+}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels of xfmamba_tpu_torch "
+                           "need the CUDA toolkit (nvcc on PATH or /usr/local/cuda)")
+    return nvcc
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC_DIR.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return BUILD_DIR / f"libxfm_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, str]:
+    """Compile the sources unless a library for them exists already.
+
+    Returns the library's path and the compiler's output (``-Xptxas -v``:
+    registers, shared memory and spills of each kernel)."""
+    so = library_path()
+    log = so.with_suffix(".log")
+    if so.exists():
+        return so, log.read_text() if log.exists() else ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}")
+    text = proc.stdout + proc.stderr
+    log.write_text(text)
+    os.replace(tmp, so)
+    return so, text
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at the first call)."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.xfm_error_string.argtypes = [ctypes.c_int]
+    lib.xfm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if status != 0:
+        msg = library().xfm_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")

@@ -1,0 +1,189 @@
+"""SS2D, the 2-D selective-scan op of VMamba (port of
+``xfmamba_tpu/models/ss2d.py``), forward type ``v05_noz`` only: no z-gate,
+LayerNorm out-norm, cross2d scan.
+
+`ss2d_core_from_projs` is the composable scan-and-merge path: it takes the
+per-direction projections and scans each direction with
+`selective_scan_seq`.  It is the plain reference of the scan kernels; the
+backbone's VSSM runs the stage kernel (``ops/vss_stage.py``) instead of
+calling `SS2D` block by block.
+
+Parameter layouts match the reference tensors: ``x_proj_weight``
+(K, R + 2N, D), ``dt_projs_weight`` (K, D, R), ``dt_projs_bias`` (K, D),
+``A_logs`` (K * D, N), ``Ds`` (K * D,).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from xfmamba_tpu_torch.models.layers import (
+    Conv2dSame, Dense, LayerNorm, trunc_normal_init, uniform_init)
+from xfmamba_tpu_torch.ops.selective_scan import selective_scan_seq
+
+
+# ---------------------------------------------------------------------------
+# mamba-style initialisers (``mamba_init``, vmamba.py:165-232)
+# ---------------------------------------------------------------------------
+
+def dt_proj_weight_init(t, dt_rank: int, dt_scale: float = 1.0,
+                        dt_init: str = "random", generator=None):
+    std = dt_rank ** -0.5 * dt_scale
+    if dt_init == "constant":
+        with torch.no_grad():
+            return t.fill_(std)
+    return uniform_init(t, std, generator)
+
+
+def dt_proj_bias_init(t, dt_min: float = 0.001, dt_max: float = 0.1,
+                      dt_init_floor: float = 1e-4, generator=None):
+    """Inverse softplus of dt drawn log-uniformly in [dt_min, dt_max]."""
+    with torch.no_grad():
+        u = torch.rand(t.shape, generator=generator)
+        dt = torch.exp(u * (math.log(dt_max) - math.log(dt_min)) + math.log(dt_min))
+        dt = torch.clamp(dt, min=dt_init_floor)
+        return t.copy_(dt + torch.log(-torch.expm1(-dt)))
+
+
+def a_log_init(t):
+    """S4D-real: A = [1 .. N] for every channel of a (K * D, N) tensor."""
+    with torch.no_grad():
+        n = t.shape[1]
+        return t.copy_(torch.log(torch.arange(1, n + 1, dtype=t.dtype)).expand_as(t))
+
+
+def dt_rank_of(d_model: int, dt_rank="auto") -> int:
+    return int(math.ceil(d_model / 16)) if dt_rank == "auto" else int(dt_rank)
+
+
+class ScanParams(nn.Module):
+    """Owner of the scan parameters shared by SS2D and the fusion ops:
+    mixed into a module, it registers them under the reference names."""
+
+    def init_scan_params(self, K: int, d_inner: int, R: int, N: int,
+                         generator=None):
+        self.x_proj_weight = nn.Parameter(torch.empty(K, R + 2 * N, d_inner))
+        self.dt_projs_weight = nn.Parameter(torch.empty(K, d_inner, R))
+        self.dt_projs_bias = nn.Parameter(torch.empty(K, d_inner))
+        self.A_logs = nn.Parameter(torch.empty(K * d_inner, N))
+        self.Ds = nn.Parameter(torch.ones(K * d_inner))
+        trunc_normal_init(self.x_proj_weight, generator=generator)
+        dt_proj_weight_init(self.dt_projs_weight, R, generator=generator)
+        dt_proj_bias_init(self.dt_projs_bias, generator=generator)
+        a_log_init(self.A_logs)
+
+    def scan_operands(self, d_inner: int):
+        """A (K, D, N) = -exp(A_logs), Ds and dt bias as (K, D), float32."""
+        K = self.x_proj_weight.shape[0]
+        N = self.A_logs.shape[1]
+        A = -torch.exp(self.A_logs.float()).reshape(K, d_inner, N)
+        return A, self.Ds.float().reshape(K, d_inner), self.dt_projs_bias.float()
+
+
+# ---------------------------------------------------------------------------
+# scan helpers
+# ---------------------------------------------------------------------------
+
+def _project_kdirs(x, x_proj_weight, dt_projs_weight, R, N):
+    """Projections of x (B, H, W, D) for all K directions: dts
+    (B, H, W, K, D), Bs and Cs (B, H, W, K, N), in x's dtype."""
+    x_dbl = torch.einsum("bhwd,kcd->bhwkc", x, x_proj_weight.to(x.dtype))
+    dts, Bs, Cs = torch.split(x_dbl, [R, N, N], dim=-1)
+    dts = torch.einsum("bhwkr,kdr->bhwkd", dts, dt_projs_weight.to(x.dtype))
+    return dts, Bs, Cs
+
+
+def _scan_group(x, dts, Bs, Cs, A, Ds, bias, ks, transposed, reverse,
+                scan_impl):
+    """Scan the directions ``ks`` that share a layout and a direction of
+    traversal; returns y (B, L, len(ks) * D) in scan order."""
+    B, H, W, D = x.shape
+    L = H * W
+    if transposed:
+        x, dts, Bs, Cs = (t.transpose(1, 2) for t in (x, dts, Bs, Cs))
+    nk = len(ks)
+    u = x.reshape(B, L, D).repeat(1, 1, nk)
+    d_sel = dts.reshape(B, L, -1, D)[:, :, ks].reshape(B, L, nk * D)
+    B_sel = Bs.reshape(B, L, -1, Bs.shape[-1])[:, :, ks]
+    C_sel = Cs.reshape(B, L, -1, Cs.shape[-1])[:, :, ks]
+    A_sel = A[ks].reshape(nk * D, -1)
+    D_sel = None if Ds is None else Ds[ks].reshape(-1)
+    b_sel = None if bias is None else bias[ks].reshape(-1)
+    return scan_impl(u, d_sel, A_sel, B_sel, C_sel, D_sel, b_sel,
+                     delta_softplus=True, reverse=reverse)
+
+
+def ss2d_core_from_projs(x, dts, Bs, Cs, A, Dmat, bias,
+                         scan_mode: str = "cross2d",
+                         scan_impl=selective_scan_seq):
+    """Scan and merge from precomputed projections.  x (B, H, W, D); dts
+    (B, H, W, K, D); Bs/Cs (B, H, W, K, N); A (K, D, N); Dmat/bias (K, D).
+    Returns (B, H, W, D) float32.  Direction k of cross2d is row_f, col_f,
+    row_r, col_r for k = 0..3; columns run over the transposed map
+    flattened as t = w * H + h."""
+    B, H, W, D = x.shape
+    K = A.shape[0]
+    L = H * W
+    args = (x, dts, Bs, Cs, A, Dmat, bias)
+    if scan_mode == "cross2d":
+        if K != 4:
+            raise ValueError("cross2d needs K = 4")
+        y0 = _scan_group(*args, [0], False, False, scan_impl)
+        y2 = _scan_group(*args, [2], False, True, scan_impl)
+        y1 = _scan_group(*args, [1], True, False, scan_impl)
+        y3 = _scan_group(*args, [3], True, True, scan_impl)
+        y13 = (y1 + y3).reshape(B, W, H, D).transpose(1, 2).reshape(B, L, D)
+        y = (y0 + y2) + y13
+    elif scan_mode == "unidi":
+        y = _scan_group(*args, list(range(K)), False, False, scan_impl)
+        y = y.reshape(B, L, K, D).sum(2)
+    elif scan_mode == "bidi":
+        if K != 4:
+            raise ValueError("bidi needs K = 4")
+        yf = _scan_group(*args, [0, 1], False, False, scan_impl)
+        yr = _scan_group(*args, [2, 3], False, True, scan_impl)
+        y4 = (yf + yr).reshape(B, L, 2, D)
+        y = y4[:, :, 0] + y4[:, :, 1]
+    else:
+        raise ValueError(f"unsupported scan_mode {scan_mode}")
+    return y.reshape(B, H, W, D)
+
+
+# ---------------------------------------------------------------------------
+# the SS2D module
+# ---------------------------------------------------------------------------
+
+class SS2D(ScanParams):
+    """in_proj -> depthwise 3x3 conv -> SiLU -> cross2d selective scan ->
+    LayerNorm out-norm -> out_proj, on NHWC maps (``v05_noz``)."""
+
+    def __init__(self, d_model: int, d_state: int = 1, ssm_ratio: float = 2.0,
+                 dt_rank="auto", d_conv: int = 3, conv_bias: bool = True,
+                 forward_type: str = "v05_noz", generator=None):
+        super().__init__()
+        if forward_type != "v05_noz" or d_conv != 3:
+            raise ValueError("the port has SS2D forward_type v05_noz with d_conv 3 only")
+        d_inner = int(ssm_ratio * d_model)
+        self.d_inner = d_inner
+        self.R = dt_rank_of(d_model, dt_rank)
+        self.N = d_state
+        self.in_proj = Dense(d_model, d_inner, bias=False, init="trunc_normal",
+                             generator=generator)
+        self.conv2d = Conv2dSame(d_inner, d_inner, 3, padding=1, groups=d_inner,
+                                 bias=conv_bias, generator=generator)
+        self.init_scan_params(4, d_inner, self.R, d_state, generator)
+        self.out_norm = LayerNorm(d_inner)
+        self.out_proj = Dense(d_inner, d_model, bias=False, init="trunc_normal",
+                              generator=generator)
+
+    def forward(self, x):
+        xin = F.silu(self.conv2d(self.in_proj(x)))
+        dts, Bs, Cs = _project_kdirs(xin, self.x_proj_weight,
+                                     self.dt_projs_weight, self.R, self.N)
+        A, Dmat, bias = self.scan_operands(self.d_inner)
+        y = ss2d_core_from_projs(xin, dts, Bs, Cs, A, Dmat, bias)
+        return self.out_proj(self.out_norm(y.to(x.dtype)))

@@ -1,5 +1,5 @@
-"""Load JAX variables into the port (the inverse of
-``xfmamba_tpu/checkpoint/convert.py``).
+"""Move variables between the port and the JAX package's flax trees (the
+inverse of ``xfmamba_tpu/checkpoint/convert.py``), both ways.
 
 `load_jax_variables` takes the flax variables of a JAX module as nested
 dicts of numpy arrays (``{"params": ..., "batch_stats": ...}``; a
@@ -13,6 +13,12 @@ flax ``kernel`` (in, out); a conv ``weight`` (out, in/g, kh, kw) is the
 flax ``conv/kernel`` (kh, kw, in/g, out); norm ``weight`` is ``scale``; a
 BatchNorm's ``running_mean``/``running_var`` are ``batch_stats``
 ``mean``/``var``.  Any missing, extra or misshapen entry raises.
+
+`jax_paths` gives, for each port state-dict entry, its JAX path and both
+layout maps, so a test can hold port gradients against JAX ones leaf by
+leaf; `export_jax_variables` writes the port's parameters and batch
+statistics as the nested flax dicts (a trained port model goes back to the
+JAX package).
 """
 
 from __future__ import annotations
@@ -50,23 +56,57 @@ def _jax_module_path(path: str) -> tuple:
     return tuple(p for p in path.split(".") if p)
 
 
+def _same(a):
+    return a
+
+
 def _leaf_rule(module: nn.Module, leaf: str):
-    """(collection, JAX leaf path, numpy -> torch layout) of a port leaf."""
+    """(collection, JAX leaf path, JAX -> port layout, port -> JAX layout)
+    of a port leaf."""
     if isinstance(module, Conv2dSame):
         if leaf == "weight":
-            return "params", ("conv", "kernel"), lambda a: a.transpose(3, 2, 0, 1)
-        return "params", ("conv", "bias"), None
+            return ("params", ("conv", "kernel"), lambda a: a.transpose(3, 2, 0, 1),
+                    lambda a: a.transpose(2, 3, 1, 0))
+        return "params", ("conv", "bias"), _same, _same
     if isinstance(module, Dense):
         if leaf == "weight":
-            return "params", ("kernel",), lambda a: a.T
-        return "params", ("bias",), None
+            return "params", ("kernel",), lambda a: a.T, lambda a: a.T
+        return "params", ("bias",), _same, _same
     if isinstance(module, (LayerNorm, BatchNorm)):
         names = {"weight": ("params", "scale"), "bias": ("params", "bias"),
                  "running_mean": ("batch_stats", "mean"),
                  "running_var": ("batch_stats", "var")}
         coll, name = names[leaf]
-        return coll, (name,), None
-    return "params", (leaf,), None
+        return coll, (name,), _same, _same
+    return "params", (leaf,), _same, _same
+
+
+def jax_paths(model: nn.Module) -> dict:
+    """Port state-dict key -> (JAX path as a tuple starting with the
+    collection, JAX -> port layout, port -> JAX layout), for every entry
+    but BatchNorm's ``num_batches_tracked``.  The layouts act on numpy
+    arrays (a gradient maps as its parameter does)."""
+    out = {}
+    for key in model.state_dict():
+        if key.endswith("num_batches_tracked"):
+            continue
+        parent, _, leaf = key.rpartition(".")
+        coll, jleaf, to_port, to_jax = _leaf_rule(model.get_submodule(parent), leaf)
+        out[key] = ((coll,) + _jax_module_path(parent) + jleaf, to_port, to_jax)
+    return out
+
+
+def export_jax_variables(model: nn.Module) -> dict:
+    """The port's ``params`` and ``batch_stats`` as nested dicts of float32
+    numpy arrays in the JAX package's layout."""
+    variables = {}
+    state = model.state_dict()
+    for key, (jpath, _, to_jax) in jax_paths(model).items():
+        node = variables
+        for name in jpath[:-1]:
+            node = node.setdefault(name, {})
+        node[jpath[-1]] = np.ascontiguousarray(to_jax(state[key].detach().cpu().float().numpy()))
+    return variables
 
 
 def _flatten(tree, prefix=()):
@@ -90,18 +130,13 @@ def load_jax_variables(model: nn.Module, variables) -> None:
     used = set()
     state = {}
     missing, misshapen = [], []
-    for key, tensor in model.state_dict().items():
-        if key.endswith("num_batches_tracked"):
-            continue
-        parent, _, leaf = key.rpartition(".")
-        coll, jleaf, layout = _leaf_rule(model.get_submodule(parent), leaf)
-        jpath = (coll,) + _jax_module_path(parent) + jleaf
+    current = model.state_dict()
+    for key, (jpath, to_port, _) in jax_paths(model).items():
+        tensor = current[key]
         if jpath not in flat:
             missing.append(f"{key} <- {'/'.join(jpath)}")
             continue
-        arr = flat[jpath]
-        if layout is not None:
-            arr = layout(arr)
+        arr = to_port(flat[jpath])
         if tuple(arr.shape) != tuple(tensor.shape):
             misshapen.append(f"{key}: {tuple(tensor.shape)} vs {'/'.join(jpath)} {arr.shape}")
             continue

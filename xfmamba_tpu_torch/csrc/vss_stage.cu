@@ -6,8 +6,9 @@
 // (xfmamba_tpu_torch/ops/vss_stage.py) launches them block by block.
 //
 // What bounds them on the H100:
-// - gemm_nt: a shared-memory tiled SIMT GEMM (64x64 tile, 4x4 outputs per
-//   thread, float32 FMA).  The stage matmuls are large (M = B*H*W rows), so
+// - gemm: a shared-memory tiled SIMT GEMM (64x64 tile, 4x4 outputs per
+//   thread, float32 FMA), strided so that one kernel serves the forward
+//   products and, in vss_block_bwd.cu's sequence, their gradients.  The stage matmuls are large (M = B*H*W rows), so
 //   they would be tensor-core bound; this first version runs on the FP32
 //   pipes instead (67 TFLOP/s peak, well under the 989 TFLOP/s of bf16
 //   wgmma).  Moving to wgmma/TMA is later work.
@@ -24,35 +25,69 @@ constexpr int kGemmBN = 64;
 constexpr int kGemmBK = 16;
 constexpr int kGemmThreads = 256;
 
-// out[M, N] = epilogue(A[M, K] @ W[N, K]^T): W in nn.Linear layout.
-// epilogue: + bias[n] (float32), exact-erf GELU, + res[m, n]; all in float32.
-template <typename T>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_nt_kernel(const T* __restrict__ A, const T* __restrict__ Wt,
-               const float* __restrict__ bias, const T* __restrict__ res,
-               T* __restrict__ out, int M, int N, int K, int gelu) {
+// out[m, n] = epilogue(sum_k A(m, k) * B(n, k)), with A(m, k) at
+// a[m * sam + k * sak] and B(n, k) at b[n * sbn + k * sbk].  The strides
+// give every layout the block and its gradient need: A @ W^T against an
+// nn.Linear weight (sak = sbk = 1), dX = dY @ W (sbn = 1) and
+// dW = dY^T @ X (sam = sbn = 1, the reduction over all rows).
+// Epilogue, in float32 and in this order: + bias[n], exact-erf GELU,
+// * scale[m / scale_rows] (a per-sample drop-path mask), + res[m, n]; the
+// output row stride is ldc (res shares it, and may alias out).  With
+// splits > 1 the K axis is cut into `splits` slices (grid.z) whose partial
+// sums are added into a zeroed float32 out with atomicAdd, and no epilogue
+// applies: that is how the weight gradients, with K = B * H * W rows and a
+// small output, fill the card.
+struct GemmParams {
+  const void* a;
+  const void* b;
+  const float* bias;
+  const float* scale;
+  const void* res;
+  void* out;
+  long long M, sam, sak, sbn, sbk, ldc;
+  int N, K, scale_rows, gelu, splits;
+};
+
+// A_K / B_K: k is the contiguous axis of A / B (load order, fixed at
+// compile time so the forward's A @ W^T keeps its plain index arithmetic).
+template <typename T, typename OT, bool A_K, bool B_K>
+__global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmParams p) {
   __shared__ float As[kGemmBK][kGemmBM + 4];
-  __shared__ float Ws[kGemmBK][kGemmBN + 4];
+  __shared__ float Bs[kGemmBK][kGemmBN + 4];
+  const T* A = static_cast<const T*>(p.a);
+  const T* B = static_cast<const T*>(p.b);
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
   const long long m0 = static_cast<long long>(blockIdx.y) * kGemmBM;
   const int n0 = blockIdx.x * kGemmBN;
+  // this block's slice of K, a multiple of kGemmBK
+  const int kslice = ((p.K + p.splits - 1) / p.splits + kGemmBK - 1) / kGemmBK * kGemmBK;
+  const int kbeg = blockIdx.z * kslice;
+  const int kend = min(p.K, kbeg + kslice);
+  // load order: along k when k is the contiguous axis, else along rows,
+  // so that neighbouring threads read neighbouring addresses
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += kGemmBK) {
+  for (int k0 = kbeg; k0 < kend; k0 += kGemmBK) {
     for (int e = tid; e < kGemmBM * kGemmBK; e += kGemmThreads) {
-      const int r = e / kGemmBK;
-      const int kk = e % kGemmBK;
-      const int k = k0 + kk;
+      int r = A_K ? e / kGemmBK : e % kGemmBM;
+      int kk = A_K ? e % kGemmBK : e / kGemmBM;
       const long long m = m0 + r;
+      As[kk][r] = (m < p.M && k0 + kk < kend)
+                      ? to_f32(A[m * p.sam + (A_K ? k0 + kk : (k0 + kk) * p.sak)])
+                      : 0.f;
+      r = B_K ? e / kGemmBK : e % kGemmBN;
+      kk = B_K ? e % kGemmBK : e / kGemmBN;
       const int n = n0 + r;
-      As[kk][r] = (m < M && k < K) ? to_f32(A[m * K + k]) : 0.f;
-      Ws[kk][r] = (n < N && k < K) ? to_f32(Wt[static_cast<long long>(n) * K + k]) : 0.f;
+      Bs[kk][r] = (n < p.N && k0 + kk < kend)
+                      ? to_f32(B[static_cast<long long>(n) * p.sbn +
+                                 (B_K ? k0 + kk : (k0 + kk) * p.sbk)])
+                      : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -61,7 +96,7 @@ gemm_nt_kernel(const T* __restrict__ A, const T* __restrict__ Wt,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         a[i] = As[kk][ty * 4 + i];
-        w[i] = Ws[kk][tx * 4 + i];
+        w[i] = Bs[kk][tx * 4 + i];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -71,19 +106,27 @@ gemm_nt_kernel(const T* __restrict__ A, const T* __restrict__ Wt,
     __syncthreads();
   }
 
+  OT* out = static_cast<OT*>(p.out);
+  const OT* res = static_cast<const OT*>(p.res);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const long long m = m0 + ty * 4 + i;
-    if (m >= M) continue;
+    if (m >= p.M) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
-      if (n >= N) continue;
+      if (n >= p.N) continue;
+      const long long o = m * p.ldc + n;
       float v = acc[i][j];
-      if (bias) v += bias[n];
-      if (gelu) v = gelu_erf(v);
-      if (res) v += to_f32(res[m * N + n]);
-      out[m * N + n] = from_f32<T>(v);
+      if (p.splits > 1) {
+        atomicAdd(reinterpret_cast<float*>(out) + o, v);
+        continue;
+      }
+      if (p.bias) v += p.bias[n];
+      if (p.gelu) v = gelu_erf(v);
+      if (p.scale) v *= p.scale[m / p.scale_rows];
+      if (res) v += to_f32(res[o]);
+      out[o] = from_f32<OT>(v);
     }
   }
 }
@@ -140,6 +183,15 @@ __global__ void dwconv3_silu_kernel(const T* __restrict__ x, const float* __rest
   }
 }
 
+template <typename T, typename OT>
+cudaError_t launch_gemm(const GemmParams& p, dim3 grid, cudaStream_t s) {
+  if (p.sak == 1 && p.sbk == 1) gemm_kernel<T, OT, true, true><<<grid, kGemmThreads, 0, s>>>(p);
+  else if (p.sak == 1) gemm_kernel<T, OT, true, false><<<grid, kGemmThreads, 0, s>>>(p);
+  else if (p.sbk == 1) gemm_kernel<T, OT, false, true><<<grid, kGemmThreads, 0, s>>>(p);
+  else gemm_kernel<T, OT, false, false><<<grid, kGemmThreads, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace xfm
 
 using namespace xfm;
@@ -148,24 +200,23 @@ extern "C" const char* xfm_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-extern "C" int xfm_gemm_nt(const void* a, const void* w, const float* bias, const void* res,
-                           void* out, long long M, int N, int K, int dtype, int gelu,
-                           void* stream) {
-  const dim3 grid(ceil_div(N, kGemmBN), ceil_div(M, kGemmBM));
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) {
-    gemm_nt_kernel<float><<<grid, kGemmThreads, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(w), bias,
-        static_cast<const float*>(res), static_cast<float*>(out), static_cast<int>(M), N, K, gelu);
-  } else if (dtype == kBF16) {
-    gemm_nt_kernel<__nv_bfloat16><<<grid, kGemmThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(w), bias,
-        static_cast<const __nv_bfloat16*>(res), static_cast<__nv_bfloat16*>(out),
-        static_cast<int>(M), N, K, gelu);
-  } else {
+extern "C" int xfm_gemm(const void* a, const void* b, const float* bias, const float* scale,
+                        const void* res, void* out, long long M, int N, int K, long long sam,
+                        long long sak, long long sbn, long long sbk, long long ldc,
+                        int scale_rows, int gelu, int splits, int in_dtype, int out_dtype,
+                        void* stream) {
+  if (splits < 1 || (splits > 1 && (out_dtype != kF32 || bias || scale || res || gelu)) ||
+      (scale && scale_rows < 1))
     return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  const GemmParams p{a, b, bias, scale, res, out, M, sam, sak, sbn, sbk, ldc,
+                     N, K, scale_rows, gelu, splits};
+  const dim3 grid(ceil_div(N, kGemmBN), ceil_div(M, kGemmBM), splits);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (in_dtype == kF32 && out_dtype == kF32) return launch_gemm<float, float>(p, grid, s);
+  if (in_dtype == kBF16 && out_dtype == kBF16)
+    return launch_gemm<__nv_bfloat16, __nv_bfloat16>(p, grid, s);
+  if (in_dtype == kBF16 && out_dtype == kF32) return launch_gemm<__nv_bfloat16, float>(p, grid, s);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int xfm_layer_norm(const void* x, const float* w, const float* b, void* y,

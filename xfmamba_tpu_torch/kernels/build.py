@@ -1,7 +1,8 @@
 """Build the CUDA sources of ``xfmamba_tpu_torch/csrc`` and bind them.
 
-All ``csrc/*.cu`` files are compiled by one ``nvcc`` call into a shared
-library with a plain C interface, loaded with ``ctypes``.  The build runs at
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with
+a plain C interface, loaded with ``ctypes``.  The build runs at
 first use, into ``xfmamba_tpu_torch/_build/`` (listed in ``.gitignore``),
 under a name keyed on a hash of the sources and flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is.
@@ -25,17 +26,20 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # name -> argtypes of every C entry point (all return int: a cudaError_t)
 _SIGNATURES = {
-    "xfm_gemm_nt": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "xfm_gemm": [_P] * 6 + [_LL, _I, _I] + [_LL] * 5 + [_I] * 5 + [_P],
     "xfm_layer_norm": [_P, _P, _P, _P, _LL, _I, _I, _I, ctypes.c_float, _P],
     "xfm_dwconv3_silu": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "xfm_selective_scan": [_P] * 11 + [_I] * 15 + [_P],
+    "xfm_layer_norm_bwd": [_P] * 7 + [_LL, _I, _I, ctypes.c_float, _P],
+    "xfm_dwconv3_silu_bwd": [_P] * 8 + [_I] * 5 + [_P],
+    "xfm_selective_scan_bwd": [_P] * 18 + [_I] * 17 + [_P],
 }
 
 
@@ -71,15 +75,29 @@ def build() -> tuple[Path, str]:
     if so.exists():
         return so, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    tmp = so.with_name(f"{tag}.so.tmp")
+    try:
+        for cmd, proc, out in zip(cmds, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{out}")
+        link = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({' '.join(link)}):\n{proc.stdout}{proc.stderr}")
+        text = "".join(outs) + proc.stdout + proc.stderr
+        log.write_text(text)
+        os.replace(tmp, so)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}")
-    text = proc.stdout + proc.stderr
-    log.write_text(text)
-    os.replace(tmp, so)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return so, text
 
 

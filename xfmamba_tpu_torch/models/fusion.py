@@ -1,11 +1,15 @@
 """XFMamba cross-view fusion (port of ``xfmamba_tpu/models/fusion.py``):
 `swapping_scan`, ShallowFuse_SS2Dv4 and its block, Cross_SS2Dv5, the fusion
-block and the CSSF layer.  Channels-last throughout; inference only.
+block and the CSSF layer.  Channels-last throughout.
 
 The projections, depthwise convs, norms and the SE gate run in PyTorch, as
 the JAX package leaves them to XLA.  The scans go through the port's
-kernels: ShallowFuse through `nk_scan` (one K=1 row_f call per swap group),
-Cross_SS2Dv5 through `nk_scan_x` (rank form, LayerNorm epilogue).
+kernels: ShallowFuse through `nk_scan_train` (kernel 2 forward, kernel 7
+backward; one K=1 row_f call per swap group), Cross_SS2Dv5 in eval mode
+through `nk_scan_x` (rank form, LayerNorm epilogue) and in training mode
+through `nk_scan_train_from_projs` (the deltas projected in torch, kernel 2
+in dts form, K=4 cross2d, then the torch out-norm), as the JAX training
+path does.
 """
 
 from __future__ import annotations
@@ -16,16 +20,33 @@ from torch import nn
 
 from xfmamba_tpu_torch.models.layers import (
     BatchNorm, Conv2dSame, Dense, DropPath, LayerNorm)
-from xfmamba_tpu_torch.models.ss2d import ScanParams, dt_rank_of
-from xfmamba_tpu_torch.ops.nk_scan import nk_scan, nk_scan_x, scan_mode_kinds
+from xfmamba_tpu_torch.models.ss2d import ScanParams, _project_kdirs, dt_rank_of
+from xfmamba_tpu_torch.ops.nk_scan import nk_scan_x, scan_mode_kinds
+from xfmamba_tpu_torch.ops.nk_scan_adjoint import nk_scan_train, nk_scan_train_from_projs
+
+
+def _swap(x, x2):
+    even = torch.arange(x.shape[-1], device=x.device) % 2 == 0
+    return torch.where(even, x2, x), torch.where(even, x, x2)
+
+
+class _SwappingScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, x2):
+        return _swap(x, x2)
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        return g1, g2
 
 
 def swapping_scan(x, x2):
     """Exchange the even-indexed channels of the two views
     (``fusion_vmamba.py:189-214``): the first output takes x2's even
-    channels, the second x's.  Forward only."""
-    even = torch.arange(x.shape[-1], device=x.device) % 2 == 0
-    return torch.where(even, x2, x), torch.where(even, x, x2)
+    channels, the second x's.  Its backward is the reference's
+    *straight-through* one (``:216-221``, ``xfmamba_tpu/models/fusion.py:
+    31-62``): the gradients pass through un-swapped, not the true adjoint."""
+    return _SwappingScan.apply(x, x2)
 
 
 class ShallowFuseSS2Dv4(ScanParams):
@@ -68,7 +89,7 @@ class ShallowFuseSS2Dv4(ScanParams):
         dts, Bs, Cs = torch.split(x_dbl, [R, N, N], -1)
         dts = torch.einsum("blkr,kdr->blkd", dts, self.dt_projs_weight.to(xs.dtype))
         A, Dmat, bias = self.scan_operands(di)
-        ys = [nk_scan(xs[:, :, k].contiguous(), dts[:, :, k].contiguous(),
+        ys = [nk_scan_train(xs[:, :, k].contiguous(), dts[:, :, k].contiguous(),
                       Bs[:, :, k].contiguous(), Cs[:, :, k].contiguous(),
                       A[k].t().contiguous(), Dmat[k:k + 1], bias[k:k + 1],
                       H, W, ("row_f",))
@@ -81,20 +102,23 @@ class ShallowFuseSS2Dv4(ScanParams):
 
 
 class ShallowFusionBlock(nn.Module):
-    """Shared BatchNorm (running statistics), ShallowFuse_SS2Dv4, per-view
-    residual (``fusion_vmamba.py:879-920``)."""
+    """Shared BatchNorm (called once per view, so in training it updates
+    its running statistics twice, as the flax module does),
+    ShallowFuse_SS2Dv4, per-view residual with one drop-path mask shared by
+    both views (``fusion_vmamba.py:879-920``)."""
 
     def __init__(self, hidden_dim: int, drop_path: float = 0.0, d_state: int = 4,
-                 dt_rank="auto", ssm_ratio: float = 2.0, generator=None):
+                 dt_rank="auto", ssm_ratio: float = 2.0, generator=None,
+                 dropout_generator=None):
         super().__init__()
         self.norm = BatchNorm(hidden_dim, eps=1e-5)
         self.shallowfuseSS2D = ShallowFuseSS2Dv4(hidden_dim, d_state, ssm_ratio,
                                                  dt_rank, generator=generator)
-        self.drop_path = DropPath(drop_path)
+        self.drop_path = DropPath(drop_path, dropout_generator)
 
     def forward(self, x1, x2):
-        y1, y2 = self.shallowfuseSS2D(self.norm(x1), self.norm(x2))
-        return x1 + self.drop_path(y1), x2 + self.drop_path(y2)
+        y1, y2 = self.drop_path(*self.shallowfuseSS2D(self.norm(x1), self.norm(x2)))
+        return x1 + y1, x2 + y2
 
 
 class CrossSS2Dv5(ScanParams):
@@ -112,6 +136,7 @@ class CrossSS2Dv5(ScanParams):
         self.d_inner = d_inner
         self.R = dt_rank_of(d_model, dt_rank)
         self.N = d_state
+        self.scan_mode = scan_mode
         self.kinds = scan_mode_kinds(scan_mode, 4)
         self.in_proj_sec = Dense(d_model, d_inner, bias=False, init="trunc_normal",
                                  generator=generator)
@@ -129,17 +154,23 @@ class CrossSS2Dv5(ScanParams):
         z = F.silu(xp_cat[:Bv])
         xcat = F.silu(self.conv2d(xp_cat))                     # (3B, H, W, di)
         Bc = xcat.shape[0]
-        x_dbl = torch.einsum("bhwd,kcd->bhwkc", xcat, self.x_proj_weight.to(xcat.dtype))
-        ranks, Bs, Cs = torch.split(x_dbl, [R, N, N], -1)
-        Cs = Cs[:Bv].repeat(3, 1, 1, 1, 1)
         A, Dmat, bias = self.scan_operands(di)
-        y3 = nk_scan_x(
-            xcat.reshape(Bc, L, di), ranks.reshape(Bc, L, K * R),
-            Bs.reshape(Bc, L, K * N), Cs.reshape(Bc, L, K * N),
-            self.dt_projs_weight.float().transpose(1, 2).reshape(K * R, di),
-            A.transpose(1, 2).reshape(K * N, di), Dmat, bias,
-            torch.stack([self.out_norm.weight, self.out_norm.bias]),
-            H, W, self.kinds)
+        if self.training:
+            dts, Bs, Cs = _project_kdirs(xcat, self.x_proj_weight, self.dt_projs_weight, R, N)
+            y3 = nk_scan_train_from_projs(xcat, dts, Bs, Cs[:Bv].repeat(3, 1, 1, 1, 1), A,
+                                          Dmat, bias, self.scan_mode)
+            y3 = self.out_norm(y3.to(x.dtype))
+        else:
+            x_dbl = torch.einsum("bhwd,kcd->bhwkc", xcat, self.x_proj_weight.to(xcat.dtype))
+            ranks, Bs, Cs = torch.split(x_dbl, [R, N, N], -1)
+            Cs = Cs[:Bv].repeat(3, 1, 1, 1, 1)
+            y3 = nk_scan_x(
+                xcat.reshape(Bc, L, di), ranks.reshape(Bc, L, K * R),
+                Bs.reshape(Bc, L, K * N), Cs.reshape(Bc, L, K * N),
+                self.dt_projs_weight.float().transpose(1, 2).reshape(K * R, di),
+                A.transpose(1, 2).reshape(K * N, di), Dmat, bias,
+                torch.stack([self.out_norm.weight, self.out_norm.bias]),
+                H, W, self.kinds)
         y_fuse, y, y2 = y3.reshape(Bc, H, W, di).chunk(3, 0)
         return self.out_proj((y + y2 + y_fuse) * z)
 
@@ -149,11 +180,11 @@ class FusionBlock(nn.Module):
     (``fusion_vmamba.py:613-643``)."""
 
     def __init__(self, hidden_dim: int, drop_path: float = 0.0, d_state: int = 16,
-                 generator=None):
+                 generator=None, dropout_generator=None):
         super().__init__()
         self.norm = LayerNorm(hidden_dim)
         self.self_attention = CrossSS2Dv5(hidden_dim, d_state, generator=generator)
-        self.drop_path = DropPath(drop_path)
+        self.drop_path = DropPath(drop_path, dropout_generator)
 
     def forward(self, x1, x2):
         y = self.self_attention(self.norm(x1), self.norm(x2))
@@ -165,11 +196,11 @@ class CSSFVSSLayer(nn.Module):
     (``fusion_vmamba.py:646-690``)."""
 
     def __init__(self, hidden_dim: int, depth: int = 1, drop_path=0.0,
-                 d_state: int = 16, generator=None):
+                 d_state: int = 16, generator=None, dropout_generator=None):
         super().__init__()
         rates = drop_path if isinstance(drop_path, (list, tuple)) else [drop_path] * depth
         self.blocks = nn.ModuleList(
-            FusionBlock(hidden_dim, float(rates[i]), d_state, generator)
+            FusionBlock(hidden_dim, float(rates[i]), d_state, generator, dropout_generator)
             for i in range(depth))
 
     def forward(self, x1, x2):

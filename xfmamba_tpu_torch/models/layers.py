@@ -101,30 +101,57 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d on NHWC maps, running statistics only (inference), in
-    float32.  State-dict names are BatchNorm2d's."""
+    """BatchNorm2d on NHWC maps, in float32.  In eval mode it normalises
+    with the running statistics; in training mode with the batch's, and
+    updates the running ones with momentum 0.1 on every call, the running
+    variance being the *unbiased* batch variance as in torch (flax keeps
+    the biased one).  State-dict names are BatchNorm2d's."""
 
     def forward(self, x):
-        y = F.batch_norm(x.float().permute(0, 3, 1, 2), self.running_mean.float(),
-                         self.running_var.float(), self.weight.float(),
-                         self.bias.float(), False, 0.0, self.eps)
+        if self.training:
+            self.num_batches_tracked.add_(1)
+        y = F.batch_norm(x.float().permute(0, 3, 1, 2), self.running_mean,
+                         self.running_var, self.weight.float(), self.bias.float(),
+                         self.training, self.momentum, self.eps)
         return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def to_device(t: torch.Tensor, device=None) -> torch.Tensor:
+    """A small CPU tensor on ``device``; to a GPU it goes from pinned memory
+    without blocking the host, so that it does not wait for queued work."""
+    if device is None or torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 class DropPath(nn.Module):
     """Per-sample stochastic depth on a residual branch; identity at
-    inference."""
+    inference.  The keep masks are drawn from ``generator`` (a CPU
+    ``torch.Generator``).  Called with several tensors, it applies one mask
+    to all of them, as the JAX DropPath does on a tuple."""
 
-    def __init__(self, rate: float = 0.0):
+    def __init__(self, rate: float = 0.0, generator=None):
         super().__init__()
         self.rate = rate
+        self.generator = generator
 
-    def forward(self, x):
+    def scales(self, batch: int, device=None) -> torch.Tensor:
+        """(batch,) float32: keep / (1 - rate) or 0 per sample; ones when the
+        branch is not dropped."""
         if self.rate == 0.0 or not self.training:
-            return x
+            return torch.ones(batch, device=device)
+        if self.generator is None:
+            raise RuntimeError("DropPath in training needs a torch.Generator")
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape[0], device=x.device) < keep
-        return x * (mask.to(x.dtype) / keep).view(-1, *([1] * (x.dim() - 1)))
+        mask = torch.rand(batch, generator=self.generator) < keep
+        return to_device(mask.float() / keep, device)
+
+    def forward(self, *xs):
+        if self.rate == 0.0 or not self.training:
+            return xs[0] if len(xs) == 1 else xs
+        s = self.scales(xs[0].shape[0], xs[0].device)
+        out = tuple(x * s.to(x.dtype).view(-1, *([1] * (x.dim() - 1))) for x in xs)
+        return out[0] if len(out) == 1 else out
 
 
 class Mlp(nn.Module):

@@ -3,8 +3,11 @@
 
 Both views run through the shared backbone as one batch of 2B; the
 stage-3 features go through the shallow swap fusion, the deep cross fusion,
-a 1x1 conv, mean pooling and a linear head.  Inference only.  The saliency
-hooks of the JAX model (``sow``/``perturb``) are not ported yet.
+a 1x1 conv, mean pooling and a linear head.  ``.eval()`` gives the
+inference path, ``.train()`` the training path (batch statistics, drop-path
+masks from the model's ``dropout_generator``, the training kernels; see
+``models/vssm.py`` and ``models/fusion.py``).  The saliency hooks of the
+JAX model (``sow``/``perturb``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,24 +42,26 @@ class TwoViewXFMamba(nn.Module):
 
     def __init__(self, outputs: int = 2, model_type: str = "small",
                  hidden_dim: int = 768, depth: int = 1, d_state: int = 16,
-                 drop_path_rate: float = 0.1, backbone_overrides=None,
-                 generator=None):
+                 drop_path_rate: float = 0.1, use_checkpoint: bool = False,
+                 backbone_overrides=None, generator=None, dropout_generator=None):
         super().__init__()
+        # drop-path masks in training; a CPU generator, seeded by the caller
+        self.dropout_generator = dropout_generator or torch.Generator().manual_seed(0)
         cfg = dict(_BACKBONE_DEFAULTS, **_BACKBONE_CFG[model_type])
         cfg.update(backbone_overrides or {})
-        self.mamba_feature_extrac = VSSM(generator=generator, **cfg)
-        self.shallow_mamba_fusion = ShallowFusionBlock(hidden_dim, d_state=d_state,
-                                                       generator=generator)
+        self.mamba_feature_extrac = VSSM(use_checkpoint=use_checkpoint, generator=generator,
+                                         dropout_generator=self.dropout_generator, **cfg)
+        self.shallow_mamba_fusion = ShallowFusionBlock(
+            hidden_dim, d_state=d_state, generator=generator,
+            dropout_generator=self.dropout_generator)
         dpr = np.linspace(0.0, drop_path_rate, depth)
         self.fusemamba = CSSFVSSLayer(hidden_dim, depth, [float(r) for r in dpr],
-                                      d_state, generator)
+                                      d_state, generator, self.dropout_generator)
         self.final_conv = Conv2dSame(hidden_dim, hidden_dim, 1, generator=generator)
         self.classifier = nn.ModuleDict(
             {"head": Dense(hidden_dim, outputs, init="trunc_normal", generator=generator)})
 
     def forward(self, x_a, x_b):
-        if self.training:
-            raise RuntimeError("the port runs inference only: call .eval() first")
         Bv = x_a.shape[0]
         z = self.mamba_feature_extrac(
             torch.cat([_expand_gray(x_a), _expand_gray(x_b)], 0))[3]
@@ -69,10 +74,12 @@ class TwoViewXFMamba(nn.Module):
 def two_view_xfmamba(size: str = "small", outputs: int = 2, *, device="cpu",
                      seed: int = 0, **kw) -> TwoViewXFMamba:
     """Factory mirroring the CLI names (twoviewxfmamba / _tiny / _base).
-    Weights are drawn from a ``torch.Generator`` seeded with ``seed``; the
+    Weights are drawn from a ``torch.Generator`` seeded with ``seed``, and
+    the drop-path masks of training from one seeded with ``seed + 1``; the
     model is returned in eval mode on ``device``, with float32 weights."""
     generator = torch.Generator().manual_seed(seed)
     hidden = 1024 if size == "base" else 768
     model = TwoViewXFMamba(outputs=outputs, model_type=size, hidden_dim=hidden,
-                           generator=generator, **kw)
+                           generator=generator,
+                           dropout_generator=torch.Generator().manual_seed(seed + 1), **kw)
     return model.eval().to(device)

@@ -6,23 +6,39 @@ Module and parameter names follow the reference PyTorch state dict
 ``layers.{i}.downsample.{1,3}``, ``outnorm{i}``), so a port ``state_dict()``
 converts with ``xfmamba_tpu.checkpoint.convert.convert_vssm_state_dict``.
 
-The stage loop runs each stage through `ops.vss_stage.vss_stage`: the stage
-kernel on the card, the plain stage on the CPU.  `VSSBlock.forward` is the
-composable block (``SS2D`` module path), kept as the readable reference of
-what the stage computes.
+In eval mode the stage loop runs each stage through
+`ops.vss_stage.vss_stage` (kernel 1).  In training mode every block's two
+drop-path scales (SS2D half, then MLP half) are drawn from the model's
+dropout generator before the step's first launch and copied to the device
+at once (`VSSM._drop_path_scales`); `VSSM._train_stage` packs the operands
+on the autograd graph, and a stage of depth >= 2 then runs `ops.vss_stage_train.
+vss_stage_train` (kernel 5 forward, kernel 6 backward), as the JAX
+``VSSM._fused_stage_train_path`` does.  With ``use_checkpoint`` (or a
+depth-1 stage) each block runs `ops.vss_block_train.vss_block_train_op`
+(kernel 4 forward, kernel 6 backward) for its SS2D half, and its MLP half
+in torch, under ``torch.utils.checkpoint`` with ``use_checkpoint`` (the
+``nn.remat`` counterpart).  The kernels run on the card; on the CPU their
+plain versions.  `VSSBlock.forward` is the composable block (``SS2D``
+module path), kept as the readable reference of what the stage computes.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from xfmamba_tpu_torch.models.layers import (
-    Conv2dSame, DropPath, LayerNorm, Mlp, gelu)
+    Conv2dSame, DropPath, LayerNorm, Mlp, gelu, to_device)
 from xfmamba_tpu_torch.models.ss2d import SS2D
-from xfmamba_tpu_torch.ops.vss_block import pack_vss_block_params
+from xfmamba_tpu_torch.ops.vss_block import (
+    MLP_FIELDS, PLAIN_OPS, SS2D_FIELDS, VSSBlockOperands, mlp_half, pack_vss_block_params,
+    pack_vss_block_train_params)
+from xfmamba_tpu_torch.ops.vss_block_train import vss_block_train_op
 from xfmamba_tpu_torch.ops.vss_stage import vss_stage
+from xfmamba_tpu_torch.ops.vss_stage_train import vss_stage_train
 
 
 class PatchEmbedV2(nn.Module):
@@ -67,13 +83,13 @@ class VSSBlock(nn.Module):
     def __init__(self, hidden_dim: int, drop_path: float = 0.0,
                  ssm_d_state: int = 1, ssm_ratio: float = 2.0,
                  ssm_dt_rank="auto", ssm_conv_bias: bool = False,
-                 mlp_ratio: float = 4.0, generator=None):
+                 mlp_ratio: float = 4.0, generator=None, dropout_generator=None):
         super().__init__()
         self.norm = LayerNorm(hidden_dim)
         self.op = SS2D(hidden_dim, d_state=ssm_d_state, ssm_ratio=ssm_ratio,
                        dt_rank=ssm_dt_rank, conv_bias=ssm_conv_bias,
                        generator=generator)
-        self.drop_path = DropPath(drop_path)
+        self.drop_path = DropPath(drop_path, dropout_generator)
         self.norm2 = LayerNorm(hidden_dim) if mlp_ratio > 0 else None
         self.mlp = (Mlp(hidden_dim, int(hidden_dim * mlp_ratio), hidden_dim,
                         generator=generator) if mlp_ratio > 0 else None)
@@ -106,8 +122,9 @@ class VSSM(nn.Module):
                  ssm_ratio: float = 2.0, ssm_dt_rank="auto",
                  ssm_conv_bias: bool = False, mlp_ratio: float = 4.0,
                  drop_path_rate: float = 0.2, out_indices=(0, 1, 2, 3),
-                 generator=None):
+                 use_checkpoint: bool = False, generator=None, dropout_generator=None):
         super().__init__()
+        self.use_checkpoint = use_checkpoint
         dims = [dims * 2 ** i for i in range(len(depths))] if isinstance(dims, int) else list(dims)
         self.depths = tuple(depths)
         self.out_indices = tuple(out_indices)
@@ -118,7 +135,7 @@ class VSSM(nn.Module):
         for i, depth in enumerate(depths):
             blocks = [VSSBlock(dims[i], dpr[sum(depths[:i]) + j], ssm_d_state,
                                ssm_ratio, ssm_dt_rank, ssm_conv_bias, mlp_ratio,
-                               generator=generator)
+                               generator=generator, dropout_generator=dropout_generator)
                       for j in range(depth)]
             down = (DownsampleV3(dims[i], dims[i + 1], generator)
                     if i < len(depths) - 1 else None)
@@ -127,18 +144,52 @@ class VSSM(nn.Module):
         for i in self.out_indices:
             self.add_module(f"outnorm{i}", LayerNorm(dims[i]))
 
+    def _drop_path_scales(self, batch, device):
+        """Per stage, (depth, 2, batch) float32: each block's two drop-path
+        scales, drawn on the CPU in block order and copied in one transfer."""
+        scales = torch.stack([torch.stack([blk.drop_path.scales(batch) for _ in range(2)])
+                              for layer in self.layers for blk in layer.blocks])
+        return to_device(scales, device).split(self.depths)
+
+    def _train_stage(self, x, layer, scales):
+        """One stage in training mode on x (B, H, W, d) with its blocks'
+        drop-path ``scales`` (depth, 2, B); see the module docstring."""
+        B, H, W, d = x.shape
+        blocks = layer.blocks
+        packed = [pack_vss_block_train_params(blk, x.dtype) for blk in blocks]
+        xl = x.reshape(B, H * W, d).contiguous()
+        if len(blocks) >= 2 and not self.use_checkpoint:
+            m1, m2 = scales[:, 0].contiguous(), scales[:, 1].contiguous()
+            return vss_stage_train(xl, packed, H, W, m1, m2).reshape(B, H, W, d)
+        for p, (m1, m2) in zip(packed, scales):
+            xl = vss_block_train_op(xl, p, H, W, m1)
+            mlp = [getattr(p, n) for n in MLP_FIELDS]
+            if self.use_checkpoint:
+                xl = checkpoint(_mlp_half_train, xl, m2, *mlp, use_reentrant=False)
+            else:
+                xl = _mlp_half_train(xl, m2, *mlp)
+        return xl.reshape(B, H, W, d)
+
     def forward(self, x):
         """x (B, H, W, in_chans) -> list of (B, H_i, W_i, dims[i]) features."""
-        if self.training:
-            raise RuntimeError("the port runs inference only: call .eval() first")
+        scales = self._drop_path_scales(x.shape[0], x.device) if self.training else None
         x = self.patch_embed(x)
         outs = []
         for i, layer in enumerate(self.layers):
             B, H, W, d = x.shape
-            packed = [pack_vss_block_params(blk, x.dtype) for blk in layer.blocks]
-            x = vss_stage(x.reshape(B, H * W, d).contiguous(), packed, H, W).reshape(B, H, W, d)
+            if self.training:
+                x = self._train_stage(x, layer, scales[i])
+            else:
+                packed = [pack_vss_block_params(blk, x.dtype) for blk in layer.blocks]
+                x = vss_stage(x.reshape(B, H * W, d).contiguous(), packed, H, W).reshape(B, H, W, d)
             if i in self.out_indices:
                 outs.append(self._modules[f"outnorm{i}"](x))
             if layer.downsample is not None:
                 x = layer.downsample(x)
         return outs
+
+
+def _mlp_half_train(x, m2, *mlp):
+    """A block's MLP half in torch, on the autograd graph."""
+    p = VSSBlockOperands(*(None,) * len(SS2D_FIELDS), *mlp)
+    return mlp_half(x, p, PLAIN_OPS, m2)

@@ -11,6 +11,10 @@ and the two fusion-op kernels built on it.
 - `nk_scan_x`: port of ``nk_scan_call_v2r`` (:1005; TPU kernel
   ``_nk_scan_x_kernel_v2`` :944), the Cross_SS2Dv5 scan with the rank->D
   delta projection in the kernel and the out-norm LayerNorm as epilogue.
+- `selective_scan_bwd_cuda`: the shared adjoint kernel of
+  ``csrc/nk_scan_bwd.cu`` beside `selective_scan_bwd_plain`; the training
+  backwards (``ops/nk_scan_adjoint.py``, ``ops/vss_block_train.py``) call
+  it.
 
 The kinds name each direction's traversal of the flattened H x W map; all
 are flat over L (the state carries across rows, or across columns for the
@@ -32,6 +36,7 @@ from xfmamba_tpu_torch.kernels import build
 from xfmamba_tpu_torch.ops.primitives import (
     dtype_code, layer_norm_cuda, layer_norm_plain, on_cpu, ptr, require,
     require_cuda, stream)
+from xfmamba_tpu_torch.ops.fast_math import SOFTPLUS_THRESHOLD, softplus
 from xfmamba_tpu_torch.ops.selective_scan import selective_scan_seq
 
 # kind -> code of csrc/nk_scan.cu (bit 0: column-major, bit 1: reversed);
@@ -153,6 +158,139 @@ def selective_scan_cuda(u, Bs, Cs, A, bias, Dsum, kinds, H, W, *, dts=None,
 
 
 selective_scan_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the shared adjoint scan kernel (csrc/nk_scan_bwd.cu)
+# ---------------------------------------------------------------------------
+
+def _deltas(dts, ranks, w_dt):
+    """z (n, L, K, D) float32: the pre-bias deltas, given or projected."""
+    if ranks is not None:
+        return torch.einsum("nlkr,krd->nlkd", ranks.float(), w_dt.float())
+    return dts.float()
+
+
+@torch.no_grad()
+def selective_scan_bwd_plain(u, Bs, Cs, A, bias, Dsum, kinds, H, W, gy, *,
+                             dts=None, ranks=None, w_dt=None, dB=None, dC=None):
+    """Adjoint of `selective_scan_plain`, written as the kernel computes it
+    (see ``csrc/nk_scan_bwd.cu``): per kind, a forward pass that keeps every
+    state h, then the reverse chain g[t] = C[t] gy[t] + a[t+1] g[t+1].
+
+    gy (n, L, D) is the gradient of the float32 output.  Returns a dict:
+    du (n, L, D) float32; dz (n, L, K, D) in u.dtype, the gradient of the
+    deltas before bias and softplus (the dts gradient in dts form); dB, dC
+    (n, L, K, N), dA (K, N, D), dDsum (D,), dbias (K, D), all float32.
+    Given ``dB``/``dC`` views, the B and C gradients are written into them,
+    as the kernel does."""
+    n, L, D = u.shape
+    K, N = A.shape[0], A.shape[1]
+    uf, gy = u.float(), gy.float()
+    z = _deltas(dts, ranks, w_dt)
+    du = gy * Dsum.float()
+    dz = torch.empty(n, L, K, D, dtype=torch.float32, device=u.device)
+    dB_out, dC_out = dB, dC
+    dB = torch.empty(n, L, K, N, dtype=torch.float32, device=u.device)
+    dC = torch.empty_like(dB)
+    dA = torch.empty(K, N, D, dtype=torch.float32, device=u.device)
+    dbias = torch.empty(K, D, dtype=torch.float32, device=u.device)
+    for k, kind in enumerate(kinds):
+        order = traversal_order(kind, H, W, u.device)
+        zb = z[:, order, k] + bias[k].float()                  # (n, L, D)
+        delta = softplus(zb)
+        uo, go = uf[:, order], gy[:, order]
+        Bk = Bs[:, order, k].float()[:, :, None, :]            # (n, L, 1, N)
+        Ck = Cs[:, order, k].float()[:, :, None, :]
+        Ak = A[k].float().t()                                  # (D, N)
+        a = torch.exp(delta[..., None] * Ak)                   # (n, L, D, N)
+        b = (delta * uo)[..., None] * Bk
+        hs = torch.empty_like(a)
+        h = torch.zeros_like(a[:, 0])
+        for t in range(L):
+            h = a[:, t] * h + b[:, t]
+            hs[:, t] = h
+        gs = torch.empty_like(a)
+        g = torch.zeros_like(h)
+        for t in range(L - 1, -1, -1):
+            g = Ck[:, t] * go[:, t, :, None] + (a[:, t + 1] * g if t + 1 < L else 0.0)
+            gs[:, t] = g
+        hprev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], 1)
+        dB[:, order, k] = (gs * (delta * uo)[..., None]).sum(2)
+        dC[:, order, k] = (go[..., None] * hs).sum(2)
+        du[:, order] += (gs * delta[..., None] * Bk).sum(-1)
+        ddelta = (gs * (uo[..., None] * Bk + hprev * a * Ak)).sum(-1)
+        dA[k] = (gs * hprev * a * delta[..., None]).sum((0, 1)).t()
+        dzk = ddelta * torch.where(zb > SOFTPLUS_THRESHOLD, torch.ones_like(zb),
+                                   torch.sigmoid(zb))
+        dz[:, order, k] = dzk
+        dbias[k] = dzk.sum((0, 1))
+    if dB_out is not None:
+        dB, dC = dB_out.copy_(dB), dC_out.copy_(dC)
+    return dict(du=du, dz=dz.to(u.dtype), dB=dB, dC=dC, dA=dA,
+                dDsum=(gy * uf).sum((0, 1)), dbias=dbias)
+
+
+def selective_scan_bwd_cuda(u, Bs, Cs, A, bias, Dsum, kinds, H, W, gy, *,
+                            dts=None, ranks=None, w_dt=None, dB=None, dC=None):
+    """The adjoint kernel.  ``dB``/``dC``, when given, are zeroed float32
+    views of Bs's/Cs's shape (for example into one buffer laid out as the
+    one Bs and Cs are read from) that receive the B and C gradients."""
+    require_cuda(u, Bs, Cs, A, bias, Dsum, gy, dts, ranks, w_dt, dB, dC)
+    n, L, D = u.shape
+    K = len(kinds)
+    N = A.shape[1]
+    if L != H * W:
+        raise ValueError(f"u has {L} positions, map is {H}x{W}")
+    require(u, (n, L, D), name="u")
+    require(gy, (n, L, D), torch.float32, name="gy")
+    require(A, (K, N, D), torch.float32, name="A")
+    require(bias, (K, D), torch.float32, name="bias")
+    require(Dsum, (D,), torch.float32, name="Dsum")
+    for name, t in (("Bs", Bs), ("Cs", Cs)):
+        require(t, (n, L, K, N), u.dtype, name=name, contiguous=False)
+    bc = _row_strides(Bs, "Bs")
+    if _row_strides(Cs, "Cs") != bc:
+        raise ValueError("Bs and Cs must share their strides")
+    if dB is None:
+        dB = torch.zeros(n, L, K, N, dtype=torch.float32, device=u.device)
+        dC = torch.zeros_like(dB)
+    for name, t in (("dB", dB), ("dC", dC)):
+        require(t, (n, L, K, N), torch.float32, name=name, contiguous=False)
+    dbc = _row_strides(dB, "dB")
+    if _row_strides(dC, "dC") != dbc:
+        raise ValueError("dB and dC must share their strides")
+    dt_stride = rank_stride = R = 0
+    if ranks is not None:
+        R = ranks.shape[3]
+        require(ranks, (n, L, K, R), u.dtype, name="ranks", contiguous=False)
+        require(w_dt, (K, R, D), torch.float32, name="w_dt")
+        rank_stride, k_stride, r_stride = _row_strides(ranks, "ranks")
+        if k_stride not in (0, R) or r_stride != 1:
+            raise ValueError("ranks: the K x R block of a row must be contiguous")
+    else:
+        require(dts, (n, L, K, D), u.dtype, name="dts", contiguous=False)
+        dt_stride, k_stride, d_stride = _row_strides(dts, "dts")
+        if k_stride not in (0, D) or d_stride != 1:
+            raise ValueError("dts: the K x D block of a row must be contiguous")
+    f32 = dict(dtype=torch.float32, device=u.device)
+    hbuf = torch.empty(n * L, N, D, **f32)
+    du = torch.empty(n, L, D, **f32)
+    dz = torch.empty(n, L, K, D, dtype=u.dtype, device=u.device)
+    dA = torch.zeros(K, N, D, **f32)
+    dDsum = torch.zeros(D, **f32)
+    dbias = torch.zeros(K, D, **f32)
+    lib = build.library()
+    selective_scan_bwd_cuda.launches += 1
+    build.check(lib.xfm_selective_scan_bwd(
+        ptr(u), ptr(dts), ptr(ranks), ptr(w_dt), ptr(Bs), ptr(Cs), ptr(A), ptr(bias),
+        ptr(Dsum), ptr(gy), ptr(hbuf), ptr(du), ptr(dz), ptr(dB), ptr(dC), ptr(dA),
+        ptr(dDsum), ptr(dbias), n, H, W, D, K, N, R, _kinds_code(kinds), dt_stride,
+        rank_stride, *bc, *dbc, dtype_code(u), stream(u)), "selective_scan_bwd")
+    return dict(du=du, dz=dz, dB=dB, dC=dC, dA=dA, dDsum=dDsum, dbias=dbias)
+
+
+selective_scan_bwd_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,15 @@
-"""Wrappers of the dense CUDA kernels in ``csrc/vss_stage.cu`` (GEMM with
-epilogue, row LayerNorm, depthwise 3x3 conv + SiLU), each beside its plain
-PyTorch version.
+"""Wrappers of the dense CUDA kernels in ``csrc/vss_stage.cu`` (strided
+GEMM with epilogue, row LayerNorm, depthwise 3x3 conv + SiLU) and
+``csrc/vss_block_bwd.cu`` (LayerNorm backward, conv + SiLU backward), each
+beside its plain PyTorch version.
 
 These are the pieces of the TPU stage kernel
 ``xfmamba_tpu/ops/vss_block_pallas_v2.py::_vss_stage_kernel_v2`` other than
 its scans; ``ops/vss_stage.py`` composes them with the scan of
 ``ops/nk_scan.py``, and ``nk_scan_x`` uses the LayerNorm as its epilogue.
+The backward kernels are the dense parts of the TPU block adjoint
+``xfmamba_tpu/ops/vss_block_v2_adjoint.py::_vss_block_bwd_kernel``, which
+``ops/vss_block_train.py`` composes.
 
 Each ``*_cuda`` wrapper checks its operands, launches its kernel on the
 current stream and adds one to its ``launches`` count, or raises; the
@@ -70,40 +74,94 @@ def stream(t: torch.Tensor) -> int:
 # GEMM with epilogue
 # ---------------------------------------------------------------------------
 
-def gemm_plain(a, w, bias=None, residual=None, gelu=False):
-    """Matmul against an nn.Linear weight with a bias / exact GELU /
-    residual epilogue, in float32, cast to a.dtype.  a (M, K), w (N, K),
-    bias (N,) float32, residual (M, N)."""
-    out = a.float() @ w.float().t()
+def _check_scale(scale, M):
+    if scale is not None and (scale.dim() != 1 or M % scale.shape[0]):
+        raise ValueError(f"scale: shape {tuple(scale.shape)} does not divide {M} rows")
+
+
+def gemm_ab_plain(a, b, bias=None, residual=None, gelu=False, scale=None,
+                  out_dtype=None, out=None):
+    """out = epilogue(a @ b^T) in float32, cast to ``out_dtype`` (a.dtype by
+    default).  a (M, K) and b (N, K) may be any strided views; bias (N,)
+    float32; scale (S,) float32 multiplies rows in S equal groups (a
+    per-sample drop-path mask); residual (M, N) in the output dtype.  The
+    epilogue runs bias, exact GELU, scale, residual in that order.  With
+    ``out`` the result is written into that (M, N) view and returned."""
+    _check_scale(scale, a.shape[0])
+    res = a.float() @ b.float().t()
     if bias is not None:
-        out = out + bias.float()
+        res = res + bias.float()
     if gelu:
-        out = F.gelu(out)
+        res = F.gelu(res)
+    if scale is not None:
+        res = res * scale.float().repeat_interleave(a.shape[0] // scale.shape[0])[:, None]
     if residual is not None:
-        out = out + residual.float()
-    return out.to(a.dtype)
+        res = res + residual.float()
+    if out is not None:
+        return out.copy_(res)
+    return res.to(out_dtype or a.dtype)
 
 
-def gemm_cuda(a, w, bias=None, residual=None, gelu=False):
-    require_cuda(a, w, bias, residual)
+def _splits(M, N, K, out):
+    """K slices for a product with a small output and a long reduction
+    (the weight gradients): enough blocks to cover the card twice."""
+    tiles = -(-M // 64) * -(-N // 64)
+    if out is not None or tiles >= 264 or K < 4096:
+        return 1
+    return max(1, min(-(-264 // tiles), K // 2048))
+
+
+def gemm_ab_cuda(a, b, bias=None, residual=None, gelu=False, scale=None,
+                 out_dtype=None, out=None):
+    require_cuda(a, b, bias, residual, scale, out)
     M, K = a.shape
-    N = w.shape[0]
-    require(a, (M, K), name="a")
-    require(w, (N, K), a.dtype, name="w")
+    N = b.shape[0]
+    require(a, (M, K), name="a", contiguous=False)
+    require(b, (N, K), a.dtype, name="b", contiguous=False)
+    out_dtype = out.dtype if out is not None else (out_dtype or a.dtype)
+    if a.dtype == torch.float32 and out_dtype != torch.float32:
+        raise TypeError("float32 inputs give a float32 output")
     if bias is not None:
         require(bias, (N,), torch.float32, name="bias")
+    if scale is not None:
+        _check_scale(scale, M)
+        require(scale, (scale.shape[0],), torch.float32, name="scale")
+    splits = _splits(M, N, K, out)
+    if bias is not None or residual is not None or gelu or scale is not None:
+        splits = 1
+    if out is None:
+        alloc = torch.zeros if splits > 1 else torch.empty
+        out = alloc(M, N, dtype=out_dtype, device=a.device)
+    require(out, (M, N), name="out", contiguous=False)
+    if out.stride(1) != 1 and N > 1:
+        raise ValueError("out: columns must be contiguous")
     if residual is not None:
-        require(residual, (M, N), a.dtype, name="residual")
-    out = torch.empty(M, N, dtype=a.dtype, device=a.device)
+        require(residual, (M, N), out_dtype, name="residual", contiguous=False)
+        if residual.stride() != out.stride():
+            raise ValueError("residual must share the output's strides")
     lib = build.library()
-    gemm_cuda.launches += 1
-    build.check(lib.xfm_gemm_nt(ptr(a), ptr(w), ptr(bias), ptr(residual),
-                                ptr(out), M, N, K, dtype_code(a), int(gelu),
-                                stream(a)), "gemm_nt")
+    gemm_ab_cuda.launches += 1
+    build.check(lib.xfm_gemm(
+        ptr(a), ptr(b), ptr(bias), ptr(scale), ptr(residual), ptr(out), M, N, K,
+        a.stride(0), a.stride(1), b.stride(0), b.stride(1), out.stride(0),
+        M // scale.shape[0] if scale is not None else 1, int(gelu), splits,
+        dtype_code(a), dtype_code(out), stream(a)), "gemm")
     return out
 
 
-gemm_cuda.launches = 0
+gemm_ab_cuda.launches = 0
+
+
+def gemm_plain(a, w, bias=None, residual=None, gelu=False, scale=None):
+    """Matmul against an nn.Linear weight w (N, K) with the epilogue of
+    `gemm_ab_plain`, cast to a.dtype."""
+    return gemm_ab_plain(a, w, bias, residual, gelu, scale)
+
+
+def gemm_cuda(a, w, bias=None, residual=None, gelu=False, scale=None):
+    require(a, a.shape, name="a")
+    require(w, w.shape, name="w")
+    return gemm_ab_cuda(a, w, bias, residual, gelu, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -165,3 +223,87 @@ def dwconv3_silu_cuda(x, w9, bias=None):
 
 
 dwconv3_silu_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# row LayerNorm backward
+# ---------------------------------------------------------------------------
+
+def layer_norm_bwd_plain(g, x, weight, dres=None, eps=1e-5):
+    """Backward of `layer_norm_plain` on x (rows, C) with upstream gradient
+    g (rows, C) float32.  Returns (dx float32 (+ dres), dweight, dbias)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    xc = xf - mu
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    gg = g * weight.float()
+    dx = (gg - gg.mean(-1, keepdim=True) - xhat * (gg * xhat).mean(-1, keepdim=True)) * rstd
+    if dres is not None:
+        dx = dx + dres
+    return dx, (g * xhat).sum(0), g.sum(0)
+
+
+def layer_norm_bwd_cuda(g, x, weight, dres=None, eps=1e-5):
+    require_cuda(g, x, weight, dres)
+    rows, C = x.shape
+    require(x, (rows, C), name="x")
+    require(g, (rows, C), torch.float32, name="g")
+    require(weight, (C,), torch.float32, name="weight")
+    if dres is not None:
+        require(dres, (rows, C), torch.float32, name="dres")
+    dx = torch.empty(rows, C, dtype=torch.float32, device=x.device)
+    dw = torch.zeros(C, dtype=torch.float32, device=x.device)
+    db = torch.zeros(C, dtype=torch.float32, device=x.device)
+    lib = build.library()
+    layer_norm_bwd_cuda.launches += 1
+    build.check(lib.xfm_layer_norm_bwd(ptr(g), ptr(x), ptr(weight), ptr(dres), ptr(dx),
+                                       ptr(dw), ptr(db), rows, C, dtype_code(x), eps,
+                                       stream(x)), "layer_norm_bwd")
+    return dx, dw, db
+
+
+layer_norm_bwd_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# depthwise 3x3 conv + SiLU backward
+# ---------------------------------------------------------------------------
+
+def dwconv3_silu_bwd_plain(du, x, w9, bias=None):
+    """Backward of `dwconv3_silu_plain`: du (B, H, W, C) float32 is the
+    gradient of its output.  Returns (dx float32, dw9 (9, C), dbias (C,) or
+    None), computed in float32 by autograd of the float32 forward."""
+    C = x.shape[-1]
+    with torch.enable_grad():
+        xf = x.detach().float().requires_grad_()
+        wf = w9.detach().float().requires_grad_()
+        bf = None if bias is None else bias.detach().float().requires_grad_()
+        acc = F.conv2d(xf.permute(0, 3, 1, 2), wf.t().reshape(C, 1, 3, 3), bf, padding=1,
+                       groups=C).permute(0, 2, 3, 1)
+        leaves = (xf, wf) if bf is None else (xf, wf, bf)
+        grads = torch.autograd.grad(F.silu(acc), leaves, du)
+    return grads[0], grads[1], grads[2] if bf is not None else None
+
+
+def dwconv3_silu_bwd_cuda(du, x, w9, bias=None):
+    require_cuda(du, x, w9, bias)
+    B, H, W, C = x.shape
+    require(x, (B, H, W, C), name="x")
+    require(du, (B, H, W, C), torch.float32, name="du")
+    require(w9, (9, C), torch.float32, name="w9")
+    if bias is not None:
+        require(bias, (C,), torch.float32, name="bias")
+    dacc = torch.empty(B, H, W, C, dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(dacc)
+    dw9 = torch.zeros(9, C, dtype=torch.float32, device=x.device)
+    db = torch.zeros(C, dtype=torch.float32, device=x.device)
+    lib = build.library()
+    dwconv3_silu_bwd_cuda.launches += 1
+    build.check(lib.xfm_dwconv3_silu_bwd(ptr(du), ptr(x), ptr(w9), ptr(bias), ptr(dacc),
+                                         ptr(dx), ptr(dw9), ptr(db), B, H, W, C,
+                                         dtype_code(x), stream(x)), "dwconv3_silu_bwd")
+    return dx, dw9, db if bias is not None else None
+
+
+dwconv3_silu_bwd_cuda.launches = 0

@@ -4,7 +4,11 @@
 
 `vss_block_body` is one v05_noz VSSBlock (d_state 1, cross2d, SiLU, LN
 out-norm, exact-GELU MLP) on x (B, L, d), written as the sequence of
-kernels that ``ops/vss_stage.py`` launches on the card.  `vss_block_ref`
+kernels that ``ops/vss_stage.py`` launches on the card; its two halves
+(`ss2d_half`, `mlp_half`) take the per-sample drop-path scales of training
+as the GEMM epilogue's row scale, and `ss2d_half_fwd` keeps the
+intermediates that the block backward (``ops/vss_block_train.py``)
+recomputes.  `vss_block_ref`
 runs it with the plain versions of those kernels: activations are rounded
 to x's dtype at each kernel's output and computed in float32 inside, so
 the plain and the CUDA stage agree up to summation order.  In float32 it is
@@ -13,14 +17,16 @@ the JAX ``vss_block_ref`` (LayerNorm affine unfolded).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from types import SimpleNamespace
 
 import torch
 
-from xfmamba_tpu_torch.ops.nk_scan import CROSS2D_KINDS, selective_scan_plain
+from xfmamba_tpu_torch.ops.nk_scan import (
+    CROSS2D_KINDS, selective_scan_bwd_plain, selective_scan_plain)
 from xfmamba_tpu_torch.ops.primitives import (
-    dwconv3_silu_plain, gemm_plain, layer_norm_plain)
+    dwconv3_silu_bwd_plain, dwconv3_silu_plain, gemm_ab_plain, gemm_plain,
+    layer_norm_bwd_plain, layer_norm_plain)
 
 
 @dataclass(frozen=True)
@@ -41,22 +47,30 @@ class VSSBlockOperands:
     lno_w: torch.Tensor
     lno_b: torch.Tensor
     w_out: torch.Tensor      # (d, di)
-    ln2_w: torch.Tensor
-    ln2_b: torch.Tensor
-    w_fc1: torch.Tensor      # (hd, d)
-    b_fc1: torch.Tensor
-    w_fc2: torch.Tensor      # (d, hd)
-    b_fc2: torch.Tensor
+    # the MLP half (None where only the SS2D half is given)
+    ln2_w: torch.Tensor | None = None
+    ln2_b: torch.Tensor | None = None
+    w_fc1: torch.Tensor | None = None     # (hd, d)
+    b_fc1: torch.Tensor | None = None
+    w_fc2: torch.Tensor | None = None     # (d, hd)
+    b_fc2: torch.Tensor | None = None
 
     @property
     def rank(self) -> int:
         return self.w_dt.shape[1]
 
+    def tensors(self) -> list:
+        """The operands in field order (None for absent ones)."""
+        return [getattr(self, f.name) for f in fields(self)]
 
-@torch.no_grad()
-def pack_vss_block_params(block, dtype) -> VSSBlockOperands:
-    """Operands of a ``models.vssm.VSSBlock`` (forward_type v05_noz,
-    d_state 1, with MLP) for activations of ``dtype``."""
+
+# fields of the SS2D half, the operands of kernels 4 and 6
+SS2D_FIELDS = ("ln1_w", "ln1_b", "w_in", "w_conv", "b_conv", "w_xp", "w_dt", "b_dt",
+               "A", "Dsum", "lno_w", "lno_b", "w_out")
+MLP_FIELDS = ("ln2_w", "ln2_b", "w_fc1", "b_fc1", "w_fc2", "b_fc2")
+
+
+def _pack(block, dtype, detach) -> VSSBlockOperands:
     op = block.op
     xw = op.x_proj_weight.float()                          # (4, R + 2, di)
     K, _, di = xw.shape
@@ -65,18 +79,17 @@ def pack_vss_block_params(block, dtype) -> VSSBlockOperands:
         raise ValueError("the VSS stage takes d_state-1 cross2d blocks with an MLP")
 
     def f32(t):
-        return t.detach().float().contiguous()
+        return (t.detach() if detach else t).float().contiguous()
 
     def mm(t):
-        return t.detach().to(dtype).contiguous()
+        return (t.detach() if detach else t).to(dtype).contiguous()
 
     return VSSBlockOperands(
         ln1_w=f32(block.norm.weight), ln1_b=f32(block.norm.bias),
         w_in=mm(op.in_proj.weight),
         w_conv=f32(op.conv2d.weight.reshape(di, 9).t()),
         b_conv=None if op.conv2d.bias is None else f32(op.conv2d.bias),
-        w_xp=mm(torch.cat([xw[:, :R].reshape(4 * R, di),
-                           xw[:, R:].reshape(8, di)])),
+        w_xp=mm(torch.cat([xw[:, :R].reshape(4 * R, di), xw[:, R:].reshape(8, di)])),
         w_dt=f32(op.dt_projs_weight.transpose(1, 2)),
         b_dt=f32(op.dt_projs_bias),
         A=f32(-torch.exp(op.A_logs.float()).reshape(4, 1, di)),
@@ -88,9 +101,27 @@ def pack_vss_block_params(block, dtype) -> VSSBlockOperands:
         w_fc2=mm(block.mlp.fc2.weight), b_fc2=f32(block.mlp.fc2.bias))
 
 
-def vss_block_body(x, p: VSSBlockOperands, H, W, ops):
-    """One VSSBlock on x (B, L, d) with the kernel set ``ops`` (gemm,
-    layer_norm, dwconv3_silu, selective_scan)."""
+@torch.no_grad()
+def pack_vss_block_params(block, dtype) -> VSSBlockOperands:
+    """Operands of a ``models.vssm.VSSBlock`` (forward_type v05_noz,
+    d_state 1, with MLP) for activations of ``dtype``, off the autograd
+    graph (inference)."""
+    return _pack(block, dtype, detach=True)
+
+
+def pack_vss_block_train_params(block, dtype) -> VSSBlockOperands:
+    """The same operands on the autograd graph: A = -exp(A_logs), the sum of
+    Ds, the transposes and the casts are differentiable, so the kernels'
+    gradients with respect to the operands chain back to the block's
+    float32 parameters (as ``vss_block_v2_adjoint.py:474-477`` relies on
+    for the JAX training op)."""
+    return _pack(block, dtype, detach=False)
+
+
+def ss2d_half_fwd(x, p: VSSBlockOperands, H, W, ops, m1=None):
+    """The SS2D half of a block, x + m1 * out_proj(LN(scan(...))), on x
+    (B, L, d), keeping every intermediate the backward recomputes.  m1 (B,)
+    float32 is the per-sample drop-path scale of the branch (None: 1)."""
     B, L, d = x.shape
     di = p.w_in.shape[0]
     R = p.rank
@@ -101,22 +132,47 @@ def vss_block_body(x, p: VSSBlockOperands, H, W, ops):
     u = ops.dwconv3_silu(xin.view(B, H, W, di), p.w_conv, p.b_conv)
     xdbl = ops.gemm(u.view(B * L, di), p.w_xp).view(B, L, 4 * R + 8)
     bc = xdbl[..., 4 * R:].unflatten(-1, (4, 2))
-    y = ops.selective_scan(u.view(B, L, di), bc[..., 0:1], bc[..., 1:2], p.A,
-                           p.b_dt, p.Dsum, CROSS2D_KINDS, H, W,
-                           ranks=xdbl[..., :4 * R].unflatten(-1, (4, R)),
-                           w_dt=p.w_dt, out_dtype=torch.float32)
+    scan = dict(Bs=bc[..., 0:1], Cs=bc[..., 1:2],
+                ranks=xdbl[..., :4 * R].unflatten(-1, (4, R)))
+    y = ops.selective_scan(u.view(B, L, di), A=p.A, bias=p.b_dt, Dsum=p.Dsum,
+                           kinds=CROSS2D_KINDS, H=H, W=W, w_dt=p.w_dt,
+                           out_dtype=torch.float32, **scan)
     yn = ops.layer_norm(y.view(B * L, di), p.lno_w, p.lno_b, dtype)
-    x1 = ops.gemm(yn, p.w_out, residual=rows)
-    h2 = ops.layer_norm(x1, p.ln2_w, p.ln2_b, dtype)
+    x1 = ops.gemm(yn, p.w_out, residual=rows, scale=m1)
+    return SimpleNamespace(rows=rows, h1=h1, xin=xin, u=u, xdbl=xdbl, scan=scan, y=y,
+                           yn=yn, x1=x1)
+
+
+def ss2d_half(x, p: VSSBlockOperands, H, W, ops, m1=None):
+    B, L, d = x.shape
+    return ss2d_half_fwd(x, p, H, W, ops, m1).x1.view(B, L, d)
+
+
+def mlp_half(x1, p: VSSBlockOperands, ops, m2=None):
+    """x1 + m2 * fc2(GELU(fc1(LN(x1)))) on x1 (B, L, d)."""
+    B, L, d = x1.shape
+    rows = x1.reshape(B * L, d)
+    h2 = ops.layer_norm(rows, p.ln2_w, p.ln2_b, x1.dtype)
     f1 = ops.gemm(h2, p.w_fc1, bias=p.b_fc1, gelu=True)
-    return ops.gemm(f1, p.w_fc2, bias=p.b_fc2, residual=x1).view(B, L, d)
+    return ops.gemm(f1, p.w_fc2, bias=p.b_fc2, residual=rows, scale=m2).view(B, L, d)
 
 
-PLAIN_OPS = SimpleNamespace(gemm=gemm_plain, layer_norm=layer_norm_plain,
-                            dwconv3_silu=dwconv3_silu_plain,
-                            selective_scan=selective_scan_plain)
+def vss_block_body(x, p: VSSBlockOperands, H, W, ops, m1=None, m2=None):
+    """One VSSBlock on x (B, L, d) with the kernel set ``ops`` (gemm,
+    layer_norm, dwconv3_silu, selective_scan) and optional drop-path
+    scales m1, m2 (B,) at the two residual adds."""
+    return mlp_half(ss2d_half(x, p, H, W, ops, m1), p, ops, m2)
 
 
-def vss_block_ref(x, p: VSSBlockOperands, H, W):
+# the plain twin of every kernel a block's forward and backward launch;
+# `ops.vss_stage.CUDA_OPS` holds the kernels
+PLAIN_OPS = SimpleNamespace(
+    gemm=gemm_plain, gemm_ab=gemm_ab_plain, layer_norm=layer_norm_plain,
+    layer_norm_bwd=layer_norm_bwd_plain, dwconv3_silu=dwconv3_silu_plain,
+    dwconv3_silu_bwd=dwconv3_silu_bwd_plain, selective_scan=selective_scan_plain,
+    selective_scan_bwd=selective_scan_bwd_plain)
+
+
+def vss_block_ref(x, p: VSSBlockOperands, H, W, m1=None, m2=None):
     """Plain VSSBlock on x (B, L, d); returns x's dtype."""
-    return vss_block_body(x, p, H, W, PLAIN_OPS)
+    return vss_block_body(x, p, H, W, PLAIN_OPS, m1, m2)

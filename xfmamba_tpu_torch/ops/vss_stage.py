@@ -21,14 +21,19 @@ from types import SimpleNamespace
 
 import torch
 
-from xfmamba_tpu_torch.ops.nk_scan import selective_scan_cuda
+from xfmamba_tpu_torch.ops.nk_scan import selective_scan_bwd_cuda, selective_scan_cuda
 from xfmamba_tpu_torch.ops.primitives import (
-    dwconv3_silu_cuda, gemm_cuda, layer_norm_cuda, on_cpu)
+    dwconv3_silu_bwd_cuda, dwconv3_silu_cuda, gemm_ab_cuda, gemm_cuda,
+    layer_norm_bwd_cuda, layer_norm_cuda, on_cpu)
 from xfmamba_tpu_torch.ops.vss_block import vss_block_body, vss_block_ref
 
-CUDA_OPS = SimpleNamespace(gemm=gemm_cuda, layer_norm=layer_norm_cuda,
-                           dwconv3_silu=dwconv3_silu_cuda,
-                           selective_scan=selective_scan_cuda)
+# the kernels a block's forward and backward launch (twins in
+# `ops.vss_block.PLAIN_OPS`)
+CUDA_OPS = SimpleNamespace(
+    gemm=gemm_cuda, gemm_ab=gemm_ab_cuda, layer_norm=layer_norm_cuda,
+    layer_norm_bwd=layer_norm_bwd_cuda, dwconv3_silu=dwconv3_silu_cuda,
+    dwconv3_silu_bwd=dwconv3_silu_bwd_cuda, selective_scan=selective_scan_cuda,
+    selective_scan_bwd=selective_scan_bwd_cuda)
 
 
 def vss_stage_plain(x, blocks, H, W):

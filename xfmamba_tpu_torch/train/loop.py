@@ -1,0 +1,130 @@
+"""Train and eval steps, optimizers, schedules and losses (port of
+``xfmamba_tpu/train/loop.py``).
+
+PyTorch trains eagerly: the model holds its parameters and batch
+statistics, and `make_train_step` returns a step that runs forward,
+backward and one optimizer update in place.  The epoch loop ``fit``,
+early stopping, checkpoint I/O and the data pipeline are not ported yet.
+
+Optimizer semantics follow the JAX package (``libs/utils.py:83-134`` of the
+reference): torch ``Adam(weight_decay=...)`` adds the L2 term to the
+gradient before the moments, as optax ``add_decayed_weights`` before
+``scale_by_adam`` does; ``adamw`` decays decoupled; ``sgd`` is momentum SGD
+with L2.  The learning rate is set on ``param_groups`` (`set_lr`), so the
+host can drive any schedule.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from xfmamba_tpu_torch.train.config import TrainConfig
+
+
+def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
+    """Per-epoch learning rate; ``reduce`` (on plateau) is the epoch
+    epoch loop's and reads as a constant here."""
+    if cfg.scheduler == "step":
+        return lambda epoch: cfg.lr * (cfg.gamma ** (epoch // cfg.step_size))
+    if cfg.scheduler == "cos":
+        return lambda epoch: 0.5 * cfg.lr * (1 + math.cos(math.pi * epoch / max(cfg.epochs, 1)))
+    return lambda epoch: cfg.lr
+
+
+def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Optimizer:
+    """adam / adamw / sgd over ``params`` with torch's weight-decay
+    semantics (see the module docstring)."""
+    if cfg.optimizer == "adam":
+        return torch.optim.Adam(params, lr=cfg.lr, betas=tuple(cfg.betas),
+                                weight_decay=cfg.weight_decay)
+    if cfg.optimizer == "adamw":
+        return torch.optim.AdamW(params, lr=cfg.lr, betas=tuple(cfg.betas),
+                                 weight_decay=cfg.weight_decay)
+    if cfg.optimizer == "sgd":
+        return torch.optim.SGD(params, lr=cfg.lr, momentum=cfg.momentum,
+                               weight_decay=cfg.weight_decay)
+    raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = float(lr)
+
+
+def cross_entropy_loss(logits, labels):
+    """Mean cross-entropy with integer labels (``1_train_model.py:134-135``)."""
+    return F.cross_entropy(logits.float(), labels)
+
+
+def bce_with_logits_loss(logits, labels):
+    """Mean multi-label BCE on logits (``1_train_model.py:136-137``)."""
+    return F.binary_cross_entropy_with_logits(logits.float(), labels.float())
+
+
+def make_train_step(model, optimizer, multilabel: bool, two_view: bool = True):
+    """(train_step, eval_step) for a batch dict with ``image1`` (and
+    ``image2``) and ``label``.
+
+    ``train_step(batch, lr=None)`` puts the model in training mode, runs
+    forward, backward and one optimizer step (at ``lr`` when given) and
+    returns ``{"loss", "logits"}``, detached; the parameters' ``.grad``
+    keep the step's gradients.  ``eval_step(batch)`` runs in eval mode
+    without gradients and returns the same keys."""
+    loss_fn = bce_with_logits_loss if multilabel else cross_entropy_loss
+
+    def inputs(batch):
+        return (batch["image1"], batch["image2"]) if two_view else (batch["image1"],)
+
+    def train_step(batch, lr: Optional[float] = None):
+        model.train()
+        if lr is not None:
+            set_lr(optimizer, lr)
+        optimizer.zero_grad(set_to_none=True)
+        logits = model(*inputs(batch))
+        loss = loss_fn(logits, batch["label"])
+        loss.backward()
+        # a parameter off the loss's graph (the backbone's out-norms 0-2)
+        # gets a zero gradient, so that weight decay and the moments move
+        # it as optax moves every leaf; torch would skip it
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        optimizer.step()
+        return {"loss": loss.detach(), "logits": logits.detach()}
+
+    @torch.no_grad()
+    def eval_step(batch):
+        model.eval()
+        logits = model(*inputs(batch))
+        return {"loss": loss_fn(logits, batch["label"]), "logits": logits}
+
+    return train_step, eval_step
+
+
+def mixup(x, y, generator: torch.Generator, alpha: float = 1.0,
+          num_classes: Optional[int] = None, lam=None, perm=None):
+    """Mixup (``libs/utils.py:177-191``): a convex combination of a batch
+    with a shuffled copy of itself.  λ ~ Beta(alpha, alpha) (1 when alpha
+    <= 0) and the permutation come from ``generator`` unless given.
+    Integer labels are one-hot encoded first (pass ``num_classes``).
+    Returns (mixed_x, mixed_y, lam)."""
+    if lam is None:
+        if alpha > 0:
+            seed = int(torch.randint(2 ** 62, (), generator=generator))
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(seed)
+                lam = float(torch.distributions.Beta(alpha, alpha).sample())
+        else:
+            lam = 1.0
+    if perm is None:
+        perm = torch.randperm(x.shape[0], generator=generator).to(x.device)
+    mixed_x = lam * x + (1 - lam) * x[perm]
+    if num_classes is not None and y.dim() == 1:
+        y = F.one_hot(y, num_classes).to(x.dtype)
+    mixed_y = lam * y + (1 - lam) * y[perm]
+    return mixed_x, mixed_y, lam

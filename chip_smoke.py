@@ -10,21 +10,28 @@ Phases, in order; any failure exits non-zero:
    printing ``-Xptxas -v``;
 3. each ported kernel against its plain PyTorch version on the card, at the
    shapes the batch-8 forward of XFMamba-S gives it (every backbone stage
-   at its full depth, the ShallowFuse and the Cross_SS2Dv5 scans), in
-   float32 and bfloat16, TF32 off;
+   at its full depth, the ShallowFuse and the Cross_SS2Dv5 scans, kernel 11
+   (y and the checkpoints) at the four stage maps), in float32 and
+   bfloat16, TF32 off;
 4. XFMamba-S two-view 224x224 inference in bfloat16 with seeded weights,
    through ``two_view_xfmamba(...)(x_a, x_b)``: one batch of 8 and one of 32
    with the launch counts reset before and read after, then timings (CUDA
-   events) per batch and per kernel beside the plain versions;
-5. the same model in float32, on the card and on the CPU (plain path), at
-   batch 1: the logits must agree;
+   events) per batch and (4b) per kernel beside the plain versions and
+   the kernels' bounds; (4c) the same in float32, the composable blocks
+   with kernel 11 (21 launches per forward, no stage kernel); (4d) kernel
+   11's time per float32 bs-32 forward beside its plain twin and beside
+   the serial rank-form scan of ``csrc/nk_scan.cu`` on the same inputs;
+5. the model in float32 (kernel 11), on the card and on the CPU (plain
+   twins), at batch 1: the logits must agree;
 6. each training kernel against its plain version on the card, TF32 off,
    in float32 and bfloat16, every output tensor within its tolerance: the
    adjoint scan at the four stage maps, kernels 4 and 6 at every stage
    width, kernel 5 (forward and the stage backward) at every stage width at
-   depth 2, all at 2 images per view, and kernel 7 (with the adjoint scan)
+   depth 2, all at 2 images per view, kernel 7 (with the adjoint scan)
    at the ShallowFuse (16, 49, 1536) K=1 and Cross_SS2Dv5 (48, 49, 1536)
-   K=4 N=16 geometries;
+   K=4 N=16 geometries, and kernels 11 and 12 at the four stage maps at the
+   float32 step's 16 images per view, with kernel 12's float32 time per
+   step;
 7. XFMamba-S training, batch 16, 224x224, bfloat16 activations, float32
    weights, Adam (lr 1e-4, weight decay 1e-5), seeded weights and views,
    labels 0 as ``bench.py --train``: 10 steps on one batch (the loss is
@@ -34,13 +41,19 @@ Phases, in order; any failure exits non-zero:
    their plain versions again, at the batch-16 shapes of the step (every
    stage at its full depth; the weight-gradient GEMMs split their rows
    there), in float32 and bfloat16, with each kernel's bfloat16 time per
-   step beside its plain version's;
-8. float32 gradients of one train step, card against the CPU plain path,
-   XFMamba-S widths at depths (2, 2, 2, 2), batch 2 with labels 0 and 1.
+   step beside its plain version's; (7c) training in float32 (the
+   composable blocks, kernels 11 and 12, 21 launches each per step, 42 of
+   kernel 11 with ``use_checkpoint``; kernels 2 and 7 3 each, the stage
+   kernels none; counts reset before each step): a finite loss at every
+   step, ms per step and peak memory in both ``use_checkpoint`` modes;
+8. float32 gradients of one train step (kernels 11 and 12), card against
+   the CPU plain twins, XFMamba-S widths at depths (2, 2, 2, 2), batch 2
+   with labels 0 and 1.
 
-The line before the last is one JSON object with the kernels' results, the
-last ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
-result and exits 1.
+The line before the last but one is one JSON object with the kernels'
+results (launches, errors, times, bounds), the line before the last the
+card's name and power limit, the last ``{"ok": true, "device": {...}}``.
+Without a CUDA device it prints no result and exits 1.
 """
 
 from __future__ import annotations
@@ -57,7 +70,7 @@ from xfmamba_tpu_torch.kernels import build
 from xfmamba_tpu_torch.models.tops import TwoViewXFMamba, two_view_xfmamba
 from xfmamba_tpu_torch.models.vssm import VSSBlock
 from xfmamba_tpu_torch.ops import (
-    nk_scan, nk_scan_adjoint, vss_block_train, vss_stage, vss_stage_train)
+    nk_scan, nk_scan_adjoint, ss2d_core_n1, vss_block_train, vss_stage, vss_stage_train)
 from xfmamba_tpu_torch.ops.vss_block import pack_vss_block_params, pack_vss_block_train_params
 from xfmamba_tpu_torch.train.config import TrainConfig
 from xfmamba_tpu_torch.train.loop import make_optimizer, make_train_step
@@ -99,8 +112,119 @@ KERNELS = {
 }
 
 
+# the float32 path's kernels: 21 launches each per forward / step at depths 2/2/15/2
+N1_KERNELS = {
+    "ss2d_core_n1_fwd": dict(fn=ss2d_core_n1.ss2d_core_n1_fwd,
+                             source="xfmamba_tpu_torch/csrc/ss2d_core_n1.cu",
+                             replaces="xfmamba_tpu/ops/selective_scan_pallas.py:298"),
+    "ss2d_core_n1_bwd": dict(fn=ss2d_core_n1.ss2d_core_n1_bwd,
+                             source="xfmamba_tpu_torch/csrc/ss2d_core_n1.cu",
+                             replaces="xfmamba_tpu/ops/selective_scan_pallas.py:440"),
+}
+F32_TRAIN_STEPS = 3
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense operations/s by type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+
+
 class PhaseFailure(RuntimeError):
     pass
+
+
+class Work:
+    """The bytes a function must move (each input read once, each output
+    written once) and the operations it must do, by type: its bound is the
+    larger of bytes / HBM rate and the sum of operations / peak rate.  An
+    add, multiply, exp or log counts one, an FMA two; products of bfloat16
+    operands count at the tensor-core rate, all other arithmetic at the
+    float32 rate (the port does it in float32 outside the tensor cores)."""
+
+    def __init__(self):
+        self.bytes = 0.0
+        self.ops = {"bf16": 0.0, "f32": 0.0}
+
+    def add(self, bytes=0.0, **ops):
+        self.bytes += bytes
+        for kind, n in ops.items():
+            self.ops[kind] += n
+        return self
+
+    def times(self, k):
+        self.bytes *= k
+        self.ops = {kind: k * n for kind, n in self.ops.items()}
+        return self
+
+    def __iadd__(self, other):
+        self.add(other.bytes, **other.ops)
+        return self
+
+    def bound(self):
+        """(milliseconds, "bytes" or "operations")."""
+        t_bytes = self.bytes / HBM_BYTES_PER_S
+        t_ops = sum(n / PEAK_OPS[kind] for kind, n in self.ops.items())
+        return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def scan_ops(M, D, K, N, R=0):
+    """A selective scan of K directions over M positions x D channels: per
+    step 2R + 4 for delta (rank projection, bias, softplus), 7 per state
+    (delta A, exp, delta u B, the h FMA, the C h FMA), 2 for the skip."""
+    return M * D * K * (2 * R + 6 + 7 * N)
+
+
+def scan_bwd_ops(M, D, K, N, R=0):
+    """Its adjoint: the forward again for h, then per state 16 (the lambda
+    FMA, du, d exp, d delta, dB, dC, dA) and 4 for the softplus derivative."""
+    return scan_ops(M, D, K, N, R) + M * D * K * (16 * N + 4)
+
+
+def block_work(n, H, d, dtype, mlp, backward=False):
+    """One VSSBlock (``mlp``) or its SS2D half on n images: the GEMMs, the
+    LayerNorms, the conv + SiLU, GELU and the rank-form cross2d scan, reading
+    x and the weights and writing the output; ``backward`` adds the
+    gradient GEMMs (twice the forward's), the elementwise backwards and the
+    adjoint scan, reads the float32 gradient and writes dx and the float32
+    weight gradients."""
+    M, di, R, hd = n * H * H, 2 * d, -(-d // 16), 4 * d
+    esize = torch.finfo(dtype).bits // 8
+    weights = d * di + di * (4 * R + 8) + di * d + (2 * d * hd if mlp else 0)
+    gemm = 2 * M * weights
+    elem = M * (8 * d + 8 * di + 22 * di + ((8 * d + 8 * hd) if mlp else 0))
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    if not backward:
+        return Work().add(2 * M * d * esize + weights * esize,
+                          f32=elem + scan_ops(M, di, 4, 1, R)).add(**{kind: gemm})
+    return Work().add(M * d * (esize + 8) + weights * (esize + 4),
+                      f32=3 * elem + scan_bwd_ops(M, di, 4, 1, R)).add(**{kind: 3 * gemm})
+
+
+def n1_work(n, H, D, R, backward=False):
+    """Kernel 11 (float32) on n images of H x H x D: x and the projections
+    read once, y written once; kernel 12 reads x, g, the projections and
+    w_dt and writes du, the projections' gradient and dw_dt, with the two
+    rank-gradient products.  Its dpre is the port's intermediate (the TPU
+    kernel keeps it on chip), so its bytes are not the function's."""
+    M = n * H * H
+    if not backward:
+        return Work().add(4 * M * (2 * D + 4 * (R + 2)), f32=scan_ops(M, D, 4, 1, R))
+    return Work().add(4 * M * (3 * D + 8 * (R + 2)) + 2 * 16 * R * D,
+                      f32=scan_bwd_ops(M, D, 4, 1, R) + 4 * 4 * M * R * D)
+
+
+def nk_work(n, L, D, K, N, dtype, R=0, backward=False):
+    """Kernels 2, 3 (``R``: rank form with the out-norm) and 7
+    (``backward``) on (n, L, D) maps."""
+    esize = torch.finfo(dtype).bits // 8
+    # u, B, C and the deltas (or their ranks) in; y out, or g in and du,
+    # dB, dC (float32) and the deltas' gradient out
+    per_pos = (D + 2 * K * N + K * (R or D)) * esize
+    if backward:
+        per_pos += (D + K * D) * esize + (D + 2 * K * N) * 4
+        return Work().add(n * L * per_pos, f32=scan_bwd_ops(n * L, D, K, N))
+    per_pos += D * esize
+    return Work().add(n * L * per_pos + 4 * K * R * D,
+                      f32=scan_ops(n * L, D, K, N, R) + (8 * n * L * D if R else 0))
 
 
 def card_line() -> str:
@@ -173,6 +297,18 @@ def cross_case(g, batch, dtype):
              nk_scan.scan_mode_kinds("cross2d")), nk_scan.nk_scan_x, nk_scan.nk_scan_x_plain)
 
 
+def n1_case(g, n, H, d, dtype):
+    """Kernel 11's operands at a backbone stage on n images: x (n, H, H, 2d),
+    R = ceil(d / 16), the projections from `pack_n1_inputs`; deltas about
+    softplus(-4 +- 1) and A in [-e^1.5, -1], as in a trained model."""
+    D, R = 2 * d, -(-d // 16)
+    x = randn(g, n, H, H, D, dtype=dtype)
+    xw, dtw = randn(g, 4, R + 2, D, scale=D ** -0.5), randn(g, 4, D, R, scale=R ** -0.5)
+    bias = randn(g, 4, D, scale=0.5) - 4.0
+    A_logs = (1.5 * torch.rand(4 * D, 1, generator=g)).cuda()
+    return (x, *ss2d_core_n1.pack_n1_inputs(x, xw, dtw, bias, A_logs, randn(g, 4 * D)))
+
+
 def main_path_cases(g, batch, dtype):
     """(kernel name, label, (args, kernel, plain)) at every main-path geometry."""
     for H, d, depth in STAGES:
@@ -180,6 +316,10 @@ def main_path_cases(g, batch, dtype):
             stage_case(g, H, d, depth, batch, dtype)
     yield "nk_scan", "ShallowFuse (B,49,1536) K=1 N=16", shallow_case(g, batch, dtype)
     yield "nk_scan_x", "Cross_SS2Dv5 (3B,49,1536) K=4 N=16 R=48", cross_case(g, batch, dtype)
+    for H, d, _ in STAGES:
+        yield "ss2d_core_n1_fwd", f"N=1 core H={H} D={2 * d} R={-(-d // 16)} (y, ck)", \
+            (n1_case(g, 2 * batch, H, d, dtype), ss2d_core_n1.ss2d_core_n1_fwd,
+             ss2d_core_n1.ss2d_core_n1_fwd_plain)
 
 
 def phase_compare(errors):
@@ -194,9 +334,11 @@ def phase_compare(errors):
                 got = kernel(*args)
                 want = plain(*args)
             torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            rel = err / float(want.float().abs().max())
-            ok = bool(torch.isfinite(got).all()) and rel <= TOL[dtype]
+            pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+            err = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+            rel = max(float((a.float() - b.float()).abs().max() / b.float().abs().max())
+                      for a, b in pairs)
+            ok = all(bool(torch.isfinite(a).all()) for a, _ in pairs) and rel <= TOL[dtype]
             errors[name] = max(errors.get(name, 0.0), err)
             print(f"  {name:9s} {label:42s} {str(dtype)[6:]:8s} max_abs_err={err:.3e} "
                   f"rel={rel:.3e} tol={TOL[dtype]:.0e} {'OK' if ok else 'FAIL'}")
@@ -249,29 +391,118 @@ def phase_model(model, card):
 def phase_kernel_times(card):
     """Per-forward time of each kernel at batch 32 (sum over its calls in
     one forward), kernel and plain version on the same inputs."""
-    print(f"phase 4b: kernel times per bs-32 forward, bfloat16 ({card})")
+    print(f"phase 4b: kernel times per bs-32 forward, bfloat16, beside each kernel's bound "
+          f"({card})")
     g = torch.Generator().manual_seed(2)
+    bf16 = torch.bfloat16
     times = {}
     with torch.no_grad():
-        cases = {"vss_stage": [stage_case(g, H, d, depth, 32, torch.bfloat16)
-                               for H, d, depth in STAGES],
-                 "nk_scan": [shallow_case(g, 32, torch.bfloat16)] * 2,
-                 "nk_scan_x": [cross_case(g, 32, torch.bfloat16)]}
+        cases = {"vss_stage": [stage_case(g, H, d, depth, 32, bf16) for H, d, depth in STAGES],
+                 "nk_scan": [shallow_case(g, 32, bf16)] * 2,
+                 "nk_scan_x": [cross_case(g, 32, bf16)]}
+        work = {"vss_stage": Work(), "nk_scan": nk_work(32, 49, 1536, 1, 16, bf16).times(2),
+                "nk_scan_x": nk_work(96, 49, 1536, 4, 16, bf16, R=48)}
+        for H, d, depth in STAGES:
+            work["vss_stage"] += block_work(64, H, d, bf16, mlp=True).times(depth)
         for name, group in cases.items():
             ms = sum(time_ms(lambda a=args, f=kernel: f(*a), 5) for args, kernel, _ in group)
             plain_ms = sum(time_ms(lambda a=args, f=plain: f(*a), 1) for args, _, plain in group)
-            times[name] = (ms, plain_ms)
-            print(f"  {name:9s} kernel {ms:9.3f} ms   plain {plain_ms:9.3f} ms")
+            times[name] = (ms, plain_ms, *work[name].bound())
+            print(f"  {name:9s} kernel {ms:9.3f} ms   plain {plain_ms:9.3f} ms   bound "
+                  f"{times[name][2]:.4f} ms ({times[name][3]})")
     return times
 
 
+def phase_model_f32(model, card):
+    """Float32 inference: the composable blocks with kernel 11 (the stage
+    kernels are bfloat16's), launch counts and ms per batch."""
+    print("phase 4c: XFMamba-S two-view 224x224 inference, float32 (composable blocks, "
+          f"kernel 11), TF32 off for matmuls and cuDNN ({card})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    per_forward = {"ss2d_core_n1_fwd": 21, "vss_stage": 0, "nk_scan": 2, "nk_scan_x": 1}
+    fns = {name: (N1_KERNELS | KERNELS)[name]["fn"] for name in per_forward}
+    inputs = {bs: views(bs, torch.float32, 100 + bs) for bs in (8, 32)}
+    with torch.no_grad():
+        model(*inputs[8])                                  # warm-up
+        torch.cuda.synchronize()
+        for fn in fns.values():
+            fn.launches = 0
+        for bs, (xa, xb) in inputs.items():
+            logits = model(xa, xb)
+            torch.cuda.synchronize()
+            if logits.shape != (bs, 2) or not torch.isfinite(logits).all():
+                raise PhaseFailure(f"float32 bs {bs}: bad logits {tuple(logits.shape)}")
+            print(f"  bs {bs}: logits finite, shape {tuple(logits.shape)}, "
+                  f"first row {logits[0].tolist()}")
+        launches = {name: fn.launches for name, fn in fns.items()}
+        print(f"  launches over the two batches: {launches}")
+        if launches != {name: 2 * n for name, n in per_forward.items()}:
+            raise PhaseFailure(f"float32 launches {launches}, expected twice {per_forward}")
+        for bs, (xa, xb) in inputs.items():
+            samples = sorted(time_ms(lambda: model(xa, xb), 5) for _ in range(3))
+            print(f"  bs {bs}: {samples[1]:.2f} ms per batch (median of 3 runs of 5: "
+                  f"{', '.join(f'{v:.2f}' for v in samples)}), "
+                  f"{1000 * bs / samples[1]:.1f} two-view samples/s ({card})")
+    return launches["ss2d_core_n1_fwd"]
+
+
+def serial_scan_args(x, xdbl, w_dt, A, Ds, bias):
+    """Kernel 11's operands as the serial rank-form scan of ``csrc/nk_scan.cu``
+    takes them (cross2d, N=1): the same function, one thread per chain."""
+    n, H, W, D = x.shape
+    R = w_dt.shape[1]
+    xd = xdbl.view(n, H * W, 4, R + 2)
+    return dict(u=x.view(n, H * W, D), Bs=xd[..., R:R + 1], Cs=xd[..., R + 1:R + 2],
+                A=A.view(4, 1, D), bias=bias, Dsum=Ds.sum(0), kinds=nk_scan.CROSS2D_KINDS,
+                H=H, W=W, ranks=xd[..., :R].contiguous(), w_dt=w_dt)
+
+
+def phase_n1_times(card):
+    """Kernel 11's time per float32 bs-32 forward (64 images, the stage
+    shapes at their depths), beside its plain twin and beside the serial
+    rank-form scan of the stage kernels on the same inputs."""
+    print(f"phase 4d: kernel 11 per float32 bs-32 forward: chunked kernel, plain twin, serial "
+          f"scan (nk_scan.selective_scan_cuda) on the same inputs ({card})")
+    g = torch.Generator().manual_seed(8)
+    ms = plain_ms = serial_ms = 0.0
+    work = Work()
+    with torch.no_grad():
+        for H, d, depth in STAGES:
+            args = n1_case(g, 64, H, d, torch.float32)
+            serial = serial_scan_args(*args)
+            k_ms = time_ms(lambda: ss2d_core_n1.ss2d_core_n1_fwd(*args), 5)
+            p_ms = time_ms(lambda: ss2d_core_n1.ss2d_core_n1_fwd_plain(*args), 1, warmup=False)
+            s_ms = time_ms(lambda: nk_scan.selective_scan_cuda(**serial), 5)
+            y = ss2d_core_n1.ss2d_core_n1_fwd(*args)[0]
+            _, r = rel(nk_scan.selective_scan_cuda(**serial), y.view(serial["u"].shape))
+            print(f"  H={H:2d} D={2 * d:4d} x{depth:2d}: chunked {k_ms:8.3f} ms, plain "
+                  f"{p_ms:9.3f} ms, serial {s_ms:8.3f} ms per call; serial vs chunked rel "
+                  f"{r:.2e}")
+            if not r <= TOL[torch.float32]:
+                raise PhaseFailure("the serial scan and kernel 11 disagree")
+            ms, plain_ms, serial_ms = ms + depth * k_ms, plain_ms + depth * p_ms, \
+                serial_ms + depth * s_ms
+            work += n1_work(64, H, 2 * d, -(-d // 16)).times(depth)
+    bound_ms, bound_by = work.bound()
+    print(f"  per forward: chunked {ms:.3f} ms, plain {plain_ms:.3f} ms, serial {serial_ms:.3f} "
+          f"ms; bound {bound_ms:.4f} ms ({bound_by}, {work.bytes / 1e9:.3f} GB)")
+    return {"ss2d_core_n1_fwd": (ms, plain_ms, bound_ms, bound_by)}
+
+
 def phase_cpu_parity(model):
-    print("phase 5: float32 logits, card vs CPU plain path, batch 1")
+    print("phase 5: float32 logits, card vs CPU plain path, batch 1; the float32 route: "
+          "composable blocks, kernel 11 on the card, its plain twin on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     xa, xb = views(1, torch.float32, 7)
+    fwd = ss2d_core_n1.ss2d_core_n1_fwd
     with torch.no_grad():
+        before = fwd.launches
         got = model(xa, xb).cpu()
+        if fwd.launches - before != 21:
+            raise PhaseFailure(f"float32 forward launched kernel 11 {fwd.launches - before} "
+                               "times, expected 21")
         t0 = time.time()
         want = model.to("cpu")(xa.cpu(), xb.cpu())
     err = float((got - want).abs().max())
@@ -357,9 +588,11 @@ def phase_compare_train(errors):
     torch.backends.cudnn.allow_tf32 = False
     n = 2 * COMPARE_TRAIN_BATCH
     print(f"phase 6: training kernels vs plain versions on the card, {COMPARE_TRAIN_BATCH} "
-          "images per view, TF32 off; tolerance relative to each output's largest magnitude")
+          f"images per view (kernels 11 and 12: {TRAIN_BATCH}), TF32 off; tolerance relative to "
+          "each output's largest magnitude")
     g = torch.Generator().manual_seed(3)
     failed = []
+    times = {}
     for dtype in (torch.float32, torch.bfloat16):
         with torch.no_grad():
             for H, d, _ in STAGES:
@@ -396,9 +629,46 @@ def phase_compare_train(errors):
                 check_outputs(errors, "nk_scan_bwd", label, dtype,
                               nk_scan_adjoint.nk_scan_bwd(*args),
                               nk_scan_adjoint.nk_scan_bwd_plain(*args), failed)
+            compare_n1(errors, g, dtype, failed, times)
         torch.cuda.synchronize()
     if failed:
         raise PhaseFailure(f"training kernels disagree with their plain versions: {failed}")
+    bound_ms, bound_by = times.pop("work").bound()
+    ms, plain_ms = times["ss2d_core_n1_bwd"]
+    print(f"  kernel 12 per float32 bs-{TRAIN_BATCH} step: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
+    return {"ss2d_core_n1_bwd": (ms, plain_ms, bound_ms, bound_by)}
+
+
+def compare_n1(errors, g, dtype, failed, times):
+    """Kernels 11 and 12 against their plain twins at the float32 step's
+    shapes (2 x 16 images, every stage), every output: y, the checkpoints,
+    du, dxdbl, dw_dt, dbias, dA, dD (kernel 12 from the plain checkpoints);
+    in float32 also kernel 12's time per step (a stage's call times its
+    depth) and its work."""
+    n = 2 * TRAIN_BATCH
+    for H, d, depth in STAGES:
+        args = n1_case(g, n, H, d, dtype)
+        geo = f"H={H} D={2 * d} R={-(-d // 16)}"
+        y, ck = ss2d_core_n1.ss2d_core_n1_fwd_plain(*args)
+        check_outputs(errors, "ss2d_core_n1_fwd", f"N=1 core ({n} images) {geo}", dtype,
+                      ss2d_core_n1.ss2d_core_n1_fwd(*args), (y, ck), failed)
+        gy = randn(g, *args[0].shape)
+
+        def kernel():
+            return ss2d_core_n1.ss2d_core_n1_bwd(*args, ck, gy)
+
+        kernel()                                           # warm-up
+        got, ms = timed_call(kernel, 3)
+        want, plain_ms = timed_call(lambda: ss2d_core_n1.ss2d_core_n1_bwd_plain(*args, ck, gy))
+        check_outputs(errors, "ss2d_core_n1_bwd", f"N=1 core backward ({n} images) {geo}",
+                      dtype, got, want, failed)
+        if dtype == torch.float32:
+            acc = times.setdefault("ss2d_core_n1_bwd", [0.0, 0.0])
+            acc[0] += depth * ms
+            acc[1] += depth * plain_ms
+            times.setdefault("work", Work())
+            times["work"] += n1_work(n, H, 2 * d, -(-d // 16), backward=True).times(depth)
 
 
 def train_batch(dtype):
@@ -489,16 +759,19 @@ def phase_train_kernel_times(card, errors):
     g = torch.Generator().manual_seed(4)
     n = 2 * TRAIN_BATCH
     times = {name: [0.0, 0.0] for name in TRAIN_KERNELS}
+    works = {name: Work() for name in TRAIN_KERNELS}
     failed = []
+    bf16 = torch.bfloat16
 
-    def run(name, label, fn, plain, count=1):
+    def run(name, label, fn, plain, count=1, work=None):
         fn()                                               # warm-up
         got, ms = timed_call(fn, 3)
         want, plain_ms = timed_call(plain)
         check_outputs(errors, name, label, dtype, got, want, failed)
-        if dtype == torch.bfloat16:
+        if dtype == bf16:
             times[name][0] += count * ms
             times[name][1] += count * plain_ms
+            works[name] += work.times(count)
         return got
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -510,17 +783,21 @@ def phase_train_kernel_times(card, errors):
                 gy = randn(g, n, H * H, d)
                 run("vss_block_train", f"block forward {geo}",
                     lambda: [vss_block_train.vss_block_train(x, p, H, H, m1)],
-                    lambda: [vss_block_train.vss_block_train_plain(x, p, H, H, m1)], depth)
+                    lambda: [vss_block_train.vss_block_train_plain(x, p, H, H, m1)], depth,
+                    block_work(n, H, d, bf16, mlp=False))
                 run("vss_block_bwd", f"block backward {geo}",
                     lambda: block_grads(vss_block_train.vss_block_bwd(x, p, H, H, m1, gy)),
                     lambda: block_grads(vss_block_train.vss_block_bwd_plain(x, p, H, H, m1, gy)),
-                    depth)
+                    depth, block_work(n, H, d, bf16, mlp=False, backward=True))
                 ps = train_blocks(g, d, depth, dtype)
                 m1s, m2s = masks(g, depth, n), masks(g, depth, n)
+                work = block_work(n, H, d, bf16, mlp=True).times(depth)
+                work += Work().add(2 * depth * n * H * H * d * 2)     # saves x_j and mid_j
                 _, xs, mids = run(
                     "vss_stage_train", f"stage forward {geo} depth {depth}",
                     lambda: vss_stage_train.vss_stage_train_forward(x, ps, H, H, m1s, m2s),
-                    lambda: vss_stage_train.vss_stage_train_forward_plain(x, ps, H, H, m1s, m2s))
+                    lambda: vss_stage_train.vss_stage_train_forward_plain(x, ps, H, H, m1s, m2s),
+                    work=work)
                 gy = randn(g, n, H * H, d, dtype=dtype)
                 got, want = (stage_grads(vss_stage_train.stage_train_backward(
                     gy, xs, mids, ps, H, H, m1s, m2s, block_bwd=bwd))
@@ -531,17 +808,75 @@ def phase_train_kernel_times(card, errors):
                 args = nk_bwd_case(g, bs, K, dtype)
                 run("nk_scan_bwd", f"fusion adjoint ({bs},49,1536) K={K} N=16",
                     lambda: nk_scan_adjoint.nk_scan_bwd(*args),
-                    lambda: nk_scan_adjoint.nk_scan_bwd_plain(*args), count)
+                    lambda: nk_scan_adjoint.nk_scan_bwd_plain(*args), count,
+                    nk_work(bs, 49, 1536, K, 16, bf16, backward=True))
     for name, (ms, plain_ms) in times.items():
-        print(f"  {name:15s} kernel {ms:10.3f} ms   plain {plain_ms:10.3f} ms")
+        times[name] = (ms, plain_ms, *works[name].bound())
+        print(f"  {name:15s} kernel {ms:10.3f} ms   plain {plain_ms:10.3f} ms   bound "
+              f"{times[name][2]:.4f} ms ({times[name][3]})")
     if failed:
         raise PhaseFailure(f"training kernels disagree with their plain versions: {failed}")
     return times
 
 
+def phase_train_f32(card, n1_bwd_times):
+    """Float32 training at batch 16 through the composable blocks: kernel 11
+    forward, kernel 12 backward, launch counts per step in both
+    ``use_checkpoint`` modes, ms per step and peak memory."""
+    print(f"phase 7c: XFMamba-S training, batch {TRAIN_BATCH}, {IMAGE}x{IMAGE}, float32 "
+          "activations and weights (composable blocks, kernels 11 and 12), Adam lr 1e-4 wd 1e-5, "
+          f"TF32 off for matmuls and cuDNN ({card})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = two_view_xfmamba("small", seed=0)
+    optimizer = make_optimizer(TrainConfig(lr=1e-4, weight_decay=1e-5), model.parameters())
+    step, _ = make_train_step(model, optimizer, multilabel=False)
+    batch = train_batch(torch.float32)
+    fns = {name: k["fn"] for name, k in (N1_KERNELS | TRAIN_KERNELS | KERNELS).items()}
+    want = dict.fromkeys(fns, 0) | {"ss2d_core_n1_fwd": 21, "ss2d_core_n1_bwd": 21,
+                                    "nk_scan": 3, "nk_scan_bwd": 3}
+
+    def counted_step():
+        for fn in fns.values():
+            fn.launches = 0
+        loss = float(step(batch)["loss"])
+        torch.cuda.synchronize()
+        return loss, {name: fn.launches for name, fn in fns.items()}
+
+    losses, total = [], 0
+    for _ in range(F32_TRAIN_STEPS):
+        loss, counts = counted_step()
+        losses.append(loss)
+        total += counts["ss2d_core_n1_bwd"]
+        if counts != want:
+            raise PhaseFailure(f"float32 launches per step {counts}, expected {want}")
+    print(f"  losses: {', '.join(f'{v:.6f}' for v in losses)}; launches per step {want}")
+    if not all(map(math.isfinite, losses)):
+        raise PhaseFailure(f"float32 training loss not finite: {losses}")
+    for checkpointed in (False, True):
+        model.mamba_feature_extrac.use_checkpoint = checkpointed
+        if checkpointed:
+            loss, counts = counted_step()
+            want_ck = want | {"ss2d_core_n1_fwd": 42}
+            print(f"  use_checkpoint step: loss {loss:.6f}, launches {counts}")
+            if counts != want_ck or not math.isfinite(loss):
+                raise PhaseFailure(f"use_checkpoint launches {counts} (expected {want_ck}) "
+                                   f"or loss {loss} not finite")
+        torch.cuda.reset_peak_memory_stats()
+        samples = timed_steps(step, batch)
+        print(f"  {'use_checkpoint: ' if checkpointed else ''}{samples[1]:.2f} ms per step "
+              f"(median of 3 runs of 3 steps: {', '.join(f'{v:.2f}' for v in samples)}); peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})")
+    ms, plain_ms, bound_ms, _ = n1_bwd_times["ss2d_core_n1_bwd"]
+    print(f"  kernel 12 per step (phase 6, the same shapes): {ms:.3f} ms, plain twin "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms")
+    return total
+
+
 def phase_train_cpu_parity():
     print("phase 8: float32 gradients of one train step, card vs CPU plain path, "
-          "XFMamba-S widths at depths (2, 2, 2, 2), batch 2")
+          "XFMamba-S widths at depths (2, 2, 2, 2), batch 2; the float32 route: composable "
+          "blocks, kernels 11 and 12 on the card, their plain twins on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kw = dict(model_type="small", hidden_dim=768, drop_path_rate=0.0,
@@ -558,9 +893,14 @@ def phase_train_cpu_parity():
     cpu_s = time.time() - t0
     model.zero_grad()
     model.cuda()
+    fns = [N1_KERNELS[name]["fn"] for name in N1_KERNELS]
+    before = [fn.launches for fn in fns]
     loss_c = torch.nn.functional.cross_entropy(model(xa.cuda(), xb.cuda()), label.cuda())
     loss_c.backward()
     loss_c = loss_c.detach()
+    counts = [fn.launches - b for fn, b in zip(fns, before)]
+    if counts != [8, 8]:
+        raise PhaseFailure(f"kernels 11 and 12 launched {counts} times, expected 8 and 8")
     # Batch 2: at batch 1 the BatchNorm ahead of ShallowFuse would remove
     # the per-sample mean that its squeeze-excitation averages, leaving
     # those weight gradients at rounding noise.  Each gradient is held to
@@ -591,20 +931,25 @@ def main() -> int:
     print(f"  {path} ({time.time() - t0:.1f} s)\n{log.strip()}")
     errors = {}
     phase_compare(errors)
-    model = two_view_xfmamba("small", device="cuda", seed=0)
+    model = two_view_xfmamba("small", seed=0)
     launches = phase_model(model, card)
     times = phase_kernel_times(card)
+    launches["ss2d_core_n1_fwd"] = phase_model_f32(model, card)
+    times |= phase_n1_times(card)
     phase_cpu_parity(model)
     del model
-    phase_compare_train(errors)
+    times |= phase_compare_train(errors)
     launches |= phase_train(card)
     times |= phase_train_kernel_times(card, errors)
+    launches["ss2d_core_n1_bwd"] = phase_train_f32(card, times)
     phase_train_cpu_parity()
+    # no single PyTorch call computes any of these functions: library_ms is null
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=k["source"], replaces=k["replaces"],
              launches=launches[name], max_abs_err=errors[name], ms=times[name][0],
-             plain_ms=times[name][1])
-        for name, k in (KERNELS | TRAIN_KERNELS).items()]}))
+             plain_ms=times[name][1], bound_ms=times[name][2], bound_by=times[name][3],
+             library_ms=None)
+        for name, k in (KERNELS | TRAIN_KERNELS | N1_KERNELS).items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,12 @@
 """The PyTorch port imports no JAX, builds nothing at import time, and
 decides about CUDA only when a kernel is launched."""
 
+import inspect
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 from xfmamba_tpu_torch.kernels import build
@@ -22,7 +24,7 @@ def test_port_imports_no_jax_and_builds_nothing():
         "('jax', 'jaxlib', 'flax', 'optax', 'xfmamba_tpu'))\n"
         "assert not bad, bad\n"
         "for m in ('train.config', 'train.loop', 'ops.vss_block_train', 'ops.vss_stage_train',\n"
-        "          'ops.nk_scan_adjoint'):\n"
+        "          'ops.nk_scan_adjoint', 'ops.ss2d_core_n1'):\n"
         "    assert 'xfmamba_tpu_torch.' + m in sys.modules, m\n"
         "from xfmamba_tpu_torch.kernels import build\n"
         "assert build.library.cache_info().currsize == 0\n"
@@ -39,13 +41,22 @@ def test_library_name_is_keyed_on_the_sources():
     assert path.name.startswith("libxfm_") and path.suffix == ".so"
     assert build.library_path() == path
     assert {p.name for p in build._sources()} == {
-        "nk_scan.cu", "nk_scan_bwd.cu", "vss_block_bwd.cu", "vss_stage.cu"}
+        "nk_scan.cu", "nk_scan_bwd.cu", "ss2d_core_n1.cu", "vss_block_bwd.cu", "vss_stage.cu"}
 
 
 def test_factory_is_seeded_and_eval():
     kw = dict(backbone_overrides=dict(depths=(1, 1, 1, 1), dims=8))
-    a = two_view_xfmamba("tiny", seed=3, **kw)
-    b = two_view_xfmamba("tiny", seed=3, **kw)
+    a = two_view_xfmamba("tiny", seed=3, device="cpu", **kw)
+    b = two_view_xfmamba("tiny", seed=3, device="cpu", **kw)
     assert not a.training
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
+
+
+def test_factory_defaults_to_the_card():
+    """Without a device argument the model goes to CUDA: here, with no card,
+    that raises instead of falling back to the CPU."""
+    assert inspect.signature(two_view_xfmamba).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            two_view_xfmamba("tiny", backbone_overrides=dict(depths=(1, 1, 1, 1), dims=8))

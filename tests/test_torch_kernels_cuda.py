@@ -14,10 +14,12 @@ rounding flips a last bit (2e-2 per kernel, 4e-2 through a chained stage).
 import pytest
 import torch
 
+from xfmamba_tpu_torch.models import vssm
 from xfmamba_tpu_torch.models.tops import TwoViewXFMamba
 from xfmamba_tpu_torch.models.vssm import VSSBlock
 from xfmamba_tpu_torch.ops import (
-    nk_scan, nk_scan_adjoint, primitives, vss_block_train, vss_stage, vss_stage_train)
+    nk_scan, nk_scan_adjoint, primitives, ss2d_core_n1, vss_block_train, vss_stage,
+    vss_stage_train)
 from xfmamba_tpu_torch.ops.vss_block import pack_vss_block_params, pack_vss_block_train_params
 
 pytestmark = pytest.mark.cuda
@@ -33,6 +35,14 @@ def dev():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+@pytest.fixture(params=["block", "stage"])
+def route(request, monkeypatch):
+    """The float32 backbone's own route ("block": kernels 11 and 12) or the
+    bfloat16 route's kernels run in float32 ("stage")."""
+    monkeypatch.setattr(vssm, "_uses_stage_route", lambda dtype: request.param == "stage")
+    return request.param
 
 
 def rel_err(got, want):
@@ -153,7 +163,7 @@ def test_nk_scan_and_nk_scan_x(dev, dtype):
     assert rel_err(got, want) < TOL[dtype]
 
 
-def test_tiny_model_card_matches_cpu(dev):
+def test_tiny_model_card_matches_cpu(dev, route):
     g = torch.Generator().manual_seed(6)
     model = TwoViewXFMamba(model_type="tiny", hidden_dim=128, d_state=4,
                            backbone_overrides=dict(depths=(2, 2, 2, 2), dims=16),
@@ -162,10 +172,13 @@ def test_tiny_model_card_matches_cpu(dev):
     with torch.no_grad():
         want = model(xa, xb)
         model.cuda()
-        counts = [f.launches for f in (vss_stage.vss_stage, nk_scan.nk_scan, nk_scan.nk_scan_x)]
+        fns = (ss2d_core_n1.ss2d_core_n1_fwd, vss_stage.vss_stage, nk_scan.nk_scan,
+               nk_scan.nk_scan_x)
+        counts = [f.launches for f in fns]
         got = model(xa.cuda(), xb.cuda()).cpu()
-    after = [f.launches for f in (vss_stage.vss_stage, nk_scan.nk_scan, nk_scan.nk_scan_x)]
-    assert [b - a for a, b in zip(counts, after)] == [4, 2, 1]
+    after = [f.launches for f in fns]
+    want_counts = [8, 0, 2, 1] if route == "block" else [0, 4, 2, 1]
+    assert [b - a for a, b in zip(counts, after)] == want_counts
     assert rel_err(got, want) < 1e-3
 
 
@@ -315,10 +328,10 @@ def test_nk_scan_bwd(dev, dtype):
         assert rel_err(a, b) < (1e-2 if a.dtype == torch.bfloat16 else 1e-3)
 
 
-def test_tiny_model_train_step_card_matches_cpu(dev):
+def test_tiny_model_train_step_card_matches_cpu(dev, route):
     """One float32 train step of the tiny model, card against CPU: loss and
     every parameter gradient (1e-3 of the tensor's largest gradient), with
-    the training launch counts."""
+    the training launch counts, on both backbone routes."""
     g = torch.Generator().manual_seed(13)
     kw = dict(model_type="tiny", hidden_dim=128, d_state=4, drop_path_rate=0.0,
               backbone_overrides=dict(depths=(2, 2, 2, 2), dims=16, drop_path_rate=0.0))
@@ -330,13 +343,80 @@ def test_tiny_model_train_step_card_matches_cpu(dev):
     want = {k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None}
     model.zero_grad()
     model.cuda()
-    fns = (vss_stage_train.vss_stage_train_forward, vss_block_train.vss_block_bwd,
+    fns = (ss2d_core_n1.ss2d_core_n1_fwd, ss2d_core_n1.ss2d_core_n1_bwd,
+           vss_stage_train.vss_stage_train_forward, vss_block_train.vss_block_bwd,
            nk_scan.nk_scan, nk_scan_adjoint.nk_scan_bwd)
     before = [f.launches for f in fns]
     loss_c = torch.nn.functional.cross_entropy(model(xa.cuda(), xb.cuda()), labels.cuda())
     loss_c.backward()
-    assert [f.launches - b for f, b in zip(fns, before)] == [4, 8, 3, 3]
+    want_counts = [8, 8, 0, 0, 3, 3] if route == "block" else [0, 0, 4, 8, 3, 3]
+    assert [f.launches - b for f, b in zip(fns, before)] == want_counts
     assert abs(float(loss_c) - float(loss)) < 1e-4
     for k, p in model.named_parameters():
         if k in want:
             assert rel_err(p.grad.cpu(), want[k]) < 1e-3, k
+
+
+# ---------------------------------------------------------------------------
+# kernels 11 and 12: the N=1 SS2D core and its backward
+# ---------------------------------------------------------------------------
+
+def _n1_case(g, dtype, B, H, W, D, R):
+    """Operands of the N=1 core with the decay and delta ranges of a trained
+    model: A in [-1, -e^1.5], deltas about softplus(-4 +- 1)."""
+    x = randn(g, B, H, W, D, dtype=dtype)
+    xw = randn(g, 4, R + 2, D, scale=D ** -0.5)
+    dtw = randn(g, 4, D, R, scale=R ** -0.5)
+    bias = randn(g, 4, D, scale=0.5) - 4.0
+    A_logs = torch.rand(4 * D, 1, generator=g).cuda() * 1.5
+    Ds = randn(g, 4 * D)
+    return x, ss2d_core_n1.pack_n1_inputs(x, xw, dtw, bias, A_logs, Ds)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,W,D,R,chunk", [
+    (3, 14, 14, 96, 6, None),     # 16 chunks of 13, the last of 1
+    (2, 7, 7, 200, 12, None),     # 7 chunks of 7; a ragged channel tile
+    (2, 9, 11, 64, 4, 10),        # 10 chunks of 10, the last of 9; H != W
+    (2, 5, 6, 32, 2, 64),         # one chunk
+])
+def test_ss2d_core_n1_fwd_and_bwd(dev, dtype, B, H, W, D, R, chunk):
+    """Kernels 11 and 12 against their plain twins on the same operands:
+    y, every checkpoint, and every gradient (float32 atomics reorder the
+    dB, dC and whole-grid sums: 1e-4 of each output's largest magnitude in
+    float32, 2e-2 in bfloat16, where the recompute rounds as the forward)."""
+    g = torch.Generator().manual_seed(14)
+    x, (xdbl, w_dt, A, Ds, bias) = _n1_case(g, dtype, B, H, W, D, R)
+    before = (ss2d_core_n1.ss2d_core_n1_fwd.launches, ss2d_core_n1.ss2d_core_n1_bwd.launches)
+    y, ck = ss2d_core_n1.ss2d_core_n1_fwd(x, xdbl, w_dt, A, Ds, bias, chunk)
+    y_p, ck_p = ss2d_core_n1.ss2d_core_n1_fwd_plain(x, xdbl, w_dt, A, Ds, bias, chunk)
+    torch.cuda.synchronize()
+    assert rel_err(y, y_p) < TOL[dtype] and rel_err(ck, ck_p) < TOL[dtype]
+    gy = randn(g, B, H, W, D)
+    got = ss2d_core_n1.ss2d_core_n1_bwd(x, xdbl, w_dt, A, Ds, bias, ck_p, gy, chunk)
+    want = ss2d_core_n1.ss2d_core_n1_bwd_plain(x, xdbl, w_dt, A, Ds, bias, ck_p, gy, chunk)
+    torch.cuda.synchronize()
+    assert (ss2d_core_n1.ss2d_core_n1_fwd.launches,
+            ss2d_core_n1.ss2d_core_n1_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for name, w in want.items():
+        assert got[name].shape == w.shape, name
+        assert rel_err(got[name], w) < TOL[dtype], name
+
+
+def test_ss2d_core_n1_autograd_card_matches_cpu(dev):
+    """`ss2d_core_n1` forward and all six gradients, card against the CPU
+    plain twins, float32."""
+    g = torch.Generator().manual_seed(15)
+    B, H, W, D, R = 2, 10, 12, 48, 3
+    args = [torch.randn(B, H, W, D, generator=g), 0.2 * torch.randn(4, R + 2, D, generator=g),
+            0.3 * torch.randn(4, D, R, generator=g), 0.5 * torch.randn(4, D, generator=g) - 3,
+            torch.rand(4 * D, 1, generator=g), torch.randn(4 * D, generator=g)]
+    gy = torch.randn(B, H, W, D, generator=g)
+    results = []
+    for device in ("cpu", "cuda"):
+        leaves = [a.detach().to(device).requires_grad_() for a in args]
+        y = ss2d_core_n1.ss2d_core_n1(*leaves)
+        y.backward(gy.to(device))
+        results.append([y.detach().cpu()] + [leaf.grad.cpu() for leaf in leaves])
+    for got, want in zip(results[1], results[0]):
+        assert rel_err(got, want) < 1e-4

@@ -24,6 +24,7 @@ from xfmamba_tpu.models.vssm import VSSBlock as JaxVSSBlock
 from xfmamba_tpu.ops.vss_block_pallas import vss_block_ref as jax_vss_block_ref
 from xfmamba_tpu_torch.checkpoint.convert import load_jax_variables
 from xfmamba_tpu_torch.models.tops import TwoViewXFMamba
+from xfmamba_tpu_torch.models import vssm
 from xfmamba_tpu_torch.models.vssm import VSSBlock
 from xfmamba_tpu_torch.ops import nk_scan, vss_stage
 from xfmamba_tpu_torch.ops.vss_block import pack_vss_block_params
@@ -68,6 +69,15 @@ def jax_variables(module, seed, *inputs):
 
 def assert_close(got, want, tol):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=tol, atol=tol)
+
+
+@pytest.fixture(params=["block", "stage"])
+def route(request, monkeypatch):
+    """The backbone route a float32 model takes: "block", its own (the
+    composable VSSBlock with kernels 11 and 12), or "stage", the bfloat16
+    route's kernels (1, 4-6) run in float32."""
+    monkeypatch.setattr(vssm, "_uses_stage_route", lambda dtype: request.param == "stage")
+    return request.param
 
 
 # ---------------------------------------------------------------------------
@@ -208,7 +218,7 @@ def tiny_models():
     return jmodel, variables, port
 
 
-def test_two_view_logits_match_jax(tiny_models):
+def test_two_view_logits_match_jax(tiny_models, route):
     jmodel, variables, port = tiny_models
     rng = np.random.default_rng(1)
     xa, xb = (rng.standard_normal((2, 32, 32, 1)).astype(np.float32) for _ in range(2))

@@ -8,7 +8,9 @@ JAX parameters and batch statistics are drawn from numpy and loaded into
 the port with ``load_jax_variables``; gradients are mapped back leaf by
 leaf with ``checkpoint.convert.jax_paths``.  The JAX model runs its
 composable path on the CPU (its kernels are TPU-only); the port runs the
-plain versions of its kernels, in both ``use_checkpoint`` modes.
+plain versions of its kernels, in both ``use_checkpoint`` modes and on both
+backbone routes (the float32 composable one, and the bfloat16 stage one
+selected with the ``route`` fixture).
 """
 
 import jax
@@ -18,7 +20,7 @@ import optax
 import pytest
 import torch
 
-from test_torch_parity import assert_close, jax_variables
+from test_torch_parity import assert_close, jax_variables, route  # noqa: F401 (fixture)
 from xfmamba_tpu.models.fusion import ShallowFusionBlock as JaxShallowFusionBlock
 from xfmamba_tpu.models.fusion import swapping_scan as jax_swapping_scan
 from xfmamba_tpu.models.tops import TwoViewXFMamba as JaxTwoView
@@ -81,7 +83,7 @@ def _leaf(tree, path):
 
 
 @pytest.mark.parametrize("use_checkpoint", [False, True])
-def test_train_step_matches_jax(jax_step, use_checkpoint):
+def test_train_step_matches_jax(jax_step, use_checkpoint, route):
     """Loss (1e-5), every parameter gradient (2e-4 of the largest gradient
     of its tensor, float32 sums in other orders through the whole model),
     the BatchNorm statistics (the running variance up to n/(n-1), see
@@ -178,12 +180,13 @@ def test_shallow_fusion_shares_one_mask_across_views():
 
 
 @pytest.mark.parametrize("use_checkpoint", [False, True])
-def test_backbone_draws_drop_path_scales_in_block_order(use_checkpoint):
+def test_backbone_draws_drop_path_scales_in_block_order(use_checkpoint, route):
     """The training backbone draws every block's two drop-path scales (SS2D
     half, then MLP half) from its dropout generator in block order, once per
     forward: the generator ends where a replay of those draws ends, and the
     features equal the plain blocks chained with the replayed scales (1e-5),
-    on the stage path and on the per-block (``use_checkpoint``) path."""
+    on both routes: the stage path and its per-block (``use_checkpoint``)
+    path, and the composable blocks with and without checkpointing."""
     g = torch.Generator().manual_seed(5)
     model = VSSM(depths=(3, 1), dims=8, in_chans=1, drop_path_rate=0.5, out_indices=(1,),
                  use_checkpoint=use_checkpoint, generator=torch.Generator().manual_seed(0),

@@ -40,6 +40,8 @@ _SIGNATURES = {
     "xfm_layer_norm_bwd": [_P] * 7 + [_LL, _I, _I, ctypes.c_float, _P],
     "xfm_dwconv3_silu_bwd": [_P] * 8 + [_I] * 5 + [_P],
     "xfm_selective_scan_bwd": [_P] * 18 + [_I] * 17 + [_P],
+    "xfm_ss2d_n1_fwd": [_P] * 9 + [_I] * 7 + [_P],
+    "xfm_ss2d_n1_bwd": [_P] * 16 + [_I] * 7 + [_P],
 }
 
 

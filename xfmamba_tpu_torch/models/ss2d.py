@@ -2,11 +2,13 @@
 ``xfmamba_tpu/models/ss2d.py``), forward type ``v05_noz`` only: no z-gate,
 LayerNorm out-norm, cross2d scan.
 
-`ss2d_core_from_projs` is the composable scan-and-merge path: it takes the
-per-direction projections and scans each direction with
-`selective_scan_seq`.  It is the plain reference of the scan kernels; the
-backbone's VSSM runs the stage kernel (``ops/vss_stage.py``) instead of
-calling `SS2D` block by block.
+`SS2D.ss2d_core` is the scan core of `SS2D`, dispatched as the JAX
+``ss2d_core`` does on an accelerator: with d_state 1 (cross2d) it runs
+`ops.ss2d_core_n1.ss2d_core_n1` (kernels 11 and 12), otherwise the
+composable `ss2d_core_from_projs`, which takes the per-direction
+projections and scans each direction with `selective_scan_seq` (the plain
+reference of the scan kernels).  The backbone runs `SS2D` block by block in
+float32; in bfloat16 it runs the stage kernels instead (``models/vssm.py``).
 
 Parameter layouts match the reference tensors: ``x_proj_weight``
 (K, R + 2N, D), ``dt_projs_weight`` (K, D, R), ``dt_projs_bias`` (K, D),
@@ -24,6 +26,7 @@ from torch import nn
 from xfmamba_tpu_torch.models.layers import (
     Conv2dSame, Dense, LayerNorm, trunc_normal_init, uniform_init)
 from xfmamba_tpu_torch.ops.selective_scan import selective_scan_seq
+from xfmamba_tpu_torch.ops.ss2d_core_n1 import ss2d_core_n1
 
 
 # ---------------------------------------------------------------------------
@@ -180,10 +183,18 @@ class SS2D(ScanParams):
         self.out_proj = Dense(d_inner, d_model, bias=False, init="trunc_normal",
                               generator=generator)
 
-    def forward(self, x):
-        xin = F.silu(self.conv2d(self.in_proj(x)))
-        dts, Bs, Cs = _project_kdirs(xin, self.x_proj_weight,
+    def ss2d_core(self, x):
+        """Cross-scan, selective scan and cross-merge of x (B, H, W, D);
+        returns (B, H, W, D) float32 (before the out-norm)."""
+        if self.N == 1:
+            return ss2d_core_n1(x, self.x_proj_weight, self.dt_projs_weight,
+                                self.dt_projs_bias, self.A_logs, self.Ds)
+        dts, Bs, Cs = _project_kdirs(x, self.x_proj_weight,
                                      self.dt_projs_weight, self.R, self.N)
         A, Dmat, bias = self.scan_operands(self.d_inner)
-        y = ss2d_core_from_projs(xin, dts, Bs, Cs, A, Dmat, bias)
+        return ss2d_core_from_projs(x, dts, Bs, Cs, A, Dmat, bias)
+
+    def forward(self, x):
+        xin = F.silu(self.conv2d(self.in_proj(x)))
+        y = self.ss2d_core(xin)
         return self.out_proj(self.out_norm(y.to(x.dtype)))

@@ -71,12 +71,13 @@ class TwoViewXFMamba(nn.Module):
         return self.classifier["head"](z)
 
 
-def two_view_xfmamba(size: str = "small", outputs: int = 2, *, device="cpu",
+def two_view_xfmamba(size: str = "small", outputs: int = 2, *, device="cuda",
                      seed: int = 0, **kw) -> TwoViewXFMamba:
     """Factory mirroring the CLI names (twoviewxfmamba / _tiny / _base).
     Weights are drawn from a ``torch.Generator`` seeded with ``seed``, and
     the drop-path masks of training from one seeded with ``seed + 1``; the
-    model is returned in eval mode on ``device``, with float32 weights."""
+    model is returned in eval mode on ``device`` (the card unless the
+    caller asks for the CPU), with float32 weights."""
     generator = torch.Generator().manual_seed(seed)
     hidden = 1024 if size == "base" else 768
     model = TwoViewXFMamba(outputs=outputs, model_type=size, hidden_dim=hidden,

@@ -6,20 +6,30 @@ Module and parameter names follow the reference PyTorch state dict
 ``layers.{i}.downsample.{1,3}``, ``outnorm{i}``), so a port ``state_dict()``
 converts with ``xfmamba_tpu.checkpoint.convert.convert_vssm_state_dict``.
 
-In eval mode the stage loop runs each stage through
-`ops.vss_stage.vss_stage` (kernel 1).  In training mode every block's two
-drop-path scales (SS2D half, then MLP half) are drawn from the model's
-dropout generator before the step's first launch and copied to the device
-at once (`VSSM._drop_path_scales`); `VSSM._train_stage` packs the operands
-on the autograd graph, and a stage of depth >= 2 then runs `ops.vss_stage_train.
-vss_stage_train` (kernel 5 forward, kernel 6 backward), as the JAX
-``VSSM._fused_stage_train_path`` does.  With ``use_checkpoint`` (or a
-depth-1 stage) each block runs `ops.vss_block_train.vss_block_train_op`
-(kernel 4 forward, kernel 6 backward) for its SS2D half, and its MLP half
-in torch, under ``torch.utils.checkpoint`` with ``use_checkpoint`` (the
-``nn.remat`` counterpart).  The kernels run on the card; on the CPU their
-plain versions.  `VSSBlock.forward` is the composable block (``SS2D``
-module path), kept as the readable reference of what the stage computes.
+The backbone dispatches on the activation dtype as the JAX ``VSSM`` does
+on an accelerator (`_uses_stage_route`):
+
+- bfloat16, the stage route.  In eval mode each stage runs through
+  `ops.vss_stage.vss_stage` (kernel 1).  In training mode
+  `VSSM._train_stage` packs the operands on the autograd graph, and a stage
+  of depth >= 2 then runs `ops.vss_stage_train.vss_stage_train` (kernel 5
+  forward, kernel 6 backward), as the JAX ``VSSM._fused_stage_train_path``
+  does.  With ``use_checkpoint`` (or a depth-1 stage) each block runs
+  `ops.vss_block_train.vss_block_train_op` (kernel 4 forward, kernel 6
+  backward) for its SS2D half, and its MLP half in torch, under
+  ``torch.utils.checkpoint`` with ``use_checkpoint``.
+- float32 (every JAX CLI's default, which never takes the megakernels),
+  the composable route: each block runs `VSSBlock.forward`, LayerNorm, the
+  ``SS2D`` module (its N=1 core is kernel 11 forward and kernel 12
+  backward, ``ops/ss2d_core_n1.py``), the residual and the MLP half, all
+  other products in torch; with ``use_checkpoint`` each block runs under
+  ``torch.utils.checkpoint`` (the ``nn.remat(VSSBlock)`` counterpart).
+
+In training mode every block's two drop-path scales (SS2D half, then MLP
+half) are drawn from the model's dropout generator before the step's first
+launch and copied to the device at once (`VSSM._drop_path_scales`), on
+both routes, so both draw the same masks.  The kernels run on the card; on
+the CPU their plain versions.
 """
 
 from __future__ import annotations
@@ -94,10 +104,18 @@ class VSSBlock(nn.Module):
         self.mlp = (Mlp(hidden_dim, int(hidden_dim * mlp_ratio), hidden_dim,
                         generator=generator) if mlp_ratio > 0 else None)
 
-    def forward(self, x):
-        x = x + self.drop_path(self.op(self.norm(x)))
+    def forward(self, x, scales=None):
+        """x (B, H, W, d).  ``scales`` (2, B) float32 are the drop-path
+        scales of the two halves, drawn by the caller; without them the
+        block's DropPath draws its own."""
+        def drop(h, i):
+            if scales is None:
+                return self.drop_path(h)
+            return h * scales[i].to(h.dtype).view(-1, 1, 1, 1)
+
+        x = x + drop(self.op(self.norm(x)), 0)
         if self.mlp is not None:
-            x = x + self.drop_path(self.mlp(self.norm2(x)))
+            x = x + drop(self.mlp(self.norm2(x)), 1)
         return x
 
 
@@ -170,14 +188,28 @@ class VSSM(nn.Module):
                 xl = _mlp_half_train(xl, m2, *mlp)
         return xl.reshape(B, H, W, d)
 
+    def _block_stage(self, x, layer, scales):
+        """One stage on the composable route: block by block, each under
+        ``torch.utils.checkpoint`` with ``use_checkpoint`` in training."""
+        for j, blk in enumerate(layer.blocks):
+            s = None if scales is None else scales[j]
+            if self.training and self.use_checkpoint:
+                x = checkpoint(blk, x, s, use_reentrant=False)
+            else:
+                x = blk(x, s)
+        return x
+
     def forward(self, x):
         """x (B, H, W, in_chans) -> list of (B, H_i, W_i, dims[i]) features."""
         scales = self._drop_path_scales(x.shape[0], x.device) if self.training else None
         x = self.patch_embed(x)
+        stage_route = _uses_stage_route(x.dtype)
         outs = []
         for i, layer in enumerate(self.layers):
             B, H, W, d = x.shape
-            if self.training:
+            if not stage_route:
+                x = self._block_stage(x, layer, None if scales is None else scales[i])
+            elif self.training:
                 x = self._train_stage(x, layer, scales[i])
             else:
                 packed = [pack_vss_block_params(blk, x.dtype) for blk in layer.blocks]
@@ -187,6 +219,12 @@ class VSSM(nn.Module):
             if layer.downsample is not None:
                 x = layer.downsample(x)
         return outs
+
+
+def _uses_stage_route(dtype) -> bool:
+    """The stage kernels run in bfloat16 only, as the JAX megakernel paths
+    require ``dtype == bfloat16`` (``vssm.py:152, :195, :325, :367``)."""
+    return dtype == torch.bfloat16
 
 
 def _mlp_half_train(x, m2, *mlp):

@@ -12,7 +12,13 @@ Phases, in order; any failure exits non-zero:
    shapes the batch-8 forward of XFMamba-S gives it (every backbone stage
    at its full depth, the ShallowFuse and the Cross_SS2Dv5 scans, kernel 11
    (y and the checkpoints) at the four stage maps), in float32 and
-   bfloat16, TF32 off;
+   bfloat16, and at XFMamba-B's (kernels 2, 3 and 11; fusion D 2048, dt
+   rank up to 64) in float32, TF32 off; (3b) kernels 13 and 14 (the grouped scan and its
+   adjoint, every output) at the XFMamba-B Cross_SS2Dv5 direction (48, 49,
+   2048) K=1, the XFMamba-S bs-12 ShallowFuse call (12, 49, 2 x 1536) K=2
+   and a 56 x 56 map (2, L, 4 x 192) K=4 at L 3136 and 3127 (a ragged
+   chunk), N=16, forward and reverse, float32 and bfloat16, with their
+   float32 times per XFMamba-B step;
 4. XFMamba-S two-view 224x224 inference in bfloat16 with seeded weights,
    through ``two_view_xfmamba(...)(x_a, x_b)``: one batch of 8 and one of 32
    with the launch counts reset before and read after, then timings (CUDA
@@ -21,17 +27,23 @@ Phases, in order; any failure exits non-zero:
    with kernel 11 (21 launches per forward, no stage kernel); (4d) kernel
    11's time per float32 bs-32 forward beside its plain twin and beside
    the serial rank-form scan of ``csrc/nk_scan.cu`` on the same inputs;
+   (4e) XFMamba-B float32 inference at bs 8 and 32 (dims 128-1024, d_inner
+   2048, dt rank 64): launches 21 / 0 / 2 / 1 / 0 of kernel 11, the stage
+   kernel, kernels 2 and 3 and kernel 13 per forward, ms per batch;
 5. the model in float32 (kernel 11), on the card and on the CPU (plain
-   twins), at batch 1: the logits must agree;
+   twins), at batch 1: the logits must agree, and the launches be kernel
+   11 21, kernel 2 2, kernel 3 1;
 6. each training kernel against its plain version on the card, TF32 off,
-   in float32 and bfloat16, every output tensor within its tolerance: the
-   adjoint scan at the four stage maps, kernels 4 and 6 at every stage
-   width, kernel 5 (forward and the stage backward) at every stage width at
-   depth 2, all at 2 images per view, kernel 7 (with the adjoint scan)
-   at the ShallowFuse (16, 49, 1536) K=1 and Cross_SS2Dv5 (48, 49, 1536)
-   K=4 N=16 geometries, and kernels 11 and 12 at the four stage maps at the
-   float32 step's 16 images per view, with kernel 12's float32 time per
-   step;
+   every output tensor within its tolerance: in float32 and bfloat16 at
+   XFMamba-S's widths the adjoint scan at the four stage maps, kernels 4
+   and 6 at every stage width, kernel 5 (forward and the stage backward)
+   at every stage width at depth 2, all at 2 images per view; then, for
+   XFMamba-S in both dtypes and XFMamba-B in float32, kernels 2 and 7 at
+   the bs-16 step's ShallowFuse (16, 49, D) K=1 and Cross_SS2Dv5 (48, 49,
+   D) K=4 N=16 geometries, and kernels 11 and 12 at the four stage maps
+   at the step's 16 images per view, with kernels 11 and 12's float32
+   times per step and the nk pair's times per call (XFMamba-B's K=4 call
+   beside kernels 13 + 14, the route its Cross_SS2Dv5 takes);
 7. XFMamba-S training, batch 16, 224x224, bfloat16 activations, float32
    weights, Adam (lr 1e-4, weight decay 1e-5), seeded weights and views,
    labels 0 as ``bench.py --train``: 10 steps on one batch (the loss is
@@ -45,14 +57,21 @@ Phases, in order; any failure exits non-zero:
    composable blocks, kernels 11 and 12, 21 launches each per step, 42 of
    kernel 11 with ``use_checkpoint``; kernels 2 and 7 3 each, the stage
    kernels none; counts reset before each step): a finite loss at every
-   step, ms per step and peak memory in both ``use_checkpoint`` modes;
-8. float32 gradients of one train step (kernels 11 and 12), card against
-   the CPU plain twins, XFMamba-S widths at depths (2, 2, 2, 2), batch 2
-   with labels 0 and 1.
+   step, ms per step and peak memory in both ``use_checkpoint`` modes; (7d)
+   the same for XFMamba-B, whose Cross_SS2Dv5 scan trains through kernels
+   13 and 14 (4 launches each per step; kernels 2 and 7 twice, for
+   ShallowFuse);
+8. float32 gradients of one train step (kernels 11 and 12; both fusion
+   scans through kernels 13 and 14 at this batch, 5 launches each), card
+   against the CPU plain twins, XFMamba-S widths at depths (2, 2, 2, 2),
+   batch 2 with labels 0 and 1; (8b) the same for XFMamba-B, after its
+   batch-1 logits as in phase 5; (8c) an SS2D layer with d_state 16 at 56 x 56, batch 2,
+   forward and backward (kernels 13 and 14 through ``core_dispatch``).
 
 The line before the last but one is one JSON object with the kernels'
-results (launches, errors, times, bounds), the line before the last the
-card's name and power limit, the last ``{"ok": true, "device": {...}}``.
+results (launches per main-path forward or step, errors, times, bounds),
+the line before the last the card's name and power limit, the last
+``{"ok": true, "device": {...}}``.
 Without a CUDA device it prints no result and exits 1.
 """
 
@@ -67,18 +86,23 @@ import time
 import torch
 
 from xfmamba_tpu_torch.kernels import build
+from xfmamba_tpu_torch.models.ss2d import SS2D
 from xfmamba_tpu_torch.models.tops import TwoViewXFMamba, two_view_xfmamba
 from xfmamba_tpu_torch.models.vssm import VSSBlock
 from xfmamba_tpu_torch.ops import (
-    nk_scan, nk_scan_adjoint, ss2d_core_n1, vss_block_train, vss_stage, vss_stage_train)
+    nk_scan, nk_scan_adjoint, selective_scan_grouped, ss2d_core_n1, vss_block_train, vss_stage,
+    vss_stage_train)
 from xfmamba_tpu_torch.ops.vss_block import pack_vss_block_params, pack_vss_block_train_params
 from xfmamba_tpu_torch.train.config import TrainConfig
 from xfmamba_tpu_torch.train.loop import make_optimizer, make_train_step
 
 IMAGE = 224
-# XFMamba-S backbone stages: (H, d, depth); di = 2d, R = ceil(d / 16)
-STAGES = [(56, 96, 2), (28, 192, 2), (14, 384, 15), (7, 768, 2)]
-FUSION = dict(H=7, D=1536, N=16, R=48)
+# each model's backbone stages: (H, d, depth); di = 2d, R = ceil(d / 16)
+STAGES = {"small": [(56, 96, 2), (28, 192, 2), (14, 384, 15), (7, 768, 2)],
+          "base": [(56, 128, 2), (28, 256, 2), (14, 512, 15), (7, 1024, 2)]}
+# each model's fusion scans: D = 2 x hidden, R = ceil(hidden / 16)
+FUSION = {"small": dict(H=7, D=1536, N=16, R=48), "base": dict(H=7, D=2048, N=16, R=64)}
+MODEL_NAME = {"small": "XFMamba-S", "base": "XFMamba-B"}
 TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 COMPARE_BATCH = 8                      # the first batch that phase 4 runs
 TRAIN_BATCH = 16
@@ -122,6 +146,36 @@ N1_KERNELS = {
                              replaces="xfmamba_tpu/ops/selective_scan_pallas.py:440"),
 }
 F32_TRAIN_STEPS = 3
+# kernels 13 and 14, the grouped scan and its adjoint: 4 launches each per
+# XFMamba-B float32 step (Cross_SS2Dv5's four cross2d directions)
+GROUPED_KERNELS = {
+    "selective_scan_grouped_fwd": dict(
+        fn=selective_scan_grouped.grouped_scan_fwd,
+        source="xfmamba_tpu_torch/csrc/selective_scan_grouped.cu",
+        replaces="xfmamba_tpu/ops/selective_scan_pallas.py:838"),
+    "selective_scan_grouped_bwd": dict(
+        fn=selective_scan_grouped.grouped_scan_bwd,
+        source="xfmamba_tpu_torch/csrc/selective_scan_grouped.cu",
+        replaces="xfmamba_tpu/ops/selective_scan_pallas.py:979"),
+}
+# (B, L, K, C, N, label): the grouped scan's geometries; the first is the
+# XFMamba-B step's (timed), the last two a 56 x 56 map, exact and ragged in
+# the kernel's chunk of 32
+GROUPED_CASES = [
+    (48, 49, 1, 2048, 16, "XFMamba-B Cross_SS2Dv5 direction, bs 16"),
+    (12, 49, 2, 1536, 16, "XFMamba-S ShallowFuse, bs 12"),
+    (2, 3136, 4, 192, 16, "56x56 map, 98 chunks"),
+    (2, 3127, 4, 192, 16, "ragged last chunk"),
+]
+# the float32 launches per forward (inference) and per step (training) of
+# each model at full depth; the step with use_checkpoint runs kernel 11 42 times
+F32_FORWARD = {"ss2d_core_n1_fwd": 21, "vss_stage": 0, "nk_scan": 2, "nk_scan_x": 1,
+               "selective_scan_grouped_fwd": 0}
+F32_STEP = {
+    "small": {"ss2d_core_n1_fwd": 21, "ss2d_core_n1_bwd": 21, "nk_scan": 3, "nk_scan_bwd": 3},
+    "base": {"ss2d_core_n1_fwd": 21, "ss2d_core_n1_bwd": 21, "nk_scan": 2, "nk_scan_bwd": 2,
+             "selective_scan_grouped_fwd": 4, "selective_scan_grouped_bwd": 4},
+}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense operations/s by type
 HBM_BYTES_PER_S = 3.35e12
@@ -227,6 +281,21 @@ def nk_work(n, L, D, K, N, dtype, R=0, backward=False):
                       f32=scan_ops(n * L, D, K, N, R) + (8 * n * L * D if R else 0))
 
 
+def grouped_work(B, L, K, C, N, dtype, backward=False):
+    """Kernel 13 (or 14, ``backward``) on one (B, L, K * C) call: u, delta,
+    B and C read and y and the checkpoints written once (the backward also
+    reads dy and the checkpoints and writes du, d delta, dB, dC and the
+    parameter gradients), with the scan's operations per chain and step."""
+    esize = torch.finfo(dtype).bits // 8
+    M, KC = B * L, K * C
+    ck = 4 * B * KC * N * -(-L // selective_scan_grouped.CHUNK)
+    if not backward:
+        return Work().add(M * (2 * KC + 2 * K * N) * esize + 4 * M * KC + ck + 4 * KC * (N + 2),
+                          f32=scan_ops(M, KC, 1, N))
+    return Work().add(M * (2 * KC + 2 * K * N) * esize + 4 * M * (3 * KC + 2 * K * N) + ck
+                      + 8 * KC * (N + 2), f32=scan_bwd_ops(M, KC, 1, N))
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -267,8 +336,8 @@ def stage_case(g, H, d, depth, batch, dtype):
     return (x, packed, H, H), vss_stage.vss_stage, vss_stage.vss_stage_plain
 
 
-def fusion_scan_operands(g, n, K, dtype):
-    H, D, N = FUSION["H"], FUSION["D"], FUSION["N"]
+def fusion_scan_operands(g, n, K, dtype, size="small"):
+    H, D, N = (FUSION[size][k] for k in "HDN")
     L = H * H
     A = -torch.arange(1.0, N + 1).repeat(K, 1).reshape(K * N, 1).expand(K * N, D)
     dt = torch.exp(torch.rand(K, D, generator=g) * 4.6 - 6.9)   # dt in [1e-3, 1e-1]
@@ -277,19 +346,19 @@ def fusion_scan_operands(g, n, K, dtype):
             torch.ones(K, D, device="cuda"), (dt + torch.log(-torch.expm1(-dt))).cuda())
 
 
-def shallow_case(g, batch, dtype):
-    """One of ShallowFuse's two K=1 row_f calls: (B, 49, 1536), N = 16."""
-    u, Bs, Cs, A, Dvec, bias = fusion_scan_operands(g, batch, 1, dtype)
+def shallow_case(g, batch, dtype, size="small"):
+    """One of ShallowFuse's two K=1 row_f calls: (B, 49, D), N = 16."""
+    u, Bs, Cs, A, Dvec, bias = fusion_scan_operands(g, batch, 1, dtype, size)
     dts = randn(g, *u.shape, dtype=dtype, scale=0.5)
-    H = FUSION["H"]
+    H = FUSION[size]["H"]
     return ((u, dts, Bs, Cs, A, Dvec, bias, H, H, ("row_f",)),
             nk_scan.nk_scan, nk_scan.nk_scan_plain)
 
 
-def cross_case(g, batch, dtype):
-    """Cross_SS2Dv5's rank-form call: (3B, 49, 1536), K = 4, N = 16, R = 48."""
-    K, R, D, H = 4, FUSION["R"], FUSION["D"], FUSION["H"]
-    u, Bs, Cs, A, Dvec, bias = fusion_scan_operands(g, 3 * batch, K, dtype)
+def cross_case(g, batch, dtype, size="small"):
+    """Cross_SS2Dv5's rank-form call: (3B, 49, D), K = 4, N = 16, rank R."""
+    K, R, D, H = 4, FUSION[size]["R"], FUSION[size]["D"], FUSION[size]["H"]
+    u, Bs, Cs, A, Dvec, bias = fusion_scan_operands(g, 3 * batch, K, dtype, size)
     ranks = randn(g, *u.shape[:2], K * R, dtype=dtype)
     w_dt = randn(g, K * R, D, scale=R ** -0.5)
     lno = torch.stack([torch.ones(D), torch.zeros(D)]).cuda()
@@ -309,27 +378,37 @@ def n1_case(g, n, H, d, dtype):
     return (x, *ss2d_core_n1.pack_n1_inputs(x, xw, dtw, bias, A_logs, randn(g, 4 * D)))
 
 
-def main_path_cases(g, batch, dtype):
-    """(kernel name, label, (args, kernel, plain)) at every main-path geometry."""
-    for H, d, depth in STAGES:
-        yield "vss_stage", f"stage H={H} d={d} depth={depth}", \
-            stage_case(g, H, d, depth, batch, dtype)
-    yield "nk_scan", "ShallowFuse (B,49,1536) K=1 N=16", shallow_case(g, batch, dtype)
-    yield "nk_scan_x", "Cross_SS2Dv5 (3B,49,1536) K=4 N=16 R=48", cross_case(g, batch, dtype)
-    for H, d, _ in STAGES:
+def main_path_cases(g, batch, dtype, size="small"):
+    """(kernel name, label, (args, kernel, plain)) at every geometry of the
+    model's inference path; XFMamba-B's (float32) runs no stage kernel."""
+    D, R = FUSION[size]["D"], FUSION[size]["R"]
+    if size == "small":
+        for H, d, depth in STAGES[size]:
+            yield "vss_stage", f"stage H={H} d={d} depth={depth}", \
+                stage_case(g, H, d, depth, batch, dtype)
+    yield "nk_scan", f"ShallowFuse (B,49,{D}) K=1 N=16", shallow_case(g, batch, dtype, size)
+    yield "nk_scan_x", f"Cross_SS2Dv5 (3B,49,{D}) K=4 N=16 R={R}", \
+        cross_case(g, batch, dtype, size)
+    for H, d, _ in STAGES[size]:
         yield "ss2d_core_n1_fwd", f"N=1 core H={H} D={2 * d} R={-(-d // 16)} (y, ck)", \
             (n1_case(g, 2 * batch, H, d, dtype), ss2d_core_n1.ss2d_core_n1_fwd,
              ss2d_core_n1.ss2d_core_n1_fwd_plain)
 
 
 def phase_compare(errors):
+    """Every inference kernel against its plain version at XFMamba-S's
+    shapes in float32 and bfloat16, and at XFMamba-B's in float32 (its only
+    precision here: dims 128-1024, fusion D 2048, dt rank up to 64)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"phase 3: kernels vs plain versions on the card, batch {COMPARE_BATCH}, TF32 off")
+    print(f"phase 3: kernels vs plain versions on the card, batch {COMPARE_BATCH}, TF32 off; "
+          "XFMamba-S in float32 and bfloat16, XFMamba-B in float32")
     g = torch.Generator().manual_seed(1)
     failed = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for name, label, (args, kernel, plain) in main_path_cases(g, COMPARE_BATCH, dtype):
+    runs = [("small", torch.float32), ("small", torch.bfloat16), ("base", torch.float32)]
+    for size, dtype in runs:
+        for name, label, (args, kernel, plain) in main_path_cases(g, COMPARE_BATCH, dtype, size):
+            label = f"{MODEL_NAME[size]} {label}"
             with torch.no_grad():
                 got = kernel(*args)
                 want = plain(*args)
@@ -340,12 +419,76 @@ def phase_compare(errors):
                       for a, b in pairs)
             ok = all(bool(torch.isfinite(a).all()) for a, _ in pairs) and rel <= TOL[dtype]
             errors[name] = max(errors.get(name, 0.0), err)
-            print(f"  {name:9s} {label:42s} {str(dtype)[6:]:8s} max_abs_err={err:.3e} "
+            print(f"  {name:9s} {label:52s} {str(dtype)[6:]:8s} max_abs_err={err:.3e} "
                   f"rel={rel:.3e} tol={TOL[dtype]:.0e} {'OK' if ok else 'FAIL'}")
             if not ok:
                 failed.append((name, label, dtype))
     if failed:
         raise PhaseFailure(f"kernels disagree with their plain versions: {failed}")
+
+
+def grouped_case(g, B, L, K, C, N, dtype):
+    """The grouped scan's operands with a trained model's ranges: A in
+    [-e^1.5, -1] per state, deltas about softplus(-4 +- 1)."""
+    return (randn(g, B, L, K * C, dtype=dtype), randn(g, B, L, K * C, dtype=dtype) - 4.0,
+            -torch.exp(1.5 * torch.rand(K * C, N, generator=g)).cuda(),
+            randn(g, B, L, K, N, dtype=dtype), randn(g, B, L, K, N, dtype=dtype),
+            randn(g, K * C), randn(g, K * C, scale=0.5))
+
+
+def phase_compare_grouped(errors, card):
+    """Kernels 13 and 14 against their plain twins at every grouped-scan
+    geometry, float32 and bfloat16, forward and reverse, every output (y,
+    checkpoints, all seven gradients from the plain checkpoints); and each
+    kernel's float32 time per XFMamba-B step: the first geometry's two
+    forward and two reverse calls, kernel and plain twin on the same inputs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"phase 3b: kernels 13 and 14 vs their plain twins, TF32 off; float32 times per "
+          f"XFMamba-B bs-{TRAIN_BATCH} step ({card})")
+    ssg = selective_scan_grouped
+    g = torch.Generator().manual_seed(9)
+    failed = []
+    times = {name: [0.0, 0.0] for name in GROUPED_KERNELS}
+    works = {name: Work() for name in GROUPED_KERNELS}
+    for dtype in (torch.float32, torch.bfloat16):
+        for (B, L, K, C, N, label), reverse in ((c, r) for c in GROUPED_CASES for r in (0, 1)):
+            args = grouped_case(g, B, L, K, C, N, dtype)
+            geo = f"({B},{L},{K}x{C}) N={N} {'rev' if reverse else 'fwd'}"
+            gy = randn(g, B, L, K * C)
+            with torch.no_grad():
+                fwd = (lambda: ssg.grouped_scan_fwd(*args, reverse=bool(reverse)))
+                fwd_plain = (lambda: ssg.grouped_scan_fwd_plain(*args, reverse=bool(reverse)))
+                fwd()                                      # warm-up
+                got, ms = timed_call(fwd, 5)
+                want, plain_ms = timed_call(fwd_plain)
+                check_outputs(errors, "selective_scan_grouped_fwd", f"{label} {geo}", dtype,
+                              got, want, failed)
+                ck = want[1]
+                bwd = (lambda: ssg.grouped_scan_bwd(*args, ck, gy, reverse=bool(reverse)))
+                bwd()
+                got_b, ms_b = timed_call(bwd, 5)
+                want_b, plain_ms_b = timed_call(
+                    lambda: ssg.grouped_scan_bwd_plain(*args, ck, gy, reverse=bool(reverse)))
+                check_outputs(errors, "selective_scan_grouped_bwd", f"{label} {geo}", dtype,
+                              got_b, want_b, failed)
+            if dtype == torch.float32 and (B, L, K, C, N) == GROUPED_CASES[0][:5]:
+                for name, k_ms, p_ms, backward in (
+                        ("selective_scan_grouped_fwd", ms, plain_ms, False),
+                        ("selective_scan_grouped_bwd", ms_b, plain_ms_b, True)):
+                    times[name][0] += 2 * k_ms
+                    times[name][1] += 2 * p_ms
+                    works[name] += grouped_work(B, L, K, C, N, dtype, backward).times(2)
+            del args, got, want, got_b, want_b
+    if failed:
+        raise PhaseFailure(f"kernels 13/14 disagree with their plain twins: {failed}")
+    out = {}
+    for name, (ms, plain_ms) in times.items():
+        out[name] = (ms, plain_ms, *works[name].bound())
+        print(f"  {name} per XFMamba-B step (2 forward + 2 reverse calls): kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {out[name][2]:.4f} ms ({out[name][3]}, "
+              f"{works[name].bytes / 1e6:.1f} MB)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -385,7 +528,7 @@ def phase_model(model, card):
             print(f"  bs {bs}: {ms:.2f} ms per batch (median of 3 runs of 5: "
                   f"{', '.join(f'{s:.2f}' for s in samples)}), {1000 * bs / ms:.1f} "
                   f"two-view samples/s ({card})")
-    return launches
+    return {name: n // 2 for name, n in launches.items()}         # per forward
 
 
 def phase_kernel_times(card):
@@ -397,12 +540,13 @@ def phase_kernel_times(card):
     bf16 = torch.bfloat16
     times = {}
     with torch.no_grad():
-        cases = {"vss_stage": [stage_case(g, H, d, depth, 32, bf16) for H, d, depth in STAGES],
+        cases = {"vss_stage": [stage_case(g, H, d, depth, 32, bf16)
+                               for H, d, depth in STAGES["small"]],
                  "nk_scan": [shallow_case(g, 32, bf16)] * 2,
                  "nk_scan_x": [cross_case(g, 32, bf16)]}
         work = {"vss_stage": Work(), "nk_scan": nk_work(32, 49, 1536, 1, 16, bf16).times(2),
                 "nk_scan_x": nk_work(96, 49, 1536, 4, 16, bf16, R=48)}
-        for H, d, depth in STAGES:
+        for H, d, depth in STAGES["small"]:
             work["vss_stage"] += block_work(64, H, d, bf16, mlp=True).times(depth)
         for name, group in cases.items():
             ms = sum(time_ms(lambda a=args, f=kernel: f(*a), 5) for args, kernel, _ in group)
@@ -413,15 +557,16 @@ def phase_kernel_times(card):
     return times
 
 
-def phase_model_f32(model, card):
+def phase_model_f32(model, card, phase="4c", name="XFMamba-S"):
     """Float32 inference: the composable blocks with kernel 11 (the stage
-    kernels are bfloat16's), launch counts and ms per batch."""
-    print("phase 4c: XFMamba-S two-view 224x224 inference, float32 (composable blocks, "
+    kernels are bfloat16's), the fusion scans through kernels 2 and 3 (the
+    grouped scan not at all), launch counts and ms per batch."""
+    print(f"phase {phase}: {name} two-view 224x224 inference, float32 (composable blocks, "
           f"kernel 11), TF32 off for matmuls and cuDNN ({card})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    per_forward = {"ss2d_core_n1_fwd": 21, "vss_stage": 0, "nk_scan": 2, "nk_scan_x": 1}
-    fns = {name: (N1_KERNELS | KERNELS)[name]["fn"] for name in per_forward}
+    per_forward = F32_FORWARD
+    fns = {name: (N1_KERNELS | KERNELS | GROUPED_KERNELS)[name]["fn"] for name in per_forward}
     inputs = {bs: views(bs, torch.float32, 100 + bs) for bs in (8, 32)}
     with torch.no_grad():
         model(*inputs[8])                                  # warm-up
@@ -444,7 +589,7 @@ def phase_model_f32(model, card):
             print(f"  bs {bs}: {samples[1]:.2f} ms per batch (median of 3 runs of 5: "
                   f"{', '.join(f'{v:.2f}' for v in samples)}), "
                   f"{1000 * bs / samples[1]:.1f} two-view samples/s ({card})")
-    return launches["ss2d_core_n1_fwd"]
+    return launches["ss2d_core_n1_fwd"] // 2                          # per forward
 
 
 def serial_scan_args(x, xdbl, w_dt, A, Ds, bias):
@@ -468,7 +613,7 @@ def phase_n1_times(card):
     ms = plain_ms = serial_ms = 0.0
     work = Work()
     with torch.no_grad():
-        for H, d, depth in STAGES:
+        for H, d, depth in STAGES["small"]:
             args = n1_case(g, 64, H, d, torch.float32)
             serial = serial_scan_args(*args)
             k_ms = time_ms(lambda: ss2d_core_n1.ss2d_core_n1_fwd(*args), 5)
@@ -490,27 +635,31 @@ def phase_n1_times(card):
     return {"ss2d_core_n1_fwd": (ms, plain_ms, bound_ms, bound_by)}
 
 
-def phase_cpu_parity(model):
-    print("phase 5: float32 logits, card vs CPU plain path, batch 1; the float32 route: "
-          "composable blocks, kernel 11 on the card, its plain twin on the CPU")
+def phase_cpu_parity(model, expect, phase="5", name="XFMamba-S"):
+    """Float32 eval logits at batch 1, the model on the card (kernel 11,
+    the fusion scans through kernels 2 and 3; ``expect`` the launches of
+    that forward) against itself on the CPU (plain twins).  Leaves the
+    model on the CPU."""
+    print(f"phase {phase}: {name} float32 logits, card vs CPU plain path, batch 1; the float32 "
+          "route: composable blocks, kernel 11 on the card, its plain twin on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     xa, xb = views(1, torch.float32, 7)
-    fwd = ss2d_core_n1.ss2d_core_n1_fwd
+    fns = {n: k["fn"] for n, k in (N1_KERNELS | KERNELS | GROUPED_KERNELS).items()}
     with torch.no_grad():
-        before = fwd.launches
+        model.eval().cuda()
+        counts = counted(fns)
         got = model(xa, xb).cpu()
-        if fwd.launches - before != 21:
-            raise PhaseFailure(f"float32 forward launched kernel 11 {fwd.launches - before} "
-                               "times, expected 21")
+        launches = {n: c for n, c in counts().items() if c}
         t0 = time.time()
-        want = model.to("cpu")(xa.cpu(), xb.cpu())
+        want = model.cpu()(xa.cpu(), xb.cpu())
     err = float((got - want).abs().max())
-    tol = 1e-3 * float(want.abs().max()) + 1e-5
+    tol = 1e-3 * float(want.abs().max())
     print(f"  card {got.tolist()}  cpu {want.tolist()}  max_abs_err={err:.3e} "
-          f"tol={tol:.3e} (cpu forward {time.time() - t0:.1f} s)")
-    if not err <= tol:
-        raise PhaseFailure("float32 logits on the card disagree with the CPU plain path")
+          f"tol={tol:.3e} (cpu forward {time.time() - t0:.1f} s); launches {launches}")
+    if launches != expect or not err <= tol:
+        raise PhaseFailure(f"{name} float32 logits on the card disagree with the CPU plain "
+                           f"path, or its launches {launches} differ from {expect}")
 
 
 # ---------------------------------------------------------------------------
@@ -575,27 +724,35 @@ def stage_grads(result):
     return {f"{j}.{k}": v for j, gj in enumerate(grads) for k, v in gj.items()} | {"dx": dx}
 
 
-def nk_bwd_case(g, n, K, dtype):
-    u, Bs, Cs, A, Dvec, bias = fusion_scan_operands(g, n, K, dtype)
+def nk_bwd_case(g, n, K, dtype, size="small"):
+    """Kernel 7's operands (u, dts, Bs, Cs, A, D, bias, gy, H, W, kinds);
+    kernel 2's dts form takes the same without gy."""
+    u, Bs, Cs, A, Dvec, bias = fusion_scan_operands(g, n, K, dtype, size)
     dts = randn(g, *u.shape[:2], K * u.shape[2], dtype=dtype, scale=0.5)
-    H = FUSION["H"]
+    H = FUSION[size]["H"]
     kinds = ("row_f",) if K == 1 else nk_scan.scan_mode_kinds("cross2d")
     return (u, dts, Bs, Cs, A, Dvec, bias, randn(g, *u.shape, dtype=dtype), H, H, kinds)
 
 
-def phase_compare_train(errors):
+def phase_compare_train(errors, card):
+    """The training kernels against their plain versions: XFMamba-S's in
+    float32 and bfloat16, XFMamba-B's (kernels 2, 7, 11, 12 at its widths)
+    in float32.  Also, in float32 at each model's bs-16 step shapes,
+    kernel 12's and kernel 11's times per step, and the nk pair's (kernels
+    2 + 7) times at the fusion geometries."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     n = 2 * COMPARE_TRAIN_BATCH
     print(f"phase 6: training kernels vs plain versions on the card, {COMPARE_TRAIN_BATCH} "
-          f"images per view (kernels 11 and 12: {TRAIN_BATCH}), TF32 off; tolerance relative to "
-          "each output's largest magnitude")
+          f"images per view (kernels 2, 7, 11 and 12: the bs-{TRAIN_BATCH} step's shapes), "
+          "TF32 off; tolerance relative to each output's largest magnitude; XFMamba-S in "
+          f"float32 and bfloat16, XFMamba-B in float32 ({card})")
     g = torch.Generator().manual_seed(3)
     failed = []
-    times = {}
+    times = {size: {} for size in STAGES}
     for dtype in (torch.float32, torch.bfloat16):
         with torch.no_grad():
-            for H, d, _ in STAGES:
+            for H, d, _ in STAGES["small"]:
                 geo = f"H={H} d={d}"
                 args = adjoint_scan_case(g, n, H, d, dtype)
                 check_outputs(errors, "vss_block_bwd", f"adjoint scan {geo} K=4 N=1", dtype,
@@ -623,50 +780,79 @@ def phase_compare_train(errors):
                                   gy, *got[1:], ps, H, H, m1, m2, block_bwd=bwd))
                                 for bwd in (vss_block_train.vss_block_bwd,
                                             vss_block_train.vss_block_bwd_plain)), failed)
-            for K, label, bs in ((1, "ShallowFuse (16,49,1536) K=1 N=16", TRAIN_BATCH),
-                                 (4, "Cross_SS2Dv5 (48,49,1536) K=4 N=16", 3 * TRAIN_BATCH)):
-                args = nk_bwd_case(g, bs, K, dtype)
-                check_outputs(errors, "nk_scan_bwd", label, dtype,
-                              nk_scan_adjoint.nk_scan_bwd(*args),
-                              nk_scan_adjoint.nk_scan_bwd_plain(*args), failed)
-            compare_n1(errors, g, dtype, failed, times)
+            for size in STAGES if dtype == torch.float32 else ("small",):
+                compare_fusion(errors, g, dtype, failed, times[size], size)
+                compare_n1(errors, g, dtype, failed, times[size], size)
         torch.cuda.synchronize()
     if failed:
         raise PhaseFailure(f"training kernels disagree with their plain versions: {failed}")
-    bound_ms, bound_by = times.pop("work").bound()
-    ms, plain_ms = times["ss2d_core_n1_bwd"]
-    print(f"  kernel 12 per float32 bs-{TRAIN_BATCH} step: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})")
-    return {"ss2d_core_n1_bwd": (ms, plain_ms, bound_ms, bound_by)}
+    for size, t in times.items():
+        print(f"  {MODEL_NAME[size]} float32 bs-{TRAIN_BATCH} step: kernel 11 {t['fwd'][0]:.3f} ms "
+              f"(plain {t['fwd'][1]:.3f} ms), kernel 12 {t['bwd'][0]:.3f} ms (plain "
+              f"{t['bwd'][1]:.3f} ms, bound {t['work'].bound()[0]:.4f} ms, "
+              f"{t['work'].bound()[1]})")
+        for label, f_ms, b_ms in t["nk"].values():
+            print(f"  {MODEL_NAME[size]} nk pair at {label}: kernel 2 {f_ms:.3f} ms + kernel 7 "
+                  f"{b_ms:.3f} ms per call")
+    bound_ms, bound_by = times["small"]["work"].bound()
+    ms, plain_ms = times["small"]["bwd"]
+    return {"ss2d_core_n1_bwd": (ms, plain_ms, bound_ms, bound_by)}, times
 
 
-def compare_n1(errors, g, dtype, failed, times):
+def compare_fusion(errors, g, dtype, failed, times, size):
+    """Kernels 2 (the dts form that training runs) and 7 against their
+    plain versions at the model's bs-16 fusion geometries, ShallowFuse's
+    (B, 49, D) K=1 and Cross_SS2Dv5's (3B, 49, D) K=4; in float32 also each
+    call's kernel times (``times["nk"]``)."""
+    D = FUSION[size]["D"]
+    for K, bs in ((1, TRAIN_BATCH), (4, 3 * TRAIN_BATCH)):
+        label = f"({bs},49,{D}) K={K} N=16"
+        args = nk_bwd_case(g, bs, K, dtype, size)
+        fwd_args = args[:7] + args[8:]
+        check_outputs(errors, "nk_scan", f"{MODEL_NAME[size]} fusion scan {label}", dtype,
+                      [nk_scan.nk_scan(*fwd_args)], [nk_scan.nk_scan_plain(*fwd_args)], failed)
+        check_outputs(errors, "nk_scan_bwd", f"{MODEL_NAME[size]} fusion adjoint {label}",
+                      dtype, nk_scan_adjoint.nk_scan_bwd(*args),
+                      nk_scan_adjoint.nk_scan_bwd_plain(*args), failed)
+        if dtype == torch.float32:
+            times.setdefault("nk", {})[K] = (
+                label, time_ms(lambda: nk_scan.nk_scan(*fwd_args), 3),
+                time_ms(lambda: nk_scan_adjoint.nk_scan_bwd(*args), 3))
+
+
+def compare_n1(errors, g, dtype, failed, times, size):
     """Kernels 11 and 12 against their plain twins at the float32 step's
-    shapes (2 x 16 images, every stage), every output: y, the checkpoints,
-    du, dxdbl, dw_dt, dbias, dA, dD (kernel 12 from the plain checkpoints);
-    in float32 also kernel 12's time per step (a stage's call times its
-    depth) and its work."""
+    shapes (2 x 16 images, every stage of the model), every output: y, the
+    checkpoints, du, dxdbl, dw_dt, dbias, dA, dD (kernel 12 from the plain
+    checkpoints); in float32 also each kernel's time per step (a stage's
+    call times its depth) and kernel 12's work."""
     n = 2 * TRAIN_BATCH
-    for H, d, depth in STAGES:
+    for H, d, depth in STAGES[size]:
         args = n1_case(g, n, H, d, dtype)
-        geo = f"H={H} D={2 * d} R={-(-d // 16)}"
-        y, ck = ss2d_core_n1.ss2d_core_n1_fwd_plain(*args)
-        check_outputs(errors, "ss2d_core_n1_fwd", f"N=1 core ({n} images) {geo}", dtype,
-                      ss2d_core_n1.ss2d_core_n1_fwd(*args), (y, ck), failed)
-        gy = randn(g, *args[0].shape)
+        geo = f"{MODEL_NAME[size]} H={H} D={2 * d} R={-(-d // 16)}"
+
+        def forward():
+            return ss2d_core_n1.ss2d_core_n1_fwd(*args)
 
         def kernel():
             return ss2d_core_n1.ss2d_core_n1_bwd(*args, ck, gy)
 
+        forward()                                          # warm-up
+        got, f_ms = timed_call(forward, 3)
+        (y, ck), f_plain_ms = timed_call(lambda: ss2d_core_n1.ss2d_core_n1_fwd_plain(*args))
+        check_outputs(errors, "ss2d_core_n1_fwd", f"N=1 core ({n} images) {geo}", dtype,
+                      got, (y, ck), failed)
+        gy = randn(g, *args[0].shape)
         kernel()                                           # warm-up
         got, ms = timed_call(kernel, 3)
         want, plain_ms = timed_call(lambda: ss2d_core_n1.ss2d_core_n1_bwd_plain(*args, ck, gy))
         check_outputs(errors, "ss2d_core_n1_bwd", f"N=1 core backward ({n} images) {geo}",
                       dtype, got, want, failed)
         if dtype == torch.float32:
-            acc = times.setdefault("ss2d_core_n1_bwd", [0.0, 0.0])
-            acc[0] += depth * ms
-            acc[1] += depth * plain_ms
+            for key, k_ms, p_ms in (("fwd", f_ms, f_plain_ms), ("bwd", ms, plain_ms)):
+                acc = times.setdefault(key, [0.0, 0.0])
+                acc[0] += depth * k_ms
+                acc[1] += depth * p_ms
             times.setdefault("work", Work())
             times["work"] += n1_work(n, H, 2 * d, -(-d // 16), backward=True).times(depth)
 
@@ -743,7 +929,8 @@ def phase_train(card):
     ck_samples = timed_steps(step, batch)
     print(f"  use_checkpoint: {ck_samples[1]:.2f} ms per step (median of 3 runs of 3 steps: "
           f"{', '.join(f'{v:.2f}' for v in ck_samples)})")
-    return {name: ck[name] if name == "vss_block_train" else launches[name]
+    # per step, each step's counts having been checked above
+    return {name: ck[name] if name == "vss_block_train" else per_step[-1][name]
             for name in TRAIN_KERNELS}
 
 
@@ -776,7 +963,7 @@ def phase_train_kernel_times(card, errors):
 
     for dtype in (torch.float32, torch.bfloat16):
         with torch.no_grad():
-            for H, d, depth in STAGES:
+            for H, d, depth in STAGES["small"]:
                 geo = f"H={H} d={d}"
                 (p,) = train_blocks(g, d, 1, dtype)
                 x, m1 = randn(g, n, H * H, d, dtype=dtype), masks(g, n)
@@ -819,22 +1006,27 @@ def phase_train_kernel_times(card, errors):
     return times
 
 
-def phase_train_f32(card, n1_bwd_times):
+def phase_train_f32(card, size, phase, n1_times):
     """Float32 training at batch 16 through the composable blocks: kernel 11
-    forward, kernel 12 backward, launch counts per step in both
-    ``use_checkpoint`` modes, ms per step and peak memory."""
-    print(f"phase 7c: XFMamba-S training, batch {TRAIN_BATCH}, {IMAGE}x{IMAGE}, float32 "
+    forward, kernel 12 backward, the fusion scans through kernels 2/7
+    (XFMamba-S) or, for Cross_SS2Dv5, 13/14 (XFMamba-B, whose whole-map
+    adjoint would not fit the TPU's VMEM rule); launch counts per step in
+    both ``use_checkpoint`` modes, ms per step and peak memory, beside
+    kernels 11 and 12's times per step from phase 6 (``n1_times``).
+    Returns the launches per step without ``use_checkpoint``."""
+    name = MODEL_NAME[size]
+    print(f"phase {phase}: {name} training, batch {TRAIN_BATCH}, {IMAGE}x{IMAGE}, float32 "
           "activations and weights (composable blocks, kernels 11 and 12), Adam lr 1e-4 wd 1e-5, "
           f"TF32 off for matmuls and cuDNN ({card})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = two_view_xfmamba("small", seed=0)
+    model = two_view_xfmamba(size, seed=0)
     optimizer = make_optimizer(TrainConfig(lr=1e-4, weight_decay=1e-5), model.parameters())
     step, _ = make_train_step(model, optimizer, multilabel=False)
     batch = train_batch(torch.float32)
-    fns = {name: k["fn"] for name, k in (N1_KERNELS | TRAIN_KERNELS | KERNELS).items()}
-    want = dict.fromkeys(fns, 0) | {"ss2d_core_n1_fwd": 21, "ss2d_core_n1_bwd": 21,
-                                    "nk_scan": 3, "nk_scan_bwd": 3}
+    fns = {name: k["fn"]
+           for name, k in (N1_KERNELS | TRAIN_KERNELS | KERNELS | GROUPED_KERNELS).items()}
+    want = dict.fromkeys(fns, 0) | F32_STEP[size]
 
     def counted_step():
         for fn in fns.values():
@@ -843,11 +1035,10 @@ def phase_train_f32(card, n1_bwd_times):
         torch.cuda.synchronize()
         return loss, {name: fn.launches for name, fn in fns.items()}
 
-    losses, total = [], 0
+    losses = []
     for _ in range(F32_TRAIN_STEPS):
         loss, counts = counted_step()
         losses.append(loss)
-        total += counts["ss2d_core_n1_bwd"]
         if counts != want:
             raise PhaseFailure(f"float32 launches per step {counts}, expected {want}")
     print(f"  losses: {', '.join(f'{v:.6f}' for v in losses)}; launches per step {want}")
@@ -867,21 +1058,54 @@ def phase_train_f32(card, n1_bwd_times):
         print(f"  {'use_checkpoint: ' if checkpointed else ''}{samples[1]:.2f} ms per step "
               f"(median of 3 runs of 3 steps: {', '.join(f'{v:.2f}' for v in samples)}); peak "
               f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})")
-    ms, plain_ms, bound_ms, _ = n1_bwd_times["ss2d_core_n1_bwd"]
-    print(f"  kernel 12 per step (phase 6, the same shapes): {ms:.3f} ms, plain twin "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms")
-    return total
+    print(f"  per step (phase 6, the same shapes): kernel 11 {n1_times['fwd'][0]:.3f} ms, "
+          f"kernel 12 {n1_times['bwd'][0]:.3f} ms (its bound "
+          f"{n1_times['work'].bound()[0]:.4f} ms)")
+    del model, optimizer, step
+    return want
 
 
-def phase_train_cpu_parity():
-    print("phase 8: float32 gradients of one train step, card vs CPU plain path, "
-          "XFMamba-S widths at depths (2, 2, 2, 2), batch 2; the float32 route: composable "
-          "blocks, kernels 11 and 12 on the card, their plain twins on the CPU")
+def counted(fns):
+    """Snapshot the launch counts of ``fns`` (name -> wrapper); the returned
+    function gives each one's launches since the snapshot."""
+    before = {name: fn.launches for name, fn in fns.items()}
+    return lambda: {name: fn.launches - before[name] for name, fn in fns.items()}
+
+
+def grad_errors(model, want):
+    """The worst relative error of the model's gradients against ``want``,
+    each tensor against its own largest magnitude, and its name."""
+    worst, worst_key = 0.0, None
+    for k, p in model.named_parameters():
+        if k in want:
+            _, r = rel(p.grad.cpu(), want[k])
+            if r > worst:
+                worst, worst_key = r, k
+    return worst, worst_key
+
+
+def depth2_model(size):
+    """The model at full widths and depths (2, 2, 2, 2), on the CPU, with
+    no drop path: the size at which the CPU plain path fits the run."""
+    return TwoViewXFMamba(
+        generator=torch.Generator().manual_seed(5), model_type=size,
+        hidden_dim=1024 if size == "base" else 768, drop_path_rate=0.0,
+        backbone_overrides=dict(depths=(2, 2, 2, 2), drop_path_rate=0.0))
+
+
+def phase_train_cpu_parity(model, name, phase):
+    """Float32 gradients of one train step at batch 2, the model (on the
+    CPU, from `depth2_model`) on the card against the CPU plain twins; at
+    batch 2 neither fusion scan has an aligned image group and both take
+    kernels 13 and 14 (ShallowFuse one K=2 call, Cross_SS2Dv5 four)."""
+    print(f"phase {phase}: float32 card vs CPU plain path, {name} widths at depths (2, 2, 2, 2): "
+          "gradients of one train step at batch 2; composable blocks with kernels 11 and 12, "
+          "fusion scans through kernels 13 and 14 on the card, their plain twins on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kw = dict(model_type="small", hidden_dim=768, drop_path_rate=0.0,
-              backbone_overrides=dict(depths=(2, 2, 2, 2), drop_path_rate=0.0))
-    model = TwoViewXFMamba(generator=torch.Generator().manual_seed(5), **kw).train()
+    fns = {n: k["fn"] for n, k in (N1_KERNELS | KERNELS | GROUPED_KERNELS).items()}
+    fns |= {"nk_scan_bwd": TRAIN_KERNELS["nk_scan_bwd"]["fn"]}
+    model.train()
     g = torch.Generator().manual_seed(6)
     xa, xb = (torch.randn(2, IMAGE, IMAGE, 1, generator=g) for _ in range(2))
     label = torch.tensor([0, 1])
@@ -893,29 +1117,61 @@ def phase_train_cpu_parity():
     cpu_s = time.time() - t0
     model.zero_grad()
     model.cuda()
-    fns = [N1_KERNELS[name]["fn"] for name in N1_KERNELS]
-    before = [fn.launches for fn in fns]
+    counts = counted(fns)
     loss_c = torch.nn.functional.cross_entropy(model(xa.cuda(), xb.cuda()), label.cuda())
     loss_c.backward()
     loss_c = loss_c.detach()
-    counts = [fn.launches - b for fn, b in zip(fns, before)]
-    if counts != [8, 8]:
-        raise PhaseFailure(f"kernels 11 and 12 launched {counts} times, expected 8 and 8")
+    launches = {n: c for n, c in counts().items() if c}
+    expect = {"ss2d_core_n1_fwd": 8, "ss2d_core_n1_bwd": 8, "selective_scan_grouped_fwd": 5,
+              "selective_scan_grouped_bwd": 5}
+    if launches != expect:
+        raise PhaseFailure(f"batch-2 step launches {launches}, expected {expect}")
     # Batch 2: at batch 1 the BatchNorm ahead of ShallowFuse would remove
     # the per-sample mean that its squeeze-excitation averages, leaving
     # those weight gradients at rounding noise.  Each gradient is held to
     # 1e-3 of its own largest magnitude.
-    worst, worst_key = 0.0, None
-    for k, p in model.named_parameters():
-        if k in want:
-            _, r = rel(p.grad.cpu(), want[k])
-            if r > worst:
-                worst, worst_key = r, k
+    worst, worst_key = grad_errors(model, want)
     print(f"  loss card {float(loss_c):.7f} cpu {float(loss):.7f}; {len(want)} gradients, "
           f"worst relative error {worst:.3e} ({worst_key}), tol 1e-03 "
-          f"(cpu step {cpu_s:.1f} s)")
+          f"(cpu step {cpu_s:.1f} s); launches {launches}")
     if not (worst <= 1e-3 and abs(float(loss_c) - float(loss)) <= 1e-4):
-        raise PhaseFailure("float32 gradients on the card disagree with the CPU plain path")
+        raise PhaseFailure(f"{name} float32 gradients on the card disagree with the CPU plain "
+                           "path")
+
+
+def phase_ss2d_layer():
+    """An SS2D layer with d_state 16 (d_model 96, d_inner 192) at 56 x 56,
+    batch 2, forward and backward, card against the CPU plain twins: its
+    scan core takes kernels 13 and 14 through ``core_dispatch`` (the TPU
+    rule gives no nk group at this map), one call per cross2d direction."""
+    print("phase 8c: SS2D(d_model=96, d_state=16) at 56x56, batch 2, float32, forward and "
+          "backward, card (kernels 13/14 via core_dispatch) vs CPU plain twins")
+    layer = SS2D(96, d_state=16, generator=torch.Generator().manual_seed(10))
+    g = torch.Generator().manual_seed(11)
+    x, gy = torch.randn(2, 56, 56, 96, generator=g), torch.randn(2, 56, 56, 96, generator=g)
+    results = []
+    for device in ("cpu", "cuda"):
+        layer.to(device).zero_grad()
+        xl = x.clone().to(device).requires_grad_()
+        counts = counted({n: k["fn"] for n, k in GROUPED_KERNELS.items()})
+        t0 = time.time()
+        y = layer(xl)
+        y.backward(gy.to(device))
+        # copies: moving the layer to the card moves its CPU gradients with it
+        results.append((y.detach().cpu().clone(), xl.grad.cpu().clone(),
+                        {k: p.grad.cpu().clone() for k, p in layer.named_parameters()}))
+        launches = counts()
+        print(f"  {device}: {time.time() - t0:.2f} s, launches {launches}")
+    (y_c, dx_c, gp_c), (y_g, dx_g, gp_g) = results
+    errs = {"y": rel(y_g, y_c)[1], "dx": rel(dx_g, dx_c)[1]}
+    errs |= {k: rel(gp_g[k], gp_c[k])[1] for k in gp_c}
+    worst = max(errs, key=errs.get)
+    print(f"  {len(errs)} outputs and gradients, worst relative error {errs[worst]:.3e} "
+          f"({worst}), tol 1e-03")
+    if launches != {"selective_scan_grouped_fwd": 4, "selective_scan_grouped_bwd": 4} or \
+            not errs[worst] <= 1e-3:
+        raise PhaseFailure("the SS2D layer on the card disagrees with the CPU plain path, or "
+                           "did not launch kernels 13 and 14 four times each")
 
 
 def main() -> int:
@@ -931,25 +1187,44 @@ def main() -> int:
     print(f"  {path} ({time.time() - t0:.1f} s)\n{log.strip()}")
     errors = {}
     phase_compare(errors)
+    times = phase_compare_grouped(errors, card)
     model = two_view_xfmamba("small", seed=0)
     launches = phase_model(model, card)
-    times = phase_kernel_times(card)
+    times |= phase_kernel_times(card)
     launches["ss2d_core_n1_fwd"] = phase_model_f32(model, card)
     times |= phase_n1_times(card)
-    phase_cpu_parity(model)
+    phase_cpu_parity(model, {n: c for n, c in F32_FORWARD.items() if c})
     del model
-    times |= phase_compare_train(errors)
+    base = two_view_xfmamba("base", seed=0)
+    phase_model_f32(base, card, "4e", "XFMamba-B")
+    del base
+    n1_bwd, train_times = phase_compare_train(errors, card)
+    times |= n1_bwd
+    # the two card routes of XFMamba-B's Cross_SS2Dv5 training scan, kernels only
+    grouped_ms = times["selective_scan_grouped_fwd"][0] + times["selective_scan_grouped_bwd"][0]
+    print(f"  XFMamba-B Cross_SS2Dv5 scan per bs-{TRAIN_BATCH} step: grouped scan (kernels 13 + "
+          f"14, four K=1 calls each, phase 3b) {grouped_ms:.3f} ms; nk pair (kernels 2 + 7, "
+          f"one K=4 call each) {sum(train_times['base']['nk'][4][1:]):.3f} ms")
     launches |= phase_train(card)
     times |= phase_train_kernel_times(card, errors)
-    launches["ss2d_core_n1_bwd"] = phase_train_f32(card, times)
-    phase_train_cpu_parity()
+    launches["ss2d_core_n1_bwd"] = \
+        phase_train_f32(card, "small", "7c", train_times["small"])["ss2d_core_n1_bwd"]
+    base_step = phase_train_f32(card, "base", "7d", train_times["base"])
+    launches |= {name: base_step[name] for name in GROUPED_KERNELS}
+    phase_train_cpu_parity(depth2_model("small"), "XFMamba-S", "8")
+    base2 = depth2_model("base")
+    phase_cpu_parity(base2, {"ss2d_core_n1_fwd": 8, "nk_scan": 2, "nk_scan_x": 1}, "8b",
+                     "XFMamba-B (depths 2/2/2/2)")
+    phase_train_cpu_parity(base2, "XFMamba-B", "8b")
+    del base2
+    phase_ss2d_layer()
     # no single PyTorch call computes any of these functions: library_ms is null
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=k["source"], replaces=k["replaces"],
              launches=launches[name], max_abs_err=errors[name], ms=times[name][0],
              plain_ms=times[name][1], bound_ms=times[name][2], bound_by=times[name][3],
              library_ms=None)
-        for name, k in (KERNELS | TRAIN_KERNELS | N1_KERNELS).items()]}))
+        for name, k in (KERNELS | TRAIN_KERNELS | N1_KERNELS | GROUPED_KERNELS).items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,7 @@ def test_port_imports_no_jax_and_builds_nothing():
         "('jax', 'jaxlib', 'flax', 'optax', 'xfmamba_tpu'))\n"
         "assert not bad, bad\n"
         "for m in ('train.config', 'train.loop', 'ops.vss_block_train', 'ops.vss_stage_train',\n"
-        "          'ops.nk_scan_adjoint', 'ops.ss2d_core_n1'):\n"
+        "          'ops.nk_scan_adjoint', 'ops.ss2d_core_n1', 'ops.selective_scan_grouped'):\n"
         "    assert 'xfmamba_tpu_torch.' + m in sys.modules, m\n"
         "from xfmamba_tpu_torch.kernels import build\n"
         "assert build.library.cache_info().currsize == 0\n"
@@ -41,7 +41,8 @@ def test_library_name_is_keyed_on_the_sources():
     assert path.name.startswith("libxfm_") and path.suffix == ".so"
     assert build.library_path() == path
     assert {p.name for p in build._sources()} == {
-        "nk_scan.cu", "nk_scan_bwd.cu", "ss2d_core_n1.cu", "vss_block_bwd.cu", "vss_stage.cu"}
+        "nk_scan.cu", "nk_scan_bwd.cu", "selective_scan_grouped.cu", "ss2d_core_n1.cu",
+        "vss_block_bwd.cu", "vss_stage.cu"}
 
 
 def test_factory_is_seeded_and_eval():

@@ -18,8 +18,8 @@ from xfmamba_tpu_torch.models import vssm
 from xfmamba_tpu_torch.models.tops import TwoViewXFMamba
 from xfmamba_tpu_torch.models.vssm import VSSBlock
 from xfmamba_tpu_torch.ops import (
-    nk_scan, nk_scan_adjoint, primitives, ss2d_core_n1, vss_block_train, vss_stage,
-    vss_stage_train)
+    nk_scan, nk_scan_adjoint, primitives, selective_scan_grouped, ss2d_core_n1, vss_block_train,
+    vss_stage, vss_stage_train)
 from xfmamba_tpu_torch.ops.vss_block import pack_vss_block_params, pack_vss_block_train_params
 
 pytestmark = pytest.mark.cuda
@@ -345,11 +345,14 @@ def test_tiny_model_train_step_card_matches_cpu(dev, route):
     model.cuda()
     fns = (ss2d_core_n1.ss2d_core_n1_fwd, ss2d_core_n1.ss2d_core_n1_bwd,
            vss_stage_train.vss_stage_train_forward, vss_block_train.vss_block_bwd,
-           nk_scan.nk_scan, nk_scan_adjoint.nk_scan_bwd)
+           nk_scan.nk_scan, nk_scan_adjoint.nk_scan_bwd, selective_scan_grouped.grouped_scan_fwd,
+           selective_scan_grouped.grouped_scan_bwd)
     before = [f.launches for f in fns]
     loss_c = torch.nn.functional.cross_entropy(model(xa.cuda(), xb.cuda()), labels.cuda())
     loss_c.backward()
-    want_counts = [8, 8, 0, 0, 3, 3] if route == "block" else [0, 0, 4, 8, 3, 3]
+    # batch 2 at 1 x 1 maps: no aligned image group, so both fusion scans
+    # take the grouped scan (one K=2 call, four K=1 calls)
+    want_counts = [8, 8, 0, 0, 0, 0, 5, 5] if route == "block" else [0, 0, 4, 8, 0, 0, 5, 5]
     assert [f.launches - b for f, b in zip(fns, before)] == want_counts
     assert abs(float(loss_c) - float(loss)) < 1e-4
     for k, p in model.named_parameters():
@@ -416,6 +419,72 @@ def test_ss2d_core_n1_autograd_card_matches_cpu(dev):
     for device in ("cpu", "cuda"):
         leaves = [a.detach().to(device).requires_grad_() for a in args]
         y = ss2d_core_n1.ss2d_core_n1(*leaves)
+        y.backward(gy.to(device))
+        results.append([y.detach().cpu()] + [leaf.grad.cpu() for leaf in leaves])
+    for got, want in zip(results[1], results[0]):
+        assert rel_err(got, want) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# kernels 13 and 14: the grouped selective scan and its adjoint
+# ---------------------------------------------------------------------------
+
+def _grouped_case(g, dtype, B, L, K, C, N):
+    """Operands of the grouped scan with a trained model's ranges: A in
+    [-e^1.5, -1] per state, deltas about softplus(-4 +- 1)."""
+    return (randn(g, B, L, K * C, dtype=dtype), randn(g, B, L, K * C, dtype=dtype) - 4.0,
+            -torch.exp(1.5 * torch.rand(K * C, N, generator=g)).cuda(),
+            randn(g, B, L, K, N, dtype=dtype), randn(g, B, L, K, N, dtype=dtype),
+            randn(g, K * C), randn(g, K * C, scale=0.5))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("B,L,K,C,N", [
+    (48, 49, 1, 2048, 16),       # XFMamba-B Cross_SS2Dv5 direction, batch 16
+    (12, 49, 2, 1536, 16),       # XFMamba-S ShallowFuse, batch 12
+    (2, 3136, 4, 192, 16),       # a 56 x 56 map, 98 chunks
+    (2, 3127, 4, 192, 16),       # the last chunk ragged
+    (3, 70, 3, 40, 5),           # an idle channel tail, N = 5
+])
+def test_grouped_scan_fwd_and_bwd(dev, dtype, reverse, B, L, K, C, N):
+    """Kernels 13 and 14 against their plain twins on the same operands: y,
+    the checkpoints, and every gradient from the plain checkpoints (the
+    atomics of dB, dC, dA, dD and dbias reorder float32 sums: 1e-4 of each
+    output's largest magnitude in float32, 2e-2 in bfloat16)."""
+    g = torch.Generator().manual_seed(16)
+    args = _grouped_case(g, dtype, B, L, K, C, N)
+    ssg = selective_scan_grouped
+    before = (ssg.grouped_scan_fwd.launches, ssg.grouped_scan_bwd.launches)
+    y, ck = ssg.grouped_scan_fwd(*args, reverse=reverse)
+    y_p, ck_p = ssg.grouped_scan_fwd_plain(*args, reverse=reverse)
+    torch.cuda.synchronize()
+    assert rel_err(y, y_p) < TOL[dtype] and rel_err(ck, ck_p) < TOL[dtype]
+    gy = randn(g, B, L, K * C)
+    got = ssg.grouped_scan_bwd(*args, ck_p, gy, reverse=reverse)
+    want = ssg.grouped_scan_bwd_plain(*args, ck_p, gy, reverse=reverse)
+    torch.cuda.synchronize()
+    assert (ssg.grouped_scan_fwd.launches, ssg.grouped_scan_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for name, w in want.items():
+        assert got[name].shape == w.shape, name
+        assert rel_err(got[name], w) < TOL[dtype], name
+
+
+def test_selective_scan_auto_card_matches_cpu(dev):
+    """`selective_scan_auto` forward and all seven gradients, card against
+    the CPU plain twins, float32, reverse, two chunks."""
+    g = torch.Generator().manual_seed(17)
+    B, L, K, C, N = 2, 45, 2, 33, 16
+    args = [torch.randn(B, L, K * C, generator=g), torch.randn(B, L, K * C, generator=g) - 3,
+            -torch.rand(K * C, N, generator=g) - 0.5, torch.randn(B, L, K, N, generator=g),
+            torch.randn(B, L, K, N, generator=g), torch.randn(K * C, generator=g),
+            0.5 * torch.randn(K * C, generator=g)]
+    gy = torch.randn(B, L, K * C, generator=g)
+    results = []
+    for device in ("cpu", "cuda"):
+        leaves = [a.detach().to(device).requires_grad_() for a in args]
+        y = selective_scan_grouped.selective_scan_auto(*leaves, reverse=True)
         y.backward(gy.to(device))
         results.append([y.detach().cpu()] + [leaf.grad.cpu() for leaf in leaves])
     for got, want in zip(results[1], results[0]):

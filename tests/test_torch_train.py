@@ -8,9 +8,11 @@ JAX parameters and batch statistics are drawn from numpy and loaded into
 the port with ``load_jax_variables``; gradients are mapped back leaf by
 leaf with ``checkpoint.convert.jax_paths``.  The JAX model runs its
 composable path on the CPU (its kernels are TPU-only); the port runs the
-plain versions of its kernels, in both ``use_checkpoint`` modes and on both
+plain versions of its kernels, in both ``use_checkpoint`` modes, on both
 backbone routes (the float32 composable one, and the bfloat16 stage one
-selected with the ``route`` fixture).
+selected with the ``route`` fixture) and on both fusion-scan routes (the
+grouped scan the rule picks at the tiny step's shapes, and the nk pair).
+The base model's parameter tree is held against JAX's at full width.
 """
 
 import jax
@@ -24,6 +26,7 @@ from test_torch_parity import assert_close, jax_variables, route  # noqa: F401 (
 from xfmamba_tpu.models.fusion import ShallowFusionBlock as JaxShallowFusionBlock
 from xfmamba_tpu.models.fusion import swapping_scan as jax_swapping_scan
 from xfmamba_tpu.models.tops import TwoViewXFMamba as JaxTwoView
+from xfmamba_tpu.models.tops import two_view_xfmamba as jax_two_view_xfmamba
 from xfmamba_tpu.train.config import TrainConfig as JaxTrainConfig
 from xfmamba_tpu.train.loop import TrainState
 from xfmamba_tpu.train.loop import make_optimizer as jax_make_optimizer
@@ -31,10 +34,12 @@ from xfmamba_tpu.train.loop import make_train_step as jax_make_train_step
 from xfmamba_tpu.train.loop import lr_schedule as jax_lr_schedule
 from xfmamba_tpu_torch.checkpoint.convert import (
     export_jax_variables, jax_paths, load_jax_variables)
+from xfmamba_tpu_torch.models import fusion, ss2d
 from xfmamba_tpu_torch.models.fusion import ShallowFusionBlock, swapping_scan
 from xfmamba_tpu_torch.models.layers import BatchNorm, DropPath
-from xfmamba_tpu_torch.models.tops import TwoViewXFMamba
+from xfmamba_tpu_torch.models.tops import TwoViewXFMamba, two_view_xfmamba
 from xfmamba_tpu_torch.models.vssm import VSSM, VSSBlock
+from xfmamba_tpu_torch.ops.nk_scan_adjoint import nk_train_supported
 from xfmamba_tpu_torch.ops.vss_block import (
     SS2D_FIELDS, pack_vss_block_params, pack_vss_block_train_params, vss_block_ref)
 from xfmamba_tpu_torch.train import loop
@@ -82,8 +87,76 @@ def _leaf(tree, path):
     return np.asarray(tree)
 
 
+@pytest.fixture
+def fusion_scans(monkeypatch):
+    """Counts of the fusion scans' entry points in one run: the grouped scan
+    (kernels 13/14) from ShallowFuse and from ``core_dispatch``, the nk
+    pair (kernels 2/7) from each."""
+    counts = dict.fromkeys(("shallow_grouped", "cross_grouped", "shallow_nk", "cross_nk"), 0)
+
+    def counted(module, name, key):
+        fn = getattr(module, name)
+
+        def wrapper(*args, **kw):
+            counts[key] += 1
+            return fn(*args, **kw)
+        monkeypatch.setattr(module, name, wrapper)
+
+    counted(fusion, "selective_scan_auto", "shallow_grouped")
+    counted(ss2d, "selective_scan_auto", "cross_grouped")
+    counted(fusion, "nk_scan_train", "shallow_nk")
+    counted(ss2d, "nk_scan_train_from_projs", "cross_nk")
+    return counts
+
+
 @pytest.mark.parametrize("use_checkpoint", [False, True])
-def test_train_step_matches_jax(jax_step, use_checkpoint, route):
+def test_train_step_matches_jax(jax_step, use_checkpoint, route, fusion_scans):
+    """One train step against JAX (`_check_train_step`) with the fusion
+    scans on the route the rule picks at these shapes (batch 3, 1 x 1 maps,
+    no aligned image group): the grouped scan, once in ShallowFuse (K=2)
+    and once per cross2d direction in Cross_SS2Dv5."""
+    assert nk_train_supported(BATCH, 1, 1, 256, 1, 4, "unidi") is None
+    assert nk_train_supported(3 * BATCH, 1, 1, 256, 4, 4, "cross2d") is None
+    _check_train_step(jax_step, use_checkpoint)
+    assert fusion_scans == dict(shallow_grouped=1, cross_grouped=4, shallow_nk=0, cross_nk=0)
+
+
+@pytest.mark.parametrize("use_checkpoint", [False, True])
+def test_train_step_matches_jax_on_the_nk_route(jax_step, use_checkpoint, route, fusion_scans,
+                                               monkeypatch):
+    """The same step, against the same JAX fixture, with the port's rule
+    made to give every fusion scan a group: the nk pair, twice in
+    ShallowFuse (K=1 each) and once in Cross_SS2Dv5 (K=4)."""
+    for module in (fusion, ss2d):
+        monkeypatch.setattr(module, "nk_train_supported", lambda *args: 1)
+    _check_train_step(jax_step, use_checkpoint)
+    assert fusion_scans == dict(shallow_grouped=0, cross_grouped=0, shallow_nk=2, cross_nk=1)
+
+
+def test_base_model_parameters_match_jax():
+    """``two_view_xfmamba("base")`` at full width (dims 128-1024, hidden
+    1024, d_inner 2048, dt rank 64) has JAX ``two_view_xfmamba("base")``'s
+    parameters and batch statistics, name for name and shape for shape
+    (``jax.eval_shape``, nothing materialised on the JAX side)."""
+    zeros = jax.ShapeDtypeStruct((1, 32, 32, 1), jnp.float32)
+    shapes = jax.eval_shape(jax_two_view_xfmamba("base").init, jax.random.PRNGKey(0),
+                            zeros, zeros)
+    want = {tuple(k.key for k in path): leaf.shape
+            for coll in ("params", "batch_stats")
+            for path, leaf in jax.tree_util.tree_leaves_with_path({coll: shapes[coll]})}
+    model = two_view_xfmamba("base", device="cpu")
+    state = model.state_dict()
+    seen = set()
+    for key, (jpath, to_port, _) in jax_paths(model).items():
+        assert jpath in want, key
+        assert tuple(state[key].shape) == to_port(np.broadcast_to(np.float32(0),
+                                                                  want[jpath])).shape, key
+        seen.add(jpath)
+    assert seen == set(want)
+    assert model.fusemamba.blocks[0].self_attention.x_proj_weight.shape == (4, 64 + 32, 2048)
+
+
+def _check_train_step(jax_step, use_checkpoint):
     """Loss (1e-5), every parameter gradient (2e-4 of the largest gradient
     of its tensor, float32 sums in other orders through the whole model),
     the BatchNorm statistics (the running variance up to n/(n-1), see

@@ -4,12 +4,20 @@ block and the CSSF layer.  Channels-last throughout.
 
 The projections, depthwise convs, norms and the SE gate run in PyTorch, as
 the JAX package leaves them to XLA.  The scans go through the port's
-kernels: ShallowFuse through `nk_scan_train` (kernel 2 forward, kernel 7
-backward; one K=1 row_f call per swap group), Cross_SS2Dv5 in eval mode
-through `nk_scan_x` (rank form, LayerNorm epilogue) and in training mode
-through `nk_scan_train_from_projs` (the deltas projected in torch, kernel 2
-in dts form, K=4 cross2d, then the torch out-norm), as the JAX training
-path does.
+kernels, routed as the JAX accelerator path routes them in the cross2d
+mode every model here uses (`models.ss2d.core_dispatch` says where the
+other modes differ):
+
+- ShallowFuse in eval mode through `nk_scan_train` (kernel 2; one K=1
+  row_f call per swap group); in training mode the same calls (kernel 7
+  backward) where the routing rule of ``ops/nk_scan_adjoint.py`` gives
+  them a group, else one `selective_scan_auto` call over both groups
+  (kernels 13 and 14, K=2).
+- Cross_SS2Dv5 in eval mode through `nk_scan_x` (rank form, LayerNorm
+  epilogue); in training mode the deltas are projected in torch and the
+  scan goes through `models.ss2d.core_dispatch` (kernels 2/7 as one K=4
+  cross2d call, or kernels 13/14 as four per-direction calls), then the
+  torch out-norm.
 """
 
 from __future__ import annotations
@@ -20,9 +28,11 @@ from torch import nn
 
 from xfmamba_tpu_torch.models.layers import (
     BatchNorm, Conv2dSame, Dense, DropPath, LayerNorm)
-from xfmamba_tpu_torch.models.ss2d import ScanParams, _project_kdirs, dt_rank_of
+from xfmamba_tpu_torch.models.ss2d import (
+    ScanParams, _project_kdirs, core_dispatch, dt_rank_of)
 from xfmamba_tpu_torch.ops.nk_scan import nk_scan_x, scan_mode_kinds
-from xfmamba_tpu_torch.ops.nk_scan_adjoint import nk_scan_train, nk_scan_train_from_projs
+from xfmamba_tpu_torch.ops.nk_scan_adjoint import nk_scan_train, nk_train_supported
+from xfmamba_tpu_torch.ops.selective_scan_grouped import selective_scan_auto
 
 
 def _swap(x, x2):
@@ -89,13 +99,18 @@ class ShallowFuseSS2Dv4(ScanParams):
         dts, Bs, Cs = torch.split(x_dbl, [R, N, N], -1)
         dts = torch.einsum("blkr,kdr->blkd", dts, self.dt_projs_weight.to(xs.dtype))
         A, Dmat, bias = self.scan_operands(di)
-        ys = [nk_scan_train(xs[:, :, k].contiguous(), dts[:, :, k].contiguous(),
-                      Bs[:, :, k].contiguous(), Cs[:, :, k].contiguous(),
-                      A[k].t().contiguous(), Dmat[k:k + 1], bias[k:k + 1],
-                      H, W, ("row_f",))
-              for k in range(2)]
-        y1 = self.out_norm(ys[0].reshape(B, H, W, di))
-        y2 = self.out_norm(ys[1].reshape(B, H, W, di))
+        if self.training and nk_train_supported(B, L, W, di, 1, N, "unidi") is None:
+            ys = selective_scan_auto(xs.reshape(B, L, 2 * di), dts.reshape(B, L, 2 * di),
+                                     A.reshape(2 * di, N), Bs, Cs, Dmat.reshape(-1),
+                                     bias.reshape(-1)).view(B, L, 2, di).unbind(2)
+        else:
+            ys = [nk_scan_train(xs[:, :, k].contiguous(), dts[:, :, k].contiguous(),
+                                Bs[:, :, k].contiguous(), Cs[:, :, k].contiguous(),
+                                A[k].t().contiguous(), Dmat[k:k + 1], bias[k:k + 1],
+                                H, W, ("row_f",))
+                  for k in range(2)]
+        y1 = self.out_norm(ys[0].reshape(B, H, W, di).to(x.dtype))
+        y2 = self.out_norm(ys[1].reshape(B, H, W, di).to(x.dtype))
         y1 = y1 * self.fc1(x2_p.mean((1, 2)))[:, None, None]
         y2 = y2 * self.fc1(x_p.mean((1, 2)))[:, None, None]
         return self.out_proj(y1), self.out_proj(y2)
@@ -157,8 +172,8 @@ class CrossSS2Dv5(ScanParams):
         A, Dmat, bias = self.scan_operands(di)
         if self.training:
             dts, Bs, Cs = _project_kdirs(xcat, self.x_proj_weight, self.dt_projs_weight, R, N)
-            y3 = nk_scan_train_from_projs(xcat, dts, Bs, Cs[:Bv].repeat(3, 1, 1, 1, 1), A,
-                                          Dmat, bias, self.scan_mode)
+            y3 = core_dispatch(xcat, dts, Bs, Cs[:Bv].repeat(3, 1, 1, 1, 1), A, Dmat, bias,
+                               self.scan_mode)
             y3 = self.out_norm(y3.to(x.dtype))
         else:
             x_dbl = torch.einsum("bhwd,kcd->bhwkc", xcat, self.x_proj_weight.to(xcat.dtype))

@@ -4,11 +4,13 @@ LayerNorm out-norm, cross2d scan.
 
 `SS2D.ss2d_core` is the scan core of `SS2D`, dispatched as the JAX
 ``ss2d_core`` does on an accelerator: with d_state 1 (cross2d) it runs
-`ops.ss2d_core_n1.ss2d_core_n1` (kernels 11 and 12), otherwise the
-composable `ss2d_core_from_projs`, which takes the per-direction
-projections and scans each direction with `selective_scan_seq` (the plain
-reference of the scan kernels).  The backbone runs `SS2D` block by block in
-float32; in bfloat16 it runs the stage kernels instead (``models/vssm.py``).
+`ops.ss2d_core_n1.ss2d_core_n1` (kernels 11 and 12), otherwise
+`core_dispatch`, which Cross_SS2Dv5's training scan also takes: the nk pair
+(kernels 2 and 7) where the routing rule of ``ops/nk_scan_adjoint.py``
+gives it a group, else the composable `ss2d_core_from_projs`, which scans
+each direction with `selective_scan_auto` (kernels 13 and 14).  The
+backbone runs `SS2D` block by block in float32; in bfloat16 it runs the
+stage kernels instead (``models/vssm.py``).
 
 Parameter layouts match the reference tensors: ``x_proj_weight``
 (K, R + 2N, D), ``dt_projs_weight`` (K, D, R), ``dt_projs_bias`` (K, D),
@@ -25,7 +27,8 @@ from torch import nn
 
 from xfmamba_tpu_torch.models.layers import (
     Conv2dSame, Dense, LayerNorm, trunc_normal_init, uniform_init)
-from xfmamba_tpu_torch.ops.selective_scan import selective_scan_seq
+from xfmamba_tpu_torch.ops.nk_scan_adjoint import nk_scan_train_from_projs, nk_train_supported
+from xfmamba_tpu_torch.ops.selective_scan_grouped import selective_scan_auto
 from xfmamba_tpu_torch.ops.ss2d_core_n1 import ss2d_core_n1
 
 
@@ -100,8 +103,7 @@ def _project_kdirs(x, x_proj_weight, dt_projs_weight, R, N):
     return dts, Bs, Cs
 
 
-def _scan_group(x, dts, Bs, Cs, A, Ds, bias, ks, transposed, reverse,
-                scan_impl):
+def _scan_group(x, dts, Bs, Cs, A, Ds, bias, ks, transposed, reverse):
     """Scan the directions ``ks`` that share a layout and a direction of
     traversal; returns y (B, L, len(ks) * D) in scan order."""
     B, H, W, D = x.shape
@@ -116,14 +118,14 @@ def _scan_group(x, dts, Bs, Cs, A, Ds, bias, ks, transposed, reverse,
     A_sel = A[ks].reshape(nk * D, -1)
     D_sel = None if Ds is None else Ds[ks].reshape(-1)
     b_sel = None if bias is None else bias[ks].reshape(-1)
-    return scan_impl(u, d_sel, A_sel, B_sel, C_sel, D_sel, b_sel,
-                     delta_softplus=True, reverse=reverse)
+    return selective_scan_auto(u, d_sel, A_sel, B_sel, C_sel, D_sel, b_sel,
+                               delta_softplus=True, reverse=reverse)
 
 
 def ss2d_core_from_projs(x, dts, Bs, Cs, A, Dmat, bias,
-                         scan_mode: str = "cross2d",
-                         scan_impl=selective_scan_seq):
-    """Scan and merge from precomputed projections.  x (B, H, W, D); dts
+                         scan_mode: str = "cross2d"):
+    """Scan and merge from precomputed projections, each direction group
+    through `selective_scan_auto` (kernels 13 and 14).  x (B, H, W, D); dts
     (B, H, W, K, D); Bs/Cs (B, H, W, K, N); A (K, D, N); Dmat/bias (K, D).
     Returns (B, H, W, D) float32.  Direction k of cross2d is row_f, col_f,
     row_r, col_r for k = 0..3; columns run over the transposed map
@@ -135,25 +137,43 @@ def ss2d_core_from_projs(x, dts, Bs, Cs, A, Dmat, bias,
     if scan_mode == "cross2d":
         if K != 4:
             raise ValueError("cross2d needs K = 4")
-        y0 = _scan_group(*args, [0], False, False, scan_impl)
-        y2 = _scan_group(*args, [2], False, True, scan_impl)
-        y1 = _scan_group(*args, [1], True, False, scan_impl)
-        y3 = _scan_group(*args, [3], True, True, scan_impl)
+        y0 = _scan_group(*args, [0], False, False)
+        y2 = _scan_group(*args, [2], False, True)
+        y1 = _scan_group(*args, [1], True, False)
+        y3 = _scan_group(*args, [3], True, True)
         y13 = (y1 + y3).reshape(B, W, H, D).transpose(1, 2).reshape(B, L, D)
         y = (y0 + y2) + y13
     elif scan_mode == "unidi":
-        y = _scan_group(*args, list(range(K)), False, False, scan_impl)
+        y = _scan_group(*args, list(range(K)), False, False)
         y = y.reshape(B, L, K, D).sum(2)
     elif scan_mode == "bidi":
         if K != 4:
             raise ValueError("bidi needs K = 4")
-        yf = _scan_group(*args, [0, 1], False, False, scan_impl)
-        yr = _scan_group(*args, [2, 3], False, True, scan_impl)
+        yf = _scan_group(*args, [0, 1], False, False)
+        yr = _scan_group(*args, [2, 3], False, True)
         y4 = (yf + yr).reshape(B, L, 2, D)
         y = y4[:, :, 0] + y4[:, :, 1]
     else:
         raise ValueError(f"unsupported scan_mode {scan_mode}")
     return y.reshape(B, H, W, D)
+
+
+def core_dispatch(x, dts, Bs, Cs, A, Dmat, bias, scan_mode: str = "cross2d"):
+    """The trainable scan core from projections (port of ``core_dispatch``,
+    ``ss2d.py:312-344``, its accelerator route for cross2d without the
+    backend argument): the nk pair (kernels 2 and 7) where
+    `nk_train_supported` gives a group, else one `selective_scan_auto` call
+    per direction group (kernels 13 and 14).  Two departures from JAX: its
+    route sends N = 1 to its kernel 10, which the port does not have, and
+    its "auto" backend sends the unidi and bidi modes to the XLA scan,
+    which has no counterpart on the card; here both take the same rule as
+    cross2d N > 1.  Shapes as `ss2d_core_from_projs`; returns (B, H, W, D)
+    float32."""
+    B, H, W, D = x.shape
+    K, _, N = A.shape
+    if nk_train_supported(B, H * W, W, D, K, N, scan_mode) is not None:
+        return nk_scan_train_from_projs(x, dts, Bs, Cs, A, Dmat, bias, scan_mode)
+    return ss2d_core_from_projs(x, dts, Bs, Cs, A, Dmat, bias, scan_mode)
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +212,7 @@ class SS2D(ScanParams):
         dts, Bs, Cs = _project_kdirs(x, self.x_proj_weight,
                                      self.dt_projs_weight, self.R, self.N)
         A, Dmat, bias = self.scan_operands(self.d_inner)
-        return ss2d_core_from_projs(x, dts, Bs, Cs, A, Dmat, bias)
+        return core_dispatch(x, dts, Bs, Cs, A, Dmat, bias)
 
     def forward(self, x):
         xin = F.silu(self.conv2d(self.in_proj(x)))

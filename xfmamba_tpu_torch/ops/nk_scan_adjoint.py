@@ -12,7 +12,12 @@ selective_scan_bwd_cuda``).
 - `NKScanTrain`: the autograd op, kernel 2 forward and kernel 7 backward;
   ShallowFuse calls it once per swap group (K=1, row_f).
 - `nk_scan_train_from_projs`: the ``ss2d_core_from_projs``-shaped entry
-  that Cross_SS2Dv5 trains through (K=4 cross2d, N=16).
+  that Cross_SS2Dv5 trains through (K=4 cross2d, N=16) where the routing
+  rule allows it.
+- The routing rule, `nk_train_supported` / `pick_nk_train_group` /
+  `nk_bwd_vmem_estimate` (:202-350 of the JAX module): whether a fusion
+  scan trains through this pair or through the grouped scan kernels 13/14
+  (``ops/selective_scan_grouped.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +29,53 @@ from xfmamba_tpu_torch.ops.nk_scan import (
     selective_scan_bwd_plain)
 from xfmamba_tpu_torch.ops.primitives import on_cpu, require
 
+
+# ---------------------------------------------------------------------------
+# the routing rule: nk pair (kernels 2/7) or grouped scan (kernels 13/14)
+# ---------------------------------------------------------------------------
+
+def nk_bwd_vmem_estimate(L, D, K, N, G):
+    """The TPU adjoint kernel's peak VMEM in bytes for a group of G images
+    of L positions x D channels (``nk_bwd_vmem_estimate``, :202-224): float32
+    (L * G, D) map units, 8 scratch + 3 + 2K persistent + 6 transient ones
+    with Mosaic's measured 1.8x allocation factor, plus the double-buffered
+    input and output windows.  N does not enter it."""
+    Lg = L * G
+    unit = Lg * (-(-D // 128) * 128) * 4
+    stack = (8 + 3 + 2 * K + 6) * unit
+    io = (1.5 + 0.5 * K) * unit * 0.5 + (1 + K) * unit
+    return int(1.8 * stack + io)
+
+
+NK_BWD_BUDGET = 126 * 1024 * 1024
+
+
+def pick_nk_train_group(B, L, W, D, K, N):
+    """The largest image group G in (8, 4, 2, 1) that divides B, keeps
+    L * G and W * G multiples of 8 and fits the VMEM budget, or None."""
+    for g in (8, 4, 2, 1):
+        if B % g == 0 and (L * g) % 8 == 0 and (W * g) % 8 == 0 \
+                and nk_bwd_vmem_estimate(L, D, K, N, g) < NK_BWD_BUDGET:
+            return g
+    return None
+
+
+def nk_train_supported(B, L, W, D, K, N, scan_mode):
+    """The group of the nk pair for a fusion scan of B images of L = H * W
+    positions, or None for the grouped scan (``nk_train_supported``, :345).
+
+    The rule is the TPU's VMEM arithmetic, kept so that the port runs the
+    kernel the JAX package runs on the same shapes; the card has no such
+    limit.  The JAX rule also returns None on its CPU backend; this one
+    depends on the geometry only, so the CPU and the card take one route."""
+    if scan_mode not in ("cross2d", "unidi", "bidi"):
+        return None
+    return pick_nk_train_group(B, L, W, D, K, N)
+
+
+# ---------------------------------------------------------------------------
+# kernel 7 and the training op
+# ---------------------------------------------------------------------------
 
 def _bwd(impl, u, dts, Bs, Cs, A, Dvec, bias, gy, H, W, kinds):
     n, L, D = u.shape

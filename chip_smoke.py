@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero:
    at its full depth, the ShallowFuse and the Cross_SS2Dv5 scans, kernel 11
    (y and the checkpoints) at the four stage maps), in float32 and
    bfloat16, and at XFMamba-B's (kernels 2, 3 and 11; fusion D 2048, dt
-   rank up to 64) in float32, TF32 off; (3b) kernels 13 and 14 (the grouped scan and its
+   rank up to 64) in float32 and, for its bfloat16 path's kernels 1 (depth 2
+   per stage), 2 and 3, in bfloat16, TF32 off; (3b) kernels 13 and 14 (the grouped scan and its
    adjoint, every output) at the XFMamba-B Cross_SS2Dv5 direction (48, 49,
    2048) K=1, the XFMamba-S bs-12 ShallowFuse call (12, 49, 2 x 1536) K=2
    and a 56 x 56 map (2, L, 4 x 192) K=4 at L 3136 and 3127 (a ragged
@@ -35,7 +36,8 @@ Phases, in order; any failure exits non-zero:
    11 21, kernel 2 2, kernel 3 1;
 6. each training kernel against its plain version on the card, TF32 off,
    every output tensor within its tolerance: in float32 and bfloat16 at
-   XFMamba-S's widths the adjoint scan at the four stage maps, kernels 4
+   XFMamba-S's widths, and in bfloat16 at XFMamba-B's (dims 128-1024, dt
+   rank 8-64), the adjoint scan at the four stage maps, kernels 4
    and 6 at every stage width, kernel 5 (forward and the stage backward)
    at every stage width at depth 2, all at 2 images per view; then, for
    XFMamba-S in both dtypes and XFMamba-B in float32, kernels 2 and 7 at
@@ -66,7 +68,19 @@ Phases, in order; any failure exits non-zero:
    against the CPU plain twins, XFMamba-S widths at depths (2, 2, 2, 2),
    batch 2 with labels 0 and 1; (8b) the same for XFMamba-B, after its
    batch-1 logits as in phase 5; (8c) an SS2D layer with d_state 16 at 56 x 56, batch 2,
-   forward and backward (kernels 13 and 14 through ``core_dispatch``).
+   forward and backward (kernels 13 and 14 through ``core_dispatch``);
+9. the Mamba-2 (m0 / SSD) classifiers: kernels 15 (inference, and with
+   the chunk checkpoints) and 16 against their plain twins at the four
+   stage geometries of vmamba_small_m2 and vmamba_base_m2 (L 3136-49, 24-256
+   heads of width 16, d_state 64), batch 8, float32 and bfloat16, with
+   their float32 times per bs-32 forward and bs-16 step and their bounds;
+   (9b) vmamba_small_m2 224x224 float32 inference at bs 8 and 32 (18
+   launches of kernel 15 per forward, no other kernel), ms per batch, and a
+   bs-8 bfloat16 forward on the same route (no stage kernel); (9c) its
+   float32 training at bs 16 (18 + 18 launches per step; 36 + 18 with
+   ``use_checkpoint``), ms per step and peak memory; (9d) its widths at
+   depths (2, 2, 2, 2), batch 2: logits and one step's gradients, card
+   against the CPU plain twins.
 
 The line before the last but one is one JSON object with the kernels'
 results (launches per main-path forward or step, errors, times, bounds),
@@ -88,10 +102,10 @@ import torch
 from xfmamba_tpu_torch.kernels import build
 from xfmamba_tpu_torch.models.ss2d import SS2D
 from xfmamba_tpu_torch.models.tops import TwoViewXFMamba, two_view_xfmamba
-from xfmamba_tpu_torch.models.vssm import VSSBlock
+from xfmamba_tpu_torch.models.vssm import VSSBlock, vmamba_small_m2
 from xfmamba_tpu_torch.ops import (
-    nk_scan, nk_scan_adjoint, selective_scan_grouped, ss2d_core_n1, vss_block_train, vss_stage,
-    vss_stage_train)
+    nk_scan, nk_scan_adjoint, selective_scan_grouped, ss2d_core_n1, ssd_chunk, vss_block_train,
+    vss_stage, vss_stage_train)
 from xfmamba_tpu_torch.ops.vss_block import pack_vss_block_params, pack_vss_block_train_params
 from xfmamba_tpu_torch.train.config import TrainConfig
 from xfmamba_tpu_torch.train.loop import make_optimizer, make_train_step
@@ -176,6 +190,22 @@ F32_STEP = {
     "base": {"ss2d_core_n1_fwd": 21, "ss2d_core_n1_bwd": 21, "nk_scan": 2, "nk_scan_bwd": 2,
              "selective_scan_grouped_fwd": 4, "selective_scan_grouped_bwd": 4},
 }
+
+# kernels 15 and 16, the chunked SSD scan and its adjoint: the m2 classifiers'
+# SS2D (18 launches per vmamba_small_m2 forward, 18 + 18 per step)
+SSD_KERNELS = {
+    "ssd_chunk_fwd": dict(fn=ssd_chunk.ssd_fwd, source="xfmamba_tpu_torch/csrc/ssd_chunk.cu",
+                          replaces="xfmamba_tpu/ops/ssd_pallas.py:74"),
+    "ssd_chunk_bwd": dict(fn=ssd_chunk.ssd_bwd, source="xfmamba_tpu_torch/csrc/ssd_chunk.cu",
+                          replaces="xfmamba_tpu/ops/ssd_pallas.py:356"),
+}
+# each m2 model's stages: (H, d, depth); d_inner = d, R = ceil(d / 16) heads
+# of width 16 per direction, d_state 64
+M2_STAGES = {"small": [(56, 96, 2), (28, 192, 2), (14, 384, 12), (7, 768, 2)],
+             "base": [(56, 128, 2), (28, 256, 2), (14, 512, 12), (7, 1024, 2)]}
+M2_NAME = {"small": "vmamba_small_m2", "base": "vmamba_base_m2"}
+M2_BLOCKS = 18
+M2_TRAIN_STEPS = 3
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense operations/s by type
 HBM_BYTES_PER_S = 3.35e12
@@ -296,6 +326,38 @@ def grouped_work(B, L, K, C, N, dtype, backward=False):
                       + 8 * KC * (N + 2), f32=scan_bwd_ops(M, KC, 1, N))
 
 
+def ssd_work(b, L, R, dtype, K=4, P=16, N=64, chunk=64, backward=False, states=False):
+    """Kernel 15 (or 16, ``backward``) on one (b, K groups of R heads, L, P,
+    N) call.  Bytes: x, dt, B and C read, y written (``states``: the
+    checkpoints too), the final state; the backward reads them with dy and
+    the checkpoints and writes dx, d dt, dB, dC (float32) and dinit.
+    Operations per chunk of cl valid positions: C B^T on its lower
+    triangle per group; per head the decay mask (3 per entry), M (dt x)
+    and C state, the state update, dt, the cumsum and the skip.  The
+    backward adds the recomputation, M^T dy and dM (cl (cl + 1) P each), the
+    five c x N x P products of the read-out and the update, the mask's
+    gradients and dCB's two products per group."""
+    esize = torch.finfo(dtype).bits // 8
+    h, nc = K * R, -(-L // chunk)
+    io = b * L * (h * P + h + 2 * K * N) * esize
+    ops = 0.0
+    for i in range(nc):
+        cl = min(chunk, L - i * chunk)
+        tri = cl * (cl + 1)
+        group = tri * N
+        head = 1.5 * tri + tri * P + 4 * cl * N * P + 6 * cl * P + 6 * cl
+        if backward:
+            group += 2 * tri * N
+            head += 2 * tri * P + 10 * cl * N * P + 5 * tri + 20 * cl * P + 20 * cl
+        ops += b * (K * group + h * head)
+    state = 4 * b * h * N * P
+    if not backward:
+        out = b * L * h * P * esize + state * (1 + (nc if states else 0))
+        return Work().add(io + out, f32=ops)
+    return Work().add(io + state * (nc + 1) + 4 * b * L * (2 * h * P + h + 2 * K * N) + state,
+                      f32=ops)
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -380,15 +442,22 @@ def n1_case(g, n, H, d, dtype):
 
 def main_path_cases(g, batch, dtype, size="small"):
     """(kernel name, label, (args, kernel, plain)) at every geometry of the
-    model's inference path; XFMamba-B's (float32) runs no stage kernel."""
+    model's inference path in ``dtype``: XFMamba-S's stages at full depth;
+    XFMamba-B's float32 path runs no stage kernel and its bfloat16 path
+    (dims 128-1024, dt rank 8-64) is checked at depth 2 per stage, where
+    the plain version stays within the run's time, and without kernel 11,
+    which bfloat16 does not take."""
     D, R = FUSION[size]["D"], FUSION[size]["R"]
-    if size == "small":
+    if size == "small" or dtype == torch.bfloat16:
         for H, d, depth in STAGES[size]:
+            depth = depth if size == "small" else 2
             yield "vss_stage", f"stage H={H} d={d} depth={depth}", \
                 stage_case(g, H, d, depth, batch, dtype)
     yield "nk_scan", f"ShallowFuse (B,49,{D}) K=1 N=16", shallow_case(g, batch, dtype, size)
     yield "nk_scan_x", f"Cross_SS2Dv5 (3B,49,{D}) K=4 N=16 R={R}", \
         cross_case(g, batch, dtype, size)
+    if size == "base" and dtype == torch.bfloat16:
+        return
     for H, d, _ in STAGES[size]:
         yield "ss2d_core_n1_fwd", f"N=1 core H={H} D={2 * d} R={-(-d // 16)} (y, ck)", \
             (n1_case(g, 2 * batch, H, d, dtype), ss2d_core_n1.ss2d_core_n1_fwd,
@@ -397,15 +466,17 @@ def main_path_cases(g, batch, dtype, size="small"):
 
 def phase_compare(errors):
     """Every inference kernel against its plain version at XFMamba-S's
-    shapes in float32 and bfloat16, and at XFMamba-B's in float32 (its only
-    precision here: dims 128-1024, fusion D 2048, dt rank up to 64)."""
+    shapes in float32 and bfloat16, and at XFMamba-B's (dims 128-1024,
+    fusion D 2048, dt rank up to 64) in float32 and, for the kernels of its
+    bfloat16 path (1, 2, 3), in bfloat16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"phase 3: kernels vs plain versions on the card, batch {COMPARE_BATCH}, TF32 off; "
-          "XFMamba-S in float32 and bfloat16, XFMamba-B in float32")
+          "XFMamba-S and XFMamba-B in float32 and bfloat16")
     g = torch.Generator().manual_seed(1)
     failed = []
-    runs = [("small", torch.float32), ("small", torch.bfloat16), ("base", torch.float32)]
+    runs = [("small", torch.float32), ("small", torch.bfloat16), ("base", torch.float32),
+            ("base", torch.bfloat16)]
     for size, dtype in runs:
         for name, label, (args, kernel, plain) in main_path_cases(g, COMPARE_BATCH, dtype, size):
             label = f"{MODEL_NAME[size]} {label}"
@@ -737,7 +808,7 @@ def nk_bwd_case(g, n, K, dtype, size="small"):
 def phase_compare_train(errors, card):
     """The training kernels against their plain versions: XFMamba-S's in
     float32 and bfloat16, XFMamba-B's (kernels 2, 7, 11, 12 at its widths)
-    in float32.  Also, in float32 at each model's bs-16 step shapes,
+    in float32, and kernels 4-6 at XFMamba-B's widths in bfloat16.  Also, in float32 at each model's bs-16 step shapes,
     kernel 12's and kernel 11's times per step, and the nk pair's (kernels
     2 + 7) times at the fusion geometries."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -746,13 +817,17 @@ def phase_compare_train(errors, card):
     print(f"phase 6: training kernels vs plain versions on the card, {COMPARE_TRAIN_BATCH} "
           f"images per view (kernels 2, 7, 11 and 12: the bs-{TRAIN_BATCH} step's shapes), "
           "TF32 off; tolerance relative to each output's largest magnitude; XFMamba-S in "
-          f"float32 and bfloat16, XFMamba-B in float32 ({card})")
+          "float32 and bfloat16, XFMamba-B in float32 and (kernels 4-6) bfloat16 "
+          f"({card})")
     g = torch.Generator().manual_seed(3)
     failed = []
     times = {size: {} for size in STAGES}
     for dtype in (torch.float32, torch.bfloat16):
         with torch.no_grad():
-            for H, d, _ in STAGES["small"]:
+            # XFMamba-B's widths (dims 128-1024, dt rank 8-64) in bfloat16,
+            # the precision that runs kernels 4-6 on its path
+            widths = STAGES["small"] + (STAGES["base"] if dtype == torch.bfloat16 else [])
+            for H, d, _ in widths:
                 geo = f"H={H} d={d}"
                 args = adjoint_scan_case(g, n, H, d, dtype)
                 check_outputs(errors, "vss_block_bwd", f"adjoint scan {geo} K=4 N=1", dtype,
@@ -1174,6 +1249,240 @@ def phase_ss2d_layer():
                            "did not launch kernels 13 and 14 four times each")
 
 
+# ---------------------------------------------------------------------------
+# the Mamba-2 (m0 / SSD) classifiers: kernels 15 and 16
+# ---------------------------------------------------------------------------
+
+def ssd_case(g, b, L, d, dtype):
+    """Kernel 15/16 operands at an m2 stage of width d on b images: K = 4
+    groups of R = ceil(d / 16) heads of width 16, N = 64; A in [-e^1.5, -1]
+    per head and dt about softplus(-4 +- 1), as in a trained model; D, the
+    dt bias and an initial state present."""
+    R, h = -(-d // 16), 4 * -(-d // 16)
+    return (randn(g, b, 4, L, R, 16, dtype=dtype), randn(g, b, 4, L, R, dtype=dtype) - 4.0,
+            -torch.exp(1.5 * torch.rand(h, generator=g)).cuda(),
+            randn(g, b, 4, L, 64, dtype=dtype), randn(g, b, 4, L, 64, dtype=dtype),
+            randn(g, h, 16), randn(g, h, scale=0.5), randn(g, b, h, 64, 16))
+
+
+def phase_compare_ssd(errors, card):
+    """Kernels 15 (inference and with checkpoints: y, the final state, the
+    checkpoints) and 16 (every output, from the plain checkpoints) against
+    their plain twins at the four stage geometries of vmamba_small_m2 and
+    vmamba_base_m2, batch 8, float32 and bfloat16; then, in float32, kernel
+    15's time per bs-32 vmamba_small_m2 forward and kernels 15 (with
+    checkpoints) and 16 per bs-16 step, beside the plain twins and the
+    bounds (a stage's call times its depth)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"phase 9: kernels 15 and 16 vs their plain twins at the m2 stage geometries, batch "
+          f"{COMPARE_BATCH}, TF32 off; float32 times per vmamba_small_m2 forward (bs 32) and "
+          f"step (bs {TRAIN_BATCH}) ({card})")
+    g = torch.Generator().manual_seed(12)
+    failed = []
+    with torch.no_grad():
+        for size in ("small", "base"):
+            for dtype in (torch.float32, torch.bfloat16):
+                for H, d, _ in M2_STAGES[size]:
+                    args = ssd_case(g, COMPARE_BATCH, H * H, d, dtype)
+                    label = f"{M2_NAME[size]} L={H * H} KR={4 * -(-d // 16)}"
+                    y, fin, states = ssd_chunk.ssd_fwd(*args, save_states=True)
+                    y_i, fin_i = ssd_chunk.ssd_fwd(*args)
+                    want = ssd_chunk.ssd_fwd_plain(*args, save_states=True)
+                    check_outputs(errors, "ssd_chunk_fwd", label, dtype,
+                                  [y, fin, states, y_i, fin_i], list(want) + list(want[:2]),
+                                  failed)
+                    dy = randn(g, *args[0].shape)
+                    dfin = randn(g, *args[7].shape)
+                    check_outputs(errors, "ssd_chunk_bwd", label, dtype,
+                                  ssd_chunk.ssd_bwd(*args[:7], want[2], dy, dfin),
+                                  ssd_chunk.ssd_bwd_plain(*args[:7], want[2], dy, dfin), failed)
+                    del args, y, fin, states, want
+        torch.cuda.synchronize()
+        if failed:
+            raise PhaseFailure(f"kernels 15/16 disagree with their plain twins: {failed}")
+        f32 = torch.float32
+        times = {}
+        # kernel 15 per bs-32 forward; with checkpoints, and kernel 16, per bs-16 step
+        runs = [("ssd_chunk_fwd", 32, False), ("ssd_chunk_fwd_train", TRAIN_BATCH, True),
+                ("ssd_chunk_bwd", TRAIN_BATCH, True)]
+        for name, batch, train in runs:
+            ms = plain_ms = 0.0
+            work = Work()
+            backward = name == "ssd_chunk_bwd"
+            for H, d, depth in M2_STAGES["small"]:
+                args = ssd_case(g, batch, H * H, d, f32)
+                if backward:
+                    _, _, states = ssd_chunk.ssd_fwd(*args, save_states=True)
+                    dy = randn(g, *args[0].shape)
+                    fn = (lambda a=args, s=states, y=dy: ssd_chunk.ssd_bwd(*a[:7], s, y))
+                    plain = (lambda a=args, s=states, y=dy: ssd_chunk.ssd_bwd_plain(*a[:7], s, y))
+                else:
+                    fn = (lambda a=args: ssd_chunk.ssd_fwd(*a, save_states=train))
+                    plain = (lambda a=args: ssd_chunk.ssd_fwd_plain(*a, save_states=train))
+                ms += depth * time_ms(fn, 5)
+                plain_ms += depth * time_ms(plain, 1, warmup=False)
+                work += ssd_work(batch, H * H, -(-d // 16), f32, backward=backward,
+                                 states=train).times(depth)
+                del args
+            times[name] = (ms, plain_ms, *work.bound())
+            print(f"  {name:19s} per {'step' if train else 'forward'} (bs {batch}): kernel "
+                  f"{ms:8.3f} ms   plain {plain_ms:9.3f} ms   bound {times[name][2]:.4f} ms "
+                  f"({times[name][3]}, {work.bytes / 1e9:.3f} GB, "
+                  f"{work.ops['f32'] / 1e9:.1f} GFLOP)")
+    return times
+
+
+def all_kernels():
+    """Every kernel wrapper of the port by name."""
+    return {n: k["fn"] for n, k in
+            (KERNELS | TRAIN_KERNELS | N1_KERNELS | GROUPED_KERNELS | SSD_KERNELS).items()}
+
+
+def images(batch, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(batch, IMAGE, IMAGE, 3, generator=g).to("cuda", dtype)
+
+
+def phase_m2_inference(card):
+    """vmamba_small_m2 (seeded weights, 1000 classes) float32 inference at
+    bs 8 and 32: finite logits, 18 launches of kernel 15 per forward and
+    none of any other kernel, ms per batch (median of 3 runs of 5); then one
+    bs-8 bfloat16 forward, which takes the same composable route (kernel
+    15, no stage kernel)."""
+    print(f"phase 9b: vmamba_small_m2 224x224 inference, float32, seeded weights, TF32 off "
+          f"({card})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = vmamba_small_m2(seed=0)
+    fns = all_kernels()
+    want = dict.fromkeys(fns, 0) | {"ssd_chunk_fwd": M2_BLOCKS}
+    inputs = {bs: images(bs, torch.float32, 200 + bs) for bs in (8, 32)}
+    with torch.no_grad():
+        model(inputs[8])                                   # warm-up
+        torch.cuda.synchronize()
+        for bs, x in inputs.items():
+            counts = counted(fns)
+            logits = model(x)
+            torch.cuda.synchronize()
+            launches = counts()
+            if logits.shape != (bs, 1000) or not torch.isfinite(logits).all() or launches != want:
+                raise PhaseFailure(f"bs {bs}: logits {tuple(logits.shape)} or launches "
+                                   f"{launches}, expected {want}")
+            print(f"  bs {bs}: logits finite, shape {tuple(logits.shape)}, first row [:4] "
+                  f"{logits[0, :4].tolist()}; launches per forward: ssd_chunk_fwd "
+                  f"{launches['ssd_chunk_fwd']}, every other kernel 0")
+        for bs, x in inputs.items():
+            samples = sorted(time_ms(lambda: model(x), 5) for _ in range(3))
+            print(f"  bs {bs}: {samples[1]:.2f} ms per batch (median of 3 runs of 5: "
+                  f"{', '.join(f'{v:.2f}' for v in samples)}), {1000 * bs / samples[1]:.1f} "
+                  f"images/s ({card})")
+        counts = counted(fns)
+        logits = model(images(8, torch.bfloat16, 208))
+        torch.cuda.synchronize()
+        launches = counts()
+    print(f"  bfloat16 bs 8: logits finite {bool(torch.isfinite(logits.float()).all())}, "
+          f"launches ssd_chunk_fwd {launches['ssd_chunk_fwd']}, vss_stage {launches['vss_stage']}")
+    if launches != want or not torch.isfinite(logits.float()).all():
+        raise PhaseFailure(f"bfloat16 m2 forward: launches {launches}, expected {want}")
+    return launches["ssd_chunk_fwd"]
+
+
+def phase_m2_train(card):
+    """vmamba_small_m2 float32 training at bs 16 through
+    ``make_train_step(..., two_view=False)``: Adam lr 1e-4 wd 1e-5, labels
+    from a seeded generator, 3 steps with 18 launches of kernel 15 (with
+    checkpoints) and 18 of kernel 16 each and none of any other kernel, a
+    finite loss; then ``use_checkpoint`` (non-reentrant
+    ``torch.utils.checkpoint`` runs each block's forward again before its
+    backward: 36 and 18); ms per step and peak memory in both modes."""
+    print(f"phase 9c: vmamba_small_m2 training, batch {TRAIN_BATCH}, 224x224, float32, Adam "
+          f"lr 1e-4 wd 1e-5, TF32 off ({card})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = vmamba_small_m2(seed=0)
+    optimizer = make_optimizer(TrainConfig(lr=1e-4, weight_decay=1e-5), model.parameters())
+    step, _ = make_train_step(model, optimizer, False, two_view=False)
+    g = torch.Generator().manual_seed(21)
+    batch = {"image1": images(TRAIN_BATCH, torch.float32, 216),
+             "label": torch.randint(0, 1000, (TRAIN_BATCH,), generator=g).cuda()}
+    fns = all_kernels()
+    want = dict.fromkeys(fns, 0) | {"ssd_chunk_fwd": M2_BLOCKS, "ssd_chunk_bwd": M2_BLOCKS}
+
+    def counted_step():
+        counts = counted(fns)
+        loss = float(step(batch)["loss"])
+        torch.cuda.synchronize()
+        return loss, counts()
+
+    losses = []
+    for _ in range(M2_TRAIN_STEPS):
+        loss, launches = counted_step()
+        losses.append(loss)
+        if launches != want or not math.isfinite(loss):
+            raise PhaseFailure(f"m2 step: loss {loss}, launches {launches}, expected {want}")
+    print(f"  losses: {', '.join(f'{v:.6f}' for v in losses)}; launches per step: ssd_chunk_fwd "
+          f"{M2_BLOCKS}, ssd_chunk_bwd {M2_BLOCKS}, every other kernel 0")
+    for checkpointed in (False, True):
+        model.use_checkpoint = checkpointed
+        if checkpointed:
+            loss, launches = counted_step()
+            want_ck = want | {"ssd_chunk_fwd": 2 * M2_BLOCKS}
+            print(f"  use_checkpoint step: loss {loss:.6f}, launches ssd_chunk_fwd "
+                  f"{launches['ssd_chunk_fwd']}, ssd_chunk_bwd {launches['ssd_chunk_bwd']}")
+            if launches != want_ck or not math.isfinite(loss):
+                raise PhaseFailure(f"use_checkpoint launches {launches} (expected {want_ck}) or "
+                                   f"loss {loss} not finite")
+        torch.cuda.reset_peak_memory_stats()
+        samples = timed_steps(step, batch)
+        print(f"  {'use_checkpoint: ' if checkpointed else ''}{samples[1]:.2f} ms per step "
+              f"(median of 3 runs of 3 steps: {', '.join(f'{v:.2f}' for v in samples)}); peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})")
+    del model, optimizer, step
+    return M2_BLOCKS
+
+
+def phase_m2_cpu_parity():
+    """vmamba_small_m2 widths at depths 2/2/2/2, batch 2, float32, no drop
+    path: eval logits (kernel 15, 8 launches) within 1e-3 of the largest
+    logit, and the gradients of one train step (8 + 8 launches) each within
+    1e-3 of its largest magnitude, card against the CPU plain twins."""
+    print("phase 9d: vmamba_small_m2 widths at depths (2, 2, 2, 2), batch 2, float32: logits and "
+          "one train step's gradients, card (kernels 15/16) vs CPU plain twins")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = vmamba_small_m2(device="cpu", seed=5, depths=(2, 2, 2, 2), drop_path_rate=0.0)
+    g = torch.Generator().manual_seed(22)
+    x, label = torch.randn(2, IMAGE, IMAGE, 3, generator=g), torch.tensor([3, 7])
+    fns = all_kernels()
+    results = []
+    for device in ("cpu", "cuda"):
+        model.to(device).eval().zero_grad()
+        t0 = time.time()
+        counts = counted(fns)
+        with torch.no_grad():
+            logits = model(x.to(device)).cpu()
+        model.train()
+        loss = torch.nn.functional.cross_entropy(model(x.to(device)), label.to(device))
+        loss.backward()
+        launches = {n: c for n, c in counts().items() if c}
+        results.append((logits, float(loss.detach()), {k: p.grad.cpu().clone()
+                                              for k, p in model.named_parameters()}))
+        print(f"  {device}: {time.time() - t0:.1f} s, launches {launches}")
+    (l_c, loss_c, g_c), (l_g, loss_g, g_g) = results
+    err = float((l_g - l_c).abs().max())
+    tol = 1e-3 * float(l_c.abs().max())
+    worst = max(g_c, key=lambda k: rel(g_g[k], g_c[k])[1])
+    w_rel = rel(g_g[worst], g_c[worst])[1]
+    print(f"  logits max_abs_err {err:.3e} (tol {tol:.3e}); loss card {loss_g:.7f} cpu "
+          f"{loss_c:.7f}; {len(g_c)} gradients, worst relative error {w_rel:.3e} ({worst}), "
+          "tol 1e-03")
+    if launches != {"ssd_chunk_fwd": 16, "ssd_chunk_bwd": 8} or not err <= tol or \
+            not w_rel <= 1e-3:
+        raise PhaseFailure("vmamba_small_m2 on the card disagrees with the CPU plain path, or its "
+                           f"launches {launches} differ from 16 / 8")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1218,13 +1527,18 @@ def main() -> int:
     phase_train_cpu_parity(base2, "XFMamba-B", "8b")
     del base2
     phase_ss2d_layer()
+    times |= phase_compare_ssd(errors, card)
+    launches["ssd_chunk_fwd"] = phase_m2_inference(card)
+    launches["ssd_chunk_bwd"] = phase_m2_train(card)
+    phase_m2_cpu_parity()
     # no single PyTorch call computes any of these functions: library_ms is null
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=k["source"], replaces=k["replaces"],
              launches=launches[name], max_abs_err=errors[name], ms=times[name][0],
              plain_ms=times[name][1], bound_ms=times[name][2], bound_by=times[name][3],
              library_ms=None)
-        for name, k in (KERNELS | TRAIN_KERNELS | N1_KERNELS | GROUPED_KERNELS).items()]}))
+        for name, k in (KERNELS | TRAIN_KERNELS | N1_KERNELS | GROUPED_KERNELS
+                        | SSD_KERNELS).items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,7 @@ import torch
 
 from xfmamba_tpu_torch.kernels import build
 from xfmamba_tpu_torch.models.tops import two_view_xfmamba
+from xfmamba_tpu_torch.models.vssm import vmamba_tiny_m2
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -24,7 +25,8 @@ def test_port_imports_no_jax_and_builds_nothing():
         "('jax', 'jaxlib', 'flax', 'optax', 'xfmamba_tpu'))\n"
         "assert not bad, bad\n"
         "for m in ('train.config', 'train.loop', 'ops.vss_block_train', 'ops.vss_stage_train',\n"
-        "          'ops.nk_scan_adjoint', 'ops.ss2d_core_n1', 'ops.selective_scan_grouped'):\n"
+        "          'ops.nk_scan_adjoint', 'ops.ss2d_core_n1', 'ops.selective_scan_grouped',\n"
+        "          'ops.cross_scan', 'ops.ssd', 'ops.ssd_chunk'):\n"
         "    assert 'xfmamba_tpu_torch.' + m in sys.modules, m\n"
         "from xfmamba_tpu_torch.kernels import build\n"
         "assert build.library.cache_info().currsize == 0\n"
@@ -42,7 +44,7 @@ def test_library_name_is_keyed_on_the_sources():
     assert build.library_path() == path
     assert {p.name for p in build._sources()} == {
         "nk_scan.cu", "nk_scan_bwd.cu", "selective_scan_grouped.cu", "ss2d_core_n1.cu",
-        "vss_block_bwd.cu", "vss_stage.cu"}
+        "ssd_chunk.cu", "vss_block_bwd.cu", "vss_stage.cu"}
 
 
 def test_factory_is_seeded_and_eval():
@@ -61,3 +63,11 @@ def test_factory_defaults_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):
             two_view_xfmamba("tiny", backbone_overrides=dict(depths=(1, 1, 1, 1), dims=8))
+
+
+def test_m2_factory_defaults_to_the_card():
+    """The same for the Mamba-2 classifier factories."""
+    assert inspect.signature(vmamba_tiny_m2).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            vmamba_tiny_m2(depths=(1, 1, 1, 1), dims=16)

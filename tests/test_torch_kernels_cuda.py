@@ -18,8 +18,8 @@ from xfmamba_tpu_torch.models import vssm
 from xfmamba_tpu_torch.models.tops import TwoViewXFMamba
 from xfmamba_tpu_torch.models.vssm import VSSBlock
 from xfmamba_tpu_torch.ops import (
-    nk_scan, nk_scan_adjoint, primitives, selective_scan_grouped, ss2d_core_n1, vss_block_train,
-    vss_stage, vss_stage_train)
+    nk_scan, nk_scan_adjoint, primitives, selective_scan_grouped, ss2d_core_n1, ssd_chunk,
+    vss_block_train, vss_stage, vss_stage_train)
 from xfmamba_tpu_torch.ops.vss_block import pack_vss_block_params, pack_vss_block_train_params
 
 pytestmark = pytest.mark.cuda
@@ -487,5 +487,96 @@ def test_selective_scan_auto_card_matches_cpu(dev):
         y = selective_scan_grouped.selective_scan_auto(*leaves, reverse=True)
         y.backward(gy.to(device))
         results.append([y.detach().cpu()] + [leaf.grad.cpu() for leaf in leaves])
+    for got, want in zip(results[1], results[0]):
+        assert rel_err(got, want) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# kernels 15 and 16: the chunked SSD scan and its adjoint
+# ---------------------------------------------------------------------------
+
+def _ssd_case(g, dtype, b, k, L, R, P, N, optional=True):
+    """Kernel-layout operands with a trained model's ranges: A in
+    [-e^1.5, -1] per head, dt about softplus(-4 +- 1); D, bias and the
+    initial state present or None."""
+    h = k * R
+    args = [randn(g, b, k, L, R, P, dtype=dtype), randn(g, b, k, L, R, dtype=dtype) - 4.0,
+            -torch.exp(1.5 * torch.rand(h, generator=g)).cuda(),
+            randn(g, b, k, L, N, dtype=dtype), randn(g, b, k, L, N, dtype=dtype)]
+    if optional:
+        return args + [randn(g, h, P), randn(g, h, scale=0.5), randn(g, b, h, N, P)]
+    return args + [None, None, None]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,k,L,R,P,N,optional", [
+    (2, 4, 3136, 6, 16, 64, True),      # vmamba_small_m2 stage 0: 49 whole chunks
+    (2, 4, 784, 12, 16, 64, True),      # stage 1: the last chunk ragged
+    (4, 4, 49, 48, 16, 64, True),       # stage 3: one ragged chunk, several heads per block
+    (1, 2, 150, 3, 8, 16, False),       # narrow heads and state; no D, bias or initial state
+])
+def test_ssd_fwd_and_bwd(dev, dtype, b, k, L, R, P, N, optional):
+    """Kernel 15 (with and without checkpoints) and kernel 16 against their
+    plain twins on the same operands: y, the final state, the checkpoints,
+    and every gradient from the plain checkpoints (float32 sums in other
+    orders and atomics: 1e-4 of each output's largest magnitude; bfloat16
+    y rounds: 2e-2)."""
+    g = torch.Generator().manual_seed(18)
+    args = _ssd_case(g, dtype, b, k, L, R, P, N, optional)
+    before = (ssd_chunk.ssd_fwd.launches, ssd_chunk.ssd_bwd.launches)
+    y, fin, states = ssd_chunk.ssd_fwd(*args, save_states=True)
+    y_i, fin_i = ssd_chunk.ssd_fwd(*args)
+    y_p, fin_p, states_p = ssd_chunk.ssd_fwd_plain(*args, save_states=True)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and states.shape == (b, k * R, -(-L // 64), N, P)
+    for got, want in ((y, y_p), (y_i, y_p), (fin, fin_p), (fin_i, fin_p), (states, states_p)):
+        assert rel_err(got, want) < TOL[dtype]
+    dy, dfin = randn(g, b, k, L, R, P), (randn(g, b, k * R, N, P) if optional else None)
+    got = ssd_chunk.ssd_bwd(*args[:7], states_p, dy, dfin)
+    want = ssd_chunk.ssd_bwd_plain(*args[:7], states_p, dy, dfin)
+    torch.cuda.synchronize()
+    assert (ssd_chunk.ssd_fwd.launches, ssd_chunk.ssd_bwd.launches) == \
+        (before[0] + 2, before[1] + 1)
+    for name, w in want.items():
+        assert got[name].shape == w.shape, name
+        assert rel_err(got[name], w) < TOL[dtype], name
+
+
+def test_ssd_autograd_card_matches_cpu(dev):
+    """`ssd_chunk_scan_heads` under autograd (kernels 15 and 16), y and the
+    final state and every gradient, card against the CPU plain twins,
+    float32, two chunks, the last ragged."""
+    g = torch.Generator().manual_seed(19)
+    args = [a.cpu() for a in _ssd_case(g, torch.float32, 2, 2, 100, 3, 16, 64)]
+    gy, gfin = torch.randn(2, 2, 100, 3, 16, generator=g), torch.randn(2, 6, 64, 16, generator=g)
+    results = []
+    for device in ("cpu", "cuda"):
+        leaves = [a.detach().to(device).requires_grad_() for a in args]
+        y, fin = ssd_chunk.ssd_chunk_scan_heads(*leaves)
+        ((y * gy.to(device)).sum() + (fin * gfin.to(device)).sum()).backward()
+        results.append([y.detach().cpu(), fin.detach().cpu()] + [a.grad.cpu() for a in leaves])
+    for got, want in zip(results[1], results[0]):
+        assert rel_err(got, want) < 1e-4
+
+
+def test_tiny_m2_classifier_card_matches_cpu(dev):
+    """A tiny m2 classifier (d_state 64, head width 16), float32: eval
+    logits (kernel 15, one launch per block) and one training step's
+    gradients (kernels 15 and 16), card against the CPU plain twins."""
+    kw = dict(depths=(1, 1, 2, 1), dims=16, num_classes=10, drop_path_rate=0.0)
+    model = vssm.vmamba_tiny_m2(device="cpu", seed=3, **kw)
+    g = torch.Generator().manual_seed(20)
+    x, label = torch.randn(2, 64, 64, 3, generator=g), torch.tensor([1, 7])
+    results = []
+    for device in ("cpu", "cuda"):
+        model.to(device).eval().zero_grad()
+        before = (ssd_chunk.ssd_fwd.launches, ssd_chunk.ssd_bwd.launches)
+        with torch.no_grad():
+            logits = model(x.to(device)).cpu()
+        model.train()
+        torch.nn.functional.cross_entropy(model(x.to(device)), label.to(device)).backward()
+        counts = (ssd_chunk.ssd_fwd.launches - before[0], ssd_chunk.ssd_bwd.launches - before[1])
+        results.append([logits] + [p.grad.cpu().clone() for p in model.parameters()])
+    assert counts == (10, 5)
     for got, want in zip(results[1], results[0]):
         assert rel_err(got, want) < 1e-4

@@ -44,6 +44,7 @@ _RENAMES = [
     (r"(^|\.)fc1\.0(?=\.|$)", r"\1fc1_reduce"),
     (r"(^|\.)fc1\.2(?=\.|$)", r"\1fc1_expand"),
     (r"(^|\.)blocks\.(\d+)(?=\.|$)", r"\1block\2"),
+    (r"(^|\.)classifier\.norm(?=\.|$)", r"\1classifier_norm"),
     (r"(^|\.)classifier\.head(?=\.|$)", r"\1classifier_head"),
 ]
 # VSSBlock's SS2D out-norm sits one level deeper in JAX; a bare VSSBlock

@@ -44,6 +44,8 @@ _SIGNATURES = {
     "xfm_ss2d_n1_bwd": [_P] * 16 + [_I] * 7 + [_P],
     "xfm_grouped_scan_fwd": [_P] * 9 + [_I] * 8 + [_P],
     "xfm_grouped_scan_bwd": [_P] * 17 + [_I] * 8 + [_P],
+    "xfm_ssd_fwd": [_P] * 11 + [_I] * 7 + [_P],
+    "xfm_ssd_bwd": [_P] * 18 + [_I] * 7 + [_P],
 }
 
 

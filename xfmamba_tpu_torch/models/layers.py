@@ -25,6 +25,16 @@ def gelu(x):
     return F.gelu(x)
 
 
+# the SS2D activations by name (``vssm.py:26``)
+_ACTS = dict(silu=F.silu, gelu=gelu)
+
+
+def activation(name: str):
+    if name not in _ACTS:
+        raise ValueError(f"activation {name!r}: the port has {sorted(_ACTS)}")
+    return _ACTS[name]
+
+
 def trunc_normal_init(t: torch.Tensor, std: float = 0.02, generator=None):
     """timm-style truncated normal (+-2 std), the VSSM linear init."""
     with torch.no_grad():

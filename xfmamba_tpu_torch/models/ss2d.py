@@ -1,8 +1,9 @@
 """SS2D, the 2-D selective-scan op of VMamba (port of
-``xfmamba_tpu/models/ss2d.py``), forward type ``v05_noz`` only: no z-gate,
-LayerNorm out-norm, cross2d scan.
+``xfmamba_tpu/models/ss2d.py``), forward types ``v05_noz`` (no z-gate,
+LayerNorm out-norm, cross2d scan) and ``m0_noz`` (Mamba-2 / SSD, the same
+without the z-gate).
 
-`SS2D.ss2d_core` is the scan core of `SS2D`, dispatched as the JAX
+`SS2D.ss2d_core` is the scan core of ``v05_noz``, dispatched as the JAX
 ``ss2d_core`` does on an accelerator: with d_state 1 (cross2d) it runs
 `ops.ss2d_core_n1.ss2d_core_n1` (kernels 11 and 12), otherwise
 `core_dispatch`, which Cross_SS2Dv5's training scan also takes: the nk pair
@@ -12,24 +13,90 @@ each direction with `selective_scan_auto` (kernels 13 and 14).  The
 backbone runs `SS2D` block by block in float32; in bfloat16 it runs the
 stage kernels instead (``models/vssm.py``).
 
-Parameter layouts match the reference tensors: ``x_proj_weight``
-(K, R + 2N, D), ``dt_projs_weight`` (K, D, R), ``dt_projs_bias`` (K, D),
-``A_logs`` (K * D, N), ``Ds`` (K * D,).
+``m0_noz`` (`SS2D._forward_m0`, the JAX ``SS2D._forward_m0``) materialises
+the four cross2d traversals, projects each direction to one dt per head and
+a B and a C shared by the direction's heads, and runs the chunked SSD scan
+where ``ops.ssd_chunk.ssd_supported`` holds: kernel 15 alone without
+gradients, kernels 15 and 16 under autograd.  Outside that gate it runs
+``ops/ssd.py::ssd_chunk_scan``, the einsum form that JAX runs there too
+(counted in ``ssd_chunk_scan.calls``).
+
+Parameter layouts match the reference tensors.  ``v05_noz``:
+``x_proj_weight`` (K, R + 2N, D), ``dt_projs_weight`` (K, D, R),
+``dt_projs_bias`` (K, D), ``A_logs`` (K * D, N), ``Ds`` (K * D,).
+``m0``: ``x_proj_weight`` (K, R + 2N, D), ``dt_projs_bias`` and ``A_logs``
+(K, R), ``Ds`` (K, R, D / R), with R heads per direction.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from xfmamba_tpu_torch.models.layers import (
-    Conv2dSame, Dense, LayerNorm, trunc_normal_init, uniform_init)
+    Conv2dSame, Dense, LayerNorm, activation, trunc_normal_init, uniform_init)
+from xfmamba_tpu_torch.ops.cross_scan import cross_merge, cross_scan
 from xfmamba_tpu_torch.ops.nk_scan_adjoint import nk_scan_train_from_projs, nk_train_supported
 from xfmamba_tpu_torch.ops.selective_scan_grouped import selective_scan_auto
 from xfmamba_tpu_torch.ops.ss2d_core_n1 import ss2d_core_n1
+from xfmamba_tpu_torch.ops.ssd import ssd_chunk_scan
+from xfmamba_tpu_torch.ops.ssd_chunk import CHUNK, ssd_chunk_scan_heads, ssd_supported
+
+
+# ---------------------------------------------------------------------------
+# forward_type parsing (``ss2d.py:52-111``)
+# ---------------------------------------------------------------------------
+
+# base: scan mode
+_BASE_TYPES = {
+    "v0": "cross2d", "v0seq": "cross2d", "v01": "cross2d", "v02": "cross2d",
+    "v03": "cross2d", "v04": "cross2d", "v05": "cross2d", "v051d": "unidi",
+    "v052d": "bidi", "v052dc": "cascade2d", "v2": "cross2d", "v3": "cross2d",
+    "m0": "cross2d",
+}
+_SCANS = {"cross2d": 0, "unidi": 1, "bidi": 2}
+
+
+@dataclass(frozen=True)
+class SS2DMode:
+    base: str
+    scan_mode: str
+    disable_z: bool
+    oact: bool
+    out_norm: str  # "ln" | "none" | "dwconv3" | "cnorm" | "softmax" | "sigmoid"
+
+
+def parse_forward_type(forward_type: str) -> SS2DMode:
+    """The postfix chain of the reference's SS2D forward types: ``_no32``,
+    ``_oact``, ``_noz``, ``_nozact`` and the out-norm tags, stripped from
+    the end in that order, then the base type."""
+    ft = forward_type
+
+    def strip(tag):
+        nonlocal ft
+        if ft.endswith(tag):
+            ft = ft[: -len(tag)]
+            return True
+        return False
+
+    strip("_no32")   # float32 scan state is unconditional
+    oact = strip("_oact")
+    disable_z = strip("_noz")
+    strip("_nozact")   # the z-gate's activation: no z-gate is ported
+    out_norm = "ln"
+    for tag, kind in [("_onnone", "none"), ("_ondwconv3", "dwconv3"),
+                      ("_oncnorm", "cnorm"), ("_onsoftmax", "softmax"),
+                      ("_onsigmoid", "sigmoid")]:
+        if strip(tag):
+            out_norm = kind
+            break
+    if ft not in _BASE_TYPES:
+        raise ValueError(f"unsupported forward_type base {ft!r} (from {forward_type!r})")
+    return SS2DMode(base=ft, scan_mode=_BASE_TYPES[ft], disable_z=disable_z, oact=oact,
+                    out_norm=out_norm)
 
 
 # ---------------------------------------------------------------------------
@@ -181,27 +248,63 @@ def core_dispatch(x, dts, Bs, Cs, A, Dmat, bias, scan_mode: str = "cross2d"):
 # ---------------------------------------------------------------------------
 
 class SS2D(ScanParams):
-    """in_proj -> depthwise 3x3 conv -> SiLU -> cross2d selective scan ->
-    LayerNorm out-norm -> out_proj, on NHWC maps (``v05_noz``)."""
+    """in_proj -> depthwise 3x3 conv -> activation -> 2-D scan -> LayerNorm
+    out-norm -> out_proj, on NHWC maps: forward type ``v05_noz`` (the
+    selective scan) or ``m0_noz`` (the SSD scan, `_forward_m0`).
+    ``initialize`` is the reference's ``ssm_init``; m0 takes v1 or v2 (v0
+    reads as v2, as in the reference)."""
 
     def __init__(self, d_model: int, d_state: int = 1, ssm_ratio: float = 2.0,
                  dt_rank="auto", d_conv: int = 3, conv_bias: bool = True,
-                 forward_type: str = "v05_noz", generator=None):
+                 forward_type: str = "v05_noz", act: str = "silu", initialize: str = "v0",
+                 with_initial_state: bool = False, generator=None):
         super().__init__()
-        if forward_type != "v05_noz" or d_conv != 3:
-            raise ValueError("the port has SS2D forward_type v05_noz with d_conv 3 only")
+        mode = parse_forward_type(forward_type)
+        self.m0 = mode.base == "m0"
+        if d_conv != 3:
+            raise ValueError("the port's SS2D takes d_conv 3 only")
+        if self.m0:
+            if not mode.disable_z or mode.oact or mode.out_norm != "ln":
+                raise ValueError(f"forward_type {forward_type!r}: the port has m0 as m0_noz only")
+            if with_initial_state:
+                raise ValueError("m0 with a carried initial state is not ported")
+        elif forward_type != "v05_noz":
+            raise ValueError("the port has SS2D forward types v05_noz and m0_noz only")
         d_inner = int(ssm_ratio * d_model)
         self.d_inner = d_inner
         self.R = dt_rank_of(d_model, dt_rank)
         self.N = d_state
+        self.scans = _SCANS[mode.scan_mode]
+        self.act = activation(act)
         self.in_proj = Dense(d_model, d_inner, bias=False, init="trunc_normal",
                              generator=generator)
         self.conv2d = Conv2dSame(d_inner, d_inner, 3, padding=1, groups=d_inner,
                                  bias=conv_bias, generator=generator)
-        self.init_scan_params(4, d_inner, self.R, d_state, generator)
+        if self.m0:
+            self._init_m0_params(4, d_inner, initialize, generator)
+        else:
+            self.init_scan_params(4, d_inner, self.R, d_state, generator)
         self.out_norm = LayerNorm(d_inner)
         self.out_proj = Dense(d_inner, d_model, bias=False, init="trunc_normal",
                               generator=generator)
+
+    def _init_m0_params(self, K, d_inner, initialize, generator):
+        """The head-structured parameters of m0 (``ss2d.py:595-620``)."""
+        R, N = self.R, self.N
+        if d_inner % R:
+            raise ValueError(f"m0 needs dt_rank {R} to divide d_inner {d_inner}")
+        self.x_proj_weight = nn.Parameter(torch.empty(K, R + 2 * N, d_inner))
+        self.Ds = nn.Parameter(torch.ones(K, R, d_inner // R))
+        self.A_logs = nn.Parameter(torch.empty(K, R))
+        self.dt_projs_bias = nn.Parameter(torch.empty(K, R))
+        trunc_normal_init(self.x_proj_weight, generator=generator)
+        with torch.no_grad():
+            if initialize == "v1":
+                self.A_logs.normal_(generator=generator)
+                self.dt_projs_bias.normal_(generator=generator).mul_(0.1)
+            else:
+                self.A_logs.zero_()
+                self.dt_projs_bias.uniform_(generator=generator).mul_(0.1)
 
     def ss2d_core(self, x):
         """Cross-scan, selective scan and cross-merge of x (B, H, W, D);
@@ -214,7 +317,32 @@ class SS2D(ScanParams):
         A, Dmat, bias = self.scan_operands(self.d_inner)
         return core_dispatch(x, dts, Bs, Cs, A, Dmat, bias)
 
+    def _forward_m0(self, xin):
+        """The SSD core of m0 on xin (B, H, W, D) after the activation:
+        heads h = k * R + r of width D / R, one dt per head, B and C shared
+        by the R heads of direction k.  Returns (B, H, W, D) in xin's
+        dtype."""
+        B_, H, W, D = xin.shape
+        K, R, N, L = 4, self.R, self.N, H * W
+        P = D // R
+        xs = cross_scan(xin, self.scans)                                # (B, K, L, D)
+        x_dbl = torch.einsum("bkld,kcd->bklc", xs, self.x_proj_weight.to(xs.dtype))
+        dts, Bs, Cs = torch.split(x_dbl, [R, N, N], dim=-1)
+        A = -torch.exp(self.A_logs.float()).reshape(K * R)
+        Dm = self.Ds.float().reshape(K * R, P)
+        bias = self.dt_projs_bias.float().reshape(K * R)
+        if ssd_supported(L, K * R, P, N, K, CHUNK):
+            ys, _ = ssd_chunk_scan_heads(xs.view(B_, K, L, R, P), dts, A, Bs, Cs, Dm, bias)
+            ys = ys.view(B_, K, L, D)
+        else:
+            ys = ssd_chunk_scan(xs.transpose(1, 2).reshape(B_, L, K * R, P),
+                                dts.transpose(1, 2).reshape(B_, L, K * R), A,
+                                Bs.transpose(1, 2), Cs.transpose(1, 2), CHUNK,
+                                D=Dm, dt_bias=bias, dt_softplus=True)
+            ys = ys.reshape(B_, L, K, D).transpose(1, 2)
+        return cross_merge(ys, H, W, self.scans).view(B_, H, W, D)
+
     def forward(self, x):
-        xin = F.silu(self.conv2d(self.in_proj(x)))
-        y = self.ss2d_core(xin)
+        xin = self.act(self.conv2d(self.in_proj(x)))
+        y = self._forward_m0(xin) if self.m0 else self.ss2d_core(xin)
         return self.out_proj(self.out_norm(y.to(x.dtype)))

@@ -1,13 +1,23 @@
-"""VSSM backbone in backbone mode (port of ``xfmamba_tpu/models/vssm.py``):
-PatchEmbedV2, DownsampleV3, VSSBlock and VSSM with ``out_indices``.
+"""VSSM (port of ``xfmamba_tpu/models/vssm.py``): PatchEmbedV2,
+DownsampleV3, VSSBlock and VSSM, in backbone mode (``out_indices``: the
+LayerNorm'd features of those stages) or in classifier mode
+(``out_indices=None``: LayerNorm, mean over the map, linear head), and the
+Mamba-2 classifier factories `vmamba_tiny_m2`, `vmamba_small_m2` and
+`vmamba_base_m2` (forward type ``m0_noz``, d_state 64, GELU, whose SS2D
+runs the SSD kernels 15 and 16).
 
 Module and parameter names follow the reference PyTorch state dict
 (``patch_embed.{0,2,5,7}``, ``layers.{i}.blocks.{j}``,
-``layers.{i}.downsample.{1,3}``, ``outnorm{i}``), so a port ``state_dict()``
-converts with ``xfmamba_tpu.checkpoint.convert.convert_vssm_state_dict``.
+``layers.{i}.downsample.{1,3}``, ``outnorm{i}``, ``classifier.norm``,
+``classifier.head``), so a port ``state_dict()`` converts with
+``xfmamba_tpu.checkpoint.convert.convert_vssm_state_dict``.
 
-The backbone dispatches on the activation dtype as the JAX ``VSSM`` does
-on an accelerator (`_uses_stage_route`):
+A backbone of the configuration the stage kernels compute (XFMamba's:
+forward type v05_noz, d_state 1, SiLU; the port's blocks always have the
+3 x 3 conv and the GELU MLP) dispatches on the activation dtype as the JAX
+``VSSM`` does on an accelerator (`stage_kernels_apply`, `_uses_stage_route`);
+any other configuration, the m2 models included, takes the composable
+route in both dtypes:
 
 - bfloat16, the stage route.  In eval mode each stage runs through
   `ops.vss_stage.vss_stage` (kernel 1).  In training mode
@@ -41,7 +51,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from xfmamba_tpu_torch.models.layers import (
-    Conv2dSame, DropPath, LayerNorm, Mlp, gelu, to_device)
+    Conv2dSame, Dense, DropPath, LayerNorm, Mlp, gelu, to_device)
 from xfmamba_tpu_torch.models.ss2d import SS2D
 from xfmamba_tpu_torch.ops.vss_block import (
     MLP_FIELDS, PLAIN_OPS, SS2D_FIELDS, VSSBlockOperands, mlp_half, pack_vss_block_params,
@@ -88,16 +98,18 @@ class DownsampleV3(nn.Module):
 
 
 class VSSBlock(nn.Module):
-    """Pre-norm residual SS2D + MLP (``vmamba.py:1955-2042``), v05_noz."""
+    """Pre-norm residual SS2D + MLP (``vmamba.py:1955-2042``)."""
 
     def __init__(self, hidden_dim: int, drop_path: float = 0.0,
                  ssm_d_state: int = 1, ssm_ratio: float = 2.0,
                  ssm_dt_rank="auto", ssm_conv_bias: bool = False,
-                 mlp_ratio: float = 4.0, generator=None, dropout_generator=None):
+                 mlp_ratio: float = 4.0, generator=None, dropout_generator=None,
+                 forward_type: str = "v05_noz", ssm_act: str = "silu", ssm_init: str = "v0"):
         super().__init__()
         self.norm = LayerNorm(hidden_dim)
         self.op = SS2D(hidden_dim, d_state=ssm_d_state, ssm_ratio=ssm_ratio,
                        dt_rank=ssm_dt_rank, conv_bias=ssm_conv_bias,
+                       forward_type=forward_type, act=ssm_act, initialize=ssm_init,
                        generator=generator)
         self.drop_path = DropPath(drop_path, dropout_generator)
         self.norm2 = LayerNorm(hidden_dim) if mlp_ratio > 0 else None
@@ -128,24 +140,41 @@ class VSSStage(nn.Module):
         self.downsample = downsample
 
 
-class VSSM(nn.Module):
-    """Four-stage hierarchical backbone returning the LayerNorm'd features
-    of the stages in ``out_indices`` (``fusion_vmamba.py:1653-1724``).
+class Classifier(nn.Module):
+    """``classifier``: LayerNorm, the mean over the map, the linear head
+    (``vssm.py:486-491``)."""
 
-    Only the configuration XFMamba ships is ported: patch embed v2,
-    downsample v3, v05_noz blocks with d_state 1 and an MLP."""
+    def __init__(self, dim: int, num_classes: int, generator=None):
+        super().__init__()
+        self.norm = LayerNorm(dim)
+        self.head = Dense(dim, num_classes, init="trunc_normal", generator=generator)
+
+    def forward(self, x):
+        return self.head(self.norm(x).mean((1, 2)))
+
+
+class VSSM(nn.Module):
+    """Four-stage hierarchical VSSM: with ``out_indices`` the LayerNorm'd
+    features of those stages (``fusion_vmamba.py:1653-1724``), with
+    ``out_indices=None`` the logits of the classifier (``vssm.py:483-492``).
+
+    Patch embed v2 and downsample v3, blocks of forward type v05_noz or
+    m0_noz with a GELU MLP."""
 
     def __init__(self, depths=(2, 2, 9, 2), dims=96, in_chans: int = 3,
                  patch_size: int = 4, ssm_d_state: int = 1,
                  ssm_ratio: float = 2.0, ssm_dt_rank="auto",
                  ssm_conv_bias: bool = False, mlp_ratio: float = 4.0,
                  drop_path_rate: float = 0.2, out_indices=(0, 1, 2, 3),
-                 use_checkpoint: bool = False, generator=None, dropout_generator=None):
+                 use_checkpoint: bool = False, generator=None, dropout_generator=None,
+                 forward_type: str = "v05_noz", ssm_act: str = "silu", ssm_init: str = "v0",
+                 num_classes: int = 1000):
         super().__init__()
         self.use_checkpoint = use_checkpoint
         dims = [dims * 2 ** i for i in range(len(depths))] if isinstance(dims, int) else list(dims)
         self.depths = tuple(depths)
-        self.out_indices = tuple(out_indices)
+        self.out_indices = None if out_indices is None else tuple(out_indices)
+        self.stage_kernels = stage_kernels_apply(forward_type, ssm_d_state, ssm_act)
         n_blocks = sum(depths)
         dpr = [drop_path_rate * i / max(n_blocks - 1, 1) for i in range(n_blocks)]
         self.patch_embed = PatchEmbedV2(in_chans, dims[0], patch_size, generator)
@@ -153,14 +182,18 @@ class VSSM(nn.Module):
         for i, depth in enumerate(depths):
             blocks = [VSSBlock(dims[i], dpr[sum(depths[:i]) + j], ssm_d_state,
                                ssm_ratio, ssm_dt_rank, ssm_conv_bias, mlp_ratio,
-                               generator=generator, dropout_generator=dropout_generator)
+                               generator=generator, dropout_generator=dropout_generator,
+                               forward_type=forward_type, ssm_act=ssm_act, ssm_init=ssm_init)
                       for j in range(depth)]
             down = (DownsampleV3(dims[i], dims[i + 1], generator)
                     if i < len(depths) - 1 else None)
             layers.append(VSSStage(blocks, down))
         self.layers = nn.ModuleList(layers)
-        for i in self.out_indices:
-            self.add_module(f"outnorm{i}", LayerNorm(dims[i]))
+        if self.out_indices is None:
+            self.classifier = Classifier(dims[-1], num_classes, generator)
+        else:
+            for i in self.out_indices:
+                self.add_module(f"outnorm{i}", LayerNorm(dims[i]))
 
     def _drop_path_scales(self, batch, device):
         """Per stage, (depth, 2, batch) float32: each block's two drop-path
@@ -200,10 +233,11 @@ class VSSM(nn.Module):
         return x
 
     def forward(self, x):
-        """x (B, H, W, in_chans) -> list of (B, H_i, W_i, dims[i]) features."""
+        """x (B, H, W, in_chans) -> list of (B, H_i, W_i, dims[i]) features,
+        or (B, num_classes) logits in classifier mode."""
         scales = self._drop_path_scales(x.shape[0], x.device) if self.training else None
         x = self.patch_embed(x)
-        stage_route = _uses_stage_route(x.dtype)
+        stage_route = self.stage_kernels and _uses_stage_route(x.dtype)
         outs = []
         for i, layer in enumerate(self.layers):
             B, H, W, d = x.shape
@@ -214,11 +248,20 @@ class VSSM(nn.Module):
             else:
                 packed = [pack_vss_block_params(blk, x.dtype) for blk in layer.blocks]
                 x = vss_stage(x.reshape(B, H * W, d).contiguous(), packed, H, W).reshape(B, H, W, d)
-            if i in self.out_indices:
+            if self.out_indices is not None and i in self.out_indices:
                 outs.append(self._modules[f"outnorm{i}"](x))
             if layer.downsample is not None:
                 x = layer.downsample(x)
-        return outs
+        return outs if self.out_indices is not None else self.classifier(x)
+
+
+def stage_kernels_apply(forward_type: str, d_state: int, ssm_act: str) -> bool:
+    """Whether the stage kernels compute this backbone's blocks: JAX's
+    conditions for its megakernel paths (``vssm.py:149-153, :192-197,
+    :322-327, :364-370``), forward type v05_noz, d_state 1 and SiLU; the
+    port's blocks always have the 3 x 3 conv, no gated MLP and a GELU MLP,
+    the conditions' other terms."""
+    return forward_type == "v05_noz" and d_state == 1 and ssm_act == "silu"
 
 
 def _uses_stage_route(dtype) -> bool:
@@ -231,3 +274,41 @@ def _mlp_half_train(x, m2, *mlp):
     """A block's MLP half in torch, on the autograd graph."""
     p = VSSBlockOperands(*(None,) * len(SS2D_FIELDS), *mlp)
     return mlp_half(x, p, PLAIN_OPS, m2)
+
+
+# ---------------------------------------------------------------------------
+# the Mamba-2 classifier factories (``vssm.py:516-585``)
+# ---------------------------------------------------------------------------
+
+def _vssm(num_classes, device, seed, **cfg) -> VSSM:
+    """A classifier VSSM, weights from a ``torch.Generator`` seeded with
+    ``seed`` and drop-path masks from one seeded with ``seed + 1``, in eval
+    mode on ``device`` (the card unless the caller asks for the CPU)."""
+    model = VSSM(num_classes=num_classes, out_indices=None,
+                 generator=torch.Generator().manual_seed(seed),
+                 dropout_generator=torch.Generator().manual_seed(seed + 1), **cfg)
+    return model.eval().to(device)
+
+
+# what the three m2 models share (``vssm.py:571-585``)
+_M2 = dict(ssm_d_state=64, ssm_ratio=1.0, ssm_act="gelu", ssm_conv_bias=False, ssm_init="v2",
+           forward_type="m0_noz", mlp_ratio=4.0)
+
+
+def vmamba_tiny_m2(num_classes=1000, *, device="cuda", seed=0, **kw) -> VSSM:
+    """Mamba-2 (SSD) VMamba-T: depths 2/2/4/2, dims 96, d_state 64, GELU,
+    m0_noz, ssm_init v2; ``kw`` overrides any VSSM argument."""
+    cfg = dict(depths=(2, 2, 4, 2), dims=96, drop_path_rate=0.2)
+    return _vssm(num_classes, device, seed, **(_M2 | cfg | kw))
+
+
+def vmamba_small_m2(num_classes=1000, *, device="cuda", seed=0, **kw) -> VSSM:
+    """Mamba-2 VMamba-S: depths 2/2/12/2, dims 96."""
+    cfg = dict(depths=(2, 2, 12, 2), dims=96, drop_path_rate=0.3)
+    return _vssm(num_classes, device, seed, **(_M2 | cfg | kw))
+
+
+def vmamba_base_m2(num_classes=1000, *, device="cuda", seed=0, **kw) -> VSSM:
+    """Mamba-2 VMamba-B: depths 2/2/12/2, dims 128."""
+    cfg = dict(depths=(2, 2, 12, 2), dims=128, drop_path_rate=0.3)
+    return _vssm(num_classes, device, seed, **(_M2 | cfg | kw))

@@ -33,7 +33,8 @@ Phases, in order; any failure exits non-zero:
    kernel, kernels 2 and 3 and kernel 13 per forward, ms per batch;
 5. the model in float32 (kernel 11), on the card and on the CPU (plain
    twins), at batch 1: the logits must agree, and the launches be kernel
-   11 21, kernel 2 2, kernel 3 1;
+   11 21 and kernel 9 3 (at one study no fusion scan has an aligned image
+   group);
 6. each training kernel against its plain version on the card, TF32 off,
    every output tensor within its tolerance: in float32 and bfloat16 at
    XFMamba-S's widths, and in bfloat16 at XFMamba-B's (dims 128-1024, dt
@@ -80,7 +81,32 @@ Phases, in order; any failure exits non-zero:
    float32 training at bs 16 (18 + 18 launches per step; 36 + 18 with
    ``use_checkpoint``), ms per step and peak memory; (9d) its widths at
    depths (2, 2, 2, 2), batch 2: logits and one step's gradients, card
-   against the CPU plain twins.
+   against the CPU plain twins; (9e) the SSD scan past the kernels' limits
+   (d_state 128, head width 64: two width slices x two d_state tiles),
+   kernels 15/16 against the untiled plain twins, and an m0 SS2D layer of
+   that geometry, forward and backward, card against the CPU.
+
+Single-study and unaligned-batch inference (kernels 8, 9 and 10):
+3c. kernels 8 (the v1 whole block, bfloat16) at XFMamba-S's and
+   XFMamba-B's stage-2 and stage-3 maps for 2 images, 9 (the v1 nk scan)
+   at ShallowFuse's (1, 49, D) K=1 and Cross_SS2Dv5's (3, 49, D) K=4 N=16
+   shapes in both dtypes, and 10 (the cross2d core from projections) at
+   the four stage maps for 2 images, N=1 in both dtypes, and N=16, each
+   against its plain twin, TF32 off; with ms, plain ms and bound per
+   forward (kernels 8 and 9 per bs-1 bfloat16 forward) or step (kernel 10
+   at phase 8d's layer), kernel 8 beside kernel 1's block sequence and
+   kernel 9 beside kernel 2 on the same inputs;
+4f. XFMamba-S bfloat16 inference at 1 and 2 studies per batch: launches
+   per forward (vss_stage 2 / 3, kernel 8 17 / 2, kernel 9 3 / 3, kernels
+   2 and 3 none), ms per forward, and the device's busy share of a bs-1
+   forward (torch.profiler); float32 at 1 study (kernel 11 21, kernel 9 3);
+   XFMamba-B bfloat16 at 1 and 32 studies;
+5b. XFMamba-S widths at depths (2, 2, 2, 2), 1 study, the bfloat16 route's
+   kernels in float32 (kernel 1 at stages 0-1, kernel 8 at stages 2-3,
+   kernel 9): logits card against the CPU plain twins;
+8d. a Cross_SS2Dv5 layer with d_state 1 (XFMamba-S's width, 7 x 7, 2
+   studies) in training, forward and backward: kernel 10 through
+   ``core_dispatch`` on the card against the CPU plain twins.
 
 The line before the last but one is one JSON object with the kernels'
 results (launches per main-path forward or step, errors, times, bounds),
@@ -103,10 +129,13 @@ from xfmamba_tpu_torch.kernels import build
 from xfmamba_tpu_torch.models.ss2d import SS2D
 from xfmamba_tpu_torch.models.tops import TwoViewXFMamba, two_view_xfmamba
 from xfmamba_tpu_torch.models.vssm import VSSBlock, vmamba_small_m2
+from xfmamba_tpu_torch.models import vssm
+from xfmamba_tpu_torch.models.fusion import CrossSS2Dv5
 from xfmamba_tpu_torch.ops import (
-    nk_scan, nk_scan_adjoint, selective_scan_grouped, ss2d_core_n1, ssd_chunk, vss_block_train,
-    vss_stage, vss_stage_train)
+    fused_cross_scan, nk_scan, nk_scan_adjoint, nk_scan_v1, selective_scan_grouped, ss2d_core_n1,
+    ssd_chunk, vss_block_train, vss_block_v1, vss_stage, vss_stage_train)
 from xfmamba_tpu_torch.ops.vss_block import pack_vss_block_params, pack_vss_block_train_params
+from xfmamba_tpu_torch.train.profile import _device_us
 from xfmamba_tpu_torch.train.config import TrainConfig
 from xfmamba_tpu_torch.train.loop import make_optimizer, make_train_step
 
@@ -206,6 +235,27 @@ M2_STAGES = {"small": [(56, 96, 2), (28, 192, 2), (14, 384, 12), (7, 768, 2)],
 M2_NAME = {"small": "vmamba_small_m2", "base": "vmamba_base_m2"}
 M2_BLOCKS = 18
 M2_TRAIN_STEPS = 3
+
+# kernels 8, 9 and 10: single-study and unaligned-batch inference (the v1
+# whole block and nk scan, two-level scans along L) and the cross2d core
+# from projections (d_state-1 Cross_SS2Dv5 training through core_dispatch)
+V1_KERNELS = {
+    "vss_block_v1": dict(fn=vss_block_v1.vss_block_v1,
+                         source="xfmamba_tpu_torch/csrc/scan_two_level.cu",
+                         replaces="xfmamba_tpu/ops/vss_block_pallas.py:295"),
+    "nk_scan_v1": dict(fn=nk_scan_v1.nk_scan_v1, source="xfmamba_tpu_torch/csrc/scan_two_level.cu",
+                       replaces="xfmamba_tpu/ops/vss_block_pallas.py:690"),
+    "fused_cross_scan": dict(fn=fused_cross_scan.fused_cross_scan,
+                             source="xfmamba_tpu_torch/csrc/scan_two_level.cu",
+                             replaces="xfmamba_tpu/ops/selective_scan_pallas.py:73"),
+}
+# bfloat16 launches per forward at 1 and 2 studies (XFMamba-S; XFMamba-B at
+# 1 study the same), every kernel not named 0
+ONE_STUDY = {1: {"vss_stage": 2, "vss_block_v1": 17, "nk_scan_v1": 3},
+             2: {"vss_stage": 3, "vss_block_v1": 2, "nk_scan_v1": 3}}
+F32_ONE_STUDY = {"ss2d_core_n1_fwd": 21, "nk_scan_v1": 3}
+# phase 8d's layer: Cross_SS2Dv5 at XFMamba-S's width, 7 x 7, 2 studies (3 x 2 streams)
+CROSS_N1 = dict(views=2, H=7, d=768)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense operations/s by type
 HBM_BYTES_PER_S = 3.35e12
@@ -356,6 +406,16 @@ def ssd_work(b, L, R, dtype, K=4, P=16, N=64, chunk=64, backward=False, states=F
         return Work().add(io + out, f32=ops)
     return Work().add(io + state * (nc + 1) + 4 * b * L * (2 * h * P + h + 2 * K * N) + state,
                       f32=ops)
+
+
+def cross_work(n, H, W, D, N, dtype):
+    """Kernel 10 on n images of H x W x D: x, the four directions' deltas,
+    B and C read once, y (float32) written once, the four directions' scans
+    and the merge's three adds."""
+    esize = torch.finfo(dtype).bits // 8
+    M = n * H * W
+    return Work().add(M * (5 * D + 8 * N) * esize + 4 * M * D,
+                      f32=scan_ops(M, D, 4, N) + 3 * M * D)
 
 
 def card_line() -> str:
@@ -563,6 +623,306 @@ def phase_compare_grouped(errors, card):
 
 
 # ---------------------------------------------------------------------------
+# kernels 8, 9 and 10: single-study inference and the cross2d core
+# ---------------------------------------------------------------------------
+
+def v1_block_case(g, H, d, n):
+    """One VSSBlock at a stage map on n images, bfloat16: its kernel-8 and
+    kernel-1 operands and x."""
+    block = VSSBlock(d, generator=g).eval().cuda()
+    return (randn(g, n, H * H, d, dtype=torch.bfloat16),
+            vss_block_v1.pack_vss_block_v1_params(block, torch.bfloat16),
+            pack_vss_block_params(block, torch.bfloat16))
+
+
+def v1_scan_case(g, n, K, dtype, size):
+    """Kernel 9's operands at a fusion shape: (n, 49, D), K kinds, N 16."""
+    u, Bs, Cs, A, Dvec, bias = fusion_scan_operands(g, n, K, dtype, size)
+    dts = randn(g, n, u.shape[1], K * u.shape[2], dtype=dtype, scale=0.5)
+    kinds = ("row_f",) if K == 1 else nk_scan.scan_mode_kinds("cross2d")
+    H = FUSION[size]["H"]
+    return (u, dts, Bs, Cs, A, Dvec, bias, H, H, kinds)
+
+
+def cross_case_n(g, n, H, D, N, dtype):
+    """Kernel 10's operands on n images of H x H x D: deltas about
+    softplus(-4 +- 1) and A in [-e^1.5, -1], as in a trained model."""
+    return (randn(g, n, H, H, D, dtype=dtype), randn(g, n, H, H, 4, D, dtype=dtype) - 4.0,
+            randn(g, n, H, H, 4, N, dtype=dtype), randn(g, n, H, H, 4, N, dtype=dtype),
+            -torch.exp(1.5 * torch.rand(4, D, N, generator=g)).cuda(), randn(g, 4, D),
+            randn(g, 4, D, scale=0.5))
+
+
+def phase_compare_v1(errors, card):
+    """Kernels 8, 9 and 10 against their plain twins on the card, TF32 off,
+    with each one's time, its plain twin's and its bound: kernel 8 per
+    bs-1 bfloat16 XFMamba-S forward (15 blocks at 14 x 14, 2 at 7 x 7, 2
+    images) beside kernel 1's block sequence on the same blocks and inputs;
+    kernel 9 per bs-1 bfloat16 forward (two ShallowFuse calls, one
+    Cross_SS2Dv5 call) beside kernel 2 on the same inputs; kernel 10 per
+    step of phase 8d's layer (float32, 6 images of 7 x 7 x 1536, N 1)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"phase 3c: kernels 8, 9 and 10 vs their plain twins on the card, TF32 off ({card})")
+    g = torch.Generator().manual_seed(30)
+    failed, times = [], {}
+    bf16, f32 = torch.bfloat16, torch.float32
+    k8 = dict(ms=0.0, plain=0.0, k1=0.0, work=Work())
+    with torch.no_grad():
+        for size in ("small", "base"):
+            for H, d, depth in STAGES[size][2:]:
+                x, p1, p0 = v1_block_case(g, H, d, 2)
+                label = f"{MODEL_NAME[size]} block H={H} d={d} (2 images)"
+                check_outputs(errors, "vss_block_v1", label, bf16,
+                              [vss_block_v1.vss_block_v1(x, p1, H, H)],
+                              [vss_block_v1.vss_block_v1_plain(x, p1, H, H)], failed)
+                if size == "small":
+                    k8["ms"] += depth * time_ms(lambda: vss_block_v1.vss_block_v1(x, p1, H, H), 5)
+                    k8["plain"] += depth * time_ms(
+                        lambda: vss_block_v1.vss_block_v1_plain(x, p1, H, H), 1, warmup=False)
+                    k8["k1"] += depth * time_ms(lambda: vss_stage.vss_stage(x, [p0], H, H), 5)
+                    k8["work"] += block_work(2, H, d, bf16, mlp=True).times(depth)
+        k9 = dict(ms=0.0, plain=0.0, k2=0.0, work=Work())
+        for size in ("small", "base"):
+            for dtype in (f32, bf16):
+                for n, K, count in ((1, 1, 2), (3, 4, 1)):
+                    args = v1_scan_case(g, n, K, dtype, size)
+                    D = FUSION[size]["D"]
+                    label = f"{MODEL_NAME[size]} ({n},49,{D}) K={K} N=16"
+                    check_outputs(errors, "nk_scan_v1", label, dtype,
+                                  [nk_scan_v1.nk_scan_v1(*args)],
+                                  [nk_scan_v1.nk_scan_v1_plain(*args)], failed)
+                    if size == "small" and dtype == bf16:
+                        k9["ms"] += count * time_ms(lambda: nk_scan_v1.nk_scan_v1(*args), 5)
+                        k9["plain"] += count * time_ms(
+                            lambda: nk_scan_v1.nk_scan_v1_plain(*args), 1, warmup=False)
+                        k9["k2"] += count * time_ms(lambda: nk_scan.nk_scan(*args), 5)
+                        k9["work"] += nk_work(n, 49, D, K, 16, bf16).times(count)
+        for dtype in (f32, bf16):
+            cases = [(H, 2 * d, 1) for H, d, _ in STAGES["small"]] + [(7, 1536, 16)]
+            for H, D, N in cases:
+                args = cross_case_n(g, 2, H, D, N, dtype)
+                check_outputs(errors, "fused_cross_scan",
+                              f"cross2d core H={H} D={D} N={N} (2 images)", dtype,
+                              [fused_cross_scan.fused_cross_scan(*args)],
+                              [fused_cross_scan.fused_cross_scan_plain(*args)], failed)
+        n, H, D = 3 * CROSS_N1["views"], CROSS_N1["H"], 2 * CROSS_N1["d"]
+        args = cross_case_n(g, n, H, D, 1, f32)
+        k10 = (time_ms(lambda: fused_cross_scan.fused_cross_scan(*args), 5),
+               time_ms(lambda: fused_cross_scan.fused_cross_scan_plain(*args), 1, warmup=False),
+               *cross_work(n, H, H, D, 1, f32).bound())
+    torch.cuda.synchronize()
+    if failed:
+        raise PhaseFailure(f"kernels 8, 9 or 10 disagree with their plain twins: {failed}")
+    times["vss_block_v1"] = (k8["ms"], k8["plain"], *k8["work"].bound())
+    times["nk_scan_v1"] = (k9["ms"], k9["plain"], *k9["work"].bound())
+    times["fused_cross_scan"] = k10
+    print(f"  kernel 8 per bs-1 bfloat16 XFMamba-S forward (17 blocks): {k8['ms']:.3f} ms, plain "
+          f"{k8['plain']:.3f} ms, bound {times['vss_block_v1'][2]:.4f} ms "
+          f"({times['vss_block_v1'][3]}); kernel 1's block sequence on the same blocks "
+          f"{k8['k1']:.3f} ms ({card})")
+    print(f"  kernel 9 per bs-1 bfloat16 forward (2 + 1 calls): {k9['ms']:.3f} ms, plain "
+          f"{k9['plain']:.3f} ms, bound {times['nk_scan_v1'][2]:.4f} ms "
+          f"({times['nk_scan_v1'][3]}); kernel 2 on the same inputs {k9['k2']:.3f} ms")
+    print(f"  kernel 10 per step of phase 8d's layer ({n} images, {H}x{H}x{D}, N 1, float32): "
+          f"{k10[0]:.3f} ms, plain {k10[1]:.3f} ms, bound {k10[2]:.4f} ms ({k10[3]})")
+    return times
+
+
+def busy_share(fn, reps=3):
+    """(wall ms, device ms) per call of ``fn`` under torch.profiler: wall
+    from CUDA events, device the sum of the device-only rows."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    rows = [r for r in prof.key_averages() if r.self_cpu_time_total == 0 and _device_us(r) > 0
+            and not getattr(r, "is_user_annotation", False)]
+    return start.elapsed_time(end) / reps, sum(map(_device_us, rows)) / 1e3 / reps
+
+
+def one_study_forward(model, bs, dtype, want, label, card, profile=False):
+    """One forward at ``bs`` studies with the launch counts read around it
+    (``want``: the expected non-zero counts), then ms per forward (median
+    of 3 runs of 5) and, with ``profile``, the device's busy share."""
+    fns = all_kernels()
+    xa, xb = views(bs, dtype, 300 + bs)
+    with torch.no_grad():
+        model(xa, xb)                                      # warm-up
+        torch.cuda.synchronize()
+        counts = counted(fns)
+        logits = model(xa, xb)
+        torch.cuda.synchronize()
+        launches = {n: c for n, c in counts().items() if c}
+        if logits.shape != (bs, 2) or not torch.isfinite(logits.float()).all() or launches != want:
+            raise PhaseFailure(f"{label} bs {bs}: logits {tuple(logits.shape)} or launches "
+                               f"{launches}, expected {want}")
+        samples = sorted(time_ms(lambda: model(xa, xb), 5) for _ in range(3))
+        line = (f"  {label} bs {bs}: launches per forward {launches}; {samples[1]:.2f} ms per "
+                f"forward (median of 3 runs of 5: {', '.join(f'{v:.2f}' for v in samples)})")
+        if profile:
+            wall, device = busy_share(lambda: model(xa, xb))
+            line += f"; profiled: wall {wall:.3f} ms, device {device:.3f} ms, busy share " \
+                    f"{device / wall:.3f}"
+    print(f"{line} ({card})")
+    return launches
+
+
+def phase_one_study(card):
+    """XFMamba-S bfloat16 inference at 1 and 2 studies per batch (kernels
+    8 and 9), float32 at 1 study, XFMamba-B bfloat16 at 1 and 32 studies;
+    launches per forward and ms per forward.  Returns the bs-1 bfloat16
+    XFMamba-S launches (the main path of kernels 8 and 9)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"phase 4f: single-study inference, 224x224, seeded weights, TF32 off ({card})")
+    bf16 = torch.bfloat16
+    model = two_view_xfmamba("small", seed=0)
+    main = one_study_forward(model, 1, bf16, ONE_STUDY[1], "XFMamba-S bfloat16", card, True)
+    one_study_forward(model, 2, bf16, ONE_STUDY[2], "XFMamba-S bfloat16", card)
+    one_study_forward(model, 1, torch.float32, F32_ONE_STUDY, "XFMamba-S float32", card)
+    del model
+    base = two_view_xfmamba("base", seed=0)
+    one_study_forward(base, 1, bf16, ONE_STUDY[1], "XFMamba-B bfloat16", card)
+    one_study_forward(base, 32, bf16, {"vss_stage": 4, "nk_scan": 2, "nk_scan_x": 1},
+                      "XFMamba-B bfloat16", card)
+    del base
+    return main
+
+
+def phase_v1_cpu_parity():
+    """XFMamba-S widths at depths (2, 2, 2, 2), 1 study, float32 through the
+    bfloat16 route's kernels (kernel 1 at stages 0-1, kernel 8 at stages
+    2-3, kernel 9 for both fusion scans), card against the CPU plain twins:
+    logits within 1e-3 of the largest."""
+    print("phase 5b: XFMamba-S widths at depths (2, 2, 2, 2), 1 study: the bfloat16 route's "
+          "kernels (1, 8, 9) in float32, card vs CPU plain twins")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    route = vssm._uses_stage_route
+    vssm._uses_stage_route = lambda dtype: True
+    try:
+        model = depth2_model("small").eval()
+        xa, xb = (x.cpu().float() for x in views(1, torch.float32, 9))
+        fns = all_kernels()
+        with torch.no_grad():
+            t0 = time.time()
+            want = model(xa, xb)
+            cpu_s = time.time() - t0
+            model.cuda()
+            counts = counted(fns)
+            got = model(xa.cuda(), xb.cuda()).cpu()
+            launches = {n: c for n, c in counts().items() if c}
+    finally:
+        vssm._uses_stage_route = route
+    err = float((got - want).abs().max())
+    tol = 1e-3 * float(want.abs().max())
+    expect = {"vss_stage": 2, "vss_block_v1": 4, "nk_scan_v1": 3}
+    print(f"  card {got.tolist()} cpu {want.tolist()} max_abs_err={err:.3e} tol={tol:.3e} "
+          f"(cpu forward {cpu_s:.1f} s); launches {launches}")
+    if launches != expect or not err <= tol:
+        raise PhaseFailure(f"the v1 route on the card disagrees with the CPU plain path, or its "
+                           f"launches {launches} differ from {expect}")
+
+
+def phase_cross_n1_layer():
+    """A Cross_SS2Dv5 layer with d_state 1 at XFMamba-S's width (d 768,
+    d_inner 1536), 7 x 7, 2 studies, in training mode: forward and
+    backward, kernel 10 through ``core_dispatch`` (its backward recomputes
+    through kernels 13 and 14) on the card against the CPU plain twins;
+    each output and gradient within 1e-3 of its largest magnitude."""
+    print("phase 8d: Cross_SS2Dv5(768, d_state=1) at 7x7, 2 studies, float32, training mode, "
+          "forward and backward, card (kernel 10 via core_dispatch) vs CPU plain twins")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    v, H, d = CROSS_N1["views"], CROSS_N1["H"], CROSS_N1["d"]
+    layer = CrossSS2Dv5(d, d_state=1, generator=torch.Generator().manual_seed(31)).train()
+    g = torch.Generator().manual_seed(32)
+    x, x2, gy = (torch.randn(v, H, H, d, generator=g) for _ in range(3))
+    fns = {n: k["fn"] for n, k in (V1_KERNELS | GROUPED_KERNELS).items()}
+    results = []
+    for device in ("cpu", "cuda"):
+        layer.to(device).zero_grad()
+        leaves = [t.clone().to(device).requires_grad_() for t in (x, x2)]
+        counts = counted(fns)
+        t0 = time.time()
+        y = layer(*leaves)
+        y.backward(gy.to(device))
+        launches = {n: c for n, c in counts().items() if c}
+        results.append([y.detach().cpu().clone()] + [t.grad.cpu().clone() for t in leaves]
+                       + [p.grad.cpu().clone() for p in layer.parameters()])
+        print(f"  {device}: {time.time() - t0:.2f} s, launches {launches}")
+    worst = max(rel(a, b)[1] for a, b in zip(results[1], results[0]))
+    print(f"  {len(results[0])} outputs and gradients, worst relative error {worst:.3e}, tol 1e-03")
+    expect = {"fused_cross_scan": 1, "selective_scan_grouped_fwd": 4,
+              "selective_scan_grouped_bwd": 4}
+    if launches != expect or not worst <= 1e-3:
+        raise PhaseFailure(f"the d_state-1 Cross_SS2Dv5 layer on the card disagrees with the CPU "
+                           f"plain path, or its launches {launches} differ from {expect}")
+    return launches["fused_cross_scan"]
+
+
+def phase_ssd_past_limits(errors, card):
+    """The SSD scan at d_state 128 and head width 64 (the gate admits it,
+    the kernels take 64 and 32): kernels 15 and 16, tiled (2 width slices x
+    2 d_state tiles), against the untiled plain twins in both dtypes; then
+    an m0 SS2D layer of that geometry (d_model 96, ssm_ratio 4, 28 x 28,
+    batch 2), forward and backward, card against the CPU plain twins."""
+    print(f"phase 9e: the SSD kernels past their limits, d_state 128, head width 64 ({card})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(33)
+    failed = []
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            R, P, N, L = 6, 64, 128, 784
+            args = (randn(g, 2, 4, L, R, P, dtype=dtype), randn(g, 2, 4, L, R, dtype=dtype) - 4.0,
+                    -torch.exp(1.5 * torch.rand(4 * R, generator=g)).cuda(),
+                    randn(g, 2, 4, L, N, dtype=dtype), randn(g, 2, 4, L, N, dtype=dtype),
+                    randn(g, 4 * R, P), randn(g, 4 * R, scale=0.5), None)
+            counts = counted({n: k["fn"] for n, k in SSD_KERNELS.items()})
+            got = ssd_chunk.ssd_fwd_tiled(*args, save_states=True)
+            want = ssd_chunk.ssd_fwd_plain(*args, save_states=True)
+            check_outputs(errors, "ssd_chunk_fwd", f"tiled L={L} R={R} P={P} N={N}", dtype,
+                          got, want, failed)
+            dy = randn(g, *args[0].shape)
+            check_outputs(errors, "ssd_chunk_bwd", f"tiled L={L} R={R} P={P} N={N}", dtype,
+                          ssd_chunk.ssd_bwd_tiled(*args[:7], want[2], dy),
+                          ssd_chunk.ssd_bwd_plain(*args[:7], want[2], dy), failed)
+            torch.cuda.synchronize()
+            launches = counts()
+            if launches != {"ssd_chunk_fwd": 4, "ssd_chunk_bwd": 4}:
+                failed.append(("launches", launches))
+    if failed:
+        raise PhaseFailure(f"the tiled SSD kernels disagree with the untiled plain twins: {failed}")
+    layer = SS2D(96, d_state=128, ssm_ratio=4.0, forward_type="m0_noz", act="gelu",
+                 initialize="v2", conv_bias=False, generator=torch.Generator().manual_seed(34))
+    x, gy = torch.randn(2, 28, 28, 96, generator=g), torch.randn(2, 28, 28, 96, generator=g)
+    results = []
+    for device in ("cpu", "cuda"):
+        layer.to(device).zero_grad()
+        xl = x.clone().to(device).requires_grad_()
+        counts = counted({n: k["fn"] for n, k in SSD_KERNELS.items()})
+        y = layer(xl)
+        y.backward(gy.to(device))
+        launches = counts()
+        results.append([y.detach().cpu().clone(), xl.grad.cpu().clone()]
+                       + [p.grad.cpu().clone() for p in layer.parameters()])
+    worst = max(rel(a, b)[1] for a, b in zip(results[1], results[0]))
+    print(f"  m0 SS2D(96, d_state=128, ssm_ratio=4) at 28x28, batch 2: {len(results[0])} outputs "
+          f"and gradients, worst relative error {worst:.3e}, tol 1e-03; launches {launches}")
+    if launches != {"ssd_chunk_fwd": 4, "ssd_chunk_bwd": 4} or not worst <= 1e-3:
+        raise PhaseFailure("the m0 SS2D layer past the kernel limits disagrees with the CPU plain "
+                           "path, or did not launch kernels 15 and 16 four times each")
+
+
+# ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
 
@@ -708,15 +1068,15 @@ def phase_n1_times(card):
 
 def phase_cpu_parity(model, expect, phase="5", name="XFMamba-S"):
     """Float32 eval logits at batch 1, the model on the card (kernel 11,
-    the fusion scans through kernels 2 and 3; ``expect`` the launches of
-    that forward) against itself on the CPU (plain twins).  Leaves the
-    model on the CPU."""
+    the fusion scans through kernel 9; ``expect`` the launches of that
+    forward) against itself on the CPU (plain twins).  Leaves the model on
+    the CPU."""
     print(f"phase {phase}: {name} float32 logits, card vs CPU plain path, batch 1; the float32 "
           "route: composable blocks, kernel 11 on the card, its plain twin on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     xa, xb = views(1, torch.float32, 7)
-    fns = {n: k["fn"] for n, k in (N1_KERNELS | KERNELS | GROUPED_KERNELS).items()}
+    fns = all_kernels()
     with torch.no_grad():
         model.eval().cuda()
         counts = counted(fns)
@@ -1333,10 +1693,14 @@ def phase_compare_ssd(errors, card):
     return times
 
 
+def kernel_table():
+    """Every kernel of the port by name, in the order of the kernels line."""
+    return KERNELS | TRAIN_KERNELS | N1_KERNELS | GROUPED_KERNELS | SSD_KERNELS | V1_KERNELS
+
+
 def all_kernels():
     """Every kernel wrapper of the port by name."""
-    return {n: k["fn"] for n, k in
-            (KERNELS | TRAIN_KERNELS | N1_KERNELS | GROUPED_KERNELS | SSD_KERNELS).items()}
+    return {n: k["fn"] for n, k in kernel_table().items()}
 
 
 def images(batch, dtype, seed):
@@ -1497,16 +1861,20 @@ def main() -> int:
     errors = {}
     phase_compare(errors)
     times = phase_compare_grouped(errors, card)
+    times |= phase_compare_v1(errors, card)
     model = two_view_xfmamba("small", seed=0)
     launches = phase_model(model, card)
     times |= phase_kernel_times(card)
     launches["ss2d_core_n1_fwd"] = phase_model_f32(model, card)
     times |= phase_n1_times(card)
-    phase_cpu_parity(model, {n: c for n, c in F32_FORWARD.items() if c})
+    phase_cpu_parity(model, F32_ONE_STUDY)
     del model
     base = two_view_xfmamba("base", seed=0)
     phase_model_f32(base, card, "4e", "XFMamba-B")
     del base
+    one_study = phase_one_study(card)
+    launches |= {name: one_study[name] for name in ("vss_block_v1", "nk_scan_v1")}
+    phase_v1_cpu_parity()
     n1_bwd, train_times = phase_compare_train(errors, card)
     times |= n1_bwd
     # the two card routes of XFMamba-B's Cross_SS2Dv5 training scan, kernels only
@@ -1522,23 +1890,24 @@ def main() -> int:
     launches |= {name: base_step[name] for name in GROUPED_KERNELS}
     phase_train_cpu_parity(depth2_model("small"), "XFMamba-S", "8")
     base2 = depth2_model("base")
-    phase_cpu_parity(base2, {"ss2d_core_n1_fwd": 8, "nk_scan": 2, "nk_scan_x": 1}, "8b",
+    phase_cpu_parity(base2, {"ss2d_core_n1_fwd": 8, "nk_scan_v1": 3}, "8b",
                      "XFMamba-B (depths 2/2/2/2)")
     phase_train_cpu_parity(base2, "XFMamba-B", "8b")
     del base2
     phase_ss2d_layer()
+    launches["fused_cross_scan"] = phase_cross_n1_layer()
     times |= phase_compare_ssd(errors, card)
     launches["ssd_chunk_fwd"] = phase_m2_inference(card)
     launches["ssd_chunk_bwd"] = phase_m2_train(card)
     phase_m2_cpu_parity()
+    phase_ssd_past_limits(errors, card)
     # no single PyTorch call computes any of these functions: library_ms is null
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=k["source"], replaces=k["replaces"],
              launches=launches[name], max_abs_err=errors[name], ms=times[name][0],
              plain_ms=times[name][1], bound_ms=times[name][2], bound_by=times[name][3],
              library_ms=None)
-        for name, k in (KERNELS | TRAIN_KERNELS | N1_KERNELS | GROUPED_KERNELS
-                        | SSD_KERNELS).items()]}))
+        for name, k in kernel_table().items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

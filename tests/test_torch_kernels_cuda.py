@@ -17,9 +17,10 @@ import torch
 from xfmamba_tpu_torch.models import vssm
 from xfmamba_tpu_torch.models.tops import TwoViewXFMamba
 from xfmamba_tpu_torch.models.vssm import VSSBlock
+from xfmamba_tpu_torch.models.ss2d import core_dispatch
 from xfmamba_tpu_torch.ops import (
-    nk_scan, nk_scan_adjoint, primitives, selective_scan_grouped, ss2d_core_n1, ssd_chunk,
-    vss_block_train, vss_stage, vss_stage_train)
+    fused_cross_scan, nk_scan, nk_scan_adjoint, nk_scan_v1, primitives, selective_scan_grouped,
+    ss2d_core_n1, ssd_chunk, vss_block_train, vss_block_v1, vss_stage, vss_stage_train)
 from xfmamba_tpu_torch.ops.vss_block import pack_vss_block_params, pack_vss_block_train_params
 
 pytestmark = pytest.mark.cuda
@@ -88,6 +89,22 @@ def test_dwconv3_silu(dev, dtype):
     w9, b = randn(g, 9, 40, scale=0.3), randn(g, 40)
     got = primitives.dwconv3_silu_cuda(x, w9, b)
     assert rel_err(got, primitives.dwconv3_silu_plain(x, w9, b)) < TOL[dtype]
+    if dtype == torch.float32:          # the v1 block's bfloat16 copy of u
+        got, got16 = primitives.dwconv3_silu_cuda(x, w9, b, copy_bf16=True)
+        assert got16.dtype == torch.bfloat16 and torch.equal(got16, got.to(torch.bfloat16))
+
+
+def test_gemm_residual_of_another_dtype(dev):
+    """The v1 block's residual streams: a bfloat16 residual into a float32
+    output and a float32 residual into a bfloat16 output."""
+    g = torch.Generator().manual_seed(21)
+    a, w = randn(g, 300, 64, dtype=torch.bfloat16), randn(g, 48, 64, dtype=torch.bfloat16)
+    bias = randn(g, 48)
+    for res, out_dtype in ((randn(g, 300, 48, dtype=torch.bfloat16), torch.float32),
+                           (randn(g, 300, 48), torch.bfloat16)):
+        got = primitives.gemm_ab_cuda(a, w, bias, res, out_dtype=out_dtype)
+        want = primitives.gemm_ab_plain(a, w, bias, res, out_dtype=out_dtype)
+        assert got.dtype == out_dtype and rel_err(got, want) < TOL[out_dtype]
 
 
 def decay_rates(K, N, D):
@@ -173,11 +190,13 @@ def test_tiny_model_card_matches_cpu(dev, route):
         want = model(xa, xb)
         model.cuda()
         fns = (ss2d_core_n1.ss2d_core_n1_fwd, vss_stage.vss_stage, nk_scan.nk_scan,
-               nk_scan.nk_scan_x)
+               nk_scan.nk_scan_x, nk_scan_v1.nk_scan_v1)
         counts = [f.launches for f in fns]
         got = model(xa.cuda(), xb.cuda()).cpu()
     after = [f.launches for f in fns]
-    want_counts = [8, 0, 2, 1] if route == "block" else [0, 4, 2, 1]
+    # the 1 x 1 stage 3 has no whole-block kernel (composable, kernel 11);
+    # no fusion scan has an aligned image group at 2 views (kernel 9)
+    want_counts = [8, 0, 0, 0, 3] if route == "block" else [2, 3, 0, 0, 3]
     assert [b - a for a, b in zip(counts, after)] == want_counts
     assert rel_err(got, want) < 1e-3
 
@@ -580,3 +599,140 @@ def test_tiny_m2_classifier_card_matches_cpu(dev):
     assert counts == (10, 5)
     for got, want in zip(results[1], results[0]):
         assert rel_err(got, want) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# kernels 8, 9 and 10: the two-level scans, the v1 block and the fused
+# cross2d core; the SSD kernels past their limits
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kinds,N,R,H,W", [
+    (("row_f", "col_f", "row_r", "col_r"), 1, 3, 14, 14),  # the v1 block's scan
+    (("row_f", "col_f", "row_r", "col_r"), 1, 3, 56, 40),  # several segments per chunk
+    (("row_f",), 16, 0, 7, 7),                             # ShallowFuse form
+    (("row_f", "col_f", "row_r", "col_r"), 16, 0, 5, 9),   # Cross_SS2Dv5 form
+    (("row_f", "row_f", "row_r", "row_r"), 4, 0, 1, 6),    # bidi on a single row
+])
+def test_scan_two_level(dev, dtype, kinds, N, R, H, W):
+    """The two-level scan against the serial plain scan: the products of a
+    are reassociated, so float32 agrees to 1e-4 of the largest value."""
+    g = torch.Generator().manual_seed(22)
+    args = _scan_case(g, dtype, 3, H, W, 70, kinds, N, R)
+    got = nk_scan_v1.scan_two_level_cuda(**args, round_rank=bool(R))
+    want = nk_scan_v1.scan_two_level_plain(**args, round_rank=bool(R))
+    assert rel_err(got, want) < 5 * TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_nk_scan_v1(dev, dtype):
+    """Kernel 9 at ShallowFuse's K=1 row_f and Cross_SS2Dv5's K=4 forms."""
+    g = torch.Generator().manual_seed(23)
+    H, W, D, N = 7, 7, 96, 16
+    for B, kinds in ((1, ("row_f",)), (3, nk_scan.scan_mode_kinds("cross2d"))):
+        K, L = len(kinds), H * W
+        args = (randn(g, B, L, D, dtype=dtype), randn(g, B, L, K * D, dtype=dtype, scale=0.5),
+                randn(g, B, L, K * N, dtype=dtype), randn(g, B, L, K * N, dtype=dtype),
+                decay_rates(K, N, D).reshape(K * N, D), randn(g, K, D), randn(g, K, D, scale=0.5),
+                H, W, kinds)
+        before = nk_scan_v1.nk_scan_v1.launches
+        got = nk_scan_v1.nk_scan_v1(*args)
+        assert nk_scan_v1.nk_scan_v1.launches == before + 1 and got.dtype == dtype
+        assert rel_err(got, nk_scan_v1.nk_scan_v1_plain(*args)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,W,d", [(14, 14, 32), (7, 7, 64), (9, 5, 16)])
+def test_vss_block_v1(dev, dtype, H, W, d):
+    """Kernel 8, one block, against its plain twin (2 images)."""
+    g = torch.Generator().manual_seed(24)
+    block = VSSBlock(d, generator=g).eval().cuda()
+    p = vss_block_v1.pack_vss_block_v1_params(block, dtype)
+    x = randn(g, 2, H * W, d, dtype=dtype)
+    before = vss_block_v1.vss_block_v1.launches
+    got = vss_block_v1.vss_block_v1(x, p, H, W)
+    assert vss_block_v1.vss_block_v1.launches == before + 1 and got.dtype == dtype
+    assert rel_err(got, vss_block_v1.vss_block_v1_plain(x, p, H, W)) < TOL[dtype]
+
+
+def _cross_case(g, dtype, B, H, W, D, N):
+    return (randn(g, B, H, W, D, dtype=dtype), randn(g, B, H, W, 4, D, dtype=dtype) - 4.0,
+            randn(g, B, H, W, 4, N, dtype=dtype), randn(g, B, H, W, 4, N, dtype=dtype),
+            -torch.exp(1.5 * torch.rand(4, D, N, generator=g)).cuda(), randn(g, 4, D),
+            randn(g, 4, D, scale=0.5))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,W,D,N", [(2, 56, 56, 32, 1), (2, 14, 14, 64, 1),
+                                       (3, 7, 9, 48, 16), (1, 5, 3, 40, 4)])
+def test_fused_cross_scan(dev, dtype, B, H, W, D, N):
+    """Kernel 10 against its plain twin (float32 merge of the directions,
+    each rounded to the input dtype for N = 1)."""
+    g = torch.Generator().manual_seed(25)
+    args = _cross_case(g, dtype, B, H, W, D, N)
+    before = fused_cross_scan.fused_cross_scan.launches
+    got = fused_cross_scan.fused_cross_scan(*args)
+    assert fused_cross_scan.fused_cross_scan.launches == before + 1
+    assert got.dtype == torch.float32
+    assert rel_err(got, fused_cross_scan.fused_cross_scan_plain(*args)) < TOL[dtype]
+
+
+def test_core_dispatch_n1_card_matches_cpu(dev):
+    """`core_dispatch` at d_state 1 (kernel 10 forward, the recompute
+    through kernels 13/14 backward), output and every input gradient, card
+    against the CPU plain twins; bidi at N = 1 does not take kernel 10."""
+    g = torch.Generator().manual_seed(26)
+    args = [a.cpu() for a in _cross_case(g, torch.float32, 2, 6, 5, 24, 1)]
+    gy = torch.randn(2, 6, 5, 24, generator=g)
+    results = []
+    for device in ("cpu", "cuda"):
+        leaves = [a.detach().to(device).requires_grad_() for a in args]
+        before = fused_cross_scan.fused_cross_scan.launches
+        y = core_dispatch(*leaves)
+        y.backward(gy.to(device))
+        results.append([y.detach().cpu()] + [a.grad.cpu() for a in leaves])
+    assert fused_cross_scan.fused_cross_scan.launches == before + 1
+    for got, want in zip(results[1], results[0]):
+        assert rel_err(got, want) < 1e-4
+    before = fused_cross_scan.fused_cross_scan.launches
+    core_dispatch(*(a.cuda() for a in args), scan_mode="bidi")
+    assert fused_cross_scan.fused_cross_scan.launches == before
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_past_the_kernel_limits(dev, dtype):
+    """d_state 128 and head width 64, which the gate admits: the tiled
+    route (2 x 2 launches of each kernel) against the untiled plain twins."""
+    g = torch.Generator().manual_seed(27)
+    args = _ssd_case(g, dtype, 2, 4, 200, 2, 64, 128)
+    before = (ssd_chunk.ssd_fwd.launches, ssd_chunk.ssd_bwd.launches)
+    y, fin, states = ssd_chunk.ssd_fwd_tiled(*args, save_states=True)
+    want = ssd_chunk.ssd_fwd_plain(*args, save_states=True)
+    for got, w in zip((y, fin, states), want):
+        assert rel_err(got, w) < TOL[dtype]
+    dy, dfin = randn(g, 2, 4, 200, 2, 64), randn(g, 2, 8, 128, 64)
+    got = ssd_chunk.ssd_bwd_tiled(*args[:7], want[2], dy, dfin)
+    torch.cuda.synchronize()
+    assert (ssd_chunk.ssd_fwd.launches, ssd_chunk.ssd_bwd.launches) == \
+        (before[0] + 4, before[1] + 4)
+    for name, w in ssd_chunk.ssd_bwd_plain(*args[:7], want[2], dy, dfin).items():
+        assert rel_err(got[name], w) < TOL[dtype], name
+
+
+def test_v1_route_tiny_model_card_matches_cpu(dev):
+    """A one-study bfloat16 forward of a small XFMamba (maps 28, 14, 7, 4)
+    whose stages 1 and 2 take kernel 8, stages 0 and 3 kernel 1, and whose
+    fusion scans take kernel 9, card against the CPU plain twins."""
+    g = torch.Generator().manual_seed(28)
+    model = TwoViewXFMamba(model_type="tiny", hidden_dim=128, d_state=4,
+                           backbone_overrides=dict(depths=(2, 2, 2, 2), dims=16),
+                           generator=g).eval()
+    xa, xb = (torch.randn(1, 112, 112, 1, generator=g).bfloat16() for _ in range(2))
+    with torch.no_grad():
+        want = model(xa, xb)
+        model.cuda()
+        fns = (vss_stage.vss_stage, vss_block_v1.vss_block_v1, nk_scan_v1.nk_scan_v1)
+        counts = [f.launches for f in fns]
+        got = model(xa.cuda(), xb.cuda()).cpu()
+    assert [f.launches - c for f, c in zip(fns, counts)] == [2, 4, 3]
+    assert rel_err(got, want) < 5e-2

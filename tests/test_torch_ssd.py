@@ -272,6 +272,39 @@ def test_ssd_supported_matches_jax():
                         jax_sp.ssd_supported(L, h, p, n, g), (L, h, p, n, g)
 
 
+@pytest.mark.parametrize("P,N", [(64, 128), (40, 72)])
+def test_tiled_plain_twins_match_untiled_and_jax_vjp(P, N):
+    """`ssd_fwd_tiled` / `ssd_bwd_tiled` past the kernels' limits (width
+    slices of 32, d_state tiles of 64, composed from the plain twins)
+    against the untiled plain twins and the XLA form: y, the final state
+    and the checkpoints within 1e-5, the gradients within 1e-4; through
+    `ssd_chunk_scan_heads` under autograd every gradient within 1e-4 of
+    ``jax.vjp``."""
+    b, s, h, g, chunk = 1, 100, 4, 2, 64
+    ops = _ssd_operands(P + N, b, s, h, P, g, N)
+    x, dt, A, B, C, D, bias, init = args = _kernel_layout(ops)
+    y, fin, states = ssd_chunk.ssd_fwd_tiled(*args, save_states=True)
+    want = ssd_chunk.ssd_fwd_plain(*args, save_states=True)
+    for got, w in zip((y, fin, states), want):
+        assert _rel(got, w) <= 1e-5
+    rng = np.random.default_rng(13)
+    dy, dfin = (T(rng.standard_normal(t.shape).astype(np.float32)) for t in (x, fin))
+    got = ssd_chunk.ssd_bwd_tiled(x, dt, A, B, C, D, bias, states, dy, dfin)
+    want = ssd_chunk.ssd_bwd_plain(x, dt, A, B, C, D, bias, want[2], dy, dfin)
+    for name in NAMES:     # sums over the tiles' calls, reassociated
+        assert _rel(got[name], want[name]) <= 1e-4, name
+    gy = rng.standard_normal(ops["x"].shape).astype(np.float32)
+    gfin = rng.standard_normal(ops["init"].shape).astype(np.float32)
+    out_ref, vjp = jax.vjp(_jax_ssd(chunk), *(jnp.asarray(v) for v in ops.values()))
+    want = vjp((jnp.asarray(gy), jnp.asarray(gfin)))
+    leaves = [T(v).requires_grad_() for v in ops.values()]
+    y, fin = _fused(*leaves)
+    assert _rel(y, out_ref[0]) <= 1e-5 and _rel(fin, out_ref[1]) <= 1e-5
+    torch.autograd.backward((y, fin), (T(gy), T(gfin)))
+    for name, leaf, w in zip(NAMES, leaves, want):
+        assert _rel(leaf.grad, w) <= 1e-4, name
+
+
 def test_kernel_limits():
     """What the CUDA kernels refuse, checked before a launch: another chunk
     than 64, or a state or head width beyond their shared memory."""
@@ -308,7 +341,18 @@ def test_ss2d_m0_matches_jax(d_state, route):
     against ``jax.vjp`` of the JAX layer (1e-5 / 1e-4).  d_state 8 passes
     ``ssd_supported`` (the kernels' plain twins); d_state 4 does not, and
     runs ``ops/ssd.py``, as JAX does there."""
-    jmodel = JaxSS2D(d_model=32, d_state=d_state, ssm_ratio=1.0, act=jax_gelu,
+    _check_ss2d_m0(d_state, 1.0, route)
+
+
+def test_ss2d_m0_past_the_kernel_limits_matches_jax():
+    """The same at d_state 128 and ssm_ratio 4 (heads of width 64), which
+    the gate admits past the kernels' d_state 64 and width 32: the tiled
+    route (two width slices x two d_state tiles of the plain twins)."""
+    _check_ss2d_m0(128, 4.0, "kernels")
+
+
+def _check_ss2d_m0(d_state, ssm_ratio, route):
+    jmodel = JaxSS2D(d_model=32, d_state=d_state, ssm_ratio=ssm_ratio, act=jax_gelu,
                      forward_type="m0_noz", initialize="v2", conv_bias=False)
     rng = np.random.default_rng(d_state)
     x = rng.standard_normal((2, 6, 9, 32)).astype(np.float32)
@@ -317,10 +361,11 @@ def test_ss2d_m0_matches_jax(d_state, route):
     y_ref, vjp = jax.vjp(jax.jit(lambda v, x: jmodel.apply({"params": v}, x)),
                          variables["params"], jnp.asarray(x))
     dparams, dx = vjp(jnp.asarray(gy))
-    port = SS2D(32, d_state=d_state, ssm_ratio=1.0, forward_type="m0_noz", act="gelu",
+    port = SS2D(32, d_state=d_state, ssm_ratio=ssm_ratio, forward_type="m0_noz", act="gelu",
                 initialize="v2", conv_bias=False)
     holder = _load_ss2d(port, variables)
-    assert ssd_chunk.ssd_supported(54, 8, 16, d_state, 4) == (route == "kernels")
+    P = int(32 * ssm_ratio) // 2
+    assert ssd_chunk.ssd_supported(54, 8, P, d_state, 4) == (route == "kernels")
     calls = ssd.ssd_chunk_scan.calls
     xt = T(x).requires_grad_()
     y = port(xt)

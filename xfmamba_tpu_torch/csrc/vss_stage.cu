@@ -32,7 +32,9 @@ constexpr int kGemmThreads = 256;
 // dW = dY^T @ X (sam = sbn = 1, the reduction over all rows).
 // Epilogue, in float32 and in this order: + bias[n], exact-erf GELU,
 // * scale[m / scale_rows] (a per-sample drop-path mask), + res[m, n]; the
-// output row stride is ldc (res shares it, and may alias out).  With
+// output row stride is ldc (res shares it, and may alias out).  res is
+// float32 or bfloat16 whatever the output's type (res_f32), so a float32
+// residual stream can feed a bfloat16 output and the other way round.  With
 // splits > 1 the K axis is cut into `splits` slices (grid.z) whose partial
 // sums are added into a zeroed float32 out with atomicAdd, and no epilogue
 // applies: that is how the weight gradients, with K = B * H * W rows and a
@@ -45,7 +47,7 @@ struct GemmParams {
   const void* res;
   void* out;
   long long M, sam, sak, sbn, sbk, ldc;
-  int N, K, scale_rows, gelu, splits;
+  int N, K, scale_rows, gelu, splits, res_f32;
 };
 
 // A_K / B_K: k is the contiguous axis of A / B (load order, fixed at
@@ -107,7 +109,6 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmParams p) {
   }
 
   OT* out = static_cast<OT*>(p.out);
-  const OT* res = static_cast<const OT*>(p.res);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const long long m = m0 + ty * 4 + i;
@@ -125,7 +126,9 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmParams p) {
       if (p.bias) v += p.bias[n];
       if (p.gelu) v = gelu_erf(v);
       if (p.scale) v *= p.scale[m / p.scale_rows];
-      if (res) v += to_f32(res[o]);
+      if (p.res)
+        v += p.res_f32 ? static_cast<const float*>(p.res)[o]
+                       : to_f32(static_cast<const __nv_bfloat16*>(p.res)[o]);
       out[o] = from_f32<OT>(v);
     }
   }
@@ -154,11 +157,13 @@ __global__ void layer_norm_kernel(const IT* __restrict__ x, const float* __restr
 }
 
 // y = silu(depthwise_conv3x3(x, zero padding 1) + bias) on NHWC maps;
-// w9 is (9, C) with tap (dy, dx) at row dy * 3 + dx.
+// w9 is (9, C) with tap (dy, dx) at row dy * 3 + dx.  y16, when given, also
+// receives y rounded to bfloat16 (the v1 block keeps u in float32 for its
+// scan and feeds x_proj the rounded copy).
 template <typename T>
 __global__ void dwconv3_silu_kernel(const T* __restrict__ x, const float* __restrict__ w9,
                                     const float* __restrict__ bias, T* __restrict__ y,
-                                    int B, int H, int W, int C) {
+                                    __nv_bfloat16* __restrict__ y16, int B, int H, int W, int C) {
   const long long total = static_cast<long long>(B) * H * W * C;
   for (long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; idx < total;
        idx += static_cast<long long>(gridDim.x) * blockDim.x) {
@@ -179,7 +184,9 @@ __global__ void dwconv3_silu_kernel(const T* __restrict__ x, const float* __rest
         acc = fmaf(to_f32(x[((b * H + hh) * W + ww) * C + c]), w9[(dy * 3 + dx) * C + c], acc);
       }
     }
-    y[idx] = from_f32<T>(silu(acc));
+    const float v = silu(acc);
+    y[idx] = from_f32<T>(v);
+    if (y16) y16[idx] = __float2bfloat16(v);
   }
 }
 
@@ -204,12 +211,12 @@ extern "C" int xfm_gemm(const void* a, const void* b, const float* bias, const f
                         const void* res, void* out, long long M, int N, int K, long long sam,
                         long long sak, long long sbn, long long sbk, long long ldc,
                         int scale_rows, int gelu, int splits, int in_dtype, int out_dtype,
-                        void* stream) {
+                        int res_dtype, void* stream) {
   if (splits < 1 || (splits > 1 && (out_dtype != kF32 || bias || scale || res || gelu)) ||
-      (scale && scale_rows < 1))
+      (scale && scale_rows < 1) || (res && res_dtype != kF32 && res_dtype != kBF16))
     return cudaErrorInvalidValue;
   const GemmParams p{a, b, bias, scale, res, out, M, sam, sak, sbn, sbk, ldc,
-                     N, K, scale_rows, gelu, splits};
+                     N, K, scale_rows, gelu, splits, res_dtype == kF32};
   const dim3 grid(ceil_div(N, kGemmBN), ceil_div(M, kGemmBM), splits);
   auto s = static_cast<cudaStream_t>(stream);
   if (in_dtype == kF32 && out_dtype == kF32) return launch_gemm<float, float>(p, grid, s);
@@ -241,18 +248,20 @@ extern "C" int xfm_layer_norm(const void* x, const float* w, const float* b, voi
 }
 
 extern "C" int xfm_dwconv3_silu(const void* x, const float* w9, const float* bias, void* y,
-                                int B, int H, int W, int C, int dtype, void* stream) {
+                                void* y16, int B, int H, int W, int C, int dtype, void* stream) {
+  if (y16 && dtype != kF32) return cudaErrorInvalidValue;
   constexpr int kThreads = 256;
   const long long total = static_cast<long long>(B) * H * W * C;
   const int grid = ceil_div(total, kThreads) < 65535 * 16 ? ceil_div(total, kThreads) : 65535 * 16;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) {
     dwconv3_silu_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), w9, bias, static_cast<float*>(y), B, H, W, C);
+        static_cast<const float*>(x), w9, bias, static_cast<float*>(y),
+        static_cast<__nv_bfloat16*>(y16), B, H, W, C);
   } else if (dtype == kBF16) {
     dwconv3_silu_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), w9, bias, static_cast<__nv_bfloat16*>(y), B, H, W,
-        C);
+        static_cast<const __nv_bfloat16*>(x), w9, bias, static_cast<__nv_bfloat16*>(y), nullptr,
+        B, H, W, C);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -33,9 +33,9 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # name -> argtypes of every C entry point (all return int: a cudaError_t)
 _SIGNATURES = {
-    "xfm_gemm": [_P] * 6 + [_LL, _I, _I] + [_LL] * 5 + [_I] * 5 + [_P],
+    "xfm_gemm": [_P] * 6 + [_LL, _I, _I] + [_LL] * 5 + [_I] * 6 + [_P],
     "xfm_layer_norm": [_P, _P, _P, _P, _LL, _I, _I, _I, ctypes.c_float, _P],
-    "xfm_dwconv3_silu": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "xfm_dwconv3_silu": [_P] * 5 + [_I] * 5 + [_P],
     "xfm_selective_scan": [_P] * 11 + [_I] * 15 + [_P],
     "xfm_layer_norm_bwd": [_P] * 7 + [_LL, _I, _I, ctypes.c_float, _P],
     "xfm_dwconv3_silu_bwd": [_P] * 8 + [_I] * 5 + [_P],
@@ -46,6 +46,8 @@ _SIGNATURES = {
     "xfm_grouped_scan_bwd": [_P] * 17 + [_I] * 8 + [_P],
     "xfm_ssd_fwd": [_P] * 11 + [_I] * 7 + [_P],
     "xfm_ssd_bwd": [_P] * 18 + [_I] * 7 + [_P],
+    "xfm_scan_two_level": [_P] * 11 + [_I] * 17 + [_P],
+    "xfm_fused_cross_scan": [_P] * 9 + [_I] * 7 + [_P],
 }
 
 

@@ -9,15 +9,22 @@ mode every model here uses (`models.ss2d.core_dispatch` says where the
 other modes differ):
 
 - ShallowFuse in eval mode through `nk_scan_train` (kernel 2; one K=1
-  row_f call per swap group); in training mode the same calls (kernel 7
-  backward) where the routing rule of ``ops/nk_scan_adjoint.py`` gives
-  them a group, else one `selective_scan_auto` call over both groups
-  (kernels 13 and 14, K=2).
+  row_f call per swap group) where JAX's v2 rule finds an image group
+  aligned to 8 sublanes (`ops.nk_scan_v1.shallow_takes_v2`), else through
+  `nk_scan_v1` (kernel 9, the same calls), in both dtypes; in training mode
+  through `nk_scan_train` (kernel 7 backward) where the routing rule of
+  ``ops/nk_scan_adjoint.py`` gives them a group, else one
+  `selective_scan_auto` call over both groups (kernels 13 and 14, K=2).
 - Cross_SS2Dv5 in eval mode through `nk_scan_x` (rank form, LayerNorm
-  epilogue); in training mode the deltas are projected in torch and the
-  scan goes through `models.ss2d.core_dispatch` (kernels 2/7 as one K=4
-  cross2d call, or kernels 13/14 as four per-direction calls), then the
-  torch out-norm.
+  epilogue) where the v2 rule gives its 3B streams a group
+  (`ops.nk_scan_v1.cross_v2_group`), else the deltas are projected in
+  torch, scanned by `nk_scan_v1` (kernel 9, one K=4 call) and out-normed in
+  torch, as JAX's else branch does; in training mode the deltas are
+  projected in torch and the scan goes through `models.ss2d.core_dispatch`
+  (kernels 2/7 as one K=4 cross2d call, or kernels 13/14 as four
+  per-direction calls, or kernel 10 at d_state 1), then the torch out-norm.
+
+At one study per batch every fusion scan takes kernel 9.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from xfmamba_tpu_torch.models.ss2d import (
     ScanParams, _project_kdirs, core_dispatch, dt_rank_of)
 from xfmamba_tpu_torch.ops.nk_scan import nk_scan_x, scan_mode_kinds
 from xfmamba_tpu_torch.ops.nk_scan_adjoint import nk_scan_train, nk_train_supported
+from xfmamba_tpu_torch.ops.nk_scan_v1 import cross_v2_group, nk_scan_v1, shallow_takes_v2
 from xfmamba_tpu_torch.ops.selective_scan_grouped import selective_scan_auto
 
 
@@ -104,10 +112,11 @@ class ShallowFuseSS2Dv4(ScanParams):
                                      A.reshape(2 * di, N), Bs, Cs, Dmat.reshape(-1),
                                      bias.reshape(-1)).view(B, L, 2, di).unbind(2)
         else:
-            ys = [nk_scan_train(xs[:, :, k].contiguous(), dts[:, :, k].contiguous(),
-                                Bs[:, :, k].contiguous(), Cs[:, :, k].contiguous(),
-                                A[k].t().contiguous(), Dmat[k:k + 1], bias[k:k + 1],
-                                H, W, ("row_f",))
+            v1 = not self.training and not shallow_takes_v2(B, L, W)
+            scan = nk_scan_v1 if v1 else nk_scan_train
+            ys = [scan(xs[:, :, k].contiguous(), dts[:, :, k].contiguous(),
+                       Bs[:, :, k].contiguous(), Cs[:, :, k].contiguous(),
+                       A[k].t().contiguous(), Dmat[k:k + 1], bias[k:k + 1], H, W, ("row_f",))
                   for k in range(2)]
         y1 = self.out_norm(ys[0].reshape(B, H, W, di).to(x.dtype))
         y2 = self.out_norm(ys[1].reshape(B, H, W, di).to(x.dtype))
@@ -170,10 +179,18 @@ class CrossSS2Dv5(ScanParams):
         xcat = F.silu(self.conv2d(xp_cat))                     # (3B, H, W, di)
         Bc = xcat.shape[0]
         A, Dmat, bias = self.scan_operands(di)
-        if self.training:
+        if self.training or cross_v2_group(Bc, H, W) is None:
             dts, Bs, Cs = _project_kdirs(xcat, self.x_proj_weight, self.dt_projs_weight, R, N)
-            y3 = core_dispatch(xcat, dts, Bs, Cs[:Bv].repeat(3, 1, 1, 1, 1), A, Dmat, bias,
-                               self.scan_mode)
+            Cs = Cs[:Bv].repeat(3, 1, 1, 1, 1)
+            if self.training:
+                y3 = core_dispatch(xcat, dts, Bs, Cs, A, Dmat, bias, self.scan_mode)
+            else:
+                y3 = nk_scan_v1(xcat.reshape(Bc, L, di).contiguous(),
+                                dts.reshape(Bc, L, K * di).contiguous(),
+                                Bs.reshape(Bc, L, K * N).contiguous(),
+                                Cs.reshape(Bc, L, K * N),
+                                A.transpose(1, 2).reshape(K * N, di), Dmat, bias, H, W,
+                                self.kinds)
             y3 = self.out_norm(y3.to(x.dtype))
         else:
             x_dbl = torch.einsum("bhwd,kcd->bhwkc", xcat, self.x_proj_weight.to(xcat.dtype))

@@ -6,7 +6,8 @@ without the z-gate).
 `SS2D.ss2d_core` is the scan core of ``v05_noz``, dispatched as the JAX
 ``ss2d_core`` does on an accelerator: with d_state 1 (cross2d) it runs
 `ops.ss2d_core_n1.ss2d_core_n1` (kernels 11 and 12), otherwise
-`core_dispatch`, which Cross_SS2Dv5's training scan also takes: the nk pair
+`core_dispatch`, which Cross_SS2Dv5's training scan also takes: at d_state
+1 (cross2d) kernel 10 (``ops/fused_cross_scan.py``), else the nk pair
 (kernels 2 and 7) where the routing rule of ``ops/nk_scan_adjoint.py``
 gives it a group, else the composable `ss2d_core_from_projs`, which scans
 each direction with `selective_scan_auto` (kernels 13 and 14).  The
@@ -39,6 +40,7 @@ from torch import nn
 from xfmamba_tpu_torch.models.layers import (
     Conv2dSame, Dense, LayerNorm, activation, trunc_normal_init, uniform_init)
 from xfmamba_tpu_torch.ops.cross_scan import cross_merge, cross_scan
+from xfmamba_tpu_torch.ops.fused_cross_scan import ss2d_core_fused
 from xfmamba_tpu_torch.ops.nk_scan_adjoint import nk_scan_train_from_projs, nk_train_supported
 from xfmamba_tpu_torch.ops.selective_scan_grouped import selective_scan_auto
 from xfmamba_tpu_torch.ops.ss2d_core_n1 import ss2d_core_n1
@@ -228,16 +230,20 @@ def ss2d_core_from_projs(x, dts, Bs, Cs, A, Dmat, bias,
 def core_dispatch(x, dts, Bs, Cs, A, Dmat, bias, scan_mode: str = "cross2d"):
     """The trainable scan core from projections (port of ``core_dispatch``,
     ``ss2d.py:312-344``, its accelerator route for cross2d without the
-    backend argument): the nk pair (kernels 2 and 7) where
+    backend argument): with N = 1, kernel 10 (`ss2d_core_fused`, the JAX
+    ``ss2d_core_pallas``; its backward recomputes through
+    `ss2d_core_from_projs`); else the nk pair (kernels 2 and 7) where
     `nk_train_supported` gives a group, else one `selective_scan_auto` call
-    per direction group (kernels 13 and 14).  Two departures from JAX: its
-    route sends N = 1 to its kernel 10, which the port does not have, and
-    its "auto" backend sends the unidi and bidi modes to the XLA scan,
-    which has no counterpart on the card; here both take the same rule as
-    cross2d N > 1.  Shapes as `ss2d_core_from_projs`; returns (B, H, W, D)
-    float32."""
+    per direction group (kernels 13 and 14).  One departure from JAX: its
+    "auto" backend sends the unidi and bidi modes to the XLA scan, which
+    has no counterpart on the card, so here they take the nk/grouped rule,
+    N = 1 included; kernel 10 refuses them, where JAX's Pallas backend
+    computes the cross2d core whatever the mode.  Shapes as
+    `ss2d_core_from_projs`; returns (B, H, W, D) float32."""
     B, H, W, D = x.shape
     K, _, N = A.shape
+    if N == 1 and scan_mode == "cross2d":
+        return ss2d_core_fused(x, dts, Bs, Cs, A, Dmat, bias)
     if nk_train_supported(B, H * W, W, D, K, N, scan_mode) is not None:
         return nk_scan_train_from_projs(x, dts, Bs, Cs, A, Dmat, bias, scan_mode)
     return ss2d_core_from_projs(x, dts, Bs, Cs, A, Dmat, bias, scan_mode)

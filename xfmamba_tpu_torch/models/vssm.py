@@ -19,8 +19,14 @@ forward type v05_noz, d_state 1, SiLU; the port's blocks always have the
 any other configuration, the m2 models included, takes the composable
 route in both dtypes:
 
-- bfloat16, the stage route.  In eval mode each stage runs through
-  `ops.vss_stage.vss_stage` (kernel 1).  In training mode
+- bfloat16, the stage route.  In eval mode each stage takes the kernels
+  that the JAX accelerator path picks by its VMEM rule
+  (`ops.vss_stage.stage_route`, `VSSM._eval_stage`): `ops.vss_stage.
+  vss_stage` (kernel 1) where the v2 kernels find an image group aligned to
+  8 sublanes; else, block by block, `ops.vss_block_v1.vss_block_v1`
+  (kernel 8), or the composable blocks where JAX runs no whole-block
+  kernel.  At one or two studies per batch XFMamba-S's stages 2 and 3 take
+  kernel 8.  In training mode
   `VSSM._train_stage` packs the operands on the autograd graph, and a stage
   of depth >= 2 then runs `ops.vss_stage_train.vss_stage_train` (kernel 5
   forward, kernel 6 backward), as the JAX ``VSSM._fused_stage_train_path``
@@ -57,7 +63,8 @@ from xfmamba_tpu_torch.ops.vss_block import (
     MLP_FIELDS, PLAIN_OPS, SS2D_FIELDS, VSSBlockOperands, mlp_half, pack_vss_block_params,
     pack_vss_block_train_params)
 from xfmamba_tpu_torch.ops.vss_block_train import vss_block_train_op
-from xfmamba_tpu_torch.ops.vss_stage import vss_stage
+from xfmamba_tpu_torch.ops.vss_block_v1 import pack_vss_block_v1_params, vss_block_v1
+from xfmamba_tpu_torch.ops.vss_stage import stage_route, vss_stage
 from xfmamba_tpu_torch.ops.vss_stage_train import vss_stage_train
 
 
@@ -221,6 +228,24 @@ class VSSM(nn.Module):
                 xl = _mlp_half_train(xl, m2, *mlp)
         return xl.reshape(B, H, W, d)
 
+    def _eval_stage(self, x, layer):
+        """One stage in eval mode on the stage route, x (B, H, W, d): kernel
+        1, kernel 8 block by block, or the composable blocks, as
+        `stage_route` decides."""
+        B, H, W, d = x.shape
+        blk = layer.blocks[0]
+        route = stage_route(B, H, W, d, blk.op.d_inner, blk.mlp.fc1.weight.shape[0],
+                            len(layer.blocks))
+        if route == "composable":
+            return self._block_stage(x, layer, None)
+        xl = x.reshape(B, H * W, d).contiguous()
+        if route == "stage":
+            packed = [pack_vss_block_params(b, x.dtype) for b in layer.blocks]
+            return vss_stage(xl, packed, H, W).reshape(B, H, W, d)
+        for b in layer.blocks:
+            xl = vss_block_v1(xl, pack_vss_block_v1_params(b, x.dtype), H, W)
+        return xl.reshape(B, H, W, d)
+
     def _block_stage(self, x, layer, scales):
         """One stage on the composable route: block by block, each under
         ``torch.utils.checkpoint`` with ``use_checkpoint`` in training."""
@@ -237,17 +262,15 @@ class VSSM(nn.Module):
         or (B, num_classes) logits in classifier mode."""
         scales = self._drop_path_scales(x.shape[0], x.device) if self.training else None
         x = self.patch_embed(x)
-        stage_route = self.stage_kernels and _uses_stage_route(x.dtype)
+        kernels = self.stage_kernels and _uses_stage_route(x.dtype)
         outs = []
         for i, layer in enumerate(self.layers):
-            B, H, W, d = x.shape
-            if not stage_route:
+            if not kernels:
                 x = self._block_stage(x, layer, None if scales is None else scales[i])
             elif self.training:
                 x = self._train_stage(x, layer, scales[i])
             else:
-                packed = [pack_vss_block_params(blk, x.dtype) for blk in layer.blocks]
-                x = vss_stage(x.reshape(B, H * W, d).contiguous(), packed, H, W).reshape(B, H, W, d)
+                x = self._eval_stage(x, layer)
             if self.out_indices is not None and i in self.out_indices:
                 outs.append(self._modules[f"outnorm{i}"](x))
             if layer.downsample is not None:

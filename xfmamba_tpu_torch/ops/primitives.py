@@ -84,9 +84,10 @@ def gemm_ab_plain(a, b, bias=None, residual=None, gelu=False, scale=None,
     """out = epilogue(a @ b^T) in float32, cast to ``out_dtype`` (a.dtype by
     default).  a (M, K) and b (N, K) may be any strided views; bias (N,)
     float32; scale (S,) float32 multiplies rows in S equal groups (a
-    per-sample drop-path mask); residual (M, N) in the output dtype.  The
-    epilogue runs bias, exact GELU, scale, residual in that order.  With
-    ``out`` the result is written into that (M, N) view and returned."""
+    per-sample drop-path mask); residual (M, N) float32 or bfloat16, in any
+    output dtype.  The epilogue runs bias, exact GELU, scale, residual in
+    that order.  With ``out`` the result is written into that (M, N) view
+    and returned."""
     _check_scale(scale, a.shape[0])
     res = a.float() @ b.float().t()
     if bias is not None:
@@ -136,7 +137,7 @@ def gemm_ab_cuda(a, b, bias=None, residual=None, gelu=False, scale=None,
     if out.stride(1) != 1 and N > 1:
         raise ValueError("out: columns must be contiguous")
     if residual is not None:
-        require(residual, (M, N), out_dtype, name="residual", contiguous=False)
+        require(residual, (M, N), name="residual", contiguous=False)
         if residual.stride() != out.stride():
             raise ValueError("residual must share the output's strides")
     lib = build.library()
@@ -145,7 +146,8 @@ def gemm_ab_cuda(a, b, bias=None, residual=None, gelu=False, scale=None,
         ptr(a), ptr(b), ptr(bias), ptr(scale), ptr(residual), ptr(out), M, N, K,
         a.stride(0), a.stride(1), b.stride(0), b.stride(1), out.stride(0),
         M // scale.shape[0] if scale is not None else 1, int(gelu), splits,
-        dtype_code(a), dtype_code(out), stream(a)), "gemm")
+        dtype_code(a), dtype_code(out), dtype_code(residual) if residual is not None else 0,
+        stream(a)), "gemm")
     return out
 
 
@@ -197,29 +199,34 @@ layer_norm_cuda.launches = 0
 # depthwise 3x3 conv + SiLU
 # ---------------------------------------------------------------------------
 
-def dwconv3_silu_plain(x, w9, bias=None):
+def dwconv3_silu_plain(x, w9, bias=None, copy_bf16=False):
     """silu(depthwise 3x3 conv, zero padding 1, + bias) of an NHWC map x
-    (B, H, W, C); w9 (9, C) holds tap (dy, dx) at row dy * 3 + dx."""
+    (B, H, W, C); w9 (9, C) holds tap (dy, dx) at row dy * 3 + dx.  With
+    ``copy_bf16`` (float32 x) returns (y, y rounded to bfloat16)."""
     C = x.shape[-1]
     y = F.conv2d(x.float().permute(0, 3, 1, 2), w9.float().t().reshape(C, 1, 3, 3),
                  None if bias is None else bias.float(), padding=1, groups=C)
-    return F.silu(y).permute(0, 2, 3, 1).to(x.dtype)
+    y = F.silu(y).permute(0, 2, 3, 1).to(x.dtype)
+    return (y, y.to(torch.bfloat16)) if copy_bf16 else y
 
 
-def dwconv3_silu_cuda(x, w9, bias=None):
+def dwconv3_silu_cuda(x, w9, bias=None, copy_bf16=False):
     require_cuda(x, w9, bias)
     B, H, W, C = x.shape
     require(x, (B, H, W, C), name="x")
     require(w9, (9, C), torch.float32, name="w9")
     if bias is not None:
         require(bias, (C,), torch.float32, name="bias")
+    if copy_bf16 and x.dtype != torch.float32:
+        raise TypeError("the bfloat16 copy is of a float32 map")
     out = torch.empty_like(x)
+    out16 = torch.empty(B, H, W, C, dtype=torch.bfloat16, device=x.device) if copy_bf16 else None
     lib = build.library()
     dwconv3_silu_cuda.launches += 1
-    build.check(lib.xfm_dwconv3_silu(ptr(x), ptr(w9), ptr(bias), ptr(out),
+    build.check(lib.xfm_dwconv3_silu(ptr(x), ptr(w9), ptr(bias), ptr(out), ptr(out16),
                                      B, H, W, C, dtype_code(x), stream(x)),
                 "dwconv3_silu")
-    return out
+    return (out, out16) if copy_bf16 else out
 
 
 dwconv3_silu_cuda.launches = 0

@@ -23,6 +23,17 @@ adjoint (port of ``xfmamba_tpu/ops/ssd_pallas.py``).
   takes where gradients are asked for; `pack_args` (``_pack_args``,
   :605-626) gives its arguments from the public layout of ``ops/ssd.py``.
 - `ssd_supported`: the JAX package's geometry gate (:228-237).
+- `ssd_fwd_tiled` / `ssd_bwd_tiled`: every geometry the gate admits on the
+  kernels, which take d_state up to `MAX_STATE` and head width up to
+  `MAX_HEADDIM`: the head width is cut into slices of at most 32 (the
+  columns of x, y and the state are independent) and d_state into tiles of
+  at most 64 (y is linear in the sum over n of the C B and C state terms,
+  so it is the sum of the tiles' outputs, the D skip carried by the first
+  tile alone).  Backward: dx, ddt, dA and dbias are sums over the calls,
+  dB and dC per tile sums over the slices, dD comes from the tile that
+  carried D.  Where d_state takes more than one tile the calls run in
+  float32 (the kernels' own arithmetic, on the same values), so y is
+  rounded once.  `SSDChunkScanTrain` and `ssd_chunk_scan_heads` run them.
 
 The port's layout is group-major, as SS2D's cross-scan gives it, so no
 operand is transposed on the way in or out: x (b, g, L, R, P), dt
@@ -327,6 +338,86 @@ ssd_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# the gate's geometries on the kernels: head-width slices, d_state tiles
+# ---------------------------------------------------------------------------
+
+def _cuts(n: int, size: int) -> list[slice]:
+    """[0, n) in consecutive slices of at most ``size``."""
+    return [slice(i, min(i + size, n)) for i in range(0, n, size)]
+
+
+def _part(t, *index):
+    return None if t is None else t[index].contiguous()
+
+
+def ssd_fwd_tiled(x, dt, A, Bm, Cm, D=None, bias=None, init=None, save_states=False):
+    """`ssd_fwd` at any head width and d_state the gate admits; returns
+    what `ssd_fwd` returns (see the module docstring for the split)."""
+    b, g, L, R, P = x.shape
+    N = Bm.shape[-1]
+    ps, ns = _cuts(P, MAX_HEADDIM), _cuts(N, MAX_STATE)
+    if len(ps) == 1 and len(ns) == 1:
+        return ssd_fwd(x, dt, A, Bm, Cm, D, bias, init, save_states=save_states)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    cast = (lambda t: t.float()) if len(ns) > 1 else (lambda t: t)
+    xc, dtc, Bc, Cc = cast(x), cast(dt), cast(Bm), cast(Cm)
+    nc = -(-L // CHUNK)
+    fin = torch.empty(b, g * R, N, P, **f32)
+    states = torch.empty(b, g * R, nc, N, P, **f32) if save_states else None
+    ys = []
+    for pc in ps:
+        xp = xc[..., pc].contiguous()
+        y = None
+        for i, nt in enumerate(ns):
+            out = ssd_fwd(xp, dtc, A, _part(Bc, Ellipsis, nt), _part(Cc, Ellipsis, nt),
+                          _part(D, slice(None), pc) if i == 0 else None, bias,
+                          _part(init, slice(None), slice(None), nt, pc), save_states=save_states)
+            y = out[0] if y is None else y + out[0]
+            fin[:, :, nt, pc] = out[1]
+            if save_states:
+                states[:, :, :, nt, pc] = out[2]
+        ys.append(y)
+    y = torch.cat(ys, -1).to(x.dtype)
+    return (y, fin, states) if save_states else (y, fin)
+
+
+def ssd_bwd_tiled(x, dt, A, Bm, Cm, D, bias, states, dy, dfin=None):
+    """`ssd_bwd` at any head width and d_state the gate admits, from the
+    checkpoints of `ssd_fwd_tiled`; returns what `ssd_bwd` returns."""
+    b, g, L, R, P = x.shape
+    N = Bm.shape[-1]
+    ps, ns = _cuts(P, MAX_HEADDIM), _cuts(N, MAX_STATE)
+    if len(ps) == 1 and len(ns) == 1:
+        return ssd_bwd(x, dt, A, Bm, Cm, D, bias, states, dy, dfin)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty(b, g, L, R, P, **f32)
+    dB, dC = torch.zeros(b, g, L, N, **f32), torch.zeros(b, g, L, N, **f32)
+    dD = torch.zeros(g * R, P, **f32)
+    dinit = torch.empty(b, g * R, N, P, **f32)
+    ddt = dA = dbias = None
+    for pc in ps:
+        xp = x[..., pc].contiguous()
+        dyp = dy[..., pc].contiguous()
+        dxp = None
+        for i, nt in enumerate(ns):
+            r = ssd_bwd(xp, dt, A, _part(Bm, Ellipsis, nt), _part(Cm, Ellipsis, nt),
+                        _part(D, slice(None), pc) if i == 0 else None, bias,
+                        _part(states, Ellipsis, nt, pc), dyp,
+                        _part(dfin, slice(None), slice(None), nt, pc))
+            dxp = r["dx"] if dxp is None else dxp + r["dx"]
+            ddt = r["ddt"] if ddt is None else ddt + r["ddt"]
+            dA = r["dA"] if dA is None else dA + r["dA"]
+            dbias = r["dbias"] if dbias is None else dbias + r["dbias"]
+            dB[..., nt] += r["dB"]
+            dC[..., nt] += r["dC"]
+            if i == 0:
+                dD[:, pc] = r["dD"]
+            dinit[:, :, nt, pc] = r["dinit"]
+        dx[..., pc] = dxp
+    return dict(dx=dx, ddt=ddt, dB=dB, dC=dC, dA=dA, dbias=dbias, dD=dD, dinit=dinit)
+
+
+# ---------------------------------------------------------------------------
 # the autograd op and its entries
 # ---------------------------------------------------------------------------
 
@@ -337,7 +428,7 @@ class SSDChunkScanTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, D, bias, init):
-        y, fin, states = ssd_fwd(x, dt, A, Bm, Cm, D, bias, init, save_states=True)
+        y, fin, states = ssd_fwd_tiled(x, dt, A, Bm, Cm, D, bias, init, save_states=True)
         ctx.save_for_backward(x, dt, A, Bm, Cm, D, bias, states)
         ctx.has_init = init is not None
         ctx.set_materialize_grads(False)
@@ -349,7 +440,7 @@ class SSDChunkScanTrain(torch.autograd.Function):
         gy = torch.zeros(x.shape, dtype=torch.float32, device=x.device) if gy is None \
             else gy.float().contiguous()
         gfin = None if gfin is None else gfin.float().contiguous()
-        g = ssd_bwd(x, dt, A, Bm, Cm, D, bias, states, gy, gfin)
+        g = ssd_bwd_tiled(x, dt, A, Bm, Cm, D, bias, states, gy, gfin)
         return (g["dx"].to(x.dtype), g["ddt"].to(dt.dtype), g["dA"], g["dB"].to(Bm.dtype),
                 g["dC"].to(Cm.dtype), None if D is None else g["dD"],
                 None if bias is None else g["dbias"], g["dinit"] if ctx.has_init else None)
@@ -362,7 +453,8 @@ def _needs_grad(*tensors) -> bool:
 def ssd_chunk_scan_heads(x, dt, A, Bm, Cm, D=None, bias=None, init=None):
     """The SSD scan in the kernel layout (see the module docstring): kernel
     15 alone where no gradient is asked for (``_ssd_call``), else
-    `SSDChunkScanTrain` (kernels 15 and 16).  x, dt, B and C are taken in
+    `SSDChunkScanTrain` (kernels 15 and 16), both tiled to the kernels'
+    limits.  x, dt, B and C are taken in
     x's dtype, A, D, bias and init in float32 (casts that autograd runs
     back).  Returns (y in x's dtype, final state float32)."""
     def f32(t):
@@ -372,7 +464,7 @@ def ssd_chunk_scan_heads(x, dt, A, Bm, Cm, D=None, bias=None, init=None):
             Cm.to(x.dtype).contiguous(), f32(D), f32(bias), f32(init))
     if _needs_grad(*args):
         return SSDChunkScanTrain.apply(*args)
-    return ssd_fwd(*args)
+    return ssd_fwd_tiled(*args)
 
 
 def pack_args(x, dt, A, B, C, D=None, dt_bias=None, initial_states=None):

@@ -108,6 +108,29 @@ Single-study and unaligned-batch inference (kernels 8, 9 and 10):
    studies) in training, forward and backward: kernel 10 through
    ``core_dispatch`` on the card against the CPU plain twins.
 
+The ablation kernels behind JAX's switches (kernels 17-21):
+10. kernels 17 (the v4 nk scan) and 18 (v3) against their plain twins and
+   against kernel 2 on the same inputs at XFMamba-S's ShallowFuse (32, 49,
+   1536) K=1 and Cross_SS2Dv5 training (48, 49, 1536) K=4 shapes and
+   XFMamba-B's ShallowFuse (16, 49, 2048), N 16, both dtypes, with ms per
+   call beside kernel 2 and the plain twins;
+10b. XFMamba-S with ``FUSED_V4``, then ``FUSED_V3``, on against both off:
+   bfloat16 inference at bs 32 (2 launches of the switched kernel per
+   forward, none of kernel 2; logits within 5e-2 of the largest) and one
+   float32 training step at bs 16 from the same weights and drop-path
+   draws (3 launches, none of kernel 2; the loss within 1e-4 relative), ms
+   per forward and per step; the switches are restored whatever happens;
+10c. kernels 19 (LayerNorm + GELU, a warp per pixel), 20 (segment-packed)
+   and 21 (its backward) against their plain twins at the patch-embed and
+   downsample geometries of a bs-64 two-view batch (128 x 112 x 112 x 48
+   with GELU, 128 x 56 x 56 x 96, 128 x 28 x 28 x 192) and a ragged pixel
+   count, both dtypes, timed in bfloat16 beside ``F.layer_norm`` (+
+   ``F.gelu``: two calls) and its autograd backward; then XFMamba-S's patch
+   embed at bs 64 two-view built from ``PatchEmbedV2``'s weights as the JAX
+   A/B script builds it (conv1, LayerNorm + GELU, conv2, LayerNorm), once on
+   kernel 19 (forward) and once on kernels 20 / 21 (forward and backward),
+   against the module's own forward and gradients, bfloat16, 5e-2.
+
 The line before the last but one is one JSON object with the kernels'
 results (launches per main-path forward or step, errors, times, bounds),
 the line before the last the card's name and power limit, the last
@@ -124,6 +147,7 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 from xfmamba_tpu_torch.kernels import build
 from xfmamba_tpu_torch.models.ss2d import SS2D
@@ -134,7 +158,9 @@ from xfmamba_tpu_torch.models.fusion import CrossSS2Dv5
 from xfmamba_tpu_torch.ops import (
     fused_cross_scan, nk_scan, nk_scan_adjoint, nk_scan_v1, selective_scan_grouped, ss2d_core_n1,
     ssd_chunk, vss_block_train, vss_block_v1, vss_stage, vss_stage_train)
+from xfmamba_tpu_torch.ops.ablations import nk_scan_v4, nk_scan_wide, pe_fused, seg_ln
 from xfmamba_tpu_torch.ops.vss_block import pack_vss_block_params, pack_vss_block_train_params
+from xfmamba_tpu_torch.models.vssm import PatchEmbedV2
 from xfmamba_tpu_torch.train.profile import _device_us
 from xfmamba_tpu_torch.train.config import TrainConfig
 from xfmamba_tpu_torch.train.loop import make_optimizer, make_train_step
@@ -256,6 +282,38 @@ ONE_STUDY = {1: {"vss_stage": 2, "vss_block_v1": 17, "nk_scan_v1": 3},
 F32_ONE_STUDY = {"ss2d_core_n1_fwd": 21, "nk_scan_v1": 3}
 # phase 8d's layer: Cross_SS2Dv5 at XFMamba-S's width, 7 x 7, 2 studies (3 x 2 streams)
 CROSS_N1 = dict(views=2, H=7, d=768)
+
+# kernels 17-21, the ablations behind JAX's switches: the v4 and v3 schedules
+# of the nk scan (FUSED_V4 / FUSED_V3, launches per bs-32 bfloat16 XFMamba-S
+# forward with the switch on) and the patch embed's LayerNorm(+GELU)
+# (launches per bs-64 two-view patch embed built on them)
+ABLATION_KERNELS = {
+    "nk_scan_v4": dict(fn=nk_scan_v4.nk_scan_v4,
+                       source="xfmamba_tpu_torch/csrc/nk_scan_ablations.cu",
+                       replaces="xfmamba_tpu/ops/ablations/nk_scan_v4.py:50"),
+    "nk_scan_v3": dict(fn=nk_scan_wide.nk_scan_v3,
+                       source="xfmamba_tpu_torch/csrc/nk_scan_ablations.cu",
+                       replaces="xfmamba_tpu/ops/ablations/nk_scan_wide.py:40"),
+    "ln_act_fused": dict(fn=pe_fused.ln_act_fused, source="xfmamba_tpu_torch/csrc/ln_act.cu",
+                         replaces="xfmamba_tpu/ops/ablations/pe_fused.py:46"),
+    "seg_ln_fwd": dict(fn=seg_ln.seg_ln_fwd, source="xfmamba_tpu_torch/csrc/ln_act.cu",
+                       replaces="xfmamba_tpu/ops/ablations/seg_ln.py:101"),
+    "seg_ln_bwd": dict(fn=seg_ln.seg_ln_bwd, source="xfmamba_tpu_torch/csrc/ln_act.cu",
+                       replaces="xfmamba_tpu/ops/ablations/seg_ln.py:110"),
+}
+# phase 10's fusion-scan shapes: (model, images, K, label)
+NK_ABLATION_CASES = [("small", 32, 1, "XFMamba-S ShallowFuse bs 32"),
+                     ("small", 48, 4, "XFMamba-S Cross_SS2Dv5 bs-16 step"),
+                     ("base", 16, 1, "XFMamba-B ShallowFuse bs 16")]
+# the switches of phase 10b: route -> (module, flag, kernel)
+NK_SWITCHES = {"v4": (nk_scan_v4, "FUSED_V4", "nk_scan_v4"),
+               "v3": (nk_scan, "FUSED_V3", "nk_scan_v3")}
+# phase 10c: (pixels, C, GELU) of scripts/ab_seg_ln.py (128 backbone images,
+# bs 64 two-view; the first two are the patch embed's norms), then a pixel
+# count that fills no whole block of kernel 21
+PE_IMAGES = 128
+LN_CASES = [((PE_IMAGES, 112, 112), 48, True), ((PE_IMAGES, 56, 56), 96, False),
+            ((PE_IMAGES, 28, 28), 192, False), ((3, 37, 41), 48, True)]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense operations/s by type
 HBM_BYTES_PER_S = 3.35e12
@@ -416,6 +474,19 @@ def cross_work(n, H, W, D, N, dtype):
     M = n * H * W
     return Work().add(M * (5 * D + 8 * N) * esize + 4 * M * D,
                       f32=scan_ops(M, D, 4, N) + 3 * M * D)
+
+
+def ln_work(rows, C, dtype, act, backward=False):
+    """Kernels 19 / 20 (or 21, ``backward``) on rows pixels of C channels:
+    x read and y written once (the backward reads x and g and writes dx
+    and the float32 dscale and dbias), scale and bias read once.  Per
+    element 7 operations for the moments and the affine and 5 for the erf
+    GELU; the backward 18, and 10 for the GELU's derivative."""
+    esize = torch.finfo(dtype).bits // 8
+    n = rows * C
+    if not backward:
+        return Work().add(2 * n * esize + 8 * C, f32=n * (7 + (5 if act else 0)))
+    return Work().add(3 * n * esize + 16 * C, f32=n * (18 + (10 if act else 0)))
 
 
 def card_line() -> str:
@@ -727,6 +798,25 @@ def phase_compare_v1(errors, card):
     print(f"  kernel 10 per step of phase 8d's layer ({n} images, {H}x{H}x{D}, N 1, float32): "
           f"{k10[0]:.3f} ms, plain {k10[1]:.3f} ms, bound {k10[2]:.4f} ms ({k10[3]})")
     return times
+
+
+def graph_ms(fn, reps=20):
+    """Mean milliseconds per call of ``fn`` on the device: ``reps`` calls
+    captured in one CUDA graph, the graph replayed between CUDA events, so
+    the host's launch work (the wrapper's checks, its small torch
+    operations' launches) drops out and only the device's time is left."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                               # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    _, ms = timed_call(graph.replay, 3)
+    return ms / reps
 
 
 def busy_share(fn, reps=3):
@@ -1695,7 +1785,8 @@ def phase_compare_ssd(errors, card):
 
 def kernel_table():
     """Every kernel of the port by name, in the order of the kernels line."""
-    return KERNELS | TRAIN_KERNELS | N1_KERNELS | GROUPED_KERNELS | SSD_KERNELS | V1_KERNELS
+    return (KERNELS | TRAIN_KERNELS | N1_KERNELS | GROUPED_KERNELS | SSD_KERNELS | V1_KERNELS
+            | ABLATION_KERNELS)
 
 
 def all_kernels():
@@ -1847,6 +1938,282 @@ def phase_m2_cpu_parity():
                            f"launches {launches} differ from 16 / 8")
 
 
+# ---------------------------------------------------------------------------
+# kernels 17-21: the ablations behind JAX's switches
+# ---------------------------------------------------------------------------
+
+def phase_compare_nk_ablations(errors, card):
+    """Kernels 17 and 18 against their plain twins and against kernel 2 on
+    the same inputs at the fusion scans' shapes, float32 and bfloat16, TF32
+    off; per call, each kernel's device time beside kernel 2's (`graph_ms`:
+    at these sub-millisecond sizes the CUDA-event time of a call follows
+    the host's speed), the CUDA-event times and the plain twins'.  Returns
+    each kernel's (device ms, plain ms, bound) per bs-32 bfloat16 XFMamba-S
+    forward (two ShallowFuse calls)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"phase 10: kernels 17 (nk scan v4) and 18 (v3) vs their plain twins and kernel 2, "
+          f"TF32 off ({card})")
+    g = torch.Generator().manual_seed(45)
+    kernels = {"nk_scan_v4": (nk_scan_v4.nk_scan_v4, nk_scan_v4.nk_scan_v4_plain),
+               "nk_scan_v3": (nk_scan_wide.nk_scan_v3, nk_scan_wide.nk_scan_v3_plain)}
+    failed, times = [], {}
+    with torch.no_grad():
+        for size, n, K, label in NK_ABLATION_CASES:
+            D = FUSION[size]["D"]
+            for dtype in (torch.float32, torch.bfloat16):
+                args = v1_scan_case(g, n, K, dtype, size)
+                k2 = nk_scan.nk_scan(*args)
+                for name, (fn, plain) in kernels.items():
+                    got = fn(*args, group=8)
+                    check_outputs(errors, name, f"{label} ({n},49,{D}) K={K} vs plain, k2", dtype,
+                                  [got, got], [plain(*args), k2], failed)
+                calls = {"nk_scan": lambda: nk_scan.nk_scan(*args),
+                         "nk_scan_v4": lambda: nk_scan_v4.nk_scan_v4(*args, group=8),
+                         "nk_scan_v3": lambda: nk_scan_wide.nk_scan_v3(*args, group=8)}
+                dev = {name: graph_ms(fn) for name, fn in calls.items()}
+                wall = {name: time_ms(fn, 10) for name, fn in calls.items()}
+                plain_ms = {name: time_ms(lambda f=plain: f(*args), 1, warmup=False)
+                            for name, (_, plain) in kernels.items()}
+                print(f"    {str(dtype)[6:]}: ms per call on the device (CUDA events): kernel 2 "
+                      f"{dev['nk_scan']:.4f} ({wall['nk_scan']:.4f}), kernel 17 "
+                      f"{dev['nk_scan_v4']:.4f} ({wall['nk_scan_v4']:.4f}), kernel 18 "
+                      f"{dev['nk_scan_v3']:.4f} ({wall['nk_scan_v3']:.4f}); plain twins "
+                      f"{plain_ms['nk_scan_v4']:.3f}, {plain_ms['nk_scan_v3']:.3f}")
+                if (size, n, K, dtype) == ("small", 32, 1, torch.bfloat16):
+                    for name in kernels:
+                        times[name] = (2 * dev[name], 2 * plain_ms[name],
+                                       *nk_work(n, 49, D, K, 16, dtype).times(2).bound())
+    torch.cuda.synchronize()
+    if failed:
+        raise PhaseFailure(f"kernels 17/18 disagree with their plain twins or kernel 2: {failed}")
+    for name, (ms, plain_ms, bound_ms, bound_by) in times.items():
+        print(f"  {name} per bs-32 bfloat16 XFMamba-S forward (2 ShallowFuse calls): {ms:.4f} ms "
+              f"on the device, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return times
+
+
+def set_switch(route):
+    """Turn on the switch of ``route`` ("v4" or "v3") and the other off;
+    "v2" turns both off."""
+    for other, (module, flag, _) in NK_SWITCHES.items():
+        setattr(module, flag, other == route)
+
+
+def phase_nk_switches(card):
+    """XFMamba-S with FUSED_V4, then FUSED_V3, on against both off: one
+    bfloat16 forward at bs 32 and one float32 training step at bs 16 from
+    the same weights and drop-path draws, launches counted around each;
+    then ms per forward (5 forwards) and per step (3 steps), the three
+    routes timed in turns, 3 rounds, medians.  Returns the switched
+    kernels' launches per forward."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"phase 10b: XFMamba-S with FUSED_V4 / FUSED_V3 on vs off: bfloat16 inference at bs 32, "
+          f"one float32 training step at bs {TRAIN_BATCH} ({card})")
+    model = two_view_xfmamba("small", seed=0)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    draws = model.dropout_generator.get_state()
+    xa, xb = views(32, torch.bfloat16, 32)
+    batch = train_batch(torch.float32)
+    fns = all_kernels()
+    routes = ("v2", "v4", "v3")
+    main, ref = {}, None
+
+    def forward():
+        model.eval()
+        with torch.no_grad():
+            return model(xa, xb)
+
+    def new_step():
+        """A train step from the seeded weights and drop-path draws (each
+        route's forward and step start from them)."""
+        model.load_state_dict(state)
+        model.dropout_generator.set_state(draws)
+        optimizer = make_optimizer(TrainConfig(lr=1e-4, weight_decay=1e-5), model.parameters())
+        return make_train_step(model, optimizer, multilabel=False)[0]
+
+    try:
+        for route in routes:
+            set_switch(route)
+            step = new_step()
+            kernel = NK_SWITCHES[route][2] if route != "v2" else "nk_scan"
+            want_fwd = {"vss_stage": 4, kernel: 2, "nk_scan_x": 1}
+            want_step = {k: v for k, v in F32_STEP["small"].items() if k != "nk_scan"} | {kernel: 3}
+            forward()                                      # warm-up
+            torch.cuda.synchronize()
+            counts = counted(fns)
+            logits = forward().float()
+            torch.cuda.synchronize()
+            fwd = {n: c for n, c in counts().items() if c}
+            counts = counted(fns)
+            loss = float(step(batch)["loss"])
+            torch.cuda.synchronize()
+            stp = {n: c for n, c in counts().items() if c}
+            if ref is None:
+                ref = (logits, loss)
+            err = float((logits - ref[0]).abs().max()) / float(ref[0].abs().max())
+            loss_rel = abs(loss - ref[1]) / abs(ref[1])
+            print(f"  {route}: forward launches {fwd}, logits vs switches off rel {err:.3e} (tol "
+                  f"5e-02); step launches {stp}, loss {loss:.7f} (rel {loss_rel:.2e}, tol 1e-04)")
+            if fwd != want_fwd or stp != want_step or not torch.isfinite(logits).all() or \
+                    not err <= 5e-2 or not loss_rel <= 1e-4:
+                raise PhaseFailure(f"route {route}: forward launches {fwd} (expected {want_fwd}), "
+                                   f"step launches {stp} (expected {want_step}), logits rel {err}, "
+                                   f"loss rel {loss_rel}")
+            if route != "v2":
+                main[kernel] = fwd[kernel]
+        step = new_step()
+        fwd_ms, step_ms = ({r: [] for r in routes} for _ in range(2))
+        for _ in range(3):
+            for route in routes:
+                set_switch(route)
+                fwd_ms[route].append(time_ms(forward, 5))
+                step_ms[route].append(timed_steps(step, batch, runs=1)[0])
+    finally:
+        set_switch("v2")
+    for route in routes:
+        f, t = sorted(fwd_ms[route]), sorted(step_ms[route])
+        print(f"  {route}: {f[1]:.2f} ms per bs-32 bfloat16 forward (runs "
+              f"{', '.join(f'{v:.2f}' for v in f)}), {t[1]:.2f} ms per float32 bs-{TRAIN_BATCH} "
+              f"step (runs {', '.join(f'{v:.2f}' for v in t)}) ({card})")
+    del model, step
+    return main
+
+
+def library_ln(x, scale, bias, act):
+    """The one-call yardstick: ``F.layer_norm`` (+ ``F.gelu``, a second
+    call), parameters in x's dtype as a bfloat16 LayerNorm module holds
+    them."""
+    y = F.layer_norm(x, (x.shape[-1],), scale.to(x.dtype), bias.to(x.dtype))
+    return F.gelu(y) if act else y
+
+
+def patch_embed_on(pe, norm):
+    """XFMamba-S's patch embed as ``scripts/ab_pe_fused.py`` builds it from
+    ``PatchEmbedV2`` ``pe``'s weights: conv1, ``norm(h, layer, act=True)``,
+    conv2, ``norm(h, layer, act=False)``."""
+    m = pe._modules
+    return lambda x: norm(m["5"](norm(m["0"](x), m["2"], True)), m["7"], False)
+
+
+def phase_ln_kernels(errors, card):
+    """Kernels 19-21 against their plain twins at `LN_CASES` in both dtypes;
+    in bfloat16 at the patch embed's two norms, each kernel's ms beside its
+    plain twin, its bound and the library call; then the patch embed built
+    on kernel 19 and on kernels 20 / 21 against ``PatchEmbedV2`` (the main
+    path: launches counted around one forward on 19 and one forward and
+    backward on 20 / 21).  Returns (times, library ms, launches)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"phase 10c: kernels 19-21 (LayerNorm + GELU) vs their plain twins and F.layer_norm, "
+          f"TF32 off ({card})")
+    g = torch.Generator().manual_seed(46)
+    bf16 = torch.bfloat16
+    names = ("ln_act_fused", "seg_ln_fwd", "seg_ln_bwd")
+    acc = {name: dict(ms=0.0, plain=0.0, lib=0.0, work=Work()) for name in names}
+    failed = []
+    for dtype in (torch.float32, bf16):
+        for shape, C, act in LN_CASES:
+            x = randn(g, *shape, C, dtype=dtype, scale=2.0) + 0.5
+            scale, bias = 1 + randn(g, C, scale=0.1), randn(g, C, scale=0.1)
+            gy = randn(g, *shape, C, dtype=dtype)
+            label = f"{tuple(shape) + (C,)} {'GELU' if act else 'no act'}"
+            calls = {
+                "ln_act_fused": (lambda: [pe_fused.ln_act_fused(x, scale, bias, act)],
+                                 lambda: [pe_fused.ln_act_fused_plain(x, scale, bias, act)]),
+                "seg_ln_fwd": (lambda: [seg_ln.seg_ln_fwd(x, scale, bias, act=act)],
+                               lambda: [seg_ln.seg_ln_fwd_plain(x, scale, bias, act=act)]),
+                "seg_ln_bwd": (lambda: seg_ln.seg_ln_bwd(x, scale, bias, gy, act=act),
+                               lambda: seg_ln.seg_ln_bwd_plain(x, scale, bias, gy, act=act))}
+            with torch.no_grad():
+                for name, (fn, plain) in calls.items():
+                    check_outputs(errors, name, label, dtype, fn(), plain(), failed)
+            if dtype != bf16 or (shape, C, act) not in LN_CASES[:2]:
+                continue
+            rows = math.prod(shape)
+            xl = x.detach().requires_grad_()
+            sl, bl = (t.to(dtype).requires_grad_() for t in (scale, bias))
+            y = library_ln(xl, sl, bl, act)
+            lib = {"ln_act_fused": lambda: library_ln(x, scale, bias, act),
+                   "seg_ln_fwd": lambda: library_ln(x, scale, bias, act),
+                   "seg_ln_bwd": lambda: torch.autograd.grad(y, (xl, sl, bl), gy,
+                                                             retain_graph=True)}
+            for name, (fn, plain) in calls.items():
+                a = acc[name]
+                with torch.no_grad():
+                    a["ms"] += time_ms(fn, 10)
+                    a["plain"] += time_ms(plain, 1, warmup=False)
+                a["lib"] += time_ms(lib[name], 10)
+                a["work"] += ln_work(rows, C, dtype, act, backward=name == "seg_ln_bwd")
+            del xl, sl, bl, y
+    torch.cuda.synchronize()
+    if failed:
+        raise PhaseFailure(f"kernels 19-21 disagree with their plain twins: {failed}")
+    times, library = {}, {}
+    for name, a in acc.items():
+        times[name] = (a["ms"], a["plain"], *a["work"].bound())
+        library[name] = a["lib"]
+        print(f"  {name:12s} per bs-64 patch embed (bfloat16, its 2 norms): kernel {a['ms']:.4f} ms, "
+              f"plain {a['plain']:.3f} ms, bound {times[name][2]:.4f} ms ({times[name][3]}), "
+              f"library {a['lib']:.4f} ms (F.layer_norm + F.gelu{' backward' if 'bwd' in name else ''})")
+    launches = phase_patch_embed(card)
+    return times, library, launches
+
+
+def phase_patch_embed(card):
+    """XFMamba-S's patch embed at bs 64 two-view (128 images 224 x 224 x 3,
+    bfloat16) from ``PatchEmbedV2``'s seeded weights: built on kernel 19,
+    forward; built on kernels 20 / 21 (``seg_ln_act``), forward and backward;
+    each against the module's own forward and gradients within 5e-2 of the
+    largest magnitude.  Launches counted around the two runs; ms per
+    forward (and per forward + backward) of each build."""
+    bf16 = torch.bfloat16
+    pe = PatchEmbedV2(3, 96, generator=torch.Generator().manual_seed(47)).cuda()
+    x = images(PE_IMAGES, bf16, 48)
+    gy = randn(torch.Generator().manual_seed(49), PE_IMAGES, 56, 56, 96, dtype=bf16)
+    on19 = patch_embed_on(pe, lambda h, ln, act: pe_fused.ln_act_fused(h, ln.weight, ln.bias,
+                                                                        act, ln.eps))
+    on20 = patch_embed_on(pe, lambda h, ln, act: seg_ln.seg_ln_act(h, ln.weight, ln.bias,
+                                                                   h.shape[-1], ln.eps, act))
+
+    def grads(fn):
+        pe.zero_grad()
+        y = fn(x)
+        y.backward(gy)
+        return [y.detach()] + [p.grad.clone() for p in pe.parameters()]
+
+    with torch.no_grad():
+        want = pe(x)
+        on19(x)                                            # warm-up
+    grads(on20)
+    torch.cuda.synchronize()
+    counts = counted(all_kernels())
+    with torch.no_grad():
+        got = on19(x)
+    got_b = grads(on20)
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in counts().items() if c}
+    want_b = grads(pe)
+    err = rel(got, want)[1]
+    err_b = max(rel(a, b)[1] for a, b in zip(got_b, want_b))
+    with torch.no_grad():
+        ms = {name: time_ms(lambda f=fn: f(x), 5) for name, fn in
+              (("PatchEmbedV2", pe), ("on kernel 19", on19), ("on kernels 20", on20))}
+    ms_b = {name: time_ms(lambda f=fn: grads(f), 3) for name, fn in
+            (("PatchEmbedV2", pe), ("on kernels 20/21", on20))}
+    print(f"  patch embed bs 64 two-view ({PE_IMAGES} x 224 x 224 x 3 -> 56 x 56 x 96, bfloat16): "
+          f"launches {launches}; on kernel 19 vs PatchEmbedV2 rel {err:.3e}, on kernels 20/21 "
+          f"output and {len(got_b) - 1} gradients worst rel {err_b:.3e} (tol 5e-02); ms per "
+          f"forward {', '.join(f'{k} {v:.3f}' for k, v in ms.items())}; forward + backward "
+          f"{', '.join(f'{k} {v:.3f}' for k, v in ms_b.items())} ({card})")
+    want_launches = {"ln_act_fused": 2, "seg_ln_fwd": 2, "seg_ln_bwd": 2}
+    if launches != want_launches or not err <= 5e-2 or not err_b <= 5e-2:
+        raise PhaseFailure(f"the patch embed on kernels 19-21 disagrees with PatchEmbedV2 or its "
+                           f"launches {launches} differ from {want_launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1901,12 +2268,18 @@ def main() -> int:
     launches["ssd_chunk_bwd"] = phase_m2_train(card)
     phase_m2_cpu_parity()
     phase_ssd_past_limits(errors, card)
-    # no single PyTorch call computes any of these functions: library_ms is null
+    times |= phase_compare_nk_ablations(errors, card)
+    launches |= phase_nk_switches(card)
+    ln_times, library, ln_launches = phase_ln_kernels(errors, card)
+    times |= ln_times
+    launches |= ln_launches
+    # library_ms: one PyTorch call computing the same function, where there
+    # is one (kernels 19-21); none computes the scans
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=k["source"], replaces=k["replaces"],
              launches=launches[name], max_abs_err=errors[name], ms=times[name][0],
              plain_ms=times[name][1], bound_ms=times[name][2], bound_by=times[name][3],
-             library_ms=None)
+             library_ms=library.get(name))
         for name, k in kernel_table().items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -22,6 +22,7 @@ from xfmamba_tpu_torch.ops import (
     fused_cross_scan, nk_scan, nk_scan_adjoint, nk_scan_v1, primitives, selective_scan_grouped,
     ss2d_core_n1, ssd_chunk, vss_block_train, vss_block_v1, vss_stage, vss_stage_train)
 from xfmamba_tpu_torch.ops.vss_block import pack_vss_block_params, pack_vss_block_train_params
+from xfmamba_tpu_torch.ops.ablations import nk_scan_v4, nk_scan_wide, pe_fused, seg_ln
 
 pytestmark = pytest.mark.cuda
 
@@ -736,3 +737,101 @@ def test_v1_route_tiny_model_card_matches_cpu(dev):
         got = model(xa.cuda(), xb.cuda()).cpu()
     assert [f.launches - c for f, c in zip(fns, counts)] == [2, 4, 3]
     assert rel_err(got, want) < 5e-2
+
+
+# ---------------------------------------------------------------------------
+# kernels 17-21: the ablation kernels behind JAX's switches
+# ---------------------------------------------------------------------------
+
+def _nk_case(g, dtype, B, H, W, D, kinds, N):
+    K, L = len(kinds), H * W
+    return (randn(g, B, L, D, dtype=dtype), randn(g, B, L, K * D, dtype=dtype, scale=0.5),
+            randn(g, B, L, K * N, dtype=dtype), randn(g, B, L, K * N, dtype=dtype),
+            decay_rates(K, N, D).reshape(K * N, D), randn(g, K, D), randn(g, K, D, scale=0.5),
+            H, W, kinds)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("scan_mode", ["cross2d", "unidi", "bidi"])
+@pytest.mark.parametrize("N", [4, 16])
+def test_nk_scan_ablations(dev, dtype, scan_mode, N):
+    """Kernels 17 (group 8) and 18 (groups 8 and 2) against their plain
+    twins on 7 x 7 maps of 256 channels, 8 images (D not a multiple of the
+    kernel-17 block's 32 lanes at 200)."""
+    g = torch.Generator().manual_seed(40)
+    kinds = nk_scan.scan_mode_kinds(scan_mode)
+    for D in (256, 200):
+        args = _nk_case(g, dtype, 8, 7, 7, D, kinds, N)
+        for fn, plain, group in ((nk_scan_v4.nk_scan_v4, nk_scan_v4.nk_scan_v4_plain, 8),
+                                 (nk_scan_wide.nk_scan_v3, nk_scan_wide.nk_scan_v3_plain, 8),
+                                 (nk_scan_wide.nk_scan_v3, nk_scan_wide.nk_scan_v3_plain, 2)):
+            before = fn.launches
+            got = fn(*args, group=group)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1 and got.dtype == dtype
+            assert rel_err(got, plain(*args)) < TOL[dtype], (fn.__name__, D, group)
+
+
+def test_nk_scan_routes_to_the_ablations(dev, monkeypatch):
+    """With FUSED_V4 on, `nk_scan` launches kernel 17 at group 8 and kernel
+    2 at group 4 (kernel 17's gate); with FUSED_V3 on, kernel 18 where D is a
+    multiple of 128, else kernel 2; both off, kernel 2."""
+    g = torch.Generator().manual_seed(41)
+    fns = (nk_scan.nk_scan, nk_scan_v4.nk_scan_v4, nk_scan_wide.nk_scan_v3)
+    cases = [((True, False), 256, 8, [0, 1, 0]), ((True, False), 256, 4, [1, 0, 0]),
+             ((False, True), 256, 8, [0, 0, 1]), ((False, True), 96, 8, [1, 0, 0]),
+             ((False, False), 256, 8, [1, 0, 0])]
+    for (v4, v3), D, group, want in cases:
+        monkeypatch.setattr(nk_scan_v4, "FUSED_V4", v4)
+        monkeypatch.setattr(nk_scan, "FUSED_V3", v3)
+        args = _nk_case(g, torch.float32, 8, 7, 7, D, nk_scan.scan_mode_kinds("cross2d"), 16)
+        before = [f.launches for f in fns]
+        got = nk_scan.nk_scan(*args, group=group)
+        assert [f.launches - b for f, b in zip(fns, before)] == want, (v4, v3, D, group)
+        assert rel_err(got, nk_scan.nk_scan_plain(*args)) < TOL[torch.float32]
+    with pytest.raises(ValueError):
+        nk_scan_v4.nk_scan_v4(*args, group=4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C", [48, 96, 192, 768])
+@pytest.mark.parametrize("act", [False, True])
+def test_ln_act_kernels(dev, dtype, C, act):
+    """Kernels 19 and 20 against their plain twins, and kernel 21 (dx,
+    dscale, dbias) against its own, at a pixel count that fills no whole
+    block of kernel 21 nor whole warps of kernel 20 (3 x 11 x 13 pixels)."""
+    g = torch.Generator().manual_seed(42)
+    x = randn(g, 3, 11, 13, C, dtype=dtype, scale=2.0) + 0.5
+    scale, bias = 1 + randn(g, C, scale=0.1), randn(g, C, scale=0.1)
+    before = (pe_fused.ln_act_fused.launches, seg_ln.seg_ln_fwd.launches,
+              seg_ln.seg_ln_bwd.launches)
+    want = pe_fused.ln_act_fused_plain(x, scale, bias, act)
+    for got in (pe_fused.ln_act_fused(x, scale, bias, act), seg_ln.seg_ln_fwd(x, scale, bias,
+                                                                              act=act)):
+        assert got.dtype == dtype and rel_err(got, want) < TOL[dtype]
+    gy = randn(g, *x.shape, dtype=dtype)
+    got = seg_ln.seg_ln_bwd(x, scale, bias, gy, act=act)
+    torch.cuda.synchronize()
+    assert (pe_fused.ln_act_fused.launches, seg_ln.seg_ln_fwd.launches,
+            seg_ln.seg_ln_bwd.launches) == tuple(b + 1 for b in before)
+    assert got[0].dtype == dtype
+    for a, w in zip(got, seg_ln.seg_ln_bwd_plain(x, scale, bias, gy, act=act)):
+        assert rel_err(a, w) < TOL[dtype]
+
+
+def test_seg_ln_act_autograd_card_matches_cpu(dev):
+    """The differentiable op (kernels 20 and 21) on the card against the
+    CPU plain twins, float32, at 9000 pixels of C 48 (a ragged last block):
+    output and the gradients of x, scale and bias."""
+    g = torch.Generator().manual_seed(43)
+    x = torch.randn(9000, 48, generator=g)
+    scale, bias = 1 + 0.1 * torch.randn(48, generator=g), 0.1 * torch.randn(48, generator=g)
+    gy = torch.randn(9000, 48, generator=g)
+    results = []
+    for device in ("cpu", "cuda"):
+        leaves = [t.to(device).detach().requires_grad_() for t in (x, scale, bias)]
+        y = seg_ln.seg_ln_act(*leaves, 48, act=True)
+        y.backward(gy.to(device))
+        results.append([y.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    for got, want in zip(results[1], results[0]):
+        assert rel_err(got, want) < 1e-4

@@ -48,6 +48,11 @@ _SIGNATURES = {
     "xfm_ssd_bwd": [_P] * 18 + [_I] * 7 + [_P],
     "xfm_scan_two_level": [_P] * 11 + [_I] * 17 + [_P],
     "xfm_fused_cross_scan": [_P] * 9 + [_I] * 7 + [_P],
+    "xfm_nk_scan_v4": [_P] * 9 + [_I] * 8 + [_P],
+    "xfm_nk_scan_v3": [_P] * 9 + [_I] * 11 + [_P],
+    "xfm_ln_act": [_P] * 4 + [_LL, _I, _I, ctypes.c_float, _I, _P],
+    "xfm_seg_ln_fwd": [_P] * 4 + [_LL, _I, _I, _I, ctypes.c_float, _I, _P],
+    "xfm_seg_ln_bwd": [_P] * 7 + [_LL, _I, _I, _I, _I, ctypes.c_float, _I, _P],
 }
 
 

@@ -9,12 +9,15 @@ mode every model here uses (`models.ss2d.core_dispatch` says where the
 other modes differ):
 
 - ShallowFuse in eval mode through `nk_scan_train` (kernel 2; one K=1
-  row_f call per swap group) where JAX's v2 rule finds an image group
-  aligned to 8 sublanes (`ops.nk_scan_v1.shallow_takes_v2`), else through
-  `nk_scan_v1` (kernel 9, the same calls), in both dtypes; in training mode
-  through `nk_scan_train` (kernel 7 backward) where the routing rule of
-  ``ops/nk_scan_adjoint.py`` gives them a group, else one
-  `selective_scan_auto` call over both groups (kernels 13 and 14, K=2).
+  row_f call per swap group, with JAX's group `shallow_group`) where JAX's
+  v2 rule finds an image group aligned to 8 sublanes
+  (`ops.nk_scan_v1.shallow_takes_v2`), else through `nk_scan_v1` (kernel
+  9, the same calls), in both dtypes; in training mode through
+  `nk_scan_train` (kernel 7 backward) with the group the routing rule of
+  ``ops/nk_scan_adjoint.py`` gives them, else one `selective_scan_auto`
+  call over both groups (kernels 13 and 14, K=2).  With ``FUSED_V4`` or
+  ``FUSED_V3`` on, `nk_scan` runs kernel 17 or 18 in place of kernel 2
+  where JAX's gates admit the group.
 - Cross_SS2Dv5 in eval mode through `nk_scan_x` (rank form, LayerNorm
   epilogue) where the v2 rule gives its 3B streams a group
   (`ops.nk_scan_v1.cross_v2_group`), else the deltas are projected in
@@ -39,7 +42,8 @@ from xfmamba_tpu_torch.models.ss2d import (
     ScanParams, _project_kdirs, core_dispatch, dt_rank_of)
 from xfmamba_tpu_torch.ops.nk_scan import nk_scan_x, scan_mode_kinds
 from xfmamba_tpu_torch.ops.nk_scan_adjoint import nk_scan_train, nk_train_supported
-from xfmamba_tpu_torch.ops.nk_scan_v1 import cross_v2_group, nk_scan_v1, shallow_takes_v2
+from xfmamba_tpu_torch.ops.nk_scan_v1 import (
+    cross_v2_group, nk_scan_v1, shallow_group, shallow_takes_v2)
 from xfmamba_tpu_torch.ops.selective_scan_grouped import selective_scan_auto
 
 
@@ -107,17 +111,19 @@ class ShallowFuseSS2Dv4(ScanParams):
         dts, Bs, Cs = torch.split(x_dbl, [R, N, N], -1)
         dts = torch.einsum("blkr,kdr->blkd", dts, self.dt_projs_weight.to(xs.dtype))
         A, Dmat, bias = self.scan_operands(di)
-        if self.training and nk_train_supported(B, L, W, di, 1, N, "unidi") is None:
+        group = (nk_train_supported(B, L, W, di, 1, N, "unidi") if self.training
+                 else shallow_group(B, L))
+        if group is None:
             ys = selective_scan_auto(xs.reshape(B, L, 2 * di), dts.reshape(B, L, 2 * di),
                                      A.reshape(2 * di, N), Bs, Cs, Dmat.reshape(-1),
                                      bias.reshape(-1)).view(B, L, 2, di).unbind(2)
         else:
             v1 = not self.training and not shallow_takes_v2(B, L, W)
-            scan = nk_scan_v1 if v1 else nk_scan_train
-            ys = [scan(xs[:, :, k].contiguous(), dts[:, :, k].contiguous(),
-                       Bs[:, :, k].contiguous(), Cs[:, :, k].contiguous(),
-                       A[k].t().contiguous(), Dmat[k:k + 1], bias[k:k + 1], H, W, ("row_f",))
-                  for k in range(2)]
+            calls = [(xs[:, :, k].contiguous(), dts[:, :, k].contiguous(),
+                      Bs[:, :, k].contiguous(), Cs[:, :, k].contiguous(),
+                      A[k].t().contiguous(), Dmat[k:k + 1], bias[k:k + 1], H, W, ("row_f",))
+                     for k in range(2)]
+            ys = [nk_scan_v1(*c) if v1 else nk_scan_train(*c, group=group) for c in calls]
         y1 = self.out_norm(ys[0].reshape(B, H, W, di).to(x.dtype))
         y2 = self.out_norm(ys[1].reshape(B, H, W, di).to(x.dtype))
         y1 = y1 * self.fc1(x2_p.mean((1, 2)))[:, None, None]

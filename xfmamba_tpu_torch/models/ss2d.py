@@ -244,8 +244,9 @@ def core_dispatch(x, dts, Bs, Cs, A, Dmat, bias, scan_mode: str = "cross2d"):
     K, _, N = A.shape
     if N == 1 and scan_mode == "cross2d":
         return ss2d_core_fused(x, dts, Bs, Cs, A, Dmat, bias)
-    if nk_train_supported(B, H * W, W, D, K, N, scan_mode) is not None:
-        return nk_scan_train_from_projs(x, dts, Bs, Cs, A, Dmat, bias, scan_mode)
+    group = nk_train_supported(B, H * W, W, D, K, N, scan_mode)
+    if group is not None:
+        return nk_scan_train_from_projs(x, dts, Bs, Cs, A, Dmat, bias, scan_mode, group)
     return ss2d_core_from_projs(x, dts, Bs, Cs, A, Dmat, bias, scan_mode)
 
 

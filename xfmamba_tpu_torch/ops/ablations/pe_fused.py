@@ -1,0 +1,68 @@
+"""Kernel 19: per-pixel LayerNorm with an optional GELU (port of
+``xfmamba_tpu/ops/ablations/pe_fused.py``, TPU kernel ``_ln_act_kernel`` :46,
+host ``ln_act_fused`` :61).
+
+The JAX package builds XFMamba-S's patch embed from it in an A/B script
+(conv1 -> ``ln_act_fused`` with GELU -> conv2 -> ``ln_act_fused``); no model
+calls it.  On the card one warp normalises one pixel in the natural (rows,
+C) layout (``csrc/ln_act.cu``, entry ``xfm_ln_act``).  The GELU is the erf
+form, the port's GELU (``models/layers.py::gelu``).
+
+- `PE_FUSED` and `ln_act_supported`: JAX's switch (off) and gate, with "the
+  TPU backend" read as "a CUDA tensor".
+- `ln_act_fused` takes float32 or bfloat16, as the JAX op does in interpret
+  mode; its plain twin only for CPU tensors, else the kernel (counted in
+  ``ln_act_fused.launches``) or an exception.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from xfmamba_tpu_torch.kernels import build
+from xfmamba_tpu_torch.ops.primitives import (
+    dtype_code, layer_norm_plain, on_cpu, ptr, require, stream)
+
+# off by default, as in JAX (measured slower than XLA's lowering on the TPU)
+PE_FUSED = False
+
+
+def ln_act_supported(x: torch.Tensor, dtype: torch.dtype) -> bool:
+    """JAX's gate (:88-98): the switch on, bfloat16, a CUDA tensor, H * W
+    and C multiples of 8."""
+    if not PE_FUSED or dtype != torch.bfloat16 or x.dtype != torch.bfloat16:
+        return False
+    if not x.is_cuda:
+        return False
+    _, H, W, C = x.shape
+    return (H * W) % 8 == 0 and C % 8 == 0
+
+
+def ln_act_fused_plain(x, scale, bias, act_gelu=False, eps=1e-5):
+    """LayerNorm over the last axis of x (B, H, W, C) in float32, then the
+    erf GELU when ``act_gelu``; returns x's dtype."""
+    y = layer_norm_plain(x, scale, bias, torch.float32, eps)
+    return (F.gelu(y) if act_gelu else y).to(x.dtype)
+
+
+def ln_act_fused(x, scale, bias, act_gelu=False, eps=1e-5):
+    """x (B, H, W, C) float32 or bfloat16; scale, bias (C,).  Returns
+    (B, H, W, C) in x's dtype."""
+    if on_cpu(x, scale, bias):
+        return ln_act_fused_plain(x, scale, bias, act_gelu, eps)
+    B, H, W, C = x.shape
+    require(x, (B, H, W, C), name="x")
+    scale = scale.float().contiguous()
+    bias = bias.float().contiguous()
+    require(scale, (C,), name="scale")
+    require(bias, (C,), name="bias")
+    y = torch.empty_like(x)
+    lib = build.library()
+    ln_act_fused.launches += 1
+    build.check(lib.xfm_ln_act(ptr(x), ptr(scale), ptr(bias), ptr(y), B * H * W, C,
+                               int(act_gelu), eps, dtype_code(x), stream(x)), "ln_act")
+    return y
+
+
+ln_act_fused.launches = 0

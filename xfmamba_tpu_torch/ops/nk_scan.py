@@ -6,8 +6,11 @@ and the two fusion-op kernels built on it.
   `selective_scan_plain`.  Kernel 1 (``ops/vss_stage.py``) calls it for the
   backbone's cross2d scans.
 - `nk_scan`: port of ``xfmamba_tpu/ops/vss_block_pallas_v2.py::
-  nk_scan_call_v2`` (:1076; TPU kernel ``_nk_scan_kernel_v2`` :890), the
-  ShallowFuse scan from precomputed deltas.
+  nk_scan_call_v2`` (:1076), the dispatcher of the fusion scans from
+  precomputed deltas: kernel 2 (TPU kernel ``_nk_scan_kernel_v2`` :890) by
+  default, the ablation kernels 17 (``ops/ablations/nk_scan_v4.py``) or 18
+  (``ops/ablations/nk_scan_wide.py``) where their switches are on and
+  their gates hold (`nk_scan_route`, JAX's :1084-1098).
 - `nk_scan_x`: port of ``nk_scan_call_v2r`` (:1005; TPU kernel
   ``_nk_scan_x_kernel_v2`` :944), the Cross_SS2Dv5 scan with the rank->D
   delta projection in the kernel and the out-norm LayerNorm as epilogue.
@@ -19,10 +22,10 @@ and the two fusion-op kernels built on it.
 The kinds name each direction's traversal of the flattened H x W map; all
 are flat over L (the state carries across rows, or across columns for the
 column kinds, which walk t = w * H + h).  `scan_mode_kinds` is the one
-mapping from an SS2D scan mode to kinds.  The TPU helper
-``nk_scan_v2_kind_pairs`` has no counterpart: it pairs forward and reverse
-chains to interleave them in one TPU loop, while a CUDA thread walks each
-kind on its own.
+mapping from an SS2D scan mode to kinds.  `kind_pairs` copies the TPU
+helper ``nk_scan_v2_kind_pairs`` (:1052), which pairs forward and reverse
+chains: kernel 18 interleaves each pair in one loop, and both ablation
+gates refuse kinds it cannot pair.  Kernel 2 walks each kind on its own.
 
 `nk_scan` and `nk_scan_x` take the plain version only for CPU tensors; on
 CUDA tensors they launch the kernel, count the launch, or raise.
@@ -44,6 +47,11 @@ from xfmamba_tpu_torch.ops.selective_scan import selective_scan_seq
 KIND_CODES = {"row_f": 0, "col_f": 1, "row_r": 2, "col_r": 3}
 CROSS2D_KINDS = ("row_f", "col_f", "row_r", "col_r")
 
+# the switch of kernel 18 (the wide-state scan), off as in JAX
+# (``vss_block_pallas_v2.py:109``); kernel 17's, FUSED_V4, lives in
+# ``ops/ablations/nk_scan_v4.py`` as in JAX
+FUSED_V3 = False
+
 
 def scan_mode_kinds(scan_mode: str, K: int = 4) -> tuple:
     """Traversal kind of each of the K directions of an SS2D scan mode."""
@@ -54,6 +62,26 @@ def scan_mode_kinds(scan_mode: str, K: int = 4) -> tuple:
     if scan_mode == "bidi" and K == 4:
         return ("row_f", "row_f", "row_r", "row_r")
     raise ValueError(f"unsupported scan_mode {scan_mode!r} with K={K}")
+
+
+def kind_pairs(kinds) -> list:
+    """JAX's pairing of the kinds into (forward k, reverse k or None,
+    family) chains (``nk_scan_v2_kind_pairs``, :1052-1071): cross2d gives
+    (row_f, row_r) and (col_f, col_r), unidi each forward kind alone, bidi
+    (row_f, row_r) twice.  Raises ValueError on a reverse kind left
+    unpaired."""
+    fwd = {"row_f": "row", "flat_f": "row", "col_f": "col"}
+    rev = {"row_r": "row", "flat_r": "row", "col_r": "col"}
+    unpaired_r = [(i, rev[k]) for i, k in enumerate(kinds) if k in rev]
+    pairs = []
+    for i, fam in ((i, fwd[k]) for i, k in enumerate(kinds) if k in fwd):
+        match = next(((j, famr) for j, famr in unpaired_r if famr == fam), None)
+        if match is not None:
+            unpaired_r.remove(match)
+        pairs.append((i, None if match is None else match[0], fam))
+    if unpaired_r:
+        raise ValueError(f"unpaired reverse traversals in {kinds}")
+    return pairs
 
 
 def _kinds_code(kinds) -> int:
@@ -315,13 +343,48 @@ def nk_scan_plain(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds):
         **_nk_operands(u, Bs, Cs, A, Dvec, bias, kinds))
 
 
-def nk_scan(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds):
+def nk_scan_group(B: int, L: int, W: int, group: int) -> int:
+    """The image group G of JAX's dispatcher (:1084-1085): ``group`` where
+    it divides B and keeps L * G and W * G multiples of 8, else 1."""
+    aligned = B % group == 0 and (L * group) % 8 == 0 and (W * group) % 8 == 0
+    return group if aligned else 1
+
+
+def nk_scan_route(B, L, W, D, K, N, group, kinds) -> str:
+    """Which kernel `nk_scan` launches for B images of L = H * W positions:
+    "v4" (kernel 17) where `FUSED_V4` is on and `nk_scan_v4_supported`
+    holds at the group G of `nk_scan_group`, else "v3" (kernel 18) where
+    `FUSED_V3` is on and `nk_scan_v3_supported` holds, else "v2" (kernel 2),
+    as JAX's :1090-1098.  Where G leaves L * G or W * G unaligned JAX runs
+    the v1 kernel; the port's callers send those batches to kernel 9 before
+    they reach `nk_scan` (`ops/nk_scan_v1.py`), and both ablation gates
+    refuse them, so the route is "v2" there."""
+    # imported here: the ablation modules import this one
+    from xfmamba_tpu_torch.ops.ablations import nk_scan_v4, nk_scan_wide
+    G = nk_scan_group(B, L, W, group)
+    if nk_scan_v4.FUSED_V4 and nk_scan_v4.nk_scan_v4_supported(L, W, G, kinds):
+        return "v4"
+    if FUSED_V3 and nk_scan_wide.nk_scan_v3_supported(L, W, D, K, N, G, kinds):
+        return "v3"
+    return "v2"
+
+
+def nk_scan(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds, group=8):
     """u (B, L, D); dts (B, L, K*D); Bs/Cs (B, L, K*N); A (K*N, D) with rows
-    in (k, n) order; Dvec (K, D); bias (K, D).  Returns (B, L, D) in
-    u.dtype: sum_k C_k h_k + u * sum_k D_k."""
+    in (k, n) order; Dvec (K, D); bias (K, D); ``group`` the image group the
+    caller asks for (JAX's argument; it picks the route only).  Returns (B,
+    L, D) in u.dtype: sum_k C_k h_k + u * sum_k D_k.  On CUDA tensors the
+    kernel `nk_scan_route` names; ``nk_scan.launches`` counts kernel 2's."""
     if on_cpu(u, dts, Bs, Cs, A, Dvec, bias):
         return nk_scan_plain(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds)
     n, L, D = u.shape
+    K = len(kinds)
+    route = nk_scan_route(n, L, W, D, K, A.shape[0] // K, group, kinds)
+    if route != "v2":
+        from xfmamba_tpu_torch.ops.ablations import nk_scan_v4, nk_scan_wide
+        scan = nk_scan_v4.nk_scan_v4 if route == "v4" else nk_scan_wide.nk_scan_v3
+        return scan(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds,
+                    group=nk_scan_group(n, L, W, group))
     for name, t in (("u", u), ("dts", dts), ("Bs", Bs), ("Cs", Cs)):
         require(t, (n, L, None), u.dtype, name=name)
     nk_scan.launches += 1

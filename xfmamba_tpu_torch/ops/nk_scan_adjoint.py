@@ -9,8 +9,11 @@ selective_scan_bwd_cuda``).
 - `nk_scan_bwd`: gradients of `nk_scan` at its contract (u, dts, Bs, Cs,
   A (K*N, D), Dvec (K, D), bias (K, D)); the plain version for CPU tensors,
   the kernel (counted in ``nk_scan_bwd.launches``) for CUDA tensors.
-- `NKScanTrain`: the autograd op, kernel 2 forward and kernel 7 backward;
-  ShallowFuse calls it once per swap group (K=1, row_f).
+- `NKScanTrain`: the autograd op, kernel 2 forward (or kernel 17 or 18
+  where `nk_scan`'s route names them) and kernel 7 backward; ShallowFuse
+  calls it once per swap group (K=1, row_f).  It carries the image group
+  that `nk_train_supported` returned, as JAX's ``nk_scan_train`` does: the
+  group picks the forward's route.
 - `nk_scan_train_from_projs`: the ``ss2d_core_from_projs``-shaped entry
   that Cross_SS2Dv5 trains through (K=4 cross2d, N=16) where the routing
   rule allows it.
@@ -113,32 +116,37 @@ class NKScanTrain(torch.autograd.Function):
     forward's states."""
 
     @staticmethod
-    def forward(ctx, u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds):
+    def forward(ctx, u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds, group):
         ctx.geometry = (H, W, kinds)
         ctx.save_for_backward(u, dts, Bs, Cs, A, Dvec, bias)
-        return nk_scan(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds)
+        return nk_scan(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds, group)
 
     @staticmethod
     def backward(ctx, gy):
         saved = ctx.saved_tensors
         grads = nk_scan_bwd(*saved, gy, *ctx.geometry)
-        return tuple(g.to(t.dtype) for g, t in zip(grads, saved)) + (None, None, None)
+        return tuple(g.to(t.dtype) for g, t in zip(grads, saved)) + (None,) * 4
 
 
-def nk_scan_train(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds):
-    """Training nk scan, same contract as `nk_scan`."""
-    return NKScanTrain.apply(u, dts, Bs, Cs, A, Dvec, bias, H, W, tuple(kinds))
+def nk_scan_train(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds, group=8):
+    """Training nk scan, same contract as `nk_scan` (``group`` as there)."""
+    return NKScanTrain.apply(u, dts, Bs, Cs, A, Dvec, bias, H, W, tuple(kinds), group)
 
 
-def nk_scan_train_from_projs(x, dts, Bs, Cs, A, Dmat, bias, scan_mode="cross2d"):
+def nk_scan_train_from_projs(x, dts, Bs, Cs, A, Dmat, bias, scan_mode="cross2d", group=None):
     """x (B, H, W, D); dts (B, H, W, K, D); Bs/Cs (B, H, W, K, N); A
-    (K, D, N); Dmat/bias (K, D).  Returns (B, H, W, D) float32 (port of
-    ``nk_scan_train_from_projs``, :353)."""
+    (K, D, N); Dmat/bias (K, D); ``group`` the image group of
+    `nk_train_supported`, by default `pick_nk_train_group`'s (1 where it
+    finds none: JAX asserts one there, and the group picks the route only).
+    Returns (B, H, W, D) float32 (port of ``nk_scan_train_from_projs``,
+    :353)."""
     B, H, W, D = x.shape
     K, _, N = A.shape
     L = H * W
+    if group is None:
+        group = pick_nk_train_group(B, L, W, D, K, N) or 1
     y = nk_scan_train(x.reshape(B, L, D).contiguous(), dts.reshape(B, L, K * D).contiguous(),
                       Bs.reshape(B, L, K * N).contiguous(), Cs.reshape(B, L, K * N).contiguous(),
                       A.transpose(1, 2).reshape(K * N, D), Dmat, bias, H, W,
-                      scan_mode_kinds(scan_mode, K))
+                      scan_mode_kinds(scan_mode, K), group)
     return y.float().reshape(B, H, W, D)

@@ -63,7 +63,17 @@ Phases, in order; any failure exits non-zero:
    step, ms per step and peak memory in both ``use_checkpoint`` modes; (7d)
    the same for XFMamba-B, whose Cross_SS2Dv5 scan trains through kernels
    13 and 14 (4 launches each per step; kernels 2 and 7 twice, for
-   ShallowFuse);
+   ShallowFuse); (7e) the bfloat16 block sequence on the serial pieces
+   (``vss_stage.SERIAL_OPS``: SIMT GEMMs, serial scans) against the new one
+   (``CUDA_OPS``: tensor-core GEMMs, chunked scans) on the same inputs, in
+   turns, device time by CUDA-graph replay: kernel 1 per bs-32 forward,
+   kernels 4, 5 and 6 per bs-16 step, and the GEMMs, the scan and the
+   adjoint alone; (7f) torch.profiler by kernel name over the bs-16
+   bfloat16 step and the bs-32 bfloat16 forward, with the busy share.
+   Phases 4 and 7 also count the pieces' routes per forward and step
+   (tensor-core vs SIMT GEMM launches, the chunked scans by chunk count,
+   the serial scans) and fail unless every bfloat16 stage GEMM takes the
+   tensor cores and every stage scan and adjoint the chunked kernels;
 8. float32 gradients of one train step (kernels 11 and 12; both fusion
    scans through kernels 13 and 14 at this batch, 5 launches each), card
    against the CPU plain twins, XFMamba-S widths at depths (2, 2, 2, 2),
@@ -132,7 +142,9 @@ The ablation kernels behind JAX's switches (kernels 17-21):
    against the module's own forward and gradients, bfloat16, 5e-2.
 
 The line before the last but one is one JSON object with the kernels'
-results (launches per main-path forward or step, errors, times, bounds),
+results (launches per main-path forward or step, errors, times, bounds;
+for kernels 1 and 4-6 also their route counts and phase 7e's device times
+of the serial sequence and the new one),
 the line before the last the card's name and power limit, the last
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it prints no result and exits 1.
@@ -156,12 +168,16 @@ from xfmamba_tpu_torch.models.vssm import VSSBlock, vmamba_small_m2
 from xfmamba_tpu_torch.models import vssm
 from xfmamba_tpu_torch.models.fusion import CrossSS2Dv5
 from xfmamba_tpu_torch.ops import (
-    fused_cross_scan, nk_scan, nk_scan_adjoint, nk_scan_v1, selective_scan_grouped, ss2d_core_n1,
-    ssd_chunk, vss_block_train, vss_block_v1, vss_stage, vss_stage_train)
+    cross2d_scan, fused_cross_scan, nk_scan, nk_scan_adjoint, nk_scan_v1, primitives,
+    selective_scan_grouped, ss2d_core_n1, ssd_chunk, vss_block_train, vss_block_v1, vss_stage,
+    vss_stage_train)
 from xfmamba_tpu_torch.ops.ablations import nk_scan_v4, nk_scan_wide, pe_fused, seg_ln
-from xfmamba_tpu_torch.ops.vss_block import pack_vss_block_params, pack_vss_block_train_params
+from xfmamba_tpu_torch.ops.vss_block import (
+    mlp_half, pack_vss_block_params, pack_vss_block_train_params, ss2d_half, ss2d_half_fwd,
+    vss_block_body)
 from xfmamba_tpu_torch.models.vssm import PatchEmbedV2
-from xfmamba_tpu_torch.train.profile import _device_us
+from xfmamba_tpu_torch.train.profile import (
+    _device_us, print_profile, profile_calls, train_step_fn)
 from xfmamba_tpu_torch.train.config import TrainConfig
 from xfmamba_tpu_torch.train.loop import make_optimizer, make_train_step
 
@@ -314,6 +330,23 @@ NK_SWITCHES = {"v4": (nk_scan_v4, "FUSED_V4", "nk_scan_v4"),
 PE_IMAGES = 128
 LN_CASES = [((PE_IMAGES, 112, 112), 48, True), ((PE_IMAGES, 56, 56), 96, False),
             ((PE_IMAGES, 28, 28), 192, False), ((3, 37, 41), 48, True)]
+
+# the routes of the bfloat16 blocks' pieces, counted per forward or step:
+# the tensor-core and SIMT GEMMs, the chunked cross2d scans (by chunk
+# count) and the serial scans of csrc/nk_scan.cu / nk_scan_bwd.cu (which
+# still serve kernels 2, 3 and 7)
+ROUTE_FNS = {"gemm_tc": primitives.gemm_tc_cuda, "gemm_simt": primitives.gemm_simt_cuda,
+             "cross2d_scan": cross2d_scan.cross2d_scan,
+             "cross2d_scan_bwd": cross2d_scan.cross2d_scan_bwd,
+             "serial_scan": nk_scan.selective_scan_cuda,
+             "serial_scan_bwd": nk_scan.selective_scan_bwd_cuda}
+# GEMMs of a block: the forward's five; kernel 6's 17 (its recompute's 3,
+# out_proj 2, the ranks 8, x_proj 2, in_proj 2)
+FWD_GEMMS, BWD_GEMMS = 5, 17
+
+# route counts per main-path forward (kernel 1) or step (kernels 4-6),
+# filled by phases 4 and 7 for the kernels line
+ROUTES = {}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense operations/s by type
 HBM_BYTES_PER_S = 3.35e12
@@ -516,6 +549,31 @@ def time_ms(fn, reps, warmup=True):
     if warmup:
         fn()
     return timed_call(fn, reps)[1]
+
+
+def reset_routes():
+    for fn in ROUTE_FNS.values():
+        fn.launches = 0
+    cross2d_scan.cross2d_scan.by_chunks.clear()
+    cross2d_scan.cross2d_scan_bwd.by_chunks.clear()
+
+
+def read_routes():
+    """The route counts since `reset_routes`, with the chunked scans'
+    launches by chunk count."""
+    return {n: fn.launches for n, fn in ROUTE_FNS.items()} | {
+        "chunks": dict(sorted(cross2d_scan.cross2d_scan.by_chunks.items())),
+        "chunks_bwd": dict(sorted(cross2d_scan.cross2d_scan_bwd.by_chunks.items()))}
+
+
+def check_routes(label, routes, want):
+    """Fail unless the route counts hold ``want``: every bfloat16 stage
+    GEMM on the tensor-core kernel, every stage scan and adjoint chunked,
+    the serial kernels only for the fusion scans."""
+    got = {k: routes[k] for k in want}
+    print(f"  {label} routes: {routes}")
+    if got != want:
+        raise PhaseFailure(f"{label}: route counts {got}, expected {want}")
 
 
 # ---------------------------------------------------------------------------
@@ -1043,6 +1101,16 @@ def phase_model(model, card):
             raise PhaseFailure(f"{name}: {launches[name]} launches, expected "
                                f"{2 * k['per_forward']}")
     with torch.no_grad():
+        reset_routes()
+        model(*inputs[32])
+        torch.cuda.synchronize()
+        routes = read_routes()
+    blocks = sum(depth for _, _, depth in STAGES["small"])
+    check_routes("bs-32 forward", routes, {
+        "gemm_tc": FWD_GEMMS * blocks, "gemm_simt": 0, "cross2d_scan": blocks,
+        "serial_scan": KERNELS["nk_scan"]["per_forward"] + KERNELS["nk_scan_x"]["per_forward"]})
+    ROUTES["vss_stage"] = routes
+    with torch.no_grad():
         for bs, (xa, xb) in inputs.items():
             samples = sorted(time_ms(lambda: model(xa, xb), 5) for _ in range(3))
             ms = samples[1]
@@ -1222,15 +1290,32 @@ def masks(g, *shape):
     return ((torch.rand(*shape, generator=g) < 0.7).float() / 0.7).cuda()
 
 
-def adjoint_scan_case(g, n, H, d, dtype):
-    """The stage maps' rank-form adjoint: K=4 cross2d, N=1, D=2d, R=ceil(d/16)."""
+def cross2d_case(g, n, H, d, dtype):
+    """The stage maps' chunked cross2d scan operands (``ops/cross2d_scan.py``):
+    u (n, L, 2d), the projection rows (n, L, 4R + 8) with R = ceil(d / 16),
+    A in [-e^1.5, -1], deltas about softplus(-4 +- 1)."""
     D, R, L = 2 * d, -(-d // 16), H * H
-    return dict(u=randn(g, n, L, D, dtype=dtype), Bs=randn(g, n, L, 4, 1, dtype=dtype),
-                Cs=randn(g, n, L, 4, 1, dtype=dtype),
-                A=-torch.ones(4, 1, D, device="cuda"), bias=randn(g, 4, D, scale=0.5) - 4.0,
-                Dsum=randn(g, D), kinds=nk_scan.CROSS2D_KINDS, H=H, W=H,
-                ranks=randn(g, n, L, 4, R, dtype=dtype), w_dt=randn(g, 4, R, D, scale=R ** -0.5),
-                gy=randn(g, n, L, D))
+    return (randn(g, n, L, D, dtype=dtype), randn(g, n, L, 4 * R + 8, dtype=dtype),
+            -torch.exp(1.5 * torch.rand(4, 1, D, generator=g)).cuda(),
+            randn(g, 4, D, scale=0.5) - 4.0, randn(g, D), randn(g, 4, R, D, scale=R ** -0.5),
+            H, H)
+
+
+def cross2d_check(errors, g, n, H, d, dtype, failed):
+    """The chunked scan (y, checkpoints) and its adjoint (every output, the
+    dB / dC columns) against their plain twins, counted under kernel 6."""
+    args = cross2d_case(g, n, H, d, dtype)
+    u, xdbl = args[:2]
+    geo = f"H={H} d={d}"
+    y, ck = cross2d_scan.cross2d_scan_plain(*args, checkpoints=True)
+    check_outputs(errors, "vss_block_bwd", f"chunked scan {geo} (y, ck)", dtype,
+                  cross2d_scan.cross2d_scan(*args, checkpoints=True), (y, ck), failed)
+    gy = randn(g, *u.shape)
+    dx = [torch.zeros(u.shape[0] * u.shape[1], xdbl.shape[-1], device="cuda") for _ in range(2)]
+    got = cross2d_scan.cross2d_scan_bwd(*args, gy, ck, dx[0])
+    want = cross2d_scan.cross2d_scan_bwd_plain(*args, gy, ck, dx[1])
+    check_outputs(errors, "vss_block_bwd", f"chunked adjoint {geo}", dtype,
+                  got | {"dxdbl": dx[0]}, want | {"dxdbl": dx[1]}, failed)
 
 
 def block_grads(result):
@@ -1279,10 +1364,7 @@ def phase_compare_train(errors, card):
             widths = STAGES["small"] + (STAGES["base"] if dtype == torch.bfloat16 else [])
             for H, d, _ in widths:
                 geo = f"H={H} d={d}"
-                args = adjoint_scan_case(g, n, H, d, dtype)
-                check_outputs(errors, "vss_block_bwd", f"adjoint scan {geo} K=4 N=1", dtype,
-                              nk_scan.selective_scan_bwd_cuda(**args),
-                              nk_scan.selective_scan_bwd_plain(**args), failed)
+                cross2d_check(errors, g, n, H, d, dtype, failed)
                 (p,) = train_blocks(g, d, 1, dtype)
                 x, m1 = randn(g, n, H * H, d, dtype=dtype), masks(g, n)
                 check_outputs(errors, "vss_block_train", f"block forward {geo}", dtype,
@@ -1424,9 +1506,12 @@ def phase_train(card):
     losses, per_step = [], []
     for i in range(TRAIN_STEPS):
         before = read_counts()
+        if i == TRAIN_STEPS - 1:
+            reset_routes()
         losses.append(float(step(batch)["loss"]))
         torch.cuda.synchronize()
         per_step.append({k: v - before[k] for k, v in read_counts().items()})
+    routes = read_routes()
     launches = read_counts()
     print(f"  losses: {', '.join(f'{v:.6f}' for v in losses)}")
     print(f"  launches over the {TRAIN_STEPS} steps: {launches}")
@@ -1435,6 +1520,13 @@ def phase_train(card):
     bad = [(i, c) for i, c in enumerate(per_step) if c != want]
     if bad:
         raise PhaseFailure(f"training launches per step {bad[:2]}, expected {want}")
+    blocks = want["vss_block_bwd"]
+    # kernel 5's forward and kernel 6's recompute each scan every block
+    check_routes("step", routes, {
+        "gemm_tc": (FWD_GEMMS + BWD_GEMMS) * blocks, "gemm_simt": 0,
+        "cross2d_scan": 2 * blocks, "cross2d_scan_bwd": blocks,
+        "serial_scan": want["nk_scan"], "serial_scan_bwd": want["nk_scan_bwd"]})
+    ROUTES["vss_stage_train"] = ROUTES["vss_block_bwd"] = routes
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         raise PhaseFailure(f"training loss not finite or not falling: {losses}")
     torch.cuda.reset_peak_memory_stats()
@@ -1444,10 +1536,17 @@ def phase_train(card):
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})")
     model.mamba_feature_extrac.use_checkpoint = True
     reset_counts()
+    reset_routes()
     step(batch)
     torch.cuda.synchronize()
     ck = read_counts()
     print(f"  use_checkpoint step launches: {ck}")
+    # kernel 4 (the SS2D half's 3 GEMMs; the MLP half is torch's, under
+    # the checkpoint), then kernel 6 with its recompute
+    check_routes("use_checkpoint step", read_routes(), {
+        "gemm_tc": (FWD_GEMMS - 2 + BWD_GEMMS) * blocks, "gemm_simt": 0,
+        "cross2d_scan": 2 * blocks, "cross2d_scan_bwd": blocks})
+    ROUTES["vss_block_train"] = read_routes()
     if (ck["vss_block_train"], ck["vss_block_bwd"], ck["vss_stage_train"]) != (21, 21, 0):
         raise PhaseFailure(f"use_checkpoint launches {ck}, expected vss_block_train 21, "
                            "vss_block_bwd 21")
@@ -1529,6 +1628,92 @@ def phase_train_kernel_times(card, errors):
     if failed:
         raise PhaseFailure(f"training kernels disagree with their plain versions: {failed}")
     return times
+
+
+def phase_old_vs_new(card):
+    """The serial sequence (``vss_stage.SERIAL_OPS``: SIMT GEMMs, the serial
+    scans) against the new one (``CUDA_OPS``: tensor-core GEMMs, the chunked
+    scans) on the same inputs, in turns (old, new, new, old), device time by
+    CUDA-graph replay: kernel 1 per bs-32 bfloat16 forward (one block per
+    stage at 64 images, counted depth times), kernels 4, 5 (its blocks'
+    SS2D and MLP halves) and 6 per bs-16 step (32 images); and the pieces
+    alone: a block's five forward GEMMs and its scan per bs-32 forward, its
+    adjoint scan per bs-16 step.  The two
+    sequences' outputs agree within 5e-2.  Returns {kernel: (old ms, new
+    ms)}."""
+    print(f"phase 7e: the serial sequence (SIMT GEMMs, serial scans) vs the new one (tensor-core "
+          f"GEMMs, chunked scans), in turns, CUDA-graph replay, bfloat16 ({card})")
+    g = torch.Generator().manual_seed(70)
+    bf16 = torch.bfloat16
+    seqs = {"old": vss_stage.SERIAL_OPS, "new": vss_stage.CUDA_OPS}
+    names = ("vss_stage", "vss_block_train", "vss_stage_train", "vss_block_bwd", "gemms", "scan",
+             "adjoint")
+    acc = {name: {"old": 0.0, "new": 0.0} for name in names}
+    worst = 0.0
+    with torch.no_grad():
+        for H, d, depth in STAGES["small"]:
+            (x, (p,), _, _), _, _ = stage_case(g, H, d, 1, 32, bf16)
+            (tp,) = train_blocks(g, d, 1, bf16)
+            xt, m1, m2 = randn(g, 32, H * H, d, dtype=bf16), masks(g, 32), masks(g, 32)
+            gy = randn(g, 32, H * H, d)
+            calls = {
+                "vss_stage": lambda ops: vss_block_body(x, p, H, H, ops),
+                "vss_block_train": lambda ops: ss2d_half(xt, tp, H, H, ops, m1),
+                "vss_stage_train": lambda ops: mlp_half(ss2d_half(xt, tp, H, H, ops, m1), tp,
+                                                        ops, m2),
+                "vss_block_bwd": lambda ops: vss_block_train.vss_block_bwd_body(
+                    xt, tp, H, H, m1, gy, ops)[0]}
+            # the pieces alone: a block's five forward GEMMs and its scan at
+            # 64 images, its adjoint scan at 32 (the bs-16 step's)
+            f = ss2d_half_fwd(x, p, H, H, vss_stage.CUDA_OPS)
+            ft = ss2d_half_fwd(xt, tp, H, H, vss_stage.CUDA_OPS, m1, checkpoints=True)
+            n, L, di = x.shape[0], H * H, 2 * d
+            f1 = vss_stage.CUDA_OPS.gemm(f.x1, p.w_fc1, bias=p.b_fc1, gelu=True)
+            gyt = randn(g, 32, L, di)
+            dxd = torch.zeros(32 * L, ft.xdbl.shape[-1], device="cuda")
+            calls |= {
+                "gemms": lambda ops: [
+                    ops.gemm(f.h1, p.w_in), ops.gemm(f.u.view(-1, di), p.w_xp),
+                    ops.gemm(f.yn, p.w_out, residual=f.rows),
+                    ops.gemm(f.x1, p.w_fc1, bias=p.b_fc1, gelu=True),
+                    ops.gemm(f1, p.w_fc2, bias=p.b_fc2, residual=f.x1)][-1],
+                "scan": lambda ops: ops.cross2d_scan(f.u.view(n, L, di), f.xdbl, p.A, p.b_dt,
+                                                     p.Dsum, p.w_dt, H, H)[0],
+                "adjoint": lambda ops: ops.cross2d_scan_bwd(
+                    ft.u.view(32, L, di), ft.xdbl, tp.A, tp.b_dt, tp.Dsum, tp.w_dt, H, H, gyt,
+                    ft.ck, dxd.zero_())["du"]}
+            line = []
+            for name, fn in calls.items():
+                outs = {w: fn(ops) for w, ops in seqs.items()}
+                worst = max(worst, rel(outs["new"], outs["old"])[1])
+                t = {"old": [], "new": []}
+                for which in ("old", "new", "new", "old"):
+                    t[which].append(graph_ms(lambda f=fn, o=seqs[which]: f(o), 3))
+                for which in t:
+                    acc[name][which] += depth * sum(t[which]) / 2
+                line.append(f"{name} {sum(t['old']) / 2:.3f} -> {sum(t['new']) / 2:.3f}")
+            print(f"  H={H:2d} d={d:3d} x{depth:2d}, ms per block (old -> new): {'; '.join(line)}")
+    for name, t in acc.items():
+        per = "bs-32 forward" if name in ("vss_stage", "gemms", "scan") else f"bs-{TRAIN_BATCH} step"
+        print(f"  {name:15s} per {per}: serial {t['old']:.3f} ms, new {t['new']:.3f} ms "
+              f"({t['old'] / t['new']:.2f}x) ({card})")
+    print(f"  new vs old outputs: worst rel {worst:.3e} (tol 5e-02)")
+    if not worst <= 5e-2:
+        raise PhaseFailure(f"the new sequence disagrees with the serial one: rel {worst}")
+    return {name: (t["old"], t["new"]) for name, t in acc.items() if name in names[:4]}
+
+
+def phase_profile(card):
+    """torch.profiler by kernel name: the bs-16 bfloat16 train step (as
+    ``python -m xfmamba_tpu_torch.train.profile``) and a bs-32 bfloat16
+    forward, with the busy share."""
+    print(f"phase 7f: bfloat16 profiles by kernel name ({card})")
+    print_profile("bs-16 bfloat16 train step", *profile_calls(train_step_fn()), top=15)
+    model = two_view_xfmamba("small", seed=0)
+    xa, xb = views(32, torch.bfloat16, 32)
+    with torch.no_grad():
+        print_profile("bs-32 bfloat16 forward", *profile_calls(lambda: model(xa, xb)), top=12)
+    del model
 
 
 def phase_train_f32(card, size, phase, n1_times):
@@ -2251,6 +2436,8 @@ def main() -> int:
           f"one K=4 call each) {sum(train_times['base']['nk'][4][1:]):.3f} ms")
     launches |= phase_train(card)
     times |= phase_train_kernel_times(card, errors)
+    serial = phase_old_vs_new(card)
+    phase_profile(card)
     launches["ss2d_core_n1_bwd"] = \
         phase_train_f32(card, "small", "7c", train_times["small"])["ss2d_core_n1_bwd"]
     base_step = phase_train_f32(card, "base", "7d", train_times["base"])
@@ -2280,6 +2467,9 @@ def main() -> int:
              launches=launches[name], max_abs_err=errors[name], ms=times[name][0],
              plain_ms=times[name][1], bound_ms=times[name][2], bound_by=times[name][3],
              library_ms=library.get(name))
+        | ({"routes": ROUTES[name]} if name in ROUTES else {})
+        | ({"serial_graph_ms": serial[name][0], "graph_ms": serial[name][1]} if name in serial
+           else {})
         for name, k in kernel_table().items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

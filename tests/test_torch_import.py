@@ -28,7 +28,8 @@ def test_port_imports_no_jax_and_builds_nothing():
         "          'ops.nk_scan_adjoint', 'ops.ss2d_core_n1', 'ops.selective_scan_grouped',\n"
         "          'ops.cross_scan', 'ops.ssd', 'ops.ssd_chunk', 'ops.vss_block_v1',\n"
         "          'ops.nk_scan_v1', 'ops.fused_cross_scan', 'ops.ablations.nk_scan_v4',\n"
-        "          'ops.ablations.nk_scan_wide', 'ops.ablations.pe_fused', 'ops.ablations.seg_ln'):\n"
+        "          'ops.ablations.nk_scan_wide', 'ops.ablations.pe_fused', 'ops.ablations.seg_ln',\n"
+        "          'ops.cross2d_scan'):\n"
         "    assert 'xfmamba_tpu_torch.' + m in sys.modules, m\n"
         "from xfmamba_tpu_torch.kernels import build\n"
         "assert build.library.cache_info().currsize == 0\n"
@@ -45,7 +46,7 @@ def test_library_name_is_keyed_on_the_sources():
     assert path.name.startswith("libxfm_") and path.suffix == ".so"
     assert build.library_path() == path
     assert {p.name for p in build._sources()} == {
-        "ln_act.cu", "nk_scan.cu", "nk_scan_ablations.cu", "nk_scan_bwd.cu", "scan_two_level.cu",
+        "gemm_tc.cu", "ln_act.cu", "nk_scan.cu", "nk_scan_ablations.cu", "nk_scan_bwd.cu", "scan_two_level.cu",
         "selective_scan_grouped.cu", "ss2d_core_n1.cu", "ssd_chunk.cu", "vss_block_bwd.cu",
         "vss_stage.cu"}
 

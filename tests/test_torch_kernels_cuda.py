@@ -19,7 +19,7 @@ from xfmamba_tpu_torch.models.tops import TwoViewXFMamba
 from xfmamba_tpu_torch.models.vssm import VSSBlock
 from xfmamba_tpu_torch.models.ss2d import core_dispatch
 from xfmamba_tpu_torch.ops import (
-    fused_cross_scan, nk_scan, nk_scan_adjoint, nk_scan_v1, primitives, selective_scan_grouped,
+    cross2d_scan, fused_cross_scan, nk_scan, nk_scan_adjoint, nk_scan_v1, primitives, selective_scan_grouped,
     ss2d_core_n1, ssd_chunk, vss_block_train, vss_block_v1, vss_stage, vss_stage_train)
 from xfmamba_tpu_torch.ops.vss_block import pack_vss_block_params, pack_vss_block_train_params
 from xfmamba_tpu_torch.ops.ablations import nk_scan_v4, nk_scan_wide, pe_fused, seg_ln
@@ -835,3 +835,136 @@ def test_seg_ln_act_autograd_card_matches_cpu(dev):
         results.append([y.detach().cpu()] + [t.grad.cpu() for t in leaves])
     for got, want in zip(results[1], results[0]):
         assert rel_err(got, want) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 block's tensor-core GEMM and chunked cross2d scans
+# ---------------------------------------------------------------------------
+
+def _tc(got_fn, want_fn, tol=TOL[torch.bfloat16]):
+    """Run the tensor-core kernel (counting one launch) and its plain twin."""
+    before = primitives.gemm_tc_cuda.launches
+    got = got_fn()
+    torch.cuda.synchronize()
+    assert primitives.gemm_tc_cuda.launches == before + 1
+    assert rel_err(got, want_fn()) < tol
+
+
+@pytest.mark.parametrize("a_major", ["k", "mn"])
+@pytest.mark.parametrize("b_major", ["k", "mn"])
+@pytest.mark.parametrize("M,N,K", [(1003, 200, 96), (20011, 40, 72), (37, 6, 4100),
+                                   (6, 200, 8200)])
+def test_gemm_tc_layouts(dev, a_major, b_major, M, N, K):
+    """Each layout pair, ragged tiles on every side, float32 and bfloat16
+    outputs; without an epilogue a long K splits (and a short M swaps)."""
+    g = torch.Generator().manual_seed(60)
+    bf16 = torch.bfloat16
+
+    def operand(rows, major):
+        t = randn(g, rows, K, dtype=bf16) if major == "k" else randn(g, K, rows, dtype=bf16).t()
+        assert primitives._major(t) == major
+        return t
+
+    a, b = operand(M, a_major), operand(N, b_major)
+    for out_dtype in (torch.float32, bf16):
+        _tc(lambda: primitives.gemm_tc_cuda(a, b, out_dtype=out_dtype),
+            lambda: primitives.gemm_ab_plain(a, b, out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("res_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_gemm_tc_epilogues(dev, res_dtype, out_dtype):
+    """bias, GELU, the per-sample row scale and a residual of either dtype,
+    in that order, into either output dtype, and a residual aliasing out."""
+    g = torch.Generator().manual_seed(61)
+    bf16 = torch.bfloat16
+    M, N, K = 7 * 143, 384, 96
+    a, w = randn(g, M, K, dtype=bf16), randn(g, N, K, dtype=bf16, scale=0.1)
+    bias, res = randn(g, N), randn(g, M, N, dtype=res_dtype)
+    scale = (torch.rand(7, generator=g) < 0.5).float().cuda() / 0.5
+    for kw in (dict(bias=bias, gelu=True), dict(bias=bias, residual=res, scale=scale),
+               dict(residual=res, scale=scale)):
+        _tc(lambda: primitives.gemm_tc_cuda(a, w, out_dtype=out_dtype, **kw),
+            lambda: primitives.gemm_ab_plain(a, w, out_dtype=out_dtype, **kw))
+    du = randn(g, M, N)
+    want = primitives.gemm_ab_plain(a, w, residual=du)
+    primitives.gemm_tc_cuda(a, w, residual=du, out=du)
+    assert rel_err(du, want) < TOL[bf16]
+
+
+@pytest.mark.parametrize("R", [6, 12, 24, 8])
+def test_gemm_tc_block_backward_products(dev, R):
+    """The block backward's bfloat16 products as it takes them: the rank
+    gradients into their float32 columns of dxdbl, dw_dt from the rank
+    slices (12-byte offsets at R = 6: element-wise loads), the x_proj
+    gradient from dxdbl^T, and du += dxdbl @ w_xp in place."""
+    g = torch.Generator().manual_seed(62)
+    bf16, f32 = torch.bfloat16, torch.float32
+    M, di = 4 * 784 + 5, 16 * R
+    xdbl = randn(g, M, 4 * R + 8, dtype=bf16)
+    dz = randn(g, M, 4, di, dtype=bf16)
+    w_dt = randn(g, 4, R, di, dtype=bf16, scale=0.3)
+    dx = torch.zeros(M, 4 * R + 8, dtype=f32, device="cuda")
+    for k in range(4):
+        sl = slice(k * R, (k + 1) * R)
+        _tc(lambda: primitives.gemm_ab_cuda(dz[:, k], w_dt[k], out=dx[:, sl]),
+            lambda: primitives.gemm_ab_plain(dz[:, k], w_dt[k], out_dtype=f32))
+        _tc(lambda: primitives.gemm_ab_cuda(xdbl[:, sl].t(), dz[:, k].t(), out_dtype=f32),
+            lambda: primitives.gemm_ab_plain(xdbl[:, sl].t(), dz[:, k].t(), out_dtype=f32))
+    d16, u = dx.to(bf16), randn(g, M, di, dtype=bf16)
+    w_xp = randn(g, 4 * R + 8, di, dtype=bf16, scale=0.2)
+    _tc(lambda: primitives.gemm_ab_cuda(d16.t(), u.t(), out_dtype=f32),
+        lambda: primitives.gemm_ab_plain(d16.t(), u.t(), out_dtype=f32))
+    du = randn(g, M, di)
+    want = primitives.gemm_ab_plain(d16, w_xp.t(), residual=du)
+    _tc(lambda: primitives.gemm_ab_cuda(d16, w_xp.t(), residual=du, out=du), lambda: want)
+
+
+def _cross2d_case(g, dtype, n, H, d):
+    """The block's scan operands at a stage map: D = 2d, R = ceil(d / 16),
+    deltas about softplus(-4 +- 1), A in [-e^1.5, -1]."""
+    D, R, L = 2 * d, -(-d // 16), H * H
+    return (randn(g, n, L, D, dtype=dtype), randn(g, n, L, 4 * R + 8, dtype=dtype),
+            -torch.exp(1.5 * torch.rand(4, 1, D, generator=g)).cuda(),
+            randn(g, 4, D, scale=0.5) - 4.0, randn(g, D), randn(g, 4, R, D, scale=R ** -0.5),
+            H, H)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,d", [(56, 96), (28, 192), (14, 384), (7, 768)])
+def test_cross2d_scan_chunked(dev, dtype, H, d):
+    """The stage's chunked scan and adjoint against their plain twins (the
+    same chunks and merge) at the four XFMamba-S stage maps: y, the
+    checkpoints, du, dz, dA, dbias, dDsum and the dB / dC columns."""
+    g = torch.Generator().manual_seed(63)
+    args = _cross2d_case(g, dtype, 4, H, d)
+    u, xdbl = args[0], args[1]
+    y, ck = cross2d_scan.cross2d_scan(*args, checkpoints=True)
+    y_p, ck_p = cross2d_scan.cross2d_scan_plain(*args, checkpoints=True)
+    assert rel_err(y, y_p) < 1e-4 and rel_err(ck, ck_p) < 1e-4
+    gy = randn(g, *u.shape)
+    dx, dx_p = (torch.zeros(u.shape[0] * u.shape[1], xdbl.shape[-1], device="cuda")
+                for _ in range(2))
+    got = cross2d_scan.cross2d_scan_bwd(*args, gy, ck_p, dx)
+    want = cross2d_scan.cross2d_scan_bwd_plain(*args, gy, ck_p, dx_p)
+    for name, w in want.items():
+        tol = 1e-2 if name == "dz" and dtype == torch.bfloat16 else 1e-4
+        assert rel_err(got[name], w) < tol, name
+    assert rel_err(dx, dx_p) < 1e-3
+
+
+def test_bf16_block_routes(dev):
+    """A bfloat16 block's forward and backward launch the tensor-core GEMM
+    for every product and the chunked scans, and no SIMT GEMM or serial
+    scan."""
+    g = torch.Generator().manual_seed(64)
+    p, x, m1 = _block_case(g, 32, torch.bfloat16)
+    fns = (primitives.gemm_tc_cuda, primitives.gemm_simt_cuda, cross2d_scan.cross2d_scan,
+           cross2d_scan.cross2d_scan_bwd, nk_scan.selective_scan_cuda,
+           nk_scan.selective_scan_bwd_cuda)
+    before = [f.launches for f in fns]
+    with torch.no_grad():
+        vss_block_train.vss_block_bwd(x, p, 8, 6, m1, randn(g, *x.shape))
+    torch.cuda.synchronize()
+    # the recompute's 3 GEMMs; out_proj 2, the ranks 8, x_proj 2, in_proj 2
+    assert [f.launches - b for f, b in zip(fns, before)] == [17, 0, 1, 1, 0, 0]

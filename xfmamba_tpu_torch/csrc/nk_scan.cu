@@ -1,11 +1,12 @@
 // Selective scan over whole H x W maps for K traversal kinds and N states.
 //
-// One kernel serves the three TPU kernels of the inference path:
-// - the four d_state-1 cross2d scans inside
-//   xfmamba_tpu/ops/vss_block_pallas_v2.py::_vss_stage_kernel_v2 (:542),
-//   with the rank->D delta projection done here (rank form);
-// - ::_nk_scan_kernel_v2 (:890), the ShallowFuse scan from precomputed
-//   deltas (K = 1, kind row_f, N = 16);
+// One kernel serves the fusion scans of the inference path (the stage
+// kernel's d_state-1 cross2d scans moved to the chunked kernel of
+// ss2d_core_n1.cu; ops/cross2d_scan.py keeps this one on the same
+// operands as the serial route that chip_smoke.py times beside it):
+// - xfmamba_tpu/ops/vss_block_pallas_v2.py::_nk_scan_kernel_v2 (:890),
+//   the ShallowFuse scan from precomputed deltas (K = 1, kind row_f,
+//   N = 16);
 // - ::_nk_scan_x_kernel_v2 (:944), the Cross_SS2Dv5 rank-form scan (K = 4
 //   cross2d, N = 16); its out-norm LayerNorm epilogue is the row LayerNorm
 //   of vss_stage.cu, launched right after this kernel by the same wrapper.
@@ -27,11 +28,12 @@
 // rows; the per-position B, C and rank values are warp-wide broadcasts.
 //
 // What bounds it on the H100: the dependent chain of L steps per thread
-// (latency), not bandwidth or arithmetic.  At stage 0 of XFMamba-S there are
-// only 2B * 192 chains (3,072 threads at batch 8, 48 blocks of 64 on 132
-// SMs) each 4 * 3,136 steps long, so most of the card idles; the Cross_SS2Dv5
-// call has 3B * 1,536 chains of 4 * 49 steps.  A chunked two-level scan that
-// splits L across threads is the next step (later work).
+// (latency), not bandwidth or arithmetic.  The fusion calls it serves walk
+// short maps (L = 49) with many chains: ShallowFuse B * 1,536, the
+// Cross_SS2Dv5 call 3B * 1,536 chains of 4 * 49 steps, N = 16 states in
+// registers, so a chunked split of L would buy little there.  On the long
+// backbone maps (2B * 192 chains of 4 * 3,136 steps at stage 0) most
+// of the card idled, which is why the stage's scans left this kernel.
 #include "common.cuh"
 
 namespace xfm {

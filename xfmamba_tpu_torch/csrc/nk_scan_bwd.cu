@@ -1,13 +1,13 @@
 // Adjoint of the selective scan of nk_scan.cu, for K traversal kinds x N
 // states, deltas precomputed (dts form) or projected from ranks (rank form).
 //
-// One kernel serves both training backwards:
-// - the four d_state-1 cross2d scans of a VSSBlock, inside the sequence
-//   that replaces xfmamba_tpu/ops/vss_block_v2_adjoint.py::
-//   _vss_block_bwd_kernel (:128; rank form);
-// - xfmamba_tpu/ops/nk_scan_adjoint.py::_nk_scan_bwd_kernel (:54), the
-//   backward of the fusion scans (dts form, ShallowFuse K = 1 and
-//   Cross_SS2Dv5 K = 4 with N = 16).
+// It serves xfmamba_tpu/ops/nk_scan_adjoint.py::_nk_scan_bwd_kernel (:54),
+// the backward of the fusion scans (dts form, ShallowFuse K = 1 and
+// Cross_SS2Dv5 K = 4 with N = 16).  The block adjoint's d_state-1 cross2d
+// scans (xfmamba_tpu/ops/vss_block_v2_adjoint.py::_vss_block_bwd_kernel,
+// :128) moved to the chunked adjoint of ss2d_core_n1.cu; ops/cross2d_scan.py
+// keeps this kernel's rank form on the same operands as the serial route
+// that chip_smoke.py times beside it.
 //
 // Forward, per kind k in its traversal order t (see nk_scan.cu):
 //   delta = softplus(z + bias[k]),  a_n = exp(delta * A[k, n])
@@ -35,8 +35,11 @@
 // order on every run, so results match the plain version to rounding only.
 //
 // What bounds it on the H100: as the forward, the dependent chain of 2 x L
-// steps per kind (latency), plus N warp reductions per step; the h scratch
-// traffic (one store and one load of N floats per step) is coalesced.
+// steps per kind (latency), plus N warp reductions and atomics per step;
+// the h scratch traffic (one store and one load of N floats per step) is
+// coalesced.  At the fusion scans' L = 49 the chains are short and many;
+// the long backbone maps, where the serial chain left the card idle and
+// the per-step reductions dominated, take the chunked adjoint instead.
 #include "common.cuh"
 
 namespace xfm {

@@ -1,17 +1,19 @@
-// Dense parts of one v05_noz VSS stage: the tiled GEMM with its epilogue,
-// the row LayerNorm and the depthwise 3x3 conv + SiLU.  With the selective
-// scan of nk_scan.cu they replace the TPU kernel
+// Dense parts of one v05_noz VSS stage: the tiled SIMT GEMM with its
+// epilogue, the row LayerNorm and the depthwise 3x3 conv + SiLU.  With the
+// tensor-core GEMM of gemm_tc.cu and the chunked scan of ss2d_core_n1.cu
+// they replace the TPU kernel
 // xfmamba_tpu/ops/vss_block_pallas_v2.py::_vss_stage_kernel_v2 (:542), which
 // computes a whole stage of VSSBlocks in one Pallas call.  The host wrapper
 // (xfmamba_tpu_torch/ops/vss_stage.py) launches them block by block.
 //
 // What bounds them on the H100:
 // - gemm: a shared-memory tiled SIMT GEMM (64x64 tile, 4x4 outputs per
-//   thread, float32 FMA), strided so that one kernel serves the forward
-//   products and, in vss_block_bwd.cu's sequence, their gradients.  The stage matmuls are large (M = B*H*W rows), so
-//   they would be tensor-core bound; this first version runs on the FP32
-//   pipes instead (67 TFLOP/s peak, well under the 989 TFLOP/s of bf16
-//   wgmma).  Moving to wgmma/TMA is later work.
+//   thread, float32 FMA, any strides), on the FP32 pipes (67 TFLOP/s
+//   peak).  It serves the float32 products (kernel 12's rank gradients;
+//   TF32 stays off in the port) and the serial sequence that
+//   ops/vss_stage.py::SERIAL_OPS keeps for comparison; every bfloat16
+//   product of the blocks takes gemm_tc.cu instead
+//   (ops/primitives.py::gemm_plan).
 // - layer_norm: one warp per row, three passes over the row (L1-resident);
 //   bound by device-memory bandwidth.
 // - dwconv3_silu: one thread per output element, channels fastest so the

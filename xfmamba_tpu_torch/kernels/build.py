@@ -34,14 +34,15 @@ _LL = ctypes.c_longlong
 # name -> argtypes of every C entry point (all return int: a cudaError_t)
 _SIGNATURES = {
     "xfm_gemm": [_P] * 6 + [_LL, _I, _I] + [_LL] * 5 + [_I] * 6 + [_P],
+    "xfm_gemm_tc": [_P] * 6 + [_LL, _I, _I] + [_LL] * 6 + [_I] * 10 + [_P],
     "xfm_layer_norm": [_P, _P, _P, _P, _LL, _I, _I, _I, ctypes.c_float, _P],
     "xfm_dwconv3_silu": [_P] * 5 + [_I] * 5 + [_P],
     "xfm_selective_scan": [_P] * 11 + [_I] * 15 + [_P],
     "xfm_layer_norm_bwd": [_P] * 7 + [_LL, _I, _I, ctypes.c_float, _P],
     "xfm_dwconv3_silu_bwd": [_P] * 8 + [_I] * 5 + [_P],
     "xfm_selective_scan_bwd": [_P] * 18 + [_I] * 17 + [_P],
-    "xfm_ss2d_n1_fwd": [_P] * 9 + [_I] * 7 + [_P],
-    "xfm_ss2d_n1_bwd": [_P] * 16 + [_I] * 7 + [_P],
+    "xfm_ss2d_n1_fwd": [_P] * 9 + [_I] * 12 + [_P],
+    "xfm_ss2d_n1_bwd": [_P] * 16 + [_I] * 13 + [_P],
     "xfm_grouped_scan_fwd": [_P] * 9 + [_I] * 8 + [_P],
     "xfm_grouped_scan_bwd": [_P] * 17 + [_I] * 8 + [_P],
     "xfm_ssd_fwd": [_P] * 11 + [_I] * 7 + [_P],

@@ -103,17 +103,19 @@ def gemm_ab_plain(a, b, bias=None, residual=None, gelu=False, scale=None,
     return res.to(out_dtype or a.dtype)
 
 
-def _splits(M, N, K, out):
+def _splits(M, N, K, out, bm=64, bn=64):
     """K slices for a product with a small output and a long reduction
-    (the weight gradients): enough blocks to cover the card twice."""
-    tiles = -(-M // 64) * -(-N // 64)
+    (the weight gradients) on bm x bn output tiles: enough blocks to cover
+    the card twice."""
+    tiles = -(-M // bm) * -(-N // bn)
     if out is not None or tiles >= 264 or K < 4096:
         return 1
     return max(1, min(-(-264 // tiles), K // 2048))
 
 
-def gemm_ab_cuda(a, b, bias=None, residual=None, gelu=False, scale=None,
-                 out_dtype=None, out=None):
+def _gemm_operands(a, b, bias, residual, gelu, scale, out_dtype, out, bm, bn):
+    """Check the operands of `gemm_ab_cuda` and allocate the output.
+    Returns (M, N, K, out, splits)."""
     require_cuda(a, b, bias, residual, scale, out)
     M, K = a.shape
     N = b.shape[0]
@@ -127,9 +129,9 @@ def gemm_ab_cuda(a, b, bias=None, residual=None, gelu=False, scale=None,
     if scale is not None:
         _check_scale(scale, M)
         require(scale, (scale.shape[0],), torch.float32, name="scale")
-    splits = _splits(M, N, K, out)
-    if bias is not None or residual is not None or gelu or scale is not None:
-        splits = 1
+    epilogue = bias is not None or residual is not None or gelu or scale is not None
+    # split slices add into a float32 output
+    splits = 1 if epilogue or out_dtype != torch.float32 else _splits(M, N, K, out, bm, bn)
     if out is None:
         alloc = torch.zeros if splits > 1 else torch.empty
         out = alloc(M, N, dtype=out_dtype, device=a.device)
@@ -140,8 +142,18 @@ def gemm_ab_cuda(a, b, bias=None, residual=None, gelu=False, scale=None,
         require(residual, (M, N), name="residual", contiguous=False)
         if residual.stride() != out.stride():
             raise ValueError("residual must share the output's strides")
+    return M, N, K, out, splits
+
+
+def gemm_simt_cuda(a, b, bias=None, residual=None, gelu=False, scale=None,
+                   out_dtype=None, out=None):
+    """The SIMT kernel of ``csrc/vss_stage.cu`` (float32 FMA on 64 x 64
+    tiles, any strides): float32 operands, and the serial sequence of the
+    bfloat16 blocks that ``ops.vss_stage.SERIAL_OPS`` keeps."""
+    M, N, K, out, splits = _gemm_operands(a, b, bias, residual, gelu, scale, out_dtype, out,
+                                          64, 64)
     lib = build.library()
-    gemm_ab_cuda.launches += 1
+    gemm_simt_cuda.launches += 1
     build.check(lib.xfm_gemm(
         ptr(a), ptr(b), ptr(bias), ptr(scale), ptr(residual), ptr(out), M, N, K,
         a.stride(0), a.stride(1), b.stride(0), b.stride(1), out.stride(0),
@@ -151,7 +163,93 @@ def gemm_ab_cuda(a, b, bias=None, residual=None, gelu=False, scale=None,
     return out
 
 
-gemm_ab_cuda.launches = 0
+gemm_simt_cuda.launches = 0
+
+TC_BM = 128
+
+
+def _major(t):
+    """"k" where the operand (rows, K) steps 1 along K, "mn" where it steps
+    1 along its rows, None where neither stride is 1."""
+    if t.stride(1) == 1 or t.shape[1] == 1:
+        return "k"
+    if t.stride(0) == 1 or t.shape[0] == 1:
+        return "mn"
+    return None
+
+
+def _vec_ok(t, major) -> bool:
+    """16-byte copies apply: an aligned base and a row (K-major) or k
+    (MN-major) stride of a multiple of 8 elements."""
+    step = t.stride(0) if major == "k" else t.stride(1)
+    return t.data_ptr() % 16 == 0 and (step % 8 == 0 or t.shape[0 if major == "k" else 1] == 1)
+
+
+def tc_tile_n(N: int) -> int:
+    """The tensor-core kernel's tile width for an output of N columns."""
+    for bn in (16, 32, 64):
+        if N <= bn:
+            return bn
+    return 128 if N % 128 == 0 or N >= 512 else 64
+
+
+def gemm_plan(M, N, a_major, b_major, dtype, epilogue) -> dict:
+    """Which GEMM kernel runs a product out (M, N) = A (M, K) B (N, K)^T,
+    from the operands' dtype, shapes and unit strides (`_major`: "k",
+    "mn" or None): "tc" (``csrc/gemm_tc.cu``) for bfloat16 operands that
+    each step 1 along an axis, else "simt" (``csrc/vss_stage.cu``;
+    float32 stays off the tensor cores, as TF32 is off everywhere in the
+    port).  For "tc" also the tile width and whether to compute out^T
+    (``swap``: a weight gradient with its short side on M and no
+    epilogue, so the short side becomes the narrow tile)."""
+    if dtype != torch.bfloat16 or a_major is None or b_major is None:
+        return dict(route="simt")
+    swap = not epilogue and M < N and M <= 64
+    n = M if swap else N
+    return dict(route="tc", swap=swap, bn=tc_tile_n(n))
+
+
+def gemm_tc_cuda(a, b, bias=None, residual=None, gelu=False, scale=None,
+                 out_dtype=None, out=None):
+    """The tensor-core kernel of ``csrc/gemm_tc.cu`` (bfloat16 operands,
+    mma.sync with float32 sums), `gemm_ab_plain`'s contract."""
+    epilogue = bias is not None or residual is not None or gelu or scale is not None
+    plan = gemm_plan(a.shape[0], b.shape[0], _major(a), _major(b), a.dtype, epilogue)
+    if plan["route"] != "tc":
+        raise ValueError("the tensor-core GEMM takes bfloat16 operands with a unit stride")
+    swap, bn = plan["swap"], plan["bn"]
+    M, N, K, out, splits = _gemm_operands(
+        a, b, bias, residual, gelu, scale, out_dtype, out,
+        *((bn, TC_BM) if swap else (TC_BM, bn)))
+    ka, kb = (b, a) if swap else (a, b)
+    am, bmj = _major(ka), _major(kb)
+    ldm, ldn = out.stride()
+    if swap:
+        ldm, ldn = ldn, ldm
+    lib = build.library()
+    gemm_tc_cuda.launches += 1
+    build.check(lib.xfm_gemm_tc(
+        ptr(ka), ptr(kb), ptr(bias), ptr(scale), ptr(residual), ptr(out),
+        ka.shape[0], kb.shape[0], K, ka.stride(0), ka.stride(1), kb.stride(0), kb.stride(1),
+        ldm, ldn, M // scale.shape[0] if scale is not None else 1, int(gelu), splits,
+        dtype_code(out), dtype_code(residual) if residual is not None else 0,
+        int(am == "k"), int(bmj == "k"), int(_vec_ok(ka, am)), int(_vec_ok(kb, bmj)), bn,
+        stream(a)), "gemm_tc")
+    return out
+
+
+gemm_tc_cuda.launches = 0
+
+
+def gemm_ab_cuda(a, b, bias=None, residual=None, gelu=False, scale=None,
+                 out_dtype=None, out=None):
+    """`gemm_ab_plain`'s contract on the card: the kernel that `gemm_plan`
+    names, `gemm_tc_cuda` or `gemm_simt_cuda` (each counts its own
+    launches)."""
+    epilogue = bias is not None or residual is not None or gelu or scale is not None
+    plan = gemm_plan(a.shape[0], b.shape[0], _major(a), _major(b), a.dtype, epilogue)
+    kernel = gemm_tc_cuda if plan["route"] == "tc" else gemm_simt_cuda
+    return kernel(a, b, bias, residual, gelu, scale, out_dtype, out)
 
 
 def gemm_plain(a, w, bias=None, residual=None, gelu=False, scale=None):
@@ -164,6 +262,13 @@ def gemm_cuda(a, w, bias=None, residual=None, gelu=False, scale=None):
     require(a, a.shape, name="a")
     require(w, w.shape, name="w")
     return gemm_ab_cuda(a, w, bias, residual, gelu, scale)
+
+
+def gemm_simt(a, w, bias=None, residual=None, gelu=False, scale=None):
+    """`gemm_cuda` on the SIMT kernel whatever the dtype."""
+    require(a, a.shape, name="a")
+    require(w, w.shape, name="w")
+    return gemm_simt_cuda(a, w, bias, residual, gelu, scale)
 
 
 # ---------------------------------------------------------------------------

@@ -39,12 +39,22 @@ Layouts (the port's own, not the TPU's lane packing):
          t = j * chunk - 1, a reverse one with the state after
          t = (j + 1) * chunk (JAX ``cf`` / ``cr``, row 0)
 
+The same CUDA kernels serve the bfloat16 backbone's cross2d scans
+(``ops/cross2d_scan.py``), whose projection rows are laid out
+``[rank_0 .. rank_3 | B0 C0 .. B3 C3]``: `N1Layout` says where each
+direction's rank, B and C sit in a row, and the plain twins here take it
+too.  Where a chunk's per-position values fit in `SMEM_CACHE_BUDGET`
+bytes of shared memory, the kernels keep them there between walks
+(`use_cache`).
+
 Each wrapper takes its plain twin (`*_plain`, the same sequential walk of
 each chunk) only for CPU tensors; on CUDA tensors it
 launches the kernel, adds one to its ``launches`` count, or raises.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -60,6 +70,47 @@ MIN_CHUNK = 8
 MAX_RANK = 64
 # the order in which the directions are walked and merged
 MERGE_ORDER = (0, 2, 1, 3)
+# csrc/ss2d_core_n1.cu: channels of a block, positions of a dB / dC
+# reduction, and the shared memory a block may take with its cache
+CHANNELS = 32
+SEG = 8
+SMEM_CACHE_BUDGET = 100 * 1024
+
+
+@dataclass(frozen=True)
+class N1Layout:
+    """Where direction k's operands sit in a projection row of ``row``
+    values: its R ranks from ``k * rank_k``, B at ``bc_off + k * bc_k``, C
+    right after B."""
+    row: int
+    rank_k: int
+    bc_off: int
+    bc_k: int
+
+    def args(self):
+        return (self.row, self.rank_k, self.bc_off, self.bc_k)
+
+    def split(self, xd, k, R):
+        """(ranks (..., R), B (..., 1), C (..., 1)) of direction k in rows xd."""
+        r0, b = k * self.rank_k, self.bc_off + k * self.bc_k
+        return xd[..., r0:r0 + R], xd[..., b:b + 1], xd[..., b + 1:b + 2]
+
+
+def core_layout(R: int) -> N1Layout:
+    """Kernels 11 / 12: (4, R + 2) per position, [rank | B | C] per direction."""
+    return N1Layout(4 * (R + 2), R + 2, R, R + 2)
+
+
+def use_cache(R: int, chunk: int, n_chunks: int, backward: bool) -> bool:
+    """Whether the kernel keeps a chunk's values (a and delta u B forward, h
+    and a backward) in shared memory: the block's shared memory with them
+    (the words of ``n1_smem_bytes`` in ``csrc/ss2d_core_n1.cu``) within
+    `SMEM_CACHE_BUDGET`."""
+    nthr = n_chunks * CHANNELS
+    words = R * CHANNELS + 3 * nthr + 2 * chunk * nthr
+    if backward:
+        words += n_chunks * (2 * SEG * (CHANNELS + 1) + SEG)
+    return 4 * words <= SMEM_CACHE_BUDGET
 
 
 def pick_chunk(L: int) -> int:
@@ -117,7 +168,7 @@ def _check(x, xdbl, w_dt, A, Ds, bias):
 # the per-direction quantities, as the kernels compute them
 # ---------------------------------------------------------------------------
 
-def _direction(x, xdbl, w_dt, A, bias, k, chunk, n):
+def _direction(x, xdbl, w_dt, A, bias, k, chunk, n, layout):
     """Direction k in chunk layout: every (B, n, chunk, D) float32 quantity
     of the recurrence, positions past L padded with a = 1 and b = 0.
     Returns (pos, valid, dict): pos[t] is the row-major position of data
@@ -128,11 +179,10 @@ def _direction(x, xdbl, w_dt, A, bias, k, chunk, n):
     pos = traversal_order(CROSS2D_KINDS[k & 1], H, W, x.device)
     pad = n * chunk - L
     u = x.reshape(B, L, D).float()[:, pos]
-    xd = xdbl.reshape(B, L, 4, R + 2).float()[:, pos, k]
-    z = xd[..., :R] @ w_dt[k] + bias[k]
+    rank, Bv, Cv = layout.split(xdbl.reshape(B, L, layout.row).float()[:, pos], k, R)
+    z = rank @ w_dt[k] + bias[k]
     delta = softplus(z)
     a = torch.exp(delta * A[k])
-    Bv, Cv = xd[..., R:R + 1], xd[..., R + 1:R + 2]
     b = delta * u * Bv
 
     def chunks(t, fill=0.0):
@@ -192,16 +242,18 @@ def _merge(parts, pos_of, shape):
 # kernel 11: the forward
 # ---------------------------------------------------------------------------
 
-def ss2d_core_n1_fwd_plain(x, xdbl, w_dt, A, Ds, bias, chunk=None):
-    """Returns y (B, H, W, D) float32 and the checkpoints ck (B, 4, n, D)."""
+def ss2d_core_n1_fwd_plain(x, xdbl, w_dt, A, Ds, bias, chunk=None, layout=None):
+    """Returns y (B, H, W, D) float32 and the checkpoints ck (B, 4, n, D).
+    ``layout``: the projection rows' `N1Layout` (kernel 11's by default)."""
     B, H, W, D = x.shape
     L = H * W
+    layout = layout or core_layout(w_dt.shape[1])
     chunk, n = _n_chunks(L, chunk)
     ck = torch.empty(B, 4, n, D, dtype=torch.float32, device=x.device)
     parts, pos_of = {}, {}
     for k in MERGE_ORDER:
         reverse = k >= 2
-        pos, _, q = _direction(x, xdbl, w_dt, A, bias, k, chunk, n)
+        pos, _, q = _direction(x, xdbl, w_dt, A, bias, k, chunk, n, layout)
         prod, loc = _chunk_pair(q["a"], q["b"], reverse)
         cin = _carries(prod, loc, backward=reverse)
         ck[:, k] = cin
@@ -218,15 +270,24 @@ def ss2d_core_n1_fwd(x, xdbl, w_dt, A, Ds, bias, chunk=None):
     require_cuda(x, xdbl, w_dt, A, Ds, bias)
     B, H, W, D, R = _check(x, xdbl, w_dt, A, Ds, bias)
     chunk, n = _n_chunks(H * W, chunk)
+    ss2d_core_n1_fwd.launches += 1
+    return n1_fwd_launch(x, xdbl, w_dt, A, Ds, bias, chunk, n, core_layout(R))
+
+
+def n1_fwd_launch(x, xdbl, w_dt, A, Dk, bias, chunk, n, layout, checkpoints=True):
+    """Launch the forward kernel on checked operands: x (B, H, W, D), xdbl
+    (B, H, W, layout.row).  Returns (y float32 (B, H, W, D), ck or None)."""
+    B, H, W, D = x.shape
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty(B, H, W, D, **f32)
     scratch = torch.empty(B, H, W, D, **f32)
-    ck = torch.empty(B, 4, n, D, **f32)
+    ck = torch.empty(B, 4, n, D, **f32) if checkpoints else None
     lib = build.library()
-    ss2d_core_n1_fwd.launches += 1
     build.check(lib.xfm_ss2d_n1_fwd(
-        ptr(x), ptr(xdbl), ptr(w_dt), ptr(A), ptr(Ds), ptr(bias), ptr(y), ptr(scratch),
-        ptr(ck), B, H, W, D, R, chunk, dtype_code(x), stream(x)), "ss2d_n1_fwd")
+        ptr(x), ptr(xdbl), ptr(w_dt), ptr(A), ptr(Dk), ptr(bias), ptr(y), ptr(scratch),
+        ptr(ck), B, H, W, D, w_dt.shape[1], chunk, *layout.args(),
+        int(use_cache(w_dt.shape[1], chunk, n, False)), dtype_code(x), stream(x)),
+        "ss2d_n1_fwd")
     return y, ck
 
 
@@ -260,17 +321,33 @@ def ss2d_core_n1_bwd_plain(x, xdbl, w_dt, A, Ds, bias, ck, g, chunk=None):
     directions; dxdbl (B, H, W, 4, R + 2), [d rank | dB | dC]; dw_dt
     (4, R, D); dbias, dA (of A = -exp(A_logs)), dD (4, D)."""
     B, H, W, D = x.shape
+    R = w_dt.shape[1]
+    dxdbl = torch.zeros(B, H, W, 4, R + 2, dtype=torch.float32, device=x.device)
+    r = n1_adjoint_plain(x, xdbl, w_dt, A, Ds, bias, ck, g, chunk, core_layout(R), dxdbl)
+    dpre = r.pop("dpre")
+    r["dxdbl"] = dxdbl
+    r["dw_dt"] = _rank_grads(dpre, xdbl, w_dt, dxdbl, gemm_ab_plain)
+    return r
+
+
+@torch.no_grad()
+def n1_adjoint_plain(x, xdbl, w_dt, A, Ds, bias, ck, g, chunk, layout, dxdbl):
+    """The adjoint walks of the backward kernel, plain: returns du (B, H, W,
+    D) merged over the directions, dpre (B, H, W, 4, D), dbias, dA, dD (4,
+    D), all float32, and adds dB and dC into their columns of dxdbl (B, H,
+    W, layout.row) float32."""
+    B, H, W, D = x.shape
     L = H * W
     R = w_dt.shape[1]
     chunk, n = _n_chunks(L, chunk)
     f32 = dict(dtype=torch.float32, device=x.device)
     dpre = torch.zeros(B, L, 4, D, **f32)
-    dxdbl = torch.zeros(B, L, 4, R + 2, **f32)
+    dxd = dxdbl.view(B, L, layout.row)
     dbias, dA, dD = (torch.empty(4, D, **f32) for _ in range(3))
     parts, pos_of = {}, {}
     for k in MERGE_ORDER:
         reverse = k >= 2
-        pos, valid, q = _direction(x, xdbl, w_dt, A, bias, k, chunk, n)
+        pos, valid, q = _direction(x, xdbl, w_dt, A, bias, k, chunk, n, layout)
         gk = g.reshape(B, L, D).float()[:, pos]
         dy = torch.nn.functional.pad(gk, (0, 0, 0, n * chunk - L)).view(B, n, chunk, D)
         hin = ck[:, k]
@@ -290,17 +367,15 @@ def ss2d_core_n1_bwd_plain(x, xdbl, w_dt, A, Ds, bias, ck, g, chunk=None):
         dp = torch.where(valid, ddelta * torch.sigmoid(q["z"]), 0.0)
         flat = (lambda t: t.reshape(B, n * chunk, -1)[:, :L])
         dpre[:, pos, k] = flat(dp)
-        dxdbl[:, pos, k, R] = flat((lam * q["delta"] * q["u"]).sum(-1, keepdim=True))[..., 0]
-        dxdbl[:, pos, k, R + 1] = flat((dy * hs).sum(-1, keepdim=True))[..., 0]
+        col = layout.bc_off + k * layout.bc_k
+        dxd[:, pos, col] += flat((lam * q["delta"] * q["u"]).sum(-1, keepdim=True))[..., 0]
+        dxd[:, pos, col + 1] += flat((dy * hs).sum(-1, keepdim=True))[..., 0]
         dbias[k] = dp.sum((0, 1, 2))
         dA[k] = (dexp * q["delta"]).sum((0, 1, 2))
         dD[k] = (dy * q["u"]).sum((0, 1, 2))
         parts[k], pos_of[k] = flat(du), pos
     du = _merge(parts, pos_of, (B, L, D)).view(B, H, W, D)
-    dpre = dpre.view(B, H, W, 4, D)
-    dxdbl = dxdbl.view(B, H, W, 4, R + 2)
-    dw_dt = _rank_grads(dpre, xdbl, w_dt, dxdbl, gemm_ab_plain)
-    return dict(du=du, dxdbl=dxdbl, dw_dt=dw_dt, dbias=dbias, dA=dA, dD=dD)
+    return dict(du=du, dpre=dpre.view(B, H, W, 4, D), dbias=dbias, dA=dA, dD=dD)
 
 
 def _adjoint(a, c, gin, reverse):
@@ -324,21 +399,37 @@ def ss2d_core_n1_bwd(x, xdbl, w_dt, A, Ds, bias, ck, g, chunk=None):
     chunk, n = _n_chunks(H * W, chunk)
     require(ck, (B, 4, n, D), torch.float32, name="ck")
     require(g, (B, H, W, D), torch.float32, name="g")
+    dxdbl = torch.zeros(B, H, W, 4, R + 2, dtype=torch.float32, device=x.device)
+    ss2d_core_n1_bwd.launches += 1
+    r = n1_bwd_launch(x, xdbl, w_dt, A, Ds, bias, ck, g, chunk, n, core_layout(R), dxdbl,
+                      torch.float32)
+    dpre = r.pop("dpre")
+    r["dxdbl"] = dxdbl
+    r["dw_dt"] = _rank_grads(dpre, xdbl, w_dt, dxdbl, gemm_ab_cuda)
+    return r
+
+
+def n1_bwd_launch(x, xdbl, w_dt, A, Dk, bias, ck, g, chunk, n, layout, dxdbl, dpre_dtype):
+    """Launch the backward kernel on checked operands (x, g (B, H, W, D),
+    xdbl and the zeroed float32 dxdbl (B, H, W, layout.row)).  Returns du
+    float32, dpre (B, H, W, 4, D) in ``dpre_dtype``, dbias, dA, dD (4, D);
+    dB and dC land in dxdbl."""
+    B, H, W, D = x.shape
+    R = w_dt.shape[1]
+    cache = use_cache(R, chunk, n, True)
     f32 = dict(dtype=torch.float32, device=x.device)
-    hs = torch.empty(B, H, W, D, **f32)
+    hs = None if cache else torch.empty(B, H, W, D, **f32)
     scratch = torch.empty(B, H, W, D, **f32)
     du = torch.empty(B, H, W, D, **f32)
-    dpre = torch.empty(B, H, W, 4, D, **f32)
-    dxdbl = torch.zeros(B, H, W, 4, R + 2, **f32)
+    dpre = torch.empty(B, H, W, 4, D, dtype=dpre_dtype, device=x.device)
     dbias, dA, dD = (torch.zeros(4, D, **f32) for _ in range(3))
     lib = build.library()
-    ss2d_core_n1_bwd.launches += 1
     build.check(lib.xfm_ss2d_n1_bwd(
-        ptr(x), ptr(xdbl), ptr(w_dt), ptr(A), ptr(Ds), ptr(bias), ptr(ck), ptr(g), ptr(hs),
+        ptr(x), ptr(xdbl), ptr(w_dt), ptr(A), ptr(Dk), ptr(bias), ptr(ck), ptr(g), ptr(hs),
         ptr(scratch), ptr(du), ptr(dpre), ptr(dxdbl), ptr(dbias), ptr(dA), ptr(dD),
-        B, H, W, D, R, chunk, dtype_code(x), stream(x)), "ss2d_n1_bwd")
-    dw_dt = _rank_grads(dpre, xdbl, w_dt, dxdbl, gemm_ab_cuda)
-    return dict(du=du, dxdbl=dxdbl, dw_dt=dw_dt, dbias=dbias, dA=dA, dD=dD)
+        B, H, W, D, R, chunk, *layout.args(), int(cache), dtype_code(dpre), dtype_code(x),
+        stream(x)), "ss2d_n1_bwd")
+    return dict(du=du, dpre=dpre, dbias=dbias, dA=dA, dD=dD)
 
 
 ss2d_core_n1_bwd.launches = 0

@@ -7,12 +7,15 @@ out-norm, exact-GELU MLP) on x (B, L, d), written as the sequence of
 kernels that ``ops/vss_stage.py`` launches on the card; its two halves
 (`ss2d_half`, `mlp_half`) take the per-sample drop-path scales of training
 as the GEMM epilogue's row scale, and `ss2d_half_fwd` keeps the
-intermediates that the block backward (``ops/vss_block_train.py``)
-recomputes.  `vss_block_ref`
-runs it with the plain versions of those kernels: activations are rounded
-to x's dtype at each kernel's output and computed in float32 inside, so
-the plain and the CUDA stage agree up to summation order.  In float32 it is
-the JAX ``vss_block_ref`` (LayerNorm affine unfolded).
+intermediates (and, for the backward, the scan's chunk checkpoints) that
+the block backward (``ops/vss_block_train.py``) recomputes.  The kernel
+set ``ops`` names each piece: ``gemm`` / ``gemm_ab``, ``layer_norm``,
+``dwconv3_silu``, ``cross2d_scan`` (``ops/cross2d_scan.py``) and their
+backwards.  `vss_block_ref` runs it with the plain versions of those
+kernels (`PLAIN_OPS`): activations are rounded to x's dtype at each
+kernel's output and computed in float32 inside, so the plain and the CUDA
+stage agree up to summation order.  In float32 it is the JAX
+``vss_block_ref`` (LayerNorm affine unfolded).
 """
 
 from __future__ import annotations
@@ -22,8 +25,7 @@ from types import SimpleNamespace
 
 import torch
 
-from xfmamba_tpu_torch.ops.nk_scan import (
-    CROSS2D_KINDS, selective_scan_bwd_plain, selective_scan_plain)
+from xfmamba_tpu_torch.ops.cross2d_scan import cross2d_scan_bwd_plain, cross2d_scan_plain
 from xfmamba_tpu_torch.ops.primitives import (
     dwconv3_silu_bwd_plain, dwconv3_silu_plain, gemm_ab_plain, gemm_plain,
     layer_norm_bwd_plain, layer_norm_plain)
@@ -118,9 +120,10 @@ def pack_vss_block_train_params(block, dtype) -> VSSBlockOperands:
     return _pack(block, dtype, detach=False)
 
 
-def ss2d_half_fwd(x, p: VSSBlockOperands, H, W, ops, m1=None):
+def ss2d_half_fwd(x, p: VSSBlockOperands, H, W, ops, m1=None, checkpoints=False):
     """The SS2D half of a block, x + m1 * out_proj(LN(scan(...))), on x
-    (B, L, d), keeping every intermediate the backward recomputes.  m1 (B,)
+    (B, L, d), keeping every intermediate the backward recomputes (with
+    ``checkpoints``, the scan's chunk checkpoints ``ck`` too).  m1 (B,)
     float32 is the per-sample drop-path scale of the branch (None: 1)."""
     B, L, d = x.shape
     di = p.w_in.shape[0]
@@ -131,16 +134,11 @@ def ss2d_half_fwd(x, p: VSSBlockOperands, H, W, ops, m1=None):
     xin = ops.gemm(h1, p.w_in)
     u = ops.dwconv3_silu(xin.view(B, H, W, di), p.w_conv, p.b_conv)
     xdbl = ops.gemm(u.view(B * L, di), p.w_xp).view(B, L, 4 * R + 8)
-    bc = xdbl[..., 4 * R:].unflatten(-1, (4, 2))
-    scan = dict(Bs=bc[..., 0:1], Cs=bc[..., 1:2],
-                ranks=xdbl[..., :4 * R].unflatten(-1, (4, R)))
-    y = ops.selective_scan(u.view(B, L, di), A=p.A, bias=p.b_dt, Dsum=p.Dsum,
-                           kinds=CROSS2D_KINDS, H=H, W=W, w_dt=p.w_dt,
-                           out_dtype=torch.float32, **scan)
+    y, ck = ops.cross2d_scan(u.view(B, L, di), xdbl, p.A, p.b_dt, p.Dsum, p.w_dt, H, W,
+                             checkpoints)
     yn = ops.layer_norm(y.view(B * L, di), p.lno_w, p.lno_b, dtype)
     x1 = ops.gemm(yn, p.w_out, residual=rows, scale=m1)
-    return SimpleNamespace(rows=rows, h1=h1, xin=xin, u=u, xdbl=xdbl, scan=scan, y=y,
-                           yn=yn, x1=x1)
+    return SimpleNamespace(rows=rows, h1=h1, xin=xin, u=u, xdbl=xdbl, ck=ck, y=y, yn=yn, x1=x1)
 
 
 def ss2d_half(x, p: VSSBlockOperands, H, W, ops, m1=None):
@@ -169,8 +167,8 @@ def vss_block_body(x, p: VSSBlockOperands, H, W, ops, m1=None, m2=None):
 PLAIN_OPS = SimpleNamespace(
     gemm=gemm_plain, gemm_ab=gemm_ab_plain, layer_norm=layer_norm_plain,
     layer_norm_bwd=layer_norm_bwd_plain, dwconv3_silu=dwconv3_silu_plain,
-    dwconv3_silu_bwd=dwconv3_silu_bwd_plain, selective_scan=selective_scan_plain,
-    selective_scan_bwd=selective_scan_bwd_plain)
+    dwconv3_silu_bwd=dwconv3_silu_bwd_plain, cross2d_scan=cross2d_scan_plain,
+    cross2d_scan_bwd=cross2d_scan_bwd_plain)
 
 
 def vss_block_ref(x, p: VSSBlockOperands, H, W, m1=None, m2=None):

@@ -11,11 +11,14 @@ SS2D half on the card.
   VMEM; here the host launches a sequence of hand-written kernels
   (`vss_block_bwd_body`): the forward recompute (LN, GEMMs, conv + SiLU,
   scan, out-norm), the out_proj gradient GEMMs, the out-norm LayerNorm
-  backward, the adjoint scan (``csrc/nk_scan_bwd.cu``, rank form), the
-  rank and w_dt gradient GEMMs, the x_proj gradient GEMMs, the conv + SiLU
+  backward, the adjoint scan (the chunked kernel of
+  ``csrc/ss2d_core_n1.cu``, from the recompute's checkpoints,
+  ``ops/cross2d_scan.py``), the rank and w_dt gradient GEMMs, the x_proj gradient GEMMs, the conv + SiLU
   backward, the in_proj gradient GEMMs and the LN1 backward with the
   residual gradient added.  Weight gradients are GEMMs that reduce over all
-  B * L rows, split along that axis and summed with atomics.
+  B * L rows, split along that axis and summed with atomics.  In bfloat16
+  every GEMM runs on the tensor-core kernel (``csrc/gemm_tc.cu``; see
+  ``primitives.gemm_plan``).
 - `VSSBlockTrain`: the autograd op, kernel 4 forward and kernel 6
   backward.  It saves x, the mask and the (small) operands, and recomputes
   every activation in the backward, as the JAX custom VJP
@@ -33,7 +36,6 @@ from __future__ import annotations
 
 import torch
 
-from xfmamba_tpu_torch.ops.nk_scan import CROSS2D_KINDS
 from xfmamba_tpu_torch.ops.primitives import on_cpu
 from xfmamba_tpu_torch.ops.vss_block import (
     PLAIN_OPS, SS2D_FIELDS, VSSBlockOperands, ss2d_half, ss2d_half_fwd)
@@ -81,7 +83,7 @@ def vss_block_bwd_body(x, p: VSSBlockOperands, H, W, m1, g, ops):
     R = p.rank
     dtype = x.dtype
     f32 = torch.float32
-    f = ss2d_half_fwd(x, p, H, W, ops, m1)                  # forward recompute
+    f = ss2d_half_fwd(x, p, H, W, ops, m1, checkpoints=True)    # forward recompute
     g = g.reshape(M, d).float()
     dout = g if m1 is None else g * m1.float().repeat_interleave(L)[:, None]
     dout = dout.to(dtype)
@@ -90,10 +92,8 @@ def vss_block_bwd_body(x, p: VSSBlockOperands, H, W, m1, g, ops):
     dy, grads["lno_w"], grads["lno_b"] = ops.layer_norm_bwd(dyn, f.y.view(M, di), p.lno_w)
     # adjoint scan; the B and C gradients land in their columns of dxdbl
     dxdbl = torch.zeros(M, 4 * R + 8, dtype=f32, device=x.device)
-    dbc = dxdbl[:, 4 * R:].view(B, L, 4, 2)
-    s = ops.selective_scan_bwd(f.u.view(B, L, di), A=p.A, bias=p.b_dt, Dsum=p.Dsum,
-                               kinds=CROSS2D_KINDS, H=H, W=W, gy=dy.view(B, L, di),
-                               w_dt=p.w_dt, dB=dbc[..., 0:1], dC=dbc[..., 1:2], **f.scan)
+    s = ops.cross2d_scan_bwd(f.u.view(B, L, di), f.xdbl, p.A, p.b_dt, p.Dsum, p.w_dt, H, W,
+                             dy.view(B, L, di), f.ck, dxdbl)
     grads.update(A=s["dA"], Dsum=s["dDsum"], b_dt=s["dbias"])
     dz = s["dz"].view(M, 4, di)
     ranks = f.xdbl.view(M, 4 * R + 8)

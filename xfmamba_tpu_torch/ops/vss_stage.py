@@ -4,11 +4,17 @@ Replaces ``xfmamba_tpu/ops/vss_block_pallas_v2.py::_vss_stage_kernel_v2``
 (:542; host ``vss_stage_fused_v2`` :753), which runs every block of a stage
 in one Pallas call with the activation held in VMEM.  Here the host loops
 over the stage's blocks and launches, per block, the hand-written kernels
-of ``csrc/vss_stage.cu`` (LayerNorm, tiled GEMMs with bias / GELU /
-residual epilogues, depthwise conv + SiLU) and the rank-form cross2d scan
-of ``csrc/nk_scan.cu``; the activation goes through device memory between
-them.  What bounds each kernel on the H100 is noted in its source; keeping
-a block's activations on chip (the TPU design) is later work.
+of `CUDA_OPS`: the LayerNorm and depthwise conv + SiLU of
+``csrc/vss_stage.cu``, the GEMMs with bias / GELU / residual epilogues
+(``primitives.gemm_ab_cuda``: the tensor-core kernel of
+``csrc/gemm_tc.cu`` for bfloat16, the SIMT kernel for float32) and the
+chunked rank-form cross2d scan (``ops/cross2d_scan.py``,
+``csrc/ss2d_core_n1.cu``); the activation goes through device memory
+between them.  What bounds each kernel on the H100 is noted in its
+source; keeping a block's activations on chip (the TPU design) is later
+work.  `SERIAL_OPS` keeps the serial sequence (every GEMM on the SIMT
+kernel, the serial scans of ``csrc/nk_scan.cu`` and
+``csrc/nk_scan_bwd.cu``), which ``chip_smoke.py`` times beside this one.
 
 `vss_stage` takes `vss_stage_plain` only for CPU tensors; on CUDA tensors it
 launches the kernels, adds one to ``vss_stage.launches`` per stage, or
@@ -28,10 +34,11 @@ from types import SimpleNamespace
 
 import torch
 
-from xfmamba_tpu_torch.ops.nk_scan import selective_scan_bwd_cuda, selective_scan_cuda
+from xfmamba_tpu_torch.ops.cross2d_scan import (
+    cross2d_scan, cross2d_scan_bwd, serial_scan, serial_scan_bwd)
 from xfmamba_tpu_torch.ops.primitives import (
-    dwconv3_silu_bwd_cuda, dwconv3_silu_cuda, gemm_ab_cuda, gemm_cuda,
-    layer_norm_bwd_cuda, layer_norm_cuda, on_cpu)
+    dwconv3_silu_bwd_cuda, dwconv3_silu_cuda, gemm_ab_cuda, gemm_cuda, gemm_simt,
+    gemm_simt_cuda, layer_norm_bwd_cuda, layer_norm_cuda, on_cpu)
 from xfmamba_tpu_torch.ops.vss_block import vss_block_body, vss_block_ref
 from xfmamba_tpu_torch.ops.vss_block_v1 import fused_vss_block_supported
 
@@ -40,8 +47,14 @@ from xfmamba_tpu_torch.ops.vss_block_v1 import fused_vss_block_supported
 CUDA_OPS = SimpleNamespace(
     gemm=gemm_cuda, gemm_ab=gemm_ab_cuda, layer_norm=layer_norm_cuda,
     layer_norm_bwd=layer_norm_bwd_cuda, dwconv3_silu=dwconv3_silu_cuda,
-    dwconv3_silu_bwd=dwconv3_silu_bwd_cuda, selective_scan=selective_scan_cuda,
-    selective_scan_bwd=selective_scan_bwd_cuda)
+    dwconv3_silu_bwd=dwconv3_silu_bwd_cuda, cross2d_scan=cross2d_scan,
+    cross2d_scan_bwd=cross2d_scan_bwd)
+# the same sequence on the earlier pieces: SIMT GEMMs, the serial scans
+SERIAL_OPS = SimpleNamespace(
+    gemm=gemm_simt, gemm_ab=gemm_simt_cuda, layer_norm=layer_norm_cuda,
+    layer_norm_bwd=layer_norm_bwd_cuda, dwconv3_silu=dwconv3_silu_cuda,
+    dwconv3_silu_bwd=dwconv3_silu_bwd_cuda, cross2d_scan=serial_scan,
+    cross2d_scan_bwd=serial_scan_bwd)
 
 
 def vss_stage_plain(x, blocks, H, W):

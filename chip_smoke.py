@@ -83,12 +83,20 @@ Phases, in order; any failure exits non-zero:
 9. the Mamba-2 (m0 / SSD) classifiers: kernels 15 (inference, and with
    the chunk checkpoints) and 16 against their plain twins at the four
    stage geometries of vmamba_small_m2 and vmamba_base_m2 (L 3136-49, 24-256
-   heads of width 16, d_state 64), batch 8, float32 and bfloat16, with
-   their float32 times per bs-32 forward and bs-16 step and their bounds;
+   heads of width 16, d_state 64), batch 8, float32 and bfloat16, and each
+   of their three passes (chunk states, state pass, chunk scan or chunk
+   gradients) against its plain pass; then the chunk-parallel kernels
+   against the serial ones they replaced (``ssd_fwd_serial`` /
+   ``ssd_bwd_serial``), in turns, device time by CUDA-graph replay and
+   CUDA events: float32 per bs-32 forward, with checkpoints and kernel 16
+   per bs-16 step, bfloat16 per bs-32 forward, per stage and in sum, with
+   the passes' times, the plain twins' and the bounds (tensor-core
+   products, and every product on the CUDA cores);
    (9b) vmamba_small_m2 224x224 float32 inference at bs 8 and 32 (18
-   launches of kernel 15 per forward, no other kernel), ms per batch, and a
-   bs-8 bfloat16 forward on the same route (no stage kernel); (9c) its
-   float32 training at bs 16 (18 + 18 launches per step; 36 + 18 with
+   launches of kernel 15 per forward, 18 of each of its passes, no other
+   kernel), ms per batch, and a bs-8 bfloat16 forward on the same route
+   (no stage kernel); (9c) its float32 training at bs 16 (18 + 18
+   launches per step, the passes 36 / 36 / 18 / 18; 36 + 18 with
    ``use_checkpoint``), ms per step and peak memory; (9d) its widths at
    depths (2, 2, 2, 2), batch 2: logits and one step's gradients, card
    against the CPU plain twins; (9e) the SSD scan past the kernels' limits
@@ -144,7 +152,9 @@ The ablation kernels behind JAX's switches (kernels 17-21):
 The line before the last but one is one JSON object with the kernels'
 results (launches per main-path forward or step, errors, times, bounds;
 for kernels 1 and 4-6 also their route counts and phase 7e's device times
-of the serial sequence and the new one),
+of the serial sequence and the new one; for kernels 15 and 16 their
+passes' launches and device times, the serial kernels' times and the
+bound with every product on the CUDA cores),
 the line before the last the card's name and power limit, the last
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it prints no result and exits 1.
@@ -276,6 +286,11 @@ M2_STAGES = {"small": [(56, 96, 2), (28, 192, 2), (14, 384, 12), (7, 768, 2)],
              "base": [(56, 128, 2), (28, 256, 2), (14, 512, 12), (7, 1024, 2)]}
 M2_NAME = {"small": "vmamba_small_m2", "base": "vmamba_base_m2"}
 M2_BLOCKS = 18
+# the kernel launches of kernels 15 and 16's passes (ssd_chunk.PASSES) per
+# forward and per step (kernel 15 with checkpoints and kernel 16 per block)
+M2_FORWARD_PASSES = {"states": M2_BLOCKS, "state_pass": M2_BLOCKS, "scan": M2_BLOCKS, "grads": 0}
+M2_STEP_PASSES = {"states": 2 * M2_BLOCKS, "state_pass": 2 * M2_BLOCKS, "scan": M2_BLOCKS,
+                  "grads": M2_BLOCKS}
 M2_TRAIN_STEPS = 3
 
 # kernels 8, 9 and 10: single-study and unaligned-batch inference (the v1
@@ -350,7 +365,7 @@ ROUTES = {}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense operations/s by type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
 
 class PhaseFailure(RuntimeError):
@@ -362,12 +377,14 @@ class Work:
     written once) and the operations it must do, by type: its bound is the
     larger of bytes / HBM rate and the sum of operations / peak rate.  An
     add, multiply, exp or log counts one, an FMA two; products of bfloat16
-    operands count at the tensor-core rate, all other arithmetic at the
-    float32 rate (the port does it in float32 outside the tensor cores)."""
+    operands count at the tensor-core rate, products that the kernel runs
+    on the tensor cores in TF32 (kernels 15 and 16 on float32 operands)
+    at the TF32 rate, all other arithmetic at the float32 rate (the port
+    does it in float32 outside the tensor cores)."""
 
     def __init__(self):
         self.bytes = 0.0
-        self.ops = {"bf16": 0.0, "f32": 0.0}
+        self.ops = {"bf16": 0.0, "tf32": 0.0, "f32": 0.0}
 
     def add(self, bytes=0.0, **ops):
         self.bytes += bytes
@@ -389,6 +406,10 @@ class Work:
         t_bytes = self.bytes / HBM_BYTES_PER_S
         t_ops = sum(n / PEAK_OPS[kind] for kind, n in self.ops.items())
         return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    def simt_bound(self):
+        """The bound with every operation at the float32 CUDA-core rate."""
+        return 1e3 * max(self.bytes / HBM_BYTES_PER_S, sum(self.ops.values()) / PEAK_OPS["f32"])
 
 
 def scan_ops(M, D, K, N, R=0):
@@ -472,31 +493,38 @@ def ssd_work(b, L, R, dtype, K=4, P=16, N=64, chunk=64, backward=False, states=F
     N) call.  Bytes: x, dt, B and C read, y written (``states``: the
     checkpoints too), the final state; the backward reads them with dy and
     the checkpoints and writes dx, d dt, dB, dC (float32) and dinit.
-    Operations per chunk of cl valid positions: C B^T on its lower
-    triangle per group; per head the decay mask (3 per entry), M (dt x)
-    and C state, the state update, dt, the cumsum and the skip.  The
-    backward adds the recomputation, M^T dy and dM (cl (cl + 1) P each), the
-    five c x N x P products of the read-out and the update, the mask's
-    gradients and dCB's two products per group."""
+    Operations per chunk of cl valid positions: the products, C B^T on its
+    lower triangle per group, per head M (dt x), C state and the state
+    update, at the tensor-core rate of the operands (bfloat16, or TF32 for
+    float32 operands); the decay mask (3 per entry), dt, the cumsum and the
+    skip at the float32 rate.  The backward adds the recomputation, the
+    products M^T dy and dM (cl (cl + 1) P each), the five c x N x P products
+    of the read-out and the update and dCB's two per group, and the mask's
+    gradients.  The same count whatever implements it: the serial kernels
+    ran every product on the CUDA cores (`Work.simt_bound`)."""
     esize = torch.finfo(dtype).bits // 8
     h, nc = K * R, -(-L // chunk)
     io = b * L * (h * P + h + 2 * K * N) * esize
-    ops = 0.0
+    prod = elem = 0.0
     for i in range(nc):
         cl = min(chunk, L - i * chunk)
         tri = cl * (cl + 1)
         group = tri * N
-        head = 1.5 * tri + tri * P + 4 * cl * N * P + 6 * cl * P + 6 * cl
+        head = tri * P + 4 * cl * N * P
+        head_elem = 1.5 * tri + 6 * cl * P + 6 * cl
         if backward:
             group += 2 * tri * N
-            head += 2 * tri * P + 10 * cl * N * P + 5 * tri + 20 * cl * P + 20 * cl
-        ops += b * (K * group + h * head)
+            head += 2 * tri * P + 10 * cl * N * P
+            head_elem += 5 * tri + 20 * cl * P + 20 * cl
+        prod += b * (K * group + h * head)
+        elem += b * h * head_elem
+    kind = "bf16" if dtype == torch.bfloat16 else "tf32"
     state = 4 * b * h * N * P
     if not backward:
         out = b * L * h * P * esize + state * (1 + (nc if states else 0))
-        return Work().add(io + out, f32=ops)
+        return Work().add(io + out, f32=elem, **{kind: prod})
     return Work().add(io + state * (nc + 1) + 4 * b * L * (2 * h * P + h + 2 * K * N) + state,
-                      f32=ops)
+                      f32=elem, **{kind: prod})
 
 
 def cross_work(n, H, W, D, N, dtype):
@@ -1900,19 +1928,97 @@ def ssd_case(g, b, L, d, dtype):
             randn(g, h, 16), randn(g, h, scale=0.5), randn(g, b, h, 64, 16))
 
 
+def ssd_pass_worst(errors, args, dy, dfin):
+    """Each kernel pass of 15 and 16 against its plain pass on the same
+    inputs (each pass fed the plain result of the pass before it), every
+    output within its largest plain magnitude: {pass: worst relative
+    error}."""
+    x, dt, A, Bm, Cm, D, bias, init = args
+    sc = ssd_chunk
+    worst = {}
+
+    def check(name, got, want):
+        got = got.values() if isinstance(got, dict) else got
+        want = want.values() if isinstance(want, dict) else want
+        for gt, w in zip(got, want):
+            err, r = rel(gt, w)
+            errors[name] = max(errors.get(name, 0.0), err)
+            worst[name] = max(worst.get(name, 0.0), r)
+
+    local = sc.ssd_chunk_states_plain(x, dt, A, Bm, bias)
+    check("states", sc.ssd_chunk_states(x, dt, A, Bm, bias), local)
+    states = sc.ssd_state_pass_plain(*local, init)
+    check("state_pass", sc.ssd_state_pass(local[0].clone(), local[1], init), states)
+    check("scan", [sc.ssd_chunk_scan(x, dt, A, Bm, Cm, D, bias, states[0])],
+          [sc.ssd_chunk_scan_plain(x, dt, A, Bm, Cm, D, bias, states[0])])
+    q = sc.ssd_chunk_states_plain(dy, dt, A, Cm, bias, adjoint=True)
+    check("states_adjoint", sc.ssd_chunk_states(dy, dt, A, Cm, bias, adjoint=True), q)
+    ds = sc.ssd_state_pass_plain(*q, dfin, reverse=True)
+    check("state_pass_reverse", sc.ssd_state_pass(q[0].clone(), q[1], dfin, reverse=True), ds)
+    check("grads", sc.ssd_chunk_grads(x, dt, A, Bm, Cm, D, bias, states[0], ds[0], dy),
+          sc.ssd_chunk_grads_plain(x, dt, A, Bm, Cm, D, bias, states[0], ds[0], dy))
+    return worst
+
+
+def ssd_calls(args, batch_dy, which, train):
+    """{"new", "serial", "plain"} -> a call of kernel 15 (``which`` "fwd",
+    with checkpoints where ``train``) or 16 ("bwd", from kernel 15's
+    checkpoints), and {pass: call} for the new kernel's passes alone."""
+    sc = ssd_chunk
+    x, dt, A, Bm, Cm, D, bias, init = args
+    if which == "fwd":
+        calls = {"new": lambda: sc.ssd_fwd(*args, save_states=train),
+                 "serial": lambda: sc.ssd_fwd_serial(*args, save_states=train),
+                 "plain": lambda: sc.ssd_fwd_plain(*args, save_states=train)}
+        local, decay = sc.ssd_chunk_states(x, dt, A, Bm, bias)
+        buf = local.clone()
+        states = sc.ssd_state_pass(local, decay, init)[0]
+        return calls, {"states": lambda: sc.ssd_chunk_states(x, dt, A, Bm, bias),
+                       "state_pass": lambda: sc.ssd_state_pass(buf, decay, init),
+                       "scan": lambda: sc.ssd_chunk_scan(x, dt, A, Bm, Cm, D, bias, states)}
+    states = sc.ssd_fwd(*args, save_states=True)[2]
+    dy = batch_dy
+    calls = {"new": lambda: sc.ssd_bwd(*args[:7], states, dy),
+             "serial": lambda: sc.ssd_bwd_serial(*args[:7], states, dy),
+             "plain": lambda: sc.ssd_bwd_plain(*args[:7], states, dy)}
+    q, decay = sc.ssd_chunk_states(dy, dt, A, Cm, bias, adjoint=True)
+    buf = q.clone()
+    ds = sc.ssd_state_pass(q, decay, None, reverse=True)[0]
+    return calls, {"states_adjoint": lambda: sc.ssd_chunk_states(dy, dt, A, Cm, bias,
+                                                                adjoint=True),
+                   "state_pass_reverse": lambda: sc.ssd_state_pass(buf, decay, None, reverse=True),
+                   "grads": lambda: sc.ssd_chunk_grads(x, dt, A, Bm, Cm, D, bias, states, ds, dy)}
+
+
+# phase 9's timed runs: (name, dtype, batch, kernel, checkpoints, per)
+SSD_TIMED = [("ssd_chunk_fwd", torch.float32, 32, "fwd", False, "bs-32 forward"),
+             ("ssd_chunk_fwd_train", torch.float32, TRAIN_BATCH, "fwd", True,
+              f"bs-{TRAIN_BATCH} step"),
+             ("ssd_chunk_bwd", torch.float32, TRAIN_BATCH, "bwd", True, f"bs-{TRAIN_BATCH} step"),
+             ("ssd_chunk_fwd_bf16", torch.bfloat16, 32, "fwd", False, "bs-32 forward")]
+
+
 def phase_compare_ssd(errors, card):
     """Kernels 15 (inference and with checkpoints: y, the final state, the
     checkpoints) and 16 (every output, from the plain checkpoints) against
     their plain twins at the four stage geometries of vmamba_small_m2 and
-    vmamba_base_m2, batch 8, float32 and bfloat16; then, in float32, kernel
-    15's time per bs-32 vmamba_small_m2 forward and kernels 15 (with
-    checkpoints) and 16 per bs-16 step, beside the plain twins and the
-    bounds (a stage's call times its depth)."""
+    vmamba_base_m2, batch 8, float32 and bfloat16, and each of their
+    passes against its plain pass; then the chunk-parallel kernels against
+    the serial ones (``ssd_fwd_serial`` / ``ssd_bwd_serial``) on the same
+    inputs, device time by CUDA-graph replay in turns (serial, new, new,
+    serial) and CUDA events around the calls: kernel 15 per
+    bs-32 vmamba_small_m2 forward in float32 and bfloat16 and with
+    checkpoints per bs-16 step, kernel 16 per bs-16 step (a stage's call
+    times its depth), beside the plain twins, the bounds (tensor-core
+    products) and the bounds with every product on the CUDA cores, and the
+    new kernels' passes alone (device time).  Returns (times, extra): the
+    kernels line's (event ms, plain ms, bound ms, bound by) and, per
+    kernel, both kernels' device and event times and the passes'."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"phase 9: kernels 15 and 16 vs their plain twins at the m2 stage geometries, batch "
-          f"{COMPARE_BATCH}, TF32 off; float32 times per vmamba_small_m2 forward (bs 32) and "
-          f"step (bs {TRAIN_BATCH}) ({card})")
+    print(f"phase 9: kernels 15 and 16 and their passes vs their plain twins at the m2 stage "
+          f"geometries, batch {COMPARE_BATCH}, TF32 off; then the chunk-parallel kernels vs the "
+          f"serial ones per vmamba_small_m2 forward (bs 32) and step (bs {TRAIN_BATCH}) ({card})")
     g = torch.Generator().manual_seed(12)
     failed = []
     with torch.no_grad():
@@ -1932,40 +2038,73 @@ def phase_compare_ssd(errors, card):
                     check_outputs(errors, "ssd_chunk_bwd", label, dtype,
                                   ssd_chunk.ssd_bwd(*args[:7], want[2], dy, dfin),
                                   ssd_chunk.ssd_bwd_plain(*args[:7], want[2], dy, dfin), failed)
+                    worst = ssd_pass_worst(errors, args, dy, dfin)
+                    bad = [n for n, r in worst.items() if not r <= TOL[dtype]]
+                    failed += [("pass", n, label, str(dtype), worst[n]) for n in bad]
+                    print(f"    passes: {', '.join(f'{n} {r:.1e}' for n, r in worst.items())} "
+                          f"{'OK' if not bad else 'FAIL'}")
                     del args, y, fin, states, want
         torch.cuda.synchronize()
         if failed:
             raise PhaseFailure(f"kernels 15/16 disagree with their plain twins: {failed}")
-        f32 = torch.float32
-        times = {}
-        # kernel 15 per bs-32 forward; with checkpoints, and kernel 16, per bs-16 step
-        runs = [("ssd_chunk_fwd", 32, False), ("ssd_chunk_fwd_train", TRAIN_BATCH, True),
-                ("ssd_chunk_bwd", TRAIN_BATCH, True)]
-        for name, batch, train in runs:
-            ms = plain_ms = 0.0
+        times, extra = {}, {}
+        for name, dtype, batch, which, train, per in SSD_TIMED:
+            acc = {k: 0.0 for k in ("new", "serial", "graph_new", "graph_serial", "plain")}
+            passes = {}
             work = Work()
-            backward = name == "ssd_chunk_bwd"
             for H, d, depth in M2_STAGES["small"]:
-                args = ssd_case(g, batch, H * H, d, f32)
-                if backward:
-                    _, _, states = ssd_chunk.ssd_fwd(*args, save_states=True)
-                    dy = randn(g, *args[0].shape)
-                    fn = (lambda a=args, s=states, y=dy: ssd_chunk.ssd_bwd(*a[:7], s, y))
-                    plain = (lambda a=args, s=states, y=dy: ssd_chunk.ssd_bwd_plain(*a[:7], s, y))
-                else:
-                    fn = (lambda a=args: ssd_chunk.ssd_fwd(*a, save_states=train))
-                    plain = (lambda a=args: ssd_chunk.ssd_fwd_plain(*a, save_states=train))
-                ms += depth * time_ms(fn, 5)
-                plain_ms += depth * time_ms(plain, 1, warmup=False)
-                work += ssd_work(batch, H * H, -(-d // 16), f32, backward=backward,
+                args = ssd_case(g, batch, H * H, d, dtype)
+                dy = randn(g, *args[0].shape)
+                calls, pass_calls = ssd_calls(args, dy, which, train)
+                dev = {"new": 0.0, "serial": 0.0}
+                for w in ("serial", "new", "new", "serial"):
+                    dev[w] += graph_ms(calls[w], 3) / 2
+                for w in ("new", "serial"):
+                    acc["graph_" + w] += depth * dev[w]
+                    acc[w] += depth * time_ms(calls[w], 3)
+                acc["plain"] += depth * time_ms(calls["plain"], 1, warmup=False)
+                stage_passes = {n: graph_ms(fn, 3) for n, fn in pass_calls.items()}
+                for pname, ms in stage_passes.items():
+                    passes[pname] = passes.get(pname, 0.0) + depth * ms
+                print(f"    L={H * H:4d} x{depth:2d}, device ms per call: new {dev['new']:.4f} "
+                      f"(passes {', '.join(f'{v:.4f}' for v in stage_passes.values())}), "
+                      f"serial {dev['serial']:.4f}")
+                work += ssd_work(batch, H * H, -(-d // 16), dtype, backward=which == "bwd",
                                  states=train).times(depth)
-                del args
-            times[name] = (ms, plain_ms, *work.bound())
-            print(f"  {name:19s} per {'step' if train else 'forward'} (bs {batch}): kernel "
-                  f"{ms:8.3f} ms   plain {plain_ms:9.3f} ms   bound {times[name][2]:.4f} ms "
-                  f"({times[name][3]}, {work.bytes / 1e9:.3f} GB, "
-                  f"{work.ops['f32'] / 1e9:.1f} GFLOP)")
-    return times
+                del args, dy, calls, pass_calls
+            bound, by = work.bound()
+            times[name] = (acc["new"], acc["plain"], bound, by)
+            extra[name] = dict(ms=acc["new"], serial_ms=acc["serial"], graph_ms=acc["graph_new"],
+                               serial_graph_ms=acc["graph_serial"], plain_ms=acc["plain"],
+                               bound_ms=bound, bound_by=by, simt_bound_ms=work.simt_bound(),
+                               passes_graph_ms=passes)
+            print(f"  {name:19s} per {per} ({str(dtype)[6:]}): device (graph) new "
+                  f"{acc['graph_new']:8.3f} ms, serial {acc['graph_serial']:8.3f} ms "
+                  f"({acc['graph_serial'] / acc['graph_new']:.2f}x); events new {acc['new']:8.3f} "
+                  f"ms, serial {acc['serial']:8.3f} ms; plain {acc['plain']:9.3f} ms; bound "
+                  f"{bound:.4f} ms ({by}; every product on the CUDA cores "
+                  f"{work.simt_bound():.4f} ms; {work.bytes / 1e9:.3f} GB, "
+                  f"{sum(work.ops.values()) / 1e9:.1f} GFLOP) ({card})")
+            print(f"    passes (device): {', '.join(f'{n} {v:.3f} ms' for n, v in passes.items())}")
+        step = {k: extra["ssd_chunk_fwd_train"][k] + extra["ssd_chunk_bwd"][k]
+                for k in ("graph_ms", "serial_graph_ms")}
+        print(f"  kernels 15 + 16 per bs-{TRAIN_BATCH} float32 step (device): new "
+              f"{step['graph_ms']:.3f} ms, serial {step['serial_graph_ms']:.3f} ms ({card})")
+    return times, extra
+
+
+def ssd_extra_line(name, extra):
+    """The kernels line's extra keys of kernels 15 and 16: the serial
+    kernel's time in the same run, the bound with every product on the CUDA
+    cores, the passes' times, and kernel 15's other timed runs."""
+    if name not in ("ssd_chunk_fwd", "ssd_chunk_bwd"):
+        return {}
+    e = extra[name]
+    line = {k: e[k] for k in ("serial_ms", "graph_ms", "serial_graph_ms", "simt_bound_ms",
+                              "passes_graph_ms")}
+    if name == "ssd_chunk_fwd":
+        line["runs"] = {run: extra[run] for run in ("ssd_chunk_fwd_train", "ssd_chunk_fwd_bf16")}
+    return line
 
 
 def kernel_table():
@@ -2002,28 +2141,33 @@ def phase_m2_inference(card):
         model(inputs[8])                                   # warm-up
         torch.cuda.synchronize()
         for bs, x in inputs.items():
-            counts = counted(fns)
+            counts, pass_counts = counted(fns), counted(ssd_chunk.PASSES)
             logits = model(x)
             torch.cuda.synchronize()
-            launches = counts()
-            if logits.shape != (bs, 1000) or not torch.isfinite(logits).all() or launches != want:
+            launches, passes = counts(), pass_counts()
+            if logits.shape != (bs, 1000) or not torch.isfinite(logits).all() or \
+                    launches != want or passes != M2_FORWARD_PASSES:
                 raise PhaseFailure(f"bs {bs}: logits {tuple(logits.shape)} or launches "
-                                   f"{launches}, expected {want}")
+                                   f"{launches} / passes {passes}, expected {want} / "
+                                   f"{M2_FORWARD_PASSES}")
             print(f"  bs {bs}: logits finite, shape {tuple(logits.shape)}, first row [:4] "
                   f"{logits[0, :4].tolist()}; launches per forward: ssd_chunk_fwd "
-                  f"{launches['ssd_chunk_fwd']}, every other kernel 0")
+                  f"{launches['ssd_chunk_fwd']} (passes {passes}), every other kernel 0")
+        ROUTES["ssd_chunk_fwd"] = passes
         for bs, x in inputs.items():
             samples = sorted(time_ms(lambda: model(x), 5) for _ in range(3))
             print(f"  bs {bs}: {samples[1]:.2f} ms per batch (median of 3 runs of 5: "
                   f"{', '.join(f'{v:.2f}' for v in samples)}), {1000 * bs / samples[1]:.1f} "
                   f"images/s ({card})")
-        counts = counted(fns)
+        counts, pass_counts = counted(fns), counted(ssd_chunk.PASSES)
         logits = model(images(8, torch.bfloat16, 208))
         torch.cuda.synchronize()
-        launches = counts()
+        launches, passes = counts(), pass_counts()
     print(f"  bfloat16 bs 8: logits finite {bool(torch.isfinite(logits.float()).all())}, "
-          f"launches ssd_chunk_fwd {launches['ssd_chunk_fwd']}, vss_stage {launches['vss_stage']}")
-    if launches != want or not torch.isfinite(logits.float()).all():
+          f"launches ssd_chunk_fwd {launches['ssd_chunk_fwd']} (passes {passes}), vss_stage "
+          f"{launches['vss_stage']}")
+    if launches != want or passes != M2_FORWARD_PASSES or \
+            not torch.isfinite(logits.float()).all():
         raise PhaseFailure(f"bfloat16 m2 forward: launches {launches}, expected {want}")
     return launches["ssd_chunk_fwd"]
 
@@ -2050,27 +2194,32 @@ def phase_m2_train(card):
     want = dict.fromkeys(fns, 0) | {"ssd_chunk_fwd": M2_BLOCKS, "ssd_chunk_bwd": M2_BLOCKS}
 
     def counted_step():
-        counts = counted(fns)
+        counts, pass_counts = counted(fns), counted(ssd_chunk.PASSES)
         loss = float(step(batch)["loss"])
         torch.cuda.synchronize()
-        return loss, counts()
+        return loss, counts(), pass_counts()
 
     losses = []
     for _ in range(M2_TRAIN_STEPS):
-        loss, launches = counted_step()
+        loss, launches, passes = counted_step()
         losses.append(loss)
-        if launches != want or not math.isfinite(loss):
-            raise PhaseFailure(f"m2 step: loss {loss}, launches {launches}, expected {want}")
+        if launches != want or passes != M2_STEP_PASSES or not math.isfinite(loss):
+            raise PhaseFailure(f"m2 step: loss {loss}, launches {launches} / passes {passes}, "
+                               f"expected {want} / {M2_STEP_PASSES}")
+    ROUTES["ssd_chunk_bwd"] = passes
     print(f"  losses: {', '.join(f'{v:.6f}' for v in losses)}; launches per step: ssd_chunk_fwd "
-          f"{M2_BLOCKS}, ssd_chunk_bwd {M2_BLOCKS}, every other kernel 0")
+          f"{M2_BLOCKS}, ssd_chunk_bwd {M2_BLOCKS} (passes {passes}), every other kernel 0")
     for checkpointed in (False, True):
         model.use_checkpoint = checkpointed
         if checkpointed:
-            loss, launches = counted_step()
+            loss, launches, passes = counted_step()
             want_ck = want | {"ssd_chunk_fwd": 2 * M2_BLOCKS}
+            passes_ck = M2_STEP_PASSES | {n: c + M2_FORWARD_PASSES[n]
+                                          for n, c in M2_STEP_PASSES.items()}
             print(f"  use_checkpoint step: loss {loss:.6f}, launches ssd_chunk_fwd "
-                  f"{launches['ssd_chunk_fwd']}, ssd_chunk_bwd {launches['ssd_chunk_bwd']}")
-            if launches != want_ck or not math.isfinite(loss):
+                  f"{launches['ssd_chunk_fwd']}, ssd_chunk_bwd {launches['ssd_chunk_bwd']} "
+                  f"(passes {passes})")
+            if launches != want_ck or passes != passes_ck or not math.isfinite(loss):
                 raise PhaseFailure(f"use_checkpoint launches {launches} (expected {want_ck}) or "
                                    f"loss {loss} not finite")
         torch.cuda.reset_peak_memory_stats()
@@ -2450,7 +2599,8 @@ def main() -> int:
     del base2
     phase_ss2d_layer()
     launches["fused_cross_scan"] = phase_cross_n1_layer()
-    times |= phase_compare_ssd(errors, card)
+    ssd_times, ssd_extra = phase_compare_ssd(errors, card)
+    times |= ssd_times
     launches["ssd_chunk_fwd"] = phase_m2_inference(card)
     launches["ssd_chunk_bwd"] = phase_m2_train(card)
     phase_m2_cpu_parity()
@@ -2470,6 +2620,7 @@ def main() -> int:
         | ({"routes": ROUTES[name]} if name in ROUTES else {})
         | ({"serial_graph_ms": serial[name][0], "graph_ms": serial[name][1]} if name in serial
            else {})
+        | ssd_extra_line(name, ssd_extra)
         for name, k in kernel_table().items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

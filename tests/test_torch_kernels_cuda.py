@@ -562,6 +562,62 @@ def test_ssd_fwd_and_bwd(dev, dtype, b, k, L, R, P, N, optional):
         assert rel_err(got[name], w) < TOL[dtype], name
 
 
+SSD_PASS_CASES = [
+    (2, 4, 3136, 6, 16, 64, True),      # vmamba_small_m2 stage 0: 49 whole chunks
+    (4, 4, 49, 48, 16, 64, True),       # stage 3: one ragged chunk, several heads per block
+    (1, 2, 150, 3, 8, 16, False),       # narrow heads and state; no D, bias or initial state
+    (1, 2, 100, 2, 32, 40, True),       # the widest head, a d_state tile short of 64
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,k,L,R,P,N,optional", SSD_PASS_CASES)
+def test_ssd_kernel_passes(dev, dtype, b, k, L, R, P, N, optional):
+    """Each pass of kernels 15 and 16 against its plain twin on the same
+    inputs: (a) the chunk states forward and adjoint with their decays,
+    (b) the state pass in order and in reverse, (c) the chunk scan and the
+    chunk gradients; one launch of each per call."""
+    g = torch.Generator().manual_seed(23)
+    x, dt, A, B, C, D, bias, init = _ssd_case(g, dtype, b, k, L, R, P, N, optional)
+    dy, ds = randn(g, b, k, L, R, P), randn(g, b, k * R, -(-L // 64), N, P)
+    before = {n: f.launches for n, f in ssd_chunk.PASSES.items()}
+    for adjoint, src, mat in ((False, x, B), (True, dy, C)):
+        got = ssd_chunk.ssd_chunk_states(src, dt, A, mat, bias, adjoint=adjoint)
+        want = ssd_chunk.ssd_chunk_states_plain(src, dt, A, mat, bias, adjoint=adjoint)
+        for gt, w in zip(got, want):
+            assert rel_err(gt, w) < TOL[dtype]
+        for reverse in (False, True):
+            plain = ssd_chunk.ssd_state_pass_plain(want[0], want[1], init, reverse)
+            got = ssd_chunk.ssd_state_pass(want[0].clone(), want[1], init, reverse)
+            for gt, w in zip(got, plain):
+                assert rel_err(gt, w) < 1e-5
+    states = ssd_chunk.ssd_fwd_plain(x, dt, A, B, C, D, bias, init, save_states=True)[2]
+    assert rel_err(ssd_chunk.ssd_chunk_scan(x, dt, A, B, C, D, bias, states),
+                   ssd_chunk.ssd_chunk_scan_plain(x, dt, A, B, C, D, bias, states)) < TOL[dtype]
+    got = ssd_chunk.ssd_chunk_grads(x, dt, A, B, C, D, bias, states, ds, dy)
+    want = ssd_chunk.ssd_chunk_grads_plain(x, dt, A, B, C, D, bias, states, ds, dy)
+    torch.cuda.synchronize()
+    for name, w in want.items():
+        assert rel_err(got[name], w) < TOL[dtype], name
+    assert {n: f.launches - before[n] for n, f in ssd_chunk.PASSES.items()} == \
+        {"states": 2, "state_pass": 4, "scan": 1, "grads": 1}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_serial_kernels(dev, dtype):
+    """The serial kernels that the chunk-parallel ones replaced (kept for
+    timing) still agree with the plain twins."""
+    g = torch.Generator().manual_seed(24)
+    args = _ssd_case(g, dtype, 2, 4, 784, 12, 16, 64)
+    want = ssd_chunk.ssd_fwd_plain(*args, save_states=True)
+    for got, w in zip(ssd_chunk.ssd_fwd_serial(*args, save_states=True), want):
+        assert rel_err(got, w) < TOL[dtype]
+    dy, dfin = randn(g, 2, 4, 784, 12, 16), randn(g, 2, 48, 64, 16)
+    got = ssd_chunk.ssd_bwd_serial(*args[:7], want[2], dy, dfin)
+    for name, w in ssd_chunk.ssd_bwd_plain(*args[:7], want[2], dy, dfin).items():
+        assert rel_err(got[name], w) < TOL[dtype], name
+
+
 def test_ssd_autograd_card_matches_cpu(dev):
     """`ssd_chunk_scan_heads` under autograd (kernels 15 and 16), y and the
     final state and every gradient, card against the CPU plain twins,

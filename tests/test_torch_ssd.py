@@ -263,6 +263,138 @@ def test_autograd_op_matches_jax_vjp(optional):
         assert _rel(leaf.grad, w) <= 1e-4, k
 
 
+def _serial_fwd(x, dt, A, B, C, D, bias, init, chunk):
+    """The chunk-by-chunk recurrence of kernel 15 in float64, in the kernel
+    layout: y (b, g, L, R, P), the final state and the state entering each
+    chunk, (b, g * R, [nc,] N, P)."""
+    f = lambda t: None if t is None else t.double()
+    x, dt, A, B, C, D, bias = map(f, (x, dt, A, B, C, D, bias))
+    b, g, L, R, P = x.shape
+    N, nc = B.shape[-1], -(-L // chunk)
+    state = torch.zeros(b, g, R, N, P, dtype=torch.float64) if init is None \
+        else f(init).view(b, g, R, N, P).clone()
+    z = dt.permute(0, 1, 3, 2) + bias.view(1, g, R, 1)
+    dts = torch.nn.functional.softplus(z, threshold=20)
+    ys, states = [], []
+    for j in range(nc):
+        rows = slice(j * chunk, min(L, (j + 1) * chunk))
+        states.append(state)
+        d = dts[..., rows]                                       # (b, g, R, c)
+        cum = torch.cumsum(d * A.view(1, g, R, 1), -1)
+        xc = x[:, :, rows].permute(0, 1, 3, 2, 4)                # (b, g, R, c, P)
+        Bc, Cc = B[:, :, None, rows], C[:, :, None, rows]
+        E = torch.exp(cum[..., :, None] - cum[..., None, :]).tril()
+        dtx = xc * d[..., None]
+        y = ((Cc @ Bc.transpose(-1, -2)) * E) @ dtx + (Cc @ state) * torch.exp(cum)[..., None]
+        ys.append(y + xc * D.view(1, g, R, 1, P))
+        w = cum[..., -1:]
+        state = state * torch.exp(w)[..., None] + \
+            Bc.transpose(-1, -2) @ (dtx * torch.exp(w - cum)[..., None])
+    y = torch.cat(ys, 3).permute(0, 1, 3, 2, 4)
+    return y, state.reshape(b, g * R, N, P), torch.stack(states, 3).reshape(b, g * R, nc, N, P)
+
+
+def _bf16_round(ops):
+    """The operands that the bfloat16 path takes in bfloat16 (x, dt, B, C),
+    rounded to it, so both sides see the same values."""
+    return {k: (torch.from_numpy(v).bfloat16().float().numpy() if k in ("x", "dt", "B", "C")
+                else v) for k, v in ops.items()}
+
+
+def _kernel_args(ops, dtype):
+    x, dt, A, B, C, D, bias, init = _kernel_layout(ops)
+    return [x.to(dtype), dt.to(dtype), A, B.to(dtype), C.to(dtype), D, bias, init]
+
+
+@pytest.mark.parametrize("L,with_init,dtype", [
+    (150, True, torch.float32),    # three chunks, the last ragged
+    (150, False, torch.bfloat16),  # no initial state, bfloat16 operands
+    (128, False, torch.float32),   # whole chunks only
+    (49, True, torch.bfloat16),    # one ragged chunk
+])
+def test_plain_passes_compose_to_the_serial_form(L, with_init, dtype):
+    """Kernel 15's plain passes one by one -- the chunk states and decays,
+    the state pass, the chunk scan -- against the chunk-by-chunk
+    recurrence in float64 on the same values: y (1e-5 of its largest
+    magnitude in float32; bfloat16 y rounds once, 8e-3), the final state
+    and every checkpoint (1e-5); and `ssd_fwd_plain` is their composition."""
+    ops = _ssd_operands(L, 2, L, 6, 16, 2, 16)
+    if dtype == torch.bfloat16:
+        ops = _bf16_round(ops)
+    x, dt, A, B, C, D, bias, init = _kernel_args(ops, dtype)
+    init = init if with_init else None
+    local, decay = ssd_chunk.ssd_chunk_states_plain(x, dt, A, B, bias)
+    assert local.shape == (2, 6, -(-L // 64), 16, 16) and decay.shape == local.shape[:3]
+    assert bool((decay > 0).all() and (decay <= 1).all())
+    states, fin = ssd_chunk.ssd_state_pass_plain(local, decay, init)
+    y = ssd_chunk.ssd_chunk_scan_plain(x, dt, A, B, C, D, bias, states)
+    assert y.dtype == dtype
+    y_s, fin_s, states_s = _serial_fwd(x, dt, A, B, C, D, bias, init, 64)
+    assert _rel(y.float(), y_s) <= (1e-5 if dtype == torch.float32 else 8e-3)
+    assert _rel(fin, fin_s) <= 1e-5 and _rel(states, states_s) <= 1e-5
+    for got, want in zip(ssd_chunk.ssd_fwd_plain(x, dt, A, B, C, D, bias, init,
+                                                 save_states=True), (y, fin, states)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("L,with_dfin,dtype", [
+    (150, True, torch.float32),
+    (150, False, torch.bfloat16),
+    (128, False, torch.float32),
+    (49, True, torch.bfloat16),
+])
+def test_plain_adjoint_passes_match_jax_vjp(L, with_dfin, dtype):
+    """Kernel 16's plain passes one by one -- Q = C^T (exp(cum) dy) and the
+    decays, the reverse state pass, the chunk gradients -- from the
+    forward passes' checkpoints, against ``jax.vjp`` of the XLA form on the
+    same values (bfloat16 operands rounded first; the port computes in
+    float32): every gradient within 1e-4 of its largest magnitude, and
+    `ssd_bwd_plain` is their composition."""
+    ops = _ssd_operands(L + 1, 2, L, 6, 16, 2, 16)
+    if dtype == torch.bfloat16:
+        ops = _bf16_round(ops)
+    rng = np.random.default_rng(L)
+    gy = rng.standard_normal(ops["x"].shape).astype(np.float32)
+    gfin = rng.standard_normal(ops["init"].shape).astype(np.float32) if with_dfin \
+        else np.zeros(ops["init"].shape, np.float32)
+    _, vjp = jax.vjp(_jax_ssd(64), *(jnp.asarray(v) for v in ops.values()))
+    want = vjp((jnp.asarray(gy), jnp.asarray(gfin)))
+    x, dt, A, B, C, D, bias, init = args = _kernel_args(ops, dtype)
+    states = ssd_chunk.ssd_fwd_plain(*args, save_states=True)[2]
+    b, s, h, p = ops["x"].shape
+    dy = T(gy).view(b, s, 2, 3, p).transpose(1, 2).contiguous()
+    dfin = T(gfin).transpose(2, 3).contiguous() if with_dfin else None
+    q, decay = ssd_chunk.ssd_chunk_states_plain(dy, dt, A, C, bias, adjoint=True)
+    ds_out, dinit = ssd_chunk.ssd_state_pass_plain(q, decay, dfin, reverse=True)
+    got = ssd_chunk.ssd_chunk_grads_plain(x, dt, A, B, C, D, bias, states, ds_out, dy)
+    got["dinit"] = dinit
+    for name, w in ssd_chunk.ssd_bwd_plain(x, dt, A, B, C, D, bias, states, dy, dfin).items():
+        assert torch.equal(got[name], w), name
+    port = [got["dx"].transpose(1, 2).reshape(b, s, h, p),
+            got["ddt"].transpose(1, 2).reshape(b, s, h), got["dA"], got["dB"].transpose(1, 2),
+            got["dC"].transpose(1, 2), got["dD"], got["dbias"], got["dinit"].transpose(2, 3)]
+    for name, g, w in zip(NAMES, port, want):
+        assert tuple(g.shape) == w.shape, name
+        assert _rel(g, w) <= 1e-4, name
+
+
+@pytest.mark.parametrize("with_start,reverse", [(True, False), (False, False), (True, True),
+                                                (False, True)])
+def test_state_pass_plain(with_start, reverse):
+    """Pass (b) against the recurrence written out: out[j] is the carry
+    entering chunk j (in the walk's order), the carry ends as the result."""
+    g = torch.Generator().manual_seed(5)
+    local = torch.randn(2, 3, 5, 4, 2, generator=g)
+    decay = torch.rand(2, 3, 5, generator=g)
+    start = torch.randn(2, 3, 4, 2, generator=g) if with_start else None
+    out, last = ssd_chunk.ssd_state_pass_plain(local, decay, start, reverse)
+    s = start if with_start else torch.zeros(2, 3, 4, 2)
+    for j in (range(4, -1, -1) if reverse else range(5)):
+        torch.testing.assert_close(out[:, :, j], s, rtol=0, atol=0)
+        s = decay[:, :, j, None, None] * s + local[:, :, j]
+    torch.testing.assert_close(last, s, rtol=0, atol=0)
+
+
 def test_ssd_supported_matches_jax():
     for L in (1, 49, 196, 784, 3136, 100000):
         for h, g in ((24, 4), (192, 4), (5, 4), (8, 8)):

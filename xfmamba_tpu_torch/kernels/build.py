@@ -45,8 +45,12 @@ _SIGNATURES = {
     "xfm_ss2d_n1_bwd": [_P] * 16 + [_I] * 13 + [_P],
     "xfm_grouped_scan_fwd": [_P] * 9 + [_I] * 8 + [_P],
     "xfm_grouped_scan_bwd": [_P] * 17 + [_I] * 8 + [_P],
-    "xfm_ssd_fwd": [_P] * 11 + [_I] * 7 + [_P],
-    "xfm_ssd_bwd": [_P] * 18 + [_I] * 7 + [_P],
+    "xfm_ssd_chunk_state": [_P] * 7 + [_I] * 8 + [_P],
+    "xfm_ssd_state_pass": [_P] * 4 + [_LL, _I, _I, _I, _P],
+    "xfm_ssd_chunk_scan": [_P] * 9 + [_I] * 7 + [_P],
+    "xfm_ssd_chunk_grads": [_P] * 17 + [_I] * 7 + [_P],
+    "xfm_ssd_fwd_serial": [_P] * 11 + [_I] * 7 + [_P],
+    "xfm_ssd_bwd_serial": [_P] * 18 + [_I] * 7 + [_P],
     "xfm_scan_two_level": [_P] * 11 + [_I] * 17 + [_P],
     "xfm_fused_cross_scan": [_P] * 9 + [_I] * 7 + [_P],
     "xfm_nk_scan_v4": [_P] * 9 + [_I] * 8 + [_P],

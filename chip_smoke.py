@@ -41,12 +41,17 @@ Phases, in order; any failure exits non-zero:
    rank 8-64), the adjoint scan at the four stage maps, kernels 4
    and 6 at every stage width, kernel 5 (forward and the stage backward)
    at every stage width at depth 2, all at 2 images per view; then, for
-   XFMamba-S in both dtypes and XFMamba-B in float32, kernels 2 and 7 at
-   the bs-16 step's ShallowFuse (16, 49, D) K=1 and Cross_SS2Dv5 (48, 49,
-   D) K=4 N=16 geometries, and kernels 11 and 12 at the four stage maps
-   at the step's 16 images per view, with kernels 11 and 12's float32
-   times per step and the nk pair's times per call (XFMamba-B's K=4 call
-   beside kernels 13 + 14, the route its Cross_SS2Dv5 takes);
+   both models in both dtypes, kernels 2 and 7 at the bs-16 step's
+   ShallowFuse (16, 49, D) K=1 and Cross_SS2Dv5 (48, 49, D) K=4 N=16
+   geometries (kernel 7 against its segment-checkpoint twin and the serial
+   plain adjoint, every output, and bitwise equal over two runs), and
+   kernels 11 and 12 at the four stage maps at the step's 16 images per
+   view (XFMamba-B in float32), with kernels 11 and 12's float32 times per
+   step and the nk pair's times per call, kernel 7 beside its old design
+   (the serial adjoint of ``csrc/nk_scan_bwd.cu``) in turns, by CUDA
+   events and CUDA-graph replay, per call and per XFMamba-S step
+   (XFMamba-B's K=4 call beside kernels 13 + 14, the route its
+   Cross_SS2Dv5 takes);
 7. XFMamba-S training, batch 16, 224x224, bfloat16 activations, float32
    weights, Adam (lr 1e-4, weight decay 1e-5), seeded weights and views,
    labels 0 as ``bench.py --train``: 10 steps on one batch (the loss is
@@ -105,15 +110,20 @@ Phases, in order; any failure exits non-zero:
    that geometry, forward and backward, card against the CPU.
 
 Single-study and unaligned-batch inference (kernels 8, 9 and 10):
-3c. kernels 8 (the v1 whole block, bfloat16) at XFMamba-S's and
-   XFMamba-B's stage-2 and stage-3 maps for 2 images, 9 (the v1 nk scan)
-   at ShallowFuse's (1, 49, D) K=1 and Cross_SS2Dv5's (3, 49, D) K=4 N=16
-   shapes in both dtypes, and 10 (the cross2d core from projections) at
-   the four stage maps for 2 images, N=1 in both dtypes, and N=16, each
-   against its plain twin, TF32 off; with ms, plain ms and bound per
-   forward (kernels 8 and 9 per bs-1 bfloat16 forward) or step (kernel 10
-   at phase 8d's layer), kernel 8 beside kernel 1's block sequence and
-   kernel 9 beside kernel 2 on the same inputs;
+3c. kernel 8 (the v1 whole block, one cooperative launch of
+   ``csrc/vss_block_v1.cu``) against its plain twin at every stage map of
+   XFMamba-S and XFMamba-B, 2 and 4 images, both dtypes, and one device
+   launch per block (torch.profiler); per bs-1 bfloat16 XFMamba-S forward
+   (15 blocks at 14 x 14, 2 at 7 x 7, 2 images) the old launch sequence
+   (``vss_block_v1.vss_block_v1_sequence``) and the kernel in turns, by CUDA
+   events and by CUDA-graph replay, with the kernel's phase times (its
+   global-timer stamps); kernels 9 (the v1 nk scan) at ShallowFuse's (1,
+   49, D) K=1 and Cross_SS2Dv5's (3, 49, D) K=4 N=16 shapes in both dtypes,
+   and 10 (the cross2d core from projections) at the four stage maps for 2
+   images, N=1 in both dtypes, and N=16, each against its plain twin, TF32
+   off; with ms, plain ms and bound per forward (kernels 8 and 9 per bs-1
+   bfloat16 forward) or step (kernel 10 at phase 8d's layer), kernel 9
+   beside kernel 2 on the same inputs;
 4f. XFMamba-S bfloat16 inference at 1 and 2 studies per batch: launches
    per forward (vss_stage 2 / 3, kernel 8 17 / 2, kernel 9 3 / 3, kernels
    2 and 3 none), ms per forward, and the device's busy share of a bs-1
@@ -154,7 +164,9 @@ results (launches per main-path forward or step, errors, times, bounds;
 for kernels 1 and 4-6 also their route counts and phase 7e's device times
 of the serial sequence and the new one; for kernels 15 and 16 their
 passes' launches and device times, the serial kernels' times and the
-bound with every product on the CUDA cores),
+bound with every product on the CUDA cores; for kernel 8 the old
+sequence's times, device times, its grid and phase times (3c); for kernel
+7 the float32 per-step times of it and the serial adjoint (6)),
 the line before the last the card's name and power limit, the last
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it prints no result and exits 1.
@@ -215,7 +227,7 @@ TRAIN_KERNELS = {
                           source="xfmamba_tpu_torch/csrc/vss_block_bwd.cu",
                           replaces="xfmamba_tpu/ops/vss_block_v2_adjoint.py:128"),
     "nk_scan_bwd": dict(fn=nk_scan_adjoint.nk_scan_bwd, per_step=3,
-                        source="xfmamba_tpu_torch/csrc/nk_scan_bwd.cu",
+                        source="xfmamba_tpu_torch/csrc/nk_scan_adjoint.cu",
                         replaces="xfmamba_tpu/ops/nk_scan_adjoint.py:54"),
 }
 KERNELS = {
@@ -298,7 +310,7 @@ M2_TRAIN_STEPS = 3
 # from projections (d_state-1 Cross_SS2Dv5 training through core_dispatch)
 V1_KERNELS = {
     "vss_block_v1": dict(fn=vss_block_v1.vss_block_v1,
-                         source="xfmamba_tpu_torch/csrc/scan_two_level.cu",
+                         source="xfmamba_tpu_torch/csrc/vss_block_v1.cu",
                          replaces="xfmamba_tpu/ops/vss_block_pallas.py:295"),
     "nk_scan_v1": dict(fn=nk_scan_v1.nk_scan_v1, source="xfmamba_tpu_torch/csrc/scan_two_level.cu",
                        replaces="xfmamba_tpu/ops/vss_block_pallas.py:690"),
@@ -348,8 +360,9 @@ LN_CASES = [((PE_IMAGES, 112, 112), 48, True), ((PE_IMAGES, 56, 56), 96, False),
 
 # the routes of the bfloat16 blocks' pieces, counted per forward or step:
 # the tensor-core and SIMT GEMMs, the chunked cross2d scans (by chunk
-# count) and the serial scans of csrc/nk_scan.cu / nk_scan_bwd.cu (which
-# still serve kernels 2, 3 and 7)
+# count) and the serial scans of csrc/nk_scan.cu (which still serves
+# kernels 2 and 3) and csrc/nk_scan_bwd.cu (kernel 7's old design, on no
+# main path)
 ROUTE_FNS = {"gemm_tc": primitives.gemm_tc_cuda, "gemm_simt": primitives.gemm_simt_cuda,
              "cross2d_scan": cross2d_scan.cross2d_scan,
              "cross2d_scan_bwd": cross2d_scan.cross2d_scan_bwd,
@@ -362,6 +375,10 @@ FWD_GEMMS, BWD_GEMMS = 5, 17
 # route counts per main-path forward (kernel 1) or step (kernels 4-6),
 # filled by phases 4 and 7 for the kernels line
 ROUTES = {}
+# kernels 8 and 7's extra keys of the kernels line (the old designs' times
+# in the same run, device times by CUDA-graph replay), filled by phases 3c
+# and 6
+V1_EXTRA = {}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense operations/s by type
 HBM_BYTES_PER_S = 3.35e12
@@ -783,13 +800,30 @@ def phase_compare_grouped(errors, card):
 # kernels 8, 9 and 10: single-study inference and the cross2d core
 # ---------------------------------------------------------------------------
 
-def v1_block_case(g, H, d, n):
-    """One VSSBlock at a stage map on n images, bfloat16: its kernel-8 and
-    kernel-1 operands and x."""
+def v1_block_case(g, H, d, n, dtype=torch.bfloat16):
+    """One VSSBlock at a stage map on n images: its kernel-8 operands and x."""
     block = VSSBlock(d, generator=g).eval().cuda()
-    return (randn(g, n, H * H, d, dtype=torch.bfloat16),
-            vss_block_v1.pack_vss_block_v1_params(block, torch.bfloat16),
-            pack_vss_block_params(block, torch.bfloat16))
+    return (randn(g, n, H * H, d, dtype=dtype),
+            vss_block_v1.pack_vss_block_v1_params(block, dtype))
+
+
+def device_launches(fn):
+    """The card's kernel launches in one call of ``fn`` (torch.profiler, 3
+    calls after a warm-up): {kernel name: launches per call}."""
+    _, _, table = profile_calls(fn, calls=3, warmup=1)
+    return {name: count for _, count, name in table}
+
+
+def in_turns(fns, timer):
+    """Time each of ``fns`` (name -> callable) with ``timer`` in turns, the
+    first, the others, the others again, the first (old, new, new, old for
+    two); returns {name: mean ms}."""
+    names = list(fns)
+    order = names + names[::-1]
+    t = {name: [] for name in names}
+    for name in order:
+        t[name].append(timer(fns[name]))
+    return {name: sum(v) / len(v) for name, v in t.items()}
 
 
 def v1_scan_case(g, n, K, dtype, size):
@@ -824,21 +858,50 @@ def phase_compare_v1(errors, card):
     g = torch.Generator().manual_seed(30)
     failed, times = [], {}
     bf16, f32 = torch.bfloat16, torch.float32
-    k8 = dict(ms=0.0, plain=0.0, k1=0.0, work=Work())
+    k8 = dict(ms=0.0, plain=0.0, serial_ms=0.0, graph_ms=0.0, serial_graph_ms=0.0, work=Work())
+    phases = {}
     with torch.no_grad():
+        # every stage map of both models, 2 and 4 images, both dtypes; the
+        # 4-image 56 x 56 map fills the grid many times over, the 2-image
+        # 7 x 7 one leaves most of its blocks idle in every phase
         for size in ("small", "base"):
-            for H, d, depth in STAGES[size][2:]:
-                x, p1, p0 = v1_block_case(g, H, d, 2)
-                label = f"{MODEL_NAME[size]} block H={H} d={d} (2 images)"
-                check_outputs(errors, "vss_block_v1", label, bf16,
-                              [vss_block_v1.vss_block_v1(x, p1, H, H)],
-                              [vss_block_v1.vss_block_v1_plain(x, p1, H, H)], failed)
-                if size == "small":
-                    k8["ms"] += depth * time_ms(lambda: vss_block_v1.vss_block_v1(x, p1, H, H), 5)
-                    k8["plain"] += depth * time_ms(
-                        lambda: vss_block_v1.vss_block_v1_plain(x, p1, H, H), 1, warmup=False)
-                    k8["k1"] += depth * time_ms(lambda: vss_stage.vss_stage(x, [p0], H, H), 5)
-                    k8["work"] += block_work(2, H, d, bf16, mlp=True).times(depth)
+            for H, d, depth in STAGES[size]:
+                for n in (2, 4):
+                    for dtype in (bf16, f32):
+                        x, p = v1_block_case(g, H, d, n, dtype)
+                        before = vss_block_v1.vss_block_v1.launches
+                        got = vss_block_v1.vss_block_v1(x, p, H, H)
+                        if vss_block_v1.vss_block_v1.launches != before + 1:
+                            raise PhaseFailure("kernel 8 counted other than one launch per call")
+                        check_outputs(errors, "vss_block_v1",
+                                      f"{MODEL_NAME[size]} block H={H} d={d} ({n} images)", dtype,
+                                      [got], [vss_block_v1.vss_block_v1_phases_plain(x, p, H, H)],
+                                      failed)
+        launches = device_launches(lambda: vss_block_v1.vss_block_v1(x, p, H, H))
+        print(f"  kernel 8's device launches per call: {launches}")
+        if list(launches.values()) != [1.0] or "vss_block_v1_kernel" not in next(iter(launches)):
+            raise PhaseFailure(f"kernel 8 is not one device launch per block: {launches}")
+        # per bs-1 bfloat16 XFMamba-S forward: the old sequence and the
+        # cooperative kernel in turns, CUDA events and CUDA-graph replay
+        for H, d, depth in STAGES["small"][2:]:
+            x, p = v1_block_case(g, H, d, 2)
+            calls = {"sequence": lambda: vss_block_v1.vss_block_v1_sequence(x, p, H, H),
+                     "kernel": lambda: vss_block_v1.vss_block_v1(x, p, H, H)}
+            ev = in_turns(calls, lambda fn: time_ms(fn, 5))
+            gr = in_turns(calls, lambda fn: graph_ms(fn, 5))
+            k8["ms"] += depth * ev["kernel"]
+            k8["serial_ms"] += depth * ev["sequence"]
+            k8["graph_ms"] += depth * gr["kernel"]
+            k8["serial_graph_ms"] += depth * gr["sequence"]
+            k8["plain"] += depth * time_ms(
+                lambda: vss_block_v1.vss_block_v1_phases_plain(x, p, H, H), 1, warmup=False)
+            k8["work"] += block_work(2, H, d, bf16, mlp=True).times(depth)
+            ph = [vss_block_v1.phase_ns(x, p, H, H) for _ in range(3)]
+            phases[f"H={H}"] = {k: sorted(v[k] for v in ph)[1] / 1e3 for k in ph[0]}
+            print(f"  kernel 8 at H={H} d={d} (2 images) per block: events {ev['kernel']:.4f} ms "
+                  f"(sequence {ev['sequence']:.4f}), device {gr['kernel']:.4f} ms (sequence "
+                  f"{gr['sequence']:.4f}); phases (us, median of 3): "
+                  f"{', '.join(f'{k} {v:.1f}' for k, v in phases[f'H={H}'].items())} ({card})")
         k9 = dict(ms=0.0, plain=0.0, k2=0.0, work=Work())
         for size in ("small", "base"):
             for dtype in (f32, bf16):
@@ -872,12 +935,16 @@ def phase_compare_v1(errors, card):
     if failed:
         raise PhaseFailure(f"kernels 8, 9 or 10 disagree with their plain twins: {failed}")
     times["vss_block_v1"] = (k8["ms"], k8["plain"], *k8["work"].bound())
+    V1_EXTRA["vss_block_v1"] = {k: k8[k] for k in ("serial_ms", "graph_ms", "serial_graph_ms")} | {
+        "phases_us": phases, "grid_blocks": {str(dt)[6:]: vss_block_v1.cooperative_grid(dt)
+                                             for dt in (bf16, f32)}}
     times["nk_scan_v1"] = (k9["ms"], k9["plain"], *k9["work"].bound())
     times["fused_cross_scan"] = k10
-    print(f"  kernel 8 per bs-1 bfloat16 XFMamba-S forward (17 blocks): {k8['ms']:.3f} ms, plain "
+    print(f"  kernel 8 per bs-1 bfloat16 XFMamba-S forward (17 blocks): {k8['ms']:.3f} ms "
+          f"(events; the old sequence in turns {k8['serial_ms']:.3f} ms), device "
+          f"{k8['graph_ms']:.3f} ms (sequence {k8['serial_graph_ms']:.3f} ms), plain "
           f"{k8['plain']:.3f} ms, bound {times['vss_block_v1'][2]:.4f} ms "
-          f"({times['vss_block_v1'][3]}); kernel 1's block sequence on the same blocks "
-          f"{k8['k1']:.3f} ms ({card})")
+          f"({times['vss_block_v1'][3]}) ({card})")
     print(f"  kernel 9 per bs-1 bfloat16 forward (2 + 1 calls): {k9['ms']:.3f} ms, plain "
           f"{k9['plain']:.3f} ms, bound {times['nk_scan_v1'][2]:.4f} ms "
           f"({times['nk_scan_v1'][3]}); kernel 2 on the same inputs {k9['k2']:.3f} ms")
@@ -1415,9 +1482,10 @@ def phase_compare_train(errors, card):
                                   gy, *got[1:], ps, H, H, m1, m2, block_bwd=bwd))
                                 for bwd in (vss_block_train.vss_block_bwd,
                                             vss_block_train.vss_block_bwd_plain)), failed)
-            for size in STAGES if dtype == torch.float32 else ("small",):
+            for size in STAGES:
                 compare_fusion(errors, g, dtype, failed, times[size], size)
-                compare_n1(errors, g, dtype, failed, times[size], size)
+                if size == "small" or dtype == torch.float32:
+                    compare_n1(errors, g, dtype, failed, times[size], size)
         torch.cuda.synchronize()
     if failed:
         raise PhaseFailure(f"training kernels disagree with their plain versions: {failed}")
@@ -1426,9 +1494,20 @@ def phase_compare_train(errors, card):
               f"(plain {t['fwd'][1]:.3f} ms), kernel 12 {t['bwd'][0]:.3f} ms (plain "
               f"{t['bwd'][1]:.3f} ms, bound {t['work'].bound()[0]:.4f} ms, "
               f"{t['work'].bound()[1]})")
-        for label, f_ms, b_ms in t["nk"].values():
+        for label, f_ms, b_ms, old_ms, g_ms, old_g_ms in t["nk"].values():
             print(f"  {MODEL_NAME[size]} nk pair at {label}: kernel 2 {f_ms:.3f} ms + kernel 7 "
-                  f"{b_ms:.3f} ms per call")
+                  f"{b_ms:.3f} ms per call (the serial adjoint in turns {old_ms:.3f} ms; device "
+                  f"{g_ms:.3f} vs {old_g_ms:.3f} ms)")
+        # per step: ShallowFuse's two K=1 calls and Cross_SS2Dv5's K=4 call
+        # (XFMamba-B's K=4 call takes the grouped scan; its row is a comparison)
+        per_step = {key: 2 * t["nk"][1][i] + t["nk"][4][i] for key, i in
+                    (("ms", 2), ("serial_ms", 3), ("graph_ms", 4), ("serial_graph_ms", 5))}
+        t["nk_step"] = per_step
+        print(f"  {MODEL_NAME[size]} kernel 7 per float32 bs-{TRAIN_BATCH} step (2 K=1 + 1 K=4 "
+              f"calls): {per_step['ms']:.3f} ms (serial adjoint {per_step['serial_ms']:.3f} ms), "
+              f"device {per_step['graph_ms']:.3f} ms (serial {per_step['serial_graph_ms']:.3f} ms) "
+              f"({card})")
+    V1_EXTRA["nk_scan_bwd"] = {f"f32_step_{k}": v for k, v in times["small"]["nk_step"].items()}
     bound_ms, bound_by = times["small"]["work"].bound()
     ms, plain_ms = times["small"]["bwd"]
     return {"ss2d_core_n1_bwd": (ms, plain_ms, bound_ms, bound_by)}, times
@@ -1437,8 +1516,11 @@ def phase_compare_train(errors, card):
 def compare_fusion(errors, g, dtype, failed, times, size):
     """Kernels 2 (the dts form that training runs) and 7 against their
     plain versions at the model's bs-16 fusion geometries, ShallowFuse's
-    (B, 49, D) K=1 and Cross_SS2Dv5's (3B, 49, D) K=4; in float32 also each
-    call's kernel times (``times["nk"]``)."""
+    (B, 49, D) K=1 and Cross_SS2Dv5's (3B, 49, D) K=4: kernel 7 against its
+    segment-checkpoint twin and the serial plain adjoint, every output, and
+    bitwise equal over two runs; in float32 also each call's times
+    (``times["nk"]``: kernel 2, kernel 7 and the serial adjoint in turns,
+    CUDA events and CUDA-graph replay)."""
     D = FUSION[size]["D"]
     for K, bs in ((1, TRAIN_BATCH), (4, 3 * TRAIN_BATCH)):
         label = f"({bs},49,{D}) K={K} N=16"
@@ -1446,13 +1528,22 @@ def compare_fusion(errors, g, dtype, failed, times, size):
         fwd_args = args[:7] + args[8:]
         check_outputs(errors, "nk_scan", f"{MODEL_NAME[size]} fusion scan {label}", dtype,
                       [nk_scan.nk_scan(*fwd_args)], [nk_scan.nk_scan_plain(*fwd_args)], failed)
+        got = nk_scan_adjoint.nk_scan_bwd(*args)
+        again = nk_scan_adjoint.nk_scan_bwd(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            failed.append(("nk_scan_bwd", label, str(dtype), "two runs differ", float("nan")))
         check_outputs(errors, "nk_scan_bwd", f"{MODEL_NAME[size]} fusion adjoint {label}",
-                      dtype, nk_scan_adjoint.nk_scan_bwd(*args),
-                      nk_scan_adjoint.nk_scan_bwd_plain(*args), failed)
+                      dtype, got, nk_scan_adjoint.nk_scan_bwd_segments_plain(*args), failed)
+        check_outputs(errors, "nk_scan_bwd", f"{MODEL_NAME[size]} vs the serial plain {label}",
+                      dtype, got, nk_scan_adjoint.nk_scan_bwd_plain(*args), failed)
         if dtype == torch.float32:
+            calls = {"serial": lambda: nk_scan_adjoint.nk_scan_bwd_serial(*args),
+                     "kernel": lambda: nk_scan_adjoint.nk_scan_bwd(*args)}
+            ev = in_turns(calls, lambda fn: time_ms(fn, 3))
+            gr = in_turns(calls, lambda fn: graph_ms(fn, 5))
             times.setdefault("nk", {})[K] = (
-                label, time_ms(lambda: nk_scan.nk_scan(*fwd_args), 3),
-                time_ms(lambda: nk_scan_adjoint.nk_scan_bwd(*args), 3))
+                label, time_ms(lambda: nk_scan.nk_scan(*fwd_args), 3), ev["kernel"],
+                ev["serial"], gr["kernel"], gr["serial"])
 
 
 def compare_n1(errors, g, dtype, failed, times, size):
@@ -1553,7 +1644,7 @@ def phase_train(card):
     check_routes("step", routes, {
         "gemm_tc": (FWD_GEMMS + BWD_GEMMS) * blocks, "gemm_simt": 0,
         "cross2d_scan": 2 * blocks, "cross2d_scan_bwd": blocks,
-        "serial_scan": want["nk_scan"], "serial_scan_bwd": want["nk_scan_bwd"]})
+        "serial_scan": want["nk_scan"], "serial_scan_bwd": 0})
     ROUTES["vss_stage_train"] = ROUTES["vss_block_bwd"] = routes
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         raise PhaseFailure(f"training loss not finite or not falling: {losses}")
@@ -2582,7 +2673,8 @@ def main() -> int:
     grouped_ms = times["selective_scan_grouped_fwd"][0] + times["selective_scan_grouped_bwd"][0]
     print(f"  XFMamba-B Cross_SS2Dv5 scan per bs-{TRAIN_BATCH} step: grouped scan (kernels 13 + "
           f"14, four K=1 calls each, phase 3b) {grouped_ms:.3f} ms; nk pair (kernels 2 + 7, "
-          f"one K=4 call each) {sum(train_times['base']['nk'][4][1:]):.3f} ms")
+          f"one K=4 call each) {sum(train_times['base']['nk'][4][1:3]):.3f} ms (kernel 7's old "
+          f"design: {train_times['base']['nk'][4][1] + train_times['base']['nk'][4][3]:.3f} ms)")
     launches |= phase_train(card)
     times |= phase_train_kernel_times(card, errors)
     serial = phase_old_vs_new(card)
@@ -2621,6 +2713,7 @@ def main() -> int:
         | ({"serial_graph_ms": serial[name][0], "graph_ms": serial[name][1]} if name in serial
            else {})
         | ssd_extra_line(name, ssd_extra)
+        | V1_EXTRA.get(name, {})
         for name, k in kernel_table().items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -348,6 +348,56 @@ def test_nk_scan_bwd(dev, dtype):
         assert rel_err(a, b) < (1e-2 if a.dtype == torch.bfloat16 else 1e-3)
 
 
+def _nk_bwd_case(g, dtype, B, H, W, D, K, N):
+    L = H * W
+    kinds = nk_scan.scan_mode_kinds("cross2d") if K == 4 else ("row_f",)
+    return (randn(g, B, L, D, dtype=dtype), randn(g, B, L, K * D, dtype=dtype, scale=0.5),
+            randn(g, B, L, K * N, dtype=dtype), randn(g, B, L, K * N, dtype=dtype),
+            decay_rates(K, N, D).reshape(K * N, D), randn(g, K, D), randn(g, K, D, scale=0.5),
+            randn(g, B, L, D), H, W, kinds)
+
+
+# kernel 7's shapes: each model's ShallowFuse and Cross_SS2Dv5 calls of the
+# bs-16 step, and a ragged map with N 4
+NK_BWD_CASES = [(16, 7, 7, 1536, 1, 16), (48, 7, 7, 1536, 4, 16), (16, 7, 7, 2048, 1, 16),
+                (48, 7, 7, 2048, 4, 16), (3, 5, 7, 70, 4, 4)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,W,D,K,N", NK_BWD_CASES)
+def test_nk_scan_bwd_at_the_fusion_shapes(dev, dtype, B, H, W, D, K, N):
+    """Kernel 7 against its segment-checkpoint twin, every output (float32
+    to summation order, 1e-4; bfloat16 ddts rounds on both sides, 1e-2)."""
+    g = torch.Generator().manual_seed(44 + K)
+    args = _nk_bwd_case(g, dtype, B, H, W, D, K, N)
+    got = nk_scan_adjoint.nk_scan_bwd(*args)
+    want = nk_scan_adjoint.nk_scan_bwd_segments_plain(*args)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert rel_err(a, b) < (1e-2 if a.dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_nk_scan_bwd_is_deterministic(dev, dtype):
+    """Two runs of kernel 7 give the same bits: no atomics, every sum in a
+    fixed order."""
+    g = torch.Generator().manual_seed(45)
+    args = _nk_bwd_case(g, dtype, 48, 7, 7, 1536, 4, 16)
+    for a, b in zip(nk_scan_adjoint.nk_scan_bwd(*args), nk_scan_adjoint.nk_scan_bwd(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_nk_scan_bwd_serial(dev, dtype):
+    """The earlier design, the serial adjoint, against the serial plain
+    version."""
+    g = torch.Generator().manual_seed(46)
+    args = _nk_bwd_case(g, dtype, 6, 7, 7, 96, 4, 16)
+    for a, b in zip(nk_scan_adjoint.nk_scan_bwd_serial(*args),
+                    nk_scan_adjoint.nk_scan_bwd_plain(*args)):
+        assert rel_err(a, b) < (1e-2 if a.dtype == torch.bfloat16 else 1e-3)
+
+
 def test_tiny_model_train_step_card_matches_cpu(dev, route):
     """One float32 train step of the tiny model, card against CPU: loss and
     every parameter gradient (1e-3 of the tensor's largest gradient), with
@@ -701,7 +751,8 @@ def test_nk_scan_v1(dev, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("H,W,d", [(14, 14, 32), (7, 7, 64), (9, 5, 16)])
 def test_vss_block_v1(dev, dtype, H, W, d):
-    """Kernel 8, one block, against its plain twin (2 images)."""
+    """Kernel 8, one block, against the sequence's plain version (2
+    images)."""
     g = torch.Generator().manual_seed(24)
     block = VSSBlock(d, generator=g).eval().cuda()
     p = vss_block_v1.pack_vss_block_v1_params(block, dtype)
@@ -710,6 +761,75 @@ def test_vss_block_v1(dev, dtype, H, W, d):
     got = vss_block_v1.vss_block_v1(x, p, H, W)
     assert vss_block_v1.vss_block_v1.launches == before + 1 and got.dtype == dtype
     assert rel_err(got, vss_block_v1.vss_block_v1_plain(x, p, H, W)) < TOL[dtype]
+
+
+# kernel 8's stage maps (H, d): XFMamba-S's and XFMamba-B's stages 2 and 3
+V1_MAPS = [(14, 384), (7, 768), (14, 512), (7, 1024)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("H,d", V1_MAPS)
+def test_vss_block_v1_at_the_stage_maps(dev, dtype, n, H, d):
+    """The cooperative kernel against its plain twin at the stage-2/3 maps
+    of both models, 2 and 4 images (5e-2 in bfloat16 as chip_smoke.py
+    holds it: rounding flips chain through ten phases; 1e-4 in
+    float32)."""
+    g = torch.Generator().manual_seed(40 + H + n)
+    block = VSSBlock(d, generator=g).eval().cuda()
+    p = vss_block_v1.pack_vss_block_v1_params(block, dtype)
+    x = randn(g, n, H * H, d, dtype=dtype)
+    with torch.no_grad():
+        got = vss_block_v1.vss_block_v1(x, p, H, H)
+        want = vss_block_v1.vss_block_v1_phases_plain(x, p, H, H)
+    assert rel_err(got, want) < (1e-4 if dtype == torch.float32 else 5e-2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_vss_block_v1_rows_short_of_the_grid(dev, dtype):
+    """A 3 x 5 map of one image: 15 rows, so most of the grid's blocks have
+    no item in any phase (and the 64-row tiles are mostly past the edge)."""
+    g = torch.Generator().manual_seed(41)
+    block = VSSBlock(32, generator=g).eval().cuda()
+    p = vss_block_v1.pack_vss_block_v1_params(block, dtype)
+    x = randn(g, 1, 15, 32, dtype=dtype)
+    with torch.no_grad():
+        got = vss_block_v1.vss_block_v1(x, p, 3, 5)
+        want = vss_block_v1.vss_block_v1_phases_plain(x, p, 3, 5)
+    assert rel_err(got, want) < TOL[dtype]
+
+
+def test_vss_block_v1_is_one_device_launch(dev):
+    """One call of kernel 8 launches one kernel on the card (the workspace
+    is kept across calls of one shape), and its phase clock covers the
+    ten phases."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator().manual_seed(42)
+    block = VSSBlock(384, generator=g).eval().cuda()
+    p = vss_block_v1.pack_vss_block_v1_params(block, torch.bfloat16)
+    x = randn(g, 2, 196, 384, dtype=torch.bfloat16)
+    with torch.no_grad():
+        vss_block_v1.vss_block_v1(x, p, 14, 14)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            vss_block_v1.vss_block_v1(x, p, 14, 14)
+            torch.cuda.synchronize()
+        phases = vss_block_v1.phase_ns(x, p, 14, 14)
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "vss_block_v1_kernel" in kernels[0], kernels
+    assert list(phases) == list(vss_block_v1.PHASES) and all(v > 0 for v in phases.values())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_vss_block_v1_sequence(dev, dtype):
+    """The earlier design, the launch sequence, against its plain version."""
+    g = torch.Generator().manual_seed(43)
+    block = VSSBlock(64, generator=g).eval().cuda()
+    p = vss_block_v1.pack_vss_block_v1_params(block, dtype)
+    x = randn(g, 2, 49, 64, dtype=dtype)
+    with torch.no_grad():
+        got = vss_block_v1.vss_block_v1_sequence(x, p, 7, 7)
+    assert rel_err(got, vss_block_v1.vss_block_v1_plain(x, p, 7, 7)) < TOL[dtype]
 
 
 def _cross_case(g, dtype, B, H, W, D, N):

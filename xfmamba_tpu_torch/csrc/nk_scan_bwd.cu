@@ -1,13 +1,15 @@
 // Adjoint of the selective scan of nk_scan.cu, for K traversal kinds x N
 // states, deltas precomputed (dts form) or projected from ranks (rank form).
 //
-// It serves xfmamba_tpu/ops/nk_scan_adjoint.py::_nk_scan_bwd_kernel (:54),
-// the backward of the fusion scans (dts form, ShallowFuse K = 1 and
-// Cross_SS2Dv5 K = 4 with N = 16).  The block adjoint's d_state-1 cross2d
-// scans (xfmamba_tpu/ops/vss_block_v2_adjoint.py::_vss_block_bwd_kernel,
-// :128) moved to the chunked adjoint of ss2d_core_n1.cu; ops/cross2d_scan.py
-// keeps this kernel's rank form on the same operands as the serial route
-// that chip_smoke.py times beside it.
+// It was the first design of xfmamba_tpu/ops/nk_scan_adjoint.py::
+// _nk_scan_bwd_kernel (:54), the backward of the fusion scans (dts form,
+// ShallowFuse K = 1 and Cross_SS2Dv5 K = 4 with N = 16), which now runs
+// nk_scan_adjoint.cu; ops/nk_scan_adjoint.py::nk_scan_bwd_serial keeps
+// this one for chip_smoke.py's timing in turns.  The block adjoint's
+// d_state-1 cross2d scans (xfmamba_tpu/ops/vss_block_v2_adjoint.py::
+// _vss_block_bwd_kernel, :128) moved to the chunked adjoint of
+// ss2d_core_n1.cu; ops/cross2d_scan.py keeps this kernel's rank form on
+// the same operands as the serial route that chip_smoke.py times beside it.
 //
 // Forward, per kind k in its traversal order t (see nk_scan.cu):
 //   delta = softplus(z + bias[k]),  a_n = exp(delta * A[k, n])

@@ -1,10 +1,12 @@
 // Two-level selective scans over whole H x W maps, parallel along L.
 //
-// One scan kernel serves three TPU kernels:
+// One scan, the item of scan_two_level.cuh, serves three TPU kernels:
 // - the four d_state-1 cross2d scans of the v1 whole-block kernel
 //   xfmamba_tpu/ops/vss_block_pallas.py::_vss_block_kernel (:295, kernel 8),
 //   rank form: the rank->D delta projection is done here, as the TPU kernel
-//   does it on the MXU inside its body;
+//   does it on the MXU inside its body.  Kernel 8 runs the item inside its
+//   cooperative block kernel (vss_block_v1.cu); this file's kernel serves
+//   its earlier launch sequence (ops/vss_block_v1.py::V1_SEQUENCE_OPS);
 // - the v1 nk scan ::_nk_scan_kernel (:690, kernel 9): K traversal kinds x
 //   N = 16 states from precomputed deltas, output in u's dtype;
 // - xfmamba_tpu/ops/selective_scan_pallas.py::_scan_kernel (:73) and
@@ -47,160 +49,19 @@
 // deltas or ranks, B, C read once, y written once) is far below that.  The
 // parts cost 2K extra float32 passes over the map, small beside the walks
 // at the fusion and stage-2/3 sizes this route runs at.
-#include "common.cuh"
+#include "scan_two_level.cuh"
 
 namespace xfm {
 
 constexpr int kTLChannels = 32;  // channels of a block: one warp
-constexpr int kTLMaxChunks = 16;
-constexpr int kTLMaxR = 64;
-
-struct TwoLevelParams {
-  const void* u;      // (n_img, L, D)
-  const void* dts;    // deltas: row stride dt_stride, kind stride D
-  const void* ranks;  // rank form: row stride rank_stride, kind stride R
-  const float* w_dt;  // (K, R, D)
-  const void* Bp;     // B[l, k, n] at row * bc_stride + k * bc_k_stride + n * bc_n_stride
-  const void* Cp;     // C, same strides as B
-  const float* A;     // (K, N, D)
-  const float* bias;  // (K, D)
-  const float* Dk;    // (K, D) skip added to each part (kernel 10), or null
-  float* part;        // (K, n_img, L, D)
-  int n_img, H, W, D, K, N, R, kinds, segs;
-  int dt_stride, rank_stride, bc_stride, bc_k_stride, bc_n_stride;
-  int round_rank;  // rank values rounded to bfloat16 (the TPU kernel's xdbl cast)
-  int round_part;  // parts rounded to bfloat16 (kernel 10's N = 1 output dtype)
-};
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 template <typename T, int MAXN, bool RANK>
 __global__ void __launch_bounds__(kTLChannels* kTLMaxChunks)
     two_level_scan_kernel(TwoLevelParams p) {
-  __shared__ float wdt_s[RANK ? kTLMaxR * kTLChannels : 1];
-  __shared__ float prod_s[kTLMaxChunks][kTLChannels];
-  __shared__ float loc_s[kTLMaxChunks][kTLChannels];
-  __shared__ float cin_s[kTLMaxChunks][kTLChannels];
-  const int tx = threadIdx.x, j = threadIdx.y;
-  const int c0 = blockIdx.x * kTLChannels;
-  const int c = c0 + tx;
-  const bool active = c < p.D;
-  const int cc = active ? c : p.D - 1;  // an idle lane loads a valid channel
-  const int k = blockIdx.z;
-  const int L = p.H * p.W;
-  const int code = (p.kinds >> (2 * k)) & 3;  // 0 row_f, 1 col_f, 2 row_r, 3 col_r
-  const bool reverse = code >= 2, column = code & 1;
-  const int seg_len = column ? p.H : p.W;
-  const int n_seg = column ? p.W : p.H;
-  const int chunk = p.segs * seg_len;
-  const int n_chunks = (n_seg + p.segs - 1) / p.segs;
-  const int t0 = j * chunk;
-  const int cnt = j < n_chunks ? min(chunk, L - t0) : 0;
-  const long long row0 = static_cast<long long>(blockIdx.y) * L;
-  const T* u = static_cast<const T*>(p.u);
-  const T* Bp = static_cast<const T*>(p.Bp);
-  const T* Cp = static_cast<const T*>(p.Cp);
-
-  if (RANK) {
-    for (int i = j * kTLChannels + tx; i < p.R * kTLChannels; i += blockDim.y * kTLChannels) {
-      const int r = i / kTLChannels, lane = i % kTLChannels;
-      wdt_s[i] = c0 + lane < p.D
-                     ? p.w_dt[(static_cast<long long>(k) * p.R + r) * p.D + c0 + lane]
-                     : 0.f;
-    }
-    __syncthreads();
-  }
-  float a_kn[MAXN];
-#pragma unroll
-  for (int n = 0; n < MAXN; ++n)
-    a_kn[n] = n < p.N ? p.A[(static_cast<long long>(k) * p.N + n) * p.D + cc] : 0.f;
-  const float bias_k = p.bias[k * p.D + cc];
-  const float d_k = p.Dk ? p.Dk[k * p.D + cc] : 0.f;
-
-  // row (image offset included) of the n-th position this thread walks
-  auto row_of = [&](int i) -> long long {
-    const int t = reverse ? t0 + cnt - 1 - i : t0 + i;
-    return row0 + (column ? (t % p.H) * p.W + t / p.H : t);
-  };
-  auto delta_of = [&](long long row) -> float {
-    float z;
-    if (RANK) {
-      const T* rk = static_cast<const T*>(p.ranks) + row * p.rank_stride + k * p.R;
-      z = 0.f;
-      for (int r = 0; r < p.R; ++r) {
-        const float v = to_f32(rk[r]);
-        z = fmaf(p.round_rank ? round_bf16(v) : v, wdt_s[r * kTLChannels + tx], z);
-      }
-    } else {
-      z = to_f32(static_cast<const T*>(p.dts)[row * p.dt_stride + static_cast<long long>(k) * p.D + cc]);
-    }
-    return softplus20(z + bias_k);
-  };
-
-  // 1. the chunk's pair (prod a, h from a zero state) for every state
-  float h[MAXN], prod[MAXN];
-#pragma unroll
-  for (int n = 0; n < MAXN; ++n) {
-    h[n] = 0.f;
-    prod[n] = 1.f;
-  }
-  for (int i = 0; i < cnt; ++i) {
-    const long long row = row_of(i);
-    const float delta = delta_of(row);
-    const float du = delta * to_f32(u[row * p.D + cc]);
-    const T* bp = Bp + row * p.bc_stride + k * p.bc_k_stride;
-#pragma unroll
-    for (int n = 0; n < MAXN; ++n) {
-      if (n < p.N) {
-        const float a = expf(delta * a_kn[n]);
-        h[n] = fmaf(a, h[n], du * to_f32(bp[n * p.bc_n_stride]));
-        prod[n] *= a;
-      }
-    }
-  }
-  // 2. the state entering each chunk, state by state: thread j == 0 of each
-  //    channel chains the chunks in traversal order
-#pragma unroll
-  for (int n = 0; n < MAXN; ++n) {
-    if (n < p.N) {  // uniform over the block: every thread reaches the barriers
-      prod_s[j][tx] = prod[n];
-      loc_s[j][tx] = h[n];
-      __syncthreads();
-      if (j == 0) {
-        float carry = 0.f;
-        for (int m = 0; m < n_chunks; ++m) {
-          const int jj = reverse ? n_chunks - 1 - m : m;
-          cin_s[jj][tx] = carry;
-          carry = fmaf(prod_s[jj][tx], carry, loc_s[jj][tx]);
-        }
-      }
-      __syncthreads();
-      h[n] = cin_s[j][tx];
-    }
-  }
-  // 3. the chunk again from its state: this kind's part
-  float* part = p.part + static_cast<long long>(k) * p.n_img * L * p.D;
-  for (int i = 0; i < cnt; ++i) {
-    const long long row = row_of(i);
-    const float delta = delta_of(row);
-    const float uu = to_f32(u[row * p.D + cc]);
-    const float du = delta * uu;
-    const T* bp = Bp + row * p.bc_stride + k * p.bc_k_stride;
-    const T* cp = Cp + row * p.bc_stride + k * p.bc_k_stride;
-    float y = 0.f;
-#pragma unroll
-    for (int n = 0; n < MAXN; ++n) {
-      if (n < p.N) {
-        h[n] = fmaf(expf(delta * a_kn[n]), h[n], du * to_f32(bp[n * p.bc_n_stride]));
-        y = fmaf(to_f32(cp[n * p.bc_n_stride]), h[n], y);
-      }
-    }
-    if (p.Dk) y = fmaf(uu, d_k, y);
-    if (p.round_part) y = round_bf16(y);
-    if (active) part[row * p.D + c] = y;
-  }
+  __shared__ float smem[two_level_smem_floats<kTLChannels>()];
+  two_level_scan_item<T, MAXN, RANK, kTLChannels>(p, blockIdx.x, blockIdx.y, blockIdx.z,
+                                                  threadIdx.x, threadIdx.y,
+                                                  blockDim.y * kTLChannels, smem);
 }
 
 // out = u * Dsum + part[0] + ... + part[K - 1] (cross == 0), or

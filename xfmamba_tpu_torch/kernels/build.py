@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-# name -> argtypes of every C entry point (all return int: a cudaError_t)
+# name -> argtypes of the C entry points that return an int: a cudaError_t
+# (xfm_vss_block_v1_grid: a block count, or a negated cudaError_t)
 _SIGNATURES = {
     "xfm_gemm": [_P] * 6 + [_LL, _I, _I] + [_LL] * 5 + [_I] * 6 + [_P],
     "xfm_gemm_tc": [_P] * 6 + [_LL, _I, _I] + [_LL] * 6 + [_I] * 10 + [_P],
@@ -58,7 +59,12 @@ _SIGNATURES = {
     "xfm_ln_act": [_P] * 4 + [_LL, _I, _I, ctypes.c_float, _I, _P],
     "xfm_seg_ln_fwd": [_P] * 4 + [_LL, _I, _I, _I, ctypes.c_float, _I, _P],
     "xfm_seg_ln_bwd": [_P] * 7 + [_LL, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    "xfm_vss_block_v1": [_P] * 23 + [_I] * 9 + [_P],
+    "xfm_vss_block_v1_grid": [_I],
+    "xfm_nk_scan_adjoint": [_P] * 20 + [_I] * 10 + [_P],
 }
+# entry points that return something other than a cudaError_t
+_RESTYPES = {"xfm_vss_block_v1_workspace": ([_LL] + [_I] * 5, ctypes.c_longlong)}
 
 
 def _nvcc() -> str:
@@ -128,6 +134,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, (argtypes, restype) in _RESTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     lib.xfm_error_string.argtypes = [ctypes.c_int]
     lib.xfm_error_string.restype = ctypes.c_char_p
     return lib

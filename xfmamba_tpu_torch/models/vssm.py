@@ -160,6 +160,19 @@ class Classifier(nn.Module):
         return self.head(self.norm(x).mean((1, 2)))
 
 
+def _packed(block, dtype, pack):
+    """``pack(block, dtype)``, the kernel operands of an inference block,
+    kept on the block while its parameters stay as they are (the same
+    storage, no in-place change: their version counters), so that a
+    forward does not cast and concatenate the weights again."""
+    key = (pack, dtype, tuple((t.data_ptr(), t._version) for t in block.parameters()))
+    cached = getattr(block, "_packed_operands", None)
+    if cached is None or cached[0] != key:
+        cached = (key, pack(block, dtype))
+        block._packed_operands = cached
+    return cached[1]
+
+
 class VSSM(nn.Module):
     """Four-stage hierarchical VSSM: with ``out_indices`` the LayerNorm'd
     features of those stages (``fusion_vmamba.py:1653-1724``), with
@@ -240,10 +253,10 @@ class VSSM(nn.Module):
             return self._block_stage(x, layer, None)
         xl = x.reshape(B, H * W, d).contiguous()
         if route == "stage":
-            packed = [pack_vss_block_params(b, x.dtype) for b in layer.blocks]
+            packed = [_packed(b, x.dtype, pack_vss_block_params) for b in layer.blocks]
             return vss_stage(xl, packed, H, W).reshape(B, H, W, d)
         for b in layer.blocks:
-            xl = vss_block_v1(xl, pack_vss_block_v1_params(b, x.dtype), H, W)
+            xl = vss_block_v1(xl, _packed(b, x.dtype, pack_vss_block_v1_params), H, W)
         return xl.reshape(B, H, W, d)
 
     def _block_stage(self, x, layer, scales):

@@ -14,10 +14,11 @@ and the two fusion-op kernels built on it.
 - `nk_scan_x`: port of ``nk_scan_call_v2r`` (:1005; TPU kernel
   ``_nk_scan_x_kernel_v2`` :944), the Cross_SS2Dv5 scan with the rank->D
   delta projection in the kernel and the out-norm LayerNorm as epilogue.
-- `selective_scan_bwd_cuda`: the shared adjoint kernel of
-  ``csrc/nk_scan_bwd.cu`` beside `selective_scan_bwd_plain`; the training
-  backwards (``ops/nk_scan_adjoint.py``, ``ops/vss_block_train.py``) call
-  it.
+- `selective_scan_bwd_cuda`: the serial adjoint kernel of
+  ``csrc/nk_scan_bwd.cu`` beside `selective_scan_bwd_plain`, which is the
+  oracle of kernel 7; the kernel itself serves only the earlier designs
+  that ``chip_smoke.py`` times (``ops/cross2d_scan.py::serial_scan_bwd``,
+  ``ops/nk_scan_adjoint.py::nk_scan_bwd_serial``).
 
 The kinds name each direction's traversal of the flattened H x W map; all
 are flat over L (the state carries across rows, or across columns for the

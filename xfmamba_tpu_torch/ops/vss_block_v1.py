@@ -5,26 +5,36 @@
 JAX runs it, in bfloat16 inference, for a backbone stage whose v2 kernels
 find no image group aligned to 8 sublanes (``models/vssm.py:142-180``): at
 one or two studies per batch, stages 2 and 3 of XFMamba-S.  Here the host
-launches, per block, the hand-written kernels of ``csrc/vss_stage.cu``
-(LayerNorm, the tiled GEMM with its epilogues, depthwise conv + SiLU) and
-the rank-form two-level scan of ``csrc/scan_two_level.cu``, parallel along
-L, with the rank->D projection inside the scan kernel as the TPU kernel
-does it on the MXU inside its body.  The sequence rounds where the TPU
-kernel rounds: ``xin``, ``u``, B, C, y and the residual stream stay float32
-(``:306-381``); LayerNorm outputs, the rank values, ``u`` for x_proj and
+makes one cooperative launch per block of ``csrc/vss_block_v1.cu``, whose
+phases (`PHASES`), separated by grid-wide barriers, are LN1, in_proj,
+depthwise conv + SiLU, x_proj, the four d_state-1 cross2d scans (rank
+form, two-level along L), the merge with the out-norm, out_proj +
+residual, LN2, fc1 + GELU and fc2 + residual.  The block rounds where the
+TPU kernel rounds: ``xin``, ``u``, B, C, y and the residual stream stay
+float32 (``:306-381``); LayerNorm outputs, the rank values, ``u`` for x_proj and
 the GELU output are rounded to the activation dtype for their products;
 the block's output once, at the end.  GELU is exact (erf), as kernel 1's.
 Its JAX backward is a pure-jnp remat that the training route never
 reaches, so there is no backward kernel.
+
+- `vss_block_v1`: the kernel; `vss_block_v1_phases_plain` is its plain
+  twin, phase by phase (the scans through the kernel's two levels).
+- `vss_block_v1_plain`: the block as a sequence of the plain versions of
+  the smaller kernels, the oracle both are held to.
+- `vss_block_v1_sequence`: the earlier design, the same sequence launched
+  kernel by kernel on the card (`V1_SEQUENCE_OPS`: LayerNorm, GEMMs,
+  conv + SiLU of ``csrc/vss_stage.cu`` / ``csrc/gemm_tc.cu`` and the
+  two-level scan of ``csrc/scan_two_level.cu``, about eleven launches),
+  reached only by ``chip_smoke.py``'s timing in turns and one card test.
 
 Also here, copied as they are: the v1 routing helpers ``_VMEM_BUDGET``,
 ``_vmem_estimate``, ``fused_vss_block_supported`` and ``pick_group``
 (``:633-683``), whose TPU VMEM arithmetic decides where JAX runs this kernel
 (``models/vssm.py`` uses them through `ops.vss_stage.stage_route`).
 
-`vss_block_v1` takes `vss_block_v1_plain` only for CPU tensors; on CUDA
-tensors it launches the kernels, adds one to ``vss_block_v1.launches`` per
-block, or raises.
+`vss_block_v1` takes its plain twin only for CPU tensors; on CUDA tensors
+it launches the kernel, adds one to ``vss_block_v1.launches`` per launch
+(one per block), or raises.
 """
 
 from __future__ import annotations
@@ -33,12 +43,15 @@ import dataclasses
 from types import SimpleNamespace
 
 import torch
+import torch.nn.functional as F
 
-from xfmamba_tpu_torch.ops.nk_scan import CROSS2D_KINDS
+from xfmamba_tpu_torch.kernels import build
+from xfmamba_tpu_torch.ops.fast_math import softplus
+from xfmamba_tpu_torch.ops.nk_scan import CROSS2D_KINDS, traversal_order
 from xfmamba_tpu_torch.ops.nk_scan_v1 import scan_two_level_cuda, scan_two_level_plain
 from xfmamba_tpu_torch.ops.primitives import (
-    dwconv3_silu_cuda, dwconv3_silu_plain, gemm_ab_cuda, gemm_ab_plain, layer_norm_cuda,
-    layer_norm_plain, on_cpu)
+    dtype_code, dwconv3_silu_cuda, dwconv3_silu_plain, gemm_ab_cuda, gemm_ab_plain,
+    layer_norm_cuda, layer_norm_plain, on_cpu, ptr, require, require_cuda, stream)
 from xfmamba_tpu_torch.ops.vss_block import VSSBlockOperands, pack_vss_block_params
 
 # ---------------------------------------------------------------------------
@@ -132,27 +145,215 @@ def vss_block_v1_body(x, p: VSSBlockOperands, H, W, ops):
 
 V1_PLAIN_OPS = SimpleNamespace(layer_norm=layer_norm_plain, gemm_ab=gemm_ab_plain,
                                dwconv3_silu=dwconv3_silu_plain, scan=scan_two_level_plain)
-V1_CUDA_OPS = SimpleNamespace(layer_norm=layer_norm_cuda, gemm_ab=gemm_ab_cuda,
-                              dwconv3_silu=dwconv3_silu_cuda, scan=scan_two_level_cuda)
+# the earlier design: the sequence launched kernel by kernel
+V1_SEQUENCE_OPS = SimpleNamespace(layer_norm=layer_norm_cuda, gemm_ab=gemm_ab_cuda,
+                                  dwconv3_silu=dwconv3_silu_cuda, scan=scan_two_level_cuda)
 
 
 def vss_block_v1_plain(x, p: VSSBlockOperands, H, W):
-    """The plain twin: the same sequence with the kernels' plain versions
-    (the scan serial)."""
+    """The block as the sequence of the smaller kernels' plain versions
+    (the scan serial): the oracle of kernel 8 and its twin."""
     return vss_block_v1_body(x, p, H, W, V1_PLAIN_OPS)
+
+
+def vss_block_v1_sequence(x, p: VSSBlockOperands, H, W):
+    """The earlier design on the card: `vss_block_v1_body` on
+    `V1_SEQUENCE_OPS` (each piece counts its own launches)."""
+    return vss_block_v1_body(x, p, H, W, V1_SEQUENCE_OPS)
+
+
+# ---------------------------------------------------------------------------
+# the plain twin of the cooperative kernel, phase by phase
+# ---------------------------------------------------------------------------
+
+# the cooperative grid of an H100 (two blocks on each of 132 SMs), by which
+# the plain twin picks its chunks as the kernel does on that card
+H100_GRID = 264
+
+
+def scan_segments(H: int, W: int, di: int, n_img: int, grid: int = H100_GRID) -> int:
+    """Image rows (or columns) per chunk of kernel 8's scans.  An item is
+    256 threads, CH channels x 256 / CH chunks: the fewest channels (16,
+    32, 64) whose items (channel tiles x images x 4 directions) fit one
+    round over the grid, else 64."""
+    for slots in (16, 8, 4):
+        if -(-di // (256 // slots)) * n_img * 4 <= grid or slots == 4:
+            return -(-max(H, W) // slots)
+
+
+def two_level_part_plain(u, xdbl, p: VSSBlockOperands, k, H, W, round_rank, segs):
+    """Phase E for kind k: the kind's part (B, L, di) of the d_state-1
+    scan, its deltas from the rank values, by the kernel's two levels: the
+    traversal cut into chunks of ``segs`` image rows (row kinds) or
+    columns (column kinds),
+    each chunk reduced to its pair (prod a, h from 0), the pairs chained
+    into each chunk's entering state (from the last chunk for the reversed
+    kinds), each chunk walked again from it."""
+    B, L, di = u.shape
+    R = p.rank
+    kind = CROSS2D_KINDS[k]
+    column, reverse = kind in ("col_f", "col_r"), kind in ("row_r", "col_r")
+    ranks = xdbl[..., k * R:(k + 1) * R]
+    if round_rank:
+        ranks = ranks.to(torch.bfloat16).float()
+    delta = softplus(ranks @ p.w_dt[k].float() + p.b_dt[k])
+    Bk, Ck = xdbl[..., 4 * R + 2 * k], xdbl[..., 4 * R + 2 * k + 1]
+    # the flat traversal (reversed kinds walk it backward), cut into chunks
+    flat = traversal_order(kind.replace("_r", "_f"), H, W, u.device)
+    chunk = segs * (H if column else W)
+    n_chunks = -(-L // chunk)
+    pad = n_chunks * chunk - L
+
+    def chunks(t, fill):
+        t = F.pad(t[:, flat], (0, 0, 0, pad), value=fill).view(B, n_chunks, chunk, -1)
+        return t.flip(1, 2) if reverse else t
+
+    a = chunks(torch.exp(delta * p.A[k, 0]), 1.0)
+    b = chunks(delta * u * Bk[..., None], 0.0)
+    c = chunks(Ck[..., None].expand(B, L, di), 0.0)
+    loc = torch.zeros(B, n_chunks, di, device=u.device)
+    prod = torch.ones_like(loc)
+    for i in range(chunk):                                 # 1. each chunk's pair
+        loc = a[:, :, i] * loc + b[:, :, i]
+        prod = prod * a[:, :, i]
+    carry, cin = torch.zeros(B, di, device=u.device), []
+    for m in range(n_chunks):                              # 2. the entering states
+        cin.append(carry)
+        carry = prod[:, m] * carry + loc[:, m]
+    h = torch.stack(cin, 1)
+    out = torch.empty_like(a)
+    for i in range(chunk):                                 # 3. the chunks again
+        h = a[:, :, i] * h + b[:, :, i]
+        out[:, :, i] = c[:, :, i] * h
+    if reverse:
+        out = out.flip(1, 2)
+    part = torch.empty_like(u)
+    part[:, flat] = out.reshape(B, n_chunks * chunk, di)[:, :L]
+    return part
+
+
+def vss_block_v1_phases_plain(x, p: VSSBlockOperands, H, W):
+    """Kernel 8's plain twin, the phases A-J of ``csrc/vss_block_v1.cu``
+    with the same rounding points."""
+    B, L, d = x.shape
+    di, R = p.w_in.shape[0], p.rank
+    dtype, f32 = x.dtype, torch.float32
+    rows = x.reshape(B * L, d)
+    h1 = layer_norm_plain(rows, p.ln1_w, p.ln1_b, dtype)                        # A
+    xin = gemm_ab_plain(h1, p.w_in, out_dtype=f32)                              # B
+    u = dwconv3_silu_plain(xin.view(B, H, W, di), p.w_conv, p.b_conv)           # C
+    xdbl = gemm_ab_plain(u.to(dtype).view(B * L, di), p.w_xp,                   # D
+                         out_dtype=f32).view(B, L, 4 * R + 8)
+    u = u.view(B, L, di)
+    segs = scan_segments(H, W, di, B)
+    y = u * p.Dsum                                                              # E, F
+    for k in range(4):
+        y = y + two_level_part_plain(u, xdbl, p, k, H, W, dtype != f32, segs)
+    yn = layer_norm_plain(y.view(B * L, di), p.lno_w, p.lno_b, dtype)
+    x1 = gemm_ab_plain(yn, p.w_out, residual=rows, out_dtype=f32)               # G
+    h2 = layer_norm_plain(x1, p.ln2_w, p.ln2_b, dtype)                          # H
+    f1 = gemm_ab_plain(h2, p.w_fc1, bias=p.b_fc1, gelu=True)                    # I
+    return gemm_ab_plain(f1, p.w_fc2, bias=p.b_fc2, residual=x1,                # J
+                         out_dtype=dtype).view(B, L, d)
+
+
+# ---------------------------------------------------------------------------
+# the kernel
+# ---------------------------------------------------------------------------
+
+# workspaces by (device, stream, dtype and shape): reused across calls; one
+# stream's calls run one after another, which the barrier words rely on
+_WORKSPACES = {}
+
+
+def _workspace(x, M, d, di, R, hd):
+    key = (x.device, stream(x), x.dtype, M, d, di, R, hd)
+    if key not in _WORKSPACES:
+        nbytes = build.library().xfm_vss_block_v1_workspace(M, d, di, R, hd, dtype_code(x))
+        if nbytes < 0:
+            build.check(-nbytes, "vss_block_v1 workspace")
+        # zeroed once: the grid barrier's words and the split counters start
+        # at 0 and are left as the kernel found them after every call
+        _WORKSPACES[key] = torch.zeros(nbytes, dtype=torch.uint8, device=x.device)
+    return _WORKSPACES[key]
+
+
+def cooperative_grid(dtype) -> int:
+    """Blocks of kernel 8's cooperative grid on the current card."""
+    grid = build.library().xfm_vss_block_v1_grid(dtype_code(torch.empty(0, dtype=dtype)))
+    if grid <= 0:
+        build.check(-grid, "vss_block_v1 grid")
+    return grid
+
+
+# the phases of csrc/vss_block_v1.cu, in order
+PHASES = ("LN1", "in_proj", "conv+SiLU", "x_proj", "scans", "merge+out-norm",
+          "out_proj+residual", "LN2", "fc1+GELU", "fc2+residual")
 
 
 def vss_block_v1(x, p: VSSBlockOperands, H, W):
     """Kernel 8 on x (B, H * W, d) with the operands of
     `pack_vss_block_v1_params`; returns x's dtype."""
     if on_cpu(x, p.w_in):
-        return vss_block_v1_plain(x, p, H, W)
+        return vss_block_v1_phases_plain(x, p, H, W)
+    return _launch(x, p, H, W, None)
+
+
+def phase_ns(x, p: VSSBlockOperands, H, W) -> dict:
+    """One launch of kernel 8 with its phase clock on: {phase: ns from the
+    start of the phase to the grid barrier after it} (the card's global
+    timer, read by one thread; the last phase ends at an extra barrier)."""
+    stamps = torch.zeros(len(PHASES) + 1, dtype=torch.int64, device=x.device)
+    _launch(x, p, H, W, stamps)
+    t = stamps.tolist()
+    return {name: t[i + 1] - t[i] for i, name in enumerate(PHASES)}
+
+
+def _check_operands(p, dtype, d, di, R, hd):
+    f32 = torch.float32
+    for name, t, shape, dt in (
+            ("ln1_w", p.ln1_w, (d,), f32), ("ln1_b", p.ln1_b, (d,), f32),
+            ("w_in", p.w_in, (di, d), dtype), ("w_conv", p.w_conv, (9, di), f32),
+            ("w_xp", p.w_xp, (4 * R + 8, di), dtype), ("w_dt", p.w_dt, (4, R, di), f32),
+            ("b_dt", p.b_dt, (4, di), f32), ("A", p.A, (4, 1, di), f32),
+            ("Dsum", p.Dsum, (di,), f32), ("lno_w", p.lno_w, (di,), f32),
+            ("lno_b", p.lno_b, (di,), f32), ("w_out", p.w_out, (d, di), dtype),
+            ("ln2_w", p.ln2_w, (d,), f32), ("ln2_b", p.ln2_b, (d,), f32),
+            ("w_fc1", p.w_fc1, (hd, d), dtype), ("b_fc1", p.b_fc1, (hd,), f32),
+            ("w_fc2", p.w_fc2, (d, hd), dtype), ("b_fc2", p.b_fc2, (d,), f32)):
+        require(t, shape, dt, name=name)
+    if p.b_conv is not None:
+        require(p.b_conv, (di,), f32, name="b_conv")
+    require_cuda(*p.tensors())
+
+
+def _launch(x, p, H, W, stamps):
     if x.dim() != 3 or x.shape[1] != H * W or not x.is_contiguous():
         raise ValueError(f"x: expected a contiguous (B, {H * W}, d) map, got {tuple(x.shape)}")
     if p.w_in.dtype != x.dtype:
         raise TypeError("block operands were packed for another dtype")
+    B, L, d = x.shape
+    di, R = p.w_in.shape[0], p.rank
+    if p.w_fc1 is None:
+        raise ValueError("kernel 8 runs whole blocks: the MLP operands are missing")
+    hd = p.w_fc1.shape[0]
+    # the operands are checked once per operand set and activation shape
+    # (their tensors cannot be swapped: the dataclass is frozen)
+    if getattr(p, "_checked_for", None) != (x.dtype, x.device, d):
+        _check_operands(p, x.dtype, d, di, R, hd)
+        object.__setattr__(p, "_checked_for", (x.dtype, x.device, d))
+    ws = _workspace(x, B * L, d, di, R, hd)
+    out = torch.empty_like(x)
+    lib = build.library()
     vss_block_v1.launches += 1
-    return vss_block_v1_body(x, p, H, W, V1_CUDA_OPS)
+    build.check(lib.xfm_vss_block_v1(
+        ptr(x), ptr(out), ptr(p.ln1_w), ptr(p.ln1_b), ptr(p.w_in), ptr(p.w_conv), ptr(p.b_conv),
+        ptr(p.w_xp), ptr(p.w_dt), ptr(p.b_dt), ptr(p.A), ptr(p.Dsum), ptr(p.lno_w),
+        ptr(p.lno_b), ptr(p.w_out), ptr(p.ln2_w), ptr(p.ln2_b), ptr(p.w_fc1), ptr(p.b_fc1),
+        ptr(p.w_fc2), ptr(p.b_fc2), ptr(ws), ptr(stamps), B, H, W, d, di, R, hd,
+        scan_segments(H, W, di, B, cooperative_grid(x.dtype)), dtype_code(x), stream(x)),
+        "vss_block_v1")
+    return out
 
 
 vss_block_v1.launches = 0

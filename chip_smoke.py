@@ -26,8 +26,15 @@ Phases, in order; any failure exits non-zero:
    events) per batch and (4b) per kernel beside the plain versions and
    the kernels' bounds; (4c) the same in float32, the composable blocks
    with kernel 11 (21 launches per forward, no stage kernel); (4d) kernel
-   11's time per float32 bs-32 forward beside its plain twin and beside
-   the serial rank-form scan of ``csrc/nk_scan.cu`` on the same inputs;
+   11 per float32 bs-32 forward against its plain twin (y, checkpoints),
+   then against its first design (``ss2d_core_n1_fwd_v1``) in turns, and,
+   at the maps whose forward is one cluster launch (14 x 14, 7 x 7),
+   against the same kernels as three launches (bit for bit, and in turns),
+   by CUDA events and CUDA-graph replay, per stage and per forward, beside the
+   plain twin, the serial rank-form scan of ``csrc/nk_scan.cu`` on the same
+   inputs and the bound by both counts (rank products on the tensor cores,
+   and every product on the CUDA cores); phase 4 also times each batch
+   with the block operands kept (``pack_for_inference``);
    (4e) XFMamba-B float32 inference at bs 8 and 32 (dims 128-1024, d_inner
    2048, dt rank 64): launches 21 / 0 / 2 / 1 / 0 of kernel 11, the stage
    kernel, kernels 2 and 3 and kernel 13 per forward, ms per batch;
@@ -46,8 +53,12 @@ Phases, in order; any failure exits non-zero:
    geometries (kernel 7 against its segment-checkpoint twin and the serial
    plain adjoint, every output, and bitwise equal over two runs), and
    kernels 11 and 12 at the four stage maps at the step's 16 images per
-   view (XFMamba-B in float32), with kernels 11 and 12's float32 times per
-   step and the nk pair's times per call, kernel 7 beside its old design
+   view (XFMamba-B in float32), kernel 12 bitwise equal over two runs and
+   launching no GEMM, the stage adjoint likewise at 16 images per view,
+   with kernels 11 and 12's float32 times per step against their first
+   design (and kernel 11's three-launch route) in turns (CUDA events and
+   graph replay) and the nk pair's times
+   per call, kernel 7 beside its old design
    (the serial adjoint of ``csrc/nk_scan_bwd.cu``) in turns, by CUDA
    events and CUDA-graph replay, per call and per XFMamba-S step
    (XFMamba-B's K=4 call beside kernels 13 + 14, the route its
@@ -64,21 +75,27 @@ Phases, in order; any failure exits non-zero:
    step beside its plain version's; (7c) training in float32 (the
    composable blocks, kernels 11 and 12, 21 launches each per step, 42 of
    kernel 11 with ``use_checkpoint``; kernels 2 and 7 3 each, the stage
-   kernels none; counts reset before each step): a finite loss at every
+   kernels and the GEMM kernels none; counts reset before each step): a
+   finite loss at every
    step, ms per step and peak memory in both ``use_checkpoint`` modes; (7d)
    the same for XFMamba-B, whose Cross_SS2Dv5 scan trains through kernels
    13 and 14 (4 launches each per step; kernels 2 and 7 twice, for
    ShallowFuse); (7e) the bfloat16 block sequence on the serial pieces
-   (``vss_stage.SERIAL_OPS``: SIMT GEMMs, serial scans) against the new one
-   (``CUDA_OPS``: tensor-core GEMMs, chunked scans) on the same inputs, in
-   turns, device time by CUDA-graph replay: kernel 1 per bs-32 forward,
-   kernels 4, 5 and 6 per bs-16 step, and the GEMMs, the scan and the
-   adjoint alone; (7f) torch.profiler by kernel name over the bs-16
-   bfloat16 step and the bs-32 bfloat16 forward, with the busy share.
+   (``vss_stage.SERIAL_OPS``: SIMT GEMMs, serial scans), on the first chunked design's (the
+   first chunked scans, ``cross2d_scan_v1``, with the 8 rank GEMMs) and on
+   the new one (``CUDA_OPS``: the tile-parallel scans, the rank gradients
+   inside the adjoint) on the same inputs, in turns, device time by
+   CUDA-graph replay: kernel 1 per bs-32 forward, kernels 4, 5 and 6 per
+   bs-16 step, and the GEMMs, the scan and the adjoint alone; (7f)
+   torch.profiler by kernel name over the bs-16 bfloat16 step, the bs-32
+   bfloat16 forward and the float32 bs-16 step, with the busy share, and
+   kernels 11 and 12 alone at that step's shapes.
    Phases 4 and 7 also count the pieces' routes per forward and step
    (tensor-core vs SIMT GEMM launches, the chunked scans by chunk count,
    the serial scans) and fail unless every bfloat16 stage GEMM takes the
-   tensor cores and every stage scan and adjoint the chunked kernels;
+   tensor cores (168 launches fewer per step than the first design: the rank
+   gradients are the adjoint's own) and every stage scan and adjoint the
+   tile-parallel kernels;
 8. float32 gradients of one train step (kernels 11 and 12; both fusion
    scans through kernels 13 and 14 at this batch, 5 launches each), card
    against the CPU plain twins, XFMamba-S widths at depths (2, 2, 2, 2),
@@ -128,7 +145,9 @@ Single-study and unaligned-batch inference (kernels 8, 9 and 10):
    per forward (vss_stage 2 / 3, kernel 8 17 / 2, kernel 9 3 / 3, kernels
    2 and 3 none), ms per forward, and the device's busy share of a bs-1
    forward (torch.profiler); float32 at 1 study (kernel 11 21, kernel 9 3);
-   XFMamba-B bfloat16 at 1 and 32 studies;
+   XFMamba-B bfloat16 at 1 and 32 studies; the models keep their block
+   operands (``pack_for_inference``), and the bs-1 bfloat16 forward is also
+   timed packing them at every forward, the default;
 5b. XFMamba-S widths at depths (2, 2, 2, 2), 1 study, the bfloat16 route's
    kernels in float32 (kernel 1 at stages 0-1, kernel 8 at stages 2-3,
    kernel 9): logits card against the CPU plain twins;
@@ -166,7 +185,10 @@ of the serial sequence and the new one; for kernels 15 and 16 their
 passes' launches and device times, the serial kernels' times and the
 bound with every product on the CUDA cores; for kernel 8 the old
 sequence's times, device times, its grid and phase times (3c); for kernel
-7 the float32 per-step times of it and the serial adjoint (6)),
+7 the float32 per-step times of it and the serial adjoint (6); for
+kernels 11 and 12 their first design's times in the same run, device
+times, the bound with every product on the CUDA cores, the bfloat16 stage
+scans' device times old and new (7e), XFMamba-B's step (6)),
 the line before the last the card's name and power limit, the last
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it prints no result and exits 1.
@@ -179,6 +201,7 @@ import math
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
@@ -199,14 +222,11 @@ from xfmamba_tpu_torch.ops.vss_block import (
     vss_block_body)
 from xfmamba_tpu_torch.models.vssm import PatchEmbedV2
 from xfmamba_tpu_torch.train.profile import (
-    _device_us, print_profile, profile_calls, train_step_fn)
+    STAGES, _device_us, n1_calls_fn, print_profile, profile_calls, train_step_fn)
 from xfmamba_tpu_torch.train.config import TrainConfig
 from xfmamba_tpu_torch.train.loop import make_optimizer, make_train_step
 
 IMAGE = 224
-# each model's backbone stages: (H, d, depth); di = 2d, R = ceil(d / 16)
-STAGES = {"small": [(56, 96, 2), (28, 192, 2), (14, 384, 15), (7, 768, 2)],
-          "base": [(56, 128, 2), (28, 256, 2), (14, 512, 15), (7, 1024, 2)]}
 # each model's fusion scans: D = 2 x hidden, R = ceil(hidden / 16)
 FUSION = {"small": dict(H=7, D=1536, N=16, R=48), "base": dict(H=7, D=2048, N=16, R=64)}
 MODEL_NAME = {"small": "XFMamba-S", "base": "XFMamba-B"}
@@ -368,9 +388,16 @@ ROUTE_FNS = {"gemm_tc": primitives.gemm_tc_cuda, "gemm_simt": primitives.gemm_si
              "cross2d_scan_bwd": cross2d_scan.cross2d_scan_bwd,
              "serial_scan": nk_scan.selective_scan_cuda,
              "serial_scan_bwd": nk_scan.selective_scan_bwd_cuda}
-# GEMMs of a block: the forward's five; kernel 6's 17 (its recompute's 3,
-# out_proj 2, the ranks 8, x_proj 2, in_proj 2)
-FWD_GEMMS, BWD_GEMMS = 5, 17
+# the tile-parallel d_state-1 scans, whose calls are also counted by tile
+# plan (a forward in one cluster launch or three launches)
+PLAN_FNS = {"cross2d_scan": cross2d_scan.cross2d_scan,
+            "cross2d_scan_bwd": cross2d_scan.cross2d_scan_bwd,
+            "ss2d_core_n1_fwd": ss2d_core_n1.ss2d_core_n1_fwd,
+            "ss2d_core_n1_bwd": ss2d_core_n1.ss2d_core_n1_bwd}
+# GEMMs of a block: the forward's five; kernel 6's 9 (its recompute's 3,
+# out_proj 2, x_proj 2, in_proj 2); the 8 rank-gradient GEMMs per block
+# that kernel 6 launched in its first design are the adjoint scan's own
+FWD_GEMMS, BWD_GEMMS, RANK_GEMMS = 5, 9, 8
 
 # route counts per main-path forward (kernel 1) or step (kernels 4-6),
 # filled by phases 4 and 7 for the kernels line
@@ -462,17 +489,26 @@ def block_work(n, H, d, dtype, mlp, backward=False):
                       f32=3 * elem + scan_bwd_ops(M, di, 4, 1, R)).add(**{kind: 3 * gemm})
 
 
-def n1_work(n, H, D, R, backward=False):
-    """Kernel 11 (float32) on n images of H x H x D: x and the projections
-    read once, y written once; kernel 12 reads x, g, the projections and
-    w_dt and writes du, the projections' gradient and dw_dt, with the two
-    rank-gradient products.  Its dpre is the port's intermediate (the TPU
-    kernel keeps it on chip), so its bytes are not the function's."""
+def n1_work(n, H, D, R, backward=False, dtype=torch.float32):
+    """Kernel 11 (or 12, ``backward``) on n images of H x H x D: x and the
+    projections read once, y (float32) written once; kernel 12 reads x, g,
+    the projections and w_dt and writes du, the projections' gradient and
+    dw_dt (float32).  The rank products count at the rate the kernels take
+    them on the tensor cores: z = rank w_dt (2 M 4 R D, the forward's and
+    the backward's recompute) in TF32 for both dtypes, the backward's two
+    gradient products (d rank = dpre w_dt^T, dw_dt = rank^T dpre, 2 M 4 R D
+    each) in TF32 for float32 and bf16 for bfloat16.  dpre stays on chip, as
+    in the TPU kernel.  `Work.simt_bound` puts every product on the CUDA
+    cores: the count of the first design."""
     M = n * H * H
+    es = torch.finfo(dtype).bits // 8
+    prod = 2 * M * 4 * R * D
+    grads = "bf16" if dtype == torch.bfloat16 else "tf32"
     if not backward:
-        return Work().add(4 * M * (2 * D + 4 * (R + 2)), f32=scan_ops(M, D, 4, 1, R))
-    return Work().add(4 * M * (3 * D + 8 * (R + 2)) + 2 * 16 * R * D,
-                      f32=scan_bwd_ops(M, D, 4, 1, R) + 4 * 4 * M * R * D)
+        return Work().add(M * (es * D + 4 * D + es * 4 * (R + 2)), f32=scan_ops(M, D, 4, 1),
+                          tf32=prod)
+    return Work().add(M * (es * D + 8 * D + es * 4 * (R + 2) + 16 * (R + 2)) + 2 * 16 * R * D,
+                      f32=scan_bwd_ops(M, D, 4, 1), tf32=prod).add(**{grads: 2 * prod})
 
 
 def nk_work(n, L, D, K, N, dtype, R=0, backward=False):
@@ -599,16 +635,15 @@ def time_ms(fn, reps, warmup=True):
 def reset_routes():
     for fn in ROUTE_FNS.values():
         fn.launches = 0
-    cross2d_scan.cross2d_scan.by_chunks.clear()
-    cross2d_scan.cross2d_scan_bwd.by_chunks.clear()
+    for fn in PLAN_FNS.values():
+        fn.by_plan.clear()
 
 
 def read_routes():
-    """The route counts since `reset_routes`, with the chunked scans'
-    launches by chunk count."""
+    """The route counts since `reset_routes`, with the tile-parallel scans'
+    calls by tile plan (``ops/ss2d_core_n1.py::tile_plan``)."""
     return {n: fn.launches for n, fn in ROUTE_FNS.items()} | {
-        "chunks": dict(sorted(cross2d_scan.cross2d_scan.by_chunks.items())),
-        "chunks_bwd": dict(sorted(cross2d_scan.cross2d_scan_bwd.by_chunks.items()))}
+        f"{n} plans": dict(sorted(fn.by_plan.items())) for n, fn in PLAN_FNS.items()}
 
 
 def check_routes(label, routes, want):
@@ -1020,18 +1055,24 @@ def one_study_forward(model, bs, dtype, want, label, card, profile=False):
 def phase_one_study(card):
     """XFMamba-S bfloat16 inference at 1 and 2 studies per batch (kernels
     8 and 9), float32 at 1 study, XFMamba-B bfloat16 at 1 and 32 studies;
-    launches per forward and ms per forward.  Returns the bs-1 bfloat16
+    launches per forward and ms per forward, the operands kept by
+    `pack_for_inference` (the bs-1 bfloat16 forward also without).  Returns the bs-1 bfloat16
     XFMamba-S launches (the main path of kernels 8 and 9)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"phase 4f: single-study inference, 224x224, seeded weights, TF32 off ({card})")
     bf16 = torch.bfloat16
     model = two_view_xfmamba("small", seed=0)
+    # the default packs each block's kernel operands at every forward; the
+    # timed runs below keep them (pack_for_inference), as the model once did
+    one_study_forward(model, 1, bf16, ONE_STUDY[1], "XFMamba-S bfloat16, packed per forward",
+                      card)
+    model.pack_for_inference()
     main = one_study_forward(model, 1, bf16, ONE_STUDY[1], "XFMamba-S bfloat16", card, True)
     one_study_forward(model, 2, bf16, ONE_STUDY[2], "XFMamba-S bfloat16", card)
     one_study_forward(model, 1, torch.float32, F32_ONE_STUDY, "XFMamba-S float32", card)
     del model
-    base = two_view_xfmamba("base", seed=0)
+    base = two_view_xfmamba("base", seed=0).pack_for_inference()
     one_study_forward(base, 1, bf16, ONE_STUDY[1], "XFMamba-B bfloat16", card)
     one_study_forward(base, 32, bf16, {"vss_stage": 4, "nk_scan": 2, "nk_scan_x": 1},
                       "XFMamba-B bfloat16", card)
@@ -1206,12 +1247,15 @@ def phase_model(model, card):
         "serial_scan": KERNELS["nk_scan"]["per_forward"] + KERNELS["nk_scan_x"]["per_forward"]})
     ROUTES["vss_stage"] = routes
     with torch.no_grad():
-        for bs, (xa, xb) in inputs.items():
-            samples = sorted(time_ms(lambda: model(xa, xb), 5) for _ in range(3))
-            ms = samples[1]
-            print(f"  bs {bs}: {ms:.2f} ms per batch (median of 3 runs of 5: "
-                  f"{', '.join(f'{s:.2f}' for s in samples)}), {1000 * bs / ms:.1f} "
-                  f"two-view samples/s ({card})")
+        for kept in (False, True):
+            if kept:
+                model.pack_for_inference()
+            for bs, (xa, xb) in inputs.items():
+                samples = sorted(time_ms(lambda: model(xa, xb), 5) for _ in range(3))
+                ms = samples[1]
+                print(f"  bs {bs}{', pack_for_inference' if kept else ''}: {ms:.2f} ms per batch "
+                      f"(median of 3 runs of 5: {', '.join(f'{s:.2f}' for s in samples)}), "
+                      f"{1000 * bs / ms:.1f} two-view samples/s ({card})")
     return {name: n // 2 for name, n in launches.items()}         # per forward
 
 
@@ -1287,36 +1331,98 @@ def serial_scan_args(x, xdbl, w_dt, A, Ds, bias):
                 H=H, W=W, ranks=xd[..., :R].contiguous(), w_dt=w_dt)
 
 
+def three_launches(fn):
+    """``fn`` with kernel 11's forward as three launches (pairs, carries,
+    apply) at every map, also where its tile plan makes it one launch of
+    thread-block clusters (``ss2d_core_n1.FUSE_TILES`` set to 0 around the
+    call)."""
+    def run():
+        keep = ss2d_core_n1.FUSE_TILES
+        ss2d_core_n1.FUSE_TILES = 0
+        try:
+            return fn()
+        finally:
+            ss2d_core_n1.FUSE_TILES = keep
+    return run
+
+
+def n1_fwd_calls(args, H, d, n):
+    """Kernel 11's forward on ``args`` as the first design ("old"), on its
+    tile plan ("new") and, where the plan makes it one cluster launch, as
+    three launches ("three")."""
+    calls = {"old": lambda: ss2d_core_n1.ss2d_core_n1_fwd_v1(*args),
+             "new": lambda: ss2d_core_n1.ss2d_core_n1_fwd(*args)}
+    if ss2d_core_n1.tile_plan(n, H, H, 2 * d).fused:
+        calls["three"] = three_launches(calls["new"])
+    return calls
+
+
 def phase_n1_times(card):
-    """Kernel 11's time per float32 bs-32 forward (64 images, the stage
-    shapes at their depths), beside its plain twin and beside the serial
-    rank-form scan of the stage kernels on the same inputs."""
-    print(f"phase 4d: kernel 11 per float32 bs-32 forward: chunked kernel, plain twin, serial "
-          f"scan (nk_scan.selective_scan_cuda) on the same inputs ({card})")
+    """Kernel 11 per float32 bs-32 forward (64 images, the stage shapes at
+    their depths): the tile-parallel kernels against their plain twin (y
+    and the checkpoints; the one-launch and three-launch routes bit for
+    bit where the plan takes one launch), then against the first design
+    (the chunked walk, ``ss2d_core_n1_fwd_v1``) in turns, old-new-new-old
+    (old-new-three-three-new-old where both routes exist), by CUDA events
+    and by CUDA-graph replay, per call per stage and per forward; beside
+    the plain twin, the serial rank-form scan of the stage kernels on the
+    same inputs, and the bound by both counts (the rank products on the
+    tensor cores; every product on the CUDA cores)."""
+    print(f"phase 4d: kernel 11 per float32 bs-32 forward: the tile-parallel kernels vs the "
+          f"plain twin, vs the first design in turns (events, graph replay), the serial scan "
+          f"(nk_scan.selective_scan_cuda) on the same inputs ({card})")
     g = torch.Generator().manual_seed(8)
-    ms = plain_ms = serial_ms = 0.0
+    tot = dict.fromkeys(("new", "old", "three", "new_graph", "old_graph", "three_graph",
+                         "plain", "serial"), 0.0)
     work = Work()
+    failed = []
     with torch.no_grad():
         for H, d, depth in STAGES["small"]:
             args = n1_case(g, 64, H, d, torch.float32)
             serial = serial_scan_args(*args)
-            k_ms = time_ms(lambda: ss2d_core_n1.ss2d_core_n1_fwd(*args), 5)
-            p_ms = time_ms(lambda: ss2d_core_n1.ss2d_core_n1_fwd_plain(*args), 1, warmup=False)
+            calls = n1_fwd_calls(args, H, d, 64)
+            ev = in_turns(calls, lambda fn: time_ms(fn, 5))
+            gr = in_turns(calls, lambda fn: graph_ms(fn, 5))
+            ev.setdefault("three", ev["new"])
+            gr.setdefault("three", gr["new"])
+            want, p_ms = timed_call(lambda: ss2d_core_n1.ss2d_core_n1_fwd_plain(*args))
+            got = calls["new"]()
+            check_outputs({}, "ss2d_core_n1_fwd", f"bs-32 forward H={H} D={2 * d}",
+                          torch.float32, got, want, failed)
+            route = ss2d_core_n1.tile_plan(64, H, H, 2 * d).key()
+            if "three" in calls:
+                three = calls["three"]()
+                if not (torch.equal(got[0], three[0]) and torch.equal(got[1], three[1])):
+                    failed.append(("ss2d_core_n1_fwd", f"H={H}", "float32",
+                                   "one launch and three launches differ", float("nan")))
             s_ms = time_ms(lambda: nk_scan.selective_scan_cuda(**serial), 5)
-            y = ss2d_core_n1.ss2d_core_n1_fwd(*args)[0]
-            _, r = rel(nk_scan.selective_scan_cuda(**serial), y.view(serial["u"].shape))
-            print(f"  H={H:2d} D={2 * d:4d} x{depth:2d}: chunked {k_ms:8.3f} ms, plain "
-                  f"{p_ms:9.3f} ms, serial {s_ms:8.3f} ms per call; serial vs chunked rel "
-                  f"{r:.2e}")
+            _, r = rel(nk_scan.selective_scan_cuda(**serial), want[0].view(serial["u"].shape))
+            print(f"  H={H:2d} D={2 * d:4d} x{depth:2d} ({route}): per call new {ev['new']:8.3f} "
+                  f"ms (device {gr['new']:.3f}), three launches {ev['three']:8.3f} ms (device "
+                  f"{gr['three']:.3f}), first design {ev['old']:8.3f} ms (device "
+                  f"{gr['old']:.3f}), plain {p_ms:9.3f} ms, serial {s_ms:8.3f} ms; serial vs "
+                  f"plain rel {r:.2e}")
             if not r <= TOL[torch.float32]:
-                raise PhaseFailure("the serial scan and kernel 11 disagree")
-            ms, plain_ms, serial_ms = ms + depth * k_ms, plain_ms + depth * p_ms, \
-                serial_ms + depth * s_ms
+                raise PhaseFailure("the serial scan and kernel 11's plain twin disagree")
+            for key, v in (("new", ev["new"]), ("old", ev["old"]), ("three", ev["three"]),
+                           ("new_graph", gr["new"]), ("old_graph", gr["old"]),
+                           ("three_graph", gr["three"]), ("plain", p_ms), ("serial", s_ms)):
+                tot[key] += depth * v
             work += n1_work(64, H, 2 * d, -(-d // 16)).times(depth)
+    if failed:
+        raise PhaseFailure(f"kernel 11 disagrees with its plain twin: {failed}")
     bound_ms, bound_by = work.bound()
-    print(f"  per forward: chunked {ms:.3f} ms, plain {plain_ms:.3f} ms, serial {serial_ms:.3f} "
-          f"ms; bound {bound_ms:.4f} ms ({bound_by}, {work.bytes / 1e9:.3f} GB)")
-    return {"ss2d_core_n1_fwd": (ms, plain_ms, bound_ms, bound_by)}
+    print(f"  per forward: new {tot['new']:.3f} ms (device {tot['new_graph']:.3f}), three "
+          f"launches at every map {tot['three']:.3f} ms (device {tot['three_graph']:.3f}), first "
+          f"design {tot['old']:.3f} ms (device {tot['old_graph']:.3f}), plain "
+          f"{tot['plain']:.3f} ms, serial {tot['serial']:.3f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by}, {work.bytes / 1e9:.3f} GB), every product on the CUDA cores "
+          f"{work.simt_bound():.4f} ms ({card})")
+    V1_EXTRA["ss2d_core_n1_fwd"] = {
+        "graph_ms": tot["new_graph"], "v1_ms": tot["old"], "v1_graph_ms": tot["old_graph"],
+        "three_launch_ms": tot["three"], "three_launch_graph_ms": tot["three_graph"],
+        "simt_bound_ms": work.simt_bound(), "serial_ms": tot["serial"]}
+    return {"ss2d_core_n1_fwd": (tot["new"], tot["plain"], bound_ms, bound_by)}
 
 
 def phase_cpu_parity(model, expect, phase="5", name="XFMamba-S"):
@@ -1397,8 +1503,10 @@ def cross2d_case(g, n, H, d, dtype):
 
 
 def cross2d_check(errors, g, n, H, d, dtype, failed):
-    """The chunked scan (y, checkpoints) and its adjoint (every output, the
-    dB / dC columns) against their plain twins, counted under kernel 6."""
+    """The stage scan (y, checkpoints) and its adjoint (every output: du,
+    dw_dt, dA, dbias, dDsum and the projections' gradient, rank, dB and dC
+    columns) against their plain twins, counted under kernel 6; the
+    adjoint bitwise equal over two runs and launching no GEMM."""
     args = cross2d_case(g, n, H, d, dtype)
     u, xdbl = args[:2]
     geo = f"H={H} d={d}"
@@ -1406,10 +1514,19 @@ def cross2d_check(errors, g, n, H, d, dtype, failed):
     check_outputs(errors, "vss_block_bwd", f"chunked scan {geo} (y, ck)", dtype,
                   cross2d_scan.cross2d_scan(*args, checkpoints=True), (y, ck), failed)
     gy = randn(g, *u.shape)
-    dx = [torch.zeros(u.shape[0] * u.shape[1], xdbl.shape[-1], device="cuda") for _ in range(2)]
+    dx = [torch.zeros(u.shape[0] * u.shape[1], xdbl.shape[-1], device="cuda") for _ in range(3)]
+    gemms = (primitives.gemm_simt_cuda.launches, primitives.gemm_tc_cuda.launches)
     got = cross2d_scan.cross2d_scan_bwd(*args, gy, ck, dx[0])
+    again = cross2d_scan.cross2d_scan_bwd(*args, gy, ck, dx[2])
+    if (primitives.gemm_simt_cuda.launches, primitives.gemm_tc_cuda.launches) != gemms:
+        failed.append(("vss_block_bwd", f"adjoint {geo}", str(dtype), "launched a GEMM",
+                       float("nan")))
+    if not (all(torch.equal(got[k], again[k]) for k in got) and torch.equal(dx[0], dx[2])):
+        failed.append(("vss_block_bwd", f"adjoint {geo}", str(dtype), "two runs differ",
+                       float("nan")))
     want = cross2d_scan.cross2d_scan_bwd_plain(*args, gy, ck, dx[1])
-    check_outputs(errors, "vss_block_bwd", f"chunked adjoint {geo}", dtype,
+    want.pop("dz")                                  # the kernel keeps dz on chip
+    check_outputs(errors, "vss_block_bwd", f"adjoint with rank gradients {geo}", dtype,
                   got | {"dxdbl": dx[0]}, want | {"dxdbl": dx[1]}, failed)
 
 
@@ -1459,7 +1576,7 @@ def phase_compare_train(errors, card):
             widths = STAGES["small"] + (STAGES["base"] if dtype == torch.bfloat16 else [])
             for H, d, _ in widths:
                 geo = f"H={H} d={d}"
-                cross2d_check(errors, g, n, H, d, dtype, failed)
+                cross2d_check(errors, g, 2 * TRAIN_BATCH, H, d, dtype, failed)
                 (p,) = train_blocks(g, d, 1, dtype)
                 x, m1 = randn(g, n, H * H, d, dtype=dtype), masks(g, n)
                 check_outputs(errors, "vss_block_train", f"block forward {geo}", dtype,
@@ -1490,10 +1607,16 @@ def phase_compare_train(errors, card):
     if failed:
         raise PhaseFailure(f"training kernels disagree with their plain versions: {failed}")
     for size, t in times.items():
-        print(f"  {MODEL_NAME[size]} float32 bs-{TRAIN_BATCH} step: kernel 11 {t['fwd'][0]:.3f} ms "
-              f"(plain {t['fwd'][1]:.3f} ms), kernel 12 {t['bwd'][0]:.3f} ms (plain "
-              f"{t['bwd'][1]:.3f} ms, bound {t['work'].bound()[0]:.4f} ms, "
-              f"{t['work'].bound()[1]})")
+        for key, num, work in (("fwd", 11, t["work_fwd"]), ("bwd", 12, t["work"])):
+            e = t[key]
+            three = f", three launches at every map {e['three_ms']:.3f} ms (device " \
+                f"{e['three_graph_ms']:.3f})" if key == "fwd" else ""
+            print(f"  {MODEL_NAME[size]} kernel {num} per float32 bs-{TRAIN_BATCH} step: "
+                  f"{e['ms']:.3f} ms (device {e['graph_ms']:.3f}){three}, the first design in "
+                  f"turns {e['v1_ms']:.3f} ms (device {e['v1_graph_ms']:.3f}), plain "
+                  f"{e['plain_ms']:.3f} ms; bound {work.bound()[0]:.4f} ms ({work.bound()[1]}, "
+                  f"{work.bytes / 1e9:.3f} GB), every product on the CUDA cores "
+                  f"{work.simt_bound():.4f} ms ({card})")
         for label, f_ms, b_ms, old_ms, g_ms, old_g_ms in t["nk"].values():
             print(f"  {MODEL_NAME[size]} nk pair at {label}: kernel 2 {f_ms:.3f} ms + kernel 7 "
                   f"{b_ms:.3f} ms per call (the serial adjoint in turns {old_ms:.3f} ms; device "
@@ -1509,8 +1632,13 @@ def phase_compare_train(errors, card):
               f"({card})")
     V1_EXTRA["nk_scan_bwd"] = {f"f32_step_{k}": v for k, v in times["small"]["nk_step"].items()}
     bound_ms, bound_by = times["small"]["work"].bound()
-    ms, plain_ms = times["small"]["bwd"]
-    return {"ss2d_core_n1_bwd": (ms, plain_ms, bound_ms, bound_by)}, times
+    e = times["small"]["bwd"]
+    V1_EXTRA["ss2d_core_n1_bwd"] = {
+        "graph_ms": e["graph_ms"], "v1_ms": e["v1_ms"], "v1_graph_ms": e["v1_graph_ms"],
+        "simt_bound_ms": times["small"]["work"].simt_bound(),
+        "base_step": {k: times["base"]["bwd"][k] for k in ("ms", "graph_ms", "v1_ms",
+                                                            "v1_graph_ms")}}
+    return {"ss2d_core_n1_bwd": (e["ms"], e["plain_ms"], bound_ms, bound_by)}, times
 
 
 def compare_fusion(errors, g, dtype, failed, times, size):
@@ -1550,37 +1678,56 @@ def compare_n1(errors, g, dtype, failed, times, size):
     """Kernels 11 and 12 against their plain twins at the float32 step's
     shapes (2 x 16 images, every stage of the model), every output: y, the
     checkpoints, du, dxdbl, dw_dt, dbias, dA, dD (kernel 12 from the plain
-    checkpoints); in float32 also each kernel's time per step (a stage's
-    call times its depth) and kernel 12's work."""
+    checkpoints); kernel 12 bitwise equal over two runs and launching no
+    GEMM.  In float32 also each kernel's time per step (a stage's call
+    times its depth), the new kernels and the first design in turns
+    (old-new-new-old) by CUDA events and by CUDA-graph replay, and kernel
+    12's work."""
     n = 2 * TRAIN_BATCH
+    gemms = (primitives.gemm_simt_cuda, primitives.gemm_tc_cuda)
     for H, d, depth in STAGES[size]:
         args = n1_case(g, n, H, d, dtype)
         geo = f"{MODEL_NAME[size]} H={H} D={2 * d} R={-(-d // 16)}"
-
-        def forward():
-            return ss2d_core_n1.ss2d_core_n1_fwd(*args)
-
-        def kernel():
-            return ss2d_core_n1.ss2d_core_n1_bwd(*args, ck, gy)
-
-        forward()                                          # warm-up
-        got, f_ms = timed_call(forward, 3)
         (y, ck), f_plain_ms = timed_call(lambda: ss2d_core_n1.ss2d_core_n1_fwd_plain(*args))
         check_outputs(errors, "ss2d_core_n1_fwd", f"N=1 core ({n} images) {geo}", dtype,
-                      got, (y, ck), failed)
+                      ss2d_core_n1.ss2d_core_n1_fwd(*args), (y, ck), failed)
         gy = randn(g, *args[0].shape)
-        kernel()                                           # warm-up
-        got, ms = timed_call(kernel, 3)
+        before = [f.launches for f in gemms]
+        got = ss2d_core_n1.ss2d_core_n1_bwd(*args, ck, gy)
+        again = ss2d_core_n1.ss2d_core_n1_bwd(*args, ck, gy)
+        if [f.launches for f in gemms] != before:
+            failed.append(("ss2d_core_n1_bwd", geo, str(dtype), "launched a GEMM", float("nan")))
+        if not all(torch.equal(got[k], again[k]) for k in got):
+            failed.append(("ss2d_core_n1_bwd", geo, str(dtype), "two runs differ", float("nan")))
         want, plain_ms = timed_call(lambda: ss2d_core_n1.ss2d_core_n1_bwd_plain(*args, ck, gy))
         check_outputs(errors, "ss2d_core_n1_bwd", f"N=1 core backward ({n} images) {geo}",
                       dtype, got, want, failed)
-        if dtype == torch.float32:
-            for key, k_ms, p_ms in (("fwd", f_ms, f_plain_ms), ("bwd", ms, plain_ms)):
-                acc = times.setdefault(key, [0.0, 0.0])
-                acc[0] += depth * k_ms
-                acc[1] += depth * p_ms
-            times.setdefault("work", Work())
-            times["work"] += n1_work(n, H, 2 * d, -(-d // 16), backward=True).times(depth)
+        if dtype != torch.float32:
+            continue
+        fwd = n1_fwd_calls(args, H, d, n)
+        bwd = {"old": lambda: ss2d_core_n1.ss2d_core_n1_bwd_v1(*args, ck, gy),
+               "new": lambda: ss2d_core_n1.ss2d_core_n1_bwd(*args, ck, gy)}
+        for key, calls, p_ms in (("fwd", fwd, f_plain_ms), ("bwd", bwd, plain_ms)):
+            ev = in_turns(calls, lambda fn: time_ms(fn, 3))
+            gr = in_turns(calls, lambda fn: graph_ms(fn, 3))
+            ev.setdefault("three", ev["new"])
+            gr.setdefault("three", gr["new"])
+            acc = times.setdefault(key, dict.fromkeys(("ms", "plain_ms", "graph_ms", "v1_ms",
+                                                       "v1_graph_ms", "three_ms",
+                                                       "three_graph_ms"), 0.0))
+            for k, v in (("ms", ev["new"]), ("plain_ms", p_ms), ("graph_ms", gr["new"]),
+                         ("v1_ms", ev["old"]), ("v1_graph_ms", gr["old"]),
+                         ("three_ms", ev["three"]), ("three_graph_ms", gr["three"])):
+                acc[k] += depth * v
+            three = f", three launches {ev['three']:.3f} ms (device {gr['three']:.3f})" \
+                if "three" in calls else ""
+            print(f"  kernel {11 if key == 'fwd' else 12} per call at {geo}: new {ev['new']:.3f} "
+                  f"ms (device {gr['new']:.3f}){three}, first design {ev['old']:.3f} ms (device "
+                  f"{gr['old']:.3f})")
+        times.setdefault("work", Work())
+        times["work"] += n1_work(n, H, 2 * d, -(-d // 16), backward=True).times(depth)
+        times.setdefault("work_fwd", Work())
+        times["work_fwd"] += n1_work(n, H, 2 * d, -(-d // 16)).times(depth)
 
 
 def train_batch(dtype):
@@ -1640,6 +1787,9 @@ def phase_train(card):
     if bad:
         raise PhaseFailure(f"training launches per step {bad[:2]}, expected {want}")
     blocks = want["vss_block_bwd"]
+    print(f"  tensor-core GEMMs per step: {routes['gemm_tc']}, {RANK_GEMMS * blocks} fewer than "
+          f"the first design's {(FWD_GEMMS + BWD_GEMMS + RANK_GEMMS) * blocks} (the rank gradients are the "
+          "adjoint scan's)")
     # kernel 5's forward and kernel 6's recompute each scan every block
     check_routes("step", routes, {
         "gemm_tc": (FWD_GEMMS + BWD_GEMMS) * blocks, "gemm_simt": 0,
@@ -1751,23 +1901,29 @@ def phase_train_kernel_times(card, errors):
 
 def phase_old_vs_new(card):
     """The serial sequence (``vss_stage.SERIAL_OPS``: SIMT GEMMs, the serial
-    scans) against the new one (``CUDA_OPS``: tensor-core GEMMs, the chunked
-    scans) on the same inputs, in turns (old, new, new, old), device time by
-    CUDA-graph replay: kernel 1 per bs-32 bfloat16 forward (one block per
-    stage at 64 images, counted depth times), kernels 4, 5 (its blocks'
-    SS2D and MLP halves) and 6 per bs-16 step (32 images); and the pieces
-    alone: a block's five forward GEMMs and its scan per bs-32 forward, its
-    adjoint scan per bs-16 step.  The two
-    sequences' outputs agree within 5e-2.  Returns {kernel: (old ms, new
-    ms)}."""
-    print(f"phase 7e: the serial sequence (SIMT GEMMs, serial scans) vs the new one (tensor-core "
-          f"GEMMs, chunked scans), in turns, CUDA-graph replay, bfloat16 ({card})")
+    scans), the first chunked design's (tensor-core GEMMs, its scans,
+    ``cross2d_scan_v1``, and the rank gradients as 8 tensor-core GEMMs) and
+    the new one (``CUDA_OPS``: the tile-parallel scans, the rank gradients
+    inside the adjoint) on the same inputs, in turns (serial, first, new,
+    new, first, serial), device time by CUDA-graph replay: kernel 1 per
+    bs-32 bfloat16 forward (one block per stage at 64 images, counted depth
+    times), kernels 4, 5 (its blocks' SS2D and MLP halves) and 6 per bs-16
+    step (32 images); and the pieces alone: a block's five forward GEMMs
+    and its scan per bs-32 forward, its adjoint scan with the rank
+    gradients per bs-16 step.  The sequences' outputs agree within 5e-2.
+    Returns {kernel: (serial ms, new ms)}."""
+    print(f"phase 7e: the serial sequence (SIMT GEMMs, serial scans), the first chunked one (tensor-core GEMMs, "
+          f"the first chunked scans) and the new one (the tile-parallel scans, the rank "
+          f"gradients inside the adjoint), in turns, CUDA-graph replay, bfloat16 ({card})")
     g = torch.Generator().manual_seed(70)
     bf16 = torch.bfloat16
-    seqs = {"old": vss_stage.SERIAL_OPS, "new": vss_stage.CUDA_OPS}
+    v1 = SimpleNamespace(**vars(vss_stage.CUDA_OPS))
+    v1.cross2d_scan, v1.cross2d_scan_bwd = cross2d_scan.cross2d_scan_v1, \
+        cross2d_scan.cross2d_scan_bwd_v1
+    seqs = {"old": vss_stage.SERIAL_OPS, "v1": v1, "new": vss_stage.CUDA_OPS}
     names = ("vss_stage", "vss_block_train", "vss_stage_train", "vss_block_bwd", "gemms", "scan",
              "adjoint")
-    acc = {name: {"old": 0.0, "new": 0.0} for name in names}
+    acc = {name: dict.fromkeys(seqs, 0.0) for name in names}
     worst = 0.0
     with torch.no_grad():
         for H, d, depth in STAGES["small"]:
@@ -1804,35 +1960,47 @@ def phase_old_vs_new(card):
             line = []
             for name, fn in calls.items():
                 outs = {w: fn(ops) for w, ops in seqs.items()}
-                worst = max(worst, rel(outs["new"], outs["old"])[1])
-                t = {"old": [], "new": []}
-                for which in ("old", "new", "new", "old"):
-                    t[which].append(graph_ms(lambda f=fn, o=seqs[which]: f(o), 3))
-                for which in t:
-                    acc[name][which] += depth * sum(t[which]) / 2
-                line.append(f"{name} {sum(t['old']) / 2:.3f} -> {sum(t['new']) / 2:.3f}")
-            print(f"  H={H:2d} d={d:3d} x{depth:2d}, ms per block (old -> new): {'; '.join(line)}")
+                worst = max(worst, rel(outs["new"], outs["old"])[1],
+                            rel(outs["v1"], outs["new"])[1])
+                ms = in_turns({w: lambda f=fn, o=ops: f(o) for w, ops in seqs.items()},
+                              lambda call: graph_ms(call, 3))
+                for which, v in ms.items():
+                    acc[name][which] += depth * v
+                line.append(f"{name} {ms['old']:.3f} / {ms['v1']:.3f} -> {ms['new']:.3f}")
+            print(f"  H={H:2d} d={d:3d} x{depth:2d}, ms per block (serial / first -> new): "
+                  f"{'; '.join(line)}")
     for name, t in acc.items():
         per = "bs-32 forward" if name in ("vss_stage", "gemms", "scan") else f"bs-{TRAIN_BATCH} step"
-        print(f"  {name:15s} per {per}: serial {t['old']:.3f} ms, new {t['new']:.3f} ms "
-              f"({t['old'] / t['new']:.2f}x) ({card})")
+        print(f"  {name:15s} per {per}: serial {t['old']:.3f} ms, first {t['v1']:.3f} ms, new "
+              f"{t['new']:.3f} ms ({t['v1'] / t['new']:.2f}x the first's) ({card})")
     print(f"  new vs old outputs: worst rel {worst:.3e} (tol 5e-02)")
     if not worst <= 5e-2:
         raise PhaseFailure(f"the new sequence disagrees with the serial one: rel {worst}")
+    for key, name in (("ss2d_core_n1_fwd", "scan"), ("ss2d_core_n1_bwd", "adjoint")):
+        V1_EXTRA.setdefault(key, {})["stage_bf16_graph_ms"] = {
+            "v1": acc[name]["v1"], "new": acc[name]["new"]}
     return {name: (t["old"], t["new"]) for name, t in acc.items() if name in names[:4]}
 
 
 def phase_profile(card):
     """torch.profiler by kernel name: the bs-16 bfloat16 train step (as
     ``python -m xfmamba_tpu_torch.train.profile``) and a bs-32 bfloat16
-    forward, with the busy share."""
-    print(f"phase 7f: bfloat16 profiles by kernel name ({card})")
+    forward, with the busy share; the float32 bs-16 step (TF32 off), and
+    kernels 11 and 12 alone at its shapes (``--dtype float32 --n1``)."""
+    print(f"phase 7f: profiles by kernel name ({card})")
     print_profile("bs-16 bfloat16 train step", *profile_calls(train_step_fn()), top=15)
     model = two_view_xfmamba("small", seed=0)
     xa, xb = views(32, torch.bfloat16, 32)
     with torch.no_grad():
         print_profile("bs-32 bfloat16 forward", *profile_calls(lambda: model(xa, xb)), top=12)
     del model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print_profile("bs-16 float32 train step", *profile_calls(train_step_fn(torch.float32)),
+                  top=15)
+    for backward in (False, True):
+        print_profile(f"kernel {12 if backward else 11} per float32 bs-16 step",
+                      *profile_calls(n1_calls_fn(backward)), top=8)
 
 
 def phase_train_f32(card, size, phase, n1_times):
@@ -1853,8 +2021,11 @@ def phase_train_f32(card, size, phase, n1_times):
     optimizer = make_optimizer(TrainConfig(lr=1e-4, weight_decay=1e-5), model.parameters())
     step, _ = make_train_step(model, optimizer, multilabel=False)
     batch = train_batch(torch.float32)
+    # the port's GEMMs too: kernel 12 takes its rank gradients inside, so
+    # the float32 step launches neither GEMM kernel (the first design: 168 SIMT GEMMs)
     fns = {name: k["fn"]
-           for name, k in (N1_KERNELS | TRAIN_KERNELS | KERNELS | GROUPED_KERNELS).items()}
+           for name, k in (N1_KERNELS | TRAIN_KERNELS | KERNELS | GROUPED_KERNELS).items()} | {
+        "gemm_simt": primitives.gemm_simt_cuda, "gemm_tc": primitives.gemm_tc_cuda}
     want = dict.fromkeys(fns, 0) | F32_STEP[size]
 
     def counted_step():
@@ -1887,8 +2058,8 @@ def phase_train_f32(card, size, phase, n1_times):
         print(f"  {'use_checkpoint: ' if checkpointed else ''}{samples[1]:.2f} ms per step "
               f"(median of 3 runs of 3 steps: {', '.join(f'{v:.2f}' for v in samples)}); peak "
               f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})")
-    print(f"  per step (phase 6, the same shapes): kernel 11 {n1_times['fwd'][0]:.3f} ms, "
-          f"kernel 12 {n1_times['bwd'][0]:.3f} ms (its bound "
+    print(f"  per step (phase 6, the same shapes): kernel 11 {n1_times['fwd']['ms']:.3f} ms, "
+          f"kernel 12 {n1_times['bwd']['ms']:.3f} ms (its bound "
           f"{n1_times['work'].bound()[0]:.4f} ms)")
     del model, optimizer, step
     return want

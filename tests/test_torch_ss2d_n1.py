@@ -141,3 +141,40 @@ def test_bfloat16_inputs_round_once():
     y32, ck32 = n1.ss2d_core_n1_fwd(x.float(), xdbl.float(), w_dt, A, Ds, bias)
     assert y.dtype == torch.float32
     assert torch.equal(y, y32) and torch.equal(ck, ck32)
+
+
+def test_tile_plan_splits_the_maps():
+    """The tiling of the tile-parallel kernels: tiles of at most 8 x 8 that
+    split the stage maps evenly (56 -> 8, 28, 14 and 7 -> 7) and others as
+    evenly as they can (9 -> 5 + 4); slabs of 32 channels; blocks per slab
+    enough for `TARGET_BLOCKS`, never more than the (image, tile) items; NS
+    the longer of the row and column chains' segment counts."""
+    for H, TH, nt in ((56, 8, 7), (28, 7, 4), (14, 7, 2), (7, 7, 1), (9, 5, 2), (17, 6, 3),
+                      (1, 1, 1)):
+        p = n1.tile_plan(2, H, H, 32)
+        assert (p.TH, p.TW, p.nth, p.ntw, p.n_slabs) == (TH, TH, nt, nt, 1)
+    p = n1.tile_plan(32, 56, 56, 192)              # the float32 step's stage 0
+    assert (p.n_slabs, p.P, p.NS) == (6, 132, 392)
+    p = n1.tile_plan(32, 7, 7, 1536)               # its stage 3: 32 items a slab
+    assert (p.n_slabs, p.P, p.NS) == (48, 17, 7)
+    p = n1.tile_plan(1, 9, 17, 70)
+    assert (p.TH, p.TW, p.nth, p.ntw, p.NS, p.n_slabs, p.P) == (5, 6, 2, 3, 34, 3, 6)
+    assert n1.TARGET_BLOCKS == 2 * 3 * 132 and n1.SLAB == 32 and n1.TILE == 8
+
+
+def test_tile_plan_fuses_the_small_maps():
+    """The forward is one launch of clusters (an image's tiles) where a map
+    has at most `FUSE_TILES` tiles: the 14 x 14 and 7 x 7 stages (2 x 2
+    and one 7 x 7 tile), not 28 x 28 (16 tiles) or 56 x 56 (49); the route
+    counter's key names the plan."""
+    assert n1.FUSE_TILES == 8
+    for H, fused in ((56, False), (28, False), (14, True), (7, True), (8, True), (16, True),
+                     (17, False), (24, False)):
+        assert n1.tile_plan(32, H, H, 768).fused == fused
+    assert n1.tile_plan(16, 8, 64, 64).fused          # 1 x 8 tiles
+    assert not n1.tile_plan(16, 9, 64, 64).fused      # 2 x 8
+    assert not n1.tile_plan(65536 // 4 + 1, 14, 14, 32).fused   # more clusters than a grid row
+    assert n1.tile_plan(2, 14, 14, 32).key() == "7x7 one launch"
+    assert n1.tile_plan(2, 56, 56, 32).key() == "8x8 three launches"
+    assert n1.tile_plan(2, 14, 14, 32).key(backward=True) == "7x7 four launches"
+

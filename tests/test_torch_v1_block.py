@@ -114,10 +114,10 @@ def test_kernel8_twin_matches_the_pallas_kernel():
 
 
 def test_inference_operands_are_packed_once(monkeypatch):
-    """The model keeps each block's kernel-8 operands while its parameters
-    stay as they are: a second forward packs nothing, an in-place change of
-    a weight (an optimizer step, a loaded checkpoint) packs again, and the
-    output follows the new weights."""
+    """After `pack_for_inference` the model keeps each block's kernel-8
+    operands while its parameters stay as they are: a second forward packs
+    nothing, an in-place change of a weight (an optimizer step, a loaded
+    checkpoint) packs again, and the output follows the new weights."""
     packs = [0]
     pack = vssm.pack_vss_block_v1_params
 
@@ -129,6 +129,7 @@ def test_inference_operands_are_packed_once(monkeypatch):
     small = dict(model_type="tiny", hidden_dim=128, d_state=4,
                  backbone_overrides=dict(depths=(2, 2, 2, 2), dims=16))
     model = TwoViewXFMamba(generator=torch.Generator().manual_seed(0), **small).eval()
+    model.pack_for_inference()
     xa, xb = (torch.randn(1, 56, 56, 1, generator=torch.Generator().manual_seed(s)).to(
         torch.bfloat16) for s in (1, 2))
     with torch.no_grad():
@@ -144,3 +145,87 @@ def test_inference_operands_are_packed_once(monkeypatch):
     fresh.load_state_dict(model.state_dict())
     with torch.no_grad():
         assert torch.equal(fresh(xa, xb), changed)
+
+
+def test_data_writes_reach_the_eval_forward(monkeypatch):
+    """Writes through ``.data`` (``mul_``, ``copy_``, ``normal_``) change no
+    storage or version counter, so a kept operand would go stale: by
+    default each eval forward packs anew and returns the logits of a fresh
+    model loaded with the same ``state_dict()``; `pack_for_inference`
+    keeps the operands (no packing at the next forward), and
+    ``load_state_dict`` and ``train`` drop them."""
+    packs = [0]
+    pack = vssm.pack_vss_block_v1_params
+
+    def counting(*args):
+        packs[0] += 1
+        return pack(*args)
+
+    monkeypatch.setattr(vssm, "pack_vss_block_v1_params", counting)
+    small = dict(model_type="tiny", hidden_dim=128, d_state=4,
+                 backbone_overrides=dict(depths=(2, 2, 2, 2), dims=16))
+    model = TwoViewXFMamba(generator=torch.Generator().manual_seed(0), **small).eval()
+    xa, xb = (torch.randn(1, 56, 56, 1, generator=torch.Generator().manual_seed(s)).to(
+        torch.bfloat16) for s in (3, 4))
+
+    def fresh_logits(state):
+        fresh = TwoViewXFMamba(generator=torch.Generator().manual_seed(9), **small).eval()
+        fresh.load_state_dict(state)
+        with torch.no_grad():
+            return fresh(xa, xb)
+
+    blocks = model.mamba_feature_extrac.layers[0].blocks
+    with torch.no_grad():
+        before = model(xa, xb)
+        blocks[0].op.out_proj.weight.data.mul_(2.0)
+        blocks[1].mlp.fc1.weight.data.copy_(torch.randn(
+            blocks[1].mlp.fc1.weight.shape, generator=torch.Generator().manual_seed(5)))
+        blocks[1].op.x_proj_weight.data.normal_(generator=torch.Generator().manual_seed(6))
+        after = model(xa, xb)
+    assert not torch.equal(after, before)
+    assert torch.equal(after, fresh_logits(model.state_dict()))
+    # kept after the explicit call; load_state_dict and train drop them
+    model.pack_for_inference()
+    with torch.no_grad():
+        assert torch.equal(model(xa, xb), after)
+        n = packs[0]
+        assert torch.equal(model(xa, xb), after) and packs[0] == n
+        state = fresh_logits(model.state_dict()), {
+            k: v.clone() for k, v in model.state_dict().items()}
+        blocks[0].op.out_proj.weight.data.mul_(0.5)
+        model.load_state_dict(state[1])
+        assert torch.equal(model(xa, xb), state[0]) and packs[0] > n
+    model.pack_for_inference()
+    with torch.no_grad():
+        model(xa, xb)
+        blocks[0].op.out_proj.weight.data.mul_(0.5)
+        model.train().eval()
+        assert torch.equal(model(xa, xb), fresh_logits(model.state_dict()))
+
+
+def test_eval_keeps_the_operands(monkeypatch):
+    """``eval()`` changes no weight, so it keeps what `pack_for_inference`
+    packed: ``model.pack_for_inference().eval()`` packs once, at its first
+    forward, and not again; ``train()`` drops the operands."""
+    packs = [0]
+    pack = vssm.pack_vss_block_v1_params
+
+    def counting(*args):
+        packs[0] += 1
+        return pack(*args)
+
+    monkeypatch.setattr(vssm, "pack_vss_block_v1_params", counting)
+    small = dict(model_type="tiny", hidden_dim=128, d_state=4,
+                 backbone_overrides=dict(depths=(2, 2, 2, 2), dims=16))
+    model = TwoViewXFMamba(generator=torch.Generator().manual_seed(0), **small)
+    model.pack_for_inference().eval()
+    xa, xb = (torch.randn(1, 56, 56, 1, generator=torch.Generator().manual_seed(s)).to(
+        torch.bfloat16) for s in (7, 8))
+    with torch.no_grad():
+        first = model(xa, xb)
+        assert packs[0] == 4                # stages 0 and 1: two blocks each
+        model.eval()
+        assert torch.equal(model(xa, xb), first) and packs[0] == 4
+        model.train()
+        model.eval()
+        assert torch.equal(model(xa, xb), first) and packs[0] == 8

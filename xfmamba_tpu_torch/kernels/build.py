@@ -42,8 +42,10 @@ _SIGNATURES = {
     "xfm_layer_norm_bwd": [_P] * 7 + [_LL, _I, _I, ctypes.c_float, _P],
     "xfm_dwconv3_silu_bwd": [_P] * 8 + [_I] * 5 + [_P],
     "xfm_selective_scan_bwd": [_P] * 18 + [_I] * 17 + [_P],
-    "xfm_ss2d_n1_fwd": [_P] * 9 + [_I] * 12 + [_P],
-    "xfm_ss2d_n1_bwd": [_P] * 16 + [_I] * 13 + [_P],
+    "xfm_ss2d_n1_fwd": [_P] * 9 + [_I] * 15 + [_P],
+    "xfm_ss2d_n1_bwd": [_P] * 18 + [_I] * 14 + [_P],
+    "xfm_ss2d_n1_fwd_v1": [_P] * 9 + [_I] * 12 + [_P],
+    "xfm_ss2d_n1_bwd_v1": [_P] * 16 + [_I] * 13 + [_P],
     "xfm_grouped_scan_fwd": [_P] * 9 + [_I] * 8 + [_P],
     "xfm_grouped_scan_bwd": [_P] * 17 + [_I] * 8 + [_P],
     "xfm_ssd_chunk_state": [_P] * 7 + [_I] * 8 + [_P],

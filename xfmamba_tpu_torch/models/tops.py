@@ -61,6 +61,12 @@ class TwoViewXFMamba(nn.Module):
         self.classifier = nn.ModuleDict(
             {"head": Dense(hidden_dim, outputs, init="trunc_normal", generator=generator)})
 
+    def pack_for_inference(self):
+        """`VSSM.pack_for_inference` on the backbone: keep its inference
+        operands until ``train()``, `load_state_dict` or a move."""
+        self.mamba_feature_extrac.pack_for_inference()
+        return self
+
     def forward(self, x_a, x_b):
         Bv = x_a.shape[0]
         z = self.mamba_feature_extrac(

@@ -160,17 +160,18 @@ class Classifier(nn.Module):
         return self.head(self.norm(x).mean((1, 2)))
 
 
-def _packed(block, dtype, pack):
-    """``pack(block, dtype)``, the kernel operands of an inference block,
-    kept on the block while its parameters stay as they are (the same
-    storage, no in-place change: their version counters), so that a
-    forward does not cast and concatenate the weights again."""
+def _packed(block, dtype, pack, cache):
+    """``pack(block, dtype)``, the kernel operands of an inference block:
+    packed anew at every forward unless ``cache`` (a dict, from
+    `VSSM.pack_for_inference`) keeps them, and then only while the block's
+    parameters keep their storage and version counters."""
+    if cache is None:
+        return pack(block, dtype)
     key = (pack, dtype, tuple((t.data_ptr(), t._version) for t in block.parameters()))
-    cached = getattr(block, "_packed_operands", None)
-    if cached is None or cached[0] != key:
-        cached = (key, pack(block, dtype))
-        block._packed_operands = cached
-    return cached[1]
+    hit = cache.get(id(block))
+    if hit is None or hit[0] != key:
+        hit = cache[id(block)] = (key, pack(block, dtype))
+    return hit[1]
 
 
 class VSSM(nn.Module):
@@ -191,6 +192,7 @@ class VSSM(nn.Module):
                  num_classes: int = 1000):
         super().__init__()
         self.use_checkpoint = use_checkpoint
+        self._operands = None      # the inference blocks' packed operands (pack_for_inference)
         dims = [dims * 2 ** i for i in range(len(depths))] if isinstance(dims, int) else list(dims)
         self.depths = tuple(depths)
         self.out_indices = None if out_indices is None else tuple(out_indices)
@@ -241,6 +243,29 @@ class VSSM(nn.Module):
                 xl = _mlp_half_train(xl, m2, *mlp)
         return xl.reshape(B, H, W, d)
 
+    def pack_for_inference(self):
+        """Keep each inference block's packed kernel operands from the next
+        eval forward on, instead of packing them at every forward.  Call it
+        once the weights are final: ``train()`` (training mode; ``eval()``
+        changes no weight and keeps them), `load_state_dict` and a move
+        (``.to``, ``.cuda``) drop the operands and end the keeping, but an
+        in-place write through ``.data`` is not seen."""
+        self._operands = {}
+        return self
+
+    def train(self, mode: bool = True):
+        if mode:
+            self._operands = None
+        return super().train(mode)
+
+    def _apply(self, fn, *args, **kwargs):
+        self._operands = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._operands = None
+        return super()._load_from_state_dict(*args, **kwargs)
+
     def _eval_stage(self, x, layer):
         """One stage in eval mode on the stage route, x (B, H, W, d): kernel
         1, kernel 8 block by block, or the composable blocks, as
@@ -253,10 +278,12 @@ class VSSM(nn.Module):
             return self._block_stage(x, layer, None)
         xl = x.reshape(B, H * W, d).contiguous()
         if route == "stage":
-            packed = [_packed(b, x.dtype, pack_vss_block_params) for b in layer.blocks]
+            packed = [_packed(b, x.dtype, pack_vss_block_params, self._operands)
+                      for b in layer.blocks]
             return vss_stage(xl, packed, H, W).reshape(B, H, W, d)
         for b in layer.blocks:
-            xl = vss_block_v1(xl, _packed(b, x.dtype, pack_vss_block_v1_params), H, W)
+            xl = vss_block_v1(xl, _packed(b, x.dtype, pack_vss_block_v1_params, self._operands),
+                              H, W)
         return xl.reshape(B, H, W, d)
 
     def _block_stage(self, x, layer, scales):

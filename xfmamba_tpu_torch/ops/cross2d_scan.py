@@ -1,6 +1,7 @@
 """The cross2d scans of the bfloat16 backbone's VSSBlock sequence: the
 d_state-1 rank-form scan of the four directions and its adjoint, run on the
-chunked kernels of ``csrc/ss2d_core_n1.cu`` (kernels 11 and 12's design).
+tile-parallel kernels of ``csrc/ss2d_core_n1.cu`` (kernels 11 and 12's
+design).
 
 They are the scans inside kernels 1 (``ops/vss_stage.py``), 4, 5 and 6
 (``ops/vss_block_train.py``, ``ops/vss_stage_train.py``), the counterparts
@@ -20,11 +21,24 @@ C_k h_k: the kernels' merge with Dk = (Dsum, 0, 0, 0).  The serial scan of
 + y_1 + y_2 + y_3; `serial_scan` and `serial_scan_bwd` keep it (with the
 SIMT GEMM, the serial sequence of ``ops.vss_stage.SERIAL_OPS``).
 
-`stage_chunk` picks the chunk length from L and the number of chains, down
-to one chunk where the chains alone fill the card.  Each wrapper takes its
-plain twin (the same chunked walks, ``ops/ss2d_core_n1.py``) only for CPU
-tensors; on CUDA tensors it launches the kernel, adds one to ``launches``
-and to ``by_chunks[n_chunks]``, or raises.
+The adjoint also takes the block's rank products: it returns dw_dt (4, R,
+D) = rank_k^T dz_k and adds d rank_k = dz_k w_dt[k]^T into the rank columns
+of dxdbl, beside dB and dC, with dz (the deltas' gradient before bias and
+softplus, rounded to u's dtype where the JAX kernel rounds it) kept on
+chip.  The plain twin computes dz the readable way, returns it too, and
+takes the products with plain GEMMs (`rank_grads`).
+
+`stage_chunk` picks the checkpoints' chunk length from L and the number of
+chains (the rule of the first design, whose threads walked the chunks);
+the checkpoints' layout follows it.  The tile-parallel kernels' work does
+not depend on it: their adjoint reads no checkpoint, and the forward
+writes them for the plain twins and the first design (``ops/ss2d_core_n1.py``
+says why they stay).  Each wrapper takes its plain twin
+(``ops/ss2d_core_n1.py``) only for CPU tensors; on CUDA tensors it
+launches the kernels, adds one to ``launches`` and to ``by_plan`` under
+its tile plan (`ss2d_core_n1.TilePlan.key`), or raises.  `cross2d_scan_v1` /
+`cross2d_scan_bwd_v1` run the first design (``csrc/ss2d_core_n1_v1.cu``,
+with the rank products as 8 ``gemm_ab_cuda`` launches), for timing only.
 """
 
 from __future__ import annotations
@@ -34,10 +48,12 @@ import torch
 from xfmamba_tpu_torch.ops.nk_scan import (
     CROSS2D_KINDS, selective_scan_bwd_cuda, selective_scan_bwd_plain, selective_scan_cuda,
     selective_scan_plain)
-from xfmamba_tpu_torch.ops.primitives import dtype_code, on_cpu, require, require_cuda
+from xfmamba_tpu_torch.ops.primitives import (
+    dtype_code, gemm_ab_cuda, gemm_ab_plain, gemm_simt_cuda, on_cpu, require, require_cuda)
 from xfmamba_tpu_torch.ops.ss2d_core_n1 import (
-    CHANNELS, MAX_CHUNKS, MAX_RANK, MIN_CHUNK, N1Layout, n1_adjoint_plain, n1_bwd_launch,
-    n1_fwd_launch, ss2d_core_n1_fwd_plain)
+    CHANNELS, MAX_CHUNKS, MAX_RANK, MIN_CHUNK, N1Layout, count_plan, n1_adjoint_plain,
+    n1_bwd_launch, n1_bwd_launch_v1, n1_fwd_launch, n1_fwd_launch_v1, ss2d_core_n1_fwd_plain,
+    tile_plan)
 
 # threads that fill the H100: 132 SMs x 2048 resident threads
 FILL_THREADS = 132 * 2048
@@ -111,67 +127,119 @@ def cross2d_scan(u, xdbl, A, bias, Dsum, w_dt, H, W, checkpoints=False):
     """The four directions' scan and merge; see the module docstring."""
     if on_cpu(u, xdbl, A, bias, Dsum, w_dt):
         return cross2d_scan_plain(u, xdbl, A, bias, Dsum, w_dt, H, W, checkpoints)
+    out = _scan(n1_fwd_launch, cross2d_scan, u, xdbl, A, bias, Dsum, w_dt, H, W, checkpoints)
+    count_plan(cross2d_scan, tile_plan(u.shape[0], H, W, u.shape[2]))
+    return out
+
+
+def cross2d_scan_v1(u, xdbl, A, bias, Dsum, w_dt, H, W, checkpoints=False):
+    """`cross2d_scan` on the first design's kernel (CUDA tensors only)."""
+    return _scan(n1_fwd_launch_v1, cross2d_scan_v1, u, xdbl, A, bias, Dsum, w_dt, H, W,
+                 checkpoints)
+
+
+def _scan(launch, counted, u, xdbl, A, bias, Dsum, w_dt, H, W, checkpoints):
     require_cuda(u, xdbl, A, bias, Dsum, w_dt)
     n, L, D, R = _check(u, xdbl, A, bias, Dsum, w_dt, H, W)
     chunk = stage_chunk(n, L, D)
     nc = -(-L // chunk)
-    cross2d_scan.launches += 1
-    cross2d_scan.by_chunks[nc] = cross2d_scan.by_chunks.get(nc, 0) + 1
-    y, ck = n1_fwd_launch(*_maps(u, xdbl, H, W), w_dt, A.reshape(4, D).contiguous(), _dk(Dsum),
-                          bias, chunk, nc, stage_layout(R), checkpoints)
+    counted.launches += 1
+    y, ck = launch(*_maps(u, xdbl, H, W), w_dt, A.reshape(4, D).contiguous(), _dk(Dsum), bias,
+                   chunk, nc, stage_layout(R), checkpoints)
     return y.view(n, L, D), ck
 
 
 cross2d_scan.launches = 0
-cross2d_scan.by_chunks = {}
+cross2d_scan.by_plan = {}
+cross2d_scan_v1.launches = 0
 
 
 # ---------------------------------------------------------------------------
 # the adjoint
 # ---------------------------------------------------------------------------
 
-def _bwd_result(r, n, L, D, dtype):
-    return dict(du=r["du"].view(n, L, D), dz=r["dpre"].view(n, L, 4, D).to(dtype),
-                dA=r["dA"].view(4, 1, D), dbias=r["dbias"], dDsum=r["dD"][0])
+def rank_grads(dz, xdbl, w_dt, dxdbl, gemm_ab):
+    """The adjoint's rank products as GEMMs: d rank_k = dz_k w_dt[k]^T into
+    the rank columns of dxdbl (M, 4R + 8) float32, and dw_dt[k] = rank_k^T
+    dz_k (4, R, D) float32 returned; dz (M, 4, D) and w_dt rounded to the
+    activation dtype (xdbl's), as the JAX kernel takes them."""
+    M = dxdbl.shape[0]
+    R, D = w_dt.shape[1:]
+    dz = dz.reshape(M, 4, D)
+    ranks = xdbl.reshape(M, 4 * R + 8)
+    w = w_dt.to(xdbl.dtype)
+    dw_dt = torch.empty(4, R, D, dtype=torch.float32, device=dz.device)
+    for k in range(4):
+        gemm_ab(dz[:, k], w[k], out=dxdbl[:, k * R:(k + 1) * R])
+        dw_dt[k] = gemm_ab(ranks[:, k * R:(k + 1) * R].t(), dz[:, k].t(), out_dtype=torch.float32)
+    return dw_dt
+
+
+def _bwd_result(r, n, L, D):
+    return dict(du=r["du"].view(n, L, D), dw_dt=r["dw_dt"], dA=r["dA"].view(4, 1, D),
+                dbias=r["dbias"], dDsum=r["dD"][0])
 
 
 @torch.no_grad()
 def cross2d_scan_bwd_plain(u, xdbl, A, bias, Dsum, w_dt, H, W, gy, ck, dxdbl):
     """Adjoint of `cross2d_scan` given gy = dL/dy (n, L, D) float32 and the
     forward's checkpoints.  Returns du (n, L, D) float32; dz (n, L, 4, D) in
-    u's dtype, the gradient of the deltas before bias and softplus; dA
-    (4, 1, D), dbias (4, D), dDsum (D,) float32; adds dB and dC into their
-    columns of dxdbl (n * L, 4R + 8) float32."""
+    u's dtype, the gradient of the deltas before bias and softplus; dw_dt
+    (4, R, D), dA (4, 1, D), dbias (4, D), dDsum (D,) float32; adds d rank,
+    dB and dC into their columns of dxdbl (n * L, 4R + 8) float32.  The
+    kernel returns the same but dz, which it keeps on chip."""
     n, L, D = u.shape
     R = w_dt.shape[1]
     r = n1_adjoint_plain(*_maps(u, xdbl, H, W), w_dt.float(), A.reshape(4, D).float(),
                          _dk(Dsum.float()), bias.float(), ck, gy.reshape(n, H, W, D).float(),
                          stage_chunk(n, L, D), stage_layout(R), dxdbl)
-    return _bwd_result(r, n, L, D, u.dtype)
+    dz = r["dpre"].view(n, L, 4, D).to(u.dtype)
+    r["dw_dt"] = rank_grads(dz, xdbl, w_dt, dxdbl, gemm_ab_plain)
+    return _bwd_result(r, n, L, D) | {"dz": dz}
 
 
 def cross2d_scan_bwd(u, xdbl, A, bias, Dsum, w_dt, H, W, gy, ck, dxdbl):
-    """The adjoint kernel; see `cross2d_scan_bwd_plain`."""
+    """The adjoint kernels, the rank products inside; see
+    `cross2d_scan_bwd_plain` (no dz).  ``ck`` is checked, not read."""
     if on_cpu(u, xdbl, A, bias, Dsum, w_dt, gy, ck, dxdbl):
         return cross2d_scan_bwd_plain(u, xdbl, A, bias, Dsum, w_dt, H, W, gy, ck, dxdbl)
+    n, L, D, R, nc = _check_bwd(cross2d_scan_bwd, u, xdbl, A, bias, Dsum, w_dt, H, W, gy, ck,
+                                dxdbl)
+    count_plan(cross2d_scan_bwd, tile_plan(n, H, W, D), backward=True)
+    r = n1_bwd_launch(*_maps(u, xdbl, H, W), w_dt, A.reshape(4, D).contiguous(), _dk(Dsum), bias,
+                      gy.view(n, H, W, D), stage_chunk(n, L, D), stage_layout(R),
+                      dxdbl.view(n, H, W, 4 * R + 8))
+    return _bwd_result(r, n, L, D)
+
+
+def cross2d_scan_bwd_v1(u, xdbl, A, bias, Dsum, w_dt, H, W, gy, ck, dxdbl):
+    """`cross2d_scan_bwd` on the first design (CUDA tensors only): its
+    adjoint kernel from the checkpoints, dz in device memory, then the rank
+    products as `rank_grads` on ``gemm_ab_cuda`` (8 launches)."""
+    n, L, D, R, nc = _check_bwd(cross2d_scan_bwd_v1, u, xdbl, A, bias, Dsum, w_dt, H, W, gy, ck,
+                                dxdbl)
+    x, xd = _maps(u, xdbl, H, W)
+    r = n1_bwd_launch_v1(x, xd, w_dt, A.reshape(4, D).contiguous(), _dk(Dsum), bias, ck,
+                         gy.view(n, H, W, D), stage_chunk(n, L, D), nc, stage_layout(R),
+                         dxdbl.view(n, H, W, 4 * R + 8), u.dtype)
+    r["dw_dt"] = rank_grads(r["dpre"], xdbl, w_dt, dxdbl, gemm_ab_cuda)
+    return _bwd_result(r, n, L, D)
+
+
+def _check_bwd(counted, u, xdbl, A, bias, Dsum, w_dt, H, W, gy, ck, dxdbl):
     require_cuda(u, xdbl, A, bias, Dsum, w_dt, gy, ck, dxdbl)
     n, L, D, R = _check(u, xdbl, A, bias, Dsum, w_dt, H, W)
-    chunk = stage_chunk(n, L, D)
-    nc = -(-L // chunk)
+    nc = -(-L // stage_chunk(n, L, D))
     require(gy, (n, L, D), torch.float32, name="gy")
     require(ck, (n, 4, nc, D), torch.float32, name="ck")
     require(dxdbl, (n * L, 4 * R + 8), torch.float32, name="dxdbl")
-    cross2d_scan_bwd.launches += 1
-    cross2d_scan_bwd.by_chunks[nc] = cross2d_scan_bwd.by_chunks.get(nc, 0) + 1
-    x, xd = _maps(u, xdbl, H, W)
-    r = n1_bwd_launch(x, xd, w_dt, A.reshape(4, D).contiguous(), _dk(Dsum), bias, ck,
-                      gy.view(n, H, W, D), chunk, nc, stage_layout(R),
-                      dxdbl.view(n, H, W, 4 * R + 8), u.dtype)
-    return _bwd_result(r, n, L, D, u.dtype)
+    counted.launches += 1
+    return n, L, D, R, nc
 
 
 cross2d_scan_bwd.launches = 0
-cross2d_scan_bwd.by_chunks = {}
+cross2d_scan_bwd.by_plan = {}
+cross2d_scan_bwd_v1.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -198,21 +266,25 @@ def serial_scan(u, xdbl, A, bias, Dsum, w_dt, H, W, checkpoints=False):
     return selective_scan_cuda(**_serial_operands(u, xdbl, A, bias, Dsum, w_dt, H, W)), None
 
 
-def _serial_bwd(fn, u, xdbl, A, bias, Dsum, w_dt, H, W, gy, dxdbl):
+def _serial_bwd(fn, gemm_ab, u, xdbl, A, bias, Dsum, w_dt, H, W, gy, dxdbl):
     n, L, _ = u.shape
     R = w_dt.shape[1]
     dbc = dxdbl[:, 4 * R:].view(n, L, 4, 2)
     s = fn(**_serial_operands(u, xdbl, A, bias, Dsum, w_dt, H, W), gy=gy, dB=dbc[..., 0:1],
            dC=dbc[..., 1:2])
-    return dict(du=s["du"], dz=s["dz"], dA=s["dA"], dbias=s["dbias"], dDsum=s["dDsum"])
+    return dict(du=s["du"], dz=s["dz"], dw_dt=rank_grads(s["dz"], xdbl, w_dt, dxdbl, gemm_ab),
+                dA=s["dA"], dbias=s["dbias"], dDsum=s["dDsum"])
 
 
 def serial_scan_bwd_plain(u, xdbl, A, bias, Dsum, w_dt, H, W, gy, ck, dxdbl):
     """`cross2d_scan_bwd_plain`'s contract from ``selective_scan_bwd_plain``
-    (``ck`` unused)."""
-    return _serial_bwd(selective_scan_bwd_plain, u, xdbl, A, bias, Dsum, w_dt, H, W, gy, dxdbl)
+    and plain GEMMs (``ck`` unused)."""
+    return _serial_bwd(selective_scan_bwd_plain, gemm_ab_plain, u, xdbl, A, bias, Dsum, w_dt, H,
+                       W, gy, dxdbl)
 
 
 def serial_scan_bwd(u, xdbl, A, bias, Dsum, w_dt, H, W, gy, ck, dxdbl):
-    """The serial adjoint kernel of ``csrc/nk_scan_bwd.cu``."""
-    return _serial_bwd(selective_scan_bwd_cuda, u, xdbl, A, bias, Dsum, w_dt, H, W, gy, dxdbl)
+    """The serial adjoint kernel of ``csrc/nk_scan_bwd.cu``, then the rank
+    products on the SIMT GEMM (the serial sequence's)."""
+    return _serial_bwd(selective_scan_bwd_cuda, gemm_simt_cuda, u, xdbl, A, bias, Dsum, w_dt, H,
+                       W, gy, dxdbl)

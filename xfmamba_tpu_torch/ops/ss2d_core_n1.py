@@ -12,19 +12,43 @@ section of ``xfmamba_tpu/ops/selective_scan_pallas.py``, :298-831).
 
   merged in float32 as ``(y_0 + y_2) + (y_1 + y_3)``, the order of
   ``_core_fused_proj_parts`` (:718-723).  It also writes the state entering
-  each chunk of each chain (the checkpoints the backward starts from).
+  each chunk of each chain (the checkpoints the backward of the JAX kernel
+  starts from).
 - Kernel 12, `ss2d_core_n1_bwd`: replaces ``_scan_kernel_n1p_bwd`` (:440,
-  ``pallas_call`` :618): h recomputed from the checkpoints, the adjoint
-  lambda[t] = C dy[t] + a[t+1] lambda[t+1] (against each direction's own
-  order), du merged over the directions, dB and dC per position, the
-  pre-softplus delta gradient ``dpre`` and the whole-grid sums of dbias,
-  dA and dD.  The rank and w_dt gradients are products of ``dpre`` taken
-  with the port's strided GEMM (``primitives.gemm_ab_cuda``), as the
-  Pallas body takes them on the MXU.
+  ``pallas_call`` :618): h recomputed, the adjoint lambda[t] = C dy[t] +
+  a[t+1] lambda[t+1] (against each direction's own order), du merged over
+  the directions, dB and dC per position, the pre-softplus delta gradient
+  ``dpre`` taken straight into the rank and w_dt gradients (``d rank_k =
+  dpre_k w_dt[k]^T``, ``dw_dt[k] = rank_k^T dpre_k``, on the tensor cores
+  as the Pallas body takes them on the MXU; dpre never reaches device
+  memory), and the whole-grid sums of dbias, dA and dD, all in a fixed
+  order.
 - `SS2DCoreN1` / `ss2d_core_n1`: the autograd op around both, the
   counterpart of ``ss2d_core_pallas_n1`` (:809-831), with the glue of
   ``_core_fused_proj_parts`` / ``_core_fused_proj_bwd_impl`` (:709-806).
   The x_proj products stay plain torch matmuls, as JAX leaves them to XLA.
+
+The kernels (``csrc/ss2d_core_n1.cu``) are tile-parallel two-level scans:
+the map is cut into tiles of at most 8 x 8 positions and D into slabs of
+`SLAB` channels (`tile_plan`); a forward is three launches (segment pairs,
+carries, apply) or, on maps of at most `FUSE_TILES` tiles (14 x 14, 7 x 7),
+one launch of thread-block clusters, an image's tiles each, that keeps
+delta, a and b in shared memory between its two walks; a backward is four
+launches (pairs, carries, apply with the rank products, the fixed-order
+sums of the partials).  Each wrapper counts its calls by plan in
+``by_plan`` (`TilePlan.key`).
+
+The kernels read no checkpoint: the backward recomputes every state in
+its own pair and carry passes.  The forward still writes ``ck`` and the
+autograd op saves it, because it is the contract of the JAX kernels'
+residuals (``cf`` / ``cr``) that the tests hold against Pallas in
+interpret mode, and the plain twins and the first design's backward start
+from it.
+
+The first design (one thread per chain and data chunk) stays as
+`ss2d_core_n1_fwd_v1` / `ss2d_core_n1_bwd_v1` (``csrc/ss2d_core_n1_v1.cu``,
+its rank gradients by `_rank_grads`), for timing beside the new one; no
+main path calls it.
 
 Layouts (the port's own, not the TPU's lane packing):
   x      (B, H, W, D) NHWC, float32 or bfloat16; the column directions walk
@@ -43,13 +67,14 @@ The same CUDA kernels serve the bfloat16 backbone's cross2d scans
 (``ops/cross2d_scan.py``), whose projection rows are laid out
 ``[rank_0 .. rank_3 | B0 C0 .. B3 C3]``: `N1Layout` says where each
 direction's rank, B and C sit in a row, and the plain twins here take it
-too.  Where a chunk's per-position values fit in `SMEM_CACHE_BUDGET`
-bytes of shared memory, the kernels keep them there between walks
-(`use_cache`).
+too.  The kernels compute z = rank . w_dt in 3xTF32 in both dtypes; in
+bfloat16 the two gradient products take bfloat16 operands (dpre and w_dt
+rounded), float32 sums.
 
 Each wrapper takes its plain twin (`*_plain`, the same sequential walk of
-each chunk) only for CPU tensors; on CUDA tensors it
-launches the kernel, adds one to its ``launches`` count, or raises.
+each chunk, dpre through plain matmuls) only for CPU tensors; on CUDA
+tensors it launches the kernels, adds one to its ``launches`` count, or
+raises.
 """
 
 from __future__ import annotations
@@ -64,17 +89,73 @@ from xfmamba_tpu_torch.ops.nk_scan import CROSS2D_KINDS, traversal_order
 from xfmamba_tpu_torch.ops.primitives import (
     dtype_code, gemm_ab_cuda, gemm_ab_plain, on_cpu, ptr, require, require_cuda, stream)
 
-# chunks per chain: the threads along L of one kernel block (csrc/ss2d_core_n1.cu)
+# checkpoint chunks per chain (the first design's threads along L,
+# csrc/ss2d_core_n1_v1.cu)
 MAX_CHUNKS = 16
 MIN_CHUNK = 8
 MAX_RANK = 64
 # the order in which the directions are walked and merged
 MERGE_ORDER = (0, 2, 1, 3)
-# csrc/ss2d_core_n1.cu: channels of a block, positions of a dB / dC
+# csrc/ss2d_core_n1_v1.cu: channels of a block, positions of a dB / dC
 # reduction, and the shared memory a block may take with its cache
 CHANNELS = 32
 SEG = 8
 SMEM_CACHE_BUDGET = 100 * 1024
+# csrc/ss2d_core_n1.cu: the largest tile side, the channels of a slab, the
+# blocks a launch aims for (two waves of three blocks on each of the H100's
+# 132 SMs), and the most tiles of a map whose forward is one launch of
+# thread-block clusters (the portable cluster size)
+TILE = 8
+SLAB = 32
+TARGET_BLOCKS = 2 * 3 * 132
+FUSE_TILES = 8
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """The tiling of a (B, H, W, D) map: TH x TW tiles (the last ones
+    ragged), nth x ntw of them, NS segment slots per chain, D in n_slabs
+    slabs of `SLAB` channels, P blocks per slab; ``fused``: the forward is
+    one launch of clusters of nth x ntw blocks (an image's tiles), else
+    three launches (pairs, carries, apply)."""
+    TH: int
+    TW: int
+    nth: int
+    ntw: int
+    NS: int
+    n_slabs: int
+    P: int
+    fused: bool
+
+    def key(self, backward: bool = False) -> str:
+        """The plan as a route counter's key: "7x7 one launch" (a forward),
+        "7x7 four launches" (a backward)."""
+        launches = "four launches" if backward else "one launch" if self.fused else \
+            "three launches"
+        return f"{self.TH}x{self.TW} {launches}"
+
+
+def tile_plan(B: int, H: int, W: int, D: int) -> TilePlan:
+    """Tiles of at most `TILE` x `TILE` positions that split H and W as
+    evenly as they can (56 -> 8, 28, 14 and 7 -> 7); each slab's blocks walk
+    the B x nth x ntw (image, tile) items, enough blocks that the launch
+    reaches `TARGET_BLOCKS`, never more than the items.  The forward of a
+    map of at most `FUSE_TILES` tiles (14 x 14 and 7 x 7 of the models) is
+    one launch, a block an item."""
+    nth, ntw = -(-H // TILE), -(-W // TILE)
+    TH, TW = -(-H // nth), -(-W // ntw)
+    nth, ntw = -(-H // TH), -(-W // TW)
+    n_slabs = -(-D // SLAB)
+    P = max(1, min(B * nth * ntw, -(-TARGET_BLOCKS // n_slabs), 65535))
+    fused = nth * ntw <= FUSE_TILES and B * nth * ntw <= 65535
+    return TilePlan(TH, TW, nth, ntw, max(H * ntw, W * nth), n_slabs, P, fused)
+
+
+def count_plan(counted, plan: TilePlan, backward: bool = False) -> None:
+    """One more call of ``counted`` (a wrapper) under ``plan``: its
+    ``by_plan`` route counter."""
+    key = plan.key(backward)
+    counted.by_plan[key] = counted.by_plan.get(key, 0) + 1
 
 
 @dataclass(frozen=True)
@@ -102,10 +183,10 @@ def core_layout(R: int) -> N1Layout:
 
 
 def use_cache(R: int, chunk: int, n_chunks: int, backward: bool) -> bool:
-    """Whether the kernel keeps a chunk's values (a and delta u B forward, h
-    and a backward) in shared memory: the block's shared memory with them
-    (the words of ``n1_smem_bytes`` in ``csrc/ss2d_core_n1.cu``) within
-    `SMEM_CACHE_BUDGET`."""
+    """Whether the first design's kernel keeps a chunk's values (a and
+    delta u B forward, h and a backward) in shared memory: the block's
+    shared memory with them (the words of ``n1_smem_bytes`` in
+    ``csrc/ss2d_core_n1_v1.cu``) within `SMEM_CACHE_BUDGET`."""
     nthr = n_chunks * CHANNELS
     words = R * CHANNELS + 3 * nthr + 2 * chunk * nthr
     if backward:
@@ -271,27 +352,59 @@ def ss2d_core_n1_fwd(x, xdbl, w_dt, A, Ds, bias, chunk=None):
     B, H, W, D, R = _check(x, xdbl, w_dt, A, Ds, bias)
     chunk, n = _n_chunks(H * W, chunk)
     ss2d_core_n1_fwd.launches += 1
+    count_plan(ss2d_core_n1_fwd, tile_plan(B, H, W, D))
     return n1_fwd_launch(x, xdbl, w_dt, A, Ds, bias, chunk, n, core_layout(R))
 
 
 def n1_fwd_launch(x, xdbl, w_dt, A, Dk, bias, chunk, n, layout, checkpoints=True):
-    """Launch the forward kernel on checked operands: x (B, H, W, D), xdbl
+    """Launch the forward kernels on checked operands: x (B, H, W, D), xdbl
     (B, H, W, layout.row).  Returns (y float32 (B, H, W, D), ck or None)."""
+    B, H, W, D = x.shape
+    plan = tile_plan(B, H, W, D)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty(B, H, W, D, **f32)
+    ck = torch.empty(B, 4, n, D, **f32) if checkpoints else None
+    pairs = None if plan.fused else torch.empty(B, 4, plan.NS, D, 2, **f32)
+    lib = build.library()
+    build.check(lib.xfm_ss2d_n1_fwd(
+        ptr(x), ptr(xdbl), ptr(w_dt), ptr(A), ptr(Dk), ptr(bias), ptr(y), ptr(ck), ptr(pairs),
+        B, H, W, D, w_dt.shape[1], chunk, *layout.args(), plan.TH, plan.TW, plan.P,
+        int(plan.fused), dtype_code(x), stream(x)), "ss2d_n1_fwd")
+    return y, ck
+
+
+ss2d_core_n1_fwd.launches = 0
+ss2d_core_n1_fwd.by_plan = {}
+
+
+def ss2d_core_n1_fwd_v1(x, xdbl, w_dt, A, Ds, bias, chunk=None):
+    """Kernel 11's first design (``csrc/ss2d_core_n1_v1.cu``) on CUDA
+    tensors, for timing beside `ss2d_core_n1_fwd`; counted in its own
+    ``launches``."""
+    require_cuda(x, xdbl, w_dt, A, Ds, bias)
+    B, H, W, D, R = _check(x, xdbl, w_dt, A, Ds, bias)
+    chunk, n = _n_chunks(H * W, chunk)
+    ss2d_core_n1_fwd_v1.launches += 1
+    return n1_fwd_launch_v1(x, xdbl, w_dt, A, Ds, bias, chunk, n, core_layout(R))
+
+
+def n1_fwd_launch_v1(x, xdbl, w_dt, A, Dk, bias, chunk, n, layout, checkpoints=True):
+    """`n1_fwd_launch` on the first design's kernel."""
     B, H, W, D = x.shape
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty(B, H, W, D, **f32)
     scratch = torch.empty(B, H, W, D, **f32)
     ck = torch.empty(B, 4, n, D, **f32) if checkpoints else None
     lib = build.library()
-    build.check(lib.xfm_ss2d_n1_fwd(
+    build.check(lib.xfm_ss2d_n1_fwd_v1(
         ptr(x), ptr(xdbl), ptr(w_dt), ptr(A), ptr(Dk), ptr(bias), ptr(y), ptr(scratch),
         ptr(ck), B, H, W, D, w_dt.shape[1], chunk, *layout.args(),
         int(use_cache(w_dt.shape[1], chunk, n, False)), dtype_code(x), stream(x)),
-        "ss2d_n1_fwd")
+        "ss2d_n1_fwd_v1")
     return y, ck
 
 
-ss2d_core_n1_fwd.launches = 0
+ss2d_core_n1_fwd_v1.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -390,8 +503,9 @@ def _adjoint(a, c, gin, reverse):
 
 
 def ss2d_core_n1_bwd(x, xdbl, w_dt, A, Ds, bias, ck, g, chunk=None):
-    """Kernel 12 (and the rank / w_dt gradient GEMMs); see
-    `ss2d_core_n1_bwd_plain` for what it returns."""
+    """Kernel 12 (the rank and w_dt gradients inside it); see
+    `ss2d_core_n1_bwd_plain` for what it returns.  ``ck`` is checked but
+    not read: the kernel recomputes the states it needs."""
     if on_cpu(x, xdbl, w_dt, A, Ds, bias, ck, g):
         return ss2d_core_n1_bwd_plain(x, xdbl, w_dt, A, Ds, bias, ck, g, chunk)
     require_cuda(x, xdbl, w_dt, A, Ds, bias, ck, g)
@@ -401,19 +515,67 @@ def ss2d_core_n1_bwd(x, xdbl, w_dt, A, Ds, bias, ck, g, chunk=None):
     require(g, (B, H, W, D), torch.float32, name="g")
     dxdbl = torch.zeros(B, H, W, 4, R + 2, dtype=torch.float32, device=x.device)
     ss2d_core_n1_bwd.launches += 1
-    r = n1_bwd_launch(x, xdbl, w_dt, A, Ds, bias, ck, g, chunk, n, core_layout(R), dxdbl,
-                      torch.float32)
+    count_plan(ss2d_core_n1_bwd, tile_plan(B, H, W, D), backward=True)
+    r = n1_bwd_launch(x, xdbl, w_dt, A, Ds, bias, g, chunk, core_layout(R), dxdbl)
+    r["dxdbl"] = dxdbl
+    return r
+
+
+def n1_bwd_launch(x, xdbl, w_dt, A, Dk, bias, g, chunk, layout, dxdbl):
+    """Launch the backward kernels on checked operands (x, g (B, H, W, D),
+    xdbl and the float32 dxdbl (B, H, W, layout.row)).  Returns du float32
+    (B, H, W, D), dw_dt (4, R, D), dbias, dA, dD (4, D); d rank, dB and dC
+    are added into dxdbl's columns."""
+    B, H, W, D = x.shape
+    R = w_dt.shape[1]
+    plan = tile_plan(B, H, W, D)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    pairs = torch.empty(B, 4, plan.NS, D, 2, **f32)
+    gpairs = torch.empty(B, 4, plan.NS, D, **f32)
+    du = torch.empty(B, H, W, D, **f32)
+    part_x = torch.empty(plan.n_slabs, B, H, W, 4, R + 2, **f32)
+    part_w = torch.empty(plan.P, 4, R, D, **f32)
+    part_s = torch.empty(plan.P, 3, 4, D, **f32)
+    dw_dt = torch.empty(4, R, D, **f32)
+    dbias, dA, dD = (torch.empty(4, D, **f32) for _ in range(3))
+    lib = build.library()
+    build.check(lib.xfm_ss2d_n1_bwd(
+        ptr(x), ptr(xdbl), ptr(w_dt), ptr(A), ptr(Dk), ptr(bias), ptr(g), ptr(pairs),
+        ptr(gpairs), ptr(du), ptr(part_x), ptr(part_w), ptr(part_s), ptr(dxdbl), ptr(dw_dt),
+        ptr(dbias), ptr(dA), ptr(dD), B, H, W, D, R, chunk, *layout.args(), plan.TH, plan.TW,
+        plan.P, dtype_code(x), stream(x)), "ss2d_n1_bwd")
+    return dict(du=du, dw_dt=dw_dt, dbias=dbias, dA=dA, dD=dD)
+
+
+ss2d_core_n1_bwd.launches = 0
+ss2d_core_n1_bwd.by_plan = {}
+
+
+def ss2d_core_n1_bwd_v1(x, xdbl, w_dt, A, Ds, bias, ck, g, chunk=None):
+    """Kernel 12's first design on CUDA tensors (``csrc/ss2d_core_n1_v1.cu``
+    from the checkpoints, dpre in device memory, then `_rank_grads` on
+    ``primitives.gemm_ab_cuda``), for timing beside `ss2d_core_n1_bwd`;
+    counted in its own ``launches``."""
+    require_cuda(x, xdbl, w_dt, A, Ds, bias, ck, g)
+    B, H, W, D, R = _check(x, xdbl, w_dt, A, Ds, bias)
+    chunk, n = _n_chunks(H * W, chunk)
+    require(ck, (B, 4, n, D), torch.float32, name="ck")
+    require(g, (B, H, W, D), torch.float32, name="g")
+    dxdbl = torch.zeros(B, H, W, 4, R + 2, dtype=torch.float32, device=x.device)
+    ss2d_core_n1_bwd_v1.launches += 1
+    r = n1_bwd_launch_v1(x, xdbl, w_dt, A, Ds, bias, ck, g, chunk, n, core_layout(R), dxdbl,
+                         torch.float32)
     dpre = r.pop("dpre")
     r["dxdbl"] = dxdbl
     r["dw_dt"] = _rank_grads(dpre, xdbl, w_dt, dxdbl, gemm_ab_cuda)
     return r
 
 
-def n1_bwd_launch(x, xdbl, w_dt, A, Dk, bias, ck, g, chunk, n, layout, dxdbl, dpre_dtype):
-    """Launch the backward kernel on checked operands (x, g (B, H, W, D),
-    xdbl and the zeroed float32 dxdbl (B, H, W, layout.row)).  Returns du
-    float32, dpre (B, H, W, 4, D) in ``dpre_dtype``, dbias, dA, dD (4, D);
-    dB and dC land in dxdbl."""
+def n1_bwd_launch_v1(x, xdbl, w_dt, A, Dk, bias, ck, g, chunk, n, layout, dxdbl, dpre_dtype):
+    """The first design's adjoint kernel on checked operands (x, g (B, H,
+    W, D), xdbl and the zeroed float32 dxdbl (B, H, W, layout.row)).
+    Returns du float32, dpre (B, H, W, 4, D) in ``dpre_dtype``, dbias, dA,
+    dD (4, D); dB and dC land in dxdbl."""
     B, H, W, D = x.shape
     R = w_dt.shape[1]
     cache = use_cache(R, chunk, n, True)
@@ -424,15 +586,15 @@ def n1_bwd_launch(x, xdbl, w_dt, A, Dk, bias, ck, g, chunk, n, layout, dxdbl, dp
     dpre = torch.empty(B, H, W, 4, D, dtype=dpre_dtype, device=x.device)
     dbias, dA, dD = (torch.zeros(4, D, **f32) for _ in range(3))
     lib = build.library()
-    build.check(lib.xfm_ss2d_n1_bwd(
+    build.check(lib.xfm_ss2d_n1_bwd_v1(
         ptr(x), ptr(xdbl), ptr(w_dt), ptr(A), ptr(Dk), ptr(bias), ptr(ck), ptr(g), ptr(hs),
         ptr(scratch), ptr(du), ptr(dpre), ptr(dxdbl), ptr(dbias), ptr(dA), ptr(dD),
         B, H, W, D, R, chunk, *layout.args(), int(cache), dtype_code(dpre), dtype_code(x),
-        stream(x)), "ss2d_n1_bwd")
+        stream(x)), "ss2d_n1_bwd_v1")
     return dict(du=du, dpre=dpre, dbias=dbias, dA=dA, dD=dD)
 
 
-ss2d_core_n1_bwd.launches = 0
+ss2d_core_n1_bwd_v1.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -11,11 +11,11 @@ SS2D half on the card.
   VMEM; here the host launches a sequence of hand-written kernels
   (`vss_block_bwd_body`): the forward recompute (LN, GEMMs, conv + SiLU,
   scan, out-norm), the out_proj gradient GEMMs, the out-norm LayerNorm
-  backward, the adjoint scan (the chunked kernel of
-  ``csrc/ss2d_core_n1.cu``, from the recompute's checkpoints,
-  ``ops/cross2d_scan.py``), the rank and w_dt gradient GEMMs, the x_proj gradient GEMMs, the conv + SiLU
-  backward, the in_proj gradient GEMMs and the LN1 backward with the
-  residual gradient added.  Weight gradients are GEMMs that reduce over all
+  backward, the adjoint scan (the tile-parallel kernels of
+  ``csrc/ss2d_core_n1.cu``, ``ops/cross2d_scan.py``, which also take the
+  rank and w_dt gradients on the tensor cores), the x_proj gradient GEMMs,
+  the conv + SiLU backward, the in_proj gradient GEMMs and the LN1
+  backward with the residual gradient added.  Weight gradients are GEMMs that reduce over all
   B * L rows, split along that axis and summed with atomics.  In bfloat16
   every GEMM runs on the tensor-core kernel (``csrc/gemm_tc.cu``; see
   ``primitives.gemm_plan``).
@@ -90,19 +90,12 @@ def vss_block_bwd_body(x, p: VSSBlockOperands, H, W, m1, g, ops):
     grads = dict(w_out=ops.gemm_ab(dout.t(), f.yn.t(), out_dtype=f32))
     dyn = ops.gemm_ab(dout, p.w_out.t(), out_dtype=f32)
     dy, grads["lno_w"], grads["lno_b"] = ops.layer_norm_bwd(dyn, f.y.view(M, di), p.lno_w)
-    # adjoint scan; the B and C gradients land in their columns of dxdbl
+    # adjoint scan with the rank products; the rank, B and C gradients land
+    # in their columns of dxdbl
     dxdbl = torch.zeros(M, 4 * R + 8, dtype=f32, device=x.device)
     s = ops.cross2d_scan_bwd(f.u.view(B, L, di), f.xdbl, p.A, p.b_dt, p.Dsum, p.w_dt, H, W,
                              dy.view(B, L, di), f.ck, dxdbl)
-    grads.update(A=s["dA"], Dsum=s["dDsum"], b_dt=s["dbias"])
-    dz = s["dz"].view(M, 4, di)
-    ranks = f.xdbl.view(M, 4 * R + 8)
-    w_dt = p.w_dt.to(dtype)
-    dw_dt = torch.empty(4, R, di, dtype=f32, device=x.device)
-    for k in range(4):
-        ops.gemm_ab(dz[:, k], w_dt[k], out=dxdbl[:, k * R:(k + 1) * R])
-        dw_dt[k] = ops.gemm_ab(ranks[:, k * R:(k + 1) * R].t(), dz[:, k].t(), out_dtype=f32)
-    grads["w_dt"] = dw_dt
+    grads.update(A=s["dA"], Dsum=s["dDsum"], b_dt=s["dbias"], w_dt=s["dw_dt"])
     dxdbl = dxdbl.to(dtype)
     u = f.u.view(M, di)
     grads["w_xp"] = ops.gemm_ab(dxdbl.t(), u.t(), out_dtype=f32)

@@ -19,12 +19,24 @@ Phases, in order; any failure exits non-zero:
    2048) K=1, the XFMamba-S bs-12 ShallowFuse call (12, 49, 2 x 1536) K=2
    and a 56 x 56 map (2, L, 4 x 192) K=4 at L 3136 and 3127 (a ragged
    chunk), N=16, forward and reverse, float32 and bfloat16, with their
-   float32 times per XFMamba-B step;
+   float32 times per XFMamba-B step; (3d) kernels 2 and 3
+   (``csrc/nk_scan_fused.cu``; 3 holds them bitwise over two runs too) at
+   every fusion geometry of XFMamba-S and -B in both dtypes (ShallowFuse's
+   K=1 and Cross_SS2Dv5's rank-form calls at bs 8 and 32, the bs-16 step's
+   K=4 dts-form call): against their plain versions, bitwise over two
+   runs, and against their first design (the serial scan of
+   ``csrc/nk_scan.cu``, swapped in by `first_design_fusion_scans`) in
+   turns, by CUDA events and graph replay, beside the bound, the bound
+   with every product on the CUDA cores, the exponentials' time on the
+   special-function units, the blocks an SM holds and the plan;
 4. XFMamba-S two-view 224x224 inference in bfloat16 with seeded weights,
    through ``two_view_xfmamba(...)(x_a, x_b)``: one batch of 8 and one of 32
    with the launch counts reset before and read after, then timings (CUDA
-   events) per batch and (4b) per kernel beside the plain versions and
-   the kernels' bounds; (4c) the same in float32, the composable blocks
+   events) per batch, the bs-32 forward with the fusion scans on their
+   first design and redesigned in turns (also in 4c, 7 and 7c), and (4b)
+   per kernel beside the plain versions and the kernels' bounds (kernels
+   2 and 3 also beside their exponentials' SFU time); (4c) the same in
+   float32, the composable blocks
    with kernel 11 (21 launches per forward, no stage kernel); (4d) kernel
    11 per float32 bs-32 forward against its plain twin (y, checkpoints),
    then against its first design (``ss2d_core_n1_fwd_v1``) in turns, and,
@@ -188,7 +200,10 @@ sequence's times, device times, its grid and phase times (3c); for kernel
 7 the float32 per-step times of it and the serial adjoint (6); for
 kernels 11 and 12 their first design's times in the same run, device
 times, the bound with every product on the CUDA cores, the bfloat16 stage
-scans' device times old and new (7e), XFMamba-B's step (6)),
+scans' device times old and new (7e), XFMamba-B's step (6); for kernels 2
+and 3 per bs-32 bfloat16 forward their first design's times and device
+times, the SFU time, the blocks an SM holds and every geometry's device
+times (3d)),
 the line before the last the card's name and power limit, the last
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it prints no result and exits 1.
@@ -196,6 +211,7 @@ Without a CUDA device it prints no result and exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -255,10 +271,10 @@ KERNELS = {
                       source="xfmamba_tpu_torch/csrc/vss_stage.cu",
                       replaces="xfmamba_tpu/ops/vss_block_pallas_v2.py:542"),
     "nk_scan": dict(fn=nk_scan.nk_scan, per_forward=2,
-                    source="xfmamba_tpu_torch/csrc/nk_scan.cu",
+                    source="xfmamba_tpu_torch/csrc/nk_scan_fused.cu",
                     replaces="xfmamba_tpu/ops/vss_block_pallas_v2.py:890"),
     "nk_scan_x": dict(fn=nk_scan.nk_scan_x, per_forward=1,
-                      source="xfmamba_tpu_torch/csrc/nk_scan.cu",
+                      source="xfmamba_tpu_torch/csrc/nk_scan_fused.cu",
                       replaces="xfmamba_tpu/ops/vss_block_pallas_v2.py:944"),
 }
 
@@ -380,12 +396,13 @@ LN_CASES = [((PE_IMAGES, 112, 112), 48, True), ((PE_IMAGES, 56, 56), 96, False),
 
 # the routes of the bfloat16 blocks' pieces, counted per forward or step:
 # the tensor-core and SIMT GEMMs, the chunked cross2d scans (by chunk
-# count) and the serial scans of csrc/nk_scan.cu (which still serves
-# kernels 2 and 3) and csrc/nk_scan_bwd.cu (kernel 7's old design, on no
-# main path)
+# count), the fusion scans (kernels 2 and 3, csrc/nk_scan_fused.cu) and the
+# serial scans of csrc/nk_scan.cu (their first design) and
+# csrc/nk_scan_bwd.cu (kernel 7's), on no main path
 ROUTE_FNS = {"gemm_tc": primitives.gemm_tc_cuda, "gemm_simt": primitives.gemm_simt_cuda,
              "cross2d_scan": cross2d_scan.cross2d_scan,
              "cross2d_scan_bwd": cross2d_scan.cross2d_scan_bwd,
+             "fusion_scan": nk_scan.fusion_scan_cuda,
              "serial_scan": nk_scan.selective_scan_cuda,
              "serial_scan_bwd": nk_scan.selective_scan_bwd_cuda}
 # the tile-parallel d_state-1 scans, whose calls are also counted by tile
@@ -402,14 +419,16 @@ FWD_GEMMS, BWD_GEMMS, RANK_GEMMS = 5, 9, 8
 # route counts per main-path forward (kernel 1) or step (kernels 4-6),
 # filled by phases 4 and 7 for the kernels line
 ROUTES = {}
-# kernels 8 and 7's extra keys of the kernels line (the old designs' times
-# in the same run, device times by CUDA-graph replay), filled by phases 3c
-# and 6
+# the redesigned kernels' extra keys of the kernels line (the old designs'
+# times in the same run, device times by CUDA-graph replay), filled by
+# phases 3c, 3d and 6
 V1_EXTRA = {}
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense operations/s by type
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense operations/s by
+# type; the special-function units' exponentials per SM and clock
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+SMS, SFU_PER_SM_CLOCK = 132, 16
 
 
 class PhaseFailure(RuntimeError):
@@ -513,7 +532,10 @@ def n1_work(n, H, D, R, backward=False, dtype=torch.float32):
 
 def nk_work(n, L, D, K, N, dtype, R=0, backward=False):
     """Kernels 2, 3 (``R``: rank form with the out-norm) and 7
-    (``backward``) on (n, L, D) maps."""
+    (``backward``) on (n, L, D) maps.  Kernel 3's rank product z = ranks
+    w_dt (2 n L K R D) counts at the tensor-core rate it runs at (bf16 for
+    bfloat16, TF32 for float32); `Work.simt_bound` puts it on the CUDA
+    cores, the count of its first design."""
     esize = torch.finfo(dtype).bits // 8
     # u, B, C and the deltas (or their ranks) in; y out, or g in and du,
     # dB, dC (float32) and the deltas' gradient out
@@ -522,8 +544,23 @@ def nk_work(n, L, D, K, N, dtype, R=0, backward=False):
         per_pos += (D + K * D) * esize + (D + 2 * K * N) * 4
         return Work().add(n * L * per_pos, f32=scan_bwd_ops(n * L, D, K, N))
     per_pos += D * esize
+    prod = "bf16" if dtype == torch.bfloat16 else "tf32"
     return Work().add(n * L * per_pos + 4 * K * R * D,
-                      f32=scan_ops(n * L, D, K, N, R) + (8 * n * L * D if R else 0))
+                      f32=scan_ops(n * L, D, K, N) + (8 * n * L * D if R else 0)).add(
+        **{prod: 2 * n * L * K * R * D})
+
+
+def sm_clock_mhz():
+    """The card's highest SM clock (nvidia-smi), in MHz."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+
+
+def sfu_ms(n, L, D, K, N, clock_mhz):
+    """The fusion scans' exponentials (n L D K N) on the special-function
+    units at 16 per SM per clock: a floor beside the bound, not in it."""
+    return 1e3 * n * L * D * K * N / (SMS * SFU_PER_SM_CLOCK * clock_mhz * 1e6)
 
 
 def grouped_work(B, L, K, C, N, dtype, backward=False):
@@ -752,19 +789,158 @@ def phase_compare(errors):
             with torch.no_grad():
                 got = kernel(*args)
                 want = plain(*args)
+                # kernels 2 and 3 sum in a fixed order: the same bits on every run
+                same = name not in ("nk_scan", "nk_scan_x") or torch.equal(got, kernel(*args))
             torch.cuda.synchronize()
             pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
             err = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
             rel = max(float((a.float() - b.float()).abs().max() / b.float().abs().max())
                       for a, b in pairs)
-            ok = all(bool(torch.isfinite(a).all()) for a, _ in pairs) and rel <= TOL[dtype]
+            ok = all(bool(torch.isfinite(a).all()) for a, _ in pairs) and rel <= TOL[dtype] \
+                and same
             errors[name] = max(errors.get(name, 0.0), err)
             print(f"  {name:9s} {label:52s} {str(dtype)[6:]:8s} max_abs_err={err:.3e} "
-                  f"rel={rel:.3e} tol={TOL[dtype]:.0e} {'OK' if ok else 'FAIL'}")
+                  f"rel={rel:.3e} tol={TOL[dtype]:.0e}{'' if same else ' two runs differ'} "
+                  f"{'OK' if ok else 'FAIL'}")
             if not ok:
                 failed.append((name, label, dtype))
     if failed:
         raise PhaseFailure(f"kernels disagree with their plain versions: {failed}")
+
+
+@contextlib.contextmanager
+def first_design_fusion_scans():
+    """Kernels 2 and 3 on their first design while open: `nk_scan` and
+    `nk_scan_x` call the serial scan of ``csrc/nk_scan.cu`` on the same
+    operands (the old-against-new timings of phases 3d, 4, 4c, 7, 7c)."""
+    fused = nk_scan.fusion_scan_cuda
+    nk_scan.fusion_scan_cuda = nk_scan.selective_scan_cuda
+    try:
+        yield
+    finally:
+        nk_scan.fusion_scan_cuda = fused
+
+
+def on_first_design(fn):
+    def run():
+        with first_design_fusion_scans():
+            return fn()
+    return run
+
+
+def fusion_cases(g, size, dtype):
+    """(label, (args, kernel, plain), images, K): kernels 2 and 3 at every
+    fusion geometry of the model: ShallowFuse's K=1 call and Cross_SS2Dv5's
+    rank-form call at bs 8 and 32, the training step's K=4 dts-form call at
+    bs 16."""
+    L, D, R = FUSION[size]["H"] ** 2, FUSION[size]["D"], FUSION[size]["R"]
+    for bs in (8, 32):
+        yield f"ShallowFuse bs {bs} ({bs},{L},{D}) K=1", shallow_case(g, bs, dtype, size), bs, 1
+        yield (f"Cross_SS2Dv5 bs {bs} ({3 * bs},{L},{D}) K=4 R={R}",
+               cross_case(g, bs, dtype, size), 3 * bs, 4)
+    a = nk_bwd_case(g, 3 * TRAIN_BATCH, 4, dtype, size)
+    yield (f"step's K=4 call bs {TRAIN_BATCH} ({3 * TRAIN_BATCH},{L},{D})",
+           (a[:7] + a[8:], nk_scan.nk_scan, nk_scan.nk_scan_plain), 3 * TRAIN_BATCH, 4)
+
+
+def fusion_probe(args, kernel, **probe):
+    """`fusion_scan_cuda` on the operands of ``args`` with a probe
+    (``blocks_per_sm`` or ``phase_ns``)."""
+    if kernel is nk_scan.nk_scan:
+        u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds = args
+        deltas = dict(dts=dts.view(*u.shape[:2], len(kinds), u.shape[2]), out_dtype=u.dtype)
+    else:
+        u, ranks, Bs, Cs, w_dt, A, Dvec, bias, _, H, W, kinds = args
+        deltas = nk_scan._rank_operands(u, ranks, w_dt, kinds)
+    return nk_scan.fusion_scan_cuda(H=H, W=W, **probe, **deltas,
+                                    **nk_scan._nk_operands(u, Bs, Cs, A, Dvec, bias, kinds))
+
+
+def out_norm_graph_ms(args):
+    """Device ms of kernel 3's out-norm launch alone (the row LayerNorm of
+    ``csrc/vss_stage.cu`` on a float32 y of the call's shape)."""
+    u, lno = args[0], args[8].float()
+    y = torch.randn(u.shape[0] * u.shape[1], u.shape[2], device="cuda")
+    w, b = lno[0].contiguous(), lno[1].contiguous()
+    return graph_ms(lambda: primitives.layer_norm_cuda(y, w, b, u.dtype), 10)
+
+
+def phase_fusion_scans(errors, card):
+    """Kernels 2 and 3 (``csrc/nk_scan_fused.cu``) at every fusion geometry
+    of XFMamba-S and -B in both dtypes: against their plain versions,
+    bitwise over two runs, and against their first design (the serial scan)
+    in turns, by CUDA events and graph replay, beside the bound (rank
+    products on the tensor cores), the bound with every product on the
+    CUDA cores, the exponentials' SFU time, the blocks an SM holds, the
+    plan and a block's mean time in each phase (the kernel's phase clock).
+    Kernel 3's rows include its out-norm launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    clock = sm_clock_mhz()
+    print(f"phase 3d: kernels 2 and 3 at every fusion geometry, against their plain versions "
+          f"and their first design (the serial scan) in turns; ms per call, device time by graph "
+          f"replay; SFU: the exponentials at {SFU_PER_SM_CLOCK} per SM per clock on {SMS} SMs at "
+          f"{clock:.0f} MHz ({card})")
+    g = torch.Generator().manual_seed(7)
+    failed = []
+    rows = {}
+    for size in STAGES:
+        H, D, N, R = (FUSION[size][k] for k in "HDNR")
+        for dtype in (torch.bfloat16, torch.float32):
+            for label, (args, kernel, plain), n, K in fusion_cases(g, size, dtype):
+                name = "nk_scan" if kernel is nk_scan.nk_scan else "nk_scan_x"
+                nk_scan.fusion_scan_cuda.by_plan.clear()
+                with torch.no_grad():
+                    got, again, want = kernel(*args), kernel(*args), plain(*args)
+                    torch.cuda.synchronize()
+                    err = float((got.float() - want.float()).abs().max())
+                    rel_err = err / float(want.float().abs().max())
+                    same = torch.equal(got, again)
+                    plan = ", ".join(nk_scan.fusion_scan_cuda.by_plan)
+                    calls = {"old": on_first_design(lambda: kernel(*args)),
+                             "new": lambda: kernel(*args)}
+                    ev = in_turns(calls, lambda fn: time_ms(fn, 10))
+                    gr = in_turns(calls, lambda fn: graph_ms(fn, 10))
+                    blocks = fusion_probe(args, kernel, blocks_per_sm=True)
+                    phases = fusion_probe(args, kernel, phase_ns=True)
+                    ln = out_norm_graph_ms(args) if name == "nk_scan_x" else None
+                ok = same and rel_err <= TOL[dtype] and bool(torch.isfinite(got).all())
+                errors[name] = max(errors.get(name, 0.0), err)
+                work = nk_work(n, H * H, D, K, N, dtype, R=R if name == "nk_scan_x" else 0)
+                bound, by = work.bound()
+                sfu = sfu_ms(n, H * H, D, K, N, clock)
+                rows[(size, dtype, label)] = dict(ms=ev["new"], serial_ms=ev["old"],
+                                                  graph_ms=gr["new"], serial_graph_ms=gr["old"],
+                                                  bound_ms=bound, simt_bound_ms=work.simt_bound(),
+                                                  sfu_ms=sfu, blocks_per_sm=blocks)
+                if ln is not None:
+                    rows[(size, dtype, label)]["out_norm_graph_ms"] = ln
+                print(f"  {MODEL_NAME[size]} {label:40s} {str(dtype)[6:]:8s} rel={rel_err:.2e} "
+                      f"{'bitwise' if same else 'two runs differ'} {'OK' if ok else 'FAIL'}; "
+                      f"new {ev['new']:.4f} (device {gr['new']:.4f}) ms, first design "
+                      f"{ev['old']:.4f} (device {gr['old']:.4f}); bound {bound:.4f} ({by}), every "
+                      f"product on the CUDA cores {work.simt_bound():.4f}; SFU time {sfu:.4f}; "
+                      f"{'' if ln is None else f'the out-norm launch alone {ln:.4f} (device); '}"
+                      f"{blocks} blocks an SM; {plan}; a block's phases (us): "
+                      + ", ".join(f"{k} {v / 1e3:.2f}" for k, v in phases.items()))
+                if not ok:
+                    failed.append((MODEL_NAME[size], label, str(dtype)))
+    if failed:
+        raise PhaseFailure(f"kernels 2 / 3 disagree with their plain versions or between runs: "
+                           f"{failed}")
+    # per main-path bs-32 bfloat16 forward: two ShallowFuse calls, one Cross_SS2Dv5 call
+    for name, label, calls in (("nk_scan", "ShallowFuse bs 32", 2),
+                               ("nk_scan_x", "Cross_SS2Dv5 bs 32", 1)):
+        row = next(r for (size, dtype, lab), r in rows.items()
+                   if size == "small" and dtype == torch.bfloat16 and lab.startswith(label))
+        # the line's ms and bound_ms are phase 4b's (per forward, the same geometry)
+        V1_EXTRA[name] = {k: calls * v for k, v in row.items()
+                          if k not in ("ms", "bound_ms", "blocks_per_sm")} | {
+            "per": "bs-32 bfloat16 XFMamba-S forward", "blocks_per_sm": row["blocks_per_sm"],
+            "geometries": {f"{MODEL_NAME[size]} {lab} {str(dtype)[6:]}": {
+                k: round(v, 5) for k, v in r.items() if k in ("graph_ms", "serial_graph_ms")}
+                for (size, dtype, lab), r in rows.items()
+                if (name == "nk_scan_x") == lab.startswith("Cross")}}
 
 
 def grouped_case(g, B, L, K, C, N, dtype):
@@ -1244,7 +1420,8 @@ def phase_model(model, card):
     blocks = sum(depth for _, _, depth in STAGES["small"])
     check_routes("bs-32 forward", routes, {
         "gemm_tc": FWD_GEMMS * blocks, "gemm_simt": 0, "cross2d_scan": blocks,
-        "serial_scan": KERNELS["nk_scan"]["per_forward"] + KERNELS["nk_scan_x"]["per_forward"]})
+        "fusion_scan": KERNELS["nk_scan"]["per_forward"] + KERNELS["nk_scan_x"]["per_forward"],
+        "serial_scan": 0})
     ROUTES["vss_stage"] = routes
     with torch.no_grad():
         for kept in (False, True):
@@ -1256,7 +1433,18 @@ def phase_model(model, card):
                 print(f"  bs {bs}{', pack_for_inference' if kept else ''}: {ms:.2f} ms per batch "
                       f"(median of 3 runs of 5: {', '.join(f'{s:.2f}' for s in samples)}), "
                       f"{1000 * bs / ms:.1f} two-view samples/s ({card})")
+        fusion_scans_in_turns("bs 32, pack_for_inference", lambda: model(*inputs[32]), card)
     return {name: n // 2 for name, n in launches.items()}         # per forward
+
+
+def fusion_scans_in_turns(label, fn, card, timer=None):
+    """``fn`` (a forward or a step) with kernels 2 and 3 on their first
+    design and on the new one, in turns; median of 3 runs of 5 calls
+    (``timer``: another median)."""
+    timer = timer or (lambda f: sorted(time_ms(f, 5) for _ in range(3))[1])
+    t = in_turns({"first design": on_first_design(fn), "new": fn}, timer)
+    print(f"  {label}, fusion scans on their first design / redesigned, in turns: "
+          f"{t['first design']:.2f} / {t['new']:.2f} ms ({card})")
 
 
 def phase_kernel_times(card):
@@ -1276,12 +1464,17 @@ def phase_kernel_times(card):
                 "nk_scan_x": nk_work(96, 49, 1536, 4, 16, bf16, R=48)}
         for H, d, depth in STAGES["small"]:
             work["vss_stage"] += block_work(64, H, d, bf16, mlp=True).times(depth)
+        clock = sm_clock_mhz()
+        sfu = {"nk_scan": 2 * sfu_ms(32, 49, 1536, 1, 16, clock),
+               "nk_scan_x": sfu_ms(96, 49, 1536, 4, 16, clock)}
         for name, group in cases.items():
             ms = sum(time_ms(lambda a=args, f=kernel: f(*a), 5) for args, kernel, _ in group)
             plain_ms = sum(time_ms(lambda a=args, f=plain: f(*a), 1) for args, _, plain in group)
             times[name] = (ms, plain_ms, *work[name].bound())
+            extra = (f"   every product on the CUDA cores {work[name].simt_bound():.4f} ms   SFU "
+                     f"time of the exponentials {sfu[name]:.4f} ms" if name in sfu else "")
             print(f"  {name:9s} kernel {ms:9.3f} ms   plain {plain_ms:9.3f} ms   bound "
-                  f"{times[name][2]:.4f} ms ({times[name][3]})")
+                  f"{times[name][2]:.4f} ms ({times[name][3]}){extra}")
     return times
 
 
@@ -1317,6 +1510,7 @@ def phase_model_f32(model, card, phase="4c", name="XFMamba-S"):
             print(f"  bs {bs}: {samples[1]:.2f} ms per batch (median of 3 runs of 5: "
                   f"{', '.join(f'{v:.2f}' for v in samples)}), "
                   f"{1000 * bs / samples[1]:.1f} two-view samples/s ({card})")
+        fusion_scans_in_turns("bs 32", lambda: model(*inputs[32]), card)
     return launches["ss2d_core_n1_fwd"] // 2                          # per forward
 
 
@@ -1654,8 +1848,11 @@ def compare_fusion(errors, g, dtype, failed, times, size):
         label = f"({bs},49,{D}) K={K} N=16"
         args = nk_bwd_case(g, bs, K, dtype, size)
         fwd_args = args[:7] + args[8:]
+        y = nk_scan.nk_scan(*fwd_args)
+        if not torch.equal(y, nk_scan.nk_scan(*fwd_args)):
+            failed.append(("nk_scan", label, str(dtype), "two runs differ", float("nan")))
         check_outputs(errors, "nk_scan", f"{MODEL_NAME[size]} fusion scan {label}", dtype,
-                      [nk_scan.nk_scan(*fwd_args)], [nk_scan.nk_scan_plain(*fwd_args)], failed)
+                      [y], [nk_scan.nk_scan_plain(*fwd_args)], failed)
         got = nk_scan_adjoint.nk_scan_bwd(*args)
         again = nk_scan_adjoint.nk_scan_bwd(*args)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -1794,7 +1991,7 @@ def phase_train(card):
     check_routes("step", routes, {
         "gemm_tc": (FWD_GEMMS + BWD_GEMMS) * blocks, "gemm_simt": 0,
         "cross2d_scan": 2 * blocks, "cross2d_scan_bwd": blocks,
-        "serial_scan": want["nk_scan"], "serial_scan_bwd": 0})
+        "fusion_scan": want["nk_scan"], "serial_scan": 0, "serial_scan_bwd": 0})
     ROUTES["vss_stage_train"] = ROUTES["vss_block_bwd"] = routes
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         raise PhaseFailure(f"training loss not finite or not falling: {losses}")
@@ -1803,6 +2000,8 @@ def phase_train(card):
     print(f"  {samples[1]:.2f} ms per step (median of 3 runs of 3 steps: "
           f"{', '.join(f'{v:.2f}' for v in samples)}); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})")
+    fusion_scans_in_turns("step", lambda: step(batch), card,
+                          lambda f: timed_steps(lambda b: f(), batch)[1])
     model.mamba_feature_extrac.use_checkpoint = True
     reset_counts()
     reset_routes()
@@ -2058,6 +2257,9 @@ def phase_train_f32(card, size, phase, n1_times):
         print(f"  {'use_checkpoint: ' if checkpointed else ''}{samples[1]:.2f} ms per step "
               f"(median of 3 runs of 3 steps: {', '.join(f'{v:.2f}' for v in samples)}); peak "
               f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})")
+        if not checkpointed:
+            fusion_scans_in_turns("step", lambda: step(batch), card,
+                                  lambda f: timed_steps(lambda b: f(), batch)[1])
     print(f"  per step (phase 6, the same shapes): kernel 11 {n1_times['fwd']['ms']:.3f} ms, "
           f"kernel 12 {n1_times['bwd']['ms']:.3f} ms (its bound "
           f"{n1_times['work'].bound()[0]:.4f} ms)")
@@ -2823,6 +3025,7 @@ def main() -> int:
     print(f"  {path} ({time.time() - t0:.1f} s)\n{log.strip()}")
     errors = {}
     phase_compare(errors)
+    phase_fusion_scans(errors, card)
     times = phase_compare_grouped(errors, card)
     times |= phase_compare_v1(errors, card)
     model = two_view_xfmamba("small", seed=0)

@@ -1,5 +1,5 @@
 // A CPU stand-in for the CUDA runtime, enough to compile and run a kernel
-// source of xfmamba_tpu_torch/csrc with g++ (tests/test_torch_n1_emulated.py):
+// source of xfmamba_tpu_torch/csrc with g++ (tests/test_torch_*_emulated.py):
 // one std::thread per CUDA thread, the blocks of a launch one after
 // another (the blocks of a thread-block cluster together, cudaLaunchKernelEx
 // with a cluster dimension), __syncthreads a barrier of the block, a
@@ -22,6 +22,7 @@
 #define __forceinline__ inline
 #define __shared__
 #define __launch_bounds__(...)
+#define __align__(n) alignas(n)
 
 struct uint3 {
   unsigned x, y, z;
@@ -58,9 +59,17 @@ template <class K>
 cudaError_t cudaFuncSetAttribute(K, int, int) {
   return cudaSuccess;
 }
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, K, int, size_t) {
+  *blocks = 1;
+  return cudaSuccess;
+}
 
 struct float2 {
   float x, y;
+};
+struct float4 {
+  float x, y, z, w;
 };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 using std::max;
@@ -107,19 +116,19 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
   return r;
 }
 
-// The blocks of one cluster (cluster dims cx, cy, 1 from block (x0, y0)),
+// The blocks of one cluster (cluster dims cx, cy, 1 from block (x0, y0, z0)),
 // run together; shared memory starts as NaN, so that a read before a write
 // shows in the results.
 template <class K, class... A>
-void emu_run_cluster(K kernel, unsigned x0, unsigned y0, unsigned cx, unsigned cy, size_t smem,
-                     A... args) {
+void emu_run_cluster(K kernel, unsigned x0, unsigned y0, unsigned z0, unsigned cx, unsigned cy,
+                     size_t smem, A... args) {
   const int n = blockDim.x * blockDim.y * blockDim.z;
   std::vector<std::unique_ptr<EmuBlock>> blocks;
   std::vector<EmuBlock*> by_rank;
   for (unsigned ry = 0; ry < cy; ++ry)
     for (unsigned rx = 0; rx < cx; ++rx) {
       auto b = std::make_unique<EmuBlock>();
-      b->idx = {x0 + rx, y0 + ry, 0};
+      b->idx = {x0 + rx, y0 + ry, z0};
       b->smem.assign(smem / 4 + 1, std::nanf(""));
       b->barrier = std::make_unique<std::barrier<>>(n);
       for (int w = 0; w < (n + 31) / 32; ++w)
@@ -145,13 +154,15 @@ void emu_run_cluster(K kernel, unsigned x0, unsigned y0, unsigned cx, unsigned c
   for (auto& t : threads) t.join();
 }
 
-// kernel<<<grid, block, smem, stream>>>(args...), 1-D blocks
+// kernel<<<grid, block, smem, stream>>>(args...), 1-D blocks, the blocks in turn
 template <class K, class... A>
 void emu_launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... args) {
   gridDim = grid;
   blockDim = block;
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) emu_run_cluster(kernel, bx, by, 1, 1, smem, args...);
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx)
+        emu_run_cluster(kernel, bx, by, bz, 1, 1, smem, args...);
 }
 
 template <class... P, class... A>
@@ -169,7 +180,7 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(P..
   blockDim = cfg->blockDim;
   for (unsigned by = 0; by < grid.y; by += cy)
     for (unsigned bx = 0; bx < grid.x; bx += cx)
-      emu_run_cluster(kernel, bx, by, cx, cy, cfg->dynamicSmemBytes, P(args)...);
+      emu_run_cluster(kernel, bx, by, 0, cx, cy, cfg->dynamicSmemBytes, P(args)...);
   return cudaSuccess;
 }
 

@@ -181,6 +181,101 @@ def test_nk_scan_and_nk_scan_x(dev, dtype):
     assert rel_err(got, want) < TOL[dtype]
 
 
+# kernels 2 and 3 at the fusion geometries of XFMamba-S and -B (7 x 7, N 16,
+# D 1536 / 2048, dt rank 48 / 64): ShallowFuse's K=1 call at bs images,
+# Cross_SS2Dv5's rank-form K=4 call at 3 bs, the step's K=4 dts-form call
+FUSION_GEOMETRY = {"small": (1536, 48), "base": (2048, 64)}
+
+
+def _fusion_call(g, dtype, size, form, n):
+    D, R = FUSION_GEOMETRY[size]
+    K = 1 if form == "shallow" else 4
+    kinds = ("row_f",) if K == 1 else nk_scan.scan_mode_kinds("cross2d")
+    u = randn(g, n, 49, D, dtype=dtype)
+    Bs, Cs = randn(g, n, 49, K * 16, dtype=dtype), randn(g, n, 49, K * 16, dtype=dtype)
+    A = decay_rates(K, 16, D).reshape(K * 16, D)
+    Dvec, bias = randn(g, K, D), randn(g, K, D, scale=0.5) - 4.0
+    if form == "cross":
+        ranks, w_dt = randn(g, n, 49, K * R, dtype=dtype), randn(g, K * R, D, scale=R ** -0.5)
+        lno = torch.stack([1 + randn(g, D, scale=0.1), randn(g, D, scale=0.1)])
+        return ((u, ranks, Bs, Cs, w_dt, A, Dvec, bias, lno, 7, 7, kinds), nk_scan.nk_scan_x,
+                nk_scan.nk_scan_x_plain)
+    dts = randn(g, n, 49, K * D, dtype=dtype, scale=0.5)
+    return (u, dts, Bs, Cs, A, Dvec, bias, 7, 7, kinds), nk_scan.nk_scan, nk_scan.nk_scan_plain
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("size", ["small", "base"])
+@pytest.mark.parametrize("form,bs", [("shallow", 8), ("shallow", 32), ("cross", 8),
+                                     ("cross", 32), ("step", 16)])
+def test_fusion_scans_at_model_geometries(dev, dtype, size, form, bs):
+    """Kernels 2 and 3 (``csrc/nk_scan_fused.cu``) against their plain
+    versions at every fusion geometry of both models, in one launch each
+    (the whole-map plan), and bitwise equal over two runs."""
+    g = torch.Generator().manual_seed(7)
+    args, kernel, plain = _fusion_call(g, dtype, size, form, bs * (1 if form == "shallow" else 3))
+    before = nk_scan.fusion_scan_cuda.launches
+    got = kernel(*args)
+    assert nk_scan.fusion_scan_cuda.launches == before + 1
+    assert torch.equal(got, kernel(*args))
+    assert rel_err(got, plain(*args)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("form", ["cross", "step"])
+def test_fusion_scan_plans_agree(dev, monkeypatch, dtype, form):
+    """The chunked plan (a block per kind, 7 chunks of 7 positions, the
+    kinds' parts summed by a second launch) and the whole-map plan with the
+    ranks of one kind at a time give the whole-map plan's bits."""
+    g = torch.Generator().manual_seed(8)
+    args, kernel, _ = _fusion_call(g, dtype, "small", form, 6)
+    want = kernel(*args)
+    real = nk_scan.fusion_scan_plan
+    with monkeypatch.context() as mp:
+        mp.setattr(nk_scan, "fusion_scan_plan", lambda *a: (*real(*a)[:2], 1))
+        assert torch.equal(kernel(*args), want)
+    monkeypatch.setattr(nk_scan, "FUSION_SMEM", 0)
+    monkeypatch.setattr(nk_scan, "FUSION_CHUNK", 7)
+    nk_scan.fusion_scan_cuda.by_plan.clear()
+    assert torch.equal(kernel(*args), want)
+    assert list(nk_scan.fusion_scan_cuda.by_plan)[0].startswith("chunked x7")
+
+
+@pytest.mark.parametrize("form", ["shallow", "cross"])
+def test_fusion_scan_phase_clock(dev, form):
+    """The kernels' phase clock (``phase_ns``) reads each phase of a block,
+    none negative, their sum the block's time, and counts no launch."""
+    g = torch.Generator().manual_seed(10)
+    args, kernel, _ = _fusion_call(g, torch.bfloat16, "small", form, 6)
+    if kernel is nk_scan.nk_scan:
+        u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds = args
+        deltas = dict(dts=dts.view(6, 49, 1, 1536), out_dtype=u.dtype)
+    else:
+        u, ranks, Bs, Cs, w_dt, A, Dvec, bias, _, H, W, kinds = args
+        deltas = nk_scan._rank_operands(u, ranks, w_dt, kinds)
+    before = nk_scan.fusion_scan_cuda.launches
+    phases = nk_scan.fusion_scan_cuda(H=H, W=W, phase_ns=True, **deltas,
+                                      **nk_scan._nk_operands(u, Bs, Cs, A, Dvec, bias, kinds))
+    assert nk_scan.fusion_scan_cuda.launches == before
+    assert set(phases) == set(nk_scan.FUSION_PHASES) | {"block"}
+    parts = [phases[k] for k in nk_scan.FUSION_PHASES]
+    assert min(parts) >= 0 and phases["block"] > 0
+    assert abs(sum(parts) - phases["block"]) <= 1e-6 * phases["block"] + 1
+
+
+def test_fusion_scan_holds_two_blocks_an_sm(dev):
+    """A whole-map block of the bs-32 Cross_SS2Dv5 call (512 threads,
+    bfloat16 and float32) leaves room for a second on each SM."""
+    g = torch.Generator().manual_seed(9)
+    for dtype in DTYPES:
+        (u, ranks, Bs, Cs, w_dt, A, Dvec, bias, _, H, W, kinds), _, _ = _fusion_call(
+            g, dtype, "small", "cross", 96)
+        ops = nk_scan._nk_operands(u, Bs, Cs, A, Dvec, bias, kinds)
+        blocks = nk_scan.fusion_scan_cuda(H=H, W=W, blocks_per_sm=True, **ops,
+                                          **nk_scan._rank_operands(u, ranks, w_dt, kinds))
+        assert blocks == 2
+
+
 def test_tiny_model_card_matches_cpu(dev, route):
     g = torch.Generator().manual_seed(6)
     model = TwoViewXFMamba(model_type="tiny", hidden_dim=128, d_state=4,

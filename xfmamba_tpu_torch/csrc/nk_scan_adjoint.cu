@@ -47,14 +47,6 @@ namespace xfm {
 
 constexpr int kAdjFlush = 8;       // positions between the dB / dC flushes
 constexpr int kAdjMaxThreads = 256;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x on the special-function unit (flushes results below 2^-126 to 0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 struct NkAdjParams {
   const void* u;      // (n_img, L, D) T

@@ -272,22 +272,6 @@ __device__ __forceinline__ void n1t_stage_inputs(const N1TParams& p, const N1Til
   }
 }
 
-// softplus with threshold 20 (common.cuh's softplus20) at a few
-// instructions: max(z, 0) + log1p(t), t = e^-|z| in (0, 1], log1p(t) =
-// 2 atanh(s) with s = t / (2 + t) <= 1/3, the series to s^13 (relative
-// error below 2e-8 besides __expf's and the division's few ulp).
-__device__ __forceinline__ float n1t_softplus(float z) {
-  if (z > 20.f) return z;
-  const float t = __expf(-fabsf(z));
-  const float s = __fdividef(t, 2.f + t), s2 = s * s;
-  float q = fmaf(s2, 1.f / 13, 1.f / 11);
-  q = fmaf(s2, q, 1.f / 9);
-  q = fmaf(s2, q, 1.f / 7);
-  q = fmaf(s2, q, 1.f / 5);
-  q = fmaf(s2, q, 1.f / 3);
-  return fmaxf(z, 0.f) + 2.f * s * fmaf(s2, q, 1.f);
-}
-
 // sigmoid(z) from delta = softplus(z): 1 - e^-delta, by its series to
 // delta^6 below 0.25 (no cancellation; truncation below 5e-8 relative),
 // __expf above (below 1e-6 relative there).
@@ -324,7 +308,7 @@ __device__ __forceinline__ void n1t_elementwise(const N1TParams& p, const N1Tile
         e_s[o] = 0.f;
         continue;
       }
-      const float delta = n1t_softplus(a_s[o] + bias_k);
+      const float delta = softplus20_fast(a_s[o] + bias_k);
       a_s[o] = active ? __expf(delta * a_k) : 1.f;
       e_s[o] = !active ? 0.f : BACKWARD ? delta : delta * u_s[q * kZS + c] * bc_s[q * 8 + 2 * k];
     }

@@ -84,7 +84,6 @@ constexpr int kMaxP = 32;       // head width
 constexpr int kPad = 4;         // floats of padding per shared row
 constexpr int kLdc = kC + kPad;
 constexpr size_t kMaxSmem = 232448;
-constexpr float kLog2e = 1.4426950408889634f;
 
 static_assert(kC == 64 && kThreads == 256, "the tilings assume 64-row chunks and 8 warps");
 

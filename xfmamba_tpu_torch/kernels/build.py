@@ -32,7 +32,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # name -> argtypes of the C entry points that return an int: a cudaError_t
-# (xfm_vss_block_v1_grid: a block count, or a negated cudaError_t)
+# (xfm_vss_block_v1_grid: a block count, or a negated cudaError_t;
+# xfm_fusion_scan_smem: bytes of shared memory)
 _SIGNATURES = {
     "xfm_gemm": [_P] * 6 + [_LL, _I, _I] + [_LL] * 5 + [_I] * 6 + [_P],
     "xfm_gemm_tc": [_P] * 6 + [_LL, _I, _I] + [_LL] * 6 + [_I] * 10 + [_P],
@@ -64,6 +65,8 @@ _SIGNATURES = {
     "xfm_vss_block_v1": [_P] * 23 + [_I] * 9 + [_P],
     "xfm_vss_block_v1_grid": [_I],
     "xfm_nk_scan_adjoint": [_P] * 20 + [_I] * 10 + [_P],
+    "xfm_fusion_scan": [_P] * 11 + [_I] * 13 + [_P] * 3,
+    "xfm_fusion_scan_smem": [_I] * 8,
 }
 # entry points that return something other than a cudaError_t
 _RESTYPES = {"xfm_vss_block_v1_workspace": ([_LL] + [_I] * 5, ctypes.c_longlong)}

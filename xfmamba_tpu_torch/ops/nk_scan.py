@@ -1,10 +1,17 @@
-"""Whole-map selective scans: the shared scan kernel of ``csrc/nk_scan.cu``
-and the two fusion-op kernels built on it.
+"""Whole-map selective scans: the fusion-op kernels 2 and 3
+(``csrc/nk_scan_fused.cu``) and the first design's serial scan
+(``csrc/nk_scan.cu``), which the serial routes keep.
 
-- `selective_scan_cuda`: the CUDA scan (K traversal kinds x N states,
-  deltas precomputed or in rank form) beside its plain version
-  `selective_scan_plain`.  Kernel 1 (``ops/vss_stage.py``) calls it for the
-  backbone's cross2d scans.
+- `fusion_scan_cuda`: kernels 2 and 3 (K traversal kinds x N states,
+  deltas precomputed or in rank form), one block per (image, 32-channel
+  slab) staging its map slice on chip, the rank projection on the tensor
+  cores, every kind walked in parallel by four lanes per chain and the
+  kinds' parts of y summed in a fixed order; `fusion_scan_plan` says how a
+  map is staged.  Its plain version is `selective_scan_plain`.
+- `selective_scan_cuda`: the serial scan of the first design (one thread
+  per chain, the kinds one after another), beside the same plain version.
+  ``ops/cross2d_scan.py::serial_scan`` and ``ops/vss_stage.py::SERIAL_OPS``
+  call it; no main path does.
 - `nk_scan`: port of ``xfmamba_tpu/ops/vss_block_pallas_v2.py::
   nk_scan_call_v2`` (:1076), the dispatcher of the fusion scans from
   precomputed deltas: kernel 2 (TPU kernel ``_nk_scan_kernel_v2`` :890) by
@@ -26,13 +33,17 @@ column kinds, which walk t = w * H + h).  `scan_mode_kinds` is the one
 mapping from an SS2D scan mode to kinds.  `kind_pairs` copies the TPU
 helper ``nk_scan_v2_kind_pairs`` (:1052), which pairs forward and reverse
 chains: kernel 18 interleaves each pair in one loop, and both ablation
-gates refuse kinds it cannot pair.  Kernel 2 walks each kind on its own.
+gates refuse kinds it cannot pair.  Kernels 2 and 3 walk every kind on its
+own chains.
 
 `nk_scan` and `nk_scan_x` take the plain version only for CPU tensors; on
 CUDA tensors they launch the kernel, count the launch, or raise.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -187,6 +198,123 @@ def selective_scan_cuda(u, Bs, Cs, A, bias, Dsum, kinds, H, W, *, dts=None,
 
 
 selective_scan_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernels 2 and 3 (csrc/nk_scan_fused.cu)
+# ---------------------------------------------------------------------------
+
+# shared memory a block may take (the H100's 227 KB), and the most it may
+# take for two blocks to share an SM
+FUSION_SMEM = 227 * 1024
+FUSION_PAIR_SMEM = 113 * 1024
+# traversal positions the chunked plan stages at once
+FUSION_CHUNK = 64
+# the phases a block of kernels 2 and 3 stamps (`fusion_scan_cuda`'s
+# phase_ns): issuing its copies (the traversal tables computed meanwhile),
+# waiting for them, widening B and C, the deltas (with the rank product),
+# the walks, the output
+FUSION_PHASES = ("staging", "waiting", "widening", "deltas", "walk", "output")
+
+
+def fusion_scan_plan(L, K, N, R, dtype) -> tuple:
+    """(whole, chunk, rk_kinds): the whole-map plan (every kind of a
+    32-channel slab in one block, the map staged at once; chunk = L) where
+    its shared memory fits in `FUSION_SMEM`, else the chunked plan (a block
+    per kind, chunks of `FUSION_CHUNK` positions, the kinds' parts summed by
+    a second launch).  The rank form stages the ranks and w_dt of rk_kinds
+    kinds at once: the most for which two such blocks still share an SM.
+    At the fusion maps (7 x 7, N 16, R up to 64) a whole-map block takes
+    25-113 KB."""
+    return _plan(L, K, N, R, dtype == torch.bfloat16, FUSION_SMEM, FUSION_PAIR_SMEM,
+                 FUSION_CHUNK)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(L, K, N, R, bf16, smem_limit, pair_limit, chunk_limit):
+    def smem(whole, chunk, kinds):
+        return build.library().xfm_fusion_scan_smem(int(whole), K, chunk, L, N, R, kinds,
+                                                     int(bf16))
+
+    if smem(True, L, 1) > smem_limit:
+        return False, min(L, chunk_limit), 1
+    pair = min(smem_limit, pair_limit)
+    fits = [n for n in range(K, 1, -1) if R and smem(True, L, n) <= pair]
+    return True, L, fits[0] if fits else 1
+
+
+def _rows_aligned(t, row):
+    """Rows of ``row`` elements of t may be staged with 16-byte copies."""
+    return t is not None and t.data_ptr() % 16 == 0 and row * t.element_size() % 16 == 0
+
+
+def fusion_scan_cuda(u, Bs, Cs, A, bias, Dsum, kinds, H, W, *, dts=None, ranks=None,
+                     w_dt=None, out_dtype=torch.float32, blocks_per_sm=False,
+                     phase_ns=False):
+    """Kernels 2 (``dts``) and 3 (``ranks``, ``w_dt``) on the operands of
+    `selective_scan_plain`, each contiguous: u (n, L, D); dts (n, L, K, D)
+    or ranks (n, L, K, R) with w_dt (K, R, D) float32; Bs/Cs (n, L, K, N);
+    A (K, N, D), bias (K, D), Dsum (D,) float32.  Returns y (n, L, D): in
+    u.dtype from deltas, float32 from ranks (the caller's LayerNorm reads
+    it).  ``launches`` counts the calls, ``by_plan`` them by plan.  With
+    ``blocks_per_sm`` nothing is launched or counted: the number of the
+    call's blocks an SM would hold at once is returned.  With ``phase_ns``
+    the call is launched uncounted with the kernel's phase clock on and
+    returns {phase: mean ns a block spends in it} (`FUSION_PHASES`, the
+    chunked plan's last chunk), with "block" the mean from start to end."""
+    require_cuda(u, Bs, Cs, A, bias, Dsum, dts, ranks, w_dt)
+    n, L, D = u.shape
+    K = len(kinds)
+    N = A.shape[1]
+    if L != H * W:
+        raise ValueError(f"u has {L} positions, map is {H}x{W}")
+    require(u, (n, L, D), name="u")
+    require(A, (K, N, D), torch.float32, name="A")
+    require(bias, (K, D), torch.float32, name="bias")
+    require(Dsum, (D,), torch.float32, name="Dsum")
+    require(Bs, (n, L, K, N), u.dtype, name="Bs")
+    require(Cs, (n, L, K, N), u.dtype, name="Cs")
+    if ranks is not None:
+        R = ranks.shape[3]
+        require(ranks, (n, L, K, R), u.dtype, name="ranks")
+        require(w_dt, (K, R, D), torch.float32, name="w_dt")
+        if out_dtype != torch.float32:
+            raise TypeError("the rank form gives a float32 output")
+    else:
+        R = 0
+        require(dts, (n, L, K, D), u.dtype, name="dts")
+        if out_dtype != u.dtype:
+            raise TypeError("the dts form gives an output in the inputs' dtype")
+    whole, chunk, rk_kinds = fusion_scan_plan(L, K, N, R, u.dtype)
+    part = None if whole else torch.empty(K, n, L, D, dtype=torch.float32, device=u.device)
+    out = torch.empty(n, L, D, dtype=out_dtype, device=u.device)
+    per_channel = all(_rows_aligned(t, D) for t in (bias, Dsum, w_dt) if t is not None)
+    vec = (_rows_aligned(u, D) | _rows_aligned(dts, D) << 1 | _rows_aligned(ranks, R) << 2
+           | per_channel << 3 | (_rows_aligned(Bs, N) and _rows_aligned(Cs, N)) << 4)
+    blocks = ctypes.c_int(0) if blocks_per_sm else None
+    stamps = None
+    if phase_ns:
+        grid = -(-D // 32) * n * (1 if whole else K)
+        stamps = torch.zeros(grid, len(FUSION_PHASES) + 1, dtype=torch.int64, device=u.device)
+    elif not blocks_per_sm:
+        fusion_scan_cuda.launches += 1
+        plan = ("whole" if whole else f"chunked x{-(-L // chunk)}") + (
+            f", ranks of {rk_kinds} kinds" if R else "")
+        fusion_scan_cuda.by_plan[plan] = fusion_scan_cuda.by_plan.get(plan, 0) + 1
+    build.check(build.library().xfm_fusion_scan(
+        ptr(u), ptr(dts), ptr(ranks), ptr(w_dt), ptr(Bs), ptr(Cs), ptr(A), ptr(bias),
+        ptr(Dsum), ptr(out), ptr(part), n, H, W, D, K, N, R, _kinds_code(kinds), int(whole),
+        chunk, vec, rk_kinds, dtype_code(u), None if blocks is None else ctypes.byref(blocks),
+        ptr(stamps), stream(u)), "fusion_scan")
+    if phase_ns:
+        t = stamps.double()
+        return dict(zip(FUSION_PHASES, t.diff(dim=1).mean(0).tolist())) | {
+            "block": float((t[:, -1] - t[:, 0]).mean())}
+    return blocks.value if blocks_per_sm else out
+
+
+fusion_scan_cuda.launches = 0
+fusion_scan_cuda.by_plan = {}
 
 
 # ---------------------------------------------------------------------------
@@ -389,7 +517,7 @@ def nk_scan(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds, group=8):
     for name, t in (("u", u), ("dts", dts), ("Bs", Bs), ("Cs", Cs)):
         require(t, (n, L, None), u.dtype, name=name)
     nk_scan.launches += 1
-    return selective_scan_cuda(
+    return fusion_scan_cuda(
         H=H, W=W, dts=dts.view(n, L, len(kinds), D), out_dtype=u.dtype,
         **_nk_operands(u, Bs, Cs, A, Dvec, bias, kinds))
 
@@ -429,8 +557,8 @@ def nk_scan_x(u, ranks, Bs, Cs, w_dt, A, Dvec, bias, lno, H, W, kinds):
         require(t, (n, L, None), u.dtype, name=name)
     require(lno, (2, D), name="lno")
     nk_scan_x.launches += 1
-    y = selective_scan_cuda(H=H, W=W, **_rank_operands(u, ranks, w_dt, kinds),
-                            **_nk_operands(u, Bs, Cs, A, Dvec, bias, kinds))
+    y = fusion_scan_cuda(H=H, W=W, **_rank_operands(u, ranks, w_dt, kinds),
+                         **_nk_operands(u, Bs, Cs, A, Dvec, bias, kinds))
     lno = lno.float()
     return layer_norm_cuda(y.view(n * L, D), lno[0].contiguous(),
                            lno[1].contiguous(), u.dtype).view(n, L, D)

@@ -15,11 +15,15 @@ Phases, in order; any failure exits non-zero:
    bfloat16, and at XFMamba-B's (kernels 2, 3 and 11; fusion D 2048, dt
    rank up to 64) in float32 and, for its bfloat16 path's kernels 1 (depth 2
    per stage), 2 and 3, in bfloat16, TF32 off; (3b) kernels 13 and 14 (the grouped scan and its
-   adjoint, every output) at the XFMamba-B Cross_SS2Dv5 direction (48, 49,
-   2048) K=1, the XFMamba-S bs-12 ShallowFuse call (12, 49, 2 x 1536) K=2
-   and a 56 x 56 map (2, L, 4 x 192) K=4 at L 3136 and 3127 (a ragged
-   chunk), N=16, forward and reverse, float32 and bfloat16, with their
-   float32 times per XFMamba-B step; (3d) kernels 2 and 3
+   adjoint, ``csrc/grouped_scan_lanes.cu``, every output, bitwise over two
+   runs) at the XFMamba-B Cross_SS2Dv5 direction (48, 49, 2048) K=1, the
+   XFMamba-S bs-12 ShallowFuse call (12, 49, 2 x 1536) K=2 and a 56 x 56
+   map (2, L, 4 x 192) K=4 at L 3136 and 3127 (a ragged chunk), N=16,
+   forward and reverse, float32 and bfloat16, with their float32 times per
+   XFMamba-B step, and device times by graph replay per XFMamba-B step and
+   per bs-12 ShallowFuse call beside their first design
+   (``grouped_scan_*_v1``) in turns, the bound and the exponentials' SFU
+   time; (3d) kernels 2 and 3
    (``csrc/nk_scan_fused.cu``; 3 holds them bitwise over two runs too) at
    every fusion geometry of XFMamba-S and -B in both dtypes (ShallowFuse's
    K=1 and Cross_SS2Dv5's rank-form calls at bs 8 and 32, the bs-16 step's
@@ -92,7 +96,8 @@ Phases, in order; any failure exits non-zero:
    step, ms per step and peak memory in both ``use_checkpoint`` modes; (7d)
    the same for XFMamba-B, whose Cross_SS2Dv5 scan trains through kernels
    13 and 14 (4 launches each per step; kernels 2 and 7 twice, for
-   ShallowFuse); (7e) the bfloat16 block sequence on the serial pieces
+   ShallowFuse), with the step on their first design and redesigned in
+   turns, wall and device ms; (7e) the bfloat16 block sequence on the serial pieces
    (``vss_stage.SERIAL_OPS``: SIMT GEMMs, serial scans), on the first chunked design's (the
    first chunked scans, ``cross2d_scan_v1``, with the 8 rank GEMMs) and on
    the new one (``CUDA_OPS``: the tile-parallel scans, the rank gradients
@@ -203,7 +208,8 @@ times, the bound with every product on the CUDA cores, the bfloat16 stage
 scans' device times old and new (7e), XFMamba-B's step (6); for kernels 2
 and 3 per bs-32 bfloat16 forward their first design's times and device
 times, the SFU time, the blocks an SM holds and every geometry's device
-times (3d)),
+times (3d); for kernels 13 and 14 per XFMamba-B step their device times and
+their first design's, the SFU time, and the bs-12 ShallowFuse call's (3b)),
 the line before the last the card's name and power limit, the last
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it prints no result and exits 1.
@@ -294,11 +300,11 @@ F32_TRAIN_STEPS = 3
 GROUPED_KERNELS = {
     "selective_scan_grouped_fwd": dict(
         fn=selective_scan_grouped.grouped_scan_fwd,
-        source="xfmamba_tpu_torch/csrc/selective_scan_grouped.cu",
+        source="xfmamba_tpu_torch/csrc/grouped_scan_lanes.cu",
         replaces="xfmamba_tpu/ops/selective_scan_pallas.py:838"),
     "selective_scan_grouped_bwd": dict(
         fn=selective_scan_grouped.grouped_scan_bwd,
-        source="xfmamba_tpu_torch/csrc/selective_scan_grouped.cu",
+        source="xfmamba_tpu_torch/csrc/grouped_scan_lanes.cu",
         replaces="xfmamba_tpu/ops/selective_scan_pallas.py:979"),
 }
 # (B, L, K, C, N, label): the grouped scan's geometries; the first is the
@@ -821,6 +827,20 @@ def first_design_fusion_scans():
         nk_scan.fusion_scan_cuda = fused
 
 
+@contextlib.contextmanager
+def first_design_grouped_scan():
+    """Kernels 13 and 14 on their first design while open:
+    `SelectiveScanGrouped` calls ``grouped_scan_fwd_v1`` / ``_bwd_v1`` on the
+    same operands (phase 7d's old-against-new step timing)."""
+    ssg = selective_scan_grouped
+    new = ssg.grouped_scan_fwd, ssg.grouped_scan_bwd
+    ssg.grouped_scan_fwd, ssg.grouped_scan_bwd = ssg.grouped_scan_fwd_v1, ssg.grouped_scan_bwd_v1
+    try:
+        yield
+    finally:
+        ssg.grouped_scan_fwd, ssg.grouped_scan_bwd = new
+
+
 def on_first_design(fn):
     def run():
         with first_design_fusion_scans():
@@ -952,12 +972,48 @@ def grouped_case(g, B, L, K, C, N, dtype):
             randn(g, K * C), randn(g, K * C, scale=0.5))
 
 
+def grouped_sfu_ms(B, L, K, C, N, clock_mhz, backward=False):
+    """Kernel 13's (or 14's, ``backward``) special-function-unit work at 16
+    per SM per clock, as ``csrc/grouped_scan_lanes.cu`` computes it: per
+    position and channel an exp2 per state (the adjoint two: the walk to the
+    segments' entry states and the segment's recompute) and the softplus's
+    exponential and reciprocal (the adjoint also the sigmoid's)."""
+    per = 2 * N + 4 if backward else N + 2
+    return 1e3 * B * L * K * C * per / (SMS * SFU_PER_SM_CLOCK * clock_mhz * 1e6)
+
+
+# phase 3b's timed calls, float32: (GROUPED_CASES index, label, [(reverse, calls)])
+GROUPED_TIMED = [(0, f"XFMamba-B bs-{TRAIN_BATCH} step", [(0, 2), (1, 2)]),
+                 (1, "XFMamba-S bs-12 ShallowFuse call", [(0, 1)])]
+
+
+def grouped_turns(args, ck, gy, reverse):
+    """Device ms per call by CUDA-graph replay of kernels 13 and 14 and of
+    their first design (``grouped_scan_*_v1``), in turns (first, new, new,
+    first): {kernel name: (new, first design)}."""
+    ssg = selective_scan_grouped
+    out = {}
+    for name, new, old in (
+            ("selective_scan_grouped_fwd", lambda: ssg.grouped_scan_fwd(*args, reverse=reverse),
+             lambda: ssg.grouped_scan_fwd_v1(*args, reverse=reverse)),
+            ("selective_scan_grouped_bwd",
+             lambda: ssg.grouped_scan_bwd(*args, ck, gy, reverse=reverse),
+             lambda: ssg.grouped_scan_bwd_v1(*args, ck, gy, reverse=reverse))):
+        t = in_turns({"first": old, "new": new}, graph_ms)
+        out[name] = (t["new"], t["first"])
+    return out
+
+
 def phase_compare_grouped(errors, card):
-    """Kernels 13 and 14 against their plain twins at every grouped-scan
-    geometry, float32 and bfloat16, forward and reverse, every output (y,
-    checkpoints, all seven gradients from the plain checkpoints); and each
-    kernel's float32 time per XFMamba-B step: the first geometry's two
-    forward and two reverse calls, kernel and plain twin on the same inputs."""
+    """Kernels 13 and 14 (``csrc/grouped_scan_lanes.cu``) against their
+    plain twins at every grouped-scan geometry, float32 and bfloat16,
+    forward and reverse, every output (y, checkpoints, all seven gradients
+    from the plain checkpoints), and bitwise equal over two runs; each
+    kernel's float32 time per XFMamba-B step (the first geometry's two
+    forward and two reverse calls, kernel and plain twin on the same inputs,
+    CUDA events), and device times by CUDA-graph replay per XFMamba-B step
+    and per XFMamba-S bs-12 ShallowFuse call beside the first design's in
+    turns, the bound and the exponentials' SFU time."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"phase 3b: kernels 13 and 14 vs their plain twins, TF32 off; float32 times per "
@@ -967,6 +1023,7 @@ def phase_compare_grouped(errors, card):
     failed = []
     times = {name: [0.0, 0.0] for name in GROUPED_KERNELS}
     works = {name: Work() for name in GROUPED_KERNELS}
+    turns = {}
     for dtype in (torch.float32, torch.bfloat16):
         for (B, L, K, C, N, label), reverse in ((c, r) for c in GROUPED_CASES for r in (0, 1)):
             args = grouped_case(g, B, L, K, C, N, dtype)
@@ -980,6 +1037,9 @@ def phase_compare_grouped(errors, card):
                 want, plain_ms = timed_call(fwd_plain)
                 check_outputs(errors, "selective_scan_grouped_fwd", f"{label} {geo}", dtype,
                               got, want, failed)
+                if not all(map(torch.equal, fwd(), got)):
+                    failed.append(f"selective_scan_grouped_fwd {label} {geo} {dtype}: two runs "
+                                  f"differ")
                 ck = want[1]
                 bwd = (lambda: ssg.grouped_scan_bwd(*args, ck, gy, reverse=bool(reverse)))
                 bwd()
@@ -988,6 +1048,15 @@ def phase_compare_grouped(errors, card):
                     lambda: ssg.grouped_scan_bwd_plain(*args, ck, gy, reverse=bool(reverse)))
                 check_outputs(errors, "selective_scan_grouped_bwd", f"{label} {geo}", dtype,
                               got_b, want_b, failed)
+                again = bwd()
+                if not all(torch.equal(again[k], got_b[k]) for k in got_b):
+                    failed.append(f"selective_scan_grouped_bwd {label} {geo} {dtype}: two runs "
+                                  f"differ")
+                if dtype == torch.float32:
+                    for index, _, calls in GROUPED_TIMED:
+                        if (B, L, K, C, N, label) == GROUPED_CASES[index] and \
+                                reverse in dict(calls):
+                            turns[index, reverse] = grouped_turns(args, ck, gy, bool(reverse))
             if dtype == torch.float32 and (B, L, K, C, N) == GROUPED_CASES[0][:5]:
                 for name, k_ms, p_ms, backward in (
                         ("selective_scan_grouped_fwd", ms, plain_ms, False),
@@ -995,12 +1064,32 @@ def phase_compare_grouped(errors, card):
                     times[name][0] += 2 * k_ms
                     times[name][1] += 2 * p_ms
                     works[name] += grouped_work(B, L, K, C, N, dtype, backward).times(2)
-            del args, got, want, got_b, want_b
+            del args, got, want, got_b, want_b, again
     if failed:
         raise PhaseFailure(f"kernels 13/14 disagree with their plain twins: {failed}")
+    clock = sm_clock_mhz()
     out = {}
     for name, (ms, plain_ms) in times.items():
         out[name] = (ms, plain_ms, *works[name].bound())
+        backward = name.endswith("bwd")
+        extra = {"per": f"XFMamba-B bs-{TRAIN_BATCH} float32 step", "geometries": {}}
+        for index, label, calls in GROUPED_TIMED:
+            B, L, K, C, N, _ = GROUPED_CASES[index]
+            new = sum(n * turns[index, r][name][0] for r, n in calls)
+            first = sum(n * turns[index, r][name][1] for r, n in calls)
+            n_calls = sum(n for _, n in calls)
+            bound = grouped_work(B, L, K, C, N, torch.float32, backward).times(n_calls).bound()
+            sfu = n_calls * grouped_sfu_ms(B, L, K, C, N, clock, backward)
+            print(f"  {name} per {label}: device {new:.4f} ms (graph replay), first design "
+                  f"{first:.4f} in turns; bound {bound[0]:.4f} ms ({bound[1]}), "
+                  f"SFU time {sfu:.4f} ms at {clock:.0f} MHz")
+            row = {"graph_ms": round(new, 5), "serial_graph_ms": round(first, 5),
+                   "sfu_ms": round(sfu, 5)}
+            if index == 0:
+                extra |= row
+            else:
+                extra["geometries"][label] = row | {"bound_ms": round(bound[0], 5)}
+        V1_EXTRA[name] = extra
         print(f"  {name} per XFMamba-B step (2 forward + 2 reverse calls): kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms, bound {out[name][2]:.4f} ms ({out[name][3]}, "
               f"{works[name].bytes / 1e6:.1f} MB)")
@@ -2260,11 +2349,33 @@ def phase_train_f32(card, size, phase, n1_times):
         if not checkpointed:
             fusion_scans_in_turns("step", lambda: step(batch), card,
                                   lambda f: timed_steps(lambda b: f(), batch)[1])
+        if not checkpointed and size == "base":
+            grouped_scan_in_turns(step, batch, card)
     print(f"  per step (phase 6, the same shapes): kernel 11 {n1_times['fwd']['ms']:.3f} ms, "
           f"kernel 12 {n1_times['bwd']['ms']:.3f} ms (its bound "
           f"{n1_times['work'].bound()[0]:.4f} ms)")
     del model, optimizer, step
     return want
+
+
+def grouped_scan_in_turns(step, batch, card):
+    """XFMamba-B's float32 step with kernels 13 and 14 on their first design
+    and redesigned, in turns: wall ms per step (CUDA events, median of 3
+    runs of 3 steps) and device ms per step (torch.profiler), kept for the
+    kernels line."""
+    def first():
+        with first_design_grouped_scan():
+            return step(batch)
+
+    fns = {"first": first, "new": lambda: step(batch)}
+    wall = in_turns(fns, lambda f: timed_steps(lambda b: f(), batch)[1])
+    dev = {name: busy_share(f)[1] for name, f in fns.items()}
+    print(f"  step, kernels 13 and 14 on their first design / redesigned, in turns: "
+          f"{wall['first']:.2f} / {wall['new']:.2f} ms; on the device (torch.profiler) "
+          f"{dev['first']:.3f} / {dev['new']:.3f} ms ({card})")
+    V1_EXTRA["selective_scan_grouped_bwd"]["base_step"] = {
+        "ms": wall["new"], "first_ms": wall["first"], "device_ms": dev["new"],
+        "first_device_ms": dev["first"]}
 
 
 def counted(fns):
@@ -3045,8 +3156,10 @@ def main() -> int:
     times |= n1_bwd
     # the two card routes of XFMamba-B's Cross_SS2Dv5 training scan, kernels only
     grouped_ms = times["selective_scan_grouped_fwd"][0] + times["selective_scan_grouped_bwd"][0]
+    grouped_dev = sum(V1_EXTRA[name]["graph_ms"] for name in GROUPED_KERNELS)
     print(f"  XFMamba-B Cross_SS2Dv5 scan per bs-{TRAIN_BATCH} step: grouped scan (kernels 13 + "
-          f"14, four K=1 calls each, phase 3b) {grouped_ms:.3f} ms; nk pair (kernels 2 + 7, "
+          f"14, four K=1 calls each, phase 3b) {grouped_ms:.3f} ms ({grouped_dev:.3f} on the "
+          f"device); nk pair (kernels 2 + 7, "
           f"one K=4 call each) {sum(train_times['base']['nk'][4][1:3]):.3f} ms (kernel 7's old "
           f"design: {train_times['base']['nk'][4][1] + train_times['base']['nk'][4][3]:.3f} ms)")
     launches |= phase_train(card)

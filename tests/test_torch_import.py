@@ -46,9 +46,10 @@ def test_library_name_is_keyed_on_the_sources():
     assert path.name.startswith("libxfm_") and path.suffix == ".so"
     assert build.library_path() == path
     assert {p.name for p in build._sources()} == {
-        "gemm_tc.cu", "ln_act.cu", "nk_scan.cu", "nk_scan_ablations.cu", "nk_scan_adjoint.cu",
-        "nk_scan_bwd.cu", "nk_scan_fused.cu", "scan_two_level.cu", "selective_scan_grouped.cu", "ss2d_core_n1.cu",
-        "ss2d_core_n1_v1.cu", "ssd_chunk.cu", "ssd_serial.cu", "vss_block_bwd.cu", "vss_block_v1.cu", "vss_stage.cu"}
+        "gemm_tc.cu", "grouped_scan_lanes.cu", "ln_act.cu", "nk_scan.cu", "nk_scan_ablations.cu",
+        "nk_scan_adjoint.cu", "nk_scan_bwd.cu", "nk_scan_fused.cu", "scan_two_level.cu",
+        "selective_scan_grouped_v1.cu", "ss2d_core_n1.cu", "ss2d_core_n1_v1.cu", "ssd_chunk.cu",
+        "ssd_serial.cu", "vss_block_bwd.cu", "vss_block_v1.cu", "vss_stage.cu"}
 
 
 def test_factory_is_seeded_and_eval():

@@ -1,5 +1,6 @@
-// Kernels 13 and 14: the grouped selective scan of one direction and its
-// adjoint.
+// The first design of kernels 13 and 14 (the grouped selective scan of one
+// direction and its adjoint), kept under the _v1 entry points for timing
+// beside the redesign in grouped_scan_lanes.cu.
 //
 // Replaces xfmamba_tpu/ops/selective_scan_pallas.py::_grouped_scan_kernel
 // (:838, pallas_call :954) and ::_grouped_scan_kernel_bwd (:979,
@@ -304,11 +305,11 @@ cudaError_t run_grouped(GroupedParams& p, int B, int dtype, bool backward, void*
 
 using namespace xfm;
 
-extern "C" int xfm_grouped_scan_fwd(const void* u, const void* delta, const float* A,
-                                    const void* Bm, const void* Cm, const float* Dv,
-                                    const float* bias, float* y, float* ck, int B, int L, int K,
-                                    int C, int N, int chunk, int reverse, int dtype,
-                                    void* stream) {
+extern "C" int xfm_grouped_scan_fwd_v1(const void* u, const void* delta, const float* A,
+                                       const void* Bm, const void* Cm, const float* Dv,
+                                       const float* bias, float* y, float* ck, int B, int L, int K,
+                                       int C, int N, int chunk, int reverse, int dtype,
+                                       void* stream) {
   GroupedParams p{};
   p.u = u;
   p.delta = delta;
@@ -328,12 +329,12 @@ extern "C" int xfm_grouped_scan_fwd(const void* u, const void* delta, const floa
   return run_grouped(p, B, dtype, false, stream);
 }
 
-extern "C" int xfm_grouped_scan_bwd(const void* u, const void* delta, const float* A,
-                                    const void* Bm, const void* Cm, const float* Dv,
-                                    const float* bias, float* ck, const float* dy, float* hs,
-                                    float* du, float* ddelta, float* dB, float* dC, float* dA,
-                                    float* dD, float* dbias, int B, int L, int K, int C, int N,
-                                    int chunk, int reverse, int dtype, void* stream) {
+extern "C" int xfm_grouped_scan_bwd_v1(const void* u, const void* delta, const float* A,
+                                       const void* Bm, const void* Cm, const float* Dv,
+                                       const float* bias, float* ck, const float* dy, float* hs,
+                                       float* du, float* ddelta, float* dB, float* dC, float* dA,
+                                       float* dD, float* dbias, int B, int L, int K, int C, int N,
+                                       int chunk, int reverse, int dtype, void* stream) {
   GroupedParams p{};
   p.u = u;
   p.delta = delta;

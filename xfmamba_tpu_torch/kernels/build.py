@@ -47,8 +47,10 @@ _SIGNATURES = {
     "xfm_ss2d_n1_bwd": [_P] * 18 + [_I] * 14 + [_P],
     "xfm_ss2d_n1_fwd_v1": [_P] * 9 + [_I] * 12 + [_P],
     "xfm_ss2d_n1_bwd_v1": [_P] * 16 + [_I] * 13 + [_P],
-    "xfm_grouped_scan_fwd": [_P] * 9 + [_I] * 8 + [_P],
-    "xfm_grouped_scan_bwd": [_P] * 17 + [_I] * 8 + [_P],
+    "xfm_grouped_scan_fwd": [_P] * 9 + [_I] * 9 + [_P],
+    "xfm_grouped_scan_bwd": [_P] * 20 + [_I] * 9 + [_P],
+    "xfm_grouped_scan_fwd_v1": [_P] * 9 + [_I] * 8 + [_P],
+    "xfm_grouped_scan_bwd_v1": [_P] * 17 + [_I] * 8 + [_P],
     "xfm_ssd_chunk_state": [_P] * 7 + [_I] * 8 + [_P],
     "xfm_ssd_state_pass": [_P] * 4 + [_LL, _I, _I, _I, _P],
     "xfm_ssd_chunk_scan": [_P] * 9 + [_I] * 7 + [_P],

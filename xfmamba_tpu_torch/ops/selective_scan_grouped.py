@@ -23,6 +23,14 @@ adjoint (port of the grouped section of
   custom VJP ``selective_scan_grouped_pallas``, :1183-1214) and its
   ``ops.selective_scan``-shaped entry (:1217-1227), which returns float32.
 
+On the card both kernels are ``csrc/grouped_scan_lanes.cu`` (four lanes a
+chain, blocks of `lanes_warps` x 8 channels, no state in device memory, no
+atomics: kernel 14 is two launches, the adjoint and a fixed-order sum of
+its partials, the same bits on every run).  `grouped_scan_fwd_v1` /
+`grouped_scan_bwd_v1` run the first design (``csrc/
+selective_scan_grouped_v1.cu``: a thread per chain, a float32 state scratch
+and atomics) on CUDA tensors only, for timing beside them.
+
 Layouts are the JAX package's: u and delta (B, L, K * C); A (K * C, N);
 B and C (B, L, K, N); D and bias (K * C,) or None.  u, delta, B and C share
 one dtype, float32 or bfloat16; A, D and bias are float32; state, sums and
@@ -46,11 +54,24 @@ from xfmamba_tpu_torch.ops.fast_math import SOFTPLUS_THRESHOLD, softplus
 from xfmamba_tpu_torch.ops.primitives import (
     dtype_code, on_cpu, ptr, require, require_cuda, stream)
 
-# positions per checkpointed chunk; the backward's scratch holds one chunk
-# of states per chain (csrc/selective_scan_grouped.cu)
+# positions per checkpointed chunk
 CHUNK = 32
 MAX_CHUNK = 64
 MAX_STATE = 16
+# blocks of at most 8 warps (64 channels), fewer while the grid would not
+# give every SM two blocks
+LANES_WARPS = 8
+SMS = 132
+
+
+def lanes_warps(B, K, C):
+    """Warps per block of ``csrc/grouped_scan_lanes.cu`` (8 channels each):
+    `LANES_WARPS`, halved while the B * K * slabs blocks would leave an SM
+    of the H100 fewer than two."""
+    warps = LANES_WARPS
+    while warps > 1 and B * K * -(-C // (8 * warps)) < 2 * SMS:
+        warps //= 2
+    return warps
 
 
 def _geometry(u, Bmat, A, chunk):
@@ -77,6 +98,17 @@ def _check(u, delta, A, Bmat, Cmat, Dvec, bias, chunk):
         if t is not None:
             require(t, (K * C,), torch.float32, name=name)
     dtype_code(u)
+    return B, L, K, C, N, n
+
+
+def _cuda_operands(u, delta, A, Bmat, Cmat, Dvec, bias, chunk, ck=None, dy=None):
+    """The checks of a kernel call on CUDA tensors (the backward's with the
+    checkpoints and dy): (B, L, K, C, N, n_chunks)."""
+    require_cuda(u, delta, A, Bmat, Cmat, Dvec, bias, ck, dy)
+    B, L, K, C, N, n = _check(u, delta, A, Bmat, Cmat, Dvec, bias, chunk)
+    if ck is not None:
+        require(ck, (B, K, n, N, C), torch.float32, name="ck")
+        require(dy, (B, L, K * C), torch.float32, name="dy")
     return B, L, K, C, N, n
 
 
@@ -142,21 +174,42 @@ def grouped_scan_fwd(u, delta, A, Bmat, Cmat, Dvec=None, bias=None, reverse=Fals
     """Kernel 13; see the module docstring."""
     if on_cpu(u, delta, A, Bmat, Cmat, Dvec, bias):
         return grouped_scan_fwd_plain(u, delta, A, Bmat, Cmat, Dvec, bias, reverse, chunk)
-    require_cuda(u, delta, A, Bmat, Cmat, Dvec, bias)
-    B, L, K, C, N, n = _check(u, delta, A, Bmat, Cmat, Dvec, bias, chunk)
-    f32 = dict(dtype=torch.float32, device=u.device)
-    y = torch.empty(B, L, K * C, **f32)
-    ck = torch.empty(B, K, n, N, C, **f32)
+    B, L, K, C, N, n = _cuda_operands(u, delta, A, Bmat, Cmat, Dvec, bias, chunk)
+    y, ck = _fwd_outputs(B, L, K, C, N, n, u.device)
     lib = build.library()
     grouped_scan_fwd.launches += 1
     build.check(lib.xfm_grouped_scan_fwd(
         ptr(u), ptr(delta), ptr(A), ptr(Bmat), ptr(Cmat), ptr(Dvec), ptr(bias), ptr(y),
-        ptr(ck), B, L, K, C, N, chunk, int(reverse), dtype_code(u), stream(u)),
-        "grouped_scan_fwd")
+        ptr(ck), B, L, K, C, N, chunk, int(reverse), lanes_warps(B, K, C), dtype_code(u),
+        stream(u)), "grouped_scan_fwd")
     return y, ck
 
 
 grouped_scan_fwd.launches = 0
+
+
+def _fwd_outputs(B, L, K, C, N, n, device):
+    """y (B, L, K * C) and the checkpoints (B, K, n, N, C), float32."""
+    return (torch.empty(B, L, K * C, dtype=torch.float32, device=device),
+            torch.empty(B, K, n, N, C, dtype=torch.float32, device=device))
+
+
+def grouped_scan_fwd_v1(u, delta, A, Bmat, Cmat, Dvec=None, bias=None, reverse=False,
+                        chunk=CHUNK):
+    """Kernel 13's first design on CUDA tensors, counted in its own
+    ``launches``."""
+    B, L, K, C, N, n = _cuda_operands(u, delta, A, Bmat, Cmat, Dvec, bias, chunk)
+    y, ck = _fwd_outputs(B, L, K, C, N, n, u.device)
+    lib = build.library()
+    grouped_scan_fwd_v1.launches += 1
+    build.check(lib.xfm_grouped_scan_fwd_v1(
+        ptr(u), ptr(delta), ptr(A), ptr(Bmat), ptr(Cmat), ptr(Dvec), ptr(bias), ptr(y),
+        ptr(ck), B, L, K, C, N, chunk, int(reverse), dtype_code(u), stream(u)),
+        "grouped_scan_fwd_v1")
+    return y, ck
+
+
+grouped_scan_fwd_v1.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -207,26 +260,57 @@ def grouped_scan_bwd(u, delta, A, Bmat, Cmat, Dvec, bias, ck, dy, reverse=False,
     """Kernel 14; see `grouped_scan_bwd_plain` for what it returns."""
     if on_cpu(u, delta, A, Bmat, Cmat, Dvec, bias, ck, dy):
         return grouped_scan_bwd_plain(u, delta, A, Bmat, Cmat, Dvec, bias, ck, dy, reverse, chunk)
-    require_cuda(u, delta, A, Bmat, Cmat, Dvec, bias, ck, dy)
-    B, L, K, C, N, n = _check(u, delta, A, Bmat, Cmat, Dvec, bias, chunk)
-    require(ck, (B, K, n, N, C), torch.float32, name="ck")
-    require(dy, (B, L, K * C), torch.float32, name="dy")
+    B, L, K, C, N, n = _cuda_operands(u, delta, A, Bmat, Cmat, Dvec, bias, chunk, ck, dy)
     f32 = dict(dtype=torch.float32, device=u.device)
-    hs = torch.empty(B, K, min(chunk, L), N, C, **f32)
-    du, ddelta = torch.empty(B, L, K * C, **f32), torch.empty(B, L, K * C, **f32)
-    dB, dC = torch.zeros(B, L, K, N, **f32), torch.zeros(B, L, K, N, **f32)
-    dA = torch.zeros(K * C, N, **f32)
-    dD, dbias = torch.zeros(K * C, **f32), torch.zeros(K * C, **f32)
+    warps = lanes_warps(B, K, C)
+    g = _grads(B, L, K, C, N, f32)
+    # the partials the second launch sums: each slab's dB / dC rows, dA,
+    # dbias and dD per image
+    bc_part = torch.empty(-(-C // (8 * warps)), B, L, K, 2, N, **f32)
+    dA_part, dbias_part, dD_part = (torch.empty(B, K * C, N, **f32), torch.empty(B, K * C, **f32),
+                                    torch.empty(B, K * C, **f32))
     lib = build.library()
     grouped_scan_bwd.launches += 1
     build.check(lib.xfm_grouped_scan_bwd(
         ptr(u), ptr(delta), ptr(A), ptr(Bmat), ptr(Cmat), ptr(Dvec), ptr(bias), ptr(ck),
-        ptr(dy), ptr(hs), ptr(du), ptr(ddelta), ptr(dB), ptr(dC), ptr(dA), ptr(dD), ptr(dbias),
-        B, L, K, C, N, chunk, int(reverse), dtype_code(u), stream(u)), "grouped_scan_bwd")
-    return dict(du=du, ddelta=ddelta, dA=dA, dB=dB, dC=dC, dD=dD, dbias=dbias)
+        ptr(dy), *(ptr(g[k]) for k in GRADS), ptr(bc_part), ptr(dA_part), ptr(dbias_part),
+        ptr(dD_part), B, L, K, C, N, chunk, int(reverse), warps, dtype_code(u), stream(u)),
+        "grouped_scan_bwd")
+    return g
 
 
 grouped_scan_bwd.launches = 0
+
+# the gradients in the C entry points' order
+GRADS = ("du", "ddelta", "dB", "dC", "dA", "dD", "dbias")
+
+
+def _grads(B, L, K, C, N, f32, zeros=False):
+    new = torch.zeros if zeros else torch.empty
+    shapes = dict(du=(B, L, K * C), ddelta=(B, L, K * C), dB=(B, L, K, N), dC=(B, L, K, N),
+                  dA=(K * C, N), dD=(K * C,), dbias=(K * C,))
+    return {k: new(*shapes[k], **f32) for k in GRADS}
+
+
+def grouped_scan_bwd_v1(u, delta, A, Bmat, Cmat, Dvec, bias, ck, dy, reverse=False,
+                        chunk=CHUNK):
+    """Kernel 14's first design on CUDA tensors (its sums by atomics into
+    zeroed outputs, its state scratch of one chunk per chain), counted in
+    its own ``launches``."""
+    B, L, K, C, N, n = _cuda_operands(u, delta, A, Bmat, Cmat, Dvec, bias, chunk, ck, dy)
+    f32 = dict(dtype=torch.float32, device=u.device)
+    hs = torch.empty(B, K, min(chunk, L), N, C, **f32)
+    g = _grads(B, L, K, C, N, f32, zeros=True)
+    lib = build.library()
+    grouped_scan_bwd_v1.launches += 1
+    build.check(lib.xfm_grouped_scan_bwd_v1(
+        ptr(u), ptr(delta), ptr(A), ptr(Bmat), ptr(Cmat), ptr(Dvec), ptr(bias), ptr(ck),
+        ptr(dy), ptr(hs), *(ptr(g[k]) for k in GRADS), B, L, K, C, N, chunk, int(reverse),
+        dtype_code(u), stream(u)), "grouped_scan_bwd_v1")
+    return g
+
+
+grouped_scan_bwd_v1.launches = 0
 
 
 # ---------------------------------------------------------------------------

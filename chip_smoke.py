@@ -236,8 +236,8 @@ from xfmamba_tpu_torch.models import vssm
 from xfmamba_tpu_torch.models.fusion import CrossSS2Dv5
 from xfmamba_tpu_torch.ops import (
     cross2d_scan, fused_cross_scan, nk_scan, nk_scan_adjoint, nk_scan_v1, primitives,
-    selective_scan_grouped, ss2d_core_n1, ssd_chunk, vss_block_train, vss_block_v1, vss_stage,
-    vss_stage_train)
+    scan_whole_map, selective_scan_grouped, ss2d_core_n1, ssd_chunk, vss_block_train, vss_block_v1,
+    vss_stage, vss_stage_train)
 from xfmamba_tpu_torch.ops.ablations import nk_scan_v4, nk_scan_wide, pe_fused, seg_ln
 from xfmamba_tpu_torch.ops.vss_block import (
     mlp_half, pack_vss_block_params, pack_vss_block_train_params, ss2d_half, ss2d_half_fwd,
@@ -354,10 +354,10 @@ V1_KERNELS = {
     "vss_block_v1": dict(fn=vss_block_v1.vss_block_v1,
                          source="xfmamba_tpu_torch/csrc/vss_block_v1.cu",
                          replaces="xfmamba_tpu/ops/vss_block_pallas.py:295"),
-    "nk_scan_v1": dict(fn=nk_scan_v1.nk_scan_v1, source="xfmamba_tpu_torch/csrc/scan_two_level.cu",
+    "nk_scan_v1": dict(fn=nk_scan_v1.nk_scan_v1, source="xfmamba_tpu_torch/csrc/scan_whole_map.cu",
                        replaces="xfmamba_tpu/ops/vss_block_pallas.py:690"),
     "fused_cross_scan": dict(fn=fused_cross_scan.fused_cross_scan,
-                             source="xfmamba_tpu_torch/csrc/scan_two_level.cu",
+                             source="xfmamba_tpu_torch/csrc/scan_whole_map.cu",
                              replaces="xfmamba_tpu/ops/selective_scan_pallas.py:73"),
 }
 # bfloat16 launches per forward at 1 and 2 studies (XFMamba-S; XFMamba-B at
@@ -1109,9 +1109,16 @@ def v1_block_case(g, H, d, n, dtype=torch.bfloat16):
 
 def device_launches(fn):
     """The card's kernel launches in one call of ``fn`` (torch.profiler, 3
-    calls after a warm-up): {kernel name: launches per call}."""
-    _, _, table = profile_calls(fn, calls=3, warmup=1)
-    return {name: count for _, count, name in table}
+    calls after a warm-up): {kernel name: launches per call}.  A profile
+    that lost some of a kernel's events (the profiler has dropped them:
+    no kernel, or a count that is not a whole number per call) is taken
+    again, up to three times."""
+    for _ in range(3):
+        _, _, table = profile_calls(fn, calls=3, warmup=1)
+        launches = {name: count for _, count, name in table}
+        if launches and all(float(c).is_integer() for c in launches.values()):
+            break
+    return launches
 
 
 def in_turns(fns, timer):
@@ -1253,6 +1260,226 @@ def phase_compare_v1(errors, card):
     return times
 
 
+# kernel 9's timed geometries: (label, images, kinds, D); N 16, 7 x 7
+WHOLE_MAP_K9 = [("XFMamba-S ShallowFuse bs 1", 1, 1, 1536),
+                ("XFMamba-S Cross_SS2Dv5 bs 1", 3, 4, 1536),
+                ("XFMamba-B ShallowFuse bs 1", 1, 1, 2048),
+                ("XFMamba-B Cross_SS2Dv5 bs 1", 3, 4, 2048),
+                ("XFMamba-S ShallowFuse bs 12", 12, 1, 1536),
+                ("XFMamba-S Cross_SS2Dv5 bs 12", 36, 4, 1536)]
+
+
+def k9_case(g, n, K, D, dtype, H=7, N=16):
+    """Kernel 9's operands on (n, H * H, D), K kinds (row_f, or cross2d),
+    N states: decays A in [-e^1.5, -1] and dt in [1e-3, 1e-1]."""
+    L = H * H
+    dt = torch.exp(torch.rand(K, D, generator=g) * 4.6 - 6.9)
+    kinds = ("row_f",) if K == 1 else nk_scan.scan_mode_kinds("cross2d")
+    return (randn(g, n, L, D, dtype=dtype), randn(g, n, L, K * D, dtype=dtype, scale=0.5),
+            randn(g, n, L, K * N, dtype=dtype), randn(g, n, L, K * N, dtype=dtype),
+            -torch.exp(1.5 * torch.rand(K * N, D, generator=g)).cuda(), randn(g, K, D),
+            (dt + torch.log(-torch.expm1(-dt))).cuda(), H, H, kinds)
+
+
+def kernel2_on(args):
+    """Kernel 2 (``fusion_scan_cuda``, the redesigned fusion scan) on kernel 9's
+    operands, uncounted by the wrappers' route."""
+    u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds = args
+    return lambda: nk_scan.fusion_scan_cuda(
+        H=H, W=W, dts=dts.view(*u.shape[:2], len(kinds), u.shape[2]), out_dtype=u.dtype,
+        **nk_scan._nk_operands(u, Bs, Cs, A, Dvec, bias, kinds))
+
+
+def ptxas_rows(log, *names):
+    """[(kernel, registers, spill bytes stored + loaded)] of the build log's
+    ``-Xptxas -v`` report for the kernels whose mangled name holds one of
+    ``names``."""
+    rows, current = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            current = fn if any(n in fn for n in names) else None
+        elif current and "spill stores" in line:
+            # "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+            stores, loads = (int(s.split()[0]) for s in line.split(",")[1:3])
+            rows.append([current, None, stores + loads])
+        elif current and "Used" in line and rows and rows[-1][0] == current:
+            rows[-1][1] = int(line.split("Used")[1].split()[0])
+            current = None
+    return [tuple(r) for r in rows]
+
+
+def split_ms(fn):
+    """{device kernel name: ms per call} of ``fn`` under torch.profiler."""
+    _, _, table = profile_calls(fn, calls=5, warmup=1)
+    return {name: ms for ms, _, name in table}
+
+
+@contextlib.contextmanager
+def first_design_whole_map():
+    """Kernels 9 and 10 on their first design while open: `nk_scan_v1` and
+    `fused_cross_scan` run the two-level scan and its merge of
+    ``csrc/scan_two_level.cu`` on the same operands (phase 3c's and 4f's
+    old-against-new timings)."""
+    new = nk_scan_v1.nk_scan_v1_cuda, fused_cross_scan.fused_cross_scan_cuda
+    nk_scan_v1.nk_scan_v1_cuda = nk_scan_v1.nk_scan_v1_first
+    fused_cross_scan.fused_cross_scan_cuda = fused_cross_scan._fused_cross_scan_first
+    try:
+        yield
+    finally:
+        nk_scan_v1.nk_scan_v1_cuda, fused_cross_scan.fused_cross_scan_cuda = new
+
+
+@contextlib.contextmanager
+def whole_map_slabs(slabs):
+    """The whole-map scan's plan held to the slab widths ``slabs`` while
+    open (the alternatives phase 3c times)."""
+    old = scan_whole_map.SLABS
+    scan_whole_map.SLABS = slabs
+    scan_whole_map._plan.cache_clear()
+    try:
+        yield
+    finally:
+        scan_whole_map.SLABS = old
+        scan_whole_map._plan.cache_clear()
+
+
+def on_design(fn, manager):
+    def run():
+        with manager():
+            return fn()
+    return run
+
+
+def phases_line(phases):
+    return ", ".join(f"{k} {v / 1e3:.2f}" for k, v in phases.items())
+
+
+def whole_map_check(name, label, dtype, fn, plain, failed):
+    """``fn`` against its plain twin (TOL), bitwise over two runs, and one
+    device launch a call of the whole-map scan; returns (max abs error,
+    plan, the profiler's launches)."""
+    scan_whole_map.scan_whole_map_cuda.by_plan.clear()
+    got, again, want = fn(), fn(), plain()
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    rel_err = err / float(want.float().abs().max())
+    same = torch.equal(got, again)
+    plan = ", ".join(scan_whole_map.scan_whole_map_cuda.by_plan)
+    launches = device_launches(fn)
+    one = len(launches) == 1 and "whole_map_scan_kernel" in next(iter(launches)) \
+        and next(iter(launches.values())) == 1.0
+    ok = same and one and rel_err <= TOL[dtype] and bool(torch.isfinite(got).all())
+    print(f"  {name} {label} {str(dtype)[6:]}: rel={rel_err:.2e} "
+          f"{'bitwise' if same else 'two runs differ'}, {plan}, device launches a call "
+          f"{list(launches.values()) if one else launches} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        failed.append((name, label, str(dtype)))
+    return err
+
+
+def phase_whole_map_scans(errors, card):
+    """Kernels 9 and 10 (``csrc/scan_whole_map.cu``), phase 3c's second
+    part: at kernel 9's one-study and 12-study fusion calls of XFMamba-S and
+    -B and kernel 10 at phase 8d's layer and at the 56 x 56 stage map (the
+    chunked plan), both dtypes: against their plain twins, bitwise over two
+    runs, one device launch a call; then device ms per call by graph
+    replay and by CUDA events of the new design, its first design
+    (``csrc/scan_two_level.cu``, swapped in by `first_design_whole_map`)
+    and, for kernel 9, kernel 2 on the same inputs, in turns; the bound,
+    the exponentials' SFU time, the slab widths the plan did not take, and
+    the registers and spills of the build log."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    clock = sm_clock_mhz()
+    print(f"phase 3c (kernels 9 and 10): the whole-map scan against its plain twins, bitwise, "
+          f"one launch a call; ms per call, device time by graph replay, new / first design / "
+          f"kernel 2 in turns; SFU: the exponentials at {SFU_PER_SM_CLOCK} per SM per clock on "
+          f"{SMS} SMs at {clock:.0f} MHz ({card})")
+    _, log = build.build()
+    for fn, regs, spills in ptxas_rows(log, "whole_map_scan_kernel", "two_level_scan_kernel"):
+        print(f"  ptxas {fn[:90]}: {regs} registers, {spills} bytes spilled")
+    g = torch.Generator().manual_seed(31)
+    failed, rows = [], {}
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            for label, n, K, D in WHOLE_MAP_K9:
+                args = k9_case(g, n, K, D, dtype)
+                new = lambda: nk_scan_v1.nk_scan_v1(*args)
+                err = whole_map_check("kernel 9", f"{label} ({n},49,{D}) K={K}", dtype, new,
+                                      lambda: nk_scan_v1.nk_scan_v1_plain(*args), failed)
+                errors["nk_scan_v1"] = max(errors.get("nk_scan_v1", 0.0), err)
+                calls = {"first": on_design(new, first_design_whole_map), "new": new,
+                         "kernel 2": kernel2_on(args)}
+                ev = in_turns(calls, lambda fn: time_ms(fn, 10))
+                gr = in_turns(calls, lambda fn: graph_ms(fn, 20))
+                alt = {s: graph_ms(on_design(new, lambda s=s: whole_map_slabs((s,))), 20)
+                       for s in scan_whole_map.SLABS}
+                bound, by = nk_work(n, 49, D, K, 16, dtype).bound()
+                sfu = sfu_ms(n, 49, D, K, 16, clock)
+                phases = nk_scan_v1.nk_scan_v1_cuda(*args, phase_ns=True)
+                rows[(label, dtype)] = dict(graph_ms=gr["new"], first_graph_ms=gr["first"],
+                                            kernel2_graph_ms=gr["kernel 2"], ms=ev["new"],
+                                            first_ms=ev["first"], bound_ms=bound, sfu_ms=sfu,
+                                            slab_graph_ms=alt, phases_us={
+                                                k: v / 1e3 for k, v in phases.items()})
+                print(f"    device {gr['new']:.4f} ms (first design {gr['first']:.4f}, kernel 2 "
+                      f"{gr['kernel 2']:.4f}); events {ev['new']:.4f} (first {ev['first']:.4f}, "
+                      f"kernel 2 {ev['kernel 2']:.4f}); bound {bound:.4f} ({by}), SFU time "
+                      f"{sfu:.4f}; device at slabs "
+                      + ", ".join(f"{s}: {v:.4f}" for s, v in alt.items())
+                      + f"; a block's phases (us): {phases_line(phases)}")
+            cases = [(3 * CROSS_N1["views"], CROSS_N1["H"], 2 * CROSS_N1["d"], 1),
+                     (2, 56, 192, 1), (2, 56, 192, 16)]
+            for n, H, D, N in cases:
+                args = cross_case_n(g, n, H, D, N, dtype)
+                new = lambda: fused_cross_scan.fused_cross_scan(*args)
+                label = f"({n},{H},{H},{D}) N={N}"
+                err = whole_map_check("kernel 10", label, dtype, new,
+                                      lambda: fused_cross_scan.fused_cross_scan_plain(*args),
+                                      failed)
+                errors["fused_cross_scan"] = max(errors.get("fused_cross_scan", 0.0), err)
+                calls = {"first": on_design(new, first_design_whole_map), "new": new}
+                ev = in_turns(calls, lambda fn: time_ms(fn, 10))
+                gr = in_turns(calls, lambda fn: graph_ms(fn, 20))
+                alt = {} if H > 7 else {
+                    s: graph_ms(on_design(new, lambda s=s: whole_map_slabs((s,))), 20)
+                    for s in scan_whole_map.SLABS}
+                bound, by = cross_work(n, H, H, D, N, dtype).bound()
+                sfu = sfu_ms(n, H * H, D, 4, N, clock)
+                phases = fused_cross_scan.fused_cross_scan_cuda(*args, phase_ns=True)
+                rows[(label, dtype)] = dict(graph_ms=gr["new"], first_graph_ms=gr["first"],
+                                            ms=ev["new"], first_ms=ev["first"], bound_ms=bound,
+                                            sfu_ms=sfu, slab_graph_ms=alt, phases_us={
+                                                k: v / 1e3 for k, v in phases.items()})
+                print(f"    device {gr['new']:.4f} ms (first design {gr['first']:.4f}); events "
+                      f"{ev['new']:.4f} (first {ev['first']:.4f}); bound {bound:.4f} ({by}), "
+                      f"SFU time {sfu:.4f}; "
+                      + "".join(f"device at slabs {s}: {v:.4f}; " for s, v in alt.items())
+                      + f"a block's phases (us): {phases_line(phases)}")
+    if failed:
+        raise PhaseFailure(f"kernels 9 / 10 disagree with their plain twins, between runs or "
+                           f"in their launches: {failed}")
+    # per bs-1 bfloat16 XFMamba-S forward: two ShallowFuse calls, one Cross_SS2Dv5 call
+    bf16 = torch.bfloat16
+    shallow = rows[("XFMamba-S ShallowFuse bs 1", bf16)]
+    cross = rows[("XFMamba-S Cross_SS2Dv5 bs 1", bf16)]
+    fwd = {k: 2 * shallow[k] + cross[k] for k in ("graph_ms", "first_graph_ms",
+                                                   "kernel2_graph_ms", "bound_ms", "sfu_ms")}
+    k10 = rows[(f"({3 * CROSS_N1['views']},7,7,{2 * CROSS_N1['d']}) N=1", torch.float32)]
+    print(f"  kernel 9 per bs-1 bfloat16 XFMamba-S forward (2 + 1 calls), device: "
+          f"{fwd['graph_ms']:.4f} ms (first design {fwd['first_graph_ms']:.4f}, kernel 2 "
+          f"{fwd['kernel2_graph_ms']:.4f}); bound {fwd['bound_ms']:.4f}, SFU time "
+          f"{fwd['sfu_ms']:.4f} ({card})")
+    print(f"  kernel 10 per step of phase 8d's layer, device: {k10['graph_ms']:.4f} ms (first "
+          f"design {k10['first_graph_ms']:.4f}); bound {k10['bound_ms']:.4f}, SFU time "
+          f"{k10['sfu_ms']:.4f} ({card})")
+    V1_EXTRA["nk_scan_v1"] = fwd | {"per": "bs-1 bfloat16 XFMamba-S forward", "geometries": {
+        f"{label} {str(dt)[6:]}": r for (label, dt), r in rows.items() if "bs" in label}}
+    V1_EXTRA["fused_cross_scan"] = {k: k10[k] for k in ("graph_ms", "first_graph_ms", "sfu_ms")} \
+        | {"per": "step of phase 8d's layer", "geometries": {
+            f"{label} {str(dt)[6:]}": r for (label, dt), r in rows.items() if "N=" in label}}
+
+
 def graph_ms(fn, reps=20):
     """Mean milliseconds per call of ``fn`` on the device: ``reps`` calls
     captured in one CUDA graph, the graph replayed between CUDA events, so
@@ -1334,6 +1561,19 @@ def phase_one_study(card):
                       card)
     model.pack_for_inference()
     main = one_study_forward(model, 1, bf16, ONE_STUDY[1], "XFMamba-S bfloat16", card, True)
+    # the same forward with kernels 9 and 10 on their first design, in turns
+    xa, xb = views(1, bf16, 301)
+    fns = {"first": on_design(lambda: model(xa, xb), first_design_whole_map),
+           "new": lambda: model(xa, xb)}
+    runs = {name: [] for name in fns}
+    with torch.no_grad():
+        for name in ("first", "new", "new", "first"):
+            runs[name].append(busy_share(fns[name]))
+    mean = {name: [sum(v) / len(v) for v in zip(*r)] for name, r in runs.items()}
+    print(f"  XFMamba-S bfloat16 bs 1, kernel 9 on its first design / redesigned, in turns: "
+          f"device {mean['first'][1]:.3f} / {mean['new'][1]:.3f} ms, wall "
+          f"{mean['first'][0]:.3f} / {mean['new'][0]:.3f} ms per forward (torch.profiler) "
+          f"({card})")
     one_study_forward(model, 2, bf16, ONE_STUDY[2], "XFMamba-S bfloat16", card)
     one_study_forward(model, 1, torch.float32, F32_ONE_STUDY, "XFMamba-S float32", card)
     del model
@@ -3139,6 +3379,7 @@ def main() -> int:
     phase_fusion_scans(errors, card)
     times = phase_compare_grouped(errors, card)
     times |= phase_compare_v1(errors, card)
+    phase_whole_map_scans(errors, card)
     model = two_view_xfmamba("small", seed=0)
     launches = phase_model(model, card)
     times |= phase_kernel_times(card)

@@ -71,7 +71,11 @@ struct float2 {
 struct float4 {
   float x, y, z, w;
 };
+struct uint2 {
+  unsigned x, y;
+};
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 using std::max;
 using std::min;
 

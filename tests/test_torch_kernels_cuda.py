@@ -14,13 +14,15 @@ rounding flips a last bit (2e-2 per kernel, 4e-2 through a chained stage).
 import pytest
 import torch
 
+from xfmamba_tpu_torch.kernels import build
 from xfmamba_tpu_torch.models import vssm
 from xfmamba_tpu_torch.models.tops import TwoViewXFMamba
 from xfmamba_tpu_torch.models.vssm import VSSBlock
 from xfmamba_tpu_torch.models.ss2d import core_dispatch
 from xfmamba_tpu_torch.ops import (
-    cross2d_scan, fused_cross_scan, nk_scan, nk_scan_adjoint, nk_scan_v1, primitives, selective_scan_grouped,
-    ss2d_core_n1, ssd_chunk, vss_block_train, vss_block_v1, vss_stage, vss_stage_train)
+    cross2d_scan, fused_cross_scan, nk_scan, nk_scan_adjoint, nk_scan_v1, primitives, scan_whole_map,
+    selective_scan_grouped, ss2d_core_n1, ssd_chunk, vss_block_train, vss_block_v1, vss_stage,
+    vss_stage_train)
 from xfmamba_tpu_torch.ops.vss_block import pack_vss_block_params, pack_vss_block_train_params
 from xfmamba_tpu_torch.ops.ablations import nk_scan_v4, nk_scan_wide, pe_fused, seg_ln
 
@@ -1026,15 +1028,89 @@ def _cross_case(g, dtype, B, H, W, D, N):
 @pytest.mark.parametrize("B,H,W,D,N", [(2, 56, 56, 32, 1), (2, 14, 14, 64, 1),
                                        (3, 7, 9, 48, 16), (1, 5, 3, 40, 4)])
 def test_fused_cross_scan(dev, dtype, B, H, W, D, N):
-    """Kernel 10 against its plain twin (float32 merge of the directions,
-    each rounded to the input dtype for N = 1)."""
+    """Kernel 10's first design (the two-level scan of
+    ``csrc/scan_two_level.cu`` and its merge) against the plain twin
+    (float32 merge of the directions, each rounded to the input dtype for
+    N = 1)."""
     g = torch.Generator().manual_seed(25)
+    args = _cross_case(g, dtype, B, H, W, D, N)
+    got = fused_cross_scan._fused_cross_scan_first(*args)
+    assert got.dtype == torch.float32
+    assert rel_err(got, fused_cross_scan.fused_cross_scan_plain(*args)) < TOL[dtype]
+
+
+# kernel 9's geometries of phase 3c: (images, kinds, D) at 7 x 7, N 16
+WHOLE_MAP_K9 = [(1, 1, 1536), (3, 4, 1536), (1, 1, 2048), (3, 4, 2048), (12, 1, 1536),
+                (36, 4, 1536)]
+
+
+def _k9_args(g, dtype, n, K, D, H=7, W=7, N=16):
+    L = H * W
+    kinds = ("row_f",) if K == 1 else nk_scan.scan_mode_kinds("cross2d")
+    return (randn(g, n, L, D, dtype=dtype), randn(g, n, L, K * D, dtype=dtype, scale=0.5),
+            randn(g, n, L, K * N, dtype=dtype), randn(g, n, L, K * N, dtype=dtype),
+            -torch.exp(1.5 * torch.rand(K * N, D, generator=g)).cuda(), randn(g, K, D),
+            randn(g, K, D, scale=0.5) - 3.0, H, W, kinds)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,K,D", WHOLE_MAP_K9)
+def test_whole_map_kernel9(dev, dtype, n, K, D):
+    """Kernel 9 (``csrc/scan_whole_map.cu``) at phase 3c's geometries
+    against its plain twin, one counted call, the same bits on two runs."""
+    g = torch.Generator().manual_seed(27)
+    args = _k9_args(g, dtype, n, K, D)
+    before = nk_scan_v1.nk_scan_v1.launches
+    got = nk_scan_v1.nk_scan_v1(*args)
+    assert nk_scan_v1.nk_scan_v1.launches == before + 1 and got.dtype == dtype
+    assert rel_err(got, nk_scan_v1.nk_scan_v1_plain(*args)) < TOL[dtype]
+    assert torch.equal(got, nk_scan_v1.nk_scan_v1(*args))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,W,D,N", [(6, 7, 7, 1536, 1), (2, 7, 7, 1536, 16),
+                                       (2, 56, 56, 192, 1), (2, 56, 56, 192, 16),
+                                       (2, 28, 28, 384, 1), (1, 5, 3, 40, 4)])
+def test_whole_map_kernel10(dev, dtype, B, H, W, D, N):
+    """Kernel 10 (``csrc/scan_whole_map.cu``; the 28 x 28 and 56 x 56 maps
+    take the chunked plan) against its plain twin, one counted call, float32
+    out, the same bits on two runs."""
+    g = torch.Generator().manual_seed(28)
     args = _cross_case(g, dtype, B, H, W, D, N)
     before = fused_cross_scan.fused_cross_scan.launches
     got = fused_cross_scan.fused_cross_scan(*args)
     assert fused_cross_scan.fused_cross_scan.launches == before + 1
     assert got.dtype == torch.float32
     assert rel_err(got, fused_cross_scan.fused_cross_scan_plain(*args)) < TOL[dtype]
+    assert torch.equal(got, fused_cross_scan.fused_cross_scan(*args))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", [9, 10])
+def test_whole_map_large_map_plan(dev, monkeypatch, dtype, kernel):
+    """The chunked plan (3 chunks, slabs of 8), forced by a shared-memory
+    budget below the whole plan's blocks, at kernel 9's Cross_SS2Dv5 map
+    and kernel 10's N = 1 map: the whole plan's bits."""
+    g = torch.Generator().manual_seed(29)
+    if kernel == 9:
+        fn, args, N = nk_scan_v1.nk_scan_v1, _k9_args(g, dtype, 3, 4, 96), 16
+    else:
+        fn, args, N = fused_cross_scan.fused_cross_scan, _cross_case(g, dtype, 2, 7, 7, 96, 1), 1
+    whole = fn(*args)
+    smem = build.library().xfm_whole_map_smem
+    bf16 = int(dtype == torch.bfloat16)
+    budget = smem(0, 4, 49, 20, N, 8, bf16)
+    assert all(smem(1, 4, 49, 49, N, s, bf16) > budget for s in scan_whole_map.SLABS)
+    scan_whole_map._plan.cache_clear()
+    monkeypatch.setattr(scan_whole_map, "WHOLE_MAP_SMEM", budget)
+    monkeypatch.setattr(scan_whole_map, "CHUNK_SLABS", (8,))
+    monkeypatch.setattr(scan_whole_map, "CHUNK", 20)
+    monkeypatch.setattr(scan_whole_map.scan_whole_map_cuda, "by_plan", {})
+    try:
+        assert torch.equal(fn(*args), whole)
+    finally:
+        scan_whole_map._plan.cache_clear()
+    assert scan_whole_map.scan_whole_map_cuda.by_plan == {"chunked x3, slab 8": 1}
 
 
 def test_core_dispatch_n1_card_matches_cpu(dev):

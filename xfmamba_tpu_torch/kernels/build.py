@@ -33,7 +33,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # name -> argtypes of the C entry points that return an int: a cudaError_t
 # (xfm_vss_block_v1_grid: a block count, or a negated cudaError_t;
-# xfm_fusion_scan_smem: bytes of shared memory)
+# xfm_fusion_scan_smem, xfm_whole_map_smem: bytes of shared memory)
 _SIGNATURES = {
     "xfm_gemm": [_P] * 6 + [_LL, _I, _I] + [_LL] * 5 + [_I] * 6 + [_P],
     "xfm_gemm_tc": [_P] * 6 + [_LL, _I, _I] + [_LL] * 6 + [_I] * 10 + [_P],
@@ -69,6 +69,8 @@ _SIGNATURES = {
     "xfm_nk_scan_adjoint": [_P] * 20 + [_I] * 10 + [_P],
     "xfm_fusion_scan": [_P] * 11 + [_I] * 13 + [_P] * 3,
     "xfm_fusion_scan_smem": [_I] * 8,
+    "xfm_whole_map_scan": [_P] * 8 + [_I] * 15 + [_P] * 2,
+    "xfm_whole_map_smem": [_I] * 7,
 }
 # entry points that return something other than a cudaError_t
 _RESTYPES = {"xfm_vss_block_v1_workspace": ([_LL] + [_I] * 5, ctypes.c_longlong)}

@@ -4,13 +4,15 @@ TPU kernels ``_scan_kernel`` (:73, any N) and ``_scan_kernel_n1`` (:161),
 ``pallas_call`` :277, with the merge of ``_core_pallas_fwd_impl``
 (:1230-1265) and the custom VJP ``ss2d_core_pallas`` (:1268-1290)).
 
-- `fused_cross_scan`: the kernel, the dts form of ``csrc/scan_two_level.cu``
-  over the four cross2d directions (row_f, col_f, row_r, col_r; the
-  column ones walk t = w * H + h, so no transposed copy of x exists).  Each
-  direction's y_k = C h + D_k u is kept apart, in the input dtype for N = 1
-  and in float32 for N > 1 as the Pallas kernel writes it, and merged in
-  float32 as (y_0 + y_2) + (y_1 + y_3).  Any N up to 16; N = 1 has its own
-  instantiation.
+- `fused_cross_scan`: the kernel, one launch of the whole-map scan
+  (``csrc/scan_whole_map.cu``, `fused_cross_scan_cuda`) over the four
+  cross2d directions (row_f, col_f, row_r, col_r; the column ones walk
+  t = w * H + h, so no transposed copy of x exists).  Each direction's
+  y_k = C h + D_k u is kept apart in shared memory, rounded to the input
+  dtype for N = 1 as the Pallas kernel writes it, and merged in float32 as
+  (y_0 + y_2) + (y_1 + y_3).  Any N up to 16.  `_fused_cross_scan_first`
+  is its first design (``csrc/scan_two_level.cu``), for old-against-new
+  timings.
 - `SS2DCoreFused` / `ss2d_core_fused`: the autograd op.  Its backward
   recomputes through the port's ``models.ss2d.ss2d_core_from_projs`` under
   autograd (kernels 13 and 14 on the card), as JAX's remats through its
@@ -34,6 +36,7 @@ from xfmamba_tpu_torch.ops.nk_scan import CROSS2D_KINDS, traversal_order
 from xfmamba_tpu_torch.ops.nk_scan_v1 import segments_per_chunk
 from xfmamba_tpu_torch.ops.primitives import (
     dtype_code, on_cpu, ptr, require, require_cuda, stream)
+from xfmamba_tpu_torch.ops.scan_whole_map import scan_whole_map_cuda
 from xfmamba_tpu_torch.ops.selective_scan import selective_scan_seq
 
 MAX_STATE = 16
@@ -76,20 +79,40 @@ def fused_cross_scan(x, dts, Bs, Cs, A, Dmat, bias):
     require(A, (4, D, N), torch.float32, name="A")
     for name, t in (("Dmat", Dmat), ("bias", bias)):
         require(t, (4, D), torch.float32, name=name)
+    fused_cross_scan.launches += 1
+    return fused_cross_scan_cuda(x, dts, Bs, Cs, A, Dmat, bias)
+
+
+fused_cross_scan.launches = 0
+
+
+def fused_cross_scan_cuda(x, dts, Bs, Cs, A, Dmat, bias, phase_ns=False):
+    """Kernel 10 on the card: one launch of ``csrc/scan_whole_map.cu``, A
+    read in its (4, D, N) layout; ``phase_ns`` as `scan_whole_map_cuda`."""
+    B, H, W, D = x.shape
+    N, L = A.shape[-1], H * W
+    y = scan_whole_map_cuda(
+        x.view(B, L, D), dts.view(B, L, 4, D), Bs.view(B, L, 4, N), Cs.view(B, L, 4, N), A,
+        bias, Dmat, CROSS2D_KINDS, H, W, cross=True, out_dtype=torch.float32,
+        round_part=N == 1 and x.dtype == torch.bfloat16, phase_ns=phase_ns)
+    return y if phase_ns else y.view(B, H, W, D)
+
+
+def _fused_cross_scan_first(x, dts, Bs, Cs, A, Dmat, bias):
+    """Kernel 10's first design (``csrc/scan_two_level.cu``: the scan, each
+    direction's part in a float32 scratch, a merge launch), uncounted, for
+    old-against-new timings."""
+    B, H, W, D = x.shape
+    N = A.shape[-1]
     f32 = dict(dtype=torch.float32, device=x.device)
     A_nd = A.transpose(1, 2).contiguous()                 # (4, N, D)
     part = torch.empty(4, B, H * W, D, **f32)
     out = torch.empty(B, H, W, D, **f32)
-    lib = build.library()
-    fused_cross_scan.launches += 1
-    build.check(lib.xfm_fused_cross_scan(
+    build.check(build.library().xfm_fused_cross_scan(
         ptr(x), ptr(dts), ptr(Bs), ptr(Cs), ptr(A_nd), ptr(bias),
         ptr(Dmat), ptr(part), ptr(out), B, H, W, D, N, segments_per_chunk(H, W),
         dtype_code(x), stream(x)), "fused_cross_scan")
     return out
-
-
-fused_cross_scan.launches = 0
 
 
 class SS2DCoreFused(torch.autograd.Function):

@@ -1,5 +1,5 @@
-"""Kernel 9, the v1 nk scan, and the two-level scan it shares with kernels
-8 and 10 (``csrc/scan_two_level.cu``).
+"""Kernel 9, the v1 nk scan, and the two-level scan of its first design
+(``csrc/scan_two_level.cu``), which kernel 8's launch sequence still runs.
 
 - `scan_two_level_cuda`: the two-level whole-map scan (K traversal kinds x
   N states, deltas precomputed or in rank form), parallel along L: each
@@ -10,8 +10,10 @@
   float32 agrees to about 1e-5 relative, not bit for bit.
 - `nk_scan_v1`: port of ``xfmamba_tpu/ops/vss_block_pallas.py::
   nk_scan_call`` (:720, TPU kernel ``_nk_scan_kernel`` :690, also behind
-  ``nk_scan_from_projs`` :756), kernel 2's contract on the two-level scan;
-  inference only, as on the TPU.
+  ``nk_scan_from_projs`` :756), kernel 2's contract; on the card one launch
+  of the whole-map scan (``ops/scan_whole_map.py``, `nk_scan_v1_cuda`);
+  inference only, as on the TPU.  `nk_scan_v1_first` is its first design
+  on the two-level scan, for old-against-new timings.
 - The fusion ops' routing rules of the JAX accelerator path, copied as they
   are (pure Python): `shallow_group` / `shallow_takes_v2` (ShallowFuse,
   ``models/fusion.py:176-180``), `cross_v2_group` (Cross_SS2Dv5,
@@ -34,6 +36,7 @@ from xfmamba_tpu_torch.ops.nk_scan import (
     _kinds_code, _nk_operands, _row_strides, nk_scan_plain, selective_scan_plain)
 from xfmamba_tpu_torch.ops.primitives import (
     dtype_code, on_cpu, ptr, require, require_cuda, stream)
+from xfmamba_tpu_torch.ops.scan_whole_map import scan_whole_map_cuda
 
 # chunks of one (image, kind) chain: the threads along L of a kernel block
 MAX_CHUNKS = 16
@@ -160,8 +163,28 @@ def nk_scan_v1(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds):
     for name, t in (("u", u), ("dts", dts), ("Bs", Bs), ("Cs", Cs)):
         require(t, (n, L, None), u.dtype, name=name)
     nk_scan_v1.launches += 1
-    return scan_two_level_cuda(H=H, W=W, dts=dts.view(n, L, len(kinds), D), out_dtype=u.dtype,
-                               **_nk_operands(u, Bs, Cs, A, Dvec, bias, kinds))
+    return nk_scan_v1_cuda(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds)
 
 
 nk_scan_v1.launches = 0
+
+
+def nk_scan_v1_cuda(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds, phase_ns=False):
+    """Kernel 9 on the card: one launch of ``csrc/scan_whole_map.cu``,
+    sum_k D_k taken in the kernel; ``phase_ns`` as `scan_whole_map_cuda`."""
+    n, L, D = u.shape
+    K = len(kinds)
+    N = A.shape[0] // K
+    return scan_whole_map_cuda(
+        u, dts.view(n, L, K, D), Bs.view(n, L, K, N), Cs.view(n, L, K, N),
+        A.float().reshape(K, N, D).contiguous(), bias.float().reshape(K, D).contiguous(),
+        Dvec.float().reshape(K, D).contiguous(), kinds, H, W, cross=False, out_dtype=u.dtype,
+        phase_ns=phase_ns)
+
+
+def nk_scan_v1_first(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds):
+    """Kernel 9's first design, the two-level scan and its merge, kept for
+    old-against-new timings."""
+    n, L, D = u.shape
+    return scan_two_level_cuda(H=H, W=W, dts=dts.view(n, L, len(kinds), D), out_dtype=u.dtype,
+                               **_nk_operands(u, Bs, Cs, A, Dvec, bias, kinds))

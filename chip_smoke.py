@@ -147,8 +147,9 @@ Single-study and unaligned-batch inference (kernels 8, 9 and 10):
 3c. kernel 8 (the v1 whole block, one cooperative launch of
    ``csrc/vss_block_v1.cu``) against its plain twin at every stage map of
    XFMamba-S and XFMamba-B, 2 and 4 images, both dtypes, and one device
-   launch per block (torch.profiler); per bs-1 bfloat16 XFMamba-S forward
-   (15 blocks at 14 x 14, 2 at 7 x 7, 2 images) the old launch sequence
+   launch per block (the nodes of a captured CUDA graph); per bs-1
+   bfloat16 XFMamba-S forward (15 blocks at 14 x 14, 2 at 7 x 7, 2
+   images) the old launch sequence
    (``vss_block_v1.vss_block_v1_sequence``) and the kernel in turns, by CUDA
    events and by CUDA-graph replay, with the kernel's phase times (its
    global-timer stamps); kernels 9 (the v1 nk scan) at ShallowFuse's (1,
@@ -173,11 +174,15 @@ Single-study and unaligned-batch inference (kernels 8, 9 and 10):
    ``core_dispatch`` on the card against the CPU plain twins.
 
 The ablation kernels behind JAX's switches (kernels 17-21):
-10. kernels 17 (the v4 nk scan) and 18 (v3) against their plain twins and
-   against kernel 2 on the same inputs at XFMamba-S's ShallowFuse (32, 49,
-   1536) K=1 and Cross_SS2Dv5 training (48, 49, 1536) K=4 shapes and
-   XFMamba-B's ShallowFuse (16, 49, 2048), N 16, both dtypes, with ms per
-   call beside kernel 2 and the plain twins;
+10. kernels 17 (the v4 nk scan) and 18 (v3) against
+   their plain twins and against kernel 2 on the same inputs at XFMamba-S's
+   ShallowFuse (32, 49, 1536) K=1 and Cross_SS2Dv5 training (48, 49, 1536)
+   K=4 shapes and XFMamba-B's ShallowFuse (16, 49, 2048), N 16, both
+   dtypes: bitwise over two runs, one device launch a call, no float32
+   scratch allocated; device ms per call by graph replay of the new design,
+   its first design (``csrc/nk_scan_ablations_v1.cu``, swapped in by
+   `first_design_nk_ablations`) and kernel 2 in turns, the plain twins'
+   times, the plan, a block's phase times and the build's registers;
 10b. XFMamba-S with ``FUSED_V4``, then ``FUSED_V3``, on against both off:
    bfloat16 inference at bs 32 (2 launches of the switched kernel per
    forward, none of kernel 2; logits within 5e-2 of the largest) and one
@@ -209,7 +214,9 @@ scans' device times old and new (7e), XFMamba-B's step (6); for kernels 2
 and 3 per bs-32 bfloat16 forward their first design's times and device
 times, the SFU time, the blocks an SM holds and every geometry's device
 times (3d); for kernels 13 and 14 per XFMamba-B step their device times and
-their first design's, the SFU time, and the bs-12 ShallowFuse call's (3b)),
+their first design's, the SFU time, and the bs-12 ShallowFuse call's (3b);
+for kernels 17 and 18 per bs-32 bfloat16 forward their first design's and
+kernel 2's device times, the SFU time and every geometry's times (10)),
 the line before the last the card's name and power limit, the last
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it prints no result and exits 1.
@@ -218,6 +225,7 @@ Without a CUDA device it prints no result and exits 1.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import math
 import subprocess
@@ -238,7 +246,8 @@ from xfmamba_tpu_torch.ops import (
     cross2d_scan, fused_cross_scan, nk_scan, nk_scan_adjoint, nk_scan_v1, primitives,
     scan_whole_map, selective_scan_grouped, ss2d_core_n1, ssd_chunk, vss_block_train, vss_block_v1,
     vss_stage, vss_stage_train)
-from xfmamba_tpu_torch.ops.ablations import nk_scan_v4, nk_scan_wide, pe_fused, seg_ln
+from xfmamba_tpu_torch.ops.ablations import (
+    ablation_scan, nk_scan_v4, nk_scan_wide, pe_fused, seg_ln)
 from xfmamba_tpu_torch.ops.vss_block import (
     mlp_half, pack_vss_block_params, pack_vss_block_train_params, ss2d_half, ss2d_half_fwd,
     vss_block_body)
@@ -1107,17 +1116,66 @@ def v1_block_case(g, H, d, n, dtype=torch.bfloat16):
             vss_block_v1.pack_vss_block_v1_params(block, dtype))
 
 
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of the driver API (cuda.h, CUDA 12)."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_mem_bytes", ctypes.c_uint),
+                ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def _driver_call(status, what):
+    if status != 0:
+        raise PhaseFailure(f"{what}: CUDA driver error {status}")
+
+
+def _node_name(cuda, node):
+    """The name of a kernel node's kernel (mangled), from its CUfunction or
+    its CUkernel."""
+    params = _KernelNodeParams()
+    _driver_call(cuda.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(params)),
+                 "cuGraphKernelNodeGetParams")
+    name = ctypes.c_char_p()
+    if params.func and cuda.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params.func)) == 0:
+        return name.value.decode()
+    handle = params.kern or params.func
+    _driver_call(cuda.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(handle)),
+                 "cuKernelGetName")
+    return name.value.decode()
+
+
 def device_launches(fn):
-    """The card's kernel launches in one call of ``fn`` (torch.profiler, 3
-    calls after a warm-up): {kernel name: launches per call}.  A profile
-    that lost some of a kernel's events (the profiler has dropped them:
-    no kernel, or a count that is not a whole number per call) is taken
-    again, up to three times."""
-    for _ in range(3):
-        _, _, table = profile_calls(fn, calls=3, warmup=1)
-        launches = {name: count for _, count, name in table}
-        if launches and all(float(c).is_integer() for c in launches.values()):
-            break
+    """The card's launches in one call of ``fn``: {kernel name (mangled),
+    "memcpy" or "memset": count}, read by the driver API from the nodes of a
+    CUDA graph that captures one call after a warm-up call on the capture's
+    stream (a wrapper's workspaces are kept per stream).  torch.profiler,
+    which counted them before, drops every device event of about half of
+    its short profiles once the port's kernel library is loaded (PERF.md
+    section 7)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    _driver_call(cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    _driver_call(cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    launches = {}
+    for node in map(ctypes.c_void_p, nodes):
+        kind = ctypes.c_int()
+        _driver_call(cuda.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        # CU_GRAPH_NODE_TYPE_KERNEL, _MEMCPY, _MEMSET; the rest launch nothing
+        name = {0: None, 1: "memcpy", 2: "memset"}.get(kind.value, "")
+        if name is None:
+            name = _node_name(cuda, node)
+        if name:
+            launches[name] = launches.get(name, 0) + 1
+    graph.reset()
     return launches
 
 
@@ -1358,7 +1416,7 @@ def phases_line(phases):
 def whole_map_check(name, label, dtype, fn, plain, failed):
     """``fn`` against its plain twin (TOL), bitwise over two runs, and one
     device launch a call of the whole-map scan; returns (max abs error,
-    plan, the profiler's launches)."""
+    plan, its device launches)."""
     scan_whole_map.scan_whole_map_cuda.by_plan.clear()
     got, again, want = fn(), fn(), plain()
     torch.cuda.synchronize()
@@ -3091,54 +3149,143 @@ def phase_m2_cpu_parity():
 # kernels 17-21: the ablations behind JAX's switches
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def first_design_nk_ablations():
+    """Kernels 17 and 18 on their first design while open: `nk_scan_v4` and
+    `nk_scan_v3` launch ``csrc/nk_scan_ablations_v1.cu`` on the same
+    operands (phase 10's old-against-new timings)."""
+    new = nk_scan_v4.nk_scan_v4_cuda, nk_scan_wide.nk_scan_v3_cuda
+    nk_scan_v4.nk_scan_v4_cuda = nk_scan_v4.nk_scan_v4_first
+    nk_scan_wide.nk_scan_v3_cuda = nk_scan_wide.nk_scan_v3_first
+    try:
+        yield
+    finally:
+        nk_scan_v4.nk_scan_v4_cuda, nk_scan_wide.nk_scan_v3_cuda = new
+
+
+def scratch_bytes(fn):
+    """Device bytes that one call of ``fn`` asks the allocator for beyond
+    its output, at their peak (the requested sizes: a cached block handed
+    out whole counts only what was asked)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.memory_stats()["requested_bytes.all.peak"]
+    return peak - base - out.numel() * out.element_size()
+
+
 def phase_compare_nk_ablations(errors, card):
-    """Kernels 17 and 18 against their plain twins and against kernel 2 on
-    the same inputs at the fusion scans' shapes, float32 and bfloat16, TF32
-    off; per call, each kernel's device time beside kernel 2's (`graph_ms`:
-    at these sub-millisecond sizes the CUDA-event time of a call follows
-    the host's speed), the CUDA-event times and the plain twins'.  Returns
-    each kernel's (device ms, plain ms, bound) per bs-32 bfloat16 XFMamba-S
-    forward (two ShallowFuse calls)."""
+    """Kernels 17 and 18 (``csrc/nk_scan_ablations.cu``) against their plain
+    twins and against kernel 2 on the same inputs at the fusion scans'
+    shapes, float32 and bfloat16, TF32 off: bitwise over two runs, one
+    device launch a call, no float32 scratch (the bytes a call allocates
+    beyond its output, below an eighth of an (n, L, D) float32 buffer);
+    device ms per call by graph replay (at these sub-millisecond sizes the
+    CUDA-event time of a call follows the host's speed) of the new design,
+    its first design (`first_design_nk_ablations`) and kernel 2 in turns,
+    the CUDA-event times, the plain twins', the plan and a block's phase
+    times.  Returns each kernel's (device ms, plain ms, bound) per bs-32
+    bfloat16 XFMamba-S forward (two ShallowFuse calls)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    clock = sm_clock_mhz()
     print(f"phase 10: kernels 17 (nk scan v4) and 18 (v3) vs their plain twins and kernel 2, "
-          f"TF32 off ({card})")
+          f"TF32 off; device ms by graph replay, new / first design / kernel 2 in turns; SFU: "
+          f"the exponentials at {SFU_PER_SM_CLOCK} per SM per clock on {SMS} SMs at "
+          f"{clock:.0f} MHz ({card})")
+    _, log = build.build()
+    regs = {}
+    for fn, n_regs, spills in ptxas_rows(log, "nk_ablation_kernel", "nk_scan_v4_kernel",
+                                         "nk_scan_v3_kernel"):
+        regs[fn] = (n_regs, spills)
+        print(f"  ptxas {fn[:90]}: {n_regs} registers, {spills} bytes spilled")
     g = torch.Generator().manual_seed(45)
-    kernels = {"nk_scan_v4": (nk_scan_v4.nk_scan_v4, nk_scan_v4.nk_scan_v4_plain),
-               "nk_scan_v3": (nk_scan_wide.nk_scan_v3, nk_scan_wide.nk_scan_v3_plain)}
-    failed, times = [], {}
+    kernels = {"nk_scan_v4": (nk_scan_v4.nk_scan_v4, nk_scan_v4.nk_scan_v4_plain,
+                              nk_scan_v4.nk_scan_v4_cuda),
+               "nk_scan_v3": (nk_scan_wide.nk_scan_v3, nk_scan_wide.nk_scan_v3_plain,
+                              nk_scan_wide.nk_scan_v3_cuda)}
+    failed, rows = [], {}
     with torch.no_grad():
         for size, n, K, label in NK_ABLATION_CASES:
             D = FUSION[size]["D"]
             for dtype in (torch.float32, torch.bfloat16):
                 args = v1_scan_case(g, n, K, dtype, size)
                 k2 = nk_scan.nk_scan(*args)
-                for name, (fn, plain) in kernels.items():
-                    got = fn(*args, group=8)
+                calls = {"kernel 2": lambda: nk_scan.nk_scan(*args)}
+                for name, (fn, plain, cuda) in kernels.items():
+                    new = lambda fn=fn: fn(*args, group=8)
+                    ablation_scan.ablation_scan_cuda.by_plan.clear()
+                    got, again = new(), new()
+                    torch.cuda.synchronize()
+                    plan = ", ".join(ablation_scan.ablation_scan_cuda.by_plan)
                     check_outputs(errors, name, f"{label} ({n},49,{D}) K={K} vs plain, k2", dtype,
                                   [got, got], [plain(*args), k2], failed)
-                calls = {"nk_scan": lambda: nk_scan.nk_scan(*args),
-                         "nk_scan_v4": lambda: nk_scan_v4.nk_scan_v4(*args, group=8),
-                         "nk_scan_v3": lambda: nk_scan_wide.nk_scan_v3(*args, group=8)}
-                dev = {name: graph_ms(fn) for name, fn in calls.items()}
-                wall = {name: time_ms(fn, 10) for name, fn in calls.items()}
+                    same = torch.equal(got, again)
+                    launches = device_launches(new)
+                    one = list(launches.values()) == [1.0] and \
+                        "nk_ablation_kernel" in next(iter(launches))
+                    extra = scratch_bytes(new)
+                    lean = extra < n * 49 * D * 4 / 8
+                    phases = cuda(*args, phase_ns=True)
+                    print(f"    {'bitwise' if same else 'two runs differ'}, {plan}, device "
+                          f"launches a call {list(launches.values()) if one else launches}, "
+                          f"{extra} bytes allocated beyond the output; a block's phases (us): "
+                          f"{phases_line(phases)} {'OK' if same and one and lean else 'FAIL'}")
+                    if not (same and one and lean):
+                        failed.append((name, label, str(dtype), same, launches, extra))
+                    calls[f"{name} new"] = new
+                    calls[f"{name} first"] = on_design(new, first_design_nk_ablations)
+                    rows[(name, label, dtype)] = dict(phases_us={k: v / 1e3 for k, v in
+                                                                 phases.items()}, plan=plan)
+                dev = in_turns(calls, lambda fn: graph_ms(fn, 20))
+                wall = in_turns(calls, lambda fn: time_ms(fn, 10))
                 plain_ms = {name: time_ms(lambda f=plain: f(*args), 1, warmup=False)
-                            for name, (_, plain) in kernels.items()}
-                print(f"    {str(dtype)[6:]}: ms per call on the device (CUDA events): kernel 2 "
-                      f"{dev['nk_scan']:.4f} ({wall['nk_scan']:.4f}), kernel 17 "
-                      f"{dev['nk_scan_v4']:.4f} ({wall['nk_scan_v4']:.4f}), kernel 18 "
-                      f"{dev['nk_scan_v3']:.4f} ({wall['nk_scan_v3']:.4f}); plain twins "
-                      f"{plain_ms['nk_scan_v4']:.3f}, {plain_ms['nk_scan_v3']:.3f}")
-                if (size, n, K, dtype) == ("small", 32, 1, torch.bfloat16):
-                    for name in kernels:
-                        times[name] = (2 * dev[name], 2 * plain_ms[name],
-                                       *nk_work(n, 49, D, K, 16, dtype).times(2).bound())
+                            for name, (_, plain, _) in kernels.items()}
+                sfu = sfu_ms(n, 49, D, K, 16, clock)
+                bound, by = nk_work(n, 49, D, K, 16, dtype).bound()
+                print(f"    {str(dtype)[6:]}: device ms per call (CUDA events): "
+                      + ", ".join(f"{k} {dev[k]:.4f} ({wall[k]:.4f})" for k in calls)
+                      + f"; plain twins {plain_ms['nk_scan_v4']:.3f}, "
+                      f"{plain_ms['nk_scan_v3']:.3f}; bound {bound:.4f} ({by}), SFU time "
+                      f"{sfu:.4f}")
+                for name in kernels:
+                    rows[(name, label, dtype)] |= dict(
+                        graph_ms=dev[f"{name} new"], first_graph_ms=dev[f"{name} first"],
+                        kernel2_graph_ms=dev["kernel 2"], ms=wall[f"{name} new"],
+                        first_ms=wall[f"{name} first"], plain_ms=plain_ms[name],
+                        bound_ms=bound, sfu_ms=sfu)
     torch.cuda.synchronize()
     if failed:
-        raise PhaseFailure(f"kernels 17/18 disagree with their plain twins or kernel 2: {failed}")
-    for name, (ms, plain_ms, bound_ms, bound_by) in times.items():
-        print(f"  {name} per bs-32 bfloat16 XFMamba-S forward (2 ShallowFuse calls): {ms:.4f} ms "
-              f"on the device, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        raise PhaseFailure(f"kernels 17/18 disagree with their plain twins or kernel 2, between "
+                           f"runs, in their launches or allocate scratch: {failed}")
+    times = {}
+    for name in kernels:
+        # per bs-32 bfloat16 XFMamba-S forward: two ShallowFuse calls
+        r = rows[(name, NK_ABLATION_CASES[0][3], torch.bfloat16)]
+        fwd = {k: 2 * r[k] for k in ("graph_ms", "first_graph_ms", "kernel2_graph_ms", "sfu_ms",
+                                     "plain_ms")}
+        times[name] = (fwd["graph_ms"], fwd["plain_ms"],
+                       *nk_work(32, 49, FUSION["small"]["D"], 1, 16, torch.bfloat16)
+                       .times(2).bound())
+        ratio = fwd["graph_ms"] / fwd["kernel2_graph_ms"]
+        print(f"  {name} per bs-32 bfloat16 XFMamba-S forward (2 ShallowFuse calls), device: "
+              f"{fwd['graph_ms']:.4f} ms (first design {fwd['first_graph_ms']:.4f}, kernel 2 "
+              f"{fwd['kernel2_graph_ms']:.4f}: {ratio:.2f}x, aim 1.5x); plain "
+              f"{fwd['plain_ms']:.3f} ms, bound {times[name][2]:.4f} ms ({times[name][3]}), SFU "
+              f"time {fwd['sfu_ms']:.4f} ({card})")
+        # the build's report of this kernel's instantiations (template
+        # argument 0 kernel 17, 1 kernel 18) and of its first design
+        code, first = ("0", "nk_scan_v4_kernel") if name == "nk_scan_v4" else \
+            ("1", "nk_scan_v3_kernel")
+        mine = {fn: r for fn, r in regs.items()
+                if ("nk_ablation_kernel" in fn and f"Li{code}ELi" in fn) or first in fn}
+        print(f"  {name} registers, spilled bytes: "
+              + ", ".join(f"{fn[:60]} {r[0]}, {r[1]}" for fn, r in mine.items()))
+        V1_EXTRA[name] = fwd | {"per": "bs-32 bfloat16 XFMamba-S forward", "registers": mine,
+                                "geometries": {f"{label} {str(dt)[6:]}": r for (nm, label, dt), r
+                                               in rows.items() if nm == name}}
     return times
 
 

@@ -24,7 +24,8 @@ from xfmamba_tpu_torch.ops import (
     selective_scan_grouped, ss2d_core_n1, ssd_chunk, vss_block_train, vss_block_v1, vss_stage,
     vss_stage_train)
 from xfmamba_tpu_torch.ops.vss_block import pack_vss_block_params, pack_vss_block_train_params
-from xfmamba_tpu_torch.ops.ablations import nk_scan_v4, nk_scan_wide, pe_fused, seg_ln
+from xfmamba_tpu_torch.ops.ablations import (
+    ablation_scan, nk_scan_v4, nk_scan_wide, pe_fused, seg_ln)
 
 pytestmark = pytest.mark.cuda
 
@@ -1191,20 +1192,65 @@ def _nk_case(g, dtype, B, H, W, D, kinds, N):
 @pytest.mark.parametrize("N", [4, 16])
 def test_nk_scan_ablations(dev, dtype, scan_mode, N):
     """Kernels 17 (group 8) and 18 (groups 8 and 2) against their plain
-    twins on 7 x 7 maps of 256 channels, 8 images (D not a multiple of the
-    kernel-17 block's 32 lanes at 200)."""
+    twins and their first designs (``nk_scan_v4_first`` /
+    ``nk_scan_v3_first``) on 7 x 7 maps of 256 channels, 8 images (D not a
+    multiple of any slab at 200), and on a 40 x 40 map of 64 channels, which
+    takes the chunked plan; two runs give the same bits."""
     g = torch.Generator().manual_seed(40)
     kinds = nk_scan.scan_mode_kinds(scan_mode)
-    for D in (256, 200):
-        args = _nk_case(g, dtype, 8, 7, 7, D, kinds, N)
-        for fn, plain, group in ((nk_scan_v4.nk_scan_v4, nk_scan_v4.nk_scan_v4_plain, 8),
-                                 (nk_scan_wide.nk_scan_v3, nk_scan_wide.nk_scan_v3_plain, 8),
-                                 (nk_scan_wide.nk_scan_v3, nk_scan_wide.nk_scan_v3_plain, 2)):
+    plans = ablation_scan.ablation_scan_cuda.by_plan
+    for H, D in ((7, 256), (7, 200), (40, 64)):
+        args = _nk_case(g, dtype, 8, H, H, D, kinds, N)
+        for fn, plain, first, group in (
+                (nk_scan_v4.nk_scan_v4, nk_scan_v4.nk_scan_v4_plain, nk_scan_v4.nk_scan_v4_first, 8),
+                (nk_scan_wide.nk_scan_v3, nk_scan_wide.nk_scan_v3_plain,
+                 nk_scan_wide.nk_scan_v3_first, 8),
+                (nk_scan_wide.nk_scan_v3, nk_scan_wide.nk_scan_v3_plain,
+                 nk_scan_wide.nk_scan_v3_first, 2)):
             before = fn.launches
-            got = fn(*args, group=group)
+            plans.clear()
+            got, again = fn(*args, group=group), fn(*args, group=group)
             torch.cuda.synchronize()
-            assert fn.launches == before + 1 and got.dtype == dtype
+            assert fn.launches == before + 2 and got.dtype == dtype
+            assert torch.equal(got, again), (fn.__name__, D)
+            assert all(("chunked" in p) == (H > 7) for p in plans), plans
             assert rel_err(got, plain(*args)) < TOL[dtype], (fn.__name__, D, group)
+            assert rel_err(got, first(*args)) < TOL[dtype], (fn.__name__, D, group)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_nk_scan_ablations_past_the_accumulator(dev, monkeypatch, dtype):
+    """Kernels 17 and 18 where the chunked plan's float32 accumulator does
+    not hold the map: a 256 x 256 cross2d map of 16 channels on 8 images
+    (two bands at one channel, the plan the port picks) against kernel 2 on
+    the same inputs; and a 40 x 40 map whose shared-memory budget is lowered
+    to leave room for 500 positions (four bands at one channel), the bits
+    of the plan that holds the map; two runs give the same bits."""
+    g = torch.Generator().manual_seed(43)
+    kinds = nk_scan.scan_mode_kinds("cross2d")
+    plans = ablation_scan.ablation_scan_cuda.by_plan
+    big = _nk_case(g, dtype, 8, 256, 256, 16, kinds, 16)
+    small = _nk_case(g, dtype, 8, 40, 40, 64, kinds, 16)
+    want = nk_scan.nk_scan(*big)
+    for kernel, fn in (("v4", nk_scan_v4.nk_scan_v4), ("v3", nk_scan_wide.nk_scan_v3)):
+        plans.clear()
+        got, again = fn(*big, group=8), fn(*big, group=8)
+        assert torch.equal(got, again)
+        assert rel_err(got, want) < TOL[dtype], kernel
+        assert plans == {f"{kernel} chunked x1024, slab 1, 2 bands": 2}
+        held = fn(*small, group=8)
+        code = ablation_scan.KERNELS.index(kernel)
+        budget = build.library().xfm_nk_ablation_smem(
+            code, 0, 4, 1600, ablation_scan.CHUNK, 16, 1, 500, int(dtype == torch.bfloat16))
+        ablation_scan._plan.cache_clear()
+        monkeypatch.setattr(ablation_scan, "ABLATION_SMEM", budget)
+        try:
+            plans.clear()
+            assert torch.equal(fn(*small, group=8), held), kernel
+            assert plans == {f"{kernel} chunked x25, slab 1, 4 bands": 1}
+        finally:
+            monkeypatch.undo()
+            ablation_scan._plan.cache_clear()
 
 
 def test_nk_scan_routes_to_the_ablations(dev, monkeypatch):

@@ -50,7 +50,7 @@ from xfmamba_tpu_torch.ops.nk_scan import scan_mode_kinds
 
 T = torch.from_numpy
 STUBS = Path(__file__).resolve().parent / "cuda_emulator"
-SOURCES = ("common.cuh", "mma.cuh", "scan_whole_map.cu")
+SOURCES = ("common.cuh", "mma.cuh", "staging.cuh", "scan_whole_map.cu")
 CROSS2D = scan_mode_kinds("cross2d")
 ROW_F = ("row_f",)
 
@@ -74,10 +74,11 @@ def _rewrite(name, text):
                       flags=re.S)
     text = re.sub(r"(float fast_exp2\(float x\) \{).*?\n\}", r"\1 return std::exp2(x); }", text,
                   flags=re.S)
-    text = re.sub(r"(long long wm_clock\(\) \{).*?\n\}", r"\1 return 0; }", text, flags=re.S)
-    for fn, body in (("void wm_bar_init", ""), ("void wm_bar_arrive", ""),
-                     ("void wm_bar_wait", ""),
-                     ("void wm_bulk_copy", "std::memcpy(dst, src, bytes);")):
+    text = re.sub(r"(long long stage_clock\(\) \{).*?\n\}", r"\1 return 0; }", text,
+                  flags=re.S)
+    for fn, body in (("void stage_bar_init", ""), ("void stage_bar_arrive", ""),
+                     ("void stage_bar_wait", ""),
+                     ("void stage_bulk_copy", "std::memcpy(dst, src, bytes);")):
         text = re.sub(rf"({re.escape(fn)}\([^)]*\) \{{).*?\n\}}", rf"\1 {body} }}", text,
                       flags=re.S)
     text = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?float (\w+)\[\];",

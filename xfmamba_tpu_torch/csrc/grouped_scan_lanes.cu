@@ -60,7 +60,7 @@
 // per-position reductions, which two blocks an SM hide only in part:
 // taking the exponentials away saves 1-2%, the adjoint's reduce-scatter
 // about 14%, its flushes about 14%, its walk to the segments' entry states
-// about 15% (python -m xfmamba_tpu_torch.kernels.probe_grouped).
+// about 15% (python -m xfmamba_tpu_torch.kernels.probe grouped).
 #include <cstdint>
 
 #include "common.cuh"

@@ -52,8 +52,7 @@
 //   position, at a slab narrow enough for them to fit (down to one
 //   channel).  The steps and the sums are those of the whole plan: the two
 //   plans give the same bits.
-#include "common.cuh"
-#include "mma.cuh"
+#include "staging.cuh"
 
 namespace xfm {
 
@@ -66,35 +65,6 @@ constexpr int kWmMinThreads = 128;
 // meanwhile), waiting for them, widening B and C, deltas, walk, output
 // (the chunked plan: its last chunk's, the output with it)
 constexpr int kWmPhases = 6;
-
-// The bulk copy engine: one request copies a whole row into shared memory
-// and completes on a shared-memory barrier (mbarrier) counting its bytes.
-__device__ __forceinline__ void wm_bar_init(unsigned long long* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count));
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-__device__ __forceinline__ void wm_bulk_copy(void* dst, const void* src, int bytes,
-                                             unsigned long long* bar) {
-  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-          "r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-__device__ __forceinline__ void wm_bar_arrive(unsigned long long* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void wm_bar_wait(unsigned long long* bar, int parity) {
-  asm volatile(
-      "{\n .reg .pred done;\n WM_WAIT_%=:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      " @!done bra WM_WAIT_%=;\n}" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
 
 struct WmParams {
   const void* u;     // (n_img, L, D) T
@@ -117,12 +87,6 @@ struct WmParams {
   unsigned long long* stamps;  // (blocks, kWmPhases + 1) global-timer readings, or null
 };
 
-__host__ __device__ inline int wm_align(int b) { return (b + 15) & ~15; }
-// elements of a staged row of n: n rounded up to whole 16-byte pieces
-__host__ __device__ inline int wm_pad(int n, int esize) {
-  const int per = 16 / esize;
-  return (n + per - 1) / per * per;
-}
 // states a chain's lanes hold together: 1 lane for N = 1, else 4 lanes of
 // 1 (N <= 4) or 4 (N <= 16) states
 __host__ __device__ inline int wm_lanes(int N) { return N == 1 ? 1 : 4; }
@@ -147,15 +111,15 @@ __host__ __device__ inline WmLayout wm_layout(bool whole, int K, int L, int T, i
   WmLayout s{};
   int off = 0;
   s.bar = off, off += 16;
-  s.pos = off, off = wm_align(off + (whole ? 0 : K * T * 4));
-  s.inv = off, off = wm_align(off + (whole ? K * L * 4 : 0));
-  s.bias = off, off = wm_align(off + K * S * 4);
-  s.dk = off, off = wm_align(off + K * S * 4);
-  s.u = off, off = wm_align(off + rows * S * esize);
-  s.z = off, off = wm_align(off + (whole ? L * K : K * T) * S * esize);
+  s.pos = off, off = stage_align(off + (whole ? 0 : K * T * 4));
+  s.inv = off, off = stage_align(off + (whole ? K * L * 4 : 0));
+  s.bias = off, off = stage_align(off + K * S * 4);
+  s.dk = off, off = stage_align(off + K * S * 4);
+  s.u = off, off = stage_align(off + rows * S * esize);
+  s.z = off, off = stage_align(off + (whole ? L * K : K * T) * S * esize);
   s.bw = off, off += K * T * np * 4;
   s.cw = off, off += K * T * np * 4;
-  s.pitch = wm_pad(whole ? K * N : N, esize);
+  s.pitch = stage_pad(whole ? K * N : N, esize);
   s.b = s.delta = off;
   s.c = s.b + rows * s.pitch * esize;
   s.du = s.delta + K * T * S * 4;
@@ -163,67 +127,6 @@ __host__ __device__ inline WmLayout wm_layout(bool whole, int K, int L, int T, i
   s.part = off, off += whole ? 0 : K * L * S * 4;
   s.total = off;
   return s;
-}
-
-// map position of traversal step t of a kind (code: bit 0 column-major,
-// bit 1 reversed)
-__device__ __forceinline__ int wm_pos(int t, int code, int H, int W) {
-  const int L = H * W, tt = code >= 2 ? L - 1 - t : t;
-  return (code & 1) ? (tt % H) * W + tt / H : tt;
-}
-
-// rows x cols elements into dst (row stride cols, a whole number of
-// 16-byte pieces), source row r at row(r); elements at or past `valid` are
-// zero.  bulk: a bulk copy a row of `valid` elements, completing on that
-// barrier; vec: 16-byte cp.async (the source rows 16-byte aligned); else
-// element by element.
-template <typename T, class Row>
-__device__ __forceinline__ void wm_stage(T* dst, int rows, int cols, int valid, bool vec,
-                                         const Row& row, unsigned long long* bulk = nullptr) {
-  if (bulk) {
-    for (int r = threadIdx.x; r < rows; r += blockDim.x)
-      wm_bulk_copy(dst + r * cols, row(r), valid * static_cast<int>(sizeof(T)), bulk);
-  } else if (vec) {
-    constexpr int E = 16 / sizeof(T);
-    const int per = cols / E;
-    for (int i = threadIdx.x; i < rows * per; i += blockDim.x) {
-      const int r = i / per, q = (i - r * per) * E;
-      const int n = min(max(valid - q, 0), E);
-      const T* src = row(r);
-      cp_async16(dst + r * cols + q, n > 0 ? src + q : src, n * static_cast<int>(sizeof(T)));
-    }
-  } else {  // four loads in flight a thread before their stores
-    for (int i0 = threadIdx.x; i0 < rows * cols; i0 += 4 * blockDim.x) {
-      T v[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = i0 + e * blockDim.x, r = i / cols, q = i - r * cols;
-        v[e] = i < rows * cols && q < valid ? row(r)[q] : from_f32<T>(0.f);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (i0 + e * blockDim.x < rows * cols) dst[i0 + e * blockDim.x] = v[e];
-    }
-  }
-}
-
-// four consecutive staged values, widened to float32
-__device__ __forceinline__ void wm_load4(const float* p, float* v) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-}
-__device__ __forceinline__ void wm_load4(const __nv_bfloat16* p, float* v) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  v[0] = __uint_as_float(q.x << 16), v[1] = __uint_as_float(q.x & 0xffff0000u);
-  v[2] = __uint_as_float(q.y << 16), v[3] = __uint_as_float(q.y & 0xffff0000u);
-}
-
-// the card's global timer, in ns (a memory clobber: the reading stays
-// where the code puts it)
-__device__ __forceinline__ unsigned long long wm_clock() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)::"memory");
-  return t;
 }
 
 template <typename T, typename OT, int LANES, int SPL>
@@ -265,7 +168,7 @@ __global__ void __launch_bounds__(kWmMaxThreads, 2) whole_map_scan_kernel(WmPara
   // the phase clock: thread 0 stamps each phase's end
   auto stamp = [&](int i) {
     if (p.stamps && tid == 0)
-      p.stamps[(blockIdx.y * gridDim.x + blockIdx.x) * (kWmPhases + 1) + i] = wm_clock();
+      p.stamps[(blockIdx.y * gridDim.x + blockIdx.x) * (kWmPhases + 1) + i] = stage_clock();
   };
   stamp(0);
 
@@ -287,7 +190,7 @@ __global__ void __launch_bounds__(kWmMaxThreads, 2) whole_map_scan_kernel(WmPara
   const bool vec_v = (p.vec & 8) && D % 4 == 0 && S % 4 == 0;
   unsigned long long* bulk = p.whole && vec_bc ? bar : nullptr;
   if (bulk) {
-    if (tid == 0) wm_bar_init(bar, nthr);
+    if (tid == 0) stage_bar_init(bar, nthr);
     __syncthreads();
   }
   for (int t0 = 0; t0 < L; t0 += T_) {
@@ -298,45 +201,48 @@ __global__ void __launch_bounds__(kWmMaxThreads, 2) whole_map_scan_kernel(WmPara
       if (t0 > 0) __syncthreads();  // the last chunk's parts are put away
       for (int i = tid; i < K * T_; i += nthr) {
         const int kb = i / T_, t = i % T_;
-        pos_s[i] = t < tn ? wm_pos(t0 + t, (p.kinds >> (2 * kb)) & 3, p.H, p.W) : 0;
+        pos_s[i] = t < tn ? traversal_pos(t0 + t, (p.kinds >> (2 * kb)) & 3, p.H, p.W) : 0;
       }
       __syncthreads();
       const int rows = K * T_;
-      wm_stage(u_s, rows, S, slab_c, vec_u, [&](int r) { return u + (row0 + pos_s[r]) * D + c0; });
-      wm_stage(z_s, rows, S, slab_c, vec_z, [&](int r) {
+      stage_rows(u_s, rows, S, slab_c, vec_u,
+                 [&](int r) { return u + (row0 + pos_s[r]) * D + c0; });
+      stage_rows(z_s, rows, S, slab_c, vec_z, [&](int r) {
         return dts + ((row0 + pos_s[r]) * K + r / T_) * D + c0;
       });
-      wm_stage(braw, rows, lay.pitch, N, vec_bc,
+      stage_rows(braw, rows, lay.pitch, N, vec_bc,
                [&](int r) { return Bs + (row0 + pos_s[r]) * K * N + (r / T_) * N; });
-      wm_stage(craw, rows, lay.pitch, N, vec_bc,
+      stage_rows(craw, rows, lay.pitch, N, vec_bc,
                [&](int r) { return Cs + (row0 + pos_s[r]) * K * N + (r / T_) * N; });
     } else {
-      wm_stage(u_s, L, S, slab_c, vec_u, [&](int r) { return u + (row0 + r) * D + c0; });
-      wm_stage(z_s, L * K, S, slab_c, vec_z,
+      stage_rows(u_s, L, S, slab_c, vec_u, [&](int r) { return u + (row0 + r) * D + c0; });
+      stage_rows(z_s, L * K, S, slab_c, vec_z,
                [&](int r) { return dts + (row0 * K + r) * D + c0; });
       if (bulk) {  // the image's B and C are whole contiguous blocks: one bulk copy each
         if (tid == 0) {
-          wm_bulk_copy(braw, Bs + row0 * bc_row, L * bc_row * ES, bar);
-          wm_bulk_copy(craw, Cs + row0 * bc_row, L * bc_row * ES, bar);
+          stage_bulk_copy(braw, Bs + row0 * bc_row, L * bc_row * ES, bar);
+          stage_bulk_copy(craw, Cs + row0 * bc_row, L * bc_row * ES, bar);
         }
       } else {
-        wm_stage(braw, L, lay.pitch, bc_row, false, [&](int r) { return Bs + (row0 + r) * bc_row; });
-        wm_stage(craw, L, lay.pitch, bc_row, false, [&](int r) { return Cs + (row0 + r) * bc_row; });
+        stage_rows(braw, L, lay.pitch, bc_row, false,
+                   [&](int r) { return Bs + (row0 + r) * bc_row; });
+        stage_rows(craw, L, lay.pitch, bc_row, false,
+                   [&](int r) { return Cs + (row0 + r) * bc_row; });
       }
     }
     if (t0 == 0) {  // the per-channel vectors, zero past the map's channels
-      wm_stage(bias_s, K, S, slab_c, vec_v, [&](int r) { return p.bias + r * D + c0; });
-      wm_stage(dk_s, K, S, slab_c, vec_v, [&](int r) { return p.Dk + r * D + c0; });
+      stage_rows(bias_s, K, S, slab_c, vec_v, [&](int r) { return p.bias + r * D + c0; });
+      stage_rows(dk_s, K, S, slab_c, vec_v, [&](int r) { return p.Dk + r * D + c0; });
     }
-    if (bulk) wm_bar_arrive(bar);
+    if (bulk) stage_bar_arrive(bar);
     cp_async_commit();
     if (p.whole)  // the inverse tables while the copies are in flight
       for (int i = tid; i < K * L; i += nthr) {
         const int kb = i / L, t = i % L;
-        inv_s[kb * L + wm_pos(t, (p.kinds >> (2 * kb)) & 3, p.H, p.W)] = t;
+        inv_s[kb * L + traversal_pos(t, (p.kinds >> (2 * kb)) & 3, p.H, p.W)] = t;
       }
     stamp(1);
-    if (bulk) wm_bar_wait(bar, 0);
+    if (bulk) stage_bar_wait(bar, 0);
     cp_async_wait<0>();
     __syncthreads();
     stamp(2);
@@ -358,8 +264,8 @@ __global__ void __launch_bounds__(kWmMaxThreads, 2) whole_map_scan_kernel(WmPara
           for (int e = 0; e < 4; ++e) {
             const int i = min(i0 + e * nthr, tn * 4 - 1), r = i / 4, n = i % 4 * 4;
             const int o = p.whole ? r * lay.pitch + kb * N + n : (kb * T_ + r) * lay.pitch + n;
-            wm_load4(braw + o, bv[e]);
-            wm_load4(craw + o, cv[e]);
+            stage_load4(braw + o, bv[e]);
+            stage_load4(craw + o, cv[e]);
             d[e] = (kb * T_ + step_of(kb, r)) * NP + n;
           }
 #pragma unroll

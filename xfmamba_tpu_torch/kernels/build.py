@@ -33,7 +33,8 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # name -> argtypes of the C entry points that return an int: a cudaError_t
 # (xfm_vss_block_v1_grid: a block count, or a negated cudaError_t;
-# xfm_fusion_scan_smem, xfm_whole_map_smem: bytes of shared memory)
+# xfm_fusion_scan_smem, xfm_whole_map_smem, xfm_nk_ablation_smem: bytes of shared
+# memory)
 _SIGNATURES = {
     "xfm_gemm": [_P] * 6 + [_LL, _I, _I] + [_LL] * 5 + [_I] * 6 + [_P],
     "xfm_gemm_tc": [_P] * 6 + [_LL, _I, _I] + [_LL] * 6 + [_I] * 10 + [_P],
@@ -59,8 +60,11 @@ _SIGNATURES = {
     "xfm_ssd_bwd_serial": [_P] * 18 + [_I] * 7 + [_P],
     "xfm_scan_two_level": [_P] * 11 + [_I] * 17 + [_P],
     "xfm_fused_cross_scan": [_P] * 9 + [_I] * 7 + [_P],
-    "xfm_nk_scan_v4": [_P] * 9 + [_I] * 8 + [_P],
-    "xfm_nk_scan_v3": [_P] * 9 + [_I] * 11 + [_P],
+    "xfm_nk_scan_v4": [_P] * 8 + [_I] * 13 + [_P] * 2,
+    "xfm_nk_scan_v3": [_P] * 8 + [_I] * 16 + [_P] * 2,
+    "xfm_nk_ablation_smem": [_I] * 9,
+    "xfm_nk_scan_v4_first": [_P] * 9 + [_I] * 8 + [_P],
+    "xfm_nk_scan_v3_first": [_P] * 9 + [_I] * 11 + [_P],
     "xfm_ln_act": [_P] * 4 + [_LL, _I, _I, ctypes.c_float, _I, _P],
     "xfm_seg_ln_fwd": [_P] * 4 + [_LL, _I, _I, _I, ctypes.c_float, _I, _P],
     "xfm_seg_ln_bwd": [_P] * 7 + [_LL, _I, _I, _I, _I, ctypes.c_float, _I, _P],

@@ -4,10 +4,16 @@
 
 Kernel 2's function under kernel 2's contract (``ops/nk_scan.py::nk_scan``,
 which launches this kernel where JAX's dispatcher runs v3: ``FUSED_V3`` of
-``ops/nk_scan.py`` on and `nk_scan_v3_supported` true).  On the card one
-thread per (image, channel) advances the forward and the reverse chain of
-each kind pair in one loop, all N states of a chain together, with A
-pre-scaled by log2(e) and exp2 (``csrc/nk_scan_ablations.cu``).
+``ops/nk_scan.py`` on and `nk_scan_v3_supported` true).  On the card
+(``csrc/nk_scan_ablations.cu``, launched by ``ablation_scan.py``) one
+launch a call: a block per (image, slab of channels) with every kind pair
+stages its map slice on chip, and a thread per (pair, channel) holds all N
+states and the log2(e)-scaled decay rates of the pair's forward and reverse
+chains in registers and advances both in one loop with exp2, reading B and
+C as 16-byte vectors that broadcast to the warp.  Each chain's part of y
+stays in shared memory; the parts are summed with u Dsum in the plain
+twin's order and written once, with no scratch in device memory.  What
+bounds it: the exponentials on the special-function units, as for kernel 2.
 
 - `nk_scan_v3_supported` and `_vmem_estimate_v3`: JAX's gate, copied
   (:168-193).  The VMEM estimate is the TPU's rule, kept so that the port
@@ -18,7 +24,11 @@ pre-scaled by log2(e) and exp2 (``csrc/nk_scan_ablations.cu``).
   (pairs walked together, exp2 of A log2(e)).
 
 `nk_scan_v3` takes its plain twin only for CPU tensors; on CUDA tensors it
-launches the kernel, adds one to ``nk_scan_v3.launches``, or raises.
+launches the kernel (`nk_scan_v3_cuda`), adds one to ``nk_scan_v3.launches``,
+or raises.  `nk_scan_v3_first` is the first design
+(``csrc/nk_scan_ablations_v1.cu``: 64-thread blocks, the pairs one after
+another, operands loaded from device memory inside the step and y added
+into a float32 scratch there), kept for old-against-new timings.
 """
 
 from __future__ import annotations
@@ -26,10 +36,12 @@ from __future__ import annotations
 import torch
 
 from xfmamba_tpu_torch.kernels import build
+from xfmamba_tpu_torch.ops.ablations.ablation_scan import ablation_scan_cuda
 from xfmamba_tpu_torch.ops.fast_math import softplus
 from xfmamba_tpu_torch.ops.nk_scan import (
     _kinds_code, _nk_operands, kind_pairs, traversal_order)
-from xfmamba_tpu_torch.ops.primitives import dtype_code, on_cpu, ptr, require, stream
+from xfmamba_tpu_torch.ops.primitives import (
+    dtype_code, on_cpu, ptr, require, require_cuda, stream)
 
 LOG2E = 1.4426950408889634
 _V3_VMEM_BUDGET = 100 * 1024 * 1024
@@ -64,7 +76,8 @@ def nk_scan_v3_supported(L, W, D, K, N, G, kinds, budget=_V3_VMEM_BUDGET) -> boo
 
 def _pair_codes(kinds):
     """(number of pairs, forward kind indices, reverse kind indices + 1)
-    packed 4 bits per pair, as ``xfm_nk_scan_v3`` reads them."""
+    packed 4 bits per pair, as ``xfm_nk_scan_v3`` and ``xfm_nk_scan_v3_first``
+    read them."""
     pairs = kind_pairs(kinds)
     pair_f = pair_r = 0
     for i, (kf, kr, _) in enumerate(pairs):
@@ -121,18 +134,43 @@ def nk_scan_v3(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds, group=8):
     require(dts, (n, L, K * D), u.dtype, name="dts")
     require(Bs, (n, L, K * N), u.dtype, name="Bs")
     require(Cs, (n, L, K * N), u.dtype, name="Cs")
+    return nk_scan_v3_cuda(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds)
+
+
+nk_scan_v3.launches = 0
+
+
+def nk_scan_v3_cuda(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds, phase_ns=False):
+    """Kernel 18 on the card: one launch of ``csrc/nk_scan_ablations.cu``,
+    which sums Dvec over the kinds itself (no other device launch), counted
+    in ``nk_scan_v3.launches``; ``phase_ns`` as
+    ``ablation_scan.ablation_scan_cuda``."""
+    n, L, D = u.shape
+    K = len(kinds)
+    return ablation_scan_cuda(
+        "v3", u, dts, Bs, Cs, A.float().reshape(K, -1, D).contiguous(),
+        bias.float().reshape(K, D).contiguous(), Dvec.float().reshape(K, D).contiguous(), kinds,
+        H, W, pairs=_pair_codes(kinds), counter=nk_scan_v3, phase_ns=phase_ns)
+
+
+def nk_scan_v3_first(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds):
+    """Kernel 18's first design (``csrc/nk_scan_ablations_v1.cu``), kept for
+    old-against-new timings; ``nk_scan_v3_first.launches`` counts it."""
+    require_cuda(u, dts, Bs, Cs, A, Dvec, bias)
+    n, L, D = u.shape
+    K = len(kinds)
+    N = A.shape[0] // K
     ops = _nk_operands(u, Bs, Cs, A, Dvec, bias, kinds)
     a_log2e = (ops["A"] * LOG2E).contiguous()
     n_pairs, pair_f, pair_r = _pair_codes(kinds)
     acc = torch.empty(n, L, D, dtype=torch.float32, device=u.device)
     out = torch.empty_like(u)
-    lib = build.library()
-    nk_scan_v3.launches += 1
-    build.check(lib.xfm_nk_scan_v3(
+    build.check(build.library().xfm_nk_scan_v3_first(
         ptr(u), ptr(dts), ptr(Bs), ptr(Cs), ptr(a_log2e), ptr(ops["bias"]), ptr(ops["Dsum"]),
         ptr(acc), ptr(out), n, H, W, D, K, N, _kinds_code(kinds), n_pairs, pair_f, pair_r,
-        dtype_code(u), stream(u)), "nk_scan_v3")
+        dtype_code(u), stream(u)), "nk_scan_v3_first")
+    nk_scan_v3_first.launches += 1
     return out
 
 
-nk_scan_v3.launches = 0
+nk_scan_v3_first.launches = 0

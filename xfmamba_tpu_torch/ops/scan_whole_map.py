@@ -28,7 +28,7 @@ SLABS = (32, 16, 8)                  # the whole plan's slab widths, widest firs
 CHUNK_SLABS = (32, 16, 8, 4, 2, 1)   # the chunked plan's
 CHUNK = 64                           # traversal steps a chunk
 WHOLE_MAP_SMEM = 227 * 1024          # dynamic shared memory a block may take
-SM_SMEM, SM_REGS = 228 * 1024, 65536  # an H100 SM's shared memory and registers
+SM_SMEM, SM_REGS, SM_THREADS = 228 * 1024, 65536, 2048  # an H100 SM's
 MIN_THREADS = 128                    # a block's threads at least (kWmMinThreads)
 H100_SMS = 132                       # the SMs a plan spreads over off the card
 MAX_STATE = 16
@@ -52,6 +52,21 @@ def whole_map_plan(n, L, K, N, D, dtype, sms=H100_SMS) -> tuple:
     return _plan(n, L, K, N, D, dtype == torch.bfloat16, sms, WHOLE_MAP_SMEM, CHUNK)
 
 
+def spread_key(n, D, sms, threads, smem, regs):
+    """The order of a whole plan's slabs for n images of D channels on
+    ``sms`` SMs: the fewest waves of blocks, then the least work an SM
+    holds (its blocks, rounded up, times their threads), then the most SMs
+    busy, then the widest.  ``threads(s)`` and ``smem(s)`` are a block's at
+    slab s, ``regs`` a thread's registers (kernels 9/10 and 17/18)."""
+    def key(s):
+        blocks, thr = n * -(-D // s), threads(s)
+        # blocks an SM holds: its shared memory (1 KB a block reserved), its
+        # registers, its threads and its 32 block slots
+        per_sm = min(SM_SMEM // (smem(s) + 1024), SM_REGS // (regs * thr), SM_THREADS // thr, 32)
+        return (-(-blocks // (sms * per_sm)), -(-blocks // sms) * thr, -min(blocks, sms), -s)
+    return key
+
+
 @functools.lru_cache(maxsize=None)
 def _plan(n, L, K, N, D, bf16, sms, smem_limit, chunk_limit):
     def smem(whole, chunk, slab):
@@ -59,13 +74,9 @@ def _plan(n, L, K, N, D, bf16, sms, smem_limit, chunk_limit):
 
     fits = [s for s in SLABS if smem(True, L, s) <= smem_limit]
     if fits:
-        def key(s):
-            blocks, threads = n * -(-D // s), max(K * s * lanes(N), MIN_THREADS)
-            # blocks an SM holds: its shared memory (1 KB a block reserved)
-            # and its registers (at most 64 a thread by the launch bounds)
-            per_sm = min(SM_SMEM // (smem(True, L, s) + 1024), SM_REGS // (64 * threads))
-            return (-(-blocks // (sms * per_sm)), -(-blocks // sms) * threads,
-                    -min(blocks, sms), -s)
+        # at most 64 registers a thread by the launch bounds
+        key = spread_key(n, D, sms, lambda s: max(K * s * lanes(N), MIN_THREADS),
+                         lambda s: smem(True, L, s), 64)
         return True, min(fits, key=key), L
     chunk = min(L, chunk_limit)
     slab = next((s for s in CHUNK_SLABS if smem(False, chunk, s) <= smem_limit), None)

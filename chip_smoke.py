@@ -158,7 +158,10 @@ Single-study and unaligned-batch inference (kernels 8, 9 and 10):
    images, N=1 in both dtypes, and N=16, each against its plain twin, TF32
    off; with ms, plain ms and bound per forward (kernels 8 and 9 per bs-1
    bfloat16 forward) or step (kernel 10 at phase 8d's layer), kernel 9
-   beside kernel 2 on the same inputs;
+   beside kernel 2 on the same inputs; then kernel 9 at 112 x 112 (K=4,
+   N=16) and kernel 10 at 128 x 128 (N=1), past the maps whose parts fit
+   in shared memory, against their plain twins, with the plan and the
+   bands each took;
 4f. XFMamba-S bfloat16 inference at 1 and 2 studies per batch: launches
    per forward (vss_stage 2 / 3, kernel 8 17 / 2, kernel 9 3 / 3, kernels
    2 and 3 none), ms per forward, and the device's busy share of a bs-1
@@ -189,12 +192,18 @@ The ablation kernels behind JAX's switches (kernels 17-21):
    float32 training step at bs 16 from the same weights and drop-path
    draws (3 launches, none of kernel 2; the loss within 1e-4 relative), ms
    per forward and per step; the switches are restored whatever happens;
-10c. kernels 19 (LayerNorm + GELU, a warp per pixel), 20 (segment-packed)
-   and 21 (its backward) against their plain twins at the patch-embed and
-   downsample geometries of a bs-64 two-view batch (128 x 112 x 112 x 48
-   with GELU, 128 x 56 x 56 x 96, 128 x 28 x 28 x 192) and a ragged pixel
-   count, both dtypes, timed in bfloat16 beside ``F.layer_norm`` (+
-   ``F.gelu``: two calls) and its autograd backward; then XFMamba-S's patch
+10c. kernels 19 (LayerNorm + GELU), 20 (the same function) and 21 (its
+   backward), the staged streaming passes of ``csrc/ln_act.cu``, and their
+   first design (``csrc/ln_act_v1.cu``) against the plain twins at the
+   patch-embed and downsample geometries of a bs-64 two-view batch (128 x
+   112 x 112 x 48 with GELU, 128 x 56 x 56 x 96, 128 x 28 x 28 x 192) and a
+   ragged pixel count, both dtypes: bitwise over two runs, one device
+   launch a forward and two a backward, the plan; timed in bfloat16, new
+   and first design in turns, by CUDA-graph replay and by events, with a
+   thread a pixel beside the plan's group, beside ``F.layer_norm`` (+
+   ``F.gelu``: two calls) and its autograd backward, the bound, the build's
+   registers and spills and the SASS instructions of each kernel; then
+   XFMamba-S's patch
    embed at bs 64 two-view built from ``PatchEmbedV2``'s weights as the JAX
    A/B script builds it (conv1, LayerNorm + GELU, conv2, LayerNorm), once on
    kernel 19 (forward) and once on kernels 20 / 21 (forward and backward),
@@ -216,7 +225,9 @@ times, the SFU time, the blocks an SM holds and every geometry's device
 times (3d); for kernels 13 and 14 per XFMamba-B step their device times and
 their first design's, the SFU time, and the bs-12 ShallowFuse call's (3b);
 for kernels 17 and 18 per bs-32 bfloat16 forward their first design's and
-kernel 2's device times, the SFU time and every geometry's times (10)),
+kernel 2's device times, the SFU time and every geometry's times (10); for
+kernels 19-21 per bs-64 patch embed their device times, their first
+design's and a thread a pixel's, the plans and registers (10c)),
 the line before the last the card's name and power limit, the last
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it prints no result and exits 1.
@@ -404,10 +415,12 @@ NK_SWITCHES = {"v4": (nk_scan_v4, "FUSED_V4", "nk_scan_v4"),
                "v3": (nk_scan, "FUSED_V3", "nk_scan_v3")}
 # phase 10c: (pixels, C, GELU) of scripts/ab_seg_ln.py (128 backbone images,
 # bs 64 two-view; the first two are the patch embed's norms), then a pixel
-# count that fills no whole block of kernel 21
+# count that fills no whole block of kernel 21, and a pixel past the staged
+# plan (the row path)
 PE_IMAGES = 128
+LN_NAMES = ("ln_act_fused", "seg_ln_fwd", "seg_ln_bwd")
 LN_CASES = [((PE_IMAGES, 112, 112), 48, True), ((PE_IMAGES, 56, 56), 96, False),
-            ((PE_IMAGES, 28, 28), 192, False), ((3, 37, 41), 48, True)]
+            ((PE_IMAGES, 28, 28), 192, False), ((3, 37, 41), 48, True), ((2, 3, 5), 12289, True)]
 
 # the routes of the bfloat16 blocks' pieces, counted per forward or step:
 # the tensor-core and SIMT GEMMs, the chunked cross2d scans (by chunk
@@ -1440,8 +1453,10 @@ def phase_whole_map_scans(errors, card):
     """Kernels 9 and 10 (``csrc/scan_whole_map.cu``), phase 3c's second
     part: at kernel 9's one-study and 12-study fusion calls of XFMamba-S and
     -B and kernel 10 at phase 8d's layer and at the 56 x 56 stage map (the
-    chunked plan), both dtypes: against their plain twins, bitwise over two
-    runs, one device launch a call; then device ms per call by graph
+    chunked plan), and at 112 x 112 (kernel 9, K=4, N=16) and 128 x 128
+    (kernel 10, N=1), whose parts do not fit at one channel (the banded
+    plan), both dtypes: against their plain twins, bitwise over two runs,
+    one device launch a call; then device ms per call by graph
     replay and by CUDA events of the new design, its first design
     (``csrc/scan_two_level.cu``, swapped in by `first_design_whole_map`)
     and, for kernel 9, kernel 2 on the same inputs, in turns; the bound,
@@ -1514,6 +1529,18 @@ def phase_whole_map_scans(errors, card):
                       f"SFU time {sfu:.4f}; "
                       + "".join(f"device at slabs {s}: {v:.4f}; " for s, v in alt.items())
                       + f"a block's phases (us): {phases_line(phases)}")
+            # maps whose parts do not fit at one channel: the banded plan
+            for name, key, label, args, fn, plain in (
+                    ("kernel 9", "nk_scan_v1", "(1,112x112,192) K=4 N=16",
+                     k9_case(g, 1, 4, 192, dtype, H=112), nk_scan_v1.nk_scan_v1,
+                     nk_scan_v1.nk_scan_v1_plain),
+                    ("kernel 10", "fused_cross_scan", "(1,128,128,192) N=1",
+                     cross_case_n(g, 1, 128, 192, 1, dtype), fused_cross_scan.fused_cross_scan,
+                     fused_cross_scan.fused_cross_scan_plain)):
+                err = whole_map_check(name, label, dtype, lambda: fn(*args), lambda: plain(*args),
+                                      failed)
+                errors[key] = max(errors.get(key, 0.0), err)
+                print(f"    device {graph_ms(lambda: fn(*args), 3):.3f} ms a call (banded plan)")
     if failed:
         raise PhaseFailure(f"kernels 9 / 10 disagree with their plain twins, between runs or "
                            f"in their launches: {failed}")
@@ -3393,41 +3420,88 @@ def patch_embed_on(pe, norm):
     return lambda x: norm(m["5"](norm(m["0"](x), m["2"], True)), m["7"], False)
 
 
+LN_KERNEL_NAMES = ("ln_fwd_kernel", "ln_bwd_kernel", "ln_fwd_rows_kernel", "ln_bwd_rows_kernel",
+                   "ln_col_sum_kernel", "ln_act_fwd_kernel", "seg_ln_bwd_kernel",
+                   "seg_ln_bwd_sum_kernel")
+# the kernels each of 19-21 launches a call: one of each tuple (the staged
+# plan's or the row path's)
+LN_LAUNCHES = {"ln_act_fused": (("ln_fwd_kernel", "ln_fwd_rows_kernel"),),
+               "seg_ln_fwd": (("ln_fwd_kernel", "ln_fwd_rows_kernel"),),
+               "seg_ln_bwd": (("ln_bwd_kernel", "ln_bwd_rows_kernel"), ("ln_col_sum_kernel",))}
+
+
+def ln_calls(x, scale, bias, gy, act):
+    """{kernel: (new, first design, plain)} of kernels 19-21 on one input,
+    each returning a list of outputs."""
+    pf, sl = pe_fused, seg_ln
+    return {
+        "ln_act_fused": (lambda: [pf.ln_act_fused(x, scale, bias, act)],
+                         lambda: [pf.ln_act_fused_first(x, scale, bias, act)],
+                         lambda: [pf.ln_act_fused_plain(x, scale, bias, act)]),
+        "seg_ln_fwd": (lambda: [sl.seg_ln_fwd(x, scale, bias, act=act)],
+                       lambda: [sl.seg_ln_fwd_first(x, scale, bias, act=act)],
+                       lambda: [sl.seg_ln_fwd_plain(x, scale, bias, act=act)]),
+        "seg_ln_bwd": (lambda: list(sl.seg_ln_bwd(x, scale, bias, gy, act=act)),
+                       lambda: list(sl.seg_ln_bwd_first(x, scale, bias, gy, act=act)),
+                       lambda: list(sl.seg_ln_bwd_plain(x, scale, bias, gy, act=act)))}
+
+
 def phase_ln_kernels(errors, card):
-    """Kernels 19-21 against their plain twins at `LN_CASES` in both dtypes;
-    in bfloat16 at the patch embed's two norms, each kernel's ms beside its
-    plain twin, its bound and the library call; then the patch embed built
-    on kernel 19 and on kernels 20 / 21 against ``PatchEmbedV2`` (the main
-    path: launches counted around one forward on 19 and one forward and
-    backward on 20 / 21).  Returns (times, library ms, launches)."""
+    """Kernels 19-21 and their first design against their plain twins at
+    `LN_CASES` in both dtypes: bitwise over two runs, one device launch a
+    forward and two a backward (the nodes of a captured CUDA graph), the
+    plan; in bfloat16 at the patch embed's two norms, device ms by graph
+    replay and by CUDA events of the new design and its first design in
+    turns, beside the plain twin, the bound and the library call; the
+    build's registers and spills of each kernel.  Then the
+    patch embed built on kernel 19 and on kernels 20 / 21 against
+    ``PatchEmbedV2`` (the main path: launches counted around one forward on
+    19 and one forward and backward on 20 / 21).  Returns (times, library
+    ms, launches)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"phase 10c: kernels 19-21 (LayerNorm + GELU) vs their plain twins and F.layer_norm, "
-          f"TF32 off ({card})")
+    print(f"phase 10c: kernels 19-21 (LayerNorm + GELU, staged streaming passes) vs their plain "
+          f"twins, their first design and F.layer_norm; device ms by graph replay, first "
+          f"design / new in turns, TF32 off ({card})")
+    _, log = build.build()
+    regs = {}
+    for fn, n_regs, spills in ptxas_rows(log, *LN_KERNEL_NAMES):
+        regs[fn] = (n_regs, spills)
+        print(f"  ptxas {fn[:90]}: {n_regs} registers, {spills} bytes spilled")
     g = torch.Generator().manual_seed(46)
     bf16 = torch.bfloat16
-    names = ("ln_act_fused", "seg_ln_fwd", "seg_ln_bwd")
-    acc = {name: dict(ms=0.0, plain=0.0, lib=0.0, work=Work()) for name in names}
-    failed = []
+    keys = ("graph", "first_graph", "ms", "first_ms", "plain", "lib")
+    acc = {name: dict.fromkeys(keys, 0.0) | {"work": Work()} for name in LN_NAMES}
+    failed, rows, side = [], {}, {}
     for dtype in (torch.float32, bf16):
         for shape, C, act in LN_CASES:
             x = randn(g, *shape, C, dtype=dtype, scale=2.0) + 0.5
             scale, bias = 1 + randn(g, C, scale=0.1), randn(g, C, scale=0.1)
             gy = randn(g, *shape, C, dtype=dtype)
+            rows_n = math.prod(shape)
             label = f"{tuple(shape) + (C,)} {'GELU' if act else 'no act'}"
-            calls = {
-                "ln_act_fused": (lambda: [pe_fused.ln_act_fused(x, scale, bias, act)],
-                                 lambda: [pe_fused.ln_act_fused_plain(x, scale, bias, act)]),
-                "seg_ln_fwd": (lambda: [seg_ln.seg_ln_fwd(x, scale, bias, act=act)],
-                               lambda: [seg_ln.seg_ln_fwd_plain(x, scale, bias, act=act)]),
-                "seg_ln_bwd": (lambda: seg_ln.seg_ln_bwd(x, scale, bias, gy, act=act),
-                               lambda: seg_ln.seg_ln_bwd_plain(x, scale, bias, gy, act=act))}
+            calls = ln_calls(x, scale, bias, gy, act)
+            plans = {b: seg_ln.ln_plan(x, backward=b) for b in (False, True)}
+            print(f"  {label} {str(dtype)[6:]}: plan forward {plans[False]}, backward "
+                  f"{plans[True]}")
             with torch.no_grad():
-                for name, (fn, plain) in calls.items():
-                    check_outputs(errors, name, label, dtype, fn(), plain(), failed)
+                for name, (new, first, plain) in calls.items():
+                    want = plain()
+                    check_outputs(errors, name, label, dtype, new(), want, failed)
+                    check_outputs(side, f"{name} first", label, dtype, first(), want, failed)
+                    same = all(torch.equal(a, b) for a, b in zip(new(), new()))
+                    launches = device_launches(new)
+                    # a mangled name holds its identifier after its length
+                    one = sum(launches.values()) == len(LN_LAUNCHES[name]) and all(
+                        sum(any(f"{len(k)}{k}" in fn for k in ks) for fn in launches) == 1
+                        for ks in LN_LAUNCHES[name])
+                    print(f"    {name}: {'bitwise' if same else 'two runs differ'}, device "
+                          f"launches a call {list(launches.values()) if one else launches} "
+                          f"{'OK' if same and one else 'FAIL'}")
+                    if not (same and one):
+                        failed.append((name, label, str(dtype), same, launches))
             if dtype != bf16 or (shape, C, act) not in LN_CASES[:2]:
                 continue
-            rows = math.prod(shape)
             xl = x.detach().requires_grad_()
             sl, bl = (t.to(dtype).requires_grad_() for t in (scale, bias))
             y = library_ln(xl, sl, bl, act)
@@ -3435,24 +3509,53 @@ def phase_ln_kernels(errors, card):
                    "seg_ln_fwd": lambda: library_ln(x, scale, bias, act),
                    "seg_ln_bwd": lambda: torch.autograd.grad(y, (xl, sl, bl), gy,
                                                              retain_graph=True)}
-            for name, (fn, plain) in calls.items():
+            for name, (new, first, plain) in calls.items():
                 a = acc[name]
+                turns = {"first": first, "new": new}
                 with torch.no_grad():
-                    a["ms"] += time_ms(fn, 10)
-                    a["plain"] += time_ms(plain, 1, warmup=False)
-                a["lib"] += time_ms(lib[name], 10)
-                a["work"] += ln_work(rows, C, dtype, act, backward=name == "seg_ln_bwd")
+                    gr = in_turns(turns, lambda fn: graph_ms(fn, 20))
+                    ev = in_turns(turns, lambda fn: time_ms(fn, 10))
+                    plain_ms = time_ms(plain, 1, warmup=False)
+                lib_ms = time_ms(lib[name], 10)
+                work = ln_work(rows_n, C, dtype, act, backward=name == "seg_ln_bwd")
+                bound, by = work.bound()
+                a["graph"] += gr["new"]
+                a["first_graph"] += gr["first"]
+                a["ms"] += ev["new"]
+                a["first_ms"] += ev["first"]
+                a["plain"] += plain_ms
+                a["lib"] += lib_ms
+                a["work"] += work
+                rows[(name, label)] = dict(graph_ms=gr["new"], first_graph_ms=gr["first"],
+                                           ms=ev["new"], first_ms=ev["first"], bound_ms=bound,
+                                           library_ms=lib_ms, plain_ms=plain_ms,
+                                           plan=plans[name == "seg_ln_bwd"])
+                print(f"    {name} {label}: device {gr['new']:.4f} ms (first design "
+                      f"{gr['first']:.4f}); events {ev['new']:.4f} (first {ev['first']:.4f}); "
+                      f"plain {plain_ms:.3f}, library {lib_ms:.4f}, bound {bound:.4f} ({by}), "
+                      f"{bound / gr['new']:.0%} of the bound")
             del xl, sl, bl, y
     torch.cuda.synchronize()
     if failed:
-        raise PhaseFailure(f"kernels 19-21 disagree with their plain twins: {failed}")
+        raise PhaseFailure(f"kernels 19-21 (or their first design) disagree with their plain "
+                           f"twins, between runs or in their launches: {failed}")
     times, library = {}, {}
     for name, a in acc.items():
-        times[name] = (a["ms"], a["plain"], *a["work"].bound())
+        bound, by = a["work"].bound()
+        times[name] = (a["ms"], a["plain"], bound, by)
         library[name] = a["lib"]
-        print(f"  {name:12s} per bs-64 patch embed (bfloat16, its 2 norms): kernel {a['ms']:.4f} ms, "
-              f"plain {a['plain']:.3f} ms, bound {times[name][2]:.4f} ms ({times[name][3]}), "
-              f"library {a['lib']:.4f} ms (F.layer_norm + F.gelu{' backward' if 'bwd' in name else ''})")
+        print(f"  {name:12s} per bs-64 patch embed (bfloat16, its 2 norms), device: "
+              f"{a['graph']:.4f} ms (first design {a['first_graph']:.4f}), events "
+              f"{a['ms']:.4f} (first {a['first_ms']:.4f}); plain {a['plain']:.3f} "
+              f"ms, bound {bound:.4f} ms ({by}; {bound / a['graph']:.0%} of it, aim 50%), "
+              f"library {a['lib']:.4f} ms (F.layer_norm + "
+              f"F.gelu{' backward' if 'bwd' in name else ''}) ({card})")
+        kernel = "ln_bwd_kernel" if name == "seg_ln_bwd" else "ln_fwd_kernel"
+        V1_EXTRA[name] = {
+            "per": "bs-64 bfloat16 patch embed (2 norms)", "graph_ms": a["graph"],
+            "first_graph_ms": a["first_graph"], "first_ms": a["first_ms"],
+            "registers": {fn: r for fn, r in regs.items() if kernel in fn},
+            "geometries": {label: r for (nm, label), r in rows.items() if nm == name}}
     launches = phase_patch_embed(card)
     return times, library, launches
 

@@ -12,7 +12,9 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -38,6 +40,7 @@ inline dim3 blockDim, gridDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
 struct cudaLaunchAttribute {
   cudaLaunchAttributeID id;
@@ -55,6 +58,17 @@ struct cudaLaunchConfig_t {
   unsigned numAttrs;
 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+// nine SMs: a grid sized to the card's resident blocks walks more tiles a
+// block than a kernel keeps in flight, and ln_act.cu's partial rows
+// outnumber the eight running sums that add them
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = 9;
+  return cudaSuccess;
+}
 template <class K>
 cudaError_t cudaFuncSetAttribute(K, int, int) {
   return cudaSuccess;
@@ -73,6 +87,9 @@ struct float4 {
 };
 struct uint2 {
   unsigned x, y;
+};
+struct uint4 {
+  unsigned x, y, z, w;
 };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
@@ -98,6 +115,9 @@ struct EmuBlock {
   std::unique_ptr<std::barrier<>> barrier;
   std::vector<std::unique_ptr<std::barrier<>>> warps;
   float exchange[32][32][8];  // [warp][lane][value]
+  // static __shared__ arrays (emu_static), by the line that declares them
+  std::mutex statics_lock;
+  std::map<int, std::vector<float>> statics;
 };
 inline thread_local EmuBlock* emu_block;
 inline thread_local float* emu_smem;  // the block's dynamic shared memory
@@ -106,6 +126,16 @@ inline thread_local float (*emu_exchange)[32][8];
 inline thread_local std::vector<EmuBlock*>* emu_cluster_blocks;
 inline thread_local std::barrier<>* emu_cluster_barrier;
 inline thread_local unsigned emu_cluster_rank;
+
+// the block's static __shared__ array of type A declared at line `id`
+// (the test rewrites the declaration), NaN at first as dynamic shared memory
+template <class A>
+A* emu_static(int id) {
+  std::lock_guard<std::mutex> hold(emu_block->statics_lock);
+  auto& buf = emu_block->statics[id];
+  if (buf.empty()) buf.assign(sizeof(A) / 4 + 1, std::nanf(""));
+  return reinterpret_cast<A*>(buf.data());
+}
 
 inline void __syncthreads() { emu_block->barrier->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) {
@@ -158,9 +188,13 @@ void emu_run_cluster(K kernel, unsigned x0, unsigned y0, unsigned z0, unsigned c
   for (auto& t : threads) t.join();
 }
 
+// launches so far (emu_launch and cudaLaunchKernelEx)
+inline int emu_launch_count = 0;
+
 // kernel<<<grid, block, smem, stream>>>(args...), 1-D blocks, the blocks in turn
 template <class K, class... A>
 void emu_launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... args) {
+  ++emu_launch_count;
   gridDim = grid;
   blockDim = block;
   for (unsigned bz = 0; bz < grid.z; ++bz)
@@ -180,6 +214,7 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(P..
     }
   const dim3 grid = cfg->gridDim;
   if (grid.x % cx || grid.y % cy || grid.z != 1) return cudaErrorInvalidValue;
+  ++emu_launch_count;
   gridDim = grid;
   blockDim = cfg->blockDim;
   for (unsigned by = 0; by < grid.y; by += cy)
@@ -189,4 +224,5 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(P..
 }
 
 inline float __expf(float x) { return std::exp(x); }
+inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
 inline float __fdividef(float a, float b) { return a / b; }

@@ -46,7 +46,7 @@ def test_library_name_is_keyed_on_the_sources():
     assert path.name.startswith("libxfm_") and path.suffix == ".so"
     assert build.library_path() == path
     assert {p.name for p in build._sources()} == {
-        "gemm_tc.cu", "grouped_scan_lanes.cu", "ln_act.cu", "nk_scan.cu", "nk_scan_ablations.cu",
+        "gemm_tc.cu", "grouped_scan_lanes.cu", "ln_act.cu", "ln_act_v1.cu", "nk_scan.cu", "nk_scan_ablations.cu",
         "nk_scan_ablations_v1.cu", "nk_scan_adjoint.cu", "nk_scan_bwd.cu", "nk_scan_fused.cu", "scan_two_level.cu",
         "scan_whole_map.cu",
         "selective_scan_grouped_v1.cu", "ss2d_core_n1.cu", "ss2d_core_n1_v1.cu", "ssd_chunk.cu",

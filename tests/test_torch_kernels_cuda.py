@@ -1100,8 +1100,8 @@ def test_whole_map_large_map_plan(dev, monkeypatch, dtype, kernel):
     whole = fn(*args)
     smem = build.library().xfm_whole_map_smem
     bf16 = int(dtype == torch.bfloat16)
-    budget = smem(0, 4, 49, 20, N, 8, bf16)
-    assert all(smem(1, 4, 49, 49, N, s, bf16) > budget for s in scan_whole_map.SLABS)
+    budget = smem(0, 4, 49, 20, N, 8, 49, bf16)
+    assert all(smem(1, 4, 49, 49, N, s, 49, bf16) > budget for s in scan_whole_map.SLABS)
     scan_whole_map._plan.cache_clear()
     monkeypatch.setattr(scan_whole_map, "WHOLE_MAP_SMEM", budget)
     monkeypatch.setattr(scan_whole_map, "CHUNK_SLABS", (8,))
@@ -1112,6 +1112,29 @@ def test_whole_map_large_map_plan(dev, monkeypatch, dtype, kernel):
     finally:
         scan_whole_map._plan.cache_clear()
     assert scan_whole_map.scan_whole_map_cuda.by_plan == {"chunked x3, slab 8": 1}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", [9, 10])
+def test_whole_map_past_the_accumulator(dev, dtype, kernel):
+    """Maps whose parts do not fit in shared memory at one channel (kernel
+    9 at 112 x 112, K 4, N 16; kernel 10 at 128 x 128, N 1), which the
+    earlier plan refused: the banded plan (two bands at one channel) against
+    the plain twins, one counted call."""
+    g = torch.Generator().manual_seed(30)
+    if kernel == 9:
+        H, args = 112, _k9_args(g, dtype, 1, 4, 64, H=112, W=112)
+        fn, plain = nk_scan_v1.nk_scan_v1, nk_scan_v1.nk_scan_v1_plain
+    else:
+        H, args = 128, _cross_case(g, dtype, 1, 128, 128, 32, 1)
+        fn, plain = fused_cross_scan.fused_cross_scan, fused_cross_scan.fused_cross_scan_plain
+    scan_whole_map.scan_whole_map_cuda.by_plan.clear()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert rel_err(got, plain(*args)) < TOL[dtype]
+    L = H * H
+    assert scan_whole_map.scan_whole_map_cuda.by_plan == {
+        f"chunked x{-(-L // scan_whole_map.CHUNK)}, slab 1, 2 bands": 1}
 
 
 def test_core_dispatch_n1_card_matches_cpu(dev):
@@ -1275,12 +1298,14 @@ def test_nk_scan_routes_to_the_ablations(dev, monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("C", [48, 96, 192, 768])
+@pytest.mark.parametrize("C", [48, 96, 192, 768, 6143, 16384])
 @pytest.mark.parametrize("act", [False, True])
 def test_ln_act_kernels(dev, dtype, C, act):
     """Kernels 19 and 20 against their plain twins, and kernel 21 (dx,
     dscale, dbias) against its own, at a pixel count that fills no whole
-    block of kernel 21 nor whole warps of kernel 20 (3 x 11 x 13 pixels)."""
+    block of kernel 21 nor whole warps of kernel 20 (3 x 11 x 13 pixels);
+    C 6143 and 16384 take the row path (kernel 21's tile, or a block's
+    values, past the staged plan)."""
     g = torch.Generator().manual_seed(42)
     x = randn(g, 3, 11, 13, C, dtype=dtype, scale=2.0) + 0.5
     scale, bias = 1 + randn(g, C, scale=0.1), randn(g, C, scale=0.1)
@@ -1298,6 +1323,38 @@ def test_ln_act_kernels(dev, dtype, C, act):
     assert got[0].dtype == dtype
     for a, w in zip(got, seg_ln.seg_ln_bwd_plain(x, scale, bias, gy, act=act)):
         assert rel_err(a, w) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C", [48, 96, 192])
+def test_ln_kernels_first_design_and_bits(dev, dtype, C):
+    """The first design's kernels (``csrc/ln_act_v1.cu``, kept for the
+    old-against-new timings) against the plain twins; the redesigned
+    backward gives the same bits on two runs, and so does it with x and g
+    one element past a 16-byte boundary (every tile staged element by
+    element) against the aligned copies."""
+    g = torch.Generator().manual_seed(44)
+    x = randn(g, 3, 37, 41, C, dtype=dtype, scale=2.0) + 0.5
+    scale, bias = 1 + randn(g, C, scale=0.1), randn(g, C, scale=0.1)
+    gy = randn(g, *x.shape, dtype=dtype)
+    want = pe_fused.ln_act_fused_plain(x, scale, bias, True)
+    for got in (pe_fused.ln_act_fused_first(x, scale, bias, True),
+                seg_ln.seg_ln_fwd_first(x, scale, bias, act=True)):
+        assert rel_err(got, want) < TOL[dtype]
+    for a, w in zip(seg_ln.seg_ln_bwd_first(x, scale, bias, gy, act=True),
+                    seg_ln.seg_ln_bwd_plain(x, scale, bias, gy, act=True)):
+        assert rel_err(a, w) < TOL[dtype]
+    new = seg_ln.seg_ln_bwd(x, scale, bias, gy, act=True)
+    for a, b in zip(new, seg_ln.seg_ln_bwd(x, scale, bias, gy, act=True)):
+        assert torch.equal(a, b)
+    store = torch.empty(2, x.numel() + 1, dtype=dtype, device=dev)
+    xu, gu = (store[i, 1:].view(x.shape) for i in range(2))
+    xu.copy_(x), gu.copy_(gy)
+    assert xu.data_ptr() % 16 and gu.data_ptr() % 16
+    assert torch.equal(seg_ln.seg_ln_fwd(xu, scale, bias, act=True),
+                       seg_ln.seg_ln_fwd(x, scale, bias, act=True))
+    for a, b in zip(seg_ln.seg_ln_bwd(xu, scale, bias, gu, act=True), new):
+        assert torch.equal(a, b)
 
 
 def test_seg_ln_act_autograd_card_matches_cpu(dev):

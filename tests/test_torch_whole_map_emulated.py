@@ -17,7 +17,10 @@ interpret mode (``nk_scan_call`` and ``_core_pallas_fwd_impl``, which runs
 1, 5 and 16; 1 and 3 images; a ragged channel slab (D 40); 7 x 7 and a
 ragged 5 x 6 map; slabs of 32, 16 and 8 channels and the one-study slab
 choice; the large-map plan at small maps, forced by a lowered
-shared-memory budget; kernel 10's bfloat16 rounding of each direction at
+shared-memory budget, and its bands of positions (-m slow: 112 x 112 and
+128 x 128 maps past the parts that fit at one channel); calls refused by
+the wrappers' checks or by the C entry counting nothing; kernel 10's
+bfloat16 rounding of each direction at
 N 1; the fixed order of the sums, bit for bit on exact inputs; and two
 runs bit for bit.  Tolerances: the kernel takes exp2 of log2(e)-scaled A
 and a polynomial softplus where the twins take ``torch.exp`` and
@@ -141,16 +144,17 @@ def plan(emulated, monkeypatch):
     """Force the plan: ``plan(slab)`` the whole plan at that slab; ``plan(
     slab, chunk, (K, L, N, dtype))`` the chunked plan with chunks of that
     many steps, the shared-memory budget lowered to what its blocks take,
-    below what the whole plan's would."""
-    def force(slab, chunk=None, shape=None):
+    below what the whole plan's would; with ``band`` the budget holds the
+    parts of that many positions only."""
+    def force(slab, chunk=None, shape=None, band=None):
         wm._plan.cache_clear()
         monkeypatch.setattr(wm, "SLABS", (slab,))
         monkeypatch.setattr(wm, "CHUNK_SLABS", (slab,))
         if chunk is not None:
             K, L, N, dtype = shape
             bf16 = int(dtype == torch.bfloat16)
-            budget = emulated.xfm_whole_map_smem(0, K, L, chunk, N, slab, bf16)
-            assert emulated.xfm_whole_map_smem(1, K, L, L, N, slab, bf16) > budget
+            budget = emulated.xfm_whole_map_smem(0, K, L, chunk, N, slab, band or L, bf16)
+            assert emulated.xfm_whole_map_smem(1, K, L, L, N, slab, L, bf16) > budget
             monkeypatch.setattr(wm, "CHUNK", chunk)
             monkeypatch.setattr(wm, "WHOLE_MAP_SMEM", budget)
     monkeypatch.setattr(wm.scan_whole_map_cuda, "by_plan", {})
@@ -290,20 +294,20 @@ def test_emulated_plan_at_the_model_maps(emulated):
     two blocks to an SM at most 113 KB; kernel 10's 28 x 28 and 56 x 56
     stage maps take the chunked plan."""
     bf16, f32 = torch.bfloat16, torch.float32
-    assert wm.whole_map_plan(1, 49, 1, 16, 1536, bf16) == (True, 16, 49)
-    assert wm.whole_map_plan(36, 49, 4, 16, 1536, bf16) == (True, 32, 49)
+    assert wm.whole_map_plan(1, 49, 1, 16, 1536, bf16) == (True, 16, 49, 49)
+    assert wm.whole_map_plan(36, 49, 4, 16, 1536, bf16) == (True, 32, 49, 49)
     for n, K, N, D in ((1, 1, 16, 1536), (3, 4, 16, 1536), (1, 1, 16, 2048), (3, 4, 16, 2048),
                        (12, 1, 16, 1536), (36, 4, 16, 1536), (6, 4, 1, 1536)):
         for dtype in (bf16, f32):
-            whole, slab, chunk = wm.whole_map_plan(n, 49, K, N, D, dtype)
-            assert whole and chunk == 49
-            smem = emulated.xfm_whole_map_smem(1, K, 49, 49, N, slab, int(dtype == bf16))
+            whole, slab, chunk, band = wm.whole_map_plan(n, 49, K, N, D, dtype)
+            assert whole and chunk == band == 49
+            smem = emulated.xfm_whole_map_smem(1, K, 49, 49, N, slab, 49, int(dtype == bf16))
             assert 2 * (smem + 1024) <= 228 * 1024
     for H, D in ((28, 384), (56, 192)):
         for N in (1, 16):
-            whole, slab, chunk = wm.whole_map_plan(2, H * H, 4, N, D, f32)
-            assert not whole and chunk == wm.CHUNK
-            assert emulated.xfm_whole_map_smem(0, 4, H * H, chunk, N, slab, 0) <= \
+            whole, slab, chunk, band = wm.whole_map_plan(2, H * H, 4, N, D, f32)
+            assert not whole and chunk == wm.CHUNK and band == H * H
+            assert emulated.xfm_whole_map_smem(0, 4, H * H, chunk, N, slab, band, 0) <= \
                 wm.WHOLE_MAP_SMEM
 
 
@@ -393,3 +397,93 @@ def test_emulated_phase_clock_counts_nothing(emulated, plan):
         assert phases == dict.fromkeys(wm.PHASES + ("block",), 0.0)
     assert (v1.nk_scan_v1.launches, fcs.fused_cross_scan.launches) == before
     assert wm.scan_whole_map_cuda.by_plan == {}
+
+
+@pytest.mark.parametrize("kernel,chunk,slab,band", [(9, 7, 4, 8), (9, 16, 8, 11),
+                                                    (10, 5, 1, 7), (10, 7, 2, 13)])
+def test_emulated_banded_plan(emulated, plan, kernel, chunk, slab, band):
+    """The chunked plan whose budget holds the parts of ``band`` positions
+    only (forced at a 5 x 6 map): the block walks every traversal once a
+    band and writes the band's y; the whole plan's bits."""
+    if kernel == 9:
+        dtype, N = torch.float32, 16
+        args, fn = _k9_case(82, 2, 5, 6, 40, CROSS2D, N, dtype), v1.nk_scan_v1
+    else:
+        dtype, N = torch.bfloat16, 1
+        args, fn = _k10_case(83, 2, 5, 6, 40, N, dtype), fcs.fused_cross_scan
+    plan(8)
+    whole = fn(*args)
+    plan(slab, chunk, (4, 30, N, dtype), band)
+    assert wm.whole_map_plan(2, 30, 4, N, 40, dtype) == (False, slab, chunk,
+                                                         -(-30 // -(-30 // band)))
+    assert torch.equal(fn(*args), whole)
+    assert wm.scan_whole_map_cuda.by_plan == {
+        "whole, slab 8": 1, f"chunked x{-(-30 // chunk)}, slab {slab}, {-(-30 // band)} bands": 1}
+
+
+def test_emulated_plan_past_the_old_limit(emulated):
+    """Maps whose parts of one channel do not fit in shared memory (kernel
+    9 at 112 x 112, K 4, N 16; kernel 10 at 128 x 128, N 1) take the
+    chunked plan at one channel in two bands; the earlier plan refused them."""
+    for H, N in ((112, 16), (128, 1)):
+        for dtype in (torch.float32, torch.bfloat16):
+            whole, slab, chunk, band = wm.whole_map_plan(1, H * H, 4, N, 192, dtype)
+            assert (whole, slab, chunk, -(-H * H // band)) == (False, 1, wm.CHUNK, 2)
+            assert emulated.xfm_whole_map_smem(0, 4, H * H, chunk, N, 1, band,
+                                               int(dtype == torch.bfloat16)) <= wm.WHOLE_MAP_SMEM
+            assert emulated.xfm_whole_map_smem(0, 4, H * H, chunk, N, 1, H * H, 0) > \
+                wm.WHOLE_MAP_SMEM
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("kernel", [9, 10])
+def test_emulated_map_past_the_accumulator(emulated, kernel):
+    """Kernel 9 at 112 x 112 (K 4, N 16) and kernel 10 at 128 x 128 (N 1),
+    past the maps whose parts fit in shared memory at one channel, in the
+    plan the port picks (two bands at one channel), float32, against the
+    plain twins (about 30 s each)."""
+    if kernel == 9:
+        args = _k9_case(84, 1, 112, 112, 2, CROSS2D, 16, torch.float32)
+        fn, plain, L = v1.nk_scan_v1, v1.nk_scan_v1_plain, 112 * 112
+    else:
+        args = _k10_case(85, 1, 128, 128, 2, 1, torch.float32)
+        fn, plain, L = fcs.fused_cross_scan, fcs.fused_cross_scan_plain, 128 * 128
+    wm.scan_whole_map_cuda.by_plan.clear()
+    got = fn(*args)
+    assert _rel(got, plain(*args)) < _tol(torch.float32)
+    assert wm.scan_whole_map_cuda.by_plan == {f"chunked x{-(-L // wm.CHUNK)}, slab 1, 2 bands": 1}
+
+
+def test_emulated_refused_calls_count_nothing(emulated, plan, monkeypatch):
+    """A call that the wrapper's checks refuse (Bs of another dtype, a
+    d_state past 16) or that the C entry refuses (a slab of 64 channels)
+    raises and adds nothing to ``nk_scan_v1.launches``,
+    ``fused_cross_scan.launches`` or ``scan_whole_map_cuda.by_plan``; the
+    same call with a valid plan counts one."""
+    plan(8)
+    k9 = list(_k9_case(86, 1, 5, 6, 40, CROSS2D, 4, torch.float32))
+    k10 = list(_k10_case(87, 1, 5, 6, 40, 4, torch.float32))
+    calls = ((v1.nk_scan_v1, k9, 2), (fcs.fused_cross_scan, k10, 2))
+
+    def counts():
+        return (v1.nk_scan_v1.launches, fcs.fused_cross_scan.launches,
+                dict(wm.scan_whole_map_cuda.by_plan))
+
+    before = counts()
+    for fn, args, b in calls:
+        bad = list(args)
+        bad[b] = bad[b].double()
+        with pytest.raises((TypeError, ValueError)):
+            fn(*bad)
+    with pytest.raises(ValueError):
+        fcs.fused_cross_scan(*k10[:4], torch.zeros(4, 40, 17), *k10[5:])
+    assert counts() == before
+    with monkeypatch.context() as mp:
+        mp.setattr(wm, "whole_map_plan", lambda n, L, *a: (True, 64, L, L))
+        for fn, args, _ in calls:
+            with pytest.raises(RuntimeError):
+                fn(*args)
+    assert counts() == before
+    for fn, args, _ in calls:
+        fn(*args)
+    assert counts() == (before[0] + 1, before[1] + 1, {"whole, slab 8": 2})

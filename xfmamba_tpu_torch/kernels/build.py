@@ -66,15 +66,19 @@ _SIGNATURES = {
     "xfm_nk_scan_v4_first": [_P] * 9 + [_I] * 8 + [_P],
     "xfm_nk_scan_v3_first": [_P] * 9 + [_I] * 11 + [_P],
     "xfm_ln_act": [_P] * 4 + [_LL, _I, _I, ctypes.c_float, _I, _P],
-    "xfm_seg_ln_fwd": [_P] * 4 + [_LL, _I, _I, _I, ctypes.c_float, _I, _P],
-    "xfm_seg_ln_bwd": [_P] * 7 + [_LL, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    "xfm_seg_ln_fwd": [_P] * 4 + [_LL, _I, _I, ctypes.c_float, _I, _P],
+    "xfm_seg_ln_bwd": [_P] * 7 + [_LL, _I, _I, _I, ctypes.c_float, _I, _P],
+    "xfm_ln_plan": [_LL, _I, _I, _I, _P],
+    "xfm_ln_act_first": [_P] * 4 + [_LL, _I, _I, ctypes.c_float, _I, _P],
+    "xfm_seg_ln_fwd_first": [_P] * 4 + [_LL, _I, _I, _I, ctypes.c_float, _I, _P],
+    "xfm_seg_ln_bwd_first": [_P] * 7 + [_LL, _I, _I, _I, _I, ctypes.c_float, _I, _P],
     "xfm_vss_block_v1": [_P] * 23 + [_I] * 9 + [_P],
     "xfm_vss_block_v1_grid": [_I],
     "xfm_nk_scan_adjoint": [_P] * 20 + [_I] * 10 + [_P],
     "xfm_fusion_scan": [_P] * 11 + [_I] * 13 + [_P] * 3,
     "xfm_fusion_scan_smem": [_I] * 8,
-    "xfm_whole_map_scan": [_P] * 8 + [_I] * 15 + [_P] * 2,
-    "xfm_whole_map_smem": [_I] * 7,
+    "xfm_whole_map_scan": [_P] * 8 + [_I] * 16 + [_P] * 2,
+    "xfm_whole_map_smem": [_I] * 8,
 }
 # entry points that return something other than a cudaError_t
 _RESTYPES = {"xfm_vss_block_v1_workspace": ([_LL] + [_I] * 5, ctypes.c_longlong)}

@@ -15,7 +15,16 @@ run from the repo's root.  The subjects (`SUBJECTS`, all by default):
   `nk_scan_v4_cuda` / `nk_scan_v3_cuda`) at XFMamba-S's bs-32 ShallowFuse
   call (32, 49, 1536) K=1 and its bs-16 step's Cross_SS2Dv5 call (48, 49,
   1536) K=4, N 16, both dtypes; as it is also at every slab of
-  ``ablation_scan.SLABS`` whose whole-map block fits.
+  ``ablation_scan.SLABS`` whose whole-map block fits;
+- ``ln``: kernels 19/20 and 21 (``ln_act.cu``, `seg_ln_fwd` / `seg_ln_bwd`)
+  at the bs-64 patch embed's two norms in bfloat16, (128, 112, 112, 48)
+  with the GELU and (128, 56, 56, 96) without; as it is also with 48
+  values a thread (a thread a pixel at C 48, two at C 96: the other work
+  split).
+
+Each subject's source as it is also reports its kernels' SASS instructions
+(``cuobjdump -sass``, NOPs left out), and, where the subject names the
+values a thread holds, the instructions a value.
 
 For each variant the probe copies ``csrc`` into its own directory, applies
 the variant's (file, old, new) edits to the copy, compiles the subject's
@@ -33,12 +42,14 @@ import shutil
 import subprocess
 import sys
 from dataclasses import dataclass
+from pathlib import Path
 
 import torch
 
 from xfmamba_tpu_torch.kernels import build
 
 ENTRY = re.compile(r".*entry function '(\w+)'.*")
+SASS_LINE = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+[A-Z@]")  # an instruction of cuobjdump -sass
 GROUPED_V1, LANES, ABLATIONS = (
     "selective_scan_grouped_v1.cu", "grouped_scan_lanes.cu", "nk_scan_ablations.cu")
 _EX2 = ("common.cuh", 'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));',
@@ -73,6 +84,28 @@ _SHFL = (LANES, "      yv += __shfl_xor_sync(0xffffffffu, yv, 1);\n"
 _PASS1 = (LANES, "for (int s = 0; s < cnt; ++s) {\n      if (s % kLanesSeg == 0) {",
           "for (int s = 0; s < 0; ++s) {\n      if (s % kLanesSeg == 0) {")
 _FINISH = (LANES, "  lanes_finish_kernel<<<", "  if (blocks < 0) lanes_finish_kernel<<<")
+
+# kernels 19-21: the tile's bytes, the stages, the backward's blocks an SM,
+# the GELU's work (none: what the erf costs), the stores of y and dx
+LN = "ln_act.cu"
+_LN_TILE = (LN, "kLnStageBytes = 16 * 1024;", "kLnStageBytes = 32 * 1024;")
+_LN_STAGES = (LN, "kLnStages = 3;", "kLnStages = {};")
+_LN_BWD_ONE = (LN, "kLnBwdBlocks = 2;", "kLnBwdBlocks = 1;")
+_LN_NO_GELU = [(LN, "o[e] = a.act ? gelu_erf(z) : z;", "o[e] = z;"),
+               (LN, "if (a.act) gp *= gelu_erf_grad(", "if (a.act < 0) gp *= gelu_erf_grad(")]
+# the GELU known at compile time (the GELU norm's timing only), the
+# derivative's exponential on the SFU, more blocks an SM
+_LN_ACT_FIXED = [(LN, "o[e] = a.act ? gelu_erf(z) : z;", "o[e] = gelu_erf(z);"),
+                 (LN, "if (a.act) gp *= gelu_erf_grad(", "gp *= gelu_erf_grad(")]
+_LN_FAST_EXP = (LN, "z * 0.39894228040143268f * expf(-0.5f * z * z);",
+                "z * 0.39894228040143268f * __expf(-0.5f * z * z);")
+_LN_FWD_FIVE = (LN, "__launch_bounds__(kLnThreads) ln_fwd_kernel",
+                "__launch_bounds__(kLnThreads, 5) ln_fwd_kernel")
+_LN_WIDE = (LN, "kLnElems = 24;", "kLnElems = 48;")
+_LN_NO_STORE = [(LN, "ln_store<PE>(yt + static_cast<long long>(pix) * C + pc * PE, o, vec_y);",
+                 "if (o[0] == 1.5e-38f) ln_store<PE>(yt, o, vec_y);"),
+                (LN, "ln_store<PE>(dxt + static_cast<long long>(pix) * C + pc * PE, o, vec_y);",
+                 "if (o[0] == 1.5e-38f) ln_store<PE>(dxt, o, vec_y);")]
 
 # kernels 17/18: kernel 17's walk another number of steps at a time
 _UNROLL = "#pragma unroll 2\n          for (int t = 0; t < tn; ++t) {"
@@ -127,6 +160,7 @@ class Subject:
     entries: tuple             # the C entries bound as `build.library`
     variants: dict             # name -> [(file, old, new)], "as is" first
     reported: str              # in the entry functions whose registers print ("": all)
+    values: int = 0            # values a reported kernel's thread holds (0: not one count)
 
 
 SUBJECTS = {
@@ -159,6 +193,18 @@ SUBJECTS = {
         {"as is": [], "255 registers (blocks of at most 256)": [
             (ABLATIONS, "kAbV3Threads = 384;", "kAbV3Threads = 256;")],
          "exp2 as an FMA": [_EX2]}, "Li1ELi16E"),
+    "ln": Subject(
+        LN, ("xfm_ln_act", "xfm_seg_ln_fwd", "xfm_seg_ln_bwd", "xfm_ln_plan"),
+        {"as is": [], "tiles up to 32 KB": [_LN_TILE],
+         "two stages": [(_LN_STAGES[0], _LN_STAGES[1], _LN_STAGES[2].format(2))],
+         "four stages": [(_LN_STAGES[0], _LN_STAGES[1], _LN_STAGES[2].format(4))],
+         "backward one block an SM": [_LN_BWD_ONE],
+         "backward three blocks an SM": [(LN, "kLnBwdBlocks = 2;", "kLnBwdBlocks = 3;")],
+         "forward five blocks an SM": [_LN_FWD_FIVE],
+         "the GELU known at compile time": _LN_ACT_FIXED,
+         "the derivative's exp on the SFU": [_LN_FAST_EXP], "no GELU work": _LN_NO_GELU,
+         "no stores of y or dx": _LN_NO_STORE,
+         "48 values a thread (fewer threads a pixel)": [_LN_WIDE]}, "13__nv_bfloat16Li8E", 24),
 }
 
 
@@ -273,13 +319,54 @@ def time_ablation(name, index, graph_ms):
             print(line + " per call (graph replay)", flush=True)
 
 
+def time_ln(name, index, graph_ms):
+    """Kernels 20 (19's function) and 21 at the bs-64 patch embed's norms in
+    bfloat16, x as phase 10c draws it."""
+    from xfmamba_tpu_torch.ops.ablations import seg_ln
+
+    g = torch.Generator().manual_seed(19)
+    total = [0.0, 0.0]
+    for shape, C, act in (((128, 112, 112), 48, True), ((128, 56, 56), 96, False)):
+        x = _randn(g, *shape, C, shift=0.5, scale=2.0, dtype=torch.bfloat16)
+        scale, bias = _randn(g, C, shift=1.0, scale=0.1), _randn(g, C, scale=0.1)
+        gy = _randn(g, *shape, C, dtype=torch.bfloat16)
+        fwd = graph_ms(lambda: seg_ln.seg_ln_fwd(x, scale, bias, act=act))
+        bwd = graph_ms(lambda: seg_ln.seg_ln_bwd(x, scale, bias, gy, act=act))
+        total = [total[0] + fwd, total[1] + bwd]
+        print(f"   {shape + (C,)} {'GELU' if act else 'no act'}: kernel 20 {fwd:.4f} ms, kernel "
+              f"21 {bwd:.4f} ms (its plan {seg_ln.ln_plan(x, True)})", flush=True)
+    print(f"   per bs-64 patch embed: kernel 20 {total[0]:.4f} ms, kernel 21 {total[1]:.4f} ms "
+          f"(graph replay)")
+
+
+def sass_counts(path, reported):
+    """{kernel (mangled): SASS instructions, NOPs left out} of the library's
+    kernels whose name holds ``reported``, from ``cuobjdump -sass`` (beside
+    nvcc)."""
+    tool = str(Path(build._nvcc()).with_name("cuobjdump"))
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                         check=True).stdout
+    counts, current = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            current = fn if reported in fn else None
+            if current:
+                counts[current] = 0
+        elif current and SASS_LINE.match(line) and " NOP" not in line:
+            counts[current] += 1
+    return counts
+
+
 def time_variant(name, index):
     """Times variant ``index`` of subject ``name`` (in a process of its own:
     each library carries its own CUDA runtime)."""
     from chip_smoke import graph_ms
 
     load(name, index)
-    (time_grouped if name.startswith("grouped") else time_ablation)(name, index, graph_ms)
+    timer = time_grouped if name.startswith("grouped") else (
+        time_ln if name == "ln" else time_ablation)
+    timer(name, index, graph_ms)
     torch.cuda.synchronize()
 
 
@@ -298,6 +385,14 @@ def main(names):
                     for k, ln in enumerate(lines[:-3])
                     if "Compiling entry" in ln and SUBJECTS[name].reported in ln]
             print(f"-- {name} {variant!r}:\n  " + "\n  ".join(regs), flush=True)
+            if index == 0:
+                subject = SUBJECTS[name]
+                so = build.BUILD_DIR / f"probe_{name}" / "v0" / "probe.so"
+                for fn, n in sass_counts(so, subject.reported).items():
+                    print(f"  SASS {fn[:80]}: {n} instructions"
+                          + (f", {n / subject.values:.1f} a value of the {subject.values} a "
+                             f"thread holds (an upper bound: staging and the walk included)"
+                             if subject.values else ""), flush=True)
             run = subprocess.run([sys.executable, "-m", __spec__.name, "--time", name,
                                   str(index)], capture_output=True, text=True, check=False)
             print(run.stdout.rstrip() if run.returncode == 0 else

@@ -29,7 +29,7 @@ import torch
 from xfmamba_tpu_torch.kernels import build
 from xfmamba_tpu_torch.ops.nk_scan import _kinds_code
 from xfmamba_tpu_torch.ops.primitives import dtype_code, ptr, require, require_cuda, stream
-from xfmamba_tpu_torch.ops.scan_whole_map import spread_key
+from xfmamba_tpu_torch.ops.scan_whole_map import band_plan, spread_key
 
 KERNELS = ("v4", "v3")               # the C entry's kernel code: 0 kernel 17, 1 kernel 18
 # the whole plan's slab widths, widest first: kernel 17's block holds K x S
@@ -92,17 +92,10 @@ def _plan(kernel, n, L, K, N, D, n_pairs, bf16, sms, smem_limit, chunk_limit):
         key = spread_key(n, D, sms, threads_at, lambda s: smem(True, L, s, L), REGS[kernel])
         return True, min(whole, key=key), L, L
     chunk = min(L, chunk_limit)
-
-    def bands(s):
-        # the fewest bands whose accumulator (4 bytes a position and
-        # channel) fits beside the rest of the block
-        room = (smem_limit - smem(False, chunk, s, 0)) // (4 * s)
-        return -(-L // room) if room > 0 else None
-
-    slabs = [s for s in CHUNK_SLABS[kernel]
-             if threads_at(s) <= MAX_THREADS[kernel] and bands(s) is not None]
-    slab = min(slabs, key=lambda s: (bands(s), -s))
-    return False, slab, chunk, -(-L // bands(slab))
+    # a band's accumulator takes 4 bytes a position and channel
+    slabs = [s for s in CHUNK_SLABS[kernel] if threads_at(s) <= MAX_THREADS[kernel]]
+    slab, band = band_plan(L, slabs, lambda s: (smem_limit - smem(False, chunk, s, 0)) // (4 * s))
+    return False, slab, chunk, band
 
 
 @functools.lru_cache(maxsize=None)

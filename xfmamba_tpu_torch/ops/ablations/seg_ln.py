@@ -4,11 +4,14 @@ backward (port of ``xfmamba_tpu/ops/ablations/seg_ln.py``, TPU kernels
 ``seg_ln_act`` :206).
 
 The TPU kernel packs P = lcm(C, 128) / C pixels into one row of full lanes
-(`seg_pack`).  On the card the packing is carried to warps: a pixel takes a
-segment of `seg_lanes` lanes, so one warp serves several pixels below C =
-128 and none of its lanes idles (``csrc/ln_act.cu``).  The backward
+(`seg_pack`).  On the card (``csrc/ln_act.cu``) kernels 19 and 20 are one
+function: tiles of contiguous pixels staged in shared memory by the bulk
+copy engine, three in flight a block, a group of threads a pixel (about
+three 16-byte pieces a thread); a pixel past 6,144 channels takes a block
+of its own, read from device memory.  The backward stages x and g together,
 recomputes the statistics, takes the derivative of the forward's own GELU
-and writes dscale and dbias as column sums without float atomics.
+once an element and writes dscale and dbias as column sums in a fixed order
+(a partial row a block, then a second launch), without float atomics.
 
 - `SEG_LN`, `seg_pack` and `seg_ln_supported`: JAX's switch (on: it only
   gates the op, which no model calls) and gate, copied (:56, :64-71,
@@ -26,12 +29,16 @@ forward and backward use the same GELU, as
 ``tests/test_torch_ablations.py`` pins.
 
 `seg_ln_fwd` and `seg_ln_bwd` take the plain twins only for CPU tensors; on
-CUDA tensors they launch the kernel, add one to their ``launches`` count,
-or raise.
+CUDA tensors they launch the kernel and then add one to their ``launches``
+count, or raise.  `seg_ln_fwd_first` and `seg_ln_bwd_first` run the first design (a
+segment of `seg_lanes` lanes a pixel, ``csrc/ln_act_v1.cu``), CUDA tensors
+only, for old-against-new timings.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -42,8 +49,15 @@ from xfmamba_tpu_torch.ops.primitives import dtype_code, on_cpu, ptr, require, s
 
 # the op's switch, on as in JAX
 SEG_LN = True
-# rows per block of kernel 21's first launch (one float32 partial row each)
+# rows per block of the first design's backward (one float32 partial row each)
 BWD_ROWS = 128
+# the fields of the card's plan (`ln_plan`)
+PLAN_FIELDS = ("tiles", "tile", "stages", "stage_bytes", "tpp", "vec", "rowwise", "smem",
+               "blocks")
+# a block's threads (kLnThreads): the backward's partial rows are sized at
+# the most such blocks the card holds at once
+LN_THREADS = 256
+H100_SMS, SM_THREADS = 132, 2048  # the bound off the card (the emulated library)
 
 
 def seg_pack(C: int):
@@ -69,8 +83,8 @@ def seg_ln_supported(x_shape, C: int) -> bool:
 
 
 def seg_lanes(C: int) -> int:
-    """Lanes per pixel on the card: gcd(C, 32) below C = 128 (32 / that
-    many pixels per warp, every lane busy), else one pixel per warp."""
+    """Lanes per pixel of the first design: gcd(C, 32) below C = 128 (32 /
+    that many pixels per warp, every lane busy), else one pixel per warp."""
     return 32 if C >= 128 else math.gcd(C, 32)
 
 
@@ -123,19 +137,53 @@ def seg_ln_fwd(x, scale, bias, eps=1e-5, act=False):
     Returns x's shape and dtype."""
     if on_cpu(x, scale, bias):
         return seg_ln_fwd_plain(x, scale, bias, eps, act)
+    return _fwd(seg_ln_fwd, "xfm_seg_ln_fwd", (), x, scale, bias, eps, act)
+
+
+def seg_ln_fwd_first(x, scale, bias, eps=1e-5, act=False):
+    """`seg_ln_fwd` on the first design's kernel (CUDA tensors only)."""
+    return _fwd(seg_ln_fwd_first, "xfm_seg_ln_fwd_first", (seg_lanes(x.shape[-1]),), x, scale,
+                bias, eps, act)
+
+
+def _fwd(counted, entry, plan, x, scale, bias, eps, act):
+    """A forward of C entry ``entry`` (the first design's with its lanes a
+    pixel, ``plan``), counted on ``counted`` once launched."""
     C = x.shape[-1]
     require(x, tuple(x.shape), name="x")
     scale, bias = _params(scale, bias, C)
     y = torch.empty_like(x)
-    lib = build.library()
-    seg_ln_fwd.launches += 1
-    build.check(lib.xfm_seg_ln_fwd(ptr(x), ptr(scale), ptr(bias), ptr(y), x.numel() // C, C,
-                                   seg_lanes(C), int(act), eps, dtype_code(x), stream(x)),
-                "seg_ln_fwd")
+    build.check(getattr(build.library(), entry)(
+        ptr(x), ptr(scale), ptr(bias), ptr(y), x.numel() // C, C, *plan, int(act), eps,
+        dtype_code(x), stream(x)), entry)
+    counted.launches += 1
     return y
 
 
 seg_ln_fwd.launches = 0
+seg_ln_fwd_first.launches = 0
+
+
+def ln_plan(x, backward=False) -> dict:
+    """The card's plan of kernels 19/20 (or 21 with ``backward``) for x
+    (..., C): {field: value} of `PLAN_FIELDS`; "blocks" is the grid (the
+    card's resident blocks, at most one a tile; the backward's partial
+    rows)."""
+    C = x.shape[-1]
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    build.check(build.library().xfm_ln_plan(x.numel() // C, C, dtype_code(x), int(backward),
+                                            out), "ln_plan")
+    return dict(zip(PLAN_FIELDS, out))
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(device) -> int:
+    """The most blocks of `LN_THREADS` the device holds at once: its SMs
+    times the blocks an SM's threads allow."""
+    if device.type != "cuda":
+        return H100_SMS * SM_THREADS // LN_THREADS
+    p = torch.cuda.get_device_properties(device)
+    return p.multi_processor_count * p.max_threads_per_multi_processor // LN_THREADS
 
 
 def seg_ln_bwd(x, scale, bias, g, eps=1e-5, act=False):
@@ -143,24 +191,43 @@ def seg_ln_bwd(x, scale, bias, g, eps=1e-5, act=False):
     dbias float32 (C,))."""
     if on_cpu(x, scale, bias, g):
         return seg_ln_bwd_plain(x, scale, bias, g, eps, act)
-    C = x.shape[-1]
-    rows = x.numel() // C
+    C, rows = x.shape[-1], x.numel() // x.shape[-1]
+    # room for any grid: 2 C column sums a block, then C of the row path's
+    # scratch a block
+    capacity = max(1, min(rows, _resident_blocks(x.device)))
+    return _bwd(seg_ln_bwd, "xfm_seg_ln_bwd", (3 * capacity * C,), (capacity,), x, scale, bias,
+                g, eps, act)
+
+
+def seg_ln_bwd_first(x, scale, bias, g, eps=1e-5, act=False):
+    """`seg_ln_bwd` on the first design's kernel (CUDA tensors only)."""
+    C, rows = x.shape[-1], x.numel() // x.shape[-1]
+    return _bwd(seg_ln_bwd_first, "xfm_seg_ln_bwd_first", (2 * C, -(-rows // BWD_ROWS)),
+                (seg_lanes(C), BWD_ROWS), x, scale, bias, g, eps, act)
+
+
+def _bwd(counted, entry, partial_shape, plan, x, scale, bias, g, eps, act):
+    """A backward of C entry ``entry``: its float32 partial sums of
+    ``partial_shape``, its ``plan`` (the capacity of the partial sums'
+    rows, or the first design's lanes a pixel and rows a block); counted
+    on ``counted`` once launched."""
+    C, rows = x.shape[-1], x.numel() // x.shape[-1]
     require(x, tuple(x.shape), name="x")
     require(g, tuple(x.shape), x.dtype, name="g")
     scale, bias = _params(scale, bias, C)
     f32 = dict(dtype=torch.float32, device=x.device)
-    partial = torch.empty(2 * C, -(-rows // BWD_ROWS), **f32)
+    partial = torch.empty(partial_shape, **f32)
     dsb = torch.empty(2, C, **f32)
     dx = torch.empty_like(x)
-    lib = build.library()
-    seg_ln_bwd.launches += 1
-    build.check(lib.xfm_seg_ln_bwd(ptr(x), ptr(g), ptr(scale), ptr(bias), ptr(dx), ptr(partial),
-                                   ptr(dsb), rows, C, seg_lanes(C), BWD_ROWS, int(act), eps,
-                                   dtype_code(x), stream(x)), "seg_ln_bwd")
+    build.check(getattr(build.library(), entry)(
+        ptr(x), ptr(g), ptr(scale), ptr(bias), ptr(dx), ptr(partial), ptr(dsb), rows, C, *plan,
+        int(act), eps, dtype_code(x), stream(x)), entry)
+    counted.launches += 1
     return dx, dsb[0], dsb[1]
 
 
 seg_ln_bwd.launches = 0
+seg_ln_bwd_first.launches = 0
 
 
 class SegLNAct(torch.autograd.Function):

@@ -143,9 +143,9 @@ def _scan(launch, counted, u, xdbl, A, bias, Dsum, w_dt, H, W, checkpoints):
     n, L, D, R = _check(u, xdbl, A, bias, Dsum, w_dt, H, W)
     chunk = stage_chunk(n, L, D)
     nc = -(-L // chunk)
-    counted.launches += 1
     y, ck = launch(*_maps(u, xdbl, H, W), w_dt, A.reshape(4, D).contiguous(), _dk(Dsum), bias,
                    chunk, nc, stage_layout(R), checkpoints)
+    counted.launches += 1  # counted once launched
     return y.view(n, L, D), ck
 
 
@@ -203,12 +203,12 @@ def cross2d_scan_bwd(u, xdbl, A, bias, Dsum, w_dt, H, W, gy, ck, dxdbl):
     `cross2d_scan_bwd_plain` (no dz).  ``ck`` is checked, not read."""
     if on_cpu(u, xdbl, A, bias, Dsum, w_dt, gy, ck, dxdbl):
         return cross2d_scan_bwd_plain(u, xdbl, A, bias, Dsum, w_dt, H, W, gy, ck, dxdbl)
-    n, L, D, R, nc = _check_bwd(cross2d_scan_bwd, u, xdbl, A, bias, Dsum, w_dt, H, W, gy, ck,
-                                dxdbl)
-    count_plan(cross2d_scan_bwd, tile_plan(n, H, W, D), backward=True)
+    n, L, D, R, nc = _check_bwd(u, xdbl, A, bias, Dsum, w_dt, H, W, gy, ck, dxdbl)
     r = n1_bwd_launch(*_maps(u, xdbl, H, W), w_dt, A.reshape(4, D).contiguous(), _dk(Dsum), bias,
                       gy.view(n, H, W, D), stage_chunk(n, L, D), stage_layout(R),
                       dxdbl.view(n, H, W, 4 * R + 8))
+    cross2d_scan_bwd.launches += 1  # counted once launched
+    count_plan(cross2d_scan_bwd, tile_plan(n, H, W, D), backward=True)
     return _bwd_result(r, n, L, D)
 
 
@@ -216,24 +216,23 @@ def cross2d_scan_bwd_v1(u, xdbl, A, bias, Dsum, w_dt, H, W, gy, ck, dxdbl):
     """`cross2d_scan_bwd` on the first design (CUDA tensors only): its
     adjoint kernel from the checkpoints, dz in device memory, then the rank
     products as `rank_grads` on ``gemm_ab_cuda`` (8 launches)."""
-    n, L, D, R, nc = _check_bwd(cross2d_scan_bwd_v1, u, xdbl, A, bias, Dsum, w_dt, H, W, gy, ck,
-                                dxdbl)
+    n, L, D, R, nc = _check_bwd(u, xdbl, A, bias, Dsum, w_dt, H, W, gy, ck, dxdbl)
     x, xd = _maps(u, xdbl, H, W)
     r = n1_bwd_launch_v1(x, xd, w_dt, A.reshape(4, D).contiguous(), _dk(Dsum), bias, ck,
                          gy.view(n, H, W, D), stage_chunk(n, L, D), nc, stage_layout(R),
                          dxdbl.view(n, H, W, 4 * R + 8), u.dtype)
     r["dw_dt"] = rank_grads(r["dpre"], xdbl, w_dt, dxdbl, gemm_ab_cuda)
+    cross2d_scan_bwd_v1.launches += 1
     return _bwd_result(r, n, L, D)
 
 
-def _check_bwd(counted, u, xdbl, A, bias, Dsum, w_dt, H, W, gy, ck, dxdbl):
+def _check_bwd(u, xdbl, A, bias, Dsum, w_dt, H, W, gy, ck, dxdbl):
     require_cuda(u, xdbl, A, bias, Dsum, w_dt, gy, ck, dxdbl)
     n, L, D, R = _check(u, xdbl, A, bias, Dsum, w_dt, H, W)
     nc = -(-L // stage_chunk(n, L, D))
     require(gy, (n, L, D), torch.float32, name="gy")
     require(ck, (n, 4, nc, D), torch.float32, name="ck")
     require(dxdbl, (n * L, 4 * R + 8), torch.float32, name="dxdbl")
-    counted.launches += 1
     return n, L, D, R, nc
 
 

@@ -79,8 +79,9 @@ def fused_cross_scan(x, dts, Bs, Cs, A, Dmat, bias):
     require(A, (4, D, N), torch.float32, name="A")
     for name, t in (("Dmat", Dmat), ("bias", bias)):
         require(t, (4, D), torch.float32, name=name)
-    fused_cross_scan.launches += 1
-    return fused_cross_scan_cuda(x, dts, Bs, Cs, A, Dmat, bias)
+    out = fused_cross_scan_cuda(x, dts, Bs, Cs, A, Dmat, bias)
+    fused_cross_scan.launches += 1  # counted once launched
+    return out
 
 
 fused_cross_scan.launches = 0

@@ -188,12 +188,12 @@ def selective_scan_cuda(u, Bs, Cs, A, bias, Dsum, kinds, H, W, *, dts=None,
     acc = torch.empty(n, L, D, dtype=torch.float32, device=u.device) if K > 1 else None
     out = torch.empty(n, L, D, dtype=out_dtype, device=u.device)
     lib = build.library()
-    selective_scan_cuda.launches += 1
     build.check(lib.xfm_selective_scan(
         ptr(u), ptr(dts), ptr(ranks), ptr(w_dt), ptr(Bs), ptr(Cs), ptr(A),
         ptr(bias), ptr(Dsum), ptr(acc), ptr(out), n, H, W, D, K, N, R,
         _kinds_code(kinds), dt_stride, rank_stride, *bc, dtype_code(u),
         dtype_code(out), stream(u)), "selective_scan")
+    selective_scan_cuda.launches += 1
     return out
 
 
@@ -296,11 +296,6 @@ def fusion_scan_cuda(u, Bs, Cs, A, bias, Dsum, kinds, H, W, *, dts=None, ranks=N
     if phase_ns:
         grid = -(-D // 32) * n * (1 if whole else K)
         stamps = torch.zeros(grid, len(FUSION_PHASES) + 1, dtype=torch.int64, device=u.device)
-    elif not blocks_per_sm:
-        fusion_scan_cuda.launches += 1
-        plan = ("whole" if whole else f"chunked x{-(-L // chunk)}") + (
-            f", ranks of {rk_kinds} kinds" if R else "")
-        fusion_scan_cuda.by_plan[plan] = fusion_scan_cuda.by_plan.get(plan, 0) + 1
     build.check(build.library().xfm_fusion_scan(
         ptr(u), ptr(dts), ptr(ranks), ptr(w_dt), ptr(Bs), ptr(Cs), ptr(A), ptr(bias),
         ptr(Dsum), ptr(out), ptr(part), n, H, W, D, K, N, R, _kinds_code(kinds), int(whole),
@@ -310,7 +305,14 @@ def fusion_scan_cuda(u, Bs, Cs, A, bias, Dsum, kinds, H, W, *, dts=None, ranks=N
         t = stamps.double()
         return dict(zip(FUSION_PHASES, t.diff(dim=1).mean(0).tolist())) | {
             "block": float((t[:, -1] - t[:, 0]).mean())}
-    return blocks.value if blocks_per_sm else out
+    if blocks_per_sm:
+        return blocks.value
+    # counted once launched
+    fusion_scan_cuda.launches += 1
+    plan = ("whole" if whole else f"chunked x{-(-L // chunk)}") + (
+        f", ranks of {rk_kinds} kinds" if R else "")
+    fusion_scan_cuda.by_plan[plan] = fusion_scan_cuda.by_plan.get(plan, 0) + 1
+    return out
 
 
 fusion_scan_cuda.launches = 0
@@ -438,12 +440,12 @@ def selective_scan_bwd_cuda(u, Bs, Cs, A, bias, Dsum, kinds, H, W, gy, *,
     dDsum = torch.zeros(D, **f32)
     dbias = torch.zeros(K, D, **f32)
     lib = build.library()
-    selective_scan_bwd_cuda.launches += 1
     build.check(lib.xfm_selective_scan_bwd(
         ptr(u), ptr(dts), ptr(ranks), ptr(w_dt), ptr(Bs), ptr(Cs), ptr(A), ptr(bias),
         ptr(Dsum), ptr(gy), ptr(hbuf), ptr(du), ptr(dz), ptr(dB), ptr(dC), ptr(dA),
         ptr(dDsum), ptr(dbias), n, H, W, D, K, N, R, _kinds_code(kinds), dt_stride,
         rank_stride, *bc, *dbc, dtype_code(u), stream(u)), "selective_scan_bwd")
+    selective_scan_bwd_cuda.launches += 1
     return dict(du=du, dz=dz, dB=dB, dC=dC, dA=dA, dDsum=dDsum, dbias=dbias)
 
 
@@ -516,10 +518,11 @@ def nk_scan(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds, group=8):
                     group=nk_scan_group(n, L, W, group))
     for name, t in (("u", u), ("dts", dts), ("Bs", Bs), ("Cs", Cs)):
         require(t, (n, L, None), u.dtype, name=name)
-    nk_scan.launches += 1
-    return fusion_scan_cuda(
+    out = fusion_scan_cuda(
         H=H, W=W, dts=dts.view(n, L, len(kinds), D), out_dtype=u.dtype,
         **_nk_operands(u, Bs, Cs, A, Dvec, bias, kinds))
+    nk_scan.launches += 1  # counted once launched
+    return out
 
 
 nk_scan.launches = 0
@@ -556,12 +559,13 @@ def nk_scan_x(u, ranks, Bs, Cs, w_dt, A, Dvec, bias, lno, H, W, kinds):
     for name, t in (("u", u), ("ranks", ranks), ("Bs", Bs), ("Cs", Cs)):
         require(t, (n, L, None), u.dtype, name=name)
     require(lno, (2, D), name="lno")
-    nk_scan_x.launches += 1
     y = fusion_scan_cuda(H=H, W=W, **_rank_operands(u, ranks, w_dt, kinds),
                          **_nk_operands(u, Bs, Cs, A, Dvec, bias, kinds))
     lno = lno.float()
-    return layer_norm_cuda(y.view(n * L, D), lno[0].contiguous(),
-                           lno[1].contiguous(), u.dtype).view(n, L, D)
+    out = layer_norm_cuda(y.view(n * L, D), lno[0].contiguous(),
+                          lno[1].contiguous(), u.dtype).view(n, L, D)
+    nk_scan_x.launches += 1  # counted once launched
+    return out
 
 
 nk_scan_x.launches = 0

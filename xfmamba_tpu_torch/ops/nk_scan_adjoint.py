@@ -274,13 +274,13 @@ def nk_scan_bwd(u, dts, Bs, Cs, A, Dvec, bias, gy, H, W, kinds):
     dA_part, dbias_part = torch.empty(n, K, N, D, **f32), torch.empty(n, K, D, **f32)
     dD_part = torch.empty(n, D, **f32)
     lib = build.library()
-    nk_scan_bwd.launches += 1
     build.check(lib.xfm_nk_scan_adjoint(
         ptr(u), ptr(dts), ptr(Bs), ptr(Cs), ptr(ops["A"]), ptr(ops["bias"]), ptr(ops["Dsum"]),
         ptr(gy), ptr(du), ptr(dz), ptr(dB), ptr(dC), ptr(dA), ptr(dDsum), ptr(dbias),
         ptr(du_part), ptr(bc_part), ptr(dA_part), ptr(dbias_part), ptr(dD_part), n, H, W, D, K,
         N, _kinds_code(kinds), plan.clen, plan.warps, dtype_code(u), stream(u)),
         "nk_scan_adjoint")
+    nk_scan_bwd.launches += 1
     return du, dz, dB, dC, dA, dDsum.expand(K, D), dbias
 
 

@@ -162,8 +162,9 @@ def nk_scan_v1(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds):
     n, L, D = u.shape
     for name, t in (("u", u), ("dts", dts), ("Bs", Bs), ("Cs", Cs)):
         require(t, (n, L, None), u.dtype, name=name)
-    nk_scan_v1.launches += 1
-    return nk_scan_v1_cuda(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds)
+    out = nk_scan_v1_cuda(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds)
+    nk_scan_v1.launches += 1  # counted once launched
+    return out
 
 
 nk_scan_v1.launches = 0

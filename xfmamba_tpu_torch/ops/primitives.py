@@ -153,13 +153,13 @@ def gemm_simt_cuda(a, b, bias=None, residual=None, gelu=False, scale=None,
     M, N, K, out, splits = _gemm_operands(a, b, bias, residual, gelu, scale, out_dtype, out,
                                           64, 64)
     lib = build.library()
-    gemm_simt_cuda.launches += 1
     build.check(lib.xfm_gemm(
         ptr(a), ptr(b), ptr(bias), ptr(scale), ptr(residual), ptr(out), M, N, K,
         a.stride(0), a.stride(1), b.stride(0), b.stride(1), out.stride(0),
         M // scale.shape[0] if scale is not None else 1, int(gelu), splits,
         dtype_code(a), dtype_code(out), dtype_code(residual) if residual is not None else 0,
         stream(a)), "gemm")
+    gemm_simt_cuda.launches += 1
     return out
 
 
@@ -227,7 +227,6 @@ def gemm_tc_cuda(a, b, bias=None, residual=None, gelu=False, scale=None,
     if swap:
         ldm, ldn = ldn, ldm
     lib = build.library()
-    gemm_tc_cuda.launches += 1
     build.check(lib.xfm_gemm_tc(
         ptr(ka), ptr(kb), ptr(bias), ptr(scale), ptr(residual), ptr(out),
         ka.shape[0], kb.shape[0], K, ka.stride(0), ka.stride(1), kb.stride(0), kb.stride(1),
@@ -235,6 +234,7 @@ def gemm_tc_cuda(a, b, bias=None, residual=None, gelu=False, scale=None,
         dtype_code(out), dtype_code(residual) if residual is not None else 0,
         int(am == "k"), int(bmj == "k"), int(_vec_ok(ka, am)), int(_vec_ok(kb, bmj)), bn,
         stream(a)), "gemm_tc")
+    gemm_tc_cuda.launches += 1
     return out
 
 
@@ -290,10 +290,10 @@ def layer_norm_cuda(x, weight, bias, out_dtype, eps=1e-5):
     require(bias, (C,), torch.float32, name="bias")
     out = torch.empty(rows, C, dtype=out_dtype, device=x.device)
     lib = build.library()
-    layer_norm_cuda.launches += 1
     build.check(lib.xfm_layer_norm(ptr(x), ptr(weight), ptr(bias), ptr(out),
                                    rows, C, dtype_code(x), dtype_code(out),
                                    eps, stream(x)), "layer_norm")
+    layer_norm_cuda.launches += 1
     return out
 
 
@@ -327,10 +327,10 @@ def dwconv3_silu_cuda(x, w9, bias=None, copy_bf16=False):
     out = torch.empty_like(x)
     out16 = torch.empty(B, H, W, C, dtype=torch.bfloat16, device=x.device) if copy_bf16 else None
     lib = build.library()
-    dwconv3_silu_cuda.launches += 1
     build.check(lib.xfm_dwconv3_silu(ptr(x), ptr(w9), ptr(bias), ptr(out), ptr(out16),
                                      B, H, W, C, dtype_code(x), stream(x)),
                 "dwconv3_silu")
+    dwconv3_silu_cuda.launches += 1
     return (out, out16) if copy_bf16 else out
 
 
@@ -368,10 +368,10 @@ def layer_norm_bwd_cuda(g, x, weight, dres=None, eps=1e-5):
     dw = torch.zeros(C, dtype=torch.float32, device=x.device)
     db = torch.zeros(C, dtype=torch.float32, device=x.device)
     lib = build.library()
-    layer_norm_bwd_cuda.launches += 1
     build.check(lib.xfm_layer_norm_bwd(ptr(g), ptr(x), ptr(weight), ptr(dres), ptr(dx),
                                        ptr(dw), ptr(db), rows, C, dtype_code(x), eps,
                                        stream(x)), "layer_norm_bwd")
+    layer_norm_bwd_cuda.launches += 1
     return dx, dw, db
 
 
@@ -411,10 +411,10 @@ def dwconv3_silu_bwd_cuda(du, x, w9, bias=None):
     dw9 = torch.zeros(9, C, dtype=torch.float32, device=x.device)
     db = torch.zeros(C, dtype=torch.float32, device=x.device)
     lib = build.library()
-    dwconv3_silu_bwd_cuda.launches += 1
     build.check(lib.xfm_dwconv3_silu_bwd(ptr(du), ptr(x), ptr(w9), ptr(bias), ptr(dacc),
                                          ptr(dx), ptr(dw9), ptr(db), B, H, W, C,
                                          dtype_code(x), stream(x)), "dwconv3_silu_bwd")
+    dwconv3_silu_bwd_cuda.launches += 1
     return dx, dw9, db if bias is not None else None
 
 

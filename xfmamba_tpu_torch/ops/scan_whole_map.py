@@ -6,12 +6,15 @@ memory in the plain versions' fixed order, one launch a call.
 - `whole_map_plan`: the "whole" plan (the slice staged at once) at the
   slab of `SLABS` whose blocks spread best over the SMs, where it fits in
   `WHOLE_MAP_SMEM`; else the "chunked" plan (the traversals staged
-  `CHUNK` steps at a time, each kind's part kept by position for the whole
-  map) at the widest slab of `CHUNK_SLABS` that fits.
+  `CHUNK` steps at a time, each kind's part kept by position) at the
+  widest slab of `CHUNK_SLABS` whose parts of the whole map fit.  Past
+  about 10,000 positions at K 4 and N 16 (117 x 117 at N 1) no slab's do:
+  the parts of a band of positions are kept at one channel, and the block
+  walks every traversal once a band.  No map is refused.
 - `scan_whole_map_cuda`: the launch, behind ``ops/nk_scan_v1.py::
   nk_scan_v1`` (kernel 9) and ``ops/fused_cross_scan.py::
-  fused_cross_scan`` (kernel 10), which count their calls;
-  ``scan_whole_map_cuda.by_plan`` counts them by plan.
+  fused_cross_scan`` (kernel 10), which count their calls once the launch
+  has returned; ``scan_whole_map_cuda.by_plan`` counts them by plan.
 """
 
 from __future__ import annotations
@@ -42,13 +45,15 @@ def lanes(N: int) -> int:
 
 
 def whole_map_plan(n, L, K, N, D, dtype, sms=H100_SMS) -> tuple:
-    """(whole, slab, chunk) for n images of L positions and D channels, K
-    kinds, N states.  The whole plan takes the slab with the fewest waves
-    of blocks, then the least work an SM holds (its blocks, rounded up,
-    times their threads), then the most SMs busy, then the widest: one
-    study's K=1 call (48 blocks of 32 channels at D 1536) spreads over 96
-    blocks of 16; 36 images of K=4 keep blocks of 32 (7 waves, against 9
-    of 16 and 11 of 8)."""
+    """(whole, slab, chunk, band) for n images of L positions and D
+    channels, K kinds, N states.  The whole plan takes the slab with the
+    fewest waves of blocks, then the least work an SM holds (its blocks,
+    rounded up, times their threads), then the most SMs busy, then the
+    widest: one study's K=1 call (48 blocks of 32 channels at D 1536)
+    spreads over 96 blocks of 16; 36 images of K=4 keep blocks of 32 (7
+    waves, against 9 of 16 and 11 of 8).  The chunked plan takes the widest
+    slab at the fewest bands of positions (``band`` positions each, L for
+    one)."""
     return _plan(n, L, K, N, D, dtype == torch.bfloat16, sms, WHOLE_MAP_SMEM, CHUNK)
 
 
@@ -67,23 +72,33 @@ def spread_key(n, D, sms, threads, smem, regs):
     return key
 
 
+def band_plan(L, slabs, room):
+    """The chunked plan's (slab, band): the widest of ``slabs`` at the
+    fewest bands of L positions, ``room(s)`` positions of a band fitting
+    beside the rest of a block at slab s (none where it is 0 or less);
+    ``band`` positions each (L for one).  Kernels 9/10 and 17/18."""
+    bands = {s: -(-L // room(s)) for s in slabs if room(s) > 0}
+    slab = min(bands, key=lambda s: (bands[s], -s))
+    return slab, -(-L // bands[slab])
+
+
 @functools.lru_cache(maxsize=None)
 def _plan(n, L, K, N, D, bf16, sms, smem_limit, chunk_limit):
-    def smem(whole, chunk, slab):
-        return build.library().xfm_whole_map_smem(int(whole), K, L, chunk, N, slab, int(bf16))
+    def smem(whole, chunk, slab, band):
+        return build.library().xfm_whole_map_smem(int(whole), K, L, chunk, N, slab, band,
+                                                  int(bf16))
 
-    fits = [s for s in SLABS if smem(True, L, s) <= smem_limit]
+    fits = [s for s in SLABS if smem(True, L, s, L) <= smem_limit]
     if fits:
         # at most 64 registers a thread by the launch bounds
         key = spread_key(n, D, sms, lambda s: max(K * s * lanes(N), MIN_THREADS),
-                         lambda s: smem(True, L, s), 64)
-        return True, min(fits, key=key), L
+                         lambda s: smem(True, L, s, L), 64)
+        return True, min(fits, key=key), L, L
     chunk = min(L, chunk_limit)
-    slab = next((s for s in CHUNK_SLABS if smem(False, chunk, s) <= smem_limit), None)
-    if slab is None:
-        raise ValueError(f"a {L}-position map of {K} kinds does not fit the whole-map scan: "
-                         f"one channel's parts take {4 * K * L} bytes of shared memory")
-    return False, slab, chunk
+    # a band's parts take 4 bytes a kind, position and channel
+    slab, band = band_plan(L, CHUNK_SLABS,
+                           lambda s: (smem_limit - smem(False, chunk, s, 0)) // (4 * K * s))
+    return False, slab, chunk, band
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,7 +139,7 @@ def scan_whole_map_cuda(u, dts, Bs, Cs, A, bias, Dk, kinds, H, W, *, cross, out_
     require(A, (K, D, N) if cross else (K, N, D), torch.float32, name="A")
     require(bias, (K, D), torch.float32, name="bias")
     require(Dk, (K, D), torch.float32, name="Dk")
-    whole, slab, chunk = whole_map_plan(n, L, K, N, D, u.dtype, _sm_count(u.device))
+    whole, slab, chunk, band = whole_map_plan(n, L, K, N, D, u.dtype, _sm_count(u.device))
     out = torch.empty(n, L, D, dtype=out_dtype, device=u.device)
     vec = (_aligned(u) | _aligned(dts) << 1 | (_aligned(Bs) and _aligned(Cs)) << 2
            | (_aligned(bias) and _aligned(Dk)) << 3)
@@ -132,17 +147,20 @@ def scan_whole_map_cuda(u, dts, Bs, Cs, A, bias, Dk, kinds, H, W, *, cross, out_
     if phase_ns:
         stamps = torch.zeros(n * -(-D // slab), len(PHASES) + 1, dtype=torch.int64,
                              device=u.device)
-    else:
-        plan = f"whole, slab {slab}" if whole else f"chunked x{-(-L // chunk)}, slab {slab}"
-        scan_whole_map_cuda.by_plan[plan] = scan_whole_map_cuda.by_plan.get(plan, 0) + 1
     build.check(build.library().xfm_whole_map_scan(
         ptr(u), ptr(dts), ptr(Bs), ptr(Cs), ptr(A), ptr(bias), ptr(Dk), ptr(out), n, H, W, D,
         K, N, _kinds_code(kinds), int(cross), int(round_part), int(whole), slab,
-        chunk, vec, dtype_code(u), dtype_code(out), ptr(stamps), stream(u)), "scan_whole_map")
+        chunk, band, vec, dtype_code(u), dtype_code(out), ptr(stamps), stream(u)),
+        "scan_whole_map")
     if phase_ns:
         t = stamps.double()
         return dict(zip(PHASES, t.diff(dim=1).mean(0).tolist())) | {
             "block": float((t[:, -1] - t[:, 0]).mean())}
+    # counted once launched
+    plan = f"whole, slab {slab}" if whole else f"chunked x{-(-L // chunk)}, slab {slab}"
+    if band < L:
+        plan += f", {-(-L // band)} bands"
+    scan_whole_map_cuda.by_plan[plan] = scan_whole_map_cuda.by_plan.get(plan, 0) + 1
     return out
 
 

@@ -177,11 +177,11 @@ def grouped_scan_fwd(u, delta, A, Bmat, Cmat, Dvec=None, bias=None, reverse=Fals
     B, L, K, C, N, n = _cuda_operands(u, delta, A, Bmat, Cmat, Dvec, bias, chunk)
     y, ck = _fwd_outputs(B, L, K, C, N, n, u.device)
     lib = build.library()
-    grouped_scan_fwd.launches += 1
     build.check(lib.xfm_grouped_scan_fwd(
         ptr(u), ptr(delta), ptr(A), ptr(Bmat), ptr(Cmat), ptr(Dvec), ptr(bias), ptr(y),
         ptr(ck), B, L, K, C, N, chunk, int(reverse), lanes_warps(B, K, C), dtype_code(u),
         stream(u)), "grouped_scan_fwd")
+    grouped_scan_fwd.launches += 1
     return y, ck
 
 
@@ -201,11 +201,11 @@ def grouped_scan_fwd_v1(u, delta, A, Bmat, Cmat, Dvec=None, bias=None, reverse=F
     B, L, K, C, N, n = _cuda_operands(u, delta, A, Bmat, Cmat, Dvec, bias, chunk)
     y, ck = _fwd_outputs(B, L, K, C, N, n, u.device)
     lib = build.library()
-    grouped_scan_fwd_v1.launches += 1
     build.check(lib.xfm_grouped_scan_fwd_v1(
         ptr(u), ptr(delta), ptr(A), ptr(Bmat), ptr(Cmat), ptr(Dvec), ptr(bias), ptr(y),
         ptr(ck), B, L, K, C, N, chunk, int(reverse), dtype_code(u), stream(u)),
         "grouped_scan_fwd_v1")
+    grouped_scan_fwd_v1.launches += 1
     return y, ck
 
 
@@ -270,12 +270,12 @@ def grouped_scan_bwd(u, delta, A, Bmat, Cmat, Dvec, bias, ck, dy, reverse=False,
     dA_part, dbias_part, dD_part = (torch.empty(B, K * C, N, **f32), torch.empty(B, K * C, **f32),
                                     torch.empty(B, K * C, **f32))
     lib = build.library()
-    grouped_scan_bwd.launches += 1
     build.check(lib.xfm_grouped_scan_bwd(
         ptr(u), ptr(delta), ptr(A), ptr(Bmat), ptr(Cmat), ptr(Dvec), ptr(bias), ptr(ck),
         ptr(dy), *(ptr(g[k]) for k in GRADS), ptr(bc_part), ptr(dA_part), ptr(dbias_part),
         ptr(dD_part), B, L, K, C, N, chunk, int(reverse), warps, dtype_code(u), stream(u)),
         "grouped_scan_bwd")
+    grouped_scan_bwd.launches += 1
     return g
 
 
@@ -302,11 +302,11 @@ def grouped_scan_bwd_v1(u, delta, A, Bmat, Cmat, Dvec, bias, ck, dy, reverse=Fal
     hs = torch.empty(B, K, min(chunk, L), N, C, **f32)
     g = _grads(B, L, K, C, N, f32, zeros=True)
     lib = build.library()
-    grouped_scan_bwd_v1.launches += 1
     build.check(lib.xfm_grouped_scan_bwd_v1(
         ptr(u), ptr(delta), ptr(A), ptr(Bmat), ptr(Cmat), ptr(Dvec), ptr(bias), ptr(ck),
         ptr(dy), ptr(hs), *(ptr(g[k]) for k in GRADS), B, L, K, C, N, chunk, int(reverse),
         dtype_code(u), stream(u)), "grouped_scan_bwd_v1")
+    grouped_scan_bwd_v1.launches += 1
     return g
 
 

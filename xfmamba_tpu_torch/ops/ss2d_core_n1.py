@@ -351,9 +351,10 @@ def ss2d_core_n1_fwd(x, xdbl, w_dt, A, Ds, bias, chunk=None):
     require_cuda(x, xdbl, w_dt, A, Ds, bias)
     B, H, W, D, R = _check(x, xdbl, w_dt, A, Ds, bias)
     chunk, n = _n_chunks(H * W, chunk)
-    ss2d_core_n1_fwd.launches += 1
+    out = n1_fwd_launch(x, xdbl, w_dt, A, Ds, bias, chunk, n, core_layout(R))
+    ss2d_core_n1_fwd.launches += 1  # counted once launched
     count_plan(ss2d_core_n1_fwd, tile_plan(B, H, W, D))
-    return n1_fwd_launch(x, xdbl, w_dt, A, Ds, bias, chunk, n, core_layout(R))
+    return out
 
 
 def n1_fwd_launch(x, xdbl, w_dt, A, Dk, bias, chunk, n, layout, checkpoints=True):
@@ -384,8 +385,9 @@ def ss2d_core_n1_fwd_v1(x, xdbl, w_dt, A, Ds, bias, chunk=None):
     require_cuda(x, xdbl, w_dt, A, Ds, bias)
     B, H, W, D, R = _check(x, xdbl, w_dt, A, Ds, bias)
     chunk, n = _n_chunks(H * W, chunk)
+    out = n1_fwd_launch_v1(x, xdbl, w_dt, A, Ds, bias, chunk, n, core_layout(R))
     ss2d_core_n1_fwd_v1.launches += 1
-    return n1_fwd_launch_v1(x, xdbl, w_dt, A, Ds, bias, chunk, n, core_layout(R))
+    return out
 
 
 def n1_fwd_launch_v1(x, xdbl, w_dt, A, Dk, bias, chunk, n, layout, checkpoints=True):
@@ -514,9 +516,9 @@ def ss2d_core_n1_bwd(x, xdbl, w_dt, A, Ds, bias, ck, g, chunk=None):
     require(ck, (B, 4, n, D), torch.float32, name="ck")
     require(g, (B, H, W, D), torch.float32, name="g")
     dxdbl = torch.zeros(B, H, W, 4, R + 2, dtype=torch.float32, device=x.device)
-    ss2d_core_n1_bwd.launches += 1
-    count_plan(ss2d_core_n1_bwd, tile_plan(B, H, W, D), backward=True)
     r = n1_bwd_launch(x, xdbl, w_dt, A, Ds, bias, g, chunk, core_layout(R), dxdbl)
+    ss2d_core_n1_bwd.launches += 1  # counted once launched
+    count_plan(ss2d_core_n1_bwd, tile_plan(B, H, W, D), backward=True)
     r["dxdbl"] = dxdbl
     return r
 
@@ -562,9 +564,9 @@ def ss2d_core_n1_bwd_v1(x, xdbl, w_dt, A, Ds, bias, ck, g, chunk=None):
     require(ck, (B, 4, n, D), torch.float32, name="ck")
     require(g, (B, H, W, D), torch.float32, name="g")
     dxdbl = torch.zeros(B, H, W, 4, R + 2, dtype=torch.float32, device=x.device)
-    ss2d_core_n1_bwd_v1.launches += 1
     r = n1_bwd_launch_v1(x, xdbl, w_dt, A, Ds, bias, ck, g, chunk, n, core_layout(R), dxdbl,
                          torch.float32)
+    ss2d_core_n1_bwd_v1.launches += 1
     dpre = r.pop("dpre")
     r["dxdbl"] = dxdbl
     r["dw_dt"] = _rank_grads(dpre, xdbl, w_dt, dxdbl, gemm_ab_cuda)

@@ -335,10 +335,10 @@ def _launch_states(src, dt, A, mat, bias, adjoint):
     f32 = dict(dtype=torch.float32, device=src.device)
     st = torch.empty(b, g * R, nc, N, P, **f32)
     decay = torch.empty(b, g * R, nc, **f32)
-    ssd_chunk_states.launches += 1
     build.check(build.library().xfm_ssd_chunk_state(
         ptr(src), ptr(dt), ptr(mat), ptr(A), ptr(bias), ptr(st), ptr(decay), b, L, g, R, P, N,
         dtype_code(dt), int(adjoint), stream(src)), "ssd_chunk_states")
+    ssd_chunk_states.launches += 1
     return st, decay
 
 
@@ -347,20 +347,20 @@ def _launch_pass(local, decay, start, reverse):
     if start is not None and start.data_ptr() % 16:  # the kernel moves 16-byte vectors
         start = start.clone()
     fin = torch.empty(b, h, N, P, dtype=torch.float32, device=local.device)
-    ssd_state_pass.launches += 1
     build.check(build.library().xfm_ssd_state_pass(
         ptr(local), ptr(decay), ptr(start), ptr(fin), b * h, nc, N * P, int(reverse),
         stream(local)), "ssd_state_pass")
+    ssd_state_pass.launches += 1
     return local, fin
 
 
 def _launch_scan(x, dt, A, Bm, Cm, D, bias, states):
     b, g, L, R, P = x.shape
     y = torch.empty_like(x)
-    ssd_chunk_scan.launches += 1
     build.check(build.library().xfm_ssd_chunk_scan(
         ptr(x), ptr(dt), ptr(Bm), ptr(Cm), ptr(A), ptr(bias), ptr(D), ptr(states), ptr(y), b, L,
         g, R, P, Bm.shape[-1], dtype_code(x), stream(x)), "ssd_chunk_scan")
+    ssd_chunk_scan.launches += 1
     return y
 
 
@@ -373,11 +373,11 @@ def _launch_grads(x, dt, A, Bm, Cm, D, bias, states, ds_out, dy):
     dB, dC = torch.zeros(b, g, L, N, **f32), torch.zeros(b, g, L, N, **f32)
     dA, dbias = torch.zeros(g * R, **f32), torch.zeros(g * R, **f32)
     dD = torch.zeros(g * R, P, **f32)
-    ssd_chunk_grads.launches += 1
     build.check(build.library().xfm_ssd_chunk_grads(
         ptr(x), ptr(dt), ptr(Bm), ptr(Cm), ptr(A), ptr(bias), ptr(D), ptr(states), ptr(ds_out),
         ptr(dy), ptr(dx), ptr(ddt), ptr(dB), ptr(dC), ptr(dA), ptr(dbias), ptr(dD), b, L, g, R,
         P, N, dtype_code(x), stream(x)), "ssd_chunk_grads")
+    ssd_chunk_grads.launches += 1
     return dict(dx=dx, ddt=ddt, dB=dB, dC=dC, dA=dA, dbias=dbias, dD=dD)
 
 
@@ -463,10 +463,10 @@ def ssd_fwd(x, dt, A, Bm, Cm, D=None, bias=None, init=None, chunk=CHUNK, save_st
     b, g, L, R, P, N, nc = _check(x, dt, A, Bm, Cm, D, bias, chunk)
     if init is not None:
         require(init, (b, g * R, N, P), torch.float32, name="init")
-    ssd_fwd.launches += 1
     local, decay = _launch_states(x, dt, A, Bm, bias, False)
     states, fin = _launch_pass(local, decay, init, False)
     y = _launch_scan(x, dt, A, Bm, Cm, D, bias, states)
+    ssd_fwd.launches += 1  # counted once launched
     return (y, fin, states) if save_states else (y, fin)
 
 
@@ -484,10 +484,10 @@ def ssd_bwd(x, dt, A, Bm, Cm, D, bias, states, dy, dfin=None, chunk=CHUNK):
     require(dy, (b, g, L, R, P), torch.float32, name="dy")
     if dfin is not None:
         require(dfin, (b, g * R, N, P), torch.float32, name="dfin")
-    ssd_bwd.launches += 1
     q, decay = _launch_states(dy, dt, A, Cm, bias, True)
     ds_out, dinit = _launch_pass(q, decay, dfin, True)
     grads = _launch_grads(x, dt, A, Bm, Cm, D, bias, states, ds_out, dy)
+    ssd_bwd.launches += 1  # counted once launched
     grads["dinit"] = dinit
     return grads
 
@@ -509,10 +509,10 @@ def ssd_fwd_serial(x, dt, A, Bm, Cm, D=None, bias=None, init=None, save_states=F
     fin = torch.empty(b, g * R, N, P, **f32)
     states = torch.empty(b, g * R, nc, N, P, **f32) if save_states else None
     lib = build.library()
-    ssd_fwd_serial.launches += 1
     build.check(lib.xfm_ssd_fwd_serial(
         ptr(x), ptr(dt), ptr(Bm), ptr(Cm), ptr(A), ptr(bias), ptr(D), ptr(init), ptr(y),
         ptr(fin), ptr(states), b, L, g, R, P, N, dtype_code(x), stream(x)), "ssd_fwd_serial")
+    ssd_fwd_serial.launches += 1
     return (y, fin, states) if save_states else (y, fin)
 
 
@@ -538,11 +538,11 @@ def ssd_bwd_serial(x, dt, A, Bm, Cm, D, bias, states, dy, dfin=None):
     dD = torch.zeros(g * R, P, **f32)
     dinit = torch.empty(b, g * R, N, P, **f32)
     lib = build.library()
-    ssd_bwd_serial.launches += 1
     build.check(lib.xfm_ssd_bwd_serial(
         ptr(x), ptr(dt), ptr(Bm), ptr(Cm), ptr(A), ptr(bias), ptr(D), ptr(states), ptr(dy),
         ptr(dfin), ptr(dx), ptr(ddt), ptr(dB), ptr(dC), ptr(dA), ptr(dbias), ptr(dD),
         ptr(dinit), b, L, g, R, P, N, dtype_code(x), stream(x)), "ssd_bwd_serial")
+    ssd_bwd_serial.launches += 1
     return dict(dx=dx, ddt=ddt, dB=dB, dC=dC, dA=dA, dbias=dbias, dD=dD, dinit=dinit)
 
 

@@ -62,8 +62,9 @@ def vss_block_train(x, p: VSSBlockOperands, H, W, m1=None):
     if on_cpu(x, p.w_in, m1):
         return vss_block_train_plain(x, p, H, W, m1)
     _check(x, p, H, W)
-    vss_block_train.launches += 1
-    return ss2d_half(x, p, H, W, CUDA_OPS, m1)
+    out = ss2d_half(x, p, H, W, CUDA_OPS, m1)
+    vss_block_train.launches += 1  # counted once launched
+    return out
 
 
 vss_block_train.launches = 0
@@ -119,8 +120,9 @@ def vss_block_bwd(x, p: VSSBlockOperands, H, W, m1, g):
     if on_cpu(x, p.w_in, m1, g):
         return vss_block_bwd_plain(x, p, H, W, m1, g)
     _check(x, p, H, W)
-    vss_block_bwd.launches += 1
-    return vss_block_bwd_body(x, p, H, W, m1, g.contiguous(), CUDA_OPS)
+    grads = vss_block_bwd_body(x, p, H, W, m1, g.contiguous(), CUDA_OPS)
+    vss_block_bwd.launches += 1  # counted once launched
+    return grads
 
 
 vss_block_bwd.launches = 0

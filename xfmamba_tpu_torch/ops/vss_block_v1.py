@@ -345,7 +345,6 @@ def _launch(x, p, H, W, stamps):
     ws = _workspace(x, B * L, d, di, R, hd)
     out = torch.empty_like(x)
     lib = build.library()
-    vss_block_v1.launches += 1
     build.check(lib.xfm_vss_block_v1(
         ptr(x), ptr(out), ptr(p.ln1_w), ptr(p.ln1_b), ptr(p.w_in), ptr(p.w_conv), ptr(p.b_conv),
         ptr(p.w_xp), ptr(p.w_dt), ptr(p.b_dt), ptr(p.A), ptr(p.Dsum), ptr(p.lno_w),
@@ -353,6 +352,7 @@ def _launch(x, p, H, W, stamps):
         ptr(p.w_fc2), ptr(p.b_fc2), ptr(ws), ptr(stamps), B, H, W, d, di, R, hd,
         scan_segments(H, W, di, B, cooperative_grid(x.dtype)), dtype_code(x), stream(x)),
         "vss_block_v1")
+    vss_block_v1.launches += 1
     return out
 
 

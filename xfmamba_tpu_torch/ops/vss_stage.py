@@ -73,9 +73,9 @@ def vss_stage(x, blocks, H, W):
                          f"{tuple(x.shape)}")
     if any(p.w_in.dtype != x.dtype for p in blocks):
         raise TypeError("stage operands were packed for another dtype")
-    vss_stage.launches += 1
     for p in blocks:
         x = vss_block_body(x, p, H, W, CUDA_OPS)
+    vss_stage.launches += 1  # counted once launched
     return x
 
 

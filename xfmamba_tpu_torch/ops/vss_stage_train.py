@@ -58,8 +58,9 @@ def vss_stage_train_forward(x, blocks, H, W, m1, m2):
         return vss_stage_train_forward_plain(x, blocks, H, W, m1, m2)
     for p in blocks:
         _check(x, p, H, W)
-    vss_stage_train_forward.launches += 1
-    return _stage_forward(x, blocks, H, W, m1, m2, CUDA_OPS)
+    out = _stage_forward(x, blocks, H, W, m1, m2, CUDA_OPS)
+    vss_stage_train_forward.launches += 1  # counted once launched
+    return out
 
 
 vss_stage_train_forward.launches = 0

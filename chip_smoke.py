@@ -209,6 +209,29 @@ The ablation kernels behind JAX's switches (kernels 17-21):
    kernel 19 (forward) and once on kernels 20 / 21 (forward and backward),
    against the module's own forward and gradients, bfloat16, 5e-2.
 
+The CLIs (no new kernel; they run kernels 2, 3, 7, 11, 12 in float32 and 1,
+2, 4-7 in bfloat16):
+11. a synthetic MURA tree in a temporary directory (``tests/
+   torch_mura_tree.py``: 64 train and 16 valid studies over two body
+   parts, one patient each, balanced labels, 1-3 PNGs a study at 380-512 x
+   300-512, filter types 0-4 row by row, every 11th image 8-bit RGB,
+   palette or 16-bit gray); every PNG decoded through the native unfilter
+   and its numpy twin (equal bytes), the decode rate on one host thread and
+   the loader's feed rate (train transform at 224², 4 threads, then 4
+   processes); two float32 epochs of XFMamba-S through ``cli.train.main``
+   (bs 16): per epoch the losses, the val AUC, the epoch's seconds split
+   into train (and of it the wait on the loader), eval, metrics and
+   checkpoints, ms per step by CUDA events; launches per step ss2d_core_n1_fwd
+   21, ss2d_core_n1_bwd 21, nk_scan 3, nk_scan_bwd 3 and per eval forward
+   21 / nk_scan 2 / nk_scan_x 1, no other kernel; the files
+   ``model_epoch_{0,1}.npz``, ``best.npz``, ``epoch_{0,1}/metrics.txt``,
+   ``last.pt`` with their sizes; a one-epoch ``fit`` resumed from its
+   ``last.pt`` against the CLI's two epochs (the batches' sample indices
+   equal, epoch 2's train loss within 1e-3 relative); the npz round trips
+   bitwise; one bfloat16 epoch (phase 7's launches per step);
+   ``cli.infer_mura.main`` with ``best.npz`` (per-part and combined AUCs,
+   ``auc_*.txt``); the directory is deleted.
+
 The line before the last but one is one JSON object with the kernels'
 results (launches per main-path forward or step, errors, times, bounds;
 for kernels 1 and 4-6 also their route counts and phase 7e's device times
@@ -3613,6 +3636,327 @@ def phase_patch_embed(card):
     return launches
 
 
+# phase 11: the CLIs on a synthetic MURA tree (tests/torch_mura_tree.py)
+CLI_STUDIES, CLI_VALID_STUDIES = 64, 16
+CLI_PARTS = ("ELBOW", "WRIST")
+CLI_KINDS = ("rgb8", "palette8", "gray16")
+# the feed in steady state: the train pairs FEED_REPEAT times over, one
+# shuffled epoch a worker count; its rate is read from the batch after each
+# worker's first on, when every worker has one batch behind it
+FEED_REPEAT = 6
+FEED_WORKERS = (4, 8)
+# (processes, workers) of the loader-fed epochs of the float32 step
+FED_EPOCHS = ((False, 4), (True, 4), (True, 8))
+CLI_MODEL, CLI_DEVICE = "twoviewxfmamba", "cuda"
+CLI_FILES = ("model_epoch_0.npz", "model_epoch_1.npz", "best.npz", "epoch_0/metrics.txt",
+             "epoch_1/metrics.txt", "last.pt")
+
+
+@contextlib.contextmanager
+def recorded_batches(loader_cls):
+    """The sample indices of every shuffled epoch that ``loader_cls`` draws
+    while the context is open, in order."""
+    rec, orig = [], loader_cls._index_batches
+
+    def recording(self):
+        out = orig(self)
+        if self.shuffle:
+            rec.append([b.copy() for b in out])
+        return out
+    loader_cls._index_batches = recording
+    try:
+        yield rec
+    finally:
+        loader_cls._index_batches = orig
+
+
+@contextlib.contextmanager
+def epoch_launches(driver, fns):
+    """Launch counts of ``fns`` in each train and eval epoch that
+    ``driver.fit`` runs while the context is open: a list of (kind, steps
+    or batches, counts) per epoch."""
+    rec, run_train, run_eval = [], driver.run_train_epoch, driver.run_eval_epoch
+
+    def train_epoch(*args, **kw):
+        torch.cuda.synchronize()
+        counts = counted(fns)
+        stats = run_train(*args, **kw)
+        torch.cuda.synchronize()
+        rec.append(("train", stats["steps"], counts()))
+        return stats
+
+    def eval_epoch(eval_step, loader, *args, **kw):
+        torch.cuda.synchronize()
+        counts = counted(fns)
+        out = run_eval(eval_step, loader, *args, **kw)
+        torch.cuda.synchronize()
+        rec.append(("eval", len(loader), counts()))
+        return out
+    driver.run_train_epoch, driver.run_eval_epoch = train_epoch, eval_epoch
+    try:
+        yield rec
+    finally:
+        driver.run_train_epoch, driver.run_eval_epoch = run_train, run_eval
+
+
+def check_epoch_launches(rec, train_want, eval_want=None):
+    """Each train epoch's launches are ``train_want`` per step and each eval
+    epoch's ``eval_want`` per batch (kernels not named: none); returns the
+    failures."""
+    bad = []
+    for kind, n, counts in rec:
+        want = train_want if kind == "train" else eval_want
+        if want is None:
+            continue
+        full = dict.fromkeys(counts, 0) | want
+        got = {k: v for k, v in counts.items() if k in full}
+        if any(got[k] != full[k] * n for k in full):
+            bad.append((kind, n, {k: v for k, v in counts.items() if v}))
+    return bad
+
+
+def feed_epoch(dataset, workers, processes):
+    """One shuffled epoch of the train transform over ``dataset``'s pairs
+    FEED_REPEAT times over, taken as fast as it comes: (seconds to the
+    first batch, pairs/s from the batch after each worker's first to the
+    last, batches)."""
+    from xfmamba_tpu_torch.data.loader import TwoViewLoader, TwoViewSamples
+    loader = TwoViewLoader(
+        TwoViewSamples(dataset.samples * FEED_REPEAT, dataset.load_fn, dataset.transform),
+        TRAIN_BATCH, shuffle=True, drop_last=True, num_workers=workers, seed=7,
+        use_processes=processes)
+    t0 = time.perf_counter()
+    arrivals, pairs = [], []
+    for batch in loader:
+        arrivals.append(time.perf_counter())
+        pairs.append(int(batch["n_valid"]))
+    rate = sum(pairs[workers:]) / (arrivals[-1] - arrivals[workers - 1])
+    return arrivals[0] - t0, rate, len(pairs)
+
+
+def phase_cli(card):
+    """The train and inference CLIs on the card (phase 11): a synthetic MURA
+    tree, its PNGs decoded by the native unfilter and its numpy twin, the
+    loader's feed rate in steady state, two float32 epochs of XFMamba-S
+    through ``cli.train.main`` (launches per step and per eval forward, the
+    checkpoint files), a long epoch fed by the loader, a resumed run
+    against the CLI's, the ``best.npz`` round
+    trip, one bfloat16 epoch and ``cli.infer_mura.main``'s AUCs."""
+    import dataclasses
+    import os
+    import shutil
+    import statistics
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_mura_tree import write_mura_tree
+    from xfmamba_tpu_torch import native
+    from xfmamba_tpu_torch.checkpoint import io as ckpt
+    from xfmamba_tpu_torch.checkpoint.convert import export_jax_variables
+    from xfmamba_tpu_torch.cli import build_model_by_name, infer_mura, load_variables
+    from xfmamba_tpu_torch.cli import train as cli_train
+    from xfmamba_tpu_torch.data import mura, png
+    from xfmamba_tpu_torch.data.loader import TwoViewLoader, TwoViewSamples
+    from xfmamba_tpu_torch.train import driver
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"phase 11: the train and infer CLIs on a synthetic MURA tree, XFMamba-S at "
+          f"{IMAGE}x{IMAGE}, bs {TRAIN_BATCH} ({card})")
+    tmp = tempfile.mkdtemp(prefix="xfm_phase11_")
+    try:
+        t0 = time.perf_counter()
+        csvs, paths = write_mura_tree(tmp, n_studies=CLI_STUDIES, parts=CLI_PARTS,
+                                      n_valid=CLI_VALID_STUDIES, kinds=CLI_KINDS, seed=11)
+        print(f"  tree: {CLI_STUDIES} train + {CLI_VALID_STUDIES} valid studies, "
+              f"{len(paths)} PNGs (filter types 0-4 row by row; every 11th of "
+              f"{'/'.join(CLI_KINDS)}), written in {time.perf_counter() - t0:.2f} s")
+        # 11.2: decode through the native unfilter and its numpy twin
+        raws = [Path(p).read_bytes() for p in paths]
+        native.library()
+        t0 = time.perf_counter()
+        decoded = [png.decode_gray(raw) for raw in raws]
+        native_s = time.perf_counter() - t0
+        mismatched = [p for p, raw, img in zip(paths, raws, decoded)
+                      if not np.array_equal(png.decode_gray(raw, unfilter=native.png_unfilter_plain),
+                                      img)]
+        pixels = sum(img.size for img in decoded)
+        print(f"  decode: {len(raws)} images, {pixels / len(raws) / 1e3:.0f} k pixels each on "
+              f"average, {len(raws) / native_s:.1f} images/s on one host thread "
+              f"({sum(map(len, raws)) / native_s / 2 ** 20:.1f} MiB/s of PNG); the numpy "
+              f"unfilter gave equal bytes for {len(raws) - len(mismatched)} of {len(raws)}")
+        if mismatched:
+            raise PhaseFailure(f"the native and numpy unfilters disagree on {mismatched[:3]}")
+        argv = ["--model_name", CLI_MODEL, "--image_size", str(IMAGE), "--batch_size",
+                str(TRAIN_BATCH), "--data_root", tmp, "--train_image_csv", csvs[0],
+                "--train_label_csv", csvs[1], "--valid_image_csv", csvs[2],
+                "--valid_label_csv", csvs[3], "--num_workers", "4", "--seed", "42",
+                "--device", CLI_DEVICE]
+        cfg, cfg_dict = cli_train.make_config(cli_train.parse_args(argv))
+        train_loader, val_loader, _ = mura.create_data_loaders(*csvs, cfg_dict)
+        print(f"  loader: {len(train_loader.dataset)} train pairs ({len(train_loader)} batches "
+              f"of {TRAIN_BATCH}), {len(val_loader.dataset)} val pairs; the feed alone, one "
+              f"epoch of the train transform at {IMAGE}x{IMAGE} over the train pairs "
+              f"{FEED_REPEAT} times over, files in the page cache ({os.cpu_count()} host cores):")
+        for procs in (False, True):
+            for workers in FEED_WORKERS:
+                first, rate, n = feed_epoch(train_loader.dataset, workers, procs)
+                print(f"    {workers} {'processes' if procs else 'threads'}: {rate:.1f} pairs/s "
+                      f"from batch {workers + 1} to {n}, first batch after {first:.3f} s")
+
+        # 11.3: two float32 epochs through the CLI
+        fns = all_kernels()
+        run = os.path.join(tmp, "run_f32")
+        with recorded_batches(TwoViewLoader) as cli_batches, \
+                epoch_launches(driver, fns) as rec:
+            state, history = cli_train.main(argv + ["--epochs", "2", "--savemodel_path", run])
+        steps = []
+        for h in history:
+            tr, va, sec = h["train"], h["val"], h["seconds"]
+            steps += tr["step_ms"]
+            total = sum(sec.values())
+            print(f"  epoch {h['epoch']}: train loss {tr['loss']:.6f}, val loss "
+                  f"{va['loss']:.6f}, val AUC {va.get('auc', float('nan')):.4f}; "
+                  f"{total:.2f} s (train {sec['train_s']:.2f}, of it waiting on the loader "
+                  f"{tr['loader_wait_s']:.2f}, {tr['first_batch_wait_s']:.2f} of that for the "
+                  f"first batch; eval {sec['eval_s']:.2f}; metrics "
+                  f"{sec['artifacts_s']:.2f}; npz {sec.get('npz_s', 0):.2f}; last.pt "
+                  f"{sec.get('last_pt_s', 0):.2f}); {tr['steps']} steps, ms per step by CUDA "
+                  f"events {', '.join(f'{v:.1f}' for v in tr['step_ms'])}")
+        print(f"  float32 step: median {statistics.median(steps):.2f} ms by CUDA events over "
+              f"{len(steps)} steps ({card})")
+        if not all(math.isfinite(h[k]["loss"]) for h in history for k in ("train", "val")):
+            raise PhaseFailure(f"a loss is not finite: {history}")
+        bad = check_epoch_launches(rec, F32_STEP["small"], F32_FORWARD)
+        print(f"  launches per epoch: {[(k, n, {a: b for a, b in c.items() if b}) for k, n, c in rec]}")
+        if bad:
+            raise PhaseFailure(f"launches differ from {F32_STEP['small']} per step and "
+                               f"{F32_FORWARD} per eval forward: {bad}")
+        for name in CLI_FILES:
+            path = os.path.join(run, name)
+            if not os.path.isfile(path):
+                raise PhaseFailure(f"the train CLI did not write {name}")
+            st = os.stat(path)
+            print(f"    {name}: {st.st_size / 2 ** 20:.1f} MiB, written "
+                  f"{time.strftime('%H:%M:%S', time.localtime(st.st_mtime))}")
+
+        # 11.3b: long epochs of the train step fed by the loader
+        model, _ = build_model_by_name(CLI_MODEL, 2, device=CLI_DEVICE, seed=cfg.seed)
+        step, _ = make_train_step(model, make_optimizer(cfg, model.parameters()), False)
+        for procs, workers in FED_EPOCHS:
+            long_loader = TwoViewLoader(
+                TwoViewSamples(train_loader.dataset.samples * FEED_REPEAT,
+                               train_loader.dataset.load_fn, train_loader.dataset.transform),
+                TRAIN_BATCH, shuffle=True, drop_last=True, num_workers=workers, seed=cfg.seed,
+                use_processes=procs)
+            tr = driver.run_train_epoch(step, long_loader, cfg.lr, False, CLI_DEVICE,
+                                        log_every=0)
+            rest = tr["loader_wait_s"] - tr["first_batch_wait_s"]
+            print(f"  loader-fed epoch, {workers} {'processes' if procs else 'threads'}: "
+                  f"{tr['steps']} steps in {tr['time_s']:.2f} s; "
+                  f"{tr['first_batch_wait_s']:.3f} s to the first batch, then {rest:.3f} s of "
+                  f"waiting over the other {tr['steps'] - 1} steps "
+                  f"({1e3 * rest / (tr['steps'] - 1):.1f} ms a step); step median "
+                  f"{statistics.median(tr['step_ms']):.2f} ms by CUDA events; "
+                  f"{tr['steps'] * TRAIN_BATCH / (tr['time_s'] - tr['first_batch_wait_s']):.1f} "
+                  f"pairs/s after the first batch ({card})")
+            if not math.isfinite(tr["loss"]):
+                raise PhaseFailure(f"the loader-fed epoch's loss is {tr['loss']}")
+        del model, step
+
+        # 11.4: resume from a one-epoch run's last.pt against the CLI's run
+        resumed = os.path.join(tmp, "run_resume")
+        with recorded_batches(TwoViewLoader) as first_batches:
+            model, _ = build_model_by_name(CLI_MODEL, 2, device=CLI_DEVICE, seed=cfg.seed)
+            loaders = mura.create_data_loaders(*csvs, cfg_dict)
+            one = cli_train.make_config(cli_train.parse_args(
+                argv + ["--epochs", "1", "--savemodel_path", resumed]))[0]
+            driver.fit(model, one, loaders[0], loaders[1], out_dir=resumed)
+        del model
+        with recorded_batches(TwoViewLoader) as second_batches:
+            model, _ = build_model_by_name(CLI_MODEL, 2, device=CLI_DEVICE, seed=cfg.seed)
+            loaders = mura.create_data_loaders(*csvs, cfg_dict)
+            two = dataclasses.replace(one, epochs=2)
+            _, resumed_history = driver.fit(
+                model, two, loaders[0], loaders[1], out_dir=resumed,
+                init_state=ckpt.load_state(os.path.join(resumed, "last.pt")))
+        del model
+        same_batches = [len(r) for r in (cli_batches, first_batches, second_batches)] == [2, 1, 1]
+        for a, b in zip(cli_batches, first_batches + second_batches):
+            same_batches &= len(a) == len(b) and all(map(np.array_equal, a, b))
+        want, got = history[1]["train"]["loss"], resumed_history[-1]["train"]["loss"]
+        rel_loss = abs(got - want) / abs(want)
+        print(f"  resume: epoch 1 after a resumed last.pt: train loss {got:.6f} against "
+              f"{want:.6f} uninterrupted (rel {rel_loss:.2e}, tol 1e-3); the batches' sample "
+              f"indices {'equal' if same_batches else 'DIFFER'}; history length "
+              f"{len(resumed_history)}")
+        if not same_batches or not rel_loss <= 1e-3 or len(resumed_history) != 2:
+            raise PhaseFailure("the resumed run differs from the uninterrupted one")
+
+        # 11.5: best.npz and model_epoch_{n}.npz round trips
+        best_epoch = state["early_stopping"]["best_epoch"]
+        last = state["epoch"]
+        fresh, _ = build_model_by_name(CLI_MODEL, 2, device=CLI_DEVICE, seed=1)
+        load_variables(os.path.join(run, f"model_epoch_{last}.npz"), fresh)
+        saved = ckpt.load_state(os.path.join(run, "last.pt"))["model"]
+        keys = [k for k in saved if not k.endswith("num_batches_tracked")]
+        npz_equal = all(torch.equal(fresh.state_dict()[k].cpu(), saved[k]) for k in keys)
+        best = ckpt.load_npz(os.path.join(run, "best.npz"))
+        flat_best = ckpt._flatten(best)
+        flat_epoch = ckpt._flatten(ckpt.load_npz(os.path.join(run, f"model_epoch_{best_epoch}.npz")))
+        fresh_best, _ = build_model_by_name(CLI_MODEL, 2, device=CLI_DEVICE, seed=2)
+        load_variables(os.path.join(run, "best.npz"), fresh_best)
+        back = ckpt._flatten(export_jax_variables(fresh_best))
+        best_equal = (flat_best.keys() == flat_epoch.keys() == back.keys()
+                      and all(np.array_equal(flat_best[k], flat_epoch[k]) and np.array_equal(back[k],
+                                                                                 flat_best[k])
+                              for k in flat_best))
+        print(f"  round trip: model_epoch_{last}.npz into a fresh model equals last.pt's state "
+              f"dict bitwise ({len(keys)} entries, BatchNorm counters aside): {npz_equal}; "
+              f"best.npz (epoch {best_epoch}) equals model_epoch_{best_epoch}.npz and a fresh "
+              f"model's export after loading it, bitwise ({len(flat_best)} arrays): {best_equal}")
+        if not (npz_equal and best_equal):
+            raise PhaseFailure("a checkpoint does not round-trip bitwise")
+        del fresh, fresh_best, saved
+
+        # 11.6: one bfloat16 epoch
+        bf16_want = {name: k["per_step"] for name, k in TRAIN_KERNELS.items()} | {
+            "nk_scan": 3, "vss_block_train": 0}
+        # per eval forward: phase 4's bfloat16 counts
+        bf16_eval = {name: k["per_forward"] for name, k in KERNELS.items()}
+        with epoch_launches(driver, fns) as rec_bf:
+            _, bf_hist = cli_train.main(argv + ["--epochs", "1", "--bf16", "1",
+                                                "--savemodel_path", os.path.join(tmp, "run_bf16")])
+        tr = bf_hist[0]["train"]
+        print(f"  bfloat16 epoch: train loss {tr['loss']:.6f}, val loss "
+              f"{bf_hist[0]['val']['loss']:.6f}; median {statistics.median(tr['step_ms']):.2f} "
+              f"ms per step; launches {[(k, n, {a: b for a, b in c.items() if b}) for k, n, c in rec_bf]}")
+        bad = check_epoch_launches(rec_bf, bf16_want, bf16_eval)
+        if bad or not math.isfinite(tr["loss"]):
+            raise PhaseFailure(f"bfloat16 epoch: launches differ from {bf16_want} per step and "
+                               f"{bf16_eval} per eval forward ({bad}) or the loss is not finite")
+
+        # 11.7: score the valid split with best.npz
+        out = os.path.join(tmp, "infer")
+        aucs = infer_mura.main(["--model_name", CLI_MODEL, "--pretrained_model_path",
+                                os.path.join(run, "best.npz"), "--data_root", tmp,
+                                "--valid_image_csv", csvs[2], "--valid_label_csv", csvs[3],
+                                "--image_size", str(IMAGE), "--batch_size", str(TRAIN_BATCH),
+                                "--body_parts", *CLI_PARTS, "--out_dir", out,
+                                "--device", CLI_DEVICE])
+        written = sorted(f for f in os.listdir(out) if f.startswith("auc_"))
+        print(f"  infer_mura: AUCs {aucs}; wrote {written}")
+        want_files = [f"auc_{k}.txt" for k in aucs]
+        if (set(aucs) != set(CLI_PARTS) | {"combined"} or sorted(want_files) != written
+                or not all(math.isfinite(v) for v in aucs.values())):
+            raise PhaseFailure(f"infer_mura gave {aucs} and wrote {written}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        sys.path.remove(str(Path(__file__).resolve().parent / "tests"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3680,6 +4024,9 @@ def main() -> int:
     ln_times, library, ln_launches = phase_ln_kernels(errors, card)
     times |= ln_times
     launches |= ln_launches
+    t0 = time.time()
+    phase_cli(card)
+    print(f"  phase 11: {time.time() - t0:.1f} s")
     # library_ms: one PyTorch call computing the same function, where there
     # is one (kernels 19-21); none computes the scans
     print(json.dumps({"kernels": [

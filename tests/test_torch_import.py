@@ -22,17 +22,22 @@ def test_port_imports_no_jax_and_builds_nothing():
         "for m in pkgutil.walk_packages(xfmamba_tpu_torch.__path__, 'xfmamba_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'xfmamba_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'xfmamba_tpu', 'PIL', 'cv2', 'pandas', "
+        "'sklearn', 'torchvision'))\n"
         "assert not bad, bad\n"
         "for m in ('train.config', 'train.loop', 'ops.vss_block_train', 'ops.vss_stage_train',\n"
         "          'ops.nk_scan_adjoint', 'ops.ss2d_core_n1', 'ops.selective_scan_grouped',\n"
         "          'ops.cross_scan', 'ops.ssd', 'ops.ssd_chunk', 'ops.vss_block_v1',\n"
         "          'ops.nk_scan_v1', 'ops.fused_cross_scan', 'ops.ablations.nk_scan_v4',\n"
         "          'ops.ablations.nk_scan_wide', 'ops.ablations.pe_fused', 'ops.ablations.seg_ln',\n"
-        "          'ops.cross2d_scan'):\n"
+        "          'ops.cross2d_scan', 'train.metrics', 'train.driver', 'checkpoint.io',\n"
+        "          'utils.misc', 'native', 'data', 'data.loader', 'data.png', 'data.transforms',\n"
+        "          'data.mura', 'cli', 'cli.train', 'cli.infer_mura'):\n"
         "    assert 'xfmamba_tpu_torch.' + m in sys.modules, m\n"
         "from xfmamba_tpu_torch.kernels import build\n"
         "assert build.library.cache_info().currsize == 0\n"
+        "from xfmamba_tpu_torch import native\n"
+        "assert native._library.cache_info().currsize == 0\n"
         "print('ok', len([n for n in sys.modules if n.startswith('xfmamba_tpu_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120, check=False)
@@ -77,3 +82,26 @@ def test_m2_factory_defaults_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):
             vmamba_tiny_m2(depths=(1, 1, 1, 1), dims=16)
+
+
+BANNED = {"jax", "jaxlib", "flax", "optax", "xfmamba_tpu", "PIL", "cv2", "pandas", "sklearn",
+          "torchvision"}
+
+
+def test_no_source_imports_jax_or_the_missing_packages():
+    """No module of the port, nor ``chip_smoke.py`` and the synthetic-tree
+    helper it runs, imports JAX, the JAX package, or a package that the
+    machine with the card lacks (PIL, cv2, pandas, sklearn, torchvision),
+    not even inside a function."""
+    import ast
+    files = sorted((REPO / "xfmamba_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tests" / "torch_mura_tree.py"]
+    found = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom) and not node.level
+                     else [])
+            found += [(path.name, n) for n in names if n.split(".")[0] in BANNED]
+    assert not found, found
+    assert len(files) > 50

@@ -1,0 +1,276 @@
+"""The epoch driver (port of ``xfmamba_tpu/train/driver.py``): the
+reference's ``train_one_epoch`` / ``validator`` (``libs/training.py:138-330``)
+and the ``1_train_model.py`` epoch loop (:158-187).
+
+Losses and logits stay on the device during an epoch and are fetched once
+at its end.  Batches arrive as numpy from the loader and go to the model's
+device here, the views in the config's compute dtype.  Per epoch, `fit`
+writes ``model_epoch_{n}.npz`` (every epoch, as the reference does),
+``best.npz`` when the val loss improved (both in the JAX layout, through
+`checkpoint.convert.export_jax_variables`), ``epoch_{n}/metrics.txt`` and the full
+training state ``last.pt``; ``fit(..., init_state=load_state(last.pt))``
+resumes from it.
+
+Three faults of the JAX driver are not copied:
+- the "reduce" schedule is the reference's ``ReduceLROnPlateau(mode="min",
+  factor=0.1, patience=10)``; JAX compares the epoch's loss with a minimum
+  that includes it, and so decays every 11 epochs whatever the loss does;
+- the eval loss is the mean over the valid rows; JAX averages the zero
+  pad rows of a short last batch into it;
+- ``last.pt`` holds the optimizer, the epoch and the generators, so a run
+  resumes; JAX's ``fit`` checkpoints hold the weights only.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from xfmamba_tpu_torch.checkpoint import io as ckpt
+from xfmamba_tpu_torch.checkpoint.convert import export_jax_variables
+from xfmamba_tpu_torch.train import metrics as M
+from xfmamba_tpu_torch.train.config import TrainConfig
+from xfmamba_tpu_torch.train.loop import (
+    EarlyStopping, lr_schedule, make_optimizer, make_train_step)
+
+DDP_ITEM = "ROADMAP.md, queue 1: mutual learning, then data parallelism (DDP)"
+
+
+def _to_device(batch: Dict, device, dtype, multilabel: bool) -> Dict:
+    out = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(device=device, dtype=dtype)
+           for k in ("image1", "image2") if k in batch}
+    label = torch.from_numpy(np.asarray(batch["label"]))
+    out["label"] = label.to(device=device, dtype=torch.float32 if multilabel else torch.long)
+    return out
+
+
+def run_train_epoch(train_step, loader, lr, multilabel: bool, device, dtype=torch.float32,
+                    log_every: int = 50, log_fn: Callable = print):
+    """One epoch; returns its stats: the metrics of `compute_epoch_metrics`
+    on the epoch's logits, the mean train loss, ``time_s``,
+    ``loader_wait_s`` (the host's wait for batches), ``first_batch_wait_s``
+    (the part of it before the first batch: the pool's start and the first
+    fill), ``steps`` and, on CUDA, ``step_ms`` (each step by CUDA events)."""
+    losses, all_logits, all_labels, events, waits = [], [], [], [], []
+    cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    batches = iter(loader)
+    while True:
+        tw = time.perf_counter()
+        batch = next(batches, None)
+        waits.append(time.perf_counter() - tw)
+        if batch is None:
+            break
+        dev = _to_device(batch, device, dtype, multilabel)
+        if cuda:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+        out = train_step(dev, lr)
+        if cuda:
+            end.record()
+            events.append((start, end))
+        losses.append(out["loss"])
+        all_logits.append(out["logits"])
+        all_labels.append(np.asarray(batch["label"]))
+        if log_every and len(losses) % log_every == 0:
+            log_fn(f"  step {len(losses)}/{len(loader)} loss={float(out['loss']):.4f}")
+    if not losses:
+        raise ValueError("the train loader gave no batch (fewer samples than one batch, "
+                         "whose remainder it drops)")
+    logits = torch.cat(all_logits).float().cpu().numpy()
+    stats = compute_epoch_metrics(logits, np.concatenate(all_labels), multilabel)
+    stats["loss"] = float(torch.stack(losses).double().mean())
+    stats["steps"] = len(losses)
+    if cuda:
+        stats["step_ms"] = [s.elapsed_time(e) for s, e in events]
+    stats["time_s"] = time.perf_counter() - t0
+    stats["loader_wait_s"] = sum(waits)
+    stats["first_batch_wait_s"] = waits[0]
+    return stats
+
+
+def run_eval_epoch(eval_step, loader, multilabel: bool, device, dtype=torch.float32):
+    """Validation or test pass over zero-padded batches; logits and the
+    loss are those of each batch's ``n_valid`` rows only.  Returns (stats,
+    logits, labels)."""
+    loss_sum, count = None, 0
+    all_logits, all_labels = [], []
+    for batch in loader:
+        nv = int(batch.get("n_valid", batch["label"].shape[0]))
+        dev = _to_device(batch, device, dtype, multilabel)
+        logits = eval_step(dev)["logits"][:nv].float()
+        label = dev["label"][:nv]
+        if multilabel:
+            part = F.binary_cross_entropy_with_logits(logits, label, reduction="sum")
+        else:
+            part = F.cross_entropy(logits, label, reduction="sum")
+        loss_sum = part if loss_sum is None else loss_sum + part
+        count += label.numel()
+        all_logits.append(logits)
+        all_labels.append(np.asarray(batch["label"])[:nv])
+    if not all_logits:
+        raise ValueError("the eval loader gave no batch")
+    logits = torch.cat(all_logits).cpu().numpy()
+    labels = np.concatenate(all_labels)
+    stats = compute_epoch_metrics(logits, labels, multilabel)
+    stats["loss"] = float(loss_sum) / count
+    return stats, logits, labels
+
+
+def compute_epoch_metrics(logits: np.ndarray, labels: np.ndarray, multilabel: bool) -> Dict:
+    """The reference's metrics: binary softmax[:, 1] ROC-AUC, accuracy and
+    confusion statistics (``training.py:197-204``), or the sigmoid
+    per-label mean AUC (:205-214).  The softmax is float32, as JAX's."""
+    if multilabel:
+        probs = 1.0 / (1.0 + np.exp(-logits))
+        mean_auc, per = M.multilabel_mean_auc(labels, probs, return_per_label=True)
+        preds = probs > 0.5
+        acc = float((preds == (labels > 0.5)).mean())
+        return {"auc": mean_auc, "per_label_auc": per, "accuracy": acc}
+    x = np.asarray(logits, np.float32)
+    e = np.exp(x - x.max(axis=-1, keepdims=True))
+    probs = e / e.sum(axis=-1, keepdims=True)
+    scores = probs[:, 1] if probs.shape[1] == 2 else probs.max(axis=1)
+    preds = probs.argmax(axis=1)
+    out = {"accuracy": float((preds == labels).mean())}
+    if probs.shape[1] == 2:
+        out["auc"] = M.roc_auc(labels, scores)
+        out.update(M.binary_confusion_stats(labels, preds))
+    return out
+
+
+def write_epoch_artifacts(out_dir: str, epoch: int, stats: Dict, logits=None, labels=None,
+                          multilabel=False):
+    """``epoch_{n}/metrics.txt`` and, with matplotlib, the confusion-matrix
+    PNG (``plot_confusion_matrix``, ``training.py:20-134``)."""
+    ep_dir = os.path.join(out_dir, f"epoch_{epoch}")
+    os.makedirs(ep_dir, exist_ok=True)
+    with open(os.path.join(ep_dir, "metrics.txt"), "w") as f:
+        for k, v in stats.items():
+            f.write(f"{k}: {v}\n")
+    if logits is not None and not multilabel and logits.shape[1] == 2:
+        try:
+            import matplotlib
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+            preds = logits.argmax(axis=1)
+            cm = np.zeros((2, 2), int)
+            for t, p in zip(labels, preds):
+                cm[int(t), int(p)] += 1
+            fig, ax = plt.subplots()
+            ax.imshow(cm, cmap="Blues")
+            for i in range(2):
+                for j in range(2):
+                    ax.text(j, i, str(cm[i, j]), ha="center", va="center")
+            ax.set_xlabel("predicted")
+            ax.set_ylabel("true")
+            fig.savefig(os.path.join(ep_dir, "confusion_matrix.png"))
+            plt.close(fig)
+        except Exception:
+            pass
+
+
+def _log_wandb(epoch, lr, tr, va):
+    try:
+        import wandb as _wandb
+        if _wandb.run is not None:
+            _wandb.log({"epoch": epoch, "lr": lr, "train_loss": tr["loss"],
+                        "train_acc": tr.get("accuracy"), "train_auc": tr.get("auc"),
+                        "val_loss": va["loss"], "val_acc": va.get("accuracy"),
+                        "val_auc": va.get("auc")})
+    except Exception:
+        pass
+
+
+def fit(model, cfg: TrainConfig, train_loader, val_loader, init_state: Optional[dict] = None,
+        log_fn: Callable = print, out_dir: Optional[str] = None, save_checkpoints: bool = True):
+    """Train ``model`` (on its device) for ``cfg.epochs`` epochs with early
+    stopping and the configured schedule; returns (state, history), the
+    state being what ``last.pt`` holds after the last epoch.
+
+    ``init_state``: a state of `checkpoint.io.training_state` (``last.pt``)
+    to resume from, at the epoch after its own.  The views go to the
+    model in ``cfg.compute_dtype``.
+    One card runs as JAX's single-device branch; ``data_parallel`` with
+    more than one visible CUDA device raises (DDP is not ported)."""
+    if cfg.data_parallel and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            f"data_parallel over {torch.cuda.device_count()} CUDA devices is not ported "
+            f"({DDP_ITEM}); make one device visible or pass data_parallel=False")
+    multilabel = cfg.num_tasks > 1 or cfg.dataset == "chexpert"
+    device = next(model.parameters()).device
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    optimizer = make_optimizer(cfg, model.parameters())
+    plateau = (torch.optim.lr_scheduler.ReduceLROnPlateau(optimizer, mode="min", factor=0.1,
+                                                          patience=10)
+               if cfg.scheduler == "reduce" else None)
+    train_step, eval_step = make_train_step(model, optimizer, multilabel)
+    sched = lr_schedule(cfg)
+    out_dir = out_dir or cfg.savemodel_path
+    os.makedirs(out_dir, exist_ok=True)
+    seconds = {}
+
+    def save_fn(m, epoch, improved):
+        if save_checkpoints:
+            t = time.perf_counter()
+            variables = export_jax_variables(m)
+            ckpt.save_npz(os.path.join(out_dir, f"model_epoch_{epoch}.npz"), variables)
+            if improved:
+                ckpt.save_npz(os.path.join(out_dir, "best.npz"), variables)
+            seconds["npz_s"] = time.perf_counter() - t
+
+    stopper = EarlyStopping(patience=cfg.patience, save_fn=save_fn)
+    history, first = [], 0
+    if init_state is not None:
+        model.load_state_dict(init_state["model"])
+        optimizer.load_state_dict(init_state["optimizer"])
+        stopper.load_state_dict(init_state["early_stopping"])
+        if plateau is not None:
+            plateau.load_state_dict(init_state["plateau"])
+        ckpt.restore_generators(model, init_state["generators"])
+        train_loader._epoch = init_state["train_loader_epoch"]
+        history = list(init_state["history"])
+        first = init_state["epoch"] + 1
+        log_fn(f"resuming at epoch {first} (best epoch {stopper.best_epoch})")
+    state = None
+    for epoch in range(first, cfg.epochs):
+        if stopper.early_stop:
+            break
+        lr = sched(epoch) if plateau is None else optimizer.param_groups[0]["lr"]
+        tr = run_train_epoch(train_step, train_loader, lr, multilabel, device, dtype,
+                             log_every=cfg.log_every, log_fn=log_fn)
+        t = time.perf_counter()
+        va, logits, labels = run_eval_epoch(eval_step, val_loader, multilabel, device, dtype)
+        eval_s = time.perf_counter() - t
+        log_fn(f"epoch {epoch}: lr={lr:.2e} train_loss={tr['loss']:.4f} "
+               f"val_loss={va['loss']:.4f} val_auc={va.get('auc', float('nan')):.4f} "
+               f"({tr['time_s']:.2f} s train, {tr['loader_wait_s']:.2f} s of it waiting for "
+               f"batches, {tr['first_batch_wait_s']:.2f} s for the first; {eval_s:.2f} s eval)")
+        if getattr(cfg, "wandb", False):
+            _log_wandb(epoch, lr, tr, va)
+        t = time.perf_counter()
+        write_epoch_artifacts(out_dir, epoch, va, logits, labels, multilabel)
+        seconds = {"train_s": tr["time_s"], "eval_s": eval_s,
+                   "artifacts_s": time.perf_counter() - t}
+        history.append({"epoch": epoch, "lr": lr, "train": tr, "val": va, "seconds": seconds})
+        if plateau is not None:
+            plateau.step(va["loss"])
+        stop = stopper(va["loss"], model, epoch)
+        state = ckpt.training_state(model, optimizer, epoch, history, stopper, plateau,
+                                    train_loader)
+        if save_checkpoints:
+            t = time.perf_counter()
+            ckpt.save_state(os.path.join(out_dir, "last.pt"), state)
+            seconds["last_pt_s"] = time.perf_counter() - t
+        if stop:
+            log_fn(f"early stop at epoch {epoch} (best epoch {stopper.best_epoch})")
+            break
+    if state is None:
+        state = ckpt.training_state(model, optimizer, first - 1, history, stopper, plateau,
+                                    train_loader)
+    return state, history

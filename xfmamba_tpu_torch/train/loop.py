@@ -3,8 +3,8 @@
 
 PyTorch trains eagerly: the model holds its parameters and batch
 statistics, and `make_train_step` returns a step that runs forward,
-backward and one optimizer update in place.  The epoch loop ``fit``,
-early stopping, checkpoint I/O and the data pipeline are not ported yet.
+backward and one optimizer update in place.  `EarlyStopping` is here, as
+in the JAX package; the epoch loop is ``train/driver.py::fit``.
 
 Optimizer semantics follow the JAX package (``libs/utils.py:83-134`` of the
 reference): torch ``Adam(weight_decay=...)`` adds the L2 term to the
@@ -27,7 +27,7 @@ from xfmamba_tpu_torch.train.config import TrainConfig
 
 def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
     """Per-epoch learning rate; ``reduce`` (on plateau) is the epoch
-    epoch loop's and reads as a constant here."""
+    loop's and reads as a constant here."""
     if cfg.scheduler == "step":
         return lambda epoch: cfg.lr * (cfg.gamma ** (epoch // cfg.step_size))
     if cfg.scheduler == "cos":
@@ -128,3 +128,47 @@ def mixup(x, y, generator: torch.Generator, alpha: float = 1.0,
         y = F.one_hot(y, num_classes).to(x.dtype)
     mixed_y = lam * y + (1 - lam) * y[perm]
     return mixed_x, mixed_y, lam
+
+
+class EarlyStopping:
+    """Patience on -val_loss with best-checkpoint tracking (``early_stop.py:
+    4-51``).  The reference saves a checkpoint every epoch whether or not
+    the loss improved; ``save_every_epoch`` keeps that as the default.
+    ``save_fn(state, epoch, improved)`` is called on every save.  The
+    counters are plain attributes (`state_dict` / `load_state_dict`), so a
+    resumed run stops where the uninterrupted one would."""
+
+    FIELDS = ("counter", "best_score", "early_stop", "best_epoch")
+
+    def __init__(self, patience: int = 100, delta: float = 0.0,
+                 save_fn: Optional[Callable] = None, save_every_epoch: bool = True):
+        self.patience = patience
+        self.delta = delta
+        self.counter = 0
+        self.best_score = None
+        self.early_stop = False
+        self.save_fn = save_fn
+        self.save_every_epoch = save_every_epoch
+        self.best_epoch = -1
+
+    def __call__(self, val_loss: float, state, epoch: int):
+        score = -val_loss
+        improved = self.best_score is None or score > self.best_score + self.delta
+        if improved:
+            self.best_score = score
+            self.best_epoch = epoch
+            self.counter = 0
+        else:
+            self.counter += 1
+            if self.counter >= self.patience:
+                self.early_stop = True
+        if self.save_fn is not None and (improved or self.save_every_epoch):
+            self.save_fn(state, epoch, improved)
+        return self.early_stop
+
+    def state_dict(self) -> dict:
+        return {name: getattr(self, name) for name in self.FIELDS}
+
+    def load_state_dict(self, state: dict) -> None:
+        for name in self.FIELDS:
+            setattr(self, name, state[name])

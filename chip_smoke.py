@@ -232,6 +232,29 @@ The CLIs (no new kernel; they run kernels 2, 3, 7, 11, 12 in float32 and 1,
    ``cli.infer_mura.main`` with ``best.npz`` (per-part and combined AUCs,
    ``auc_*.txt``); the directory is deleted.
 
+Every model the CLIs name, and deep mutual learning (no new kernel):
+12. (12a) kernels 1, 5, 6, 11 and 12 against their plain versions at
+   XFMamba-T's block geometries (ssm_ratio 1: d_inner = d, 96-768), both
+   dtypes, at its bs-32 forward's and bs-16 step's shapes, with their
+   times per forward or step beside the plain versions and the bounds;
+   XFMamba-T at full width (``two_view_xfmamba("tiny")``, depths
+   2/2/8/2): bfloat16 and float32 bs-32 forwards, float32 and bfloat16
+   bs-16 steps (a falling loss over 4 steps), launches by the wrappers
+   (every other kernel none) and by CUDA-graph nodes (the port's kernels by
+   source file against the route's, `card_routes`), ms per forward and
+   step; its float32 logits and one step's gradients at depths 2/2/2/2,
+   card against the CPU plain twins; (12b) the single-view, late-join and
+   early-fusion tops at full width (VMamba-S s2l15 backbone): float32 and
+   bfloat16 bs-32 forwards and float32 bs-16 steps the same way, float32
+   logits at depths 2/2/2/2 card against CPU; (12c) ``cli.train_mutual``
+   on phase 11's synthetic tree: XFMamba-T + XFMamba-S for 2 float32
+   epochs, then 1 with ``--bf16 1``, then ``singleviewmamba`` +
+   XFMamba-S for 1, each run's launches (counts set to 0 before it, read
+   after: the models' steps summed per mutual step, nothing else), ms per
+   mutual step, every best-ROC file read back into a fresh model; (12d)
+   one ``cli.train`` epoch of ``singleviewmamba`` (one view) and
+   ``cli.infer_mura`` with its ``best.npz``.
+
 The line before the last but one is one JSON object with the kernels'
 results (launches per main-path forward or step, errors, times, bounds;
 for kernels 1 and 4-6 also their route counts and phase 7e's device times
@@ -250,7 +273,10 @@ their first design's, the SFU time, and the bs-12 ShallowFuse call's (3b);
 for kernels 17 and 18 per bs-32 bfloat16 forward their first design's and
 kernel 2's device times, the SFU time and every geometry's times (10); for
 kernels 19-21 per bs-64 patch embed their device times, their first
-design's and a thread a pixel's, the plans and registers (10c)),
+design's and a thread a pixel's, the plans and registers (10c); for every
+kernel its launches in phase 12c's float32 mutual run
+(``mutual_launches``), and for kernels 1, 5, 6, 11 and 12 their times,
+plain times and bounds at XFMamba-T's widths (``xfmamba_t``, 12a)),
 the line before the last the card's name and power limit, the last
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it prints no result and exits 1.
@@ -262,9 +288,11 @@ import contextlib
 import ctypes
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import torch
@@ -539,14 +567,14 @@ def scan_bwd_ops(M, D, K, N, R=0):
     return scan_ops(M, D, K, N, R) + M * D * K * (16 * N + 4)
 
 
-def block_work(n, H, d, dtype, mlp, backward=False):
+def block_work(n, H, d, dtype, mlp, backward=False, ratio=2):
     """One VSSBlock (``mlp``) or its SS2D half on n images: the GEMMs, the
     LayerNorms, the conv + SiLU, GELU and the rank-form cross2d scan, reading
     x and the weights and writing the output; ``backward`` adds the
     gradient GEMMs (twice the forward's), the elementwise backwards and the
     adjoint scan, reads the float32 gradient and writes dx and the float32
-    weight gradients."""
-    M, di, R, hd = n * H * H, 2 * d, -(-d // 16), 4 * d
+    weight gradients.  ``ratio``: d_inner / d (1 for XFMamba-T)."""
+    M, di, R, hd = n * H * H, ratio * d, -(-d // 16), 4 * d
     esize = torch.finfo(dtype).bits // 8
     weights = d * di + di * (4 * R + 8) + di * d + (2 * d * hd if mlp else 0)
     gemm = 2 * M * weights
@@ -748,8 +776,8 @@ def check_routes(label, routes, want):
 # kernel cases at the main path's widths
 # ---------------------------------------------------------------------------
 
-def stage_case(g, H, d, depth, batch, dtype):
-    blocks = [VSSBlock(d, generator=g).eval().cuda() for _ in range(depth)]
+def stage_case(g, H, d, depth, batch, dtype, ratio=2):
+    blocks = [VSSBlock(d, ssm_ratio=ratio, generator=g).eval().cuda() for _ in range(depth)]
     packed = [pack_vss_block_params(b, dtype) for b in blocks]
     x = randn(g, 2 * batch, H * H, d, dtype=dtype)
     return (x, packed, H, H), vss_stage.vss_stage, vss_stage.vss_stage_plain
@@ -785,11 +813,12 @@ def cross_case(g, batch, dtype, size="small"):
              nk_scan.scan_mode_kinds("cross2d")), nk_scan.nk_scan_x, nk_scan.nk_scan_x_plain)
 
 
-def n1_case(g, n, H, d, dtype):
-    """Kernel 11's operands at a backbone stage on n images: x (n, H, H, 2d),
-    R = ceil(d / 16), the projections from `pack_n1_inputs`; deltas about
-    softplus(-4 +- 1) and A in [-e^1.5, -1], as in a trained model."""
-    D, R = 2 * d, -(-d // 16)
+def n1_case(g, n, H, d, dtype, ratio=2):
+    """Kernel 11's operands at a backbone stage on n images: x (n, H, H,
+    ratio d), R = ceil(d / 16), the projections from `pack_n1_inputs`;
+    deltas about softplus(-4 +- 1) and A in [-e^1.5, -1], as in a trained
+    model."""
+    D, R = ratio * d, -(-d // 16)
     x = randn(g, n, H, H, D, dtype=dtype)
     xw, dtw = randn(g, 4, R + 2, D, scale=D ** -0.5), randn(g, 4, D, R, scale=R ** -0.5)
     bias = randn(g, 4, D, scale=0.5) - 4.0
@@ -1180,7 +1209,7 @@ def _node_name(cuda, node):
     return name.value.decode()
 
 
-def device_launches(fn):
+def device_launches(fn, capture_error_mode="global"):
     """The card's launches in one call of ``fn``: {kernel name (mangled),
     "memcpy" or "memset": count}, read by the driver API from the nodes of a
     CUDA graph that captures one call after a warm-up call on the capture's
@@ -1193,7 +1222,7 @@ def device_launches(fn):
     with torch.cuda.stream(side):
         fn()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph, stream=side):
+    with torch.cuda.graph(graph, stream=side, capture_error_mode=capture_error_mode):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     cuda = ctypes.CDLL("libcuda.so.1")
@@ -2112,8 +2141,8 @@ def check_outputs(errors, name, label, dtype, got, want, failed):
           f"tol={TOL[dtype]:.0e} {'OK' if worst <= TOL[dtype] else 'FAIL'}")
 
 
-def train_blocks(g, d, depth, dtype):
-    blocks = [VSSBlock(d, generator=g).cuda() for _ in range(depth)]
+def train_blocks(g, d, depth, dtype, ratio=2):
+    blocks = [VSSBlock(d, ssm_ratio=ratio, generator=g).cuda() for _ in range(depth)]
     with torch.no_grad():
         return [pack_vss_block_train_params(b, dtype) for b in blocks]
 
@@ -2122,25 +2151,25 @@ def masks(g, *shape):
     return ((torch.rand(*shape, generator=g) < 0.7).float() / 0.7).cuda()
 
 
-def cross2d_case(g, n, H, d, dtype):
+def cross2d_case(g, n, H, d, dtype, ratio=2):
     """The stage maps' chunked cross2d scan operands (``ops/cross2d_scan.py``):
-    u (n, L, 2d), the projection rows (n, L, 4R + 8) with R = ceil(d / 16),
-    A in [-e^1.5, -1], deltas about softplus(-4 +- 1)."""
-    D, R, L = 2 * d, -(-d // 16), H * H
+    u (n, L, ratio d), the projection rows (n, L, 4R + 8) with R = ceil(d /
+    16), A in [-e^1.5, -1], deltas about softplus(-4 +- 1)."""
+    D, R, L = ratio * d, -(-d // 16), H * H
     return (randn(g, n, L, D, dtype=dtype), randn(g, n, L, 4 * R + 8, dtype=dtype),
             -torch.exp(1.5 * torch.rand(4, 1, D, generator=g)).cuda(),
             randn(g, 4, D, scale=0.5) - 4.0, randn(g, D), randn(g, 4, R, D, scale=R ** -0.5),
             H, H)
 
 
-def cross2d_check(errors, g, n, H, d, dtype, failed):
+def cross2d_check(errors, g, n, H, d, dtype, failed, ratio=2):
     """The stage scan (y, checkpoints) and its adjoint (every output: du,
     dw_dt, dA, dbias, dDsum and the projections' gradient, rank, dB and dC
     columns) against their plain twins, counted under kernel 6; the
     adjoint bitwise equal over two runs and launching no GEMM."""
-    args = cross2d_case(g, n, H, d, dtype)
+    args = cross2d_case(g, n, H, d, dtype, ratio)
     u, xdbl = args[:2]
-    geo = f"H={H} d={d}"
+    geo = f"H={H} d={d}" + ("" if ratio == 2 else f" d_inner={ratio * d}")
     y, ck = cross2d_scan.cross2d_scan_plain(*args, checkpoints=True)
     check_outputs(errors, "vss_block_bwd", f"chunked scan {geo} (y, ck)", dtype,
                   cross2d_scan.cross2d_scan(*args, checkpoints=True), (y, ck), failed)
@@ -3957,6 +3986,499 @@ def phase_cli(card):
         sys.path.remove(str(Path(__file__).resolve().parent / "tests"))
 
 
+# ---------------------------------------------------------------------------
+# phase 12: every model the CLIs name, and mutual learning
+# ---------------------------------------------------------------------------
+
+# XFMamba-T's backbone stages (H, d, depth): ssm_ratio 1, so d_inner = d
+TINY_STAGES = [(56, 96, 2), (28, 192, 2), (14, 384, 8), (7, 768, 2)]
+BASELINES = {"singleviewmamba": False, "twoviewlatejoinmamba": True,
+             "twoviewearlyfusionmamba": True}
+F32, BF16 = torch.float32, torch.bfloat16
+# launches per forward and per step of each model (the baselines share
+# VMamba-S s2l15 and have no fusion scan); a kernel not named launches none
+FORWARD_WANT = {
+    "twoviewxfmamba_tiny": {F32: {"ss2d_core_n1_fwd": 14, "nk_scan": 2, "nk_scan_x": 1},
+                            BF16: {"vss_stage": 4, "nk_scan": 2, "nk_scan_x": 1}},
+    "baseline": {F32: {"ss2d_core_n1_fwd": 21}, BF16: {"vss_stage": 4}}}
+STEP_WANT = {
+    "twoviewxfmamba_tiny": {F32: {"ss2d_core_n1_fwd": 14, "ss2d_core_n1_bwd": 14, "nk_scan": 3,
+                                  "nk_scan_bwd": 3},
+                            BF16: {"vss_stage_train": 4, "vss_block_bwd": 14, "nk_scan": 3,
+                                   "nk_scan_bwd": 3}},
+    "twoviewxfmamba": {F32: F32_STEP["small"],
+                       BF16: {"vss_stage_train": 4, "vss_block_bwd": 21, "nk_scan": 3,
+                              "nk_scan_bwd": 3}},
+    "baseline": {F32: {"ss2d_core_n1_fwd": 21, "ss2d_core_n1_bwd": 21},
+                 BF16: {"vss_stage_train": 4, "vss_block_bwd": 21}}}
+# the port's sources whose kernels a route may launch on the card, and
+# those it must launch (dtype, training, fusion scans)
+ALLOWED_SOURCES = {
+    (F32, False): {"ss2d_core_n1.cu", "nk_scan_fused.cu", "vss_stage.cu"},
+    (BF16, False): {"vss_stage.cu", "gemm_tc.cu", "ss2d_core_n1.cu", "nk_scan_fused.cu"},
+    (F32, True): {"ss2d_core_n1.cu", "nk_scan_fused.cu", "vss_stage.cu", "nk_scan_adjoint.cu"},
+    (BF16, True): {"vss_stage.cu", "gemm_tc.cu", "ss2d_core_n1.cu", "vss_block_bwd.cu",
+                   "nk_scan_fused.cu", "nk_scan_adjoint.cu"}}
+REQUIRED_SOURCES = {F32: {"ss2d_core_n1.cu"}, BF16: {"vss_stage.cu", "gemm_tc.cu",
+                                                     "ss2d_core_n1.cu"}}
+FUSION_SOURCES = {False: {"nk_scan_fused.cu"}, True: {"nk_scan_fused.cu", "nk_scan_adjoint.cu"}}
+MUTUAL_PAIRS = (("twoviewxfmamba_tiny", "twoviewxfmamba"), ("singleviewmamba", "twoviewxfmamba"))
+TOP_STEPS = 4
+
+
+def port_kernel_sources():
+    """{kernel function name: source file} of every ``__global__`` function
+    in ``xfmamba_tpu_torch/csrc``."""
+    out = {}
+    for path in sorted((Path(__file__).resolve().parent / "xfmamba_tpu_torch" / "csrc")
+                       .glob("*.cu")):
+        for head in re.findall(r"__global__(.*?)\{", path.read_text(), re.S):
+            names = [n for n in re.findall(r"(\w+)\s*\(", head) if n != "__launch_bounds__"]
+            out[names[-1]] = path.name
+    return out
+
+
+def card_routes(label, fn, dtype, train, fusion, relaxed=False):
+    """The card's launches in one call of ``fn`` by CUDA-graph nodes
+    (`device_launches`): the port's kernels by source file, all others
+    (torch, cuBLAS, cuDNN, copies and fills) together; fails if a port
+    kernel outside the route's sources launched or a source the route
+    needs launched nothing.  Returns (by source, other)."""
+    launches = device_launches(fn, "relaxed" if relaxed else "global")
+    by_source, other = {}, 0
+    sources = port_kernel_sources()
+    for node, n in launches.items():
+        src = next((f for name, f in sources.items()
+                    if node == name or f"{len(name)}{name}" in node), None)
+        if src is None:
+            other += n
+        else:
+            by_source[src] = by_source.get(src, 0) + n
+    allowed = ALLOWED_SOURCES[(dtype, train)]
+    required = REQUIRED_SOURCES[dtype] | (FUSION_SOURCES[train] if fusion else set())
+    print(f"  {label}: device launches by CUDA-graph nodes, the port's {dict(sorted(by_source.items()))}, "
+          f"others {other}")
+    if not set(by_source) <= allowed or not required <= set(by_source):
+        raise PhaseFailure(f"{label}: the port's kernels on the card came from "
+                           f"{sorted(by_source)}; the route takes {sorted(allowed)} and needs "
+                           f"{sorted(required)}")
+    return by_source, other
+
+
+@contextlib.contextmanager
+def scales_on_the_card():
+    """A graph capture takes no copy from pinned host memory: while open, a
+    training forward's drop-path scales are filled on the card (the same
+    launches of the port's kernels; the values are not those drawn)."""
+    import xfmamba_tpu_torch.models.layers as layers
+    orig = (vssm.to_device, layers.to_device)
+    fill = lambda t, device=None: torch.ones(t.shape, dtype=t.dtype, device=device)  # noqa: E731
+    vssm.to_device = layers.to_device = fill
+    try:
+        yield
+    finally:
+        vssm.to_device, layers.to_device = orig
+
+
+def step_batch(dtype, two_view, label):
+    """A bs-16 batch of seeded views, every label ``label`` (a model learns
+    one class in a few steps, and the next run's other class starts its
+    loss high), without the second view for a one-view model."""
+    xa, xb = views(TRAIN_BATCH, dtype, 130 + label)
+    batch = {"image1": xa, "label": torch.full((TRAIN_BATCH,), label, device="cuda")}
+    if two_view:
+        batch["image2"] = xb
+    return batch
+
+
+def drive_model(model, name, two_view, card, dtypes_eval, dtypes_train, fusion):
+    """One model at full width, 224x224, on the card: per eval dtype a bs-32
+    forward and per train dtype bs-16 steps on one batch, each with the
+    launches counted by the wrappers against its route (every other kernel
+    none) and by CUDA-graph nodes (`card_routes`), finite outputs, a
+    falling loss over `TOP_STEPS` steps, ms per forward and per step (CUDA
+    events, median of 3 runs).  Returns {(kind, dtype): ms}."""
+    fns = all_kernels()
+    key = name if name in FORWARD_WANT else "baseline"
+    out = {}
+    for dtype in dtypes_eval:
+        xa, xb = views(32, dtype, 120)
+        xs = (xa, xb) if two_view else (xa,)
+        want = dict.fromkeys(fns, 0) | FORWARD_WANT[key][dtype]
+        with torch.no_grad():
+            model.eval()
+            model(*xs)
+            torch.cuda.synchronize()
+            counts = counted(fns)
+            logits = model(*xs)
+            torch.cuda.synchronize()
+            got = counts()
+            if got != want or logits.shape != (32, 2) or not torch.isfinite(logits).all():
+                raise PhaseFailure(f"{name} {str(dtype)[6:]} bs-32 forward: launches "
+                                   f"{ {k: v for k, v in got.items() if v} } (expected "
+                                   f"{FORWARD_WANT[key][dtype]}) or bad logits")
+            card_routes(f"{name} {str(dtype)[6:]} bs-32 forward", lambda: model(*xs), dtype,
+                        False, fusion)
+            samples = sorted(time_ms(lambda: model(*xs), 5) for _ in range(3))
+        out[("forward", dtype)] = samples[1]
+        print(f"  {name} {str(dtype)[6:]} bs 32: launches {FORWARD_WANT[key][dtype]}, others none; "
+              f"{samples[1]:.2f} ms per forward (median of 3 runs of 5: "
+              f"{', '.join(f'{v:.2f}' for v in samples)}), {32000 / samples[1]:.1f} samples/s "
+              f"({card})")
+    for run, dtype in enumerate(dtypes_train):
+        optimizer = make_optimizer(TrainConfig(lr=1e-4, weight_decay=1e-5), model.parameters())
+        step, _ = make_train_step(model, optimizer, multilabel=False, two_view=two_view)
+        batch = step_batch(dtype, two_view, run % 2)
+        want = dict.fromkeys(fns, 0) | STEP_WANT[key][dtype]
+        losses = []
+        for _ in range(TOP_STEPS):
+            counts = counted(fns)
+            losses.append(float(step(batch)["loss"]))
+            torch.cuda.synchronize()
+            got = counts()
+            if got != want:
+                raise PhaseFailure(f"{name} {str(dtype)[6:]} step: launches "
+                                   f"{ {k: v for k, v in got.items() if v} }, expected "
+                                   f"{STEP_WANT[key][dtype]}")
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise PhaseFailure(f"{name} {str(dtype)[6:]} training loss not finite or not "
+                               f"falling: {losses}")
+
+        def forward_backward():
+            model.zero_grad(set_to_none=True)
+            xs = (batch["image1"], batch["image2"]) if two_view else (batch["image1"],)
+            F.cross_entropy(model(*xs).float(), batch["label"]).backward()
+        model.train()
+        with scales_on_the_card():
+            card_routes(f"{name} {str(dtype)[6:]} bs-16 forward and backward", forward_backward,
+                        dtype, True, fusion, relaxed=True)
+        torch.cuda.reset_peak_memory_stats()
+        samples = timed_steps(step, batch)
+        out[("step", dtype)] = samples[1]
+        print(f"  {name} {str(dtype)[6:]} bs 16: losses {', '.join(f'{v:.5f}' for v in losses)}; "
+              f"launches per step {STEP_WANT[key][dtype]}, others none; {samples[1]:.2f} ms per "
+              f"step (median of 3 runs of 3: {', '.join(f'{v:.2f}' for v in samples)}), peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})")
+        del optimizer, step
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def phase_tiny_kernels(errors, card):
+    """Kernels 1, 5, 6, 11 and 12 against their plain versions at
+    XFMamba-T's block geometries (d_inner = d, dt rank 6-48), float32 and
+    bfloat16, TF32 off, at the shapes of its bs-32 forward (kernels 1 and
+    11: 64 images, every stage at its full depth) and bs-16 step (5, 6, 12
+    and the stage scans: 32 images): every output within its tolerance.
+    Then each kernel's time per forward (1 bfloat16, 11 float32) or step
+    (5, 6 bfloat16, 12 float32), the sum over its calls (a block's call
+    counted depth times), beside the plain version's and the bound.
+    Returns {name: (ms, plain ms, bound ms, bound by)}."""
+    print(f"phase 12a: kernels 1, 5, 6, 11 and 12 vs plain versions at XFMamba-T's widths "
+          f"(d_inner = d), TF32 off; times per bs-32 forward and bs-16 step ({card})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(12)
+    failed = []
+    acc = {name: [0.0, 0.0, Work()] for name in ("vss_stage", "vss_stage_train", "vss_block_bwd",
+                                                  "ss2d_core_n1_fwd", "ss2d_core_n1_bwd")}
+
+    def run(name, label, dtype, fn, plain, timed, count=1, work=None):
+        fn()                                               # warm-up
+        got, ms = timed_call(fn, 3)
+        want, plain_ms = timed_call(plain)
+        check_outputs(errors, name, f"XFMamba-T {label}", dtype, got, want, failed)
+        if timed:
+            acc[name][0] += count * ms
+            acc[name][1] += count * plain_ms
+            acc[name][2] += work.times(count)
+        return got
+
+    n_fwd, n_step = 64, 2 * TRAIN_BATCH
+    with torch.no_grad():
+        for dtype in (F32, BF16):
+            for H, d, depth in TINY_STAGES:
+                geo = f"H={H} d={d} d_inner={d}"
+                R = -(-d // 16)
+                (args, kernel, plain) = stage_case(g, H, d, depth, n_fwd // 2, dtype, ratio=1)
+                run("vss_stage", f"stage {geo} depth {depth}", dtype, lambda: [kernel(*args)],
+                    lambda: [plain(*args)], dtype == BF16,
+                    work=block_work(n_fwd, H, d, BF16, mlp=True, ratio=1).times(depth))
+                cross2d_check(errors, g, n_step, H, d, dtype, failed, ratio=1)
+                (p,) = train_blocks(g, d, 1, dtype, ratio=1)
+                x, m1 = randn(g, n_step, H * H, d, dtype=dtype), masks(g, n_step)
+                gy = randn(g, n_step, H * H, d)
+                run("vss_block_bwd", f"block backward {geo}", dtype,
+                    lambda: block_grads(vss_block_train.vss_block_bwd(x, p, H, H, m1, gy)),
+                    lambda: block_grads(vss_block_train.vss_block_bwd_plain(x, p, H, H, m1, gy)),
+                    dtype == BF16, depth,
+                    block_work(n_step, H, d, BF16, mlp=False, backward=True, ratio=1))
+                ps = train_blocks(g, d, depth, dtype, ratio=1)
+                m1s, m2s = masks(g, depth, n_step), masks(g, depth, n_step)
+                work = block_work(n_step, H, d, BF16, mlp=True, ratio=1).times(depth)
+                work += Work().add(2 * depth * n_step * H * H * d * 2)   # saves x_j and mid_j
+                _, xs, mids = run(
+                    "vss_stage_train", f"stage forward {geo} depth {depth}", dtype,
+                    lambda: vss_stage_train.vss_stage_train_forward(x, ps, H, H, m1s, m2s),
+                    lambda: vss_stage_train.vss_stage_train_forward_plain(x, ps, H, H, m1s, m2s),
+                    dtype == BF16, work=work)
+                gs = randn(g, n_step, H * H, d, dtype=dtype)
+                check_outputs(errors, "vss_stage_train", f"XFMamba-T stage backward {geo}", dtype,
+                              *(stage_grads(vss_stage_train.stage_train_backward(
+                                  gs, xs, mids, ps, H, H, m1s, m2s, block_bwd=bwd))
+                                for bwd in (vss_block_train.vss_block_bwd,
+                                            vss_block_train.vss_block_bwd_plain)), failed)
+                a = n1_case(g, n_fwd, H, d, dtype, ratio=1)
+                run("ss2d_core_n1_fwd", f"N=1 core ({n_fwd} images) {geo} R={R} (y, ck)", dtype,
+                    lambda: ss2d_core_n1.ss2d_core_n1_fwd(*a),
+                    lambda: ss2d_core_n1.ss2d_core_n1_fwd_plain(*a), dtype == F32, depth,
+                    n1_work(n_fwd, H, d, R))
+                a = n1_case(g, n_step, H, d, dtype, ratio=1)
+                _, ck = ss2d_core_n1.ss2d_core_n1_fwd_plain(*a)
+                gy1 = randn(g, *a[0].shape)
+                run("ss2d_core_n1_bwd", f"N=1 core backward ({n_step} images) {geo} R={R}",
+                    dtype, lambda: ss2d_core_n1.ss2d_core_n1_bwd(*a, ck, gy1),
+                    lambda: ss2d_core_n1.ss2d_core_n1_bwd_plain(*a, ck, gy1), dtype == F32,
+                    depth, n1_work(n_step, H, d, R, backward=True))
+    torch.cuda.synchronize()
+    if failed:
+        raise PhaseFailure(f"XFMamba-T kernels disagree with their plain versions: {failed}")
+    times = {}
+    for name, (ms, plain_ms, work) in acc.items():
+        times[name] = (ms, plain_ms, *work.bound())
+        per = "bs-32 forward" if name in ("vss_stage", "ss2d_core_n1_fwd") else "bs-16 step"
+        dt = "float32" if name.startswith("ss2d") else "bfloat16"
+        print(f"  {name:16s} per XFMamba-T {per} ({dt}): kernel {ms:9.3f} ms   plain "
+              f"{plain_ms:9.3f} ms   bound {times[name][2]:.4f} ms ({times[name][3]}) ({card})")
+    return times
+
+
+def phase_tiny(errors, card):
+    """XFMamba-T (phase 12a): its kernels at its widths, the model at full
+    width (`drive_model`: float32 and bfloat16 bs-32 forwards and bs-16
+    steps), then float32 logits and one step's gradients at depths
+    (2, 2, 2, 2), card against the CPU plain twins.  Returns
+    (kernel times, model times)."""
+    kernels = phase_tiny_kernels(errors, card)
+    print(f"phase 12a: XFMamba-T two-view {IMAGE}x{IMAGE}, full width (dims 96-768, d_inner = d, "
+          f"depths 2/2/8/2), seeded weights ({card})")
+    model = two_view_xfmamba("tiny", seed=0)
+    times = drive_model(model, "twoviewxfmamba_tiny", True, card, (BF16, F32), (F32, BF16),
+                        fusion=True)
+    del model
+    small = depth2_model("tiny")
+    phase_cpu_parity(small, {"ss2d_core_n1_fwd": 8, "nk_scan_v1": 3}, "12a",
+                     "XFMamba-T (depths 2/2/2/2)")
+    phase_train_cpu_parity(small, "XFMamba-T", "12a")
+    del small
+    return kernels, times
+
+
+@contextlib.contextmanager
+def shallow_baselines():
+    """The baselines' backbone (and SingleViewMamba's classifier) at depths
+    (2, 2, 2, 2), full widths, no drop path, while open."""
+    from xfmamba_tpu_torch.models import tops
+    cfg, build_model = dict(tops._BACKBONE_CFG["small"]), tops.build_model
+    shallow = dict(depths=(2, 2, 2, 2), drop_path_rate=0.0)
+    tops._BACKBONE_CFG["small"] = cfg | shallow
+    tops.build_model = lambda num_classes, **kw: build_model(num_classes, **(kw | shallow))
+    try:
+        yield
+    finally:
+        tops._BACKBONE_CFG["small"], tops.build_model = cfg, build_model
+
+
+def phase_baselines(card):
+    """The three baselines at full width (phase 12b; VMamba-S s2l15
+    backbone, 224x224): `drive_model` with float32 and bfloat16 bs-32
+    forwards and float32 bs-16 steps, then float32 logits at depths
+    (2, 2, 2, 2) and batch 2, card against the CPU plain twins within 1e-3
+    of the largest.  Returns {name: model times}."""
+    from xfmamba_tpu_torch.cli import build_model_by_name
+    print(f"phase 12b: the single-view, late-join and early-fusion tops, full width (VMamba-S "
+          f"s2l15 backbone), {IMAGE}x{IMAGE}, seeded weights ({card})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    fns = all_kernels()
+    for name, two_view in BASELINES.items():
+        model, tv = build_model_by_name(name, 2, device="cuda", seed=0)
+        if tv != two_view:
+            raise PhaseFailure(f"{name}: two_view {tv}, expected {two_view}")
+        out[name] = drive_model(model, name, two_view, card, (F32, BF16), (F32,), fusion=False)
+        del model
+        with shallow_baselines():
+            small, _ = build_model_by_name(name, 2, device="cpu", seed=5)
+        xa, xb = (x.float() for x in views(2, F32, 13))
+        xs = (xa, xb) if two_view else (xa,)
+        with torch.no_grad():
+            small.cuda()
+            counts = counted(fns)
+            got = small(*xs).cpu()
+            launches = {n: c for n, c in counts().items() if c}
+            t0 = time.time()
+            want = small.cpu()(*(x.cpu() for x in xs))
+        err = float((got - want).abs().max())
+        tol = 1e-3 * float(want.abs().max())
+        print(f"  {name} depths 2/2/2/2, batch 2, float32: card {got.tolist()} cpu "
+              f"{want.tolist()} max_abs_err={err:.3e} tol={tol:.3e} (cpu forward "
+              f"{time.time() - t0:.1f} s); launches {launches}")
+        if launches != {"ss2d_core_n1_fwd": 8} or not err <= tol:
+            raise PhaseFailure(f"{name}: float32 logits on the card disagree with the CPU plain "
+                               f"path, or its launches {launches} differ")
+        del small
+    return out
+
+
+def mutual_step_want(names, dtype):
+    """Launches per mutual step: the sum of the models' steps."""
+    want = {}
+    for name in names:
+        for k, v in STEP_WANT[name if name in STEP_WANT else "baseline"][dtype].items():
+            want[k] = want.get(k, 0) + v
+    return want
+
+
+def phase_mutual(card):
+    """``cli.train_mutual`` and the repaired ``cli.train`` on the card
+    (phases 12c, 12d), on phase 11's synthetic MURA tree: the default pair
+    (XFMamba-T and XFMamba-S) for 2 float32 epochs, then 1 with ``--bf16
+    1``, then ``singleviewmamba`` with XFMamba-S (one view and two mixed)
+    for 1; for each run the launches (counts set to 0 just before, read
+    just after: each model's step's, summed, per mutual step, and nothing
+    else), finite losses, the median ms per mutual step (CUDA events), and
+    every best-ROC file read back into a fresh model (its parameters
+    bitwise) with JAX's keys.  Then one ``cli.train`` epoch of
+    ``singleviewmamba`` (kernels 11 and 12 on ``image1`` alone) and
+    ``cli.infer_mura`` scoring its ``best.npz``.  Returns (the kernels'
+    launches in the default pair's float32 run, {run: median ms per
+    mutual step})."""
+    import os
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_mura_tree import write_mura_tree
+    from xfmamba_tpu_torch.checkpoint import io as ckpt
+    from xfmamba_tpu_torch.checkpoint.convert import export_jax_variables
+    from xfmamba_tpu_torch.cli import build_model_by_name, infer_mura, load_variables
+    from xfmamba_tpu_torch.cli import train as cli_train
+    from xfmamba_tpu_torch.cli import train_mutual
+    from xfmamba_tpu_torch.train import driver
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"phase 12c: cli.train_mutual on a synthetic MURA tree, {IMAGE}x{IMAGE}, bs "
+          f"{TRAIN_BATCH} ({card})")
+    tmp = tempfile.mkdtemp(prefix="xfm_phase12_")
+    fns = all_kernels()
+    ms, main_launches, fresh = {}, None, {}
+    try:
+        csvs, _ = write_mura_tree(tmp, n_studies=CLI_STUDIES, parts=CLI_PARTS,
+                                  n_valid=CLI_VALID_STUDIES, kinds=CLI_KINDS, seed=11)
+        data = ["--data_root", tmp, "--train_image_csv", csvs[0], "--train_label_csv", csvs[1],
+                "--valid_image_csv", csvs[2], "--valid_label_csv", csvs[3], "--image_size",
+                str(IMAGE), "--batch_size", str(TRAIN_BATCH), "--num_workers", "4",
+                "--device", CLI_DEVICE]
+        runs = [(MUTUAL_PAIRS[0], F32, 2), (MUTUAL_PAIRS[0], BF16, 1), (MUTUAL_PAIRS[1], F32, 1)]
+        for r, (names, dtype, epochs) in enumerate(runs):
+            label = f"{' + '.join(names)}, {str(dtype)[6:]}, {epochs} epoch(s)"
+            out = os.path.join(tmp, f"dml{r}")
+            torch.cuda.synchronize()
+            for fn in fns.values():
+                fn.launches = 0
+            models, history = train_mutual.main(
+                ["--model_names", *names, "--epochs", str(epochs), "--bf16",
+                 str(int(dtype == BF16)), "--savemodel_path", out] + data)
+            torch.cuda.synchronize()
+            got = {n: fn.launches for n, fn in fns.items()}
+            steps = sum(len(h["step_ms"]) for h in history)
+            want = dict.fromkeys(fns, 0) | {k: v * steps
+                                            for k, v in mutual_step_want(names, dtype).items()}
+            step_ms = [v for h in history for v in h["step_ms"]]
+            ms[label] = statistics.median(step_ms)
+            print(f"  {label}: {steps} mutual steps, median {ms[label]:.2f} ms per step by CUDA "
+                  f"events ({card}); launches {({k: v for k, v in got.items() if v})}")
+            if got != want:
+                raise PhaseFailure(f"{label}: launches differ from "
+                                   f"{mutual_step_want(names, dtype)} per mutual step")
+            if r == 0:
+                main_launches = got
+            for h in history:
+                for i, avg in enumerate(h["models"]):
+                    if not (math.isfinite(avg["ce_loss"]) and math.isfinite(avg["kl_loss"])):
+                        raise PhaseFailure(f"{label}: epoch {h['epoch']} model {i} {avg}")
+            written = [p for h in history for p in h["checkpoints"]]
+            if not written:
+                raise PhaseFailure(f"{label}: no best-ROC checkpoint written")
+            for path in written:
+                name = os.path.basename(os.path.dirname(path))
+                tree = ckpt.load_npz(path)
+                opt = ckpt._flatten(tree["opt_state"])
+                if name not in fresh:
+                    fresh[name] = build_model_by_name(name, 2, device=CLI_DEVICE, seed=99)[0]
+                load_variables(path, fresh[name])
+                back = ckpt._flatten(export_jax_variables(fresh[name]))
+                saved = ckpt._flatten({"params": tree["params"],
+                                       "batch_stats": tree.get("batch_stats", {})})
+                same = back.keys() == saved.keys() and all(np.array_equal(back[k], saved[k])
+                                                           for k in back)
+                keys = {"epoch", "val_roc", "params", "opt_state"} <= set(tree)
+                print(f"    {os.path.relpath(path, out)}: epoch {int(tree['epoch'])}, train AUC "
+                      f"{float(tree['val_roc']):.4f}, {len(opt)} optimizer arrays (step "
+                      f"{int(tree['opt_state']['count'])}), "
+                      f"{os.path.getsize(path) / 2 ** 20:.0f} MiB; read back into a fresh "
+                      f"model: {'equal' if same else 'DIFFERS'}")
+                if not (same and keys):
+                    raise PhaseFailure(f"{path} does not read back")
+            del models
+        fresh.clear()
+
+        # 12d: the repaired two_view path of cli.train, then cli.infer_mura
+        print(f"phase 12d: cli.train, one epoch of singleviewmamba (image1 alone), then "
+              f"cli.infer_mura with its best.npz ({card})")
+        run = os.path.join(tmp, "single")
+        with epoch_launches(driver, fns) as rec:
+            _, hist = cli_train.main(["--model_name", "singleviewmamba", "--epochs", "1",
+                                      "--savemodel_path", run] + data)
+        tr = hist[0]["train"]
+        bad = check_epoch_launches(rec, STEP_WANT["baseline"][F32],
+                                   FORWARD_WANT["baseline"][F32])
+        print(f"  train loss {tr['loss']:.6f}, val loss {hist[0]['val']['loss']:.6f}; median "
+              f"{statistics.median(tr['step_ms']):.2f} ms per step ({card}); launches "
+              f"{[(k, n, {a: b for a, b in c.items() if b}) for k, n, c in rec]}")
+        if bad or not math.isfinite(tr["loss"]):
+            raise PhaseFailure(f"singleviewmamba epoch: launches {bad} or loss {tr['loss']}")
+        aucs = infer_mura.main(["--model_name", "singleviewmamba", "--pretrained_model_path",
+                                os.path.join(run, "best.npz"), "--data_root", tmp,
+                                "--valid_image_csv", csvs[2], "--valid_label_csv", csvs[3],
+                                "--image_size", str(IMAGE), "--batch_size", str(TRAIN_BATCH),
+                                "--body_parts", *CLI_PARTS, "--out_dir",
+                                os.path.join(tmp, "infer"), "--device", CLI_DEVICE])
+        print(f"  infer_mura: AUCs {aucs}")
+        if set(aucs) != set(CLI_PARTS) | {"combined"} or not all(map(math.isfinite,
+                                                                   aucs.values())):
+            raise PhaseFailure(f"infer_mura gave {aucs}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        sys.path.remove(str(Path(__file__).resolve().parent / "tests"))
+    return main_launches, ms
+
+
+def phase_models(errors, card):
+    """Phase 12: XFMamba-T, the baselines, mutual learning and the repaired
+    CLI.  Returns (the tiny kernel times, the mutual run's launches)."""
+    kernels, tiny = phase_tiny(errors, card)
+    tops_ms = phase_baselines(card)
+    launches, mutual_ms = phase_mutual(card)
+    return {"kernels": kernels, "tiny": tiny, "tops": tops_ms, "mutual": mutual_ms,
+            "launches": launches}
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4027,6 +4549,9 @@ def main() -> int:
     t0 = time.time()
     phase_cli(card)
     print(f"  phase 11: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    models = phase_models(errors, card)
+    print(f"  phase 12: {time.time() - t0:.1f} s")
     # library_ms: one PyTorch call computing the same function, where there
     # is one (kernels 19-21); none computes the scans
     print(json.dumps({"kernels": [
@@ -4039,6 +4564,9 @@ def main() -> int:
            else {})
         | ssd_extra_line(name, ssd_extra)
         | V1_EXTRA.get(name, {})
+        | {"mutual_launches": models["launches"][name]}
+        | ({"xfmamba_t": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
+                                  models["kernels"][name]))} if name in models["kernels"] else {})
         for name, k in kernel_table().items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

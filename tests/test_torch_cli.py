@@ -1,8 +1,9 @@
 """The port's CLIs on the CPU: ``cli.train`` then ``cli.infer_mura`` on a
 synthetic MURA tree (tests/torch_mura_tree.py) with the smoke model at 32²
-and ``--device cpu``, the files they write, the model-name dispatch, the flags against the JAX CLI's, the flags and
-names that raise until their ROADMAP item lands, and the helpers against
-JAX's ``collect_scores`` / ``write_roc_artifacts``."""
+and ``--device cpu``, the files they write, the model-name dispatch, a
+single-view model fed one view, the flags against the JAX CLI's, the flags
+that raise until their ROADMAP item lands, and the helpers against JAX's
+``collect_scores`` / ``write_roc_artifacts``."""
 
 import os
 
@@ -19,7 +20,7 @@ from xfmamba_tpu.cli import train as jax_train
 from xfmamba_tpu_torch import cli
 from xfmamba_tpu_torch.checkpoint.convert import jax_paths
 from xfmamba_tpu_torch.cli import infer_mura, train
-from xfmamba_tpu_torch.models import tops
+from xfmamba_tpu_torch.models import tops, vssm
 
 SMOKE = ["--model_name", "twoviewxfmamba_smoke", "--image_size", "32", "--device", "cpu"]
 
@@ -66,8 +67,9 @@ def test_train_then_infer(tree, tmp_path, capsys):
 def test_model_name_dispatch(monkeypatch):
     """Each CLI name to its factory and size; the smoke model is JAX's
     smoke geometry (every parameter and batch statistic by name and shape);
-    the three tops not ported raise NotImplementedError naming their
-    ROADMAP item, an unknown name ValueError (as in JAX)."""
+    the single-view, late-join and early-fusion names to their tops with
+    JAX's ``two_view`` (their trees: ``tests/test_torch_tops.py``); an
+    unknown name ValueError (as in JAX)."""
     calls = []
     monkeypatch.setattr(tops, "two_view_xfmamba",
                         lambda size, **kw: calls.append((size, kw["outputs"])) or torch.nn.Linear(1, 1))
@@ -88,11 +90,49 @@ def test_model_name_dispatch(monkeypatch):
     got = {jpath: to_jax(state[key].numpy()).shape
            for key, (jpath, _, to_jax) in jax_paths(model).items()}
     assert got == want
-    for name in ("singleviewmamba", "twoviewlatejoinmamba", "twoviewearlyfusionmamba"):
-        with pytest.raises(NotImplementedError, match="other tops"):
-            cli.build_model_by_name(name, 2, device="cpu")
+    for name, cls in (("singleviewmamba", "SingleViewMamba"),
+                      ("twoviewlatejoinmamba", "TwoViewLateJoinMamba"),
+                      ("twoviewearlyfusionmamba", "TwoViewEarlyFusionMamba")):
+        monkeypatch.setattr(tops, cls, lambda **kw: calls.append((cls, kw["outputs"], kw[
+            "use_checkpoint"])) or torch.nn.Linear(1, 1))
+        model, two_view = cli.build_model_by_name(name, 3, device="cpu", use_checkpoint=True)
+        assert calls[-1] == (cls, 3, True) and not model.training
+        assert two_view is jax_cli.build_model_by_name(name, 3)[1]
+        assert two_view is (name != "singleviewmamba")
     with pytest.raises(ValueError):
         cli.build_model_by_name("nope", 2, device="cpu")
+
+
+def test_train_feeds_a_single_view_model_one_view(tmp_path, monkeypatch):
+    """``cli.train`` with ``singleviewmamba`` (its classifier shrunk) trains
+    and evaluates on ``image1`` alone: ``fit`` takes the model's
+    ``two_view``.  JAX's ``fit`` never passes it, so its single-view model
+    binds the second view to ``deterministic`` (ROADMAP, faults in the JAX
+    reference)."""
+    monkeypatch.setattr(tops, "build_model", lambda num_classes, **kw: vssm.vmamba_small_s2l15(
+        num_classes, depths=(1, 1, 1, 1), dims=16, **kw))
+    arity = []
+
+    def record(module, args):
+        if isinstance(module, tops.SingleViewMamba):
+            arity.append((module.training, len(args)))
+    csvs, _ = write_mura_tree(str(tmp_path / "mura"), n_studies=12, n_valid=4,
+                              sizes=((40, 64), (40, 64)), seed=6)
+    data = ["--data_root", str(tmp_path / "mura"), "--train_image_csv", csvs[0],
+            "--train_label_csv", csvs[1], "--valid_image_csv", csvs[2], "--valid_label_csv",
+            csvs[3]]
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(record)
+    try:
+        state, history = train.main(
+            ["--model_name", "singleviewmamba", "--image_size", "32", "--device", "cpu"] + data
+            + ["--batch_size", "4", "--num_workers", "1", "--epochs", "1", "--savemodel_path",
+               str(tmp_path / "run")])
+    finally:
+        handle.remove()
+    assert np.isfinite(history[0]["train"]["loss"]) and np.isfinite(history[0]["val"]["loss"])
+    assert {mode for mode, _ in arity} == {True, False}
+    assert {n for _, n in arity} == {1}
+    assert (tmp_path / "run" / "best.npz").is_file()
 
 
 @pytest.mark.parametrize("parse,jax_parse,required", [

@@ -33,6 +33,9 @@ from xfmamba_tpu_torch.models.layers import BatchNorm, Conv2dSame, Dense, LayerN
 
 # port module path -> JAX module path, applied in order on the dotted path
 _RENAMES = [
+    # SingleViewMamba's classifier: the reference's attribute, a clone into
+    # the top's own scope in JAX (no level of its own)
+    (r"^singleviewmamba(\.|$)", ""),
     (r"(^|\.)layers\.(\d+)\.blocks\.(\d+)(?=\.|$)", r"\1stage\2_block\3"),
     (r"(^|\.)layers\.(\d+)\.downsample\.1(?=\.|$)", r"\1downsample\2.conv"),
     (r"(^|\.)layers\.(\d+)\.downsample\.3(?=\.|$)", r"\1downsample\2.norm"),

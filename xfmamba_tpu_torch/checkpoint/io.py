@@ -9,6 +9,10 @@
   one into a port model through `load_jax_variables`.  BatchNorm's
   ``num_batches_tracked`` counters have no flax counterpart and are not
   written.
+- `optax_adam_state`: a torch ``Adam``'s state as the JAX package's
+  ``flax.serialization.to_state_dict`` of the optax state that its
+  ``train/loop.py::make_optimizer`` builds, for the best-ROC files of
+  mutual learning.
 - `training_state` / `save_state` / `load_state`: the whole training state
   in one ``torch.save`` file (``last.pt``): the model's and the optimizer's
   state dicts, the epoch and the history, `EarlyStopping`'s counters, the
@@ -26,7 +30,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from xfmamba_tpu_torch.checkpoint.convert import load_jax_variables
+from xfmamba_tpu_torch.checkpoint.convert import jax_paths, load_jax_variables
 
 
 def _flatten(tree, prefix=""):
@@ -73,6 +77,40 @@ def load_model_npz(path: str, model: torch.nn.Module) -> torch.nn.Module:
         variables["batch_stats"] = tree["batch_stats"]
     load_jax_variables(model, variables)
     return model
+
+
+def optax_adam_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> dict:
+    """The state of a torch ``Adam`` over ``model``'s parameters under the
+    keys of the optax state that JAX's ``make_optimizer`` builds for
+    "adam" (``inject_hyperparams`` around the chain of
+    ``add_decayed_weights``, when there is weight decay, ``scale_by_adam``
+    and ``scale_by_learning_rate``): ``count`` (int32, the updates done),
+    ``hyperparams/learning_rate`` (float32), and the Adam part of the
+    chain, ``inner_state/{1 with weight decay, else 0}/`` ``count``,
+    ``mu`` and ``nu`` (torch's ``exp_avg`` and ``exp_avg_sq``, the same
+    moments) in the JAX parameter layout; a parameter not yet stepped has
+    zero moments."""
+    if type(optimizer) is not torch.optim.Adam:
+        raise ValueError(f"optax_adam_state takes torch.optim.Adam, got {type(optimizer).__name__}")
+    group = optimizer.param_groups[0]
+    params = dict(model.named_parameters())
+    mu, nu, steps = {}, {}, [0]
+    for key, (jpath, _, to_jax) in jax_paths(model).items():
+        if jpath[0] != "params":
+            continue
+        st = optimizer.state.get(params[key], {})
+        if "step" in st:
+            steps.append(int(st["step"]))
+        for tree, name in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+            value = st.get(name, torch.zeros_like(params[key]))
+            node = tree
+            for part in jpath[1:-1]:
+                node = node.setdefault(part, {})
+            node[jpath[-1]] = np.ascontiguousarray(to_jax(value.detach().cpu().float().numpy()))
+    count = np.int32(max(steps))
+    adam = str(1 if group["weight_decay"] else 0)
+    return {"count": count, "hyperparams": {"learning_rate": np.float32(group["lr"])},
+            "inner_state": {adam: {"count": count, "mu": mu, "nu": nu}}}
 
 
 def model_generators(model: torch.nn.Module) -> Dict[str, torch.Generator]:

@@ -26,36 +26,47 @@ CHEXPERT_LABELS = [
 # MURA body parts (``2_inference_mura.py:154``)
 MURA_BODY_PARTS = ["ELBOW", "FINGER", "FOREARM", "HAND", "HUMERUS", "SHOULDER", "WRIST"]
 
-TOPS_ITEM = "ROADMAP.md, queue 1: the other tops and the v05_noz factories"
 UTILITIES_ITEM = "ROADMAP.md, queue 1: the utilities (utils/flops.py, utils/saliency.py)"
+
+
+def _seeded(cls, device, seed, **kw):
+    """``cls(**kw)`` with weights from a generator seeded with ``seed`` and
+    drop-path masks from one seeded with ``seed + 1``, in eval mode on
+    ``device``."""
+    model = cls(generator=torch.Generator().manual_seed(seed),
+                dropout_generator=torch.Generator().manual_seed(seed + 1), **kw)
+    return model.eval().to(device)
 
 
 def build_model_by_name(model_name: str, num_classes: int, device="cuda", seed: int = 0,
                         use_checkpoint: bool = False):
-    """The CLI model names (``1_train_model.py:122-127``): returns (model,
-    two_view), the model on ``device`` in eval mode with float32 weights
-    drawn from a generator seeded with ``seed`` (the drop-path masks' from
-    ``seed + 1``).  The compute dtype is the views'.  The single-view,
-    late-join and early-fusion tops are not ported and raise
-    ``NotImplementedError``; an unknown name raises ``ValueError``."""
-    from xfmamba_tpu_torch.models.tops import TwoViewXFMamba, two_view_xfmamba
+    """The CLI model names (``1_train_model.py:122-127`` and the single-view,
+    late-join and early-fusion tops of ``net_fusionmamba.py``): returns
+    (model, two_view), the model on ``device`` in eval mode with float32
+    weights drawn from a generator seeded with ``seed`` (the drop-path
+    masks' from ``seed + 1``).  The compute dtype is the views'.  An
+    unknown name raises ``ValueError``."""
+    from xfmamba_tpu_torch.models import tops
     name = model_name.lower()
     if name == "twoviewxfmamba_smoke":
         # the tiny geometry of CI smoke runs
-        model = TwoViewXFMamba(outputs=num_classes, model_type="tiny", hidden_dim=128,
-                               d_state=4, use_checkpoint=use_checkpoint,
-                               backbone_overrides=dict(depths=(1, 1, 1, 1), dims=16),
-                               generator=torch.Generator().manual_seed(seed),
-                               dropout_generator=torch.Generator().manual_seed(seed + 1))
-        return model.eval().to(device), True
+        return _seeded(tops.TwoViewXFMamba, device, seed, outputs=num_classes,
+                       model_type="tiny", hidden_dim=128, d_state=4,
+                       use_checkpoint=use_checkpoint,
+                       backbone_overrides=dict(depths=(1, 1, 1, 1), dims=16)), True
     sizes = {"twoviewxfmamba": "small", "dualfusionmambav13": "small",
              "twoviewxfmamba_tiny": "tiny", "twoviewxfmamba_base": "base"}
     if name in sizes:
         # `dualfusionmambav13` is the README's legacy name for the small model
-        return two_view_xfmamba(sizes[name], outputs=num_classes, device=device, seed=seed,
-                                use_checkpoint=use_checkpoint), True
-    if name in ("singleviewmamba", "twoviewlatejoinmamba", "twoviewearlyfusionmamba"):
-        raise NotImplementedError(f"model {model_name!r} is not ported yet ({TOPS_ITEM})")
+        return tops.two_view_xfmamba(sizes[name], outputs=num_classes, device=device, seed=seed,
+                                     use_checkpoint=use_checkpoint), True
+    baselines = {"singleviewmamba": (tops.SingleViewMamba, False),
+                 "twoviewlatejoinmamba": (tops.TwoViewLateJoinMamba, True),
+                 "twoviewearlyfusionmamba": (tops.TwoViewEarlyFusionMamba, True)}
+    if name in baselines:
+        cls, two_view = baselines[name]
+        return _seeded(cls, device, seed, outputs=num_classes,
+                       use_checkpoint=use_checkpoint), two_view
     raise ValueError(f"unknown model_name {model_name!r}")
 
 

@@ -14,7 +14,8 @@ Usage (MURA, on the card):
 
 Not ported, and raising ``NotImplementedError`` with the ROADMAP item:
 ``--dataset`` other than ``mura`` (CheXpert needs a JPEG decoder, DDSM
-DICOM), ``--device_preprocess 1``, and the model names of the other tops.
+DICOM) and ``--device_preprocess 1``.  A single-view model
+(``singleviewmamba``) trains and is evaluated on ``image1`` alone.
 ``--pretrained_model_path`` is accepted and, as in the JAX package, not
 read by ``fit``.
 """
@@ -127,14 +128,15 @@ def main(argv=None):
             print(f"wandb disabled: {e}")
             cfg = dataclasses.replace(cfg, wandb=False)
     train_loader, val_loader, _ = build_loaders(args, cfg_dict)
-    model, _ = build_model_by_name(cfg.model_name, cfg.num_classes, device=args.device,
-                                   seed=cfg.seed, use_checkpoint=cfg.use_checkpoint)
+    model, two_view = build_model_by_name(cfg.model_name, cfg.num_classes, device=args.device,
+                                          seed=cfg.seed, use_checkpoint=cfg.use_checkpoint)
     from xfmamba_tpu_torch.train.driver import fit
     os.makedirs(cfg.savemodel_path, exist_ok=True)
     device = next(model.parameters()).device
     print(f"device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
-    state, history = fit(model, cfg, train_loader, val_loader, out_dir=cfg.savemodel_path)
+    state, history = fit(model, cfg, train_loader, val_loader, out_dir=cfg.savemodel_path,
+                         two_view=two_view)
     print(f"done; best val loss {min(h['val']['loss'] for h in history):.4f}")
     return state, history
 

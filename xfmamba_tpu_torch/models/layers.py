@@ -115,14 +115,18 @@ class BatchNorm(nn.BatchNorm2d):
     with the running statistics; in training mode with the batch's, and
     updates the running ones with momentum 0.1 on every call, the running
     variance being the *unbiased* batch variance as in torch (flax keeps
-    the biased one).  State-dict names are BatchNorm2d's."""
+    the biased one).  ``batch_stats`` overrides the mode: True takes the
+    batch's statistics (and updates the running ones), False the running
+    ones, as flax's ``use_running_average`` does.  State-dict names are
+    BatchNorm2d's."""
 
-    def forward(self, x):
-        if self.training:
+    def forward(self, x, batch_stats=None):
+        batch_stats = self.training if batch_stats is None else batch_stats
+        if batch_stats:
             self.num_batches_tracked.add_(1)
         y = F.batch_norm(x.float().permute(0, 3, 1, 2), self.running_mean,
                          self.running_var, self.weight.float(), self.bias.float(),
-                         self.training, self.momentum, self.eps)
+                         batch_stats, self.momentum, self.eps)
         return y.permute(0, 2, 3, 1).to(x.dtype)
 
 

@@ -2,9 +2,15 @@
 DownsampleV3, VSSBlock and VSSM, in backbone mode (``out_indices``: the
 LayerNorm'd features of those stages) or in classifier mode
 (``out_indices=None``: LayerNorm, mean over the map, linear head), and the
-Mamba-2 classifier factories `vmamba_tiny_m2`, `vmamba_small_m2` and
-`vmamba_base_m2` (forward type ``m0_noz``, d_state 64, GELU, whose SS2D
-runs the SSD kernels 15 and 16).
+model factories: the Mamba-2 classifiers `vmamba_tiny_m2`, `vmamba_small_m2`
+and `vmamba_base_m2` (forward type ``m0_noz``, d_state 64, GELU, whose SS2D
+runs the SSD kernels 15 and 16); the v05_noz classifiers
+`vmamba_{tiny_s2l5,small_s2l15,base_s2l15,tiny_s1l8,small_s1l20,base_s1l20}`
+(d_state 1, the backbone kernels of XFMamba), `build_model` and
+`single_channel_feature_extract_mamba` (both VMamba-S s2l15), and the
+feature-pyramid `backbone_vssm`.  The ``vanilla_vmamba_*`` factories
+(forward type v0, PatchEmbedV1, PatchMerging2D) raise
+``NotImplementedError``.
 
 Module and parameter names follow the reference PyTorch state dict
 (``patch_embed.{0,2,5,7}``, ``layers.{i}.blocks.{j}``,
@@ -340,16 +346,19 @@ def _mlp_half_train(x, m2, *mlp):
 
 
 # ---------------------------------------------------------------------------
-# the Mamba-2 classifier factories (``vssm.py:516-585``)
+# the model factories (``vssm.py:495-595``)
 # ---------------------------------------------------------------------------
+
+MODEL_SURFACE_ITEM = "ROADMAP.md, queue 1: the model surface off the main path"
 
 def _vssm(num_classes, device, seed, **cfg) -> VSSM:
     """A classifier VSSM, weights from a ``torch.Generator`` seeded with
-    ``seed`` and drop-path masks from one seeded with ``seed + 1``, in eval
-    mode on ``device`` (the card unless the caller asks for the CPU)."""
-    model = VSSM(num_classes=num_classes, out_indices=None,
-                 generator=torch.Generator().manual_seed(seed),
-                 dropout_generator=torch.Generator().manual_seed(seed + 1), **cfg)
+    ``seed`` and drop-path masks from one seeded with ``seed + 1`` (unless
+    ``cfg`` gives the generators), in eval mode on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    cfg = dict(generator=torch.Generator().manual_seed(seed),
+               dropout_generator=torch.Generator().manual_seed(seed + 1)) | cfg
+    model = VSSM(num_classes=num_classes, **(dict(out_indices=None) | cfg))
     return model.eval().to(device)
 
 
@@ -375,3 +384,80 @@ def vmamba_base_m2(num_classes=1000, *, device="cuda", seed=0, **kw) -> VSSM:
     """Mamba-2 VMamba-B: depths 2/2/12/2, dims 128."""
     cfg = dict(depths=(2, 2, 12, 2), dims=128, drop_path_rate=0.3)
     return _vssm(num_classes, device, seed, **(_M2 | cfg | kw))
+
+
+# what the v05_noz factories share (``vssm.py:541-569``): d_state 1, SiLU,
+# no conv bias, the GELU MLP of ratio 4, downsample v3, patch embed v2
+_V05 = dict(ssm_d_state=1, ssm_act="silu", ssm_conv_bias=False, ssm_init="v0",
+            forward_type="v05_noz", mlp_ratio=4.0)
+
+
+def vmamba_tiny_s2l5(num_classes=1000, *, device="cuda", seed=0, **kw) -> VSSM:
+    """VMamba-T s2l5: depths 2/2/5/2, dims 96, ssm_ratio 2; ``kw``
+    overrides any VSSM argument."""
+    cfg = dict(depths=(2, 2, 5, 2), dims=96, drop_path_rate=0.2, ssm_ratio=2.0)
+    return _vssm(num_classes, device, seed, **(_V05 | cfg | kw))
+
+
+def vmamba_small_s2l15(num_classes=1000, *, device="cuda", seed=0, **kw) -> VSSM:
+    """VMamba-S s2l15: depths 2/2/15/2, dims 96, ssm_ratio 2 (XFMamba-S's
+    backbone geometry)."""
+    cfg = dict(depths=(2, 2, 15, 2), dims=96, drop_path_rate=0.3, ssm_ratio=2.0)
+    return _vssm(num_classes, device, seed, **(_V05 | cfg | kw))
+
+
+def vmamba_base_s2l15(num_classes=1000, *, device="cuda", seed=0, **kw) -> VSSM:
+    """VMamba-B s2l15: depths 2/2/15/2, dims 128, ssm_ratio 2."""
+    cfg = dict(depths=(2, 2, 15, 2), dims=128, drop_path_rate=0.6, ssm_ratio=2.0)
+    return _vssm(num_classes, device, seed, **(_V05 | cfg | kw))
+
+
+def vmamba_tiny_s1l8(num_classes=1000, *, device="cuda", seed=0, **kw) -> VSSM:
+    """VMamba-T s1l8: depths 2/2/8/2, dims 96, ssm_ratio 1 (d_inner = d,
+    XFMamba-T's backbone geometry)."""
+    cfg = dict(depths=(2, 2, 8, 2), dims=96, drop_path_rate=0.2, ssm_ratio=1.0)
+    return _vssm(num_classes, device, seed, **(_V05 | cfg | kw))
+
+
+def vmamba_small_s1l20(num_classes=1000, *, device="cuda", seed=0, **kw) -> VSSM:
+    """VMamba-S s1l20: depths 2/2/20/2, dims 96, ssm_ratio 1."""
+    cfg = dict(depths=(2, 2, 20, 2), dims=96, drop_path_rate=0.3, ssm_ratio=1.0)
+    return _vssm(num_classes, device, seed, **(_V05 | cfg | kw))
+
+
+def vmamba_base_s1l20(num_classes=1000, *, device="cuda", seed=0, **kw) -> VSSM:
+    """VMamba-B s1l20: depths 2/2/20/2, dims 128, ssm_ratio 1."""
+    cfg = dict(depths=(2, 2, 20, 2), dims=128, drop_path_rate=0.5, ssm_ratio=1.0)
+    return _vssm(num_classes, device, seed, **(_V05 | cfg | kw))
+
+
+def _vanilla(*args, **kw):
+    raise NotImplementedError(
+        "vanilla_vmamba_* (forward type v0, d_state 16, PatchEmbedV1, PatchMerging2D) is not "
+        f"ported yet ({MODEL_SURFACE_ITEM})")
+
+
+vanilla_vmamba_tiny = vanilla_vmamba_small = vanilla_vmamba_base = _vanilla
+
+
+def build_model(num_classes=1000, **kw) -> VSSM:
+    """The default classifier, VMamba-S s2l15 (``models/__init__.py:50-53``
+    of the reference); ``kw`` as `vmamba_small_s2l15`'s."""
+    return vmamba_small_s2l15(num_classes=num_classes, **kw)
+
+
+def single_channel_feature_extract_mamba(num_classes=2, **kw) -> VSSM:
+    """``fusion_vmamba.py:1728-1739``: VMamba-S s2l15."""
+    return vmamba_small_s2l15(num_classes=num_classes, **kw)
+
+
+def backbone_vssm(depths=(2, 2, 15, 2), dims=96, drop_path_rate=0.3, ssm_ratio=2.0,
+                  out_indices=(0, 1, 2, 3), *, device="cuda", seed=0, **kw) -> VSSM:
+    """The feature-pyramid backbone with XFMamba's defaults
+    (``fusion_vmamba.py:1653-1663``: VMamba-S geometry, d_state 1, v05_noz):
+    the LayerNorm'd features of the stages in ``out_indices``.  Seeded and
+    placed as the classifier factories; ``kw`` overrides any VSSM
+    argument."""
+    cfg = dict(depths=depths, dims=dims, drop_path_rate=drop_path_rate, ssm_ratio=ssm_ratio,
+               out_indices=out_indices)
+    return _vssm(1000, device, seed, **(_V05 | cfg | kw))

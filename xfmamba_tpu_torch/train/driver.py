@@ -11,7 +11,11 @@ writes ``model_epoch_{n}.npz`` (every epoch, as the reference does),
 training state ``last.pt``; ``fit(..., init_state=load_state(last.pt))``
 resumes from it.
 
-Three faults of the JAX driver are not copied:
+Four faults of the JAX driver are not copied:
+- ``fit`` takes the model's ``two_view``, so a single-view model trains and
+  is evaluated on ``image1`` alone; JAX initialises with both views and
+  never passes ``two_view`` to its steps, so its single-view model binds
+  the second view to ``deterministic``;
 - the "reduce" schedule is the reference's ``ReduceLROnPlateau(mode="min",
   factor=0.1, patience=10)``; JAX compares the epoch's loss with a minimum
   that includes it, and so decays every 11 epochs whatever the loss does;
@@ -38,7 +42,7 @@ from xfmamba_tpu_torch.train.config import TrainConfig
 from xfmamba_tpu_torch.train.loop import (
     EarlyStopping, lr_schedule, make_optimizer, make_train_step)
 
-DDP_ITEM = "ROADMAP.md, queue 1: mutual learning, then data parallelism (DDP)"
+DDP_ITEM = "ROADMAP.md, queue 1: data parallelism (DDP)"
 
 
 def _to_device(batch: Dict, device, dtype, multilabel: bool) -> Dict:
@@ -188,10 +192,13 @@ def _log_wandb(epoch, lr, tr, va):
 
 
 def fit(model, cfg: TrainConfig, train_loader, val_loader, init_state: Optional[dict] = None,
-        log_fn: Callable = print, out_dir: Optional[str] = None, save_checkpoints: bool = True):
+        log_fn: Callable = print, out_dir: Optional[str] = None, save_checkpoints: bool = True,
+        two_view: bool = True):
     """Train ``model`` (on its device) for ``cfg.epochs`` epochs with early
     stopping and the configured schedule; returns (state, history), the
-    state being what ``last.pt`` holds after the last epoch.
+    state being what ``last.pt`` holds after the last epoch.  ``two_view``
+    (from `cli.build_model_by_name`): the model takes both views, else
+    ``image1`` alone, in training and in evaluation.
 
     ``init_state``: a state of `checkpoint.io.training_state` (``last.pt``)
     to resume from, at the epoch after its own.  The views go to the
@@ -209,7 +216,7 @@ def fit(model, cfg: TrainConfig, train_loader, val_loader, init_state: Optional[
     plateau = (torch.optim.lr_scheduler.ReduceLROnPlateau(optimizer, mode="min", factor=0.1,
                                                           patience=10)
                if cfg.scheduler == "reduce" else None)
-    train_step, eval_step = make_train_step(model, optimizer, multilabel)
+    train_step, eval_step = make_train_step(model, optimizer, multilabel, two_view)
     sched = lr_schedule(cfg)
     out_dir = out_dir or cfg.savemodel_path
     os.makedirs(out_dir, exist_ok=True)

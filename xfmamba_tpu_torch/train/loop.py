@@ -65,6 +65,16 @@ def bce_with_logits_loss(logits, labels):
     return F.binary_cross_entropy_with_logits(logits.float(), labels.float())
 
 
+def zero_missing_grads(optimizer: torch.optim.Optimizer) -> None:
+    """A parameter off the loss's graph (the backbone's out-norms 0-2) gets
+    a zero gradient, so that weight decay and the moments move it as optax
+    moves every leaf; torch would skip it."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+
 def make_train_step(model, optimizer, multilabel: bool, two_view: bool = True):
     """(train_step, eval_step) for a batch dict with ``image1`` (and
     ``image2``) and ``label``.
@@ -87,13 +97,7 @@ def make_train_step(model, optimizer, multilabel: bool, two_view: bool = True):
         logits = model(*inputs(batch))
         loss = loss_fn(logits, batch["label"])
         loss.backward()
-        # a parameter off the loss's graph (the backbone's out-norms 0-2)
-        # gets a zero gradient, so that weight decay and the moments move
-        # it as optax moves every leaf; torch would skip it
-        for group in optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        zero_missing_grads(optimizer)
         optimizer.step()
         return {"loss": loss.detach(), "logits": logits.detach()}
 

@@ -255,6 +255,32 @@ Every model the CLIs name, and deep mutual learning (no new kernel):
    one ``cli.train`` epoch of ``singleviewmamba`` (one view) and
    ``cli.infer_mura`` with its ``best.npz``.
 
+The other datasets (no new kernel):
+13. (13a) synthetic trees in a temporary directory (``tests/
+   torch_datasets_tree.py``), each about 10 steps an epoch at bs 16 and
+   written from a few distinct images: CheXpert-v1.0-small (165 patients,
+   baseline JPEGs of about 390 x 320, with the table's quirks), hip X-rays
+   (195 image numbers, 4:2:0 JPEGs of about 640 x 512, every class in
+   both folds), CBIS-DDSM (200 patients, 16-bit DICOMs of about 1,600 x
+   1,000 with 8-bit ROI masks, implicit and explicit VR); the numpy
+   encoder's JPEGs decoded by the
+   port against the pixels its islow IDCT gives (16 at CheXpert's size,
+   gray and YCbCr, restart intervals; two of 2,800 x 2,300, gray and
+   4:2:0), the decode rate on one host thread; a 5,000 x 3,000 16-bit
+   mammogram read from DICOM against the written array, ``load_view``
+   with the NYU crop on it; the loader's feed at the CheXpert train
+   transform (4 threads, 4 processes); (13b) two float32 epochs of
+   XFMamba-S through ``cli.train --dataset chexpert`` (14 labels,
+   multilabel; launches per step and per eval forward as phase 11),
+   ``cli.infer_chexpert`` with its ``best.npz`` and, at 13 classes, with
+   a seeded 13-class file, one ``cli.train_mutual --dataset chexpert``
+   epoch (XFMamba-T + XFMamba-S, the summed steps' launches); (13c) one
+   epoch of ``cli.train --dataset hipxray`` (3 classes: the val accuracy,
+   as the reference reports no AUC there); (13d) one of ``cli.train
+   --dataset ddsmxray``, then ``cli.infer_ddsm --crop 1 --overlay_pass 1``
+   (both passes' AUCs); every val AUC (or hip's accuracy) must be finite;
+   the directory is deleted.
+
 The line before the last but one is one JSON object with the kernels'
 results (launches per main-path forward or step, errors, times, bounds;
 for kernels 1 and 4-6 also their route counts and phase 7e's device times
@@ -4478,6 +4504,274 @@ def phase_models(errors, card):
             "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: CheXpert, hip X-rays and CBIS-DDSM through the CLIs
+# ---------------------------------------------------------------------------
+
+# tree sizes, each about 10 float32 steps an epoch at bs 16: CheXpert-v1.0-small's
+# images (about 390 x 320), 165 patients (219 two-view studies: 164 train, 27 val,
+# 28 test); hip X-rays at 640 x 512, 195 image numbers (4 excluded or incomplete:
+# 162 train, 29 val, every class in both); CBIS-DDSM at 1600 x 1000, 200 patients
+# (160 train subjects, 40 in the test fold, both classes), a scale cut from the
+# dataset's about 5000 x 3000, which phase 13a reads and crops once.  Each tree
+# encodes a few distinct images (TREE_DISTINCT a view, or a side for the
+# mammograms) and writes them under every name.
+CHEX_PATIENTS, CHEX_SIZE = 165, (390, 320)
+HIP_IMAGES, HIP_SIZE = 195, (640, 512)
+DDSM_PATIENTS, DDSM_SIZE = 200, (1600, 1000)
+TREE_DISTINCT = {"chexpert": 48, "hipxray": 16, "ddsmxray": 8}
+FULL_XRAY, FULL_MAMMOGRAM = (2800, 2300), (5000, 3000)
+DECODE_SAMPLES = 16
+
+
+def time_calls(fn, args, repeat=1):
+    """(seconds per call over ``args`` ``repeat`` times, the last results)."""
+    t0 = time.perf_counter()
+    for _ in range(repeat):
+        out = [fn(a) for a in args]
+    return (time.perf_counter() - t0) / (repeat * len(args)), out
+
+
+def phase_datasets(card):
+    """Phase 13: the other datasets through the CLIs on the card.  (13a)
+    synthetic trees (tests/torch_datasets_tree.py): CheXpert as baseline
+    JPEGs, hip X-rays as JPEGs, CBIS-DDSM as 16-bit DICOMs with 8-bit ROI
+    masks; JPEGs of the numpy encoder decoded by the port against the
+    pixels its islow IDCT gives (gray and 4:2:0, restart intervals, then
+    one of about 2,800 x 2,300 each), the decode rate on one host thread,
+    a 5,000 x 3,000 mammogram read from DICOM against the written array,
+    ``load_view`` with the NYU crop on it, the loader's feed at the
+    CheXpert train transform (4 threads, 4 processes); (13b) two float32
+    epochs of XFMamba-S through ``cli.train --dataset chexpert`` (multilabel,
+    14 outputs; launches per step and per eval forward as phase 11), then
+    ``cli.infer_chexpert`` with its ``best.npz`` at 14 classes and a seeded
+    13-class one with ``--drop_no_finding 1``, then one epoch of
+    ``cli.train_mutual --dataset chexpert`` (XFMamba-T + XFMamba-S, the
+    summed steps' launches); (13c) one epoch of ``cli.train --dataset
+    hipxray``; (13d) one of ``cli.train --dataset ddsmxray`` on the DICOMs,
+    then ``cli.infer_ddsm --crop 1 --overlay_pass 1`` with its
+    ``best.npz``.  Returns a summary of the rates and times."""
+    import os
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_datasets_tree import (encode_dicom, encode_jpeg, mammogram, write_chexpert_tree,
+                                     write_ddsm_tree, write_hip_tree)
+    from torch_mura_tree import xray_like
+    from xfmamba_tpu_torch import native
+    from xfmamba_tpu_torch.checkpoint.convert import export_jax_variables
+    from xfmamba_tpu_torch.checkpoint.io import save_npz
+    from xfmamba_tpu_torch.cli import build_model_by_name, infer_chexpert, infer_ddsm
+    from xfmamba_tpu_torch.cli import train as cli_train
+    from xfmamba_tpu_torch.cli import train_mutual
+    from xfmamba_tpu_torch.data import chexpert, ddsm, dicom, hipxray, jpeg
+    from xfmamba_tpu_torch.train import driver
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"phase 13a: synthetic CheXpert, hip X-ray and CBIS-DDSM trees; the host readers "
+          f"({os.cpu_count()} host cores)")
+    tmp = tempfile.mkdtemp(prefix="xfm_phase13_")
+    fns = all_kernels()
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        chex_root = os.path.join(tmp, "chexpert")
+        chex_csv, chex_images = write_chexpert_tree(
+            chex_root, CHEX_PATIENTS, CHEX_SIZE, distinct=TREE_DISTINCT["chexpert"], seed=13)
+        hip_images, hip_csv = write_hip_tree(os.path.join(tmp, "hip"), HIP_IMAGES, HIP_SIZE,
+                                             sampling="420", distinct=TREE_DISTINCT["hipxray"],
+                                             seed=13)
+        ddsm_base, ddsm_meta, ddsm_cases = write_ddsm_tree(
+            os.path.join(tmp, "ddsm"), DDSM_PATIENTS, DDSM_SIZE,
+            distinct=TREE_DISTINCT["ddsmxray"], seed=13)
+        print(f"  trees written in {time.perf_counter() - t0:.2f} s: CheXpert {len(chex_images)} "
+              f"JPEGs of about {CHEX_SIZE[0]} x {CHEX_SIZE[1]}; hip X-rays {HIP_IMAGES} numbers "
+              f"(4:2:0 JPEGs of about {HIP_SIZE[0]} x {HIP_SIZE[1]}); CBIS-DDSM {DDSM_PATIENTS} "
+              f"patients (16-bit DICOMs of about {DDSM_SIZE[0]} x {DDSM_SIZE[1]}); distinct "
+              f"images {TREE_DISTINCT}")
+        # the decoder against the encoder's islow pixels, then its rate
+        native.library()
+        rng = np.random.default_rng(13)
+        cases = [(xray_like(rng, *CHEX_SIZE), 60 + 5 * (k % 8), (None, "420", "444", "422")[k % 4],
+                  k % 3) for k in range(DECODE_SAMPLES)]
+        wrong = [k for k, (y, q, s, r) in enumerate(cases)
+                 if not np.array_equal(jpeg.decode_gray(encode_jpeg(y, q, s, r)[0]),
+                                       encode_jpeg(y, q, s, r)[1])]
+        raws = {Path(p).read_bytes() for p in chex_images if p.endswith(".jpg")}
+        raws = [r for r in raws if r[:2] == jpeg.SOI]
+        per, _ = time_calls(jpeg.decode_gray, raws, repeat=3)
+        print(f"  JPEG: {DECODE_SAMPLES - len(wrong)} of {DECODE_SAMPLES} encoder images "
+              f"(gray, 4:2:0, 4:4:4, 4:2:2, restart intervals 0-2, quality 60-95) decode to the "
+              f"encoder's islow pixels; CheXpert-small: {1 / per:.1f} images/s on one host "
+              f"thread ({1e3 * per:.3f} ms each, {len(raws)} files)")
+        out["chexpert_images_per_s"] = 1 / per
+        big = xray_like(rng, *FULL_XRAY)
+        for sampling in (None, "420"):
+            raw, want = encode_jpeg(big, 95, sampling)
+            per, (got,) = time_calls(jpeg.decode_gray, [raw], repeat=3)
+            same = np.array_equal(got, want)
+            kind = "gray" if sampling is None else "4:2:0"
+            print(f"  JPEG {FULL_XRAY[0]} x {FULL_XRAY[1]} {kind}, quality 95, "
+                  f"{len(raw) / 2 ** 20:.2f} MiB: {1e3 * per:.1f} ms per image on one host "
+                  f"thread; pixels {'equal' if same else 'DIFFER'}")
+            out[f"jpeg_full_{kind}_ms"] = 1e3 * per
+            wrong += [] if same else [kind]
+        if wrong:
+            raise PhaseFailure(f"JPEG decodes differ from the encoder's pixels: {wrong}")
+        img, mask = mammogram(rng, *FULL_MAMMOGRAM, "LEFT")
+        full = os.path.join(tmp, "full")
+        os.makedirs(full)
+        Path(full, "1-1.dcm").write_bytes(encode_dicom(img))
+        Path(full, "1-2.dcm").write_bytes(encode_dicom(mask, explicit=False))
+        per, (px,) = time_calls(dicom.read_pixels, [os.path.join(full, "1-1.dcm")], repeat=3)
+        view = dict(image_file=os.path.join(full, "1-1.dcm"),
+                    mask_files=[os.path.join(full, "1-2.dcm")])
+        crop_s, ((cropped, roi),) = time_calls(lambda v: ddsm.load_view(v, "left", crop=True),
+                                               [view])
+        print(f"  DICOM {FULL_MAMMOGRAM[0]} x {FULL_MAMMOGRAM[1]} 16-bit mammogram "
+              f"({os.path.getsize(os.path.join(full, '1-1.dcm')) / 2 ** 20:.1f} MiB): "
+              f"{1e3 * per:.1f} ms to read on one host thread, "
+              f"{'equal to' if np.array_equal(px, img) else 'DIFFERENT FROM'} the written array; "
+              f"load_view with its 8-bit mask and the NYU crop {1e3 * crop_s:.0f} ms "
+              f"(crop {cropped.shape[0]} x {cropped.shape[1]}, {int(roi.sum())} ROI pixels)")
+        out.update(dicom_read_ms=1e3 * per, load_view_crop_ms=1e3 * crop_s)
+        if not np.array_equal(px, img) or not roi.any():
+            raise PhaseFailure("the DICOM reader or load_view lost the pixels or the ROI")
+        del big, img, mask, px, cropped, roi
+        argv = ["--model_name", CLI_MODEL, "--image_size", str(IMAGE), "--batch_size",
+                str(TRAIN_BATCH), "--num_workers", "4", "--seed", "42", "--device", CLI_DEVICE]
+        chex = ["--dataset", "chexpert", "--data_root", chex_root, "--chexpert_csv", chex_csv,
+                "--num_classes", "14"]
+        cfg, cfg_dict = cli_train.make_config(cli_train.parse_args(argv + chex))
+        loaders = chexpert.create_train_val_test_data_loaders([chex_root], [chex_csv], cfg_dict)
+        train_set = loaders[0].dataset
+        print(f"  CheXpert loaders: {len(train_set)} train, {len(loaders[1].dataset)} val, "
+              f"{len(loaders[2].dataset)} test pairs; the feed alone at the train transform, "
+              f"{IMAGE}x{IMAGE}, the train pairs {FEED_REPEAT} times over:")
+        for procs in (False, True):
+            first, rate, n = feed_epoch(train_set, 4, procs)
+            print(f"    4 {'processes' if procs else 'threads'}: {rate:.1f} pairs/s from batch 5 "
+                  f"to {n}, first batch after {first:.3f} s")
+            out[f"feed_{'processes' if procs else 'threads'}_pairs_per_s"] = rate
+
+        def epochs(label, args, want_step, want_eval, auc=True):
+            """The CLI's epochs; each val AUC must be finite where the
+            metrics hold one (two classes or multilabel: the reference
+            reports only the accuracy of 3 classes)."""
+            with epoch_launches(driver, fns) as rec:
+                _, history = cli_train.main(args)
+            bad = check_epoch_launches(rec, want_step, want_eval)
+            steps = [v for h in history for v in h["train"]["step_ms"]]
+            for h in history:
+                tr, sec = h["train"], h["seconds"]
+                score = h["val"]["auc"] if auc else h["val"]["accuracy"]
+                print(f"  {label} epoch {h['epoch']}: train loss {tr['loss']:.6f}, val loss "
+                      f"{h['val']['loss']:.6f}, val {'AUC' if auc else 'accuracy'} {score:.4f}; "
+                      f"{sum(sec.values()):.2f} s (train {sec['train_s']:.2f}, waiting on the "
+                      f"loader {tr['loader_wait_s']:.2f}); {tr['steps']} steps")
+            print(f"  {label}: median {statistics.median(steps):.2f} ms per step by CUDA events "
+                  f"over {len(steps)} steps, min {min(steps):.2f}, max {max(steps):.2f} ({card}); "
+                  f"launches {[(k, n, {a: b for a, b in c.items() if b}) for k, n, c in rec]}")
+            scores = [h["val"]["auc"] if auc else h["val"]["accuracy"] for h in history]
+            if bad or not steps or not all(math.isfinite(h[k]["loss"]) for h in history
+                                           for k in ("train", "val")) \
+                    or not all(map(math.isfinite, scores)):
+                raise PhaseFailure(f"{label}: launches differ from {want_step} per step and "
+                                   f"{want_eval} per eval forward ({bad}), no step, or a loss "
+                                   f"or a val {'AUC' if auc else 'accuracy'} is not finite "
+                                   f"({scores})")
+            out[f"{label}_step_ms"] = statistics.median(steps)
+
+        # 13b: CheXpert: two epochs, inference at 14 and 13 classes, mutual learning
+        print(f"phase 13b: cli.train --dataset chexpert, XFMamba-S float32, {IMAGE}x{IMAGE}, bs "
+              f"{TRAIN_BATCH}, 14 labels ({card})")
+        run = os.path.join(tmp, "chexpert_run")
+        epochs("chexpert", argv + chex + ["--epochs", "2", "--savemodel_path", run],
+               F32_STEP["small"], F32_FORWARD)
+        model13, _ = build_model_by_name(CLI_MODEL, 13, device="cpu", seed=3)
+        save_npz(os.path.join(tmp, "w13.npz"), export_jax_variables(model13))
+        del model13
+        for n, ckpt in ((14, os.path.join(run, "best.npz")), (13, os.path.join(tmp, "w13.npz"))):
+            res_dir = os.path.join(tmp, f"infer{n}")
+            res = infer_chexpert.main(
+                ["--model_name", CLI_MODEL, "--pretrained_model_path", ckpt, "--data_root",
+                 chex_root, "--csv_file", chex_csv, "--image_size", str(IMAGE), "--batch_size",
+                 str(TRAIN_BATCH), "--drop_no_finding", str(int(n == 13)), "--out_dir", res_dir,
+                 "--device", CLI_DEVICE])
+            print(f"  infer_chexpert, {n} classes: mean AUC {res['mean_auc']:.4f} over "
+                  f"{len(res['per_class'])} classes with both labels in the test fold; "
+                  f"{res['timing']['num_batches']} batches, {res['timing']['mean_ms']:.2f} ms "
+                  f"each, {res['timing']['fps']:.1f} images/s ({card})")
+            files = {"inference_timing.txt", "per_class_auc.txt"} <= set(os.listdir(res_dir))
+            if not res["per_class"] or not math.isfinite(res["mean_auc"]) or not files:
+                raise PhaseFailure(f"infer_chexpert at {n} classes gave {res}")
+        names = MUTUAL_PAIRS[0]
+        torch.cuda.synchronize()
+        for fn in fns.values():
+            fn.launches = 0
+        models, history = train_mutual.main(
+            ["--model_names", *names, "--epochs", "1", "--savemodel_path",
+             os.path.join(tmp, "dml")] + argv[2:] + chex)
+        torch.cuda.synchronize()
+        got = {n: fn.launches for n, fn in fns.items()}
+        steps = sum(len(h["step_ms"]) for h in history)
+        want = dict.fromkeys(fns, 0) | {k: v * steps
+                                        for k, v in mutual_step_want(names, F32).items()}
+        mutual_ms = statistics.median(history[0]["step_ms"]) if steps else float("nan")
+        print(f"  cli.train_mutual --dataset chexpert, {' + '.join(names)}: {steps} mutual steps, "
+              f"median {mutual_ms:.2f} ms per step ({card}); CE / KL "
+              f"{[(round(m['ce_loss'], 4), round(m['kl_loss'], 4)) for m in history[0]['models']]}; "
+              f"launches {({k: v for k, v in got.items() if v})}")
+        if not steps or got != want or not all(
+                math.isfinite(m["ce_loss"]) and math.isfinite(m["kl_loss"])
+                for m in history[0]["models"]):
+            raise PhaseFailure(f"mutual learning on CheXpert: launches differ from "
+                               f"{mutual_step_want(names, F32)} per step, or no step, or a loss "
+                               "is not finite")
+        out["mutual_step_ms"] = mutual_ms
+        del models
+
+        # 13c: hip X-rays
+        print(f"phase 13c: cli.train --dataset hipxray, 3 classes ({card})")
+        hip_args = argv + ["--dataset", "hipxray", "--hip_images_dir", hip_images, "--hip_csv",
+                           hip_csv, "--num_classes", "3", "--epochs", "1", "--savemodel_path",
+                           os.path.join(tmp, "hip_run")]
+        _, hip_cfg = cli_train.make_config(cli_train.parse_args(hip_args))
+        folds = [sorted({int(s[2]) for s in loader.dataset.samples})
+                 for loader in hipxray.create_data_loaders(hip_images, hip_csv, hip_cfg)[:2]]
+        print(f"  hip folds: classes {folds[0]} in train, {folds[1]} in val")
+        if folds != [[0, 1, 2]] * 2:
+            raise PhaseFailure(f"the hip folds lack a class: {folds}")
+        epochs("hipxray", hip_args, F32_STEP["small"], F32_FORWARD, auc=False)
+
+        # 13d: CBIS-DDSM from DICOM, then both inference passes with the crop
+        print(f"phase 13d: cli.train --dataset ddsmxray on the DICOMs, then cli.infer_ddsm "
+              f"--crop 1 --overlay_pass 1 ({card})")
+        run = os.path.join(tmp, "ddsm_run")
+        epochs("ddsmxray", argv + ["--dataset", "ddsmxray", "--data_root", ddsm_base,
+                                   "--ddsm_metadata_csv", ddsm_meta, "--ddsm_case_csvs",
+                                   *ddsm_cases, "--num_classes", "2", "--epochs", "1",
+                                   "--savemodel_path", run],
+               F32_STEP["small"], F32_FORWARD)
+        t0 = time.perf_counter()
+        aucs = infer_ddsm.main(["--model_name", CLI_MODEL, "--pretrained_model_path",
+                                os.path.join(run, "best.npz"), "--base_dir", ddsm_base,
+                                "--metadata_csv", ddsm_meta, "--case_csvs", *ddsm_cases,
+                                "--crop", "1", "--overlay_pass", "1", "--image_size", str(IMAGE),
+                                "--out_dir", os.path.join(tmp, "infer_ddsm"),
+                                "--device", CLI_DEVICE])
+        print(f"  infer_ddsm: AUCs {aucs} in {time.perf_counter() - t0:.2f} s")
+        if set(aucs) != {"plain", "overlay"} or not all(map(math.isfinite, aucs.values())):
+            raise PhaseFailure(f"infer_ddsm gave {aucs}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        sys.path.remove(str(Path(__file__).resolve().parent / "tests"))
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4552,6 +4846,9 @@ def main() -> int:
     t0 = time.time()
     models = phase_models(errors, card)
     print(f"  phase 12: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    phase_datasets(card)
+    print(f"  phase 13: {time.time() - t0:.1f} s")
     # library_ms: one PyTorch call computing the same function, where there
     # is one (kernels 19-21); none computes the scans
     print(json.dumps({"kernels": [

@@ -34,6 +34,7 @@ from xfmamba_tpu.ops.selective_scan import selective_scan as jax_scan
 from xfmamba_tpu_torch.models import fusion, ss2d
 from xfmamba_tpu_torch.ops import nk_scan, nk_scan_adjoint
 from xfmamba_tpu_torch.ops.ablations import nk_scan_v4, nk_scan_wide, pe_fused, seg_ln
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 KINDS = {"cross2d": ("row_f", "col_f", "row_r", "col_r"), "unidi": ("row_f",) * 4,

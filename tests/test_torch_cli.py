@@ -21,6 +21,7 @@ from xfmamba_tpu_torch import cli
 from xfmamba_tpu_torch.checkpoint.convert import jax_paths
 from xfmamba_tpu_torch.cli import infer_mura, train
 from xfmamba_tpu_torch.models import tops, vssm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SMOKE = ["--model_name", "twoviewxfmamba_smoke", "--image_size", "32", "--device", "cpu"]
 
@@ -148,11 +149,15 @@ def test_flags_match_jax(parse, jax_parse, required):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--dataset", "chexpert"], "other datasets"),
-    (["--dataset", "ddsmxray"], "other datasets"),
+    (["--dataset", "chexpert", "--device_preprocess", "1"], "device pipeline"),
+    (["--dataset", "ddsmxray", "--device_preprocess", "1"], "device pipeline"),
     (["--device_preprocess", "1"], "device pipeline"),
+    (["--dataset", "hipxray", "--device_preprocess", "1"], "device pipeline"),
 ])
 def test_unported_train_flags_raise(tree, tmp_path, argv, match):
+    """``--device_preprocess 1`` raises on every dataset (each loader
+    refuses it); the datasets themselves are ported
+    (tests/test_torch_cli_datasets.py)."""
     _, data = tree
     with pytest.raises(NotImplementedError, match=match):
         _train(data, tmp_path / "x", "--epochs", "1", *argv)

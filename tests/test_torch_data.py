@@ -31,6 +31,7 @@ from xfmamba_tpu_torch import native
 from xfmamba_tpu_torch.data import TwoViewLoader, TwoViewSamples
 from xfmamba_tpu_torch.data import mura, png
 from xfmamba_tpu_torch.data import transforms as tf
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # one level of the u8 input after Normalize(0.456, 0.224), and float32 slack
 LEVEL = 1 / (255 * 0.224) + 1e-6

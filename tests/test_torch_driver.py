@@ -33,6 +33,7 @@ from xfmamba_tpu_torch.models.tops import TwoViewXFMamba
 from xfmamba_tpu_torch.train import driver, loop
 from xfmamba_tpu_torch.train import metrics as M
 from xfmamba_tpu_torch.train.config import TrainConfig
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TINY = dict(model_type="tiny", hidden_dim=128, d_state=4, drop_path_rate=0.0,
             backbone_overrides=dict(depths=(2, 2, 2, 2), dims=16, drop_path_rate=0.0))

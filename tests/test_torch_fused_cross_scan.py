@@ -22,6 +22,7 @@ from xfmamba_tpu_torch.checkpoint.convert import jax_paths, load_jax_variables
 from xfmamba_tpu_torch.models import ss2d
 from xfmamba_tpu_torch.models.fusion import CrossSS2Dv5
 from xfmamba_tpu_torch.ops import fused_cross_scan as fcs
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 

@@ -41,6 +41,7 @@ from xfmamba_tpu.ops.selective_scan_pallas import (
     grouped_scan_pallas_bwd, grouped_scan_pallas_fwd)
 from xfmamba_tpu_torch.kernels import build
 from xfmamba_tpu_torch.ops import selective_scan_grouped as ssg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 STUBS = Path(__file__).resolve().parent / "cuda_emulator"

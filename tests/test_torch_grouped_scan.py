@@ -24,6 +24,7 @@ from xfmamba_tpu.ops.selective_scan import selective_scan as jax_scan
 from xfmamba_tpu_torch.models import ss2d
 from xfmamba_tpu_torch.ops import nk_scan_adjoint as nka
 from xfmamba_tpu_torch.ops import selective_scan_grouped as ssg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 CHUNK = 4           # several chunks at the tests' lengths

@@ -12,6 +12,7 @@ import torch
 from xfmamba_tpu_torch.kernels import build
 from xfmamba_tpu_torch.models.tops import two_view_xfmamba
 from xfmamba_tpu_torch.models.vssm import vmamba_tiny_m2
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -23,7 +24,7 @@ def test_port_imports_no_jax_and_builds_nothing():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'xfmamba_tpu', 'PIL', 'cv2', 'pandas', "
-        "'sklearn', 'torchvision'))\n"
+        "'sklearn', 'torchvision', 'pydicom'))\n"
         "assert not bad, bad\n"
         "for m in ('train.config', 'train.loop', 'ops.vss_block_train', 'ops.vss_stage_train',\n"
         "          'ops.nk_scan_adjoint', 'ops.ss2d_core_n1', 'ops.selective_scan_grouped',\n"
@@ -32,7 +33,10 @@ def test_port_imports_no_jax_and_builds_nothing():
         "          'ops.ablations.nk_scan_wide', 'ops.ablations.pe_fused', 'ops.ablations.seg_ln',\n"
         "          'ops.cross2d_scan', 'train.metrics', 'train.driver', 'checkpoint.io',\n"
         "          'utils.misc', 'native', 'data', 'data.loader', 'data.png', 'data.transforms',\n"
-        "          'data.mura', 'cli', 'cli.train', 'cli.infer_mura'):\n"
+        "          'data.mura', 'data.jpeg', 'data.image', 'data.dicom', 'data.chexpert',\n"
+        "          'data.hipxray', 'data.ddsm', 'data.nyu_cropping', 'data.optimal_centers',\n"
+        "          'utils.profiling', 'cli', 'cli.train', 'cli.infer_mura', 'cli.infer_chexpert',\n"
+        "          'cli.infer_ddsm'):\n"
         "    assert 'xfmamba_tpu_torch.' + m in sys.modules, m\n"
         "from xfmamba_tpu_torch.kernels import build\n"
         "assert build.library.cache_info().currsize == 0\n"
@@ -85,17 +89,18 @@ def test_m2_factory_defaults_to_the_card():
 
 
 BANNED = {"jax", "jaxlib", "flax", "optax", "xfmamba_tpu", "PIL", "cv2", "pandas", "sklearn",
-          "torchvision"}
+          "torchvision", "pydicom"}
 
 
 def test_no_source_imports_jax_or_the_missing_packages():
     """No module of the port, nor ``chip_smoke.py`` and the synthetic-tree
-    helper it runs, imports JAX, the JAX package, or a package that the
-    machine with the card lacks (PIL, cv2, pandas, sklearn, torchvision),
-    not even inside a function."""
+    helpers it runs, imports JAX, the JAX package, or a package that the
+    machine with the card lacks (PIL, cv2, pandas, sklearn, torchvision,
+    pydicom), not even inside a function."""
     import ast
     files = sorted((REPO / "xfmamba_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "tests" / "torch_mura_tree.py"]
+        REPO / "chip_smoke.py", REPO / "tests" / "torch_mura_tree.py",
+        REPO / "tests" / "torch_datasets_tree.py"]
     found = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

@@ -26,6 +26,7 @@ from xfmamba_tpu_torch.ops import (
 from xfmamba_tpu_torch.ops.vss_block import pack_vss_block_params, pack_vss_block_train_params
 from xfmamba_tpu_torch.ops.ablations import (
     ablation_scan, nk_scan_v4, nk_scan_wide, pe_fused, seg_ln)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.cuda
 

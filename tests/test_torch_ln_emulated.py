@@ -45,6 +45,7 @@ from xfmamba_tpu.ops.ablations import pe_fused as jax_pe
 from xfmamba_tpu.ops.ablations import seg_ln as jax_seg
 from xfmamba_tpu_torch.kernels import build
 from xfmamba_tpu_torch.ops.ablations import pe_fused, seg_ln
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 STUBS = Path(__file__).resolve().parent / "cuda_emulator"

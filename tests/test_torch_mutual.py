@@ -41,6 +41,7 @@ from xfmamba_tpu_torch.models import tops
 from xfmamba_tpu_torch.train import mutual
 from xfmamba_tpu_torch.train.config import TrainConfig
 from xfmamba_tpu_torch.train.loop import make_optimizer
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 BATCH, IMAGE, LR = 3, 32, 1e-3
@@ -48,32 +49,22 @@ TWO_VIEW = dict(model_type="tiny", hidden_dim=128, d_state=4, drop_path_rate=0.0
                 backbone_overrides=dict(depths=(1, 1, 1, 1), dims=16, drop_path_rate=0.0))
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the suite runs several workers on the host's
-    cores, and torch's thread pools then slow each other down."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _shrink(mp):
     mp.setattr(jtops, "build_model", _jax_tiny_build_model)
     mp.setattr(tops, "build_model", _port_tiny_build_model)
 
 
-@pytest.fixture(scope="module")
-def jax_step():
+def jax_mutual_step(label=np.array([1, 0, 1], np.int32)):
     """Both models' variables, a batch, and JAX's mutual step from them
     (Adam, lr 1e-3, weight decay 1e-5): the metrics, each model's
     gradients, and the new states with the optimizer state of the plain
     ``make_optimizer`` (an identity transformation ahead of it keeps the
-    gradients)."""
+    gradients).  Integer ``label`` classes train with the cross-entropy,
+    float label vectors (multilabel) with the BCE."""
     rng = np.random.default_rng(8)
     batch = {"image1": rng.standard_normal((BATCH, IMAGE, IMAGE, 1)).astype(np.float32),
              "image2": rng.standard_normal((BATCH, IMAGE, IMAGE, 1)).astype(np.float32),
-             "label": np.array([1, 0, 1], np.int32)}
+             "label": label}
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     keep_grads = optax.GradientTransformation(
         lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
@@ -87,12 +78,19 @@ def jax_step():
                 for _ in jmodels]
         states = [TrainState(step=0, params=v["params"], batch_stats=v.get("batch_stats", {}),
                              opt_state=o.init(v["params"])) for v, o in zip(variables, opts)]
-        step = jax_mutual.make_mutual_train_step(jmodels, opts, two_view=[True, False])
+        step = jax_mutual.make_mutual_train_step(jmodels, opts, multilabel=label.ndim == 2,
+                                                 two_view=[True, False])
         new, metrics = jax.device_get(step(states, jb, jax.random.PRNGKey(0), jnp.asarray(LR)))
     grads = [s.opt_state[0] for s in new]
     new = [TrainState(step=s.step, params=s.params, batch_stats=s.batch_stats,
                       opt_state=s.opt_state[1]) for s in new]
     return dict(variables=variables, batch=batch, new=new, grads=grads, metrics=metrics)
+
+
+@pytest.fixture(scope="module")
+def jax_step():
+    """`jax_mutual_step` on three integer labels."""
+    return jax_mutual_step()
 
 
 def _port_models(variables, mp):
@@ -104,24 +102,38 @@ def _port_models(variables, mp):
 
 
 def _batch(batch):
+    label = T(batch["label"])
     return {"image1": T(batch["image1"]), "image2": T(batch["image2"]),
-            "label": T(batch["label"]).long()}
+            "label": label if label.ndim == 2 else label.long()}
+
+
+def port_mutual_step(jax_step, mp):
+    """The port's models after one mutual step from JAX's variables, their
+    optimizers, the step's output, and copies of the models from before it
+    (multilabel when the batch's labels are vectors)."""
+    models = _port_models(jax_step["variables"], mp)
+    before = copy.deepcopy(models)
+    optimizers = [make_optimizer(TrainConfig(lr=LR), m.parameters()) for m in models]
+    step = mutual.make_mutual_train_step(models, optimizers,
+                                         multilabel=jax_step["batch"]["label"].ndim == 2,
+                                         two_view=[True, False])
+    return models, optimizers, step(_batch(jax_step["batch"])), before
 
 
 @pytest.fixture
 def port_step(jax_step, monkeypatch):
-    """The port's models after one mutual step from JAX's variables, their
-    optimizers, the step's output, and copies of the models from before it."""
-    models = _port_models(jax_step["variables"], monkeypatch)
-    before = copy.deepcopy(models)
-    optimizers = [make_optimizer(TrainConfig(lr=LR), m.parameters()) for m in models]
-    step = mutual.make_mutual_train_step(models, optimizers, two_view=[True, False])
-    return models, optimizers, step(_batch(jax_step["batch"])), before
+    return port_mutual_step(jax_step, monkeypatch)
 
 
 def test_mutual_step_matches_jax(jax_step, port_step):
-    """The total and each model's CE and KL (1e-5 relative), every
-    gradient (2e-4 of its tensor's largest gradient), the parameters after
+    """`check_mutual_step` on the cross-entropy step."""
+    check_mutual_step(jax_step, port_step)
+
+
+def check_mutual_step(jax_step, port_step):
+    """The total and each model's CE and KL (1e-5 relative), each model's
+    logits (1e-5 of the largest), every gradient (2e-4 of its tensor's
+    largest gradient), the parameters after
     Adam (2 lr where a gradient near zero may flip the first update's sign,
     1e-6 where Adam's input is well above the gradient tolerance), and the
     two-view model's ShallowFusion BatchNorm statistics (updated once a
@@ -131,6 +143,10 @@ def test_mutual_step_matches_jax(jax_step, port_step):
     assert abs(float(out["loss"]) - float(ref["loss"])) <= 1e-5 * abs(float(ref["loss"]))
     for key in ("ce_loss", "kl_loss"):
         np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]), rtol=1e-5, atol=1e-7)
+    for got, want in zip(out["logits"], ref["logits"], strict=True):
+        want = np.asarray(want)
+        assert got.shape == want.shape
+        assert_close(got, want, 1e-5 * max(1.0, np.abs(want).max()))
     for i, model in enumerate(models):
         params = dict(model.named_parameters())
         variables = jax_step["variables"][i]
@@ -302,9 +318,13 @@ def test_cli_flags_match_jax():
 @pytest.mark.parametrize("argv,match", [
     (["--coordinator_address", "localhost:1234"], "DDP"),
     (["--num_processes", "2"], "DDP"),
-    (["--dataset", "chexpert"], "other datasets"),
+    (["--device", "cuda"], "over 2 CUDA devices"),
 ])
-def test_cli_refuses_what_is_not_ported(tree, tmp_path, argv, match):
+def test_cli_refuses_what_is_not_ported(tree, tmp_path, argv, match, monkeypatch):
+    """Multi-process runs and more than one visible CUDA device (two
+    reported here) raise; every dataset is ported
+    (tests/test_torch_cli_datasets.py)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match=match):
         train_mutual.main(["--model_names", "twoviewxfmamba_smoke", "twoviewxfmamba_smoke",
                            "--device", "cpu", "--epochs", "1", "--savemodel_path",

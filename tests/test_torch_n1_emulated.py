@@ -39,6 +39,7 @@ from xfmamba_tpu_torch.kernels import build
 from xfmamba_tpu_torch.ops import cross2d_scan as cs
 from xfmamba_tpu_torch.ops import ss2d_core_n1 as n1
 from xfmamba_tpu_torch.ops.primitives import gemm_ab_plain
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 STUBS = Path(__file__).resolve().parent / "cuda_emulator"

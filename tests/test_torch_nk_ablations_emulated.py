@@ -47,6 +47,7 @@ from xfmamba_tpu_torch.kernels import build
 from xfmamba_tpu_torch.ops.ablations import ablation_scan as ab
 from xfmamba_tpu_torch.ops.ablations import nk_scan_v4, nk_scan_wide
 from xfmamba_tpu_torch.ops.nk_scan import scan_mode_kinds
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 STUBS = Path(__file__).resolve().parent / "cuda_emulator"

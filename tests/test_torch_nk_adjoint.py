@@ -22,6 +22,7 @@ from xfmamba_tpu.models.ss2d import ss2d_core_from_projs as jax_core
 from xfmamba_tpu.ops import nk_scan_adjoint as jax_adjoint
 from xfmamba_tpu.ops.selective_scan import selective_scan as jax_scan
 from xfmamba_tpu_torch.ops import nk_scan, nk_scan_adjoint
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 OUTPUTS = ("du", "ddts", "dBs", "dCs", "dA", "dDvec", "dbias")

@@ -40,6 +40,7 @@ from xfmamba_tpu.ops.vss_block_pallas_v2 import nk_scan_call_v2, nk_scan_call_v2
 from xfmamba_tpu_torch.kernels import build
 from xfmamba_tpu_torch.ops import nk_scan as nk
 from xfmamba_tpu_torch.ops.primitives import layer_norm_plain
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 STUBS = Path(__file__).resolve().parent / "cuda_emulator"

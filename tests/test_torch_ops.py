@@ -17,6 +17,7 @@ from xfmamba_tpu_torch.models.ss2d import (
     a_log_init, dt_proj_bias_init, ss2d_core_from_projs)
 from xfmamba_tpu_torch.ops import fast_math, nk_scan, primitives
 from xfmamba_tpu_torch.ops.selective_scan import selective_scan_seq
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 

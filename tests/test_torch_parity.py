@@ -28,6 +28,7 @@ from xfmamba_tpu_torch.models import vssm
 from xfmamba_tpu_torch.models.vssm import VSSBlock
 from xfmamba_tpu_torch.ops import nk_scan, vss_stage
 from xfmamba_tpu_torch.ops.vss_block import pack_vss_block_params
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 TINY = dict(model_type="tiny", hidden_dim=128, d_state=4,

@@ -20,6 +20,7 @@ from xfmamba_tpu.models.ss2d import ss2d_core as jax_ss2d_core
 from xfmamba_tpu.ops.selective_scan_pallas import (
     _core_fused_proj_bwd_impl, _core_fused_proj_parts)
 from xfmamba_tpu_torch.ops import ss2d_core_n1 as n1
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 NAMES = ("dx", "d_x_proj_weight", "d_dt_projs_weight", "d_dt_projs_bias", "d_A_logs", "d_Ds")

@@ -41,6 +41,7 @@ from xfmamba_tpu_torch.models.ss2d import SS2D
 from xfmamba_tpu_torch.ops import cross_scan, ssd, ssd_chunk
 from xfmamba_tpu_torch.train import loop
 from xfmamba_tpu_torch.train.config import TrainConfig
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 

@@ -29,6 +29,7 @@ from xfmamba_tpu_torch.ops.vss_block import (
     PLAIN_OPS, SS2D_FIELDS, pack_vss_block_train_params, vss_block_ref)
 from xfmamba_tpu_torch.ops.vss_block_train import vss_block_bwd_body, vss_block_bwd_plain
 from xfmamba_tpu_torch.ops.vss_stage import vss_stage_plain
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 

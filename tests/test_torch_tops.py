@@ -38,6 +38,7 @@ from xfmamba_tpu_torch.checkpoint.convert import jax_paths, load_jax_variables
 from xfmamba_tpu_torch.models import tops, vssm
 from xfmamba_tpu_torch.train import loop
 from xfmamba_tpu_torch.train.config import TrainConfig
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 BATCH, IMAGE, LR = 3, 32, 1e-3
@@ -46,16 +47,6 @@ TINY_SMALL = dict(depths=(1, 1, 1, 1), dims=16, drop_path_rate=0.0, ssm_ratio=2.
 BASELINES = {"singleviewmamba": ("SingleViewMamba", False),
              "twoviewlatejoinmamba": ("TwoViewLateJoinMamba", True),
              "twoviewearlyfusionmamba": ("TwoViewEarlyFusionMamba", True)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the suite runs several workers on the host's
-    cores, and torch's thread pools then slow each other down."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jax_tiny_build_model(num_classes=1000):

@@ -44,6 +44,7 @@ from xfmamba_tpu_torch.ops.vss_block import (
     SS2D_FIELDS, pack_vss_block_params, pack_vss_block_train_params, vss_block_ref)
 from xfmamba_tpu_torch.train import loop
 from xfmamba_tpu_torch.train.config import TrainConfig
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 TINY = dict(model_type="tiny", hidden_dim=128, d_state=4, drop_path_rate=0.0,
@@ -55,17 +56,18 @@ BATCH, IMAGE, LR = 3, 32, 1e-3
 # one train step of the whole slice
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def jax_step():
-    """Variables, batch, and JAX's loss, gradients, batch statistics and
-    parameters after one Adam step (lr 1e-3, weight decay 1e-5)."""
-    jmodel = JaxTwoView(**TINY)
+def jax_train_step(model_kw=TINY, label=np.array([0, 1, 1], np.int32)):
+    """Variables, batch, and JAX's loss, gradients, batch statistics,
+    parameters and logits after one Adam step (lr 1e-3, weight decay 1e-5)
+    of ``JaxTwoView(**model_kw)`` on ``label``: integer classes train with
+    the cross-entropy, float label vectors (multilabel) with the BCE."""
+    jmodel = JaxTwoView(**model_kw)
     zeros = jnp.zeros((BATCH, IMAGE, IMAGE, 1))
     variables = jax_variables(jmodel, 0, zeros, zeros)
     rng = np.random.default_rng(1)
     batch = {"image1": rng.standard_normal((BATCH, IMAGE, IMAGE, 1)).astype(np.float32),
              "image2": rng.standard_normal((BATCH, IMAGE, IMAGE, 1)).astype(np.float32),
-             "label": np.array([0, 1, 1], np.int32)}
+             "label": label}
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     # one compile: an identity transformation ahead of Adam keeps the step's
     # gradients in the optimizer state
@@ -73,12 +75,20 @@ def jax_step():
         lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
         lambda updates, state, params=None: (updates, updates))
     opt = optax.chain(keep_grads, jax_make_optimizer(JaxTrainConfig(lr=LR)))
-    train_step, _ = jax_make_train_step(jmodel, opt, multilabel=False, jit_compile=False)
+    train_step, _ = jax_make_train_step(jmodel, opt, multilabel=label.ndim == 2,
+                                        jit_compile=False)
     state = TrainState(step=0, params=variables["params"],
                        batch_stats=variables["batch_stats"],
                        opt_state=opt.init(variables["params"]))
     new_state, metrics = jax.jit(train_step)(state, jbatch, jax.random.PRNGKey(0), LR)
-    return variables, batch, new_state, float(metrics["loss"]), new_state.opt_state[0]
+    return (variables, batch, new_state, float(metrics["loss"]), new_state.opt_state[0],
+            np.asarray(metrics["logits"]))
+
+
+@pytest.fixture(scope="module")
+def jax_step():
+    """`jax_train_step` of the tiny model on three integer labels."""
+    return jax_train_step()
 
 
 def _leaf(tree, path):
@@ -156,25 +166,30 @@ def test_base_model_parameters_match_jax():
     assert model.fusemamba.blocks[0].self_attention.x_proj_weight.shape == (4, 64 + 32, 2048)
 
 
-def _check_train_step(jax_step, use_checkpoint):
-    """Loss (1e-5), every parameter gradient (2e-4 of the largest gradient
-    of its tensor, float32 sums in other orders through the whole model),
-    the BatchNorm statistics (the running variance up to n/(n-1), see
+def _check_train_step(jax_step, use_checkpoint, model_kw=TINY):
+    """Loss (1e-5), the step's logits (1e-5 of the largest), every
+    parameter gradient (2e-4 of the largest gradient of its tensor, float32
+    sums in other orders through the whole model), the BatchNorm
+    statistics (the running variance up to n/(n-1), see
     `test_batchnorm_training_statistics`) and the parameters after one Adam
     step.  The first Adam update is lr * s / (|s| + eps), about lr *
     sign(s), with s = g + 1e-5 * p (the weight decay): where |s| is above
     100 times the gradient tolerance the parameters agree to 1e-6;
     elsewhere an s within its tolerance of zero may flip the sign, so they
-    agree to 2 * lr."""
-    variables, batch, new_state, loss_ref, grads_ref = jax_step
-    model = TwoViewXFMamba(**TINY, use_checkpoint=use_checkpoint)
+    agree to 2 * lr.  A batch of float label vectors trains multilabel."""
+    variables, batch, new_state, loss_ref, grads_ref, logits_ref = jax_step
+    multilabel = batch["label"].ndim == 2
+    model = TwoViewXFMamba(**model_kw, use_checkpoint=use_checkpoint)
     load_jax_variables(model, variables)
     optimizer = loop.make_optimizer(TrainConfig(lr=LR), model.parameters())
-    train_step, _ = loop.make_train_step(model, optimizer, multilabel=False)
+    train_step, _ = loop.make_train_step(model, optimizer, multilabel=multilabel)
+    label = T(batch["label"])
     tb = {"image1": T(batch["image1"]), "image2": T(batch["image2"]),
-          "label": T(batch["label"]).long()}
+          "label": label if multilabel else label.long()}
     out = train_step(tb)
     assert abs(float(out["loss"]) - loss_ref) <= 1e-5 * max(1.0, abs(loss_ref))
+    assert out["logits"].shape == logits_ref.shape
+    assert_close(out["logits"], logits_ref, 1e-5 * max(1.0, np.abs(logits_ref).max()))
     params = dict(model.named_parameters())
     n_params = 0
     for key, (jpath, to_port, _) in jax_paths(model).items():

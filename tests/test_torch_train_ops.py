@@ -30,6 +30,7 @@ from xfmamba_tpu_torch.ops.vss_block import (
     SS2D_FIELDS, pack_vss_block_train_params)
 from xfmamba_tpu_torch.ops.vss_block_train import vss_block_bwd_plain, vss_block_train_op
 from xfmamba_tpu_torch.ops.vss_stage_train import vss_stage_train, vss_stage_train_forward
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 NAMES = ("x", "dts", "Bs", "Cs", "A", "Dmat", "bias")

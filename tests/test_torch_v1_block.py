@@ -27,6 +27,7 @@ from xfmamba_tpu_torch.models import vssm
 from xfmamba_tpu_torch.models.tops import TwoViewXFMamba
 from xfmamba_tpu_torch.models.vssm import VSSBlock
 from xfmamba_tpu_torch.ops import vss_block_v1
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 

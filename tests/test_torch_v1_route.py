@@ -33,6 +33,7 @@ from xfmamba_tpu_torch.models import fusion, vssm
 from xfmamba_tpu_torch.models.tops import TwoViewXFMamba
 from xfmamba_tpu_torch.models.vssm import VSSBlock
 from xfmamba_tpu_torch.ops import nk_scan, nk_scan_v1, ss2d_core_n1, vss_block_v1, vss_stage
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 # a small XFMamba whose 56 x 56 views give maps 14, 7, 4, 2: at one or

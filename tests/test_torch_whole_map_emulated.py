@@ -50,6 +50,7 @@ from xfmamba_tpu_torch.ops import fused_cross_scan as fcs
 from xfmamba_tpu_torch.ops import nk_scan_v1 as v1
 from xfmamba_tpu_torch.ops import scan_whole_map as wm
 from xfmamba_tpu_torch.ops.nk_scan import scan_mode_kinds
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 T = torch.from_numpy
 STUBS = Path(__file__).resolve().parent / "cuda_emulator"

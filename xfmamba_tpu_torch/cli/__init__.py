@@ -15,14 +15,6 @@ import time
 import numpy as np
 import torch
 
-# CheXpert label names (``dataset_chexpert_twoview.py:12-17``)
-CHEXPERT_LABELS = [
-    "No Finding", "Enlarged Cardiomediastinum", "Cardiomegaly",
-    "Lung Opacity", "Lung Lesion", "Edema", "Consolidation", "Pneumonia",
-    "Atelectasis", "Pneumothorax", "Pleural Effusion", "Pleural Other",
-    "Fracture", "Support Devices",
-]
-
 # MURA body parts (``2_inference_mura.py:154``)
 MURA_BODY_PARTS = ["ELBOW", "FINGER", "FOREARM", "HAND", "HUMERUS", "SHOULDER", "WRIST"]
 
@@ -129,6 +121,20 @@ def make_eval_apply(model: torch.nn.Module, two_view: bool, dtype=torch.float32)
                  for x in ((x1, x2) if two_view else (x1,))]
         return model(*views).float().cpu().numpy()
     return apply_fn
+
+
+def inference_apply(args, num_classes: int):
+    """The inference CLIs' model: ``--model_name`` with ``num_classes``
+    outputs on ``--device``, its weights from ``--pretrained_model_path``
+    (or, with a warning, the seeded initial ones, as in JAX), wrapped by
+    `make_eval_apply` in ``--bf16``'s dtype."""
+    model, two_view = build_model_by_name(args.model_name, num_classes, device=args.device,
+                                          seed=args.seed)
+    if args.pretrained_model_path:
+        load_variables(args.pretrained_model_path, model)
+    else:
+        print("WARNING: no checkpoint given; using random init")
+    return make_eval_apply(model, two_view, torch.bfloat16 if args.bf16 else torch.float32)
 
 
 def collect_scores(apply_fn, loader, binary: bool = True):

@@ -14,11 +14,9 @@ import argparse
 import os
 
 import numpy as np
-import torch
 
 from xfmamba_tpu_torch.cli import (
-    MURA_BODY_PARTS, UTILITIES_ITEM, build_model_by_name, collect_scores, load_variables,
-    make_eval_apply, write_roc_artifacts)
+    MURA_BODY_PARTS, UTILITIES_ITEM, collect_scores, inference_apply, write_roc_artifacts)
 
 
 def parse_args(argv=None):
@@ -49,14 +47,7 @@ def main(argv=None):
     for flag in ("cal_flops", "gradcam"):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} 1 is not ported yet ({UTILITIES_ITEM})")
-    model, two_view = build_model_by_name(args.model_name, args.num_classes,
-                                          device=args.device, seed=args.seed)
-    if args.pretrained_model_path:
-        load_variables(args.pretrained_model_path, model)
-    else:
-        print("WARNING: no checkpoint given; using random init")
-    apply_fn = make_eval_apply(model, two_view,
-                               torch.bfloat16 if args.bf16 else torch.float32)
+    apply_fn = inference_apply(args, args.num_classes)
 
     from xfmamba_tpu_torch.data.mura import create_data_loaders
     sz = args.image_size

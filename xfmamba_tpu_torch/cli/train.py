@@ -12,9 +12,14 @@ Usage (MURA, on the card):
         --valid_label_csv MURA-v1.1/valid_labeled_studies.csv \\
         --savemodel_path runs/mura_small
 
-Not ported, and raising ``NotImplementedError`` with the ROADMAP item:
-``--dataset`` other than ``mura`` (CheXpert needs a JPEG decoder, DDSM
-DICOM) and ``--device_preprocess 1``.  A single-view model
+Every dataset of the JAX CLI: ``mura`` (the four CSV flags), ``chexpert``
+(``--data_root`` and ``--chexpert_csv``; multilabel, as ``fit`` trains it,
+with ``--num_classes 14``), ``hipxray``
+(``--hip_images_dir``, ``--hip_csv``) and ``ddsmxray`` (``--data_root``,
+``--ddsm_metadata_csv``, ``--ddsm_case_csvs``); for the last two the
+validation split is also the test split, as in JAX.  Not ported, and
+raising ``NotImplementedError`` with the ROADMAP item: ``--device_preprocess
+1`` (each dataset's loader refuses it).  A single-view model
 (``singleviewmamba``) trains and is evaluated on ``image1`` alone.
 ``--pretrained_model_path`` is accepted and, as in the JAX package, not
 read by ``fit``.
@@ -30,8 +35,6 @@ import torch
 
 from xfmamba_tpu_torch.cli import build_model_by_name
 from xfmamba_tpu_torch.train.config import TrainConfig
-
-DATASETS_ITEM = "ROADMAP.md, queue 1: the other datasets (CheXpert: JPEG; DDSM: DICOM; hip X-ray)"
 
 
 def parse_args(argv=None):
@@ -110,11 +113,25 @@ def make_config(args):
 
 
 def build_loaders(args, cfg_dict):
-    if args.dataset != "mura":
-        raise NotImplementedError(f"--dataset {args.dataset} is not ported yet ({DATASETS_ITEM})")
-    from xfmamba_tpu_torch.data.mura import create_data_loaders
-    return create_data_loaders(args.train_image_csv, args.train_label_csv,
-                               args.valid_image_csv, args.valid_label_csv, cfg_dict)
+    """(train, val, test) loaders of ``--dataset`` (JAX's ``build_loaders``)."""
+    if args.dataset == "mura":
+        from xfmamba_tpu_torch.data.mura import create_data_loaders
+        return create_data_loaders(args.train_image_csv, args.train_label_csv,
+                                   args.valid_image_csv, args.valid_label_csv, cfg_dict)
+    if args.dataset == "chexpert":
+        from xfmamba_tpu_torch.data.chexpert import create_train_val_test_data_loaders
+        return create_train_val_test_data_loaders([args.data_root], [args.chexpert_csv],
+                                                  cfg_dict)
+    if args.dataset == "ddsmxray":
+        from xfmamba_tpu_torch.data.ddsm import create_data_loaders
+        tr, va = create_data_loaders(args.ddsm_case_csvs, args.ddsm_metadata_csv,
+                                     args.data_root, cfg_dict)
+        return tr, va, va
+    if args.dataset == "hipxray":
+        from xfmamba_tpu_torch.data.hipxray import create_data_loaders
+        tr, va, _ = create_data_loaders(args.hip_images_dir, args.hip_csv, cfg_dict)
+        return tr, va, va
+    raise ValueError(args.dataset)
 
 
 def main(argv=None):

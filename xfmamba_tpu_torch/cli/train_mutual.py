@@ -13,10 +13,14 @@ validation pass (the validation split is built and never read), so the
 "best ROC" is the training AUC.  Each epoch also prints the median ms per
 mutual step (CUDA events on the card).
 
-One device only: ``--coordinator_address``, ``--num_processes`` above 1
-and more than one visible CUDA device raise ``NotImplementedError`` (the
-JAX CLI shards the batch over a mesh; the port has no data parallelism
-yet), as does a ``--dataset`` other than ``mura``.
+Every dataset of ``cli.train`` (its ``build_loaders``).  CheXpert trains
+multilabel, as ``fit`` does (``--num_tasks`` above 1 or ``--dataset
+chexpert``), with ``fit``'s accuracy of the labels at sigmoid > 0.5; JAX's
+mutual CLI looks at ``--num_tasks`` alone and takes an argmax accuracy,
+which fails on multilabel batches.  One device
+only: ``--coordinator_address``, ``--num_processes`` above 1 and more than
+one visible CUDA device raise ``NotImplementedError`` (the JAX CLI shards
+the batch over a mesh; the port has no data parallelism yet).
 
 Usage (the default pair, XFMamba-T and XFMamba-S, on MURA):
     python -m xfmamba_tpu_torch.cli.train_mutual --dataset mura \\
@@ -125,7 +129,7 @@ def main(argv=None):
     cfg_dict = dataclasses.asdict(cfg)
     cfg_dict["root_dir"] = cfg.data_root
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    multilabel = cfg.num_tasks > 1
+    multilabel = cfg.num_tasks > 1 or cfg.dataset == "chexpert"
 
     train_loader, _, _ = build_loaders(args, cfg_dict)
     train_loader.drop_last = True
@@ -172,7 +176,11 @@ def main(argv=None):
         checkpoints = []
         for i in range(K):
             for s, lab in enumerate(labels):
-                acc = (logits[i][s].argmax(1) == lab).sum()
+                if multilabel:
+                    # each sample's share of labels right at sigmoid > 0.5, as fit's accuracy
+                    acc = ((logits[i][s] > 0) == (lab > 0.5)).mean(1).sum()
+                else:
+                    acc = (logits[i][s].argmax(1) == lab).sum()
                 meters[i].update(ce[s, i], kl[s, i], total[s] / K, acc, epoch)
             if labels:
                 meters[i].update_auc(_auc(np.concatenate(logits[i]), np.concatenate(labels),

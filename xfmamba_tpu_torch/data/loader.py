@@ -30,6 +30,18 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 
+DEVICE_ITEM = "ROADMAP.md, queue 1: the device pipeline"
+
+
+def refuse_device_preprocess(config: Dict) -> None:
+    """The datasets' loaders take ``device_preprocess`` from the config, as
+    JAX's do; the port's device pipeline is not written yet."""
+    if config.get("device_preprocess"):
+        raise NotImplementedError(
+            f"device_preprocess: the port's device pipeline (data/device_pipeline.py on CUDA) "
+            f"is not ported yet ({DEVICE_ITEM})")
+
+
 class TwoViewSamples:
     """A list of (path1, path2, label) samples + a decode/transform fn."""
 

@@ -29,8 +29,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from xfmamba_tpu_torch.data.loader import TwoViewLoader, TwoViewSamples
-from xfmamba_tpu_torch.data.png import load_grayscale
+from xfmamba_tpu_torch.data.loader import TwoViewLoader, TwoViewSamples, refuse_device_preprocess
+from xfmamba_tpu_torch.data.image import load_grayscale
 from xfmamba_tpu_torch.data.transforms import mura_eval_transform, mura_train_transform
 
 BODY_PARTS = ("ELBOW", "FINGER", "FOREARM", "HAND", "HUMERUS", "SHOULDER", "WRIST")
@@ -205,10 +205,7 @@ def create_data_loaders(train_image_paths_csv, train_study_labels_csv,
                         config, body_part: Optional[str] = None):
     """(train_loader, val_loader, test_loader); test = the official valid
     CSV, optionally of one ``body_part`` (the per-part inference sweep)."""
-    if config.get("device_preprocess"):
-        raise NotImplementedError(
-            "device_preprocess: the port's device pipeline (data/device_pipeline.py on CUDA) "
-            "is not ported yet (ROADMAP.md, queue 1: the device pipeline)")
+    refuse_device_preprocess(config)
     root = config["root_dir"]
     rows = read_mura_tables(train_image_paths_csv, train_study_labels_csv, root)
     train_rows, val_rows = patient_level_split(rows, seed=config["seed"])

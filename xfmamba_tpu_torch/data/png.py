@@ -11,7 +11,8 @@ without a rounding term, for RGB, RGBA and palette images; the gray channel
 of gray + alpha; the high byte of 16-bit gray.  Alpha is dropped.
 
 Supported: colour types 0, 2, 3, 4 and 6 at bit depth 8, and types 0 and 4
-at bit depth 16, not interlaced.  Anything else raises a ``ValueError``
+at bit depth 16, not interlaced.  `decode_native` reads a gray PNG at its
+own depth (8 or 16 bits), for DDSM's pre-converted masks and images.  Anything else raises a ``ValueError``
 naming the file and the format: 16-bit colour (libpng converts it to gray
 at 16 bits and rounds), bit depths 1, 2 and 4, Adam7 interlacing, a bad
 CRC, a truncated or malformed stream, or a file that is not a PNG.
@@ -70,10 +71,9 @@ def read_chunks(raw: bytes, path="<bytes>"):
     return ihdr, plte, b"".join(idat)
 
 
-def decode_gray(raw: bytes, path="<bytes>", unfilter=None) -> np.ndarray:
-    """Decode PNG bytes to (H, W) uint8 gray (see the module docstring).
-    ``unfilter`` defaults to the native `png_unfilter`; tests pass its
-    numpy twin."""
+def _pixels(raw: bytes, path, unfilter):
+    """(colour type, bit depth, PLTE, the unfiltered samples (H, W, bytes a
+    pixel) uint8) of a PNG in one of the `SUPPORTED` formats."""
     (width, height, depth, colour, compression, filtering, interlace), plte, idat = \
         read_chunks(raw, path)
     fmt = f"colour type {colour} ({COLOUR_NAMES.get(colour, 'unknown')}) at bit depth {depth}"
@@ -99,7 +99,14 @@ def decode_gray(raw: bytes, path="<bytes>", unfilter=None) -> np.ndarray:
         px = (unfilter or native.png_unfilter)(buf, height, rowbytes, bpp)
     except ValueError as e:
         _fail(path, str(e))
-    px = px.reshape(height, width, CHANNELS[colour] * depth // 8)
+    return colour, depth, plte, px.reshape(height, width, bpp)
+
+
+def decode_gray(raw: bytes, path="<bytes>", unfilter=None) -> np.ndarray:
+    """Decode PNG bytes to (H, W) uint8 gray (see the module docstring).
+    ``unfilter`` defaults to the native `png_unfilter`; tests pass its
+    numpy twin."""
+    colour, depth, plte, px = _pixels(raw, path, unfilter)
     if depth == 16:
         # the high byte of the gray sample (libpng's strip_16)
         return np.ascontiguousarray(px[:, :, 0])
@@ -118,6 +125,19 @@ def decode_gray(raw: bytes, path="<bytes>", unfilter=None) -> np.ndarray:
     rgb = rgb.astype(np.uint32)
     gray = (RED * rgb[:, :, 0] + GREEN * rgb[:, :, 1] + BLUE * rgb[:, :, 2]) >> 15
     return gray.astype(np.uint8)
+
+
+def decode_native(raw: bytes, path="<bytes>") -> np.ndarray:
+    """A gray PNG (colour type 0) at its own depth, as PIL's
+    ``np.asarray(Image.open(path))`` gives it: (H, W) uint8 at bit depth 8,
+    uint16 at 16.  Other formats raise a ``ValueError`` naming them."""
+    colour, depth, _, px = _pixels(raw, path, None)
+    if colour != 0:
+        _fail(path, f"unsupported PNG format for native depth: colour type {colour} "
+                    f"({COLOUR_NAMES[colour]}); only gray reads at its own depth")
+    if depth == 8:
+        return np.ascontiguousarray(px[:, :, 0])
+    return px.view(">u2")[:, :, 0].astype(np.uint16)
 
 
 def load_grayscale(path, unfilter=None) -> np.ndarray:

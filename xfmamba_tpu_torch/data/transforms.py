@@ -4,7 +4,9 @@
 The JAX package calls cv2; this module computes what those calls compute:
 - `resize`: ``cv2.resize(INTER_LINEAR)`` on uint8 in cv2's fixed point
   (half-pixel centres, edges clamped, weights rounded to 1/2048, the
-  vertical pass as cv2's vector loop rounds it);
+  vertical pass as cv2's vector loop rounds it), and on float32 as cv2's
+  float path computes it (`_float_taps`; each pass ``a + (b - a) t`` with
+  one rounding, as a fused multiply-add);
 - `random_rotation`: ``cv2.warpAffine(INTER_NEAREST, borderValue=0)``
   about ``(w/2 - 0.5, h/2 - 0.5)``, the inverse map in float32 as cv2's
   warp computes it, with the angle drawn by the same ``rng`` call as JAX's.
@@ -13,8 +15,10 @@ one ``np.random.Generator`` gives both packages the same augmentation.
 
 The MURA pipeline (``libs/dataset_mura_twoview.py:808-816``): Grayscale,
 Resize(224²), RandomCrop(224), HFlip, RandomRotation(30, nearest),
-ToTensor, Normalize([0.456], [0.224]).  Outputs are channels-last (H, W, 1)
-float32; the u8 normalisation runs in the native library.
+ToTensor, Normalize([0.456], [0.224]); CheXpert's differs only in having no
+Normalize (``dataset_chexpert_twoview.py:289-303``).  Outputs are
+channels-last (H, W, 1) float32; the u8 normalisation runs in the native
+library.
 """
 
 from __future__ import annotations
@@ -48,17 +52,57 @@ def _linear_taps(src: int, dst: int, clamp_weights: bool):
     return np.clip(i0, 0, src - 1), np.clip(i0 + 1, 0, src - 1), w0, w1
 
 
+def _float_taps(src: int, dst: int):
+    """cv2's source index and weight of the second tap of each output
+    position along one axis on its float path: the position
+    ``(i + 0.5) src / dst - 0.5`` in float64, its floor, and the fraction
+    cast to float32 (which may round to 1)."""
+    pos = (np.arange(dst) + 0.5) * (src / dst) - 0.5
+    i0 = np.floor(pos).astype(np.int64)
+    return i0, (pos - i0).astype(np.float32)
+
+
+def _lerp(a: np.ndarray, b: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """``a + (b - a) t`` in float32 with the product and the sum rounded
+    once (cv2's fused multiply-add), through float64."""
+    return (a.astype(np.float64) + (b - a).astype(np.float64) * t).astype(np.float32)
+
+
+def _resize_float(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)`` on (H, W)
+    float32: the taps of `_float_taps`, the edges along x moved onto the
+    edge with weight 0, the rows along y clamped with their weights kept,
+    then `_lerp` along x and along y."""
+    h, w = size
+    H, W = img.shape
+    x0, fx = _float_taps(W, w)
+    edge = (x0 < 0) | (x0 >= W - 1)
+    fx[edge] = 0
+    x0 = np.clip(x0, 0, W - 1)
+    x1 = np.minimum(x0 + 1, W - 1)
+    y0, fy = _float_taps(H, h)
+    y1, y0 = np.clip(y0 + 1, 0, H - 1), np.clip(y0, 0, H - 1)
+    rows = np.unique(np.concatenate([y0, y1]))
+    src = img[rows]
+    horiz = np.zeros((H, w), np.float32)
+    horiz[rows] = _lerp(src[:, x0], src[:, x1], fx)
+    return _lerp(horiz[y0], horiz[y1], fy[:, None])
+
+
 def resize(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """Resize (H, W) uint8 to exactly ``size`` = (h, w), bilinear, as
-    ``cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)`` computes it:
-    the horizontal pass in int32 (weights of 2048ths), the vertical pass as
-    cv2's vector loop does it, ``((r0 >> 4) b0 >> 16) + ((r1 >> 4) b1 >>
-    16)`` rounded by ``(v + 2) >> 2``."""
+    """Resize (H, W) uint8 or float32 to exactly ``size`` = (h, w),
+    bilinear, as ``cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)``
+    computes it.  uint8: the horizontal pass in int32 (weights of 2048ths),
+    the vertical pass as cv2's vector loop does it, ``((r0 >> 4) b0 >> 16)
+    + ((r1 >> 4) b1 >> 16)`` rounded by ``(v + 2) >> 2``; float32:
+    `_resize_float`."""
     h, w = size
     if img.shape[:2] == (h, w):
         return img
-    if img.dtype != np.uint8 or img.ndim != 2:
-        raise ValueError(f"resize takes (H, W) uint8, got {img.dtype} {img.shape}")
+    if img.ndim != 2 or img.dtype not in (np.uint8, np.float32):
+        raise ValueError(f"resize takes (H, W) uint8 or float32, got {img.dtype} {img.shape}")
+    if img.dtype == np.float32:
+        return _resize_float(img, size)
     H, W = img.shape
     x0, x1, a0, a1 = _linear_taps(W, w, clamp_weights=True)
     y0, y1, b0, b1 = _linear_taps(H, h, clamp_weights=False)
@@ -181,3 +225,14 @@ def mura_train_transform(image_size=(224, 224)):
 
 def mura_eval_transform(image_size=(224, 224)):
     return TwoViewTransform(image_size=image_size, train=False)
+
+
+def chexpert_train_transform(image_size=(224, 224)):
+    # no Normalize (commented out in the reference, :295)
+    return TwoViewTransform(image_size=image_size, train=True, crop=min(224, *image_size),
+                            normalize_mean=None, normalize_std=None)
+
+
+def chexpert_eval_transform(image_size=(224, 224)):
+    return TwoViewTransform(image_size=image_size, train=False, normalize_mean=None,
+                            normalize_std=None)

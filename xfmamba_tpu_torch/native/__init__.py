@@ -1,9 +1,9 @@
 """ctypes bindings for the port's host-side data-path kernels
-(``xfm_host.cc``).
+(``xfm_host.cc``, and ``jpeg_scan.cc`` for `data/jpeg.py`).
 
-The source is compiled with ``g++`` at the first call, not at import, into
+The sources are compiled with ``g++`` at the first call, not at import, into
 ``xfmamba_tpu_torch/_build/`` (git-ignored) under a name keyed on a hash of
-the source and the flags.  A failed build raises: there is no silent numpy
+the sources and the flags.  A failed build raises: there is no silent numpy
 fallback.  `png_unfilter_plain` is the numpy twin of the C++ unfilter, for
 tests.  The calls release the GIL, so the loader's threads overlap them.
 """
@@ -21,7 +21,8 @@ from pathlib import Path
 import numpy as np
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCE = Path(__file__).resolve().parent / "xfm_host.cc"
+SOURCES = tuple(Path(__file__).resolve().parent / name
+                for name in ("xfm_host.cc", "jpeg_scan.cc"))
 BUILD_DIR = PACKAGE_DIR / "_build"
 # no -march=native: a library built on one host may be loaded on another
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
@@ -30,18 +31,19 @@ _lock = threading.Lock()
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
+    for source in SOURCES:
+        h.update(source.read_bytes())
     return BUILD_DIR / f"libxfm_host_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile ``xfm_host.cc`` unless the library for it exists."""
+    """Compile the sources into one library unless it exists."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
         if proc.returncode != 0:
@@ -61,6 +63,10 @@ def _library() -> ctypes.CDLL:
     lib.png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                                  ctypes.c_int64, ctypes.c_int]
     lib.png_unfilter.restype = ctypes.c_int64
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.jpeg_scan.argtypes = [p, i64, i64, ctypes.c_int, p, p, i64, i64, i64, ctypes.c_int,
+                              p, p, i64]
+    lib.jpeg_scan.restype = i64
     return lib
 
 
@@ -140,3 +146,36 @@ def png_unfilter_plain(data: np.ndarray, height: int, rowbytes: int, bpp: int) -
         out[y] = cur
         prev = cur
     return out
+
+
+JPEG_STATUS = {-1: "a Huffman table that is not a prefix code",
+               -2: "a bit pattern that starts no Huffman code",
+               -3: "a scan that needs data past its end",
+               -4: "a restart marker missing or out of order",
+               -5: "no marker after a scan"}
+
+
+def jpeg_scan(data: np.ndarray, pos: int, comps: np.ndarray, tables: np.ndarray, mcus_x: int,
+              mcus_y: int, restart_interval: int, target: int, quant: np.ndarray,
+              plane: np.ndarray) -> int:
+    """Decode one sequential Huffman scan of a JPEG (``data`` the whole file
+    as uint8, its entropy-coded data from ``pos``): ``comps`` (n, 4) int32
+    of (h, v, DC table, AC table) per scan component, ``tables`` (8, 272)
+    uint8 (DC 0-3 then AC 0-3: 16 code counts, 256 symbols), the scan's
+    MCU grid, the restart interval (0: none), and the scan component
+    ``target`` (-1: none) whose blocks are dequantised by ``quant`` (64
+    int32, natural order), inverse transformed by libjpeg's islow IDCT and
+    written into ``plane`` (uint8, C order, 8 x 8 blocks in MCU layout).
+    Returns the offset of the marker after the scan; a corrupt or truncated
+    scan raises ``ValueError``."""
+    assert data.dtype == np.uint8 and data.flags.c_contiguous
+    comps = np.ascontiguousarray(comps, dtype=np.int32)
+    tables = np.ascontiguousarray(tables, dtype=np.uint8)
+    quant = np.ascontiguousarray(quant, dtype=np.int32)
+    assert plane.dtype == np.uint8 and plane.flags.c_contiguous and plane.ndim == 2
+    end = library().jpeg_scan(data.ctypes.data, data.size, pos, len(comps), comps.ctypes.data,
+                              tables.ctypes.data, mcus_x, mcus_y, restart_interval, target,
+                              quant.ctypes.data, plane.ctypes.data, plane.shape[1])
+    if end < 0:
+        raise ValueError(JPEG_STATUS.get(end, f"status {end}"))
+    return end

@@ -44,8 +44,12 @@ def roc_auc(labels: np.ndarray, scores: np.ndarray) -> float:
 def multilabel_mean_auc(labels: np.ndarray, scores: np.ndarray,
                         return_per_label: bool = False):
     """Mean AUROC over label columns, skipping degenerate columns — the
-    CheXpert protocol (`libs/training.py:225-237`)."""
-    labels = np.asarray(labels)
+    CheXpert protocol (`libs/training.py:225-237`).  A label counts as
+    positive above 0.5, so CheXpert's uncertain -1 is a negative, as in the
+    accuracy and in ``cli.infer_chexpert``: the JAX package's copy ranks
+    the raw values, and a column holding -1 then gives an AUC outside [0,
+    1]."""
+    labels = np.asarray(labels) > 0.5
     scores = np.asarray(scores)
     per = []
     for c in range(labels.shape[1]):

@@ -281,6 +281,31 @@ The other datasets (no new kernel):
    (both passes' AUCs); every val AUC (or hip's accuracy) must be finite;
    the directory is deleted.
 
+The device pipeline and the utilities:
+14. (14a) the device preprocessing kernel (``csrc/device_preprocess.cu``)
+   against its plain version at bs 16: MURA's train and eval stage staged
+   at 224, staged at 288 with image size 256 and crop 224, CheXpert's and
+   CBIS-DDSM's stages; the values within 1e-5, the crop windows, flips,
+   zero-fill masks and source indices bit for bit (ramps of the row and
+   the column and a constant 255), bitwise over two runs; the bs-16 call's
+   ms by CUDA events and graph replay, the plain version's, the bound;
+   (14b) ``cli.train --device_preprocess 1`` for one epoch on a MURA, a hip
+   X-ray, a CheXpert and a CBIS-DDSM tree (phase 11's launches plus 2 of
+   the kernel a step and an eval forward), the hip loader's staged
+   validation batch through ``eval_batch`` against the host eval transform
+   (1e-6), loader-fed epochs of the float32 XFMamba-S step with the stage
+   on and off in turns (4 loader threads: median step ms, loader wait,
+   pairs/s), 4 steps with the stage on one batch of label 1 (a falling
+   loss); (14c) ``cli.infer_mura --cal_flops 1`` on the card and the CPU
+   (the same params and FLOPs), ``--gradcam 1`` (gradcam.npz), Grad-CAM at
+   full widths, depths 2/2/2/2, batch 2 card against CPU (the stage-3
+   gradients and the CAMs within 1e-3, no launch of kernels 3 or 9),
+   bfloat16 CAMs finite with their largest difference from float32, the
+   guard (a bfloat16 eval forward recording autograd, kernels 1, 8, 9 and 3
+   given an operand that requires a gradient: each refused); (14d)
+   ``utils.profiling.do_bench`` and ``trace`` of the kernel, and whether
+   the trace holds its device events.  It prints ``phase 14: N s``.
+
 The line before the last but one is one JSON object with the kernels'
 results (launches per main-path forward or step, errors, times, bounds;
 for kernels 1 and 4-6 also their route counts and phase 7e's device times
@@ -331,9 +356,9 @@ from xfmamba_tpu_torch.models.vssm import VSSBlock, vmamba_small_m2
 from xfmamba_tpu_torch.models import vssm
 from xfmamba_tpu_torch.models.fusion import CrossSS2Dv5
 from xfmamba_tpu_torch.ops import (
-    cross2d_scan, fused_cross_scan, nk_scan, nk_scan_adjoint, nk_scan_v1, primitives,
-    scan_whole_map, selective_scan_grouped, ss2d_core_n1, ssd_chunk, vss_block_train, vss_block_v1,
-    vss_stage, vss_stage_train)
+    cross2d_scan, device_preprocess, fused_cross_scan, nk_scan, nk_scan_adjoint, nk_scan_v1,
+    primitives, scan_whole_map, selective_scan_grouped, ss2d_core_n1, ssd_chunk, vss_block_train,
+    vss_block_v1, vss_stage, vss_stage_train)
 from xfmamba_tpu_torch.ops.ablations import (
     ablation_scan, nk_scan_v4, nk_scan_wide, pe_fused, seg_ln)
 from xfmamba_tpu_torch.ops.vss_block import (
@@ -3088,7 +3113,7 @@ def ssd_extra_line(name, extra):
 def kernel_table():
     """Every kernel of the port by name, in the order of the kernels line."""
     return (KERNELS | TRAIN_KERNELS | N1_KERNELS | GROUPED_KERNELS | SSD_KERNELS | V1_KERNELS
-            | ABLATION_KERNELS)
+            | ABLATION_KERNELS | PREPROCESS_KERNELS)
 
 
 def all_kernels():
@@ -4773,6 +4798,404 @@ def phase_datasets(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the device pipeline, --cal_flops and --gradcam
+# ---------------------------------------------------------------------------
+
+PREPROCESS_KERNELS = {
+    "device_preprocess": dict(
+        fn=device_preprocess.device_preprocess,
+        source="xfmamba_tpu_torch/csrc/device_preprocess.cu",
+        replaces="xfmamba_tpu/data/device_pipeline.py:108 (DevicePreprocess.train_batch, jnp "
+                 "fused by XLA into the jitted step; no pallas_call)"),
+}
+# (label, stage factory, staged size, image size, train): MURA's stage at
+# the loaders' staging (the resize the identity), staged at 288 with image
+# size 256 and crop 224, CheXpert's and CBIS-DDSM's stages
+PREPROCESS_CASES = [("mura", "mura", 224, 224), ("mura 288 -> 256, crop 224", "mura", 288, 256),
+                    ("chexpert", "chexpert", 224, 224), ("ddsm", "ddsm", 224, 224)]
+PREPROCESS_TOL = 1e-5
+# the loader-fed epochs of 14b: device stage on / off, in turns
+PREPROCESS_TURNS = (True, False, False, True)
+SALIENCY_BATCH = 2
+
+
+def preprocess_stage(name, size):
+    from xfmamba_tpu_torch.data import device_pipeline as dp
+    return {"mura": dp.mura_device_preprocess, "chexpert": dp.chexpert_device_preprocess,
+            "ddsm": dp.ddsm_device_preprocess}[name]((size, size), seed=3)
+
+
+def preprocess_work(B, staged, size, h):
+    """One call's bytes (the staged views read once, the (B, h, h) float32
+    output written once, the parameter rows and the tap tables of the
+    resize to ``size`` read once) and operations: per output pixel the
+    rotation's map (6), four divides and the resize's six products and
+    sums, the normalize (2)."""
+    nbytes = B * staged * staged + 4 * B * h * h + 4 * device_preprocess.ROW * B + 24 * size
+    return Work().add(bytes=nbytes, f32=B * h * h * 18)
+
+
+def phase_preprocess_kernel(errors, card):
+    """14a: the kernel against its plain version on the card, bs 16, train
+    and eval transforms of every case: the crop windows, flips, zero-fill
+    masks and source indices bit for bit (ramps of the row and of the column
+    and a constant 255, the resize the identity, no normalize), the values
+    within PREPROCESS_TOL, bitwise over two runs; then the MURA bs-16 train
+    call's ms (CUDA events and CUDA-graph replay), the plain version's, the
+    bound.  Returns (max error, per-step times of two views)."""
+    print(f"phase 14a: the device preprocessing kernel against its plain version, bs "
+          f"{TRAIN_BATCH}, uint8 views ({card})")
+    fn = device_preprocess.device_preprocess
+    g = torch.Generator().manual_seed(14)
+    worst, failed = 0.0, []
+    for label, name, staged, size in PREPROCESS_CASES:
+        stage = preprocess_stage(name, size)
+        u8 = torch.randint(0, 256, (TRAIN_BATCH, staged, staged, 1), generator=g,
+                           dtype=torch.uint8)
+        rows = stage.rows(stage.draw_params(TRAIN_BATCH, g))
+        c = stage.crop_size
+        h = c or size
+        norm = {} if stage.normalize_mean is None else {"mean": stage.normalize_mean,
+                                                        "std": stage.normalize_std}
+        for train in (True, False):
+            args = ((size, size), rows.cuda(), c, bool(stage.rotation)) if train \
+                else ((size, size),)
+            plain_args = ((size, size), rows, c, bool(stage.rotation)) if train else ((size, size),)
+            before = fn.launches
+            got = fn(u8.cuda(), *args, **norm)
+            again = fn(u8.cuda(), *args, **norm)
+            torch.cuda.synchronize()
+            want = device_preprocess.device_preprocess_plain(u8, *plain_args, **norm)
+            err = float((got.cpu() - want).abs().max())
+            bitwise = torch.equal(got, again) and fn.launches == before + 2
+            # the index maps: ramps through the kernel and the plain version
+            # at the image size (the resize the identity), no normalize
+            maps = True
+            if train:
+                ys = torch.arange(size) % 256
+                for ramp in (ys.view(1, size, 1, 1).expand(TRAIN_BATCH, size, size, 1),
+                             ys.view(1, 1, size, 1).expand(TRAIN_BATCH, size, size, 1),
+                             torch.full((TRAIN_BATCH, size, size, 1), 255)):
+                    ramp = ramp.to(torch.uint8).contiguous()
+                    k = fn(ramp.cuda(), (size, size), rows.cuda(), c, bool(stage.rotation))
+                    p = device_preprocess.device_preprocess_plain(ramp, (size, size), rows, c,
+                                                                  bool(stage.rotation))
+                    maps &= torch.equal(k.cpu(), p)
+            kind = "train" if train else "eval"
+            print(f"  {label} {kind}: {tuple(u8.shape)} -> {tuple(got.shape)}, max_abs_err "
+                  f"{err:.3e}, bitwise over two runs {bitwise}"
+                  + (f", index maps, flips, crops and zero-fill masks bit for bit {maps}"
+                     if train else ""))
+            worst = max(worst, err)
+            if not (err <= PREPROCESS_TOL and bitwise and maps) or got.shape != (
+                    TRAIN_BATCH, h if train else size, h if train else size, 1):
+                failed.append(f"{label} {kind}")
+    errors["device_preprocess"] = worst
+    if failed:
+        raise PhaseFailure(f"the device preprocessing kernel disagrees with its plain version: "
+                           f"{failed}")
+    # times of one view's call at the main path's shape (MURA, staged 224)
+    stage = preprocess_stage("mura", IMAGE)
+    u8 = torch.randint(0, 256, (TRAIN_BATCH, IMAGE, IMAGE, 1), generator=g,
+                       dtype=torch.uint8).cuda()
+    rows = stage.rows(stage.draw_params(TRAIN_BATCH, g)).cuda()
+    call = lambda: stage.train_batch(u8, rows)  # noqa: E731
+    plain_u8, plain_rows = u8.clone(), rows.clone()
+    plain = lambda: device_preprocess.device_preprocess_plain(  # noqa: E731
+        plain_u8, stage.image_size, plain_rows, None, True, mean=0.456, std=0.224)
+    ms = time_ms(call, 50)
+    dev = graph_ms(call, 50)
+    plain_ms = time_ms(plain, 5)
+    bound, by = preprocess_work(TRAIN_BATCH, IMAGE, IMAGE, IMAGE).bound()
+    eval_ms = time_ms(lambda: stage.eval_batch(u8), 50)
+    print(f"  MURA bs-{TRAIN_BATCH} train call: {ms:.4f} ms by CUDA events, {dev:.4f} on the "
+          f"device (CUDA-graph replay), plain {plain_ms:.3f}, bound {bound:.4f} ({by}); eval "
+          f"call {eval_ms:.4f} ms; per step (two views) {2 * ms:.4f} / {2 * plain_ms:.3f} / "
+          f"{2 * bound:.4f} ms ({card})")
+    V1_EXTRA["device_preprocess"] = {"graph_ms": 2 * dev, "eval_call_ms": eval_ms,
+                                     "per": f"bs-{TRAIN_BATCH} train step, two views"}
+    return {"device_preprocess": (2 * ms, 2 * plain_ms, 2 * bound, by)}, call
+
+
+def phase_preprocess_epochs(card, tmp):
+    """14b: ``cli.train --device_preprocess 1`` on a MURA tree as phase
+    11's (XFMamba-S float32, 4 loader threads): launches per step (kernel
+    11's and the fusion scans' as phase 11, 2 of the stage kernel) and per
+    eval forward (2); then loader-fed epochs of the step (the train pairs
+    FEED_REPEAT times over) with the device stage on and off in turns:
+    median step ms, loader wait a step, pairs/s; 4 steps with the stage on
+    one batch of label 1 (a falling loss); one hip X-ray epoch with the
+    device stage, its staged validation batch through ``eval_batch``
+    against the host eval transform (1e-6); one CheXpert and one CBIS-DDSM
+    epoch with the device stage.  Returns the launches per train step."""
+    import os
+    import statistics
+
+    import numpy as np
+    from torch_datasets_tree import write_chexpert_tree, write_ddsm_tree, write_hip_tree
+    from torch_mura_tree import write_mura_tree
+    from xfmamba_tpu_torch.cli import build_model_by_name
+    from xfmamba_tpu_torch.cli import train as cli_train
+    from xfmamba_tpu_torch.data import hipxray, mura
+    from xfmamba_tpu_torch.data.loader import TwoViewLoader, TwoViewSamples
+    from xfmamba_tpu_torch.train import driver
+
+    print(f"phase 14b: cli.train --device_preprocess 1, XFMamba-S float32 at {IMAGE}x{IMAGE}, "
+          f"bs {TRAIN_BATCH}, 4 loader threads ({card})")
+    t0 = time.perf_counter()
+    csvs, _ = write_mura_tree(tmp, n_studies=CLI_STUDIES, parts=CLI_PARTS,
+                              n_valid=CLI_VALID_STUDIES, kinds=CLI_KINDS, seed=11)
+    hip_images, hip_csv = write_hip_tree(os.path.join(tmp, "hip"), 60, distinct=8, seed=14)
+    chex_csv, _ = write_chexpert_tree(os.path.join(tmp, "chexpert"), 48, distinct=8, seed=14)
+    ddsm_base, ddsm_meta, ddsm_cases = write_ddsm_tree(os.path.join(tmp, "ddsm"), 48,
+                                                       distinct=4, seed=14)
+    print(f"  trees written in {time.perf_counter() - t0:.2f} s")
+    fns = all_kernels()
+    argv = ["--model_name", CLI_MODEL, "--image_size", str(IMAGE), "--batch_size",
+            str(TRAIN_BATCH), "--num_workers", "4", "--seed", "42", "--device", CLI_DEVICE,
+            "--epochs", "1", "--device_preprocess", "1"]
+    mura_args = ["--data_root", tmp, "--train_image_csv", csvs[0], "--train_label_csv", csvs[1],
+                 "--valid_image_csv", csvs[2], "--valid_label_csv", csvs[3]]
+    step_want = F32_STEP["small"] | {"device_preprocess": 2}
+    eval_want = F32_FORWARD | {"device_preprocess": 2}
+    datasets = {
+        "mura": mura_args,
+        "hipxray": ["--dataset", "hipxray", "--hip_images_dir", hip_images, "--hip_csv", hip_csv,
+                    "--num_classes", "3"],
+        "chexpert": ["--dataset", "chexpert", "--data_root", os.path.join(tmp, "chexpert"),
+                     "--chexpert_csv", chex_csv, "--num_classes", "14"],
+        "ddsmxray": ["--dataset", "ddsmxray", "--data_root", ddsm_base, "--ddsm_metadata_csv",
+                     ddsm_meta, "--ddsm_case_csvs", *ddsm_cases]}
+    for label, extra in datasets.items():
+        with epoch_launches(driver, fns) as rec:
+            _, history = cli_train.main(argv + extra + ["--savemodel_path",
+                                                        os.path.join(tmp, f"run_{label}")])
+        tr, va = history[0]["train"], history[0]["val"]
+        bad = check_epoch_launches(rec, step_want, eval_want)
+        print(f"  {label}: train loss {tr['loss']:.6f}, val loss {va['loss']:.6f}, {tr['steps']} "
+              f"steps, median {statistics.median(tr['step_ms']):.2f} ms per step; launches "
+              f"{[(k, n, {a: b for a, b in c.items() if b}) for k, n, c in rec]}")
+        if bad or not (math.isfinite(tr["loss"]) and math.isfinite(va["loss"])):
+            raise PhaseFailure(f"{label} with the device stage: launches differ from {step_want} "
+                               f"per step and {eval_want} per eval forward ({bad}), or a loss "
+                               "is not finite")
+    # the hip loader stages uint8; its eval batch through the card equals the
+    # host eval transform
+    _, hip_cfg = cli_train.make_config(cli_train.parse_args(argv + datasets["hipxray"]))
+    staged = next(iter(hipxray.create_data_loaders(hip_images, hip_csv, hip_cfg)[1]))
+    host = next(iter(hipxray.create_data_loaders(hip_images, hip_csv,
+                                                 dict(hip_cfg, device_preprocess=False))[1]))
+    stage = preprocess_stage("mura", IMAGE)
+    nv = int(staged["n_valid"])
+    hip_err = max(float((stage.eval_batch(torch.from_numpy(staged[k][:nv]).cuda()).cpu()
+                         - torch.from_numpy(host[k][:nv])).abs().max()) for k in ("image1", "image2"))
+    print(f"  hip validation batch: staged {staged['image1'].dtype} {staged['image1'].shape}, "
+          f"through eval_batch on the card against the host eval transform: max_abs_err "
+          f"{hip_err:.3e} over {nv} studies")
+    if staged["image1"].dtype != np.uint8 or not hip_err <= 1e-6:
+        raise PhaseFailure(f"the hip loader's staged batch differs from the host transform "
+                           f"({hip_err})")
+
+    # loader-fed epochs, the device stage on and off in turns
+    cfg, cfg_dict = cli_train.make_config(cli_train.parse_args(argv + mura_args))
+    model, _ = build_model_by_name(CLI_MODEL, 2, device=CLI_DEVICE, seed=cfg.seed)
+    runs = {True: [], False: []}
+    for on in PREPROCESS_TURNS:
+        loader = mura.create_data_loaders(*csvs, dict(cfg_dict, device_preprocess=on))[0]
+        long_loader = TwoViewLoader(
+            TwoViewSamples(loader.dataset.samples * FEED_REPEAT, loader.dataset.load_fn,
+                           loader.dataset.transform),
+            TRAIN_BATCH, shuffle=True, drop_last=True, num_workers=4, seed=cfg.seed)
+        stage = preprocess_stage("mura", IMAGE) if on else None
+        step, _ = make_train_step(model, make_optimizer(cfg, model.parameters()), False,
+                                  preprocess=stage)
+        tr = driver.run_train_epoch(step, long_loader, cfg.lr, False, CLI_DEVICE,
+                                    torch.uint8 if on else torch.float32, log_every=0)
+        rest = (tr["loader_wait_s"] - tr["first_batch_wait_s"]) / (tr["steps"] - 1)
+        rate = tr["steps"] * TRAIN_BATCH / (tr["time_s"] - tr["first_batch_wait_s"])
+        runs[on].append((statistics.median(tr["step_ms"]), rest, rate))
+        print(f"  loader-fed epoch, device stage {'on ' if on else 'off'}: {tr['steps']} steps, "
+              f"median {runs[on][-1][0]:.2f} ms per step by CUDA events, waiting "
+              f"{1e3 * rest:.1f} ms a step after the first batch, {rate:.1f} pairs/s, loss "
+              f"{tr['loss']:.5f} ({card})")
+        if not math.isfinite(tr["loss"]):
+            raise PhaseFailure(f"the loader-fed epoch's loss is {tr['loss']}")
+    mean = {on: [statistics.fmean(v) for v in zip(*r)] for on, r in runs.items()}
+    print(f"  device stage on / off (means of {len(runs[True])} epochs each): step "
+          f"{mean[True][0]:.2f} / {mean[False][0]:.2f} ms, loader wait "
+          f"{1e3 * mean[True][1]:.1f} / {1e3 * mean[False][1]:.1f} ms a step, feed "
+          f"{mean[True][2]:.1f} / {mean[False][2]:.1f} pairs/s ({card})")
+    # a falling loss with the device stage: 4 steps on one batch of label 1
+    loader = mura.create_data_loaders(*csvs, cfg_dict)[0]
+    batch = driver._to_device(next(iter(loader)), CLI_DEVICE, torch.uint8, False)
+    batch["label"] = torch.ones_like(batch["label"])
+    step, _ = make_train_step(model, make_optimizer(cfg, model.parameters()), False,
+                              preprocess=preprocess_stage("mura", IMAGE))
+    losses = [float(step(batch, cfg.lr)["loss"]) for _ in range(TOP_STEPS)]
+    print(f"  {TOP_STEPS} steps with the device stage on one batch of label 1: losses "
+          f"{', '.join(f'{v:.5f}' for v in losses)}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise PhaseFailure(f"the loss with the device stage is not finite or not falling: "
+                           f"{losses}")
+    del model, step
+    return {"device_preprocess": 2}, csvs
+
+
+def phase_utilities(card, tmp, csvs, call):
+    """14c: ``cli.infer_mura --cal_flops 1`` on the card and on the CPU (the
+    same params and FLOPs), then ``--gradcam 1`` (XFMamba-S float32 at
+    224, batch SALIENCY_BATCH; gradcam.npz written); Grad-CAM of the model
+    at full widths and depths 2/2/2/2, batch SALIENCY_BATCH, on the card
+    against the CPU: the stage-3 gradients (1e-3 of the largest) and the
+    CAMs (1e-3), the fusion scans on their differentiable kernels (13/14
+    at this batch) and kernels 3 and 9 not at all; in bfloat16 the CAMs
+    finite, their largest difference from float32 printed; the guard: an
+    eval forward on the card whose operands require a gradient, outside
+    ``no_grad``, refused by the bfloat16 stage kernel, and kernel 9 and
+    kernel 3 refusing one directly.  14d: ``do_bench`` of the kernel and a
+    ``trace`` of it; whether the trace holds the kernel's device events."""
+    import os
+
+    import numpy as np
+    from xfmamba_tpu_torch.cli import infer_mura
+    from xfmamba_tpu_torch.utils import profiling, saliency
+
+    print(f"phase 14c: cli.infer_mura --cal_flops 1 and --gradcam 1, XFMamba-S float32 at "
+          f"{IMAGE}x{IMAGE} ({card})")
+    base = ["--model_name", CLI_MODEL, "--image_size", str(IMAGE), "--data_root", tmp,
+            "--valid_image_csv", csvs[2], "--valid_label_csv", csvs[3]]
+    counts = {}
+    for device in (CLI_DEVICE, "cpu"):
+        counts[device] = infer_mura.main(base + ["--cal_flops", "1", "--device", device])
+    print(f"  --cal_flops: card {counts[CLI_DEVICE]}, CPU {counts['cpu']}")
+    if counts[CLI_DEVICE]["flops"] != counts["cpu"]["flops"] or \
+            counts[CLI_DEVICE]["params"] != counts["cpu"]["params"]:
+        raise PhaseFailure("--cal_flops counts differ between the card and the CPU")
+    out = os.path.join(tmp, "gradcam")
+    fns = all_kernels()
+    torch.cuda.synchronize()
+    c0 = counted(fns)
+    infer_mura.main(base + ["--gradcam", "1", "--batch_size", str(SALIENCY_BATCH),
+                            "--body_parts", *CLI_PARTS, "--out_dir", out, "--device", CLI_DEVICE])
+    torch.cuda.synchronize()
+    saved = np.load(os.path.join(out, "gradcam.npz"))
+    print(f"  --gradcam: gradcam.npz {({k: saved[k].shape for k in saved.files})}, overlays "
+          f"{sorted(f for f in os.listdir(out) if f.startswith('gradcam_overlay'))}; launches "
+          f"{ {k: v for k, v in c0().items() if v} }")
+    if not all(np.isfinite(saved[k]).all() for k in ("cam_a", "cam_b")) or \
+            saved["cam_a"].shape != (SALIENCY_BATCH, IMAGE, IMAGE):
+        raise PhaseFailure("--gradcam wrote no finite CAMs of the batch's shape")
+
+    # card against CPU, the model at depths 2/2/2/2
+    model = depth2_model("small").eval()
+    xa, xb = (x.cpu() for x in views(SALIENCY_BATCH, torch.float32, 140))
+    t0 = time.time()
+    cpu = saliency.grad_cam_two_view(model, xa, xb, 1, return_gradients=True)
+    cpu_s = time.time() - t0
+    model.cuda()
+    c0 = counted(fns)
+    card_out = saliency.grad_cam_two_view(model, xa.cuda(), xb.cuda(), 1, return_gradients=True)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in c0().items() if v}
+    g_err = rel(card_out[2][1].cpu(), cpu[2][1])[1]
+    cam_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(card_out[:2], cpu[:2]))
+    bf = saliency.grad_cam_two_view(model, xa.cuda().bfloat16(), xb.cuda().bfloat16(), 1)
+    bf_diff = max(float((a.float() - b).abs().max()) for a, b in zip(bf, card_out[:2]))
+    bf_finite = all(bool(torch.isfinite(c).all()) for c in bf)
+    print(f"  Grad-CAM, full widths, depths 2/2/2/2, batch {SALIENCY_BATCH}: stage-3 gradients "
+          f"card vs CPU rel {g_err:.3e}, CAMs max_abs_err {cam_err:.3e} (tol 1e-3; CPU {cpu_s:.1f} "
+          f"s); launches {launches}; bfloat16 CAMs finite {bf_finite}, largest difference from "
+          f"float32 {bf_diff:.3e} (not gated)")
+    if not (g_err <= 1e-3 and cam_err <= 1e-3 and bf_finite) or launches.get("nk_scan_x") or \
+            launches.get("nk_scan_v1"):
+        raise PhaseFailure("Grad-CAM on the card disagrees with the CPU, took a forward-only "
+                           "fusion scan, or gave no finite bfloat16 CAM")
+    guard_refusals(model, xa, xb)
+    del model
+
+    # 14d: do_bench and trace
+    print(f"phase 14d: utils.profiling on the kernel ({card})")
+    bench = profiling.do_bench(call, warmup=3, iters=20)
+    logdir = os.path.join(tmp, "trace")
+    with profiling.trace(logdir) as prof:
+        for _ in range(10):
+            call()
+    device_rows = [e.key for e in prof.key_averages() if "device_preprocess" in e.key
+                   and getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) > 0]
+    events = json.loads(Path(logdir, "trace.json").read_text()).get("traceEvents", [])
+    kernel_events = [e for e in events if e.get("cat") == "kernel"
+                     and "device_preprocess" in e.get("name", "")]
+    print(f"  do_bench: median {1e3 * bench['median_s']:.4f} ms, min {1e3 * bench['min_s']:.4f} "
+          f"over {bench['iters']} calls (host clock, synchronised around each); trace "
+          f"{len(events)} events, {len(kernel_events)} device events of the kernel"
+          + ("" if kernel_events else " (none: the profiler lost them, PERF.md section 7)")
+          + f"; profiler rows with device time {device_rows}")
+
+
+def guard_refusals(model, xa, xb):
+    """The guard on the card: ``model``'s bfloat16 eval forward outside
+    ``no_grad`` (its eval stage refuses parameters that require a
+    gradient), and kernels 1, 8, 9 and 3 each given an operand that
+    requires one, must raise."""
+    refused = []
+    x16 = [x.cuda().bfloat16() for x in (xa, xb)]
+    try:
+        model(*x16)
+    except RuntimeError as e:
+        refused.append("eval forward, bfloat16" if "no gradient" in str(e) else str(e))
+    k9 = [torch.randn(3, 49, d, device="cuda", requires_grad=i == 0)
+          for i, d in enumerate((64, 256, 64, 64))]
+    block = VSSBlock(96, generator=torch.Generator().manual_seed(3)).eval().cuda()
+    xb16 = torch.randn(2, 49, 96, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    for name, call_guarded in (
+            ("vss_stage", lambda: vss_stage.vss_stage(
+                xb16, [pack_vss_block_params(block, torch.bfloat16)], 7, 7)),
+            ("vss_block_v1", lambda: vss_block_v1.vss_block_v1(
+                xb16, vss_block_v1.pack_vss_block_v1_params(block, torch.bfloat16), 7, 7)),
+            ("nk_scan_v1", lambda: nk_scan_v1.nk_scan_v1(
+                k9[0], k9[1], k9[2], k9[3], -torch.ones(64, 64, device="cuda"),
+                torch.ones(4, 64, device="cuda"), torch.zeros(4, 64, device="cuda"), 7, 7,
+                ("row_f", "col_f", "row_r", "col_r"))),
+            ("nk_scan_x", lambda: nk_scan.nk_scan_x(
+                k9[0], torch.randn(3, 49, 16, device="cuda"), k9[2], k9[3],
+                torch.randn(16, 64, device="cuda"), -torch.ones(64, 64, device="cuda"),
+                torch.ones(4, 64, device="cuda"), torch.zeros(4, 64, device="cuda"),
+                torch.stack([torch.ones(64), torch.zeros(64)]).cuda(), 7, 7,
+                ("row_f", "col_f", "row_r", "col_r")))):
+        try:
+            call_guarded()
+        except RuntimeError as e:
+            if "no gradient" in str(e):
+                refused.append(name)
+    print(f"  the guard on the card: refused {refused}")
+    if refused != ["eval forward, bfloat16", "vss_stage", "vss_block_v1", "nk_scan_v1",
+                   "nk_scan_x"]:
+        raise PhaseFailure(f"a forward-only kernel took an operand that requires a gradient: "
+                           f"refused only {refused}")
+
+
+def phase_device_pipeline(errors, card):
+    """Phase 14: the device preprocessing kernel (14a), the CLIs with the
+    device stage (14b), the utilities (14c, 14d).  Returns (launches, times)
+    for the kernels line."""
+    import shutil
+    import tempfile
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    tmp = tempfile.mkdtemp(prefix="xfm_phase14_")
+    try:
+        times, call = phase_preprocess_kernel(errors, card)
+        launches, csvs = phase_preprocess_epochs(card, tmp)
+        phase_utilities(card, tmp, csvs, call)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        sys.path.remove(str(Path(__file__).resolve().parent / "tests"))
+    return launches, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4849,6 +5272,11 @@ def main() -> int:
     t0 = time.time()
     phase_datasets(card)
     print(f"  phase 13: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    pp_launches, pp_times = phase_device_pipeline(errors, card)
+    launches |= pp_launches
+    times |= pp_times
+    print(f"  phase 14: {time.time() - t0:.1f} s")
     # library_ms: one PyTorch call computing the same function, where there
     # is one (kernels 19-21); none computes the scans
     print(json.dumps({"kernels": [

@@ -226,3 +226,10 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(P..
 inline float __expf(float x) { return std::exp(x); }
 inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
 inline float __fdividef(float a, float b) { return a / b; }
+// each rounded once, to nearest even (g++ contracts no product into an FMA
+// under -std=c++20); __float2int_rn in the default rounding mode, to even
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline int __float2int_rn(float x) { return static_cast<int>(std::nearbyint(x)); }

@@ -1,9 +1,10 @@
 """The port's CLIs on the CPU: ``cli.train`` then ``cli.infer_mura`` on a
 synthetic MURA tree (tests/torch_mura_tree.py) with the smoke model at 32²
 and ``--device cpu``, the files they write, the model-name dispatch, a
-single-view model fed one view, the flags against the JAX CLI's, the flags
-that raise until their ROADMAP item lands, and the helpers against JAX's
-``collect_scores`` / ``write_roc_artifacts``."""
+single-view model fed one view, the flags against the JAX CLI's, the device
+stage (``--device_preprocess 1`` on the MURA and hip trees, the stage JAX's
+CLI picks for each dataset), ``--cal_flops 1`` and ``--gradcam 1``, and the
+helpers against JAX's ``collect_scores`` / ``write_roc_artifacts``."""
 
 import os
 
@@ -13,14 +14,18 @@ import numpy as np
 import pytest
 import torch
 
+from torch_datasets_tree import write_hip_tree
 from torch_mura_tree import write_mura_tree
 from xfmamba_tpu import cli as jax_cli
+from xfmamba_tpu.data import device_pipeline as jax_dp
 from xfmamba_tpu.cli import infer_mura as jax_infer
 from xfmamba_tpu.cli import train as jax_train
 from xfmamba_tpu_torch import cli
 from xfmamba_tpu_torch.checkpoint.convert import jax_paths
 from xfmamba_tpu_torch.cli import infer_mura, train
 from xfmamba_tpu_torch.models import tops, vssm
+from xfmamba_tpu_torch.train import driver
+from xfmamba_tpu_torch.utils.flops import model_flops
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SMOKE = ["--model_name", "twoviewxfmamba_smoke", "--image_size", "32", "--device", "cpu"]
@@ -149,25 +154,75 @@ def test_flags_match_jax(parse, jax_parse, required):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--dataset", "chexpert", "--device_preprocess", "1"], "device pipeline"),
-    (["--dataset", "ddsmxray", "--device_preprocess", "1"], "device pipeline"),
-    (["--device_preprocess", "1"], "device pipeline"),
-    (["--dataset", "hipxray", "--device_preprocess", "1"], "device pipeline"),
+    (["--dataset", "chexpert", "--device_preprocess", "1"], "chexpert"),
+    (["--dataset", "ddsmxray", "--device_preprocess", "1"], "ddsm"),
+    (["--device_preprocess", "1"], "mura"),
+    (["--dataset", "hipxray", "--device_preprocess", "1"], "mura"),
 ])
-def test_unported_train_flags_raise(tree, tmp_path, argv, match):
-    """``--device_preprocess 1`` raises on every dataset (each loader
-    refuses it); the datasets themselves are ported
-    (tests/test_torch_cli_datasets.py)."""
-    _, data = tree
-    with pytest.raises(NotImplementedError, match=match):
-        _train(data, tmp_path / "x", "--epochs", "1", *argv)
+def test_device_preprocess_picks_jax_stage(tree, tmp_path, argv, match):
+    """``--device_preprocess 1`` picks the stage JAX's CLI picks for the
+    dataset (CheXpert's, CBIS-DDSM's, else MURA's, hip X-rays included), at
+    the image size, with the loaders' config flag set; without the flag
+    there is none."""
+    args = train.parse_args(SMOKE + argv)
+    stage = train.device_stage(args, 5)
+    want = getattr(jax_dp, f"{match}_device_preprocess")((32, 32))
+    assert {f: getattr(stage, f) for f in ("image_size", "crop", "hflip", "rotation",
+                                           "normalize_mean", "normalize_std")} == vars(want)
+    assert train.make_config(args)[1]["device_preprocess"] is True
+    assert train.device_stage(train.parse_args(SMOKE), 5) is None
 
 
 @pytest.mark.parametrize("flag", ["--cal_flops", "--gradcam"])
-def test_unported_infer_flags_raise(tree, tmp_path, flag):
+def test_infer_utility_flags(tree, tmp_path, flag):
+    """``--cal_flops 1`` returns `model_flops` of a batch-1 forward and
+    prints it; ``--gradcam 1`` scores the parts, then writes gradcam.npz
+    (class 1's CAMs of the first validation batch, in [0, 1], and its
+    views) and, with matplotlib, the overlays."""
     _, data = tree
-    with pytest.raises(NotImplementedError, match="utilities"):
-        infer_mura.main(SMOKE + data + [flag, "1", "--out_dir", str(tmp_path)])
+    out = infer_mura.main(SMOKE + data + [flag, "1", "--batch_size", "4", "--out_dir",
+                                          str(tmp_path)])
+    if flag == "--cal_flops":
+        model, _ = cli.build_model_by_name("twoviewxfmamba_smoke", 2, device="cpu", seed=42)
+        x = torch.zeros(1, 32, 32, 1)
+        assert out == model_flops(model, x, x) and out["flops"] > 0
+        return
+    assert set(out) == {"ELBOW", "WRIST", "combined"}
+    saved = np.load(tmp_path / "gradcam.npz")
+    assert set(saved.files) == {"cam_a", "cam_b", "image1", "image2"}
+    assert saved["cam_a"].shape == saved["cam_b"].shape == (4, 32, 32)
+    assert saved["image1"].shape == (4, 32, 32, 1)
+    for k in ("cam_a", "cam_b"):
+        assert np.isfinite(saved[k]).all() and 0 <= saved[k].min() <= saved[k].max() <= 1
+
+
+@pytest.fixture(scope="module")
+def hip_tree(tmp_path_factory):
+    root = tmp_path_factory.mktemp("hip")
+    images, csv_path = write_hip_tree(str(root), n=30, size=(80, 64), distinct=6, seed=4)
+    return ["--dataset", "hipxray", "--hip_images_dir", images, "--hip_csv", csv_path,
+            "--num_classes", "3"]
+
+
+@pytest.mark.parametrize("dataset", ["mura", "hipxray"])
+def test_train_with_device_preprocess(tree, hip_tree, tmp_path, dataset, monkeypatch):
+    """``cli.train --device_preprocess 1``: the loaders stage uint8 (hip
+    X-rays too, where JAX's loader does not), the stage's plain version
+    augments and normalizes, two epochs train with finite losses, and
+    ``last.pt`` holds the stage's generator."""
+    data = tree[1] if dataset == "mura" else hip_tree
+    seen = []
+    real = driver.fit
+
+    def spy(model, cfg, train_loader, val_loader, **kw):
+        seen.append((next(iter(train_loader))["image1"].dtype, kw["preprocess"]))
+        return real(model, cfg, train_loader, val_loader, **kw)
+    monkeypatch.setattr(driver, "fit", spy)
+    state, history = _train(data, tmp_path / "run", "--epochs", "2", "--device_preprocess", "1")
+    (dtype, stage), = seen
+    assert dtype == np.uint8 and stage.normalize_mean == 0.456 and stage.rotation == 30.0
+    assert all(np.isfinite(h[p]["loss"]) for h in history for p in ("train", "val"))
+    assert torch.equal(state["preprocess_generator"], stage.generator.get_state())
 
 
 def test_infer_without_checkpoint_warns(tree, tmp_path, capsys):

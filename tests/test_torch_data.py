@@ -467,5 +467,11 @@ def test_create_data_loaders_match_jax(tmp_path):
         *csvs, cfg, body_part="WRIST")[2].dataset.samples
     assert {os.path.basename(os.path.dirname(os.path.dirname(os.path.dirname(s[0]))))
             for s in part.dataset.samples} == {"XR_WRIST"}
-    with pytest.raises(NotImplementedError, match="device pipeline"):
-        mura.create_data_loaders(*csvs, dict(cfg, device_preprocess=True))
+    # with the device stage both packages' loaders stage the same uint8
+    staged = mura.create_data_loaders(*csvs, dict(cfg, device_preprocess=True))
+    ref = jax_mura.create_data_loaders(*csvs, dict(cfg, device_preprocess=True))
+    for a, b in zip(staged, ref):
+        for x, y in zip(a, b):
+            for k in ("image1", "image2"):
+                assert x[k].dtype == np.uint8
+                np.testing.assert_array_equal(x[k], y[k])

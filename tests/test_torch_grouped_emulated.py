@@ -229,3 +229,21 @@ def test_lanes_blocks_and_no_atomics():
     text = (build.CSRC_DIR / "grouped_scan_lanes.cu").read_text()
     assert not re.search(r"\batomic\w*\(", text)
     assert "hs" not in re.findall(r"\w+", text.split("struct LanesParams")[1].split("};")[0])
+
+
+def test_emulated_forward_refuses_a_graph(emulated):
+    """Kernel 13 has no gradient of its own (`SelectiveScanGrouped` wraps
+    it with kernel 14): while autograd records, an operand that requires a
+    gradient is refused before the launch; under ``torch.no_grad()`` the
+    call runs."""
+    args, _ = _case(5, 2, 13, 2, 40, 16, torch.float32)
+    u = args[0].clone().requires_grad_()
+    before = ssg.grouped_scan_fwd.launches
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ssg.grouped_scan_fwd(u, *args[1:])
+    assert ssg.grouped_scan_fwd.launches == before
+    with torch.no_grad():
+        y, _ = ssg.grouped_scan_fwd(u, *args[1:])
+    assert ssg.grouped_scan_fwd.launches == before + 1
+    np.testing.assert_allclose(y.numpy(), ssg.grouped_scan_fwd_plain(*args)[0].numpy(),
+                               rtol=2e-5, atol=2e-5)

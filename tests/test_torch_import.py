@@ -36,7 +36,8 @@ def test_port_imports_no_jax_and_builds_nothing():
         "          'data.mura', 'data.jpeg', 'data.image', 'data.dicom', 'data.chexpert',\n"
         "          'data.hipxray', 'data.ddsm', 'data.nyu_cropping', 'data.optimal_centers',\n"
         "          'utils.profiling', 'cli', 'cli.train', 'cli.infer_mura', 'cli.infer_chexpert',\n"
-        "          'cli.infer_ddsm'):\n"
+        "          'cli.infer_ddsm', 'data.device_pipeline', 'ops.device_preprocess',\n"
+        "          'utils.flops', 'utils.saliency'):\n"
         "    assert 'xfmamba_tpu_torch.' + m in sys.modules, m\n"
         "from xfmamba_tpu_torch.kernels import build\n"
         "assert build.library.cache_info().currsize == 0\n"
@@ -55,7 +56,7 @@ def test_library_name_is_keyed_on_the_sources():
     assert path.name.startswith("libxfm_") and path.suffix == ".so"
     assert build.library_path() == path
     assert {p.name for p in build._sources()} == {
-        "gemm_tc.cu", "grouped_scan_lanes.cu", "ln_act.cu", "ln_act_v1.cu", "nk_scan.cu", "nk_scan_ablations.cu",
+        "device_preprocess.cu", "gemm_tc.cu", "grouped_scan_lanes.cu", "ln_act.cu", "ln_act_v1.cu", "nk_scan.cu", "nk_scan_ablations.cu",
         "nk_scan_ablations_v1.cu", "nk_scan_adjoint.cu", "nk_scan_bwd.cu", "nk_scan_fused.cu", "scan_two_level.cu",
         "scan_whole_map.cu",
         "selective_scan_grouped_v1.cu", "ss2d_core_n1.cu", "ss2d_core_n1_v1.cu", "ssd_chunk.cu",

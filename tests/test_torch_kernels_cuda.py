@@ -14,11 +14,13 @@ rounding flips a last bit (2e-2 per kernel, 4e-2 through a chained stage).
 import pytest
 import torch
 
+from xfmamba_tpu_torch.data import device_pipeline as dp
 from xfmamba_tpu_torch.kernels import build
 from xfmamba_tpu_torch.models import vssm
 from xfmamba_tpu_torch.models.tops import TwoViewXFMamba
 from xfmamba_tpu_torch.models.vssm import VSSBlock
 from xfmamba_tpu_torch.models.ss2d import core_dispatch
+from xfmamba_tpu_torch.ops import device_preprocess as op
 from xfmamba_tpu_torch.ops import (
     cross2d_scan, fused_cross_scan, nk_scan, nk_scan_adjoint, nk_scan_v1, primitives, scan_whole_map,
     selective_scan_grouped, ss2d_core_n1, ssd_chunk, vss_block_train, vss_block_v1, vss_stage,
@@ -1518,3 +1520,32 @@ def test_bf16_block_routes(dev):
     # the recompute's 3 GEMMs; out_proj 2, x_proj 2, in_proj 2 (the rank
     # gradients are the adjoint scan's own products)
     assert [f.launches - b for f, b in zip(fns, before)] == [9, 0, 1, 1, 0, 0]
+
+
+# ---------------------------------------------------------------------------
+# the device preprocessing kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("stage_name,staged,size", [("mura", 224, 224), ("mura", 288, 256),
+                                                    ("chexpert", 37, 41), ("ddsm", 64, 48)])
+def test_device_preprocess_matches_plain(dev, stage_name, staged, size):
+    """``csrc/device_preprocess.cu`` against its plain version, train and
+    eval transforms, bit for bit, one counted launch a call; an operand
+    that requires a gradient is refused while autograd records."""
+    stage = getattr(dp, f"{stage_name}_device_preprocess")((size, size), seed=1)
+    g = torch.Generator().manual_seed(staged)
+    u8 = torch.randint(0, 256, (6, staged, staged, 1), generator=g, dtype=torch.uint8)
+    rows = stage.rows(stage.draw_params(6, g))
+    norm = {} if stage.normalize_mean is None else {"mean": stage.normalize_mean,
+                                                    "std": stage.normalize_std}
+    before = op.device_preprocess.launches
+    got = stage.train_batch(u8.to(dev), rows)
+    want = op.device_preprocess_plain(u8, (size, size), rows, stage.crop_size,
+                                      bool(stage.rotation), **norm)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(stage.eval_batch(u8.to(dev)).cpu(),
+                       op.device_preprocess_plain(u8, (size, size), **norm))
+    assert op.device_preprocess.launches == before + 2
+    with pytest.raises(RuntimeError, match="no gradient"):
+        stage.train_batch(u8.to(dev), rows.to(dev).requires_grad_())
+

@@ -440,3 +440,23 @@ def test_emulated_refused_calls_count_nothing(emulated, monkeypatch):
     seg_ln.seg_ln_bwd(x, scale, bias, g)
     assert [fn.launches for fn in WRAPPERS] == [b + 1 for b in before[0]]
     assert emulated.emu_launches() == before[1] + 4
+
+
+def test_emulated_forwards_refuse_a_graph(emulated):
+    """Kernels 19 and 20 have no backward of their own (`seg_ln_act` wraps
+    kernel 20 with 21): while autograd records, a scale that requires a
+    gradient is refused before the launch; under ``torch.no_grad()`` the
+    calls run."""
+    x, scale, bias, _ = _case(5, (2, 3, 4), 48, torch.float32)
+    scale = scale.clone().requires_grad_()
+    dev = emulated.emu_launches()
+    for fn, call in ((pe_fused.ln_act_fused, lambda: pe_fused.ln_act_fused(x, scale, bias, True)),
+                     (seg_ln.seg_ln_fwd, lambda: seg_ln.seg_ln_fwd(x, scale, bias, act=True))):
+        before = fn.launches
+        with pytest.raises(RuntimeError, match="no gradient"):
+            call()
+        assert fn.launches == before and emulated.emu_launches() == dev
+        with torch.no_grad():
+            got = call()
+        _close(got, pe_fused.ln_act_fused_plain(x, scale.detach(), bias, True), *_tol(x.dtype))
+        dev = emulated.emu_launches()

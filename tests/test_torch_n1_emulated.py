@@ -274,3 +274,24 @@ def test_emulated_stage_adjoint_matches_dz_and_the_old_gemms(emulated, dtype):
     assert _rel(dx[:, 4 * R:], dx_p[:, 4 * R:]) < 1e-5
     for name in ("du", "dA", "dbias", "dDsum"):
         assert _rel(got[name], want[name]) < 1e-5, name
+
+
+def test_emulated_forwards_refuse_a_graph(emulated):
+    """Kernel 11 (`ss2d_core_n1_fwd`) and the stage scan (`cross2d_scan`)
+    have no gradient of their own (the autograd op `ss2d_core_n1` and
+    kernel 6 wrap them): while autograd records, an operand that requires
+    a gradient is refused before the launch; inside ``torch.no_grad()`` the
+    call runs."""
+    args, _ = _operands(3, 2, 7, 7, 16, 2, torch.float32)
+    x = args[0].clone().requires_grad_()
+    before = (n1.ss2d_core_n1_fwd.launches, cs.cross2d_scan.launches)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        n1.ss2d_core_n1_fwd(x, *args[1:])
+    with pytest.raises(RuntimeError, match="no gradient"):
+        cs.cross2d_scan(x.view(2, 49, 16), torch.zeros(2, 49, 16), *(
+            torch.zeros(s) for s in ((4, 1, 16), (4, 16), (16,), (4, 2, 16))), 7, 7)
+    assert (n1.ss2d_core_n1_fwd.launches, cs.cross2d_scan.launches) == before
+    with torch.no_grad():
+        y, _ = n1.ss2d_core_n1_fwd(x, *args[1:])
+    y_p, _ = n1.ss2d_core_n1_fwd_plain(*args)
+    np.testing.assert_allclose(y.numpy(), y_p.numpy(), rtol=2e-5, atol=2e-5)

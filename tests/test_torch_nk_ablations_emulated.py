@@ -371,3 +371,21 @@ def test_emulated_map_past_the_accumulator(emulated, kernel, N):
     got = fn(*args)
     assert _rel(got, plain(*args)) < _tol(torch.float32)
     assert ab.ablation_scan_cuda.by_plan == {f"{kernel} chunked x1024, slab 1, 2 bands": 1}
+
+
+@pytest.mark.parametrize("kernel", ["v4", "v3"])
+def test_emulated_kernel_refuses_a_graph(emulated, plan, kernel):
+    """Kernels 17 and 18 have no backward: while autograd records, an
+    operand that requires a gradient is refused before the launch; under
+    ``torch.no_grad()`` the call runs."""
+    gate, fn, plain = KERNELS[kernel]
+    args = _case(9, 1, 5, 6, 40, CROSS2D, 16, torch.float32)
+    dts = args[1].clone().requires_grad_()
+    before = gate.launches
+    with pytest.raises(RuntimeError, match="no gradient"):
+        gate(args[0], dts, *args[2:])
+    assert gate.launches == before
+    with torch.no_grad():
+        got = fn(args[0], dts, *args[2:])
+    assert gate.launches == before + 1
+    assert _rel(got, plain(*args)) < _tol(torch.float32)

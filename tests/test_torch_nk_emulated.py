@@ -259,6 +259,24 @@ def test_emulated_probes_count_nothing(emulated, monkeypatch):
     assert nk.fusion_scan_cuda.by_plan == {}
 
 
+@pytest.mark.parametrize("R", [0, 6])
+def test_emulated_refuses_a_graph(emulated, monkeypatch, R):
+    """Kernels 2 and 3 have no backward: while autograd records, an
+    operand that requires a gradient is refused before the launch (its
+    output would leave the graph); under ``torch.no_grad()`` the same call
+    runs."""
+    monkeypatch.setattr(nk.fusion_scan_cuda, "by_plan", {})
+    args, kernel, plain = _case(5, 1, 7, 7, 40, CROSS2D, 16, R, torch.float32)
+    u = args[0].clone().requires_grad_()
+    before = nk.fusion_scan_cuda.launches
+    with pytest.raises(RuntimeError, match="no gradient"):
+        kernel(u, *args[1:])
+    assert nk.fusion_scan_cuda.launches == before and nk.fusion_scan_cuda.by_plan == {}
+    with torch.no_grad():
+        got = kernel(u, *args[1:])
+    assert _rel(got, plain(*args)) < 2e-5
+
+
 def _jax_case(seed, B, H, W, D, K, N, R):
     rng = np.random.default_rng(seed)
     f, L = np.float32, H * W

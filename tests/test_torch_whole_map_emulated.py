@@ -225,6 +225,23 @@ def test_emulated_kernel9_matches_plain(emulated, plan, dtype, n, H, W, D, kinds
     assert wm.scan_whole_map_cuda.by_plan == {f"whole, slab {slab}": 2}
 
 
+def test_emulated_kernel9_refuses_a_graph(emulated, plan):
+    """Kernel 9 has no backward: while autograd records, an operand that
+    requires a gradient is refused before the launch (Cross_SS2Dv5's
+    output would otherwise reach autograd only through its gate z);
+    under ``torch.no_grad()`` the same call runs."""
+    plan(32)
+    args = _k9_case(4, 3, 7, 7, 40, CROSS2D, 16, torch.float32)
+    dts = args[1].clone().requires_grad_()
+    before = v1.nk_scan_v1.launches
+    with pytest.raises(RuntimeError, match="no gradient"):
+        v1.nk_scan_v1(args[0], dts, *args[2:])
+    assert v1.nk_scan_v1.launches == before and wm.scan_whole_map_cuda.by_plan == {}
+    with torch.no_grad():
+        got = v1.nk_scan_v1(args[0], dts, *args[2:])
+    assert _rel(got, v1.nk_scan_v1_plain(*args)) < _tol(torch.float32)
+
+
 # (images, H, W, D, N, slab)
 K10_CASES = [
     (2, 7, 7, 40, 1, 32),              # phase 8d's d_state-1 core, narrowed

@@ -139,8 +139,9 @@ def _plain(value):
 
 
 def training_state(model, optimizer, epoch: int, history, stopper=None, plateau=None,
-                   train_loader=None) -> dict:
-    """Everything a resumed `fit` needs, after ``epoch`` has ended."""
+                   train_loader=None, preprocess=None) -> dict:
+    """Everything a resumed `fit` needs, after ``epoch`` has ended (with a
+    device stage, its generator of augmentation parameters)."""
     return {
         "epoch": int(epoch),
         "model": model.state_dict(),
@@ -150,6 +151,7 @@ def training_state(model, optimizer, epoch: int, history, stopper=None, plateau=
         "plateau": None if plateau is None else _plain(plateau.state_dict()),
         "generators": {name: g.get_state() for name, g in model_generators(model).items()},
         "train_loader_epoch": None if train_loader is None else int(train_loader._epoch),
+        "preprocess_generator": None if preprocess is None else preprocess.generator.get_state(),
     }
 
 

@@ -18,8 +18,6 @@ import torch
 # MURA body parts (``2_inference_mura.py:154``)
 MURA_BODY_PARTS = ["ELBOW", "FINGER", "FOREARM", "HAND", "HUMERUS", "SHOULDER", "WRIST"]
 
-UTILITIES_ITEM = "ROADMAP.md, queue 1: the utilities (utils/flops.py, utils/saliency.py)"
-
 
 def _seeded(cls, device, seed, **kw):
     """``cls(**kw)`` with weights from a generator seeded with ``seed`` and
@@ -123,17 +121,23 @@ def make_eval_apply(model: torch.nn.Module, two_view: bool, dtype=torch.float32)
     return apply_fn
 
 
-def inference_apply(args, num_classes: int):
-    """The inference CLIs' model: ``--model_name`` with ``num_classes``
-    outputs on ``--device``, its weights from ``--pretrained_model_path``
-    (or, with a warning, the seeded initial ones, as in JAX), wrapped by
-    `make_eval_apply` in ``--bf16``'s dtype."""
+def inference_model(args, num_classes: int):
+    """(model, two_view) of the inference CLIs: ``--model_name`` with
+    ``num_classes`` outputs on ``--device``, its weights from
+    ``--pretrained_model_path`` (or, with a warning, the seeded initial
+    ones, as in JAX)."""
     model, two_view = build_model_by_name(args.model_name, num_classes, device=args.device,
                                           seed=args.seed)
     if args.pretrained_model_path:
         load_variables(args.pretrained_model_path, model)
     else:
         print("WARNING: no checkpoint given; using random init")
+    return model, two_view
+
+
+def inference_apply(args, num_classes: int):
+    """`inference_model` wrapped by `make_eval_apply` in ``--bf16``'s dtype."""
+    model, two_view = inference_model(args, num_classes)
     return make_eval_apply(model, two_view, torch.bfloat16 if args.bf16 else torch.float32)
 
 

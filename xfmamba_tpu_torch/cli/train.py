@@ -17,9 +17,11 @@ Every dataset of the JAX CLI: ``mura`` (the four CSV flags), ``chexpert``
 with ``--num_classes 14``), ``hipxray``
 (``--hip_images_dir``, ``--hip_csv``) and ``ddsmxray`` (``--data_root``,
 ``--ddsm_metadata_csv``, ``--ddsm_case_csvs``); for the last two the
-validation split is also the test split, as in JAX.  Not ported, and
-raising ``NotImplementedError`` with the ROADMAP item: ``--device_preprocess
-1`` (each dataset's loader refuses it).  A single-view model
+validation split is also the test split, as in JAX.
+``--device_preprocess 1`` stages uint8 in the loaders and runs resize,
+crop, flip, rotation and normalize on the card (`device_stage`: CheXpert's
+stage, CBIS-DDSM's, else MURA's, as JAX's CLI picks; hip X-rays stage
+uint8 too, where JAX's loader does not).  A single-view model
 (``singleviewmamba``) trains and is evaluated on ``image1`` alone.
 ``--pretrained_model_path`` is accepted and, as in the JAX package, not
 read by ``fit``.
@@ -82,7 +84,7 @@ def parse_args(argv=None):
     p.add_argument("--data_parallel", type=int, default=1,
                    help="one visible CUDA device trains as one device; more raise (no DDP)")
     p.add_argument("--device_preprocess", type=int, default=0,
-                   help="not ported: raises")
+                   help="stage uint8 on the host; resize, augment and normalize on the card")
     p.add_argument("--loader_processes", type=int, default=0,
                    help="decode and transform in worker processes instead of threads")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -134,6 +136,18 @@ def build_loaders(args, cfg_dict):
     raise ValueError(args.dataset)
 
 
+def device_stage(args, seed: int):
+    """The device stage of ``--dataset`` (JAX's CLI's choice), its
+    generator seeded with ``seed``; None without ``--device_preprocess``."""
+    if not args.device_preprocess:
+        return None
+    from xfmamba_tpu_torch.data import device_pipeline as dp
+    size = (args.image_size, args.image_size)
+    make = {"chexpert": dp.chexpert_device_preprocess,
+            "ddsmxray": dp.ddsm_device_preprocess}.get(args.dataset, dp.mura_device_preprocess)
+    return make(size, seed=seed)
+
+
 def main(argv=None):
     args = parse_args(argv)
     cfg, cfg_dict = make_config(args)
@@ -153,7 +167,7 @@ def main(argv=None):
     print(f"device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
     state, history = fit(model, cfg, train_loader, val_loader, out_dir=cfg.savemodel_path,
-                         two_view=two_view)
+                         two_view=two_view, preprocess=device_stage(args, cfg.seed + 2))
     print(f"done; best val loss {min(h['val']['loss'] for h in history):.4f}")
     return state, history
 

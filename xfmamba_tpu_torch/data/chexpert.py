@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from xfmamba_tpu_torch.data.image import load_grayscale
-from xfmamba_tpu_torch.data.loader import TwoViewLoader, TwoViewSamples, refuse_device_preprocess
+from xfmamba_tpu_torch.data.loader import TwoViewLoader, TwoViewSamples, staged_or
 from xfmamba_tpu_torch.data.transforms import chexpert_eval_transform, chexpert_train_transform
 
 LABELS = (
@@ -137,11 +137,10 @@ def create_train_val_test_data_loaders(train_root_dirs, train_csv_file, config,
                                        drop_no_finding=False):
     """(train, val, test) loaders (``create_train_val_test_data_loader``,
     `:288-357`)."""
-    refuse_device_preprocess(config)
     samples = build_samples(train_csv_file, train_root_dirs, drop_no_finding=drop_no_finding)
     tr_i, va_i, te_i = reference_split_indices(len(samples), config["seed"])
     size = tuple(config["image_size"])
-    tt, et = chexpert_train_transform(size), chexpert_eval_transform(size)
+    tt, et = staged_or(config, chexpert_train_transform(size), chexpert_eval_transform(size))
     nw = config.get("num_workers", 4)
     procs = bool(config.get("loader_processes"))
 

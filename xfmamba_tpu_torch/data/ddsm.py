@@ -35,7 +35,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from xfmamba_tpu_torch.data import dicom, nyu_cropping, png
-from xfmamba_tpu_torch.data.loader import TwoViewLoader, TwoViewSamples, refuse_device_preprocess
+from xfmamba_tpu_torch.data.loader import TwoViewLoader, TwoViewSamples, staged_or
 from xfmamba_tpu_torch.data.transforms import TwoViewTransform, resize
 
 ASSESSMENT_MAP = {"BENIGN_WITHOUT_CALLBACK": "benign", "BENIGN": "benign",
@@ -210,12 +210,13 @@ def create_data_loaders(main_csv_files, metadata_csv, base_dir, config, crop_siz
                         rescale_factor=None):
     """(train, val) loaders (``create_ddsmxray_data_loader``, `:674-760`):
     no crop and no normalisation in the transforms (`:676-692`)."""
-    refuse_device_preprocess(config)
     subjects = load_subjects(main_csv_files, metadata_csv, base_dir)
     tr_i, va_i = reference_split(subjects)
     size = tuple(config["image_size"])
-    tt = TwoViewTransform(size, crop=None, normalize_mean=None, normalize_std=None, train=True)
-    et = TwoViewTransform(size, train=False, normalize_mean=None, normalize_std=None)
+    tt, et = staged_or(
+        config,
+        TwoViewTransform(size, crop=None, normalize_mean=None, normalize_std=None, train=True),
+        TwoViewTransform(size, train=False, normalize_mean=None, normalize_std=None))
     load = make_load_fn(subjects, crop=crop_size is not None, rescale_factor=rescale_factor)
     nw = config.get("num_workers", 4)
     procs = bool(config.get("loader_processes"))

@@ -16,6 +16,13 @@ decimal point as floats (so ``Image_no`` 7 names "007 AP.jpg", but in a
 column with an empty cell it reads 7.0 and names "7.0 AP.jpg", which JAX
 then does not find either), anything else as strings; the labels sort as
 numbers or as strings accordingly.
+
+With ``device_preprocess`` the loaders stage uint8 at the image size, as
+the other datasets' do, and the card runs MURA's stage.  JAX's hip loader
+never reads the flag (``xfmamba_tpu/data/hipxray.py:58-80``), so with
+``--device_preprocess 1`` its CLI's device stage takes normalized floats
+for bytes: it divides them by 255, flips and rotates them a second time and
+normalizes them again.  That fault is not copied.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import numpy as np
 
 from xfmamba_tpu_torch.data.chexpert import NA_VALUES, read_table
 from xfmamba_tpu_torch.data.image import load_grayscale
-from xfmamba_tpu_torch.data.loader import TwoViewLoader, TwoViewSamples, refuse_device_preprocess
+from xfmamba_tpu_torch.data.loader import TwoViewLoader, TwoViewSamples, staged_or
 from xfmamba_tpu_torch.data.transforms import mura_eval_transform, mura_train_transform
 
 REQUIRED = ("Image_no", "Admission_Date", "Fracture_Classification", "Final_Classification")
@@ -93,13 +100,12 @@ def _load_pair(sample):
 def create_data_loaders(images_dir, csv_file, config):
     """Train/val split by the config's ratio over a seeded shuffle (the
     reference's ``create_data_loader``, `:118-`): (train, val, mapping)."""
-    refuse_device_preprocess(config)
     samples, mapping = build_samples(images_dir, csv_file)
     rng = np.random.default_rng(config["seed"])
     idx = rng.permutation(len(samples))
     n_train = int(config.get("train_ratio", 0.85) * len(samples))
     size = tuple(config["image_size"])
-    tt, et = mura_train_transform(size), mura_eval_transform(size)
+    tt, et = staged_or(config, mura_train_transform(size), mura_eval_transform(size))
     nw = config.get("num_workers", 4)
     procs = bool(config.get("loader_processes"))
 

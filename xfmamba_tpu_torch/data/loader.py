@@ -29,17 +29,18 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from xfmamba_tpu_torch.data.device_pipeline import StagingTransform
 
-DEVICE_ITEM = "ROADMAP.md, queue 1: the device pipeline"
 
-
-def refuse_device_preprocess(config: Dict) -> None:
-    """The datasets' loaders take ``device_preprocess`` from the config, as
-    JAX's do; the port's device pipeline is not written yet."""
+def staged_or(config: Dict, train_tf, eval_tf):
+    """(train, eval) transforms of a dataset's loaders: with the config's
+    ``device_preprocess`` both stage uint8 at the image size
+    (`data.device_pipeline.StagingTransform`) and the float work runs on the
+    card; else the host transforms given."""
     if config.get("device_preprocess"):
-        raise NotImplementedError(
-            f"device_preprocess: the port's device pipeline (data/device_pipeline.py on CUDA) "
-            f"is not ported yet ({DEVICE_ITEM})")
+        staged = StagingTransform(tuple(config["image_size"]))
+        return staged, staged
+    return train_tf, eval_tf
 
 
 class TwoViewSamples:

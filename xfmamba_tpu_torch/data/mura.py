@@ -29,7 +29,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from xfmamba_tpu_torch.data.loader import TwoViewLoader, TwoViewSamples, refuse_device_preprocess
+from xfmamba_tpu_torch.data.loader import TwoViewLoader, TwoViewSamples, staged_or
 from xfmamba_tpu_torch.data.image import load_grayscale
 from xfmamba_tpu_torch.data.transforms import mura_eval_transform, mura_train_transform
 
@@ -205,7 +205,6 @@ def create_data_loaders(train_image_paths_csv, train_study_labels_csv,
                         config, body_part: Optional[str] = None):
     """(train_loader, val_loader, test_loader); test = the official valid
     CSV, optionally of one ``body_part`` (the per-part inference sweep)."""
-    refuse_device_preprocess(config)
     root = config["root_dir"]
     rows = read_mura_tables(train_image_paths_csv, train_study_labels_csv, root)
     train_rows, val_rows = patient_level_split(rows, seed=config["seed"])
@@ -217,7 +216,7 @@ def create_data_loaders(train_image_paths_csv, train_study_labels_csv,
         return TwoViewSamples([r[:3] for r in rows_], _load_pair, tf)
 
     size = tuple(config["image_size"])
-    tt, et = mura_train_transform(size), mura_eval_transform(size)
+    tt, et = staged_or(config, mura_train_transform(size), mura_eval_transform(size))
     nw = config.get("num_workers", 4)
     procs = bool(config.get("loader_processes"))
     train_loader = TwoViewLoader(samples(train_rows, tt), config["batch_size"], shuffle=True,

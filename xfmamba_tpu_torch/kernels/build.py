@@ -79,6 +79,7 @@ _SIGNATURES = {
     "xfm_fusion_scan_smem": [_I] * 8,
     "xfm_whole_map_scan": [_P] * 8 + [_I] * 16 + [_P] * 2,
     "xfm_whole_map_smem": [_I] * 8,
+    "xfm_device_preprocess": [_P] * 7 + [_I] * 7 + [ctypes.c_float] * 2 + [_P],
 }
 # entry points that return something other than a cudaError_t
 _RESTYPES = {"xfm_vss_block_v1_workspace": ([_LL] + [_I] * 5, ctypes.c_longlong)}

@@ -8,18 +8,18 @@ kernels, routed as the JAX accelerator path routes them in the cross2d
 mode every model here uses (`models.ss2d.core_dispatch` says where the
 other modes differ):
 
-- ShallowFuse in eval mode through `nk_scan_train` (kernel 2; one K=1
-  row_f call per swap group, with JAX's group `shallow_group`) where JAX's
-  v2 rule finds an image group aligned to 8 sublanes
-  (`ops.nk_scan_v1.shallow_takes_v2`), else through `nk_scan_v1` (kernel
+- ShallowFuse in eval mode without a gradient through `nk_scan_train`
+  (kernel 2; one K=1 row_f call per swap group, with JAX's group
+  `shallow_group`) where JAX's v2 rule finds an image group aligned to 8
+  sublanes (`ops.nk_scan_v1.shallow_takes_v2`), else through `nk_scan_v1` (kernel
   9, the same calls), in both dtypes; in training mode through
   `nk_scan_train` (kernel 7 backward) with the group the routing rule of
   ``ops/nk_scan_adjoint.py`` gives them, else one `selective_scan_auto`
   call over both groups (kernels 13 and 14, K=2).  With ``FUSED_V4`` or
   ``FUSED_V3`` on, `nk_scan` runs kernel 17 or 18 in place of kernel 2
   where JAX's gates admit the group.
-- Cross_SS2Dv5 in eval mode through `nk_scan_x` (rank form, LayerNorm
-  epilogue) where the v2 rule gives its 3B streams a group
+- Cross_SS2Dv5 in eval mode without a gradient through `nk_scan_x` (rank
+  form, LayerNorm epilogue) where the v2 rule gives its 3B streams a group
   (`ops.nk_scan_v1.cross_v2_group`), else the deltas are projected in
   torch, scanned by `nk_scan_v1` (kernel 9, one K=4 call) and out-normed in
   torch, as JAX's else branch does; in training mode the deltas are
@@ -28,6 +28,14 @@ other modes differ):
   per-direction calls, or kernel 10 at d_state 1), then the torch out-norm.
 
 At one study per batch every fusion scan takes kernel 9.
+
+In eval mode while autograd records a scan operand that requires a
+gradient (Grad-CAM differentiates the fusion layers at the backbone's
+stage-3 features), each layer takes its training route's differentiable
+kernels with the eval function (BatchNorm's running statistics, no drop
+path): kernels 9, 2-as-inference and 3 have no backward, and their outputs
+would leave the graph, so that autograd would return a gradient that skips
+the scan (through Cross_SS2Dv5's gate z) without an error.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from xfmamba_tpu_torch.ops.nk_scan import nk_scan_x, scan_mode_kinds
 from xfmamba_tpu_torch.ops.nk_scan_adjoint import nk_scan_train, nk_train_supported
 from xfmamba_tpu_torch.ops.nk_scan_v1 import (
     cross_v2_group, nk_scan_v1, shallow_group, shallow_takes_v2)
+from xfmamba_tpu_torch.ops.primitives import needs_grad
 from xfmamba_tpu_torch.ops.selective_scan_grouped import selective_scan_auto
 
 
@@ -111,14 +120,15 @@ class ShallowFuseSS2Dv4(ScanParams):
         dts, Bs, Cs = torch.split(x_dbl, [R, N, N], -1)
         dts = torch.einsum("blkr,kdr->blkd", dts, self.dt_projs_weight.to(xs.dtype))
         A, Dmat, bias = self.scan_operands(di)
-        group = (nk_train_supported(B, L, W, di, 1, N, "unidi") if self.training
+        train_route = self.training or needs_grad(xs, dts, Bs, Cs, A, Dmat, bias)
+        group = (nk_train_supported(B, L, W, di, 1, N, "unidi") if train_route
                  else shallow_group(B, L))
         if group is None:
             ys = selective_scan_auto(xs.reshape(B, L, 2 * di), dts.reshape(B, L, 2 * di),
                                      A.reshape(2 * di, N), Bs, Cs, Dmat.reshape(-1),
                                      bias.reshape(-1)).view(B, L, 2, di).unbind(2)
         else:
-            v1 = not self.training and not shallow_takes_v2(B, L, W)
+            v1 = not train_route and not shallow_takes_v2(B, L, W)
             calls = [(xs[:, :, k].contiguous(), dts[:, :, k].contiguous(),
                       Bs[:, :, k].contiguous(), Cs[:, :, k].contiguous(),
                       A[k].t().contiguous(), Dmat[k:k + 1], bias[k:k + 1], H, W, ("row_f",))
@@ -185,10 +195,12 @@ class CrossSS2Dv5(ScanParams):
         xcat = F.silu(self.conv2d(xp_cat))                     # (3B, H, W, di)
         Bc = xcat.shape[0]
         A, Dmat, bias = self.scan_operands(di)
-        if self.training or cross_v2_group(Bc, H, W) is None:
+        train_route = self.training or needs_grad(xcat, self.x_proj_weight,
+                                                  self.dt_projs_weight, A, Dmat, bias)
+        if train_route or cross_v2_group(Bc, H, W) is None:
             dts, Bs, Cs = _project_kdirs(xcat, self.x_proj_weight, self.dt_projs_weight, R, N)
             Cs = Cs[:Bv].repeat(3, 1, 1, 1, 1)
-            if self.training:
+            if train_route:
                 y3 = core_dispatch(xcat, dts, Bs, Cs, A, Dmat, bias, self.scan_mode)
             else:
                 y3 = nk_scan_v1(xcat.reshape(Bc, L, di).contiguous(),

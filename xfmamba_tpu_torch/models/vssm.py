@@ -65,6 +65,7 @@ from torch.utils.checkpoint import checkpoint
 from xfmamba_tpu_torch.models.layers import (
     Conv2dSame, Dense, DropPath, LayerNorm, Mlp, gelu, to_device)
 from xfmamba_tpu_torch.models.ss2d import SS2D
+from xfmamba_tpu_torch.ops.primitives import forward_only
 from xfmamba_tpu_torch.ops.vss_block import (
     MLP_FIELDS, PLAIN_OPS, SS2D_FIELDS, VSSBlockOperands, mlp_half, pack_vss_block_params,
     pack_vss_block_train_params)
@@ -282,6 +283,12 @@ class VSSM(nn.Module):
                             len(layer.blocks))
         if route == "composable":
             return self._block_stage(x, layer, None)
+        if x.is_cuda and torch.is_grad_enabled():
+            # the kernels have no backward and take operands packed without
+            # a graph: refuse a forward that autograd records (tested before
+            # the parameters are gathered, so a forward without grad pays
+            # nothing)
+            forward_only("the eval stage kernels", x, *layer.parameters())
         xl = x.reshape(B, H * W, d).contiguous()
         if route == "stage":
             packed = [_packed(b, x.dtype, pack_vss_block_params, self._operands)

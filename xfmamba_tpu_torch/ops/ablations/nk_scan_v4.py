@@ -32,7 +32,7 @@ from xfmamba_tpu_torch.kernels import build
 from xfmamba_tpu_torch.ops.ablations.ablation_scan import ablation_scan_cuda
 from xfmamba_tpu_torch.ops.nk_scan import _kinds_code, _nk_operands, kind_pairs, nk_scan_plain
 from xfmamba_tpu_torch.ops.primitives import (
-    dtype_code, on_cpu, ptr, require, require_cuda, stream)
+    dtype_code, forward_only, on_cpu, ptr, require, require_cuda, stream)
 
 # off by default, as in JAX (measured slower than v2 on the TPU)
 FUSED_V4 = False
@@ -61,6 +61,7 @@ def nk_scan_v4(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds, group=8):
     u.dtype."""
     if on_cpu(u, dts, Bs, Cs, A, Dvec, bias):
         return nk_scan_v4_plain(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds)
+    forward_only("nk_scan_v4", u, dts, Bs, Cs, A, Dvec, bias)
     n, L, D = u.shape
     K = len(kinds)
     N = A.shape[0] // K

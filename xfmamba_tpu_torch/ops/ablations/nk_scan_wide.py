@@ -41,7 +41,7 @@ from xfmamba_tpu_torch.ops.fast_math import softplus
 from xfmamba_tpu_torch.ops.nk_scan import (
     _kinds_code, _nk_operands, kind_pairs, traversal_order)
 from xfmamba_tpu_torch.ops.primitives import (
-    dtype_code, on_cpu, ptr, require, require_cuda, stream)
+    dtype_code, forward_only, on_cpu, ptr, require, require_cuda, stream)
 
 LOG2E = 1.4426950408889634
 _V3_VMEM_BUDGET = 100 * 1024 * 1024
@@ -121,6 +121,7 @@ def nk_scan_v3(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds, group=8):
     (B, L, D) in u.dtype."""
     if on_cpu(u, dts, Bs, Cs, A, Dvec, bias):
         return nk_scan_v3_plain(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds)
+    forward_only("nk_scan_v3", u, dts, Bs, Cs, A, Dvec, bias)
     n, L, D = u.shape
     K = len(kinds)
     N = A.shape[0] // K

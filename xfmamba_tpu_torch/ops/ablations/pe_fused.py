@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from xfmamba_tpu_torch.kernels import build
 from xfmamba_tpu_torch.ops.primitives import (
-    dtype_code, layer_norm_plain, on_cpu, ptr, require, stream)
+    dtype_code, forward_only, layer_norm_plain, on_cpu, ptr, require, stream)
 
 # off by default, as in JAX (measured slower than XLA's lowering on the TPU)
 PE_FUSED = False
@@ -55,6 +55,7 @@ def ln_act_fused(x, scale, bias, act_gelu=False, eps=1e-5):
     (B, H, W, C) in x's dtype."""
     if on_cpu(x, scale, bias):
         return ln_act_fused_plain(x, scale, bias, act_gelu, eps)
+    forward_only("ln_act_fused", x, scale, bias)
     return _launch(ln_act_fused, "xfm_ln_act", x, scale, bias, act_gelu, eps)
 
 

@@ -45,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from xfmamba_tpu_torch.kernels import build
-from xfmamba_tpu_torch.ops.primitives import dtype_code, on_cpu, ptr, require, stream
+from xfmamba_tpu_torch.ops.primitives import dtype_code, forward_only, on_cpu, ptr, require, stream
 
 # the op's switch, on as in JAX
 SEG_LN = True
@@ -137,6 +137,7 @@ def seg_ln_fwd(x, scale, bias, eps=1e-5, act=False):
     Returns x's shape and dtype."""
     if on_cpu(x, scale, bias):
         return seg_ln_fwd_plain(x, scale, bias, eps, act)
+    forward_only("seg_ln_fwd", x, scale, bias)
     return _fwd(seg_ln_fwd, "xfm_seg_ln_fwd", (), x, scale, bias, eps, act)
 
 

@@ -49,7 +49,8 @@ from xfmamba_tpu_torch.ops.nk_scan import (
     CROSS2D_KINDS, selective_scan_bwd_cuda, selective_scan_bwd_plain, selective_scan_cuda,
     selective_scan_plain)
 from xfmamba_tpu_torch.ops.primitives import (
-    dtype_code, gemm_ab_cuda, gemm_ab_plain, gemm_simt_cuda, on_cpu, require, require_cuda)
+    dtype_code, forward_only, gemm_ab_cuda, gemm_ab_plain, gemm_simt_cuda, on_cpu, require,
+    require_cuda)
 from xfmamba_tpu_torch.ops.ss2d_core_n1 import (
     CHANNELS, MAX_CHUNKS, MAX_RANK, MIN_CHUNK, N1Layout, count_plan, n1_adjoint_plain,
     n1_bwd_launch, n1_bwd_launch_v1, n1_fwd_launch, n1_fwd_launch_v1, ss2d_core_n1_fwd_plain,
@@ -127,6 +128,7 @@ def cross2d_scan(u, xdbl, A, bias, Dsum, w_dt, H, W, checkpoints=False):
     """The four directions' scan and merge; see the module docstring."""
     if on_cpu(u, xdbl, A, bias, Dsum, w_dt):
         return cross2d_scan_plain(u, xdbl, A, bias, Dsum, w_dt, H, W, checkpoints)
+    forward_only("cross2d_scan", u, xdbl, A, bias, Dsum, w_dt)
     out = _scan(n1_fwd_launch, cross2d_scan, u, xdbl, A, bias, Dsum, w_dt, H, W, checkpoints)
     count_plan(cross2d_scan, tile_plan(u.shape[0], H, W, u.shape[2]))
     return out

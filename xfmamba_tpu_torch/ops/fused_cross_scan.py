@@ -32,10 +32,11 @@ from __future__ import annotations
 import torch
 
 from xfmamba_tpu_torch.kernels import build
+from xfmamba_tpu_torch.ops.cost import reports_cost, scan_flops
 from xfmamba_tpu_torch.ops.nk_scan import CROSS2D_KINDS, traversal_order
 from xfmamba_tpu_torch.ops.nk_scan_v1 import segments_per_chunk
 from xfmamba_tpu_torch.ops.primitives import (
-    dtype_code, on_cpu, ptr, require, require_cuda, stream)
+    dtype_code, forward_only, on_cpu, ptr, require, require_cuda, stream)
 from xfmamba_tpu_torch.ops.scan_whole_map import scan_whole_map_cuda
 from xfmamba_tpu_torch.ops.selective_scan import selective_scan_seq
 
@@ -68,6 +69,7 @@ def fused_cross_scan(x, dts, Bs, Cs, A, Dmat, bias):
     """Kernel 10; see the module docstring."""
     if on_cpu(x, dts, Bs, Cs, A, Dmat, bias):
         return fused_cross_scan_plain(x, dts, Bs, Cs, A, Dmat, bias)
+    forward_only("fused_cross_scan", x, dts, Bs, Cs, A, Dmat, bias)
     require_cuda(x, dts, Bs, Cs, A, Dmat, bias)
     B, H, W, D = x.shape
     N = A.shape[-1]
@@ -138,6 +140,8 @@ class SS2DCoreFused(torch.autograd.Function):
         return tuple(next(grads) if t.requires_grad else None for t in leaves)
 
 
+@reports_cost(lambda x, dts, Bs, Cs, A, Dmat, bias: scan_flops(
+    x.shape[0], x.shape[1] * x.shape[2], A.shape[0] * A.shape[1], A.shape[2]))
 def ss2d_core_fused(x, dts, Bs, Cs, A, Dmat, bias):
     """The cross2d core from projections through kernel 10, differentiable
     in all seven arguments; operands made contiguous (B and C are views of

@@ -49,8 +49,9 @@ import torch
 
 from xfmamba_tpu_torch.kernels import build
 from xfmamba_tpu_torch.ops.primitives import (
-    dtype_code, layer_norm_cuda, layer_norm_plain, on_cpu, ptr, require,
+    dtype_code, forward_only, layer_norm_cuda, layer_norm_plain, on_cpu, ptr, require,
     require_cuda, stream)
+from xfmamba_tpu_torch.ops.cost import nk_flops, reports_cost
 from xfmamba_tpu_torch.ops.fast_math import SOFTPLUS_THRESHOLD, softplus
 from xfmamba_tpu_torch.ops.selective_scan import selective_scan_seq
 
@@ -508,6 +509,7 @@ def nk_scan(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds, group=8):
     kernel `nk_scan_route` names; ``nk_scan.launches`` counts kernel 2's."""
     if on_cpu(u, dts, Bs, Cs, A, Dvec, bias):
         return nk_scan_plain(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds)
+    forward_only("nk_scan", u, dts, Bs, Cs, A, Dvec, bias)
     n, L, D = u.shape
     K = len(kinds)
     route = nk_scan_route(n, L, W, D, K, A.shape[0] // K, group, kinds)
@@ -548,6 +550,13 @@ def nk_scan_x_plain(u, ranks, Bs, Cs, w_dt, A, Dvec, bias, lno, H, W, kinds):
     return layer_norm_plain(y.view(n * L, D), lno[0], lno[1], u.dtype).view(n, L, D)
 
 
+def _nk_scan_x_flops(u, ranks, Bs, Cs, w_dt, A, Dvec, bias, lno, H, W, kinds):
+    """The dt projection from the ranks, and the scan."""
+    B, L, D = u.shape
+    return 2 * B * L * ranks.shape[-1] * D + nk_flops(u, A, kinds)
+
+
+@reports_cost(_nk_scan_x_flops)
 def nk_scan_x(u, ranks, Bs, Cs, w_dt, A, Dvec, bias, lno, H, W, kinds):
     """u (B, L, D); ranks (B, L, K*R); Bs/Cs (B, L, K*N); w_dt (K*R, D);
     A (K*N, D); Dvec/bias (K, D); lno (2, D) out-norm scale and shift.
@@ -555,6 +564,7 @@ def nk_scan_x(u, ranks, Bs, Cs, w_dt, A, Dvec, bias, lno, H, W, kinds):
     if on_cpu(u, ranks, Bs, Cs, w_dt, A, Dvec, bias, lno):
         return nk_scan_x_plain(u, ranks, Bs, Cs, w_dt, A, Dvec, bias, lno,
                                H, W, kinds)
+    forward_only("nk_scan_x", u, ranks, Bs, Cs, w_dt, A, Dvec, bias, lno)
     n, L, D = u.shape
     for name, t in (("u", u), ("ranks", ranks), ("Bs", Bs), ("Cs", Cs)):
         require(t, (n, L, None), u.dtype, name=name)

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from xfmamba_tpu_torch.kernels import build
+from xfmamba_tpu_torch.ops.cost import nk_flops, reports_cost
 from xfmamba_tpu_torch.ops.fast_math import SOFTPLUS_THRESHOLD, softplus
 from xfmamba_tpu_torch.ops.nk_scan import (
     _kinds_code, _nk_operands, nk_scan, scan_mode_kinds, selective_scan_bwd_cuda,
@@ -305,6 +306,7 @@ class NKScanTrain(torch.autograd.Function):
         return tuple(g.to(t.dtype) for g, t in zip(grads, saved)) + (None,) * 4
 
 
+@reports_cost(lambda u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds, group=8: nk_flops(u, A, kinds))
 def nk_scan_train(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds, group=8):
     """Training nk scan, same contract as `nk_scan` (``group`` as there)."""
     return NKScanTrain.apply(u, dts, Bs, Cs, A, Dvec, bias, H, W, tuple(kinds), group)

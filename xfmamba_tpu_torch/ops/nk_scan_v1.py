@@ -32,10 +32,11 @@ from __future__ import annotations
 import torch
 
 from xfmamba_tpu_torch.kernels import build
+from xfmamba_tpu_torch.ops.cost import nk_flops, reports_cost
 from xfmamba_tpu_torch.ops.nk_scan import (
     _kinds_code, _nk_operands, _row_strides, nk_scan_plain, selective_scan_plain)
 from xfmamba_tpu_torch.ops.primitives import (
-    dtype_code, on_cpu, ptr, require, require_cuda, stream)
+    dtype_code, forward_only, on_cpu, ptr, require, require_cuda, stream)
 from xfmamba_tpu_torch.ops.scan_whole_map import scan_whole_map_cuda
 
 # chunks of one (image, kind) chain: the threads along L of a kernel block
@@ -152,6 +153,7 @@ def nk_scan_v1_plain(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds):
     return nk_scan_plain(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds)
 
 
+@reports_cost(lambda u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds: nk_flops(u, A, kinds))
 def nk_scan_v1(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds):
     """Kernel 9; the contract of ``ops.nk_scan.nk_scan``: u (B, L, D); dts
     (B, L, K*D); Bs/Cs (B, L, K*N); A (K*N, D) with rows in (k, n) order;
@@ -159,6 +161,7 @@ def nk_scan_v1(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds):
     u * sum_k D_k.  No gradient: inference only, as the TPU kernel."""
     if on_cpu(u, dts, Bs, Cs, A, Dvec, bias):
         return nk_scan_v1_plain(u, dts, Bs, Cs, A, Dvec, bias, H, W, kinds)
+    forward_only("nk_scan_v1", u, dts, Bs, Cs, A, Dvec, bias)
     n, L, D = u.shape
     for name, t in (("u", u), ("dts", dts), ("Bs", Bs), ("Cs", Cs)):
         require(t, (n, L, None), u.dtype, name=name)

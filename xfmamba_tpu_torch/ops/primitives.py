@@ -40,6 +40,27 @@ def on_cpu(*tensors) -> bool:
                      "the CPU or all on one CUDA device")
 
 
+def needs_grad(*tensors) -> bool:
+    """True where autograd records and a tensor among ``tensors`` requires
+    a gradient."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def forward_only(what: str, *tensors) -> None:
+    """Raise where a kernel without a gradient would be handed a tensor
+    that requires one while autograd records: its output would leave the
+    graph, and autograd would return a gradient that skips it without an
+    error.  Called in the card branch of every wrapper that no
+    ``torch.autograd.Function`` wraps (inside a Function's forward and
+    backward autograd does not record, so those calls pass); a forward
+    that needs no gradient runs under ``torch.no_grad()``."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{what}: this kernel has no gradient, and an argument requires one; run the "
+            "forward under torch.no_grad(), or take a differentiable route")
+
+
 def require_cuda(*tensors) -> None:
     if on_cpu(*tensors):
         raise ValueError("a CUDA kernel was given CPU tensors")

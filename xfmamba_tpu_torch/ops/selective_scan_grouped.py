@@ -50,9 +50,10 @@ from __future__ import annotations
 import torch
 
 from xfmamba_tpu_torch.kernels import build
+from xfmamba_tpu_torch.ops.cost import reports_cost, scan_flops
 from xfmamba_tpu_torch.ops.fast_math import SOFTPLUS_THRESHOLD, softplus
 from xfmamba_tpu_torch.ops.primitives import (
-    dtype_code, on_cpu, ptr, require, require_cuda, stream)
+    dtype_code, forward_only, on_cpu, ptr, require, require_cuda, stream)
 
 # positions per checkpointed chunk
 CHUNK = 32
@@ -174,6 +175,7 @@ def grouped_scan_fwd(u, delta, A, Bmat, Cmat, Dvec=None, bias=None, reverse=Fals
     """Kernel 13; see the module docstring."""
     if on_cpu(u, delta, A, Bmat, Cmat, Dvec, bias):
         return grouped_scan_fwd_plain(u, delta, A, Bmat, Cmat, Dvec, bias, reverse, chunk)
+    forward_only("grouped_scan_fwd", u, delta, A, Bmat, Cmat, Dvec, bias)
     B, L, K, C, N, n = _cuda_operands(u, delta, A, Bmat, Cmat, Dvec, bias, chunk)
     y, ck = _fwd_outputs(B, L, K, C, N, n, u.device)
     lib = build.library()
@@ -339,6 +341,7 @@ class SelectiveScanGrouped(torch.autograd.Function):
         return (*grads, None)
 
 
+@reports_cost(lambda u, delta, A, *args, **kwargs: scan_flops(*u.shape, A.shape[-1]))
 def selective_scan_auto(u, delta, A, Bmat, Cmat, D=None, delta_bias=None,
                         delta_softplus=True, reverse=False):
     """``ops.selective_scan`` semantics on kernels 13/14: u and delta

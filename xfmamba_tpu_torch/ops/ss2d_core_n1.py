@@ -84,10 +84,12 @@ from dataclasses import dataclass
 import torch
 
 from xfmamba_tpu_torch.kernels import build
+from xfmamba_tpu_torch.ops.cost import reports_cost, scan_flops
 from xfmamba_tpu_torch.ops.fast_math import softplus
 from xfmamba_tpu_torch.ops.nk_scan import CROSS2D_KINDS, traversal_order
 from xfmamba_tpu_torch.ops.primitives import (
-    dtype_code, gemm_ab_cuda, gemm_ab_plain, on_cpu, ptr, require, require_cuda, stream)
+    dtype_code, forward_only, gemm_ab_cuda, gemm_ab_plain, on_cpu, ptr, require, require_cuda,
+    stream)
 
 # checkpoint chunks per chain (the first design's threads along L,
 # csrc/ss2d_core_n1_v1.cu)
@@ -348,6 +350,7 @@ def ss2d_core_n1_fwd(x, xdbl, w_dt, A, Ds, bias, chunk=None):
     """Kernel 11 on x (B, H, W, D); see the module docstring."""
     if on_cpu(x, xdbl, w_dt, A, Ds, bias):
         return ss2d_core_n1_fwd_plain(x, xdbl, w_dt, A, Ds, bias, chunk)
+    forward_only("ss2d_core_n1_fwd", x, xdbl, w_dt, A, Ds, bias)
     require_cuda(x, xdbl, w_dt, A, Ds, bias)
     B, H, W, D, R = _check(x, xdbl, w_dt, A, Ds, bias)
     chunk, n = _n_chunks(H * W, chunk)
@@ -651,6 +654,14 @@ class SS2DCoreN1(torch.autograd.Function):
         return core_n1_bwd(*ctx.saved_tensors, g)
 
 
+def _core_n1_flops(x, x_proj_weight, dt_projs_weight, dt_projs_bias, A_logs, Ds):
+    """x_proj, the dt projection and the scan of the K-direction core."""
+    B, H, W, D = x.shape
+    K, C, R = x_proj_weight.shape[0], x_proj_weight.shape[1], dt_projs_weight.shape[2]
+    return 2 * B * H * W * K * D * (C + R) + scan_flops(B, H * W, K * D, A_logs.shape[1])
+
+
+@reports_cost(_core_n1_flops)
 def ss2d_core_n1(x, x_proj_weight, dt_projs_weight, dt_projs_bias, A_logs, Ds):
     """The d_state-1 cross2d SS2D core on x (B, H, W, D): (B, H, W, D)
     float32, differentiable in all six arguments (``ss2d_core_pallas_n1``)."""

@@ -26,6 +26,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from xfmamba_tpu_torch.ops.cost import flops_ssd_chunk_scan, reports_cost
+
 
 def segsum(x: torch.Tensor) -> torch.Tensor:
     """(..., T) -> (..., T, T) with ``out[..., i, j] = sum_{j < r <= i} x[r]``
@@ -48,6 +50,8 @@ def _pick_chunk_size(seqlen: int, chunk_size: int) -> int:
     return chunk_size
 
 
+@reports_cost(lambda x, dt, A, B, C, chunk_size, *args, **kwargs: flops_ssd_chunk_scan(
+    *x.shape[:3], x.shape[3], B.shape[-1], chunk_size))
 def ssd_chunk_scan(x, dt, A, B, C, chunk_size, D=None, z=None, dt_bias=None,
                    initial_states=None, dt_softplus=False, dt_limit=(0.0, math.inf),
                    return_final_states=False):

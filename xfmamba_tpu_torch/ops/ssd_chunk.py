@@ -73,9 +73,10 @@ import math
 import torch
 
 from xfmamba_tpu_torch.kernels import build
+from xfmamba_tpu_torch.ops.cost import flops_ssd_chunk_scan, reports_cost
 from xfmamba_tpu_torch.ops.fast_math import SOFTPLUS_THRESHOLD, softplus
 from xfmamba_tpu_torch.ops.primitives import (
-    dtype_code, on_cpu, ptr, require, require_cuda, stream)
+    dtype_code, forward_only, needs_grad, on_cpu, ptr, require, require_cuda, stream)
 
 # positions per chunk: the m0 path's chunk_size, and the only one the
 # kernels take (their tiling of the chunk x chunk products is fixed)
@@ -459,6 +460,7 @@ def ssd_fwd(x, dt, A, Bm, Cm, D=None, bias=None, init=None, chunk=CHUNK, save_st
     """Kernel 15 (passes a, b, c, checked once); see `ssd_fwd_plain`."""
     if on_cpu(x, dt, A, Bm, Cm, D, bias, init):
         return ssd_fwd_plain(x, dt, A, Bm, Cm, D, bias, init, chunk, save_states)
+    forward_only("ssd_fwd", x, dt, A, Bm, Cm, D, bias, init)
     require_cuda(x, dt, A, Bm, Cm, D, bias, init)
     b, g, L, R, P, N, nc = _check(x, dt, A, Bm, Cm, D, bias, chunk)
     if init is not None:
@@ -658,10 +660,8 @@ class SSDChunkScanTrain(torch.autograd.Function):
                 None if bias is None else g["dbias"], g["dinit"] if ctx.has_init else None)
 
 
-def _needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
-
-
+@reports_cost(lambda x, dt, A, Bm, *args, **kwargs: flops_ssd_chunk_scan(
+    x.shape[0], x.shape[2], x.shape[1] * x.shape[3], x.shape[4], Bm.shape[-1], CHUNK))
 def ssd_chunk_scan_heads(x, dt, A, Bm, Cm, D=None, bias=None, init=None):
     """The SSD scan in the kernel layout (see the module docstring): kernel
     15 alone where no gradient is asked for (``_ssd_call``), else
@@ -674,7 +674,7 @@ def ssd_chunk_scan_heads(x, dt, A, Bm, Cm, D=None, bias=None, init=None):
 
     args = (x.contiguous(), dt.to(x.dtype).contiguous(), f32(A), Bm.to(x.dtype).contiguous(),
             Cm.to(x.dtype).contiguous(), f32(D), f32(bias), f32(init))
-    if _needs_grad(*args):
+    if needs_grad(*args):
         return SSDChunkScanTrain.apply(*args)
     return ssd_fwd_tiled(*args)
 

@@ -46,12 +46,14 @@ import torch
 import torch.nn.functional as F
 
 from xfmamba_tpu_torch.kernels import build
+from xfmamba_tpu_torch.ops.cost import reports_cost, vss_block_flops
 from xfmamba_tpu_torch.ops.fast_math import softplus
 from xfmamba_tpu_torch.ops.nk_scan import CROSS2D_KINDS, traversal_order
 from xfmamba_tpu_torch.ops.nk_scan_v1 import scan_two_level_cuda, scan_two_level_plain
 from xfmamba_tpu_torch.ops.primitives import (
-    dtype_code, dwconv3_silu_cuda, dwconv3_silu_plain, gemm_ab_cuda, gemm_ab_plain,
-    layer_norm_cuda, layer_norm_plain, on_cpu, ptr, require, require_cuda, stream)
+    dtype_code, dwconv3_silu_cuda, dwconv3_silu_plain, forward_only, gemm_ab_cuda,
+    gemm_ab_plain, layer_norm_cuda, layer_norm_plain, on_cpu, ptr, require, require_cuda,
+    stream)
 from xfmamba_tpu_torch.ops.vss_block import VSSBlockOperands, pack_vss_block_params
 
 # ---------------------------------------------------------------------------
@@ -291,11 +293,14 @@ PHASES = ("LN1", "in_proj", "conv+SiLU", "x_proj", "scans", "merge+out-norm",
           "out_proj+residual", "LN2", "fc1+GELU", "fc2+residual")
 
 
+@reports_cost(lambda x, p, H, W: vss_block_flops(x.shape[0], H * W, p))
 def vss_block_v1(x, p: VSSBlockOperands, H, W):
     """Kernel 8 on x (B, H * W, d) with the operands of
     `pack_vss_block_v1_params`; returns x's dtype."""
     if on_cpu(x, p.w_in):
         return vss_block_v1_phases_plain(x, p, H, W)
+    if torch.is_grad_enabled():
+        forward_only("vss_block_v1", x, *vars(p).values())
     return _launch(x, p, H, W, None)
 
 

@@ -34,10 +34,11 @@ from types import SimpleNamespace
 
 import torch
 
+from xfmamba_tpu_torch.ops.cost import reports_cost, vss_block_flops
 from xfmamba_tpu_torch.ops.cross2d_scan import (
     cross2d_scan, cross2d_scan_bwd, serial_scan, serial_scan_bwd)
 from xfmamba_tpu_torch.ops.primitives import (
-    dwconv3_silu_bwd_cuda, dwconv3_silu_cuda, gemm_ab_cuda, gemm_cuda, gemm_simt,
+    dwconv3_silu_bwd_cuda, dwconv3_silu_cuda, forward_only, gemm_ab_cuda, gemm_cuda, gemm_simt,
     gemm_simt_cuda, layer_norm_bwd_cuda, layer_norm_cuda, on_cpu)
 from xfmamba_tpu_torch.ops.vss_block import vss_block_body, vss_block_ref
 from xfmamba_tpu_torch.ops.vss_block_v1 import fused_vss_block_supported
@@ -64,10 +65,14 @@ def vss_stage_plain(x, blocks, H, W):
     return x
 
 
+@reports_cost(lambda x, blocks, H, W: sum(vss_block_flops(x.shape[0], H * W, p)
+                                          for p in blocks))
 def vss_stage(x, blocks, H, W):
     """Run a stage (a list of ``VSSBlockOperands``) on x (B, H * W, d)."""
     if on_cpu(x, *(p.w_in for p in blocks)):
         return vss_stage_plain(x, blocks, H, W)
+    if torch.is_grad_enabled():
+        forward_only("vss_stage", x, *(t for p in blocks for t in vars(p).values()))
     if x.dim() != 3 or x.shape[1] != H * W or not x.is_contiguous():
         raise ValueError(f"x: expected a contiguous (B, {H * W}, d) map, got "
                          f"{tuple(x.shape)}")

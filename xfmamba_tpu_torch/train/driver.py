@@ -4,7 +4,9 @@ and the ``1_train_model.py`` epoch loop (:158-187).
 
 Losses and logits stay on the device during an epoch and are fetched once
 at its end.  Batches arrive as numpy from the loader and go to the model's
-device here, the views in the config's compute dtype.  Per epoch, `fit`
+device here, the views in the config's compute dtype, or as staged uint8
+for a device stage (``fit(..., preprocess=...)``), whose kernel makes them
+float on the card.  Per epoch, `fit`
 writes ``model_epoch_{n}.npz`` (every epoch, as the reference does),
 ``best.npz`` when the val loss improved (both in the JAX layout, through
 `checkpoint.convert.export_jax_variables`), ``epoch_{n}/metrics.txt`` and the full
@@ -193,7 +195,7 @@ def _log_wandb(epoch, lr, tr, va):
 
 def fit(model, cfg: TrainConfig, train_loader, val_loader, init_state: Optional[dict] = None,
         log_fn: Callable = print, out_dir: Optional[str] = None, save_checkpoints: bool = True,
-        two_view: bool = True):
+        two_view: bool = True, preprocess=None):
     """Train ``model`` (on its device) for ``cfg.epochs`` epochs with early
     stopping and the configured schedule; returns (state, history), the
     state being what ``last.pt`` holds after the last epoch.  ``two_view``
@@ -202,7 +204,10 @@ def fit(model, cfg: TrainConfig, train_loader, val_loader, init_state: Optional[
 
     ``init_state``: a state of `checkpoint.io.training_state` (``last.pt``)
     to resume from, at the epoch after its own.  The views go to the
-    model in ``cfg.compute_dtype``.
+    model in ``cfg.compute_dtype``.  ``preprocess``: a
+    `data.device_pipeline.DevicePreprocess` (the loaders then stage uint8,
+    ``device_preprocess`` in their config); ``last.pt`` keeps its
+    generator.
     One card runs as JAX's single-device branch; ``data_parallel`` with
     more than one visible CUDA device raises (DDP is not ported)."""
     if cfg.data_parallel and torch.cuda.device_count() > 1:
@@ -216,7 +221,9 @@ def fit(model, cfg: TrainConfig, train_loader, val_loader, init_state: Optional[
     plateau = (torch.optim.lr_scheduler.ReduceLROnPlateau(optimizer, mode="min", factor=0.1,
                                                           patience=10)
                if cfg.scheduler == "reduce" else None)
-    train_step, eval_step = make_train_step(model, optimizer, multilabel, two_view)
+    train_step, eval_step = make_train_step(model, optimizer, multilabel, two_view,
+                                            preprocess, dtype)
+    views = torch.uint8 if preprocess is not None else dtype
     sched = lr_schedule(cfg)
     out_dir = out_dir or cfg.savemodel_path
     os.makedirs(out_dir, exist_ok=True)
@@ -241,6 +248,10 @@ def fit(model, cfg: TrainConfig, train_loader, val_loader, init_state: Optional[
             plateau.load_state_dict(init_state["plateau"])
         ckpt.restore_generators(model, init_state["generators"])
         train_loader._epoch = init_state["train_loader_epoch"]
+        if preprocess is not None:
+            if init_state.get("preprocess_generator") is None:
+                raise ValueError("the checkpoint holds no device stage's generator")
+            preprocess.generator.set_state(init_state["preprocess_generator"])
         history = list(init_state["history"])
         first = init_state["epoch"] + 1
         log_fn(f"resuming at epoch {first} (best epoch {stopper.best_epoch})")
@@ -249,10 +260,10 @@ def fit(model, cfg: TrainConfig, train_loader, val_loader, init_state: Optional[
         if stopper.early_stop:
             break
         lr = sched(epoch) if plateau is None else optimizer.param_groups[0]["lr"]
-        tr = run_train_epoch(train_step, train_loader, lr, multilabel, device, dtype,
+        tr = run_train_epoch(train_step, train_loader, lr, multilabel, device, views,
                              log_every=cfg.log_every, log_fn=log_fn)
         t = time.perf_counter()
-        va, logits, labels = run_eval_epoch(eval_step, val_loader, multilabel, device, dtype)
+        va, logits, labels = run_eval_epoch(eval_step, val_loader, multilabel, device, views)
         eval_s = time.perf_counter() - t
         log_fn(f"epoch {epoch}: lr={lr:.2e} train_loss={tr['loss']:.4f} "
                f"val_loss={va['loss']:.4f} val_auc={va.get('auc', float('nan')):.4f} "
@@ -269,7 +280,7 @@ def fit(model, cfg: TrainConfig, train_loader, val_loader, init_state: Optional[
             plateau.step(va["loss"])
         stop = stopper(va["loss"], model, epoch)
         state = ckpt.training_state(model, optimizer, epoch, history, stopper, plateau,
-                                    train_loader)
+                                    train_loader, preprocess)
         if save_checkpoints:
             t = time.perf_counter()
             ckpt.save_state(os.path.join(out_dir, "last.pt"), state)
@@ -279,5 +290,5 @@ def fit(model, cfg: TrainConfig, train_loader, val_loader, init_state: Optional[
             break
     if state is None:
         state = ckpt.training_state(model, optimizer, first - 1, history, stopper, plateau,
-                                    train_loader)
+                                    train_loader, preprocess)
     return state, history

@@ -22,6 +22,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from xfmamba_tpu_torch.models.layers import to_device
 from xfmamba_tpu_torch.train.config import TrainConfig
 
 
@@ -75,26 +76,46 @@ def zero_missing_grads(optimizer: torch.optim.Optimizer) -> None:
                 p.grad = torch.zeros_like(p)
 
 
-def make_train_step(model, optimizer, multilabel: bool, two_view: bool = True):
+def make_train_step(model, optimizer, multilabel: bool, two_view: bool = True,
+                    preprocess=None, dtype: torch.dtype = torch.float32):
     """(train_step, eval_step) for a batch dict with ``image1`` (and
     ``image2``) and ``label``.
 
-    ``train_step(batch, lr=None)`` puts the model in training mode, runs
-    forward, backward and one optimizer step (at ``lr`` when given) and
-    returns ``{"loss", "logits"}``, detached; the parameters' ``.grad``
-    keep the step's gradients.  ``eval_step(batch)`` runs in eval mode
-    without gradients and returns the same keys."""
+    ``train_step(batch, lr=None)`` puts the model in training
+    mode, runs forward, backward and one optimizer step (at ``lr`` when
+    given) and returns ``{"loss", "logits"}``, detached; the parameters'
+    ``.grad`` keep the step's gradients.  ``eval_step(batch)`` runs in eval
+    mode without gradients and returns the same keys.
+
+    ``preprocess``: a `data.device_pipeline.DevicePreprocess`; the views
+    then arrive as staged uint8 (B, Hs, Ws, 1) on the model's device, and
+    the stage's kernel makes them float (one launch a view), in ``dtype``
+    for the model.  A train step draws both views' augmentation rows from
+    ``preprocess.generator`` before its first launch and copies them to
+    the device in one copy.  An eval step takes the stage's ``eval_batch``."""
     loss_fn = bce_with_logits_loss if multilabel else cross_entropy_loss
 
-    def inputs(batch):
-        return (batch["image1"], batch["image2"]) if two_view else (batch["image1"],)
+    def inputs(batch, rows=None):
+        views = (batch["image1"], batch["image2"]) if two_view else (batch["image1"],)
+        if preprocess is None:
+            return views
+        if rows is None:
+            return tuple(preprocess.eval_batch(v).to(dtype) for v in views)
+        return tuple(preprocess.train_batch(v, r).to(dtype) for v, r in zip(views, rows))
+
+    def augment_rows(batch):
+        B = batch["image1"].shape[0]
+        rows = torch.stack([preprocess.rows(preprocess.draw_params(B))
+                            for _ in range(2 if two_view else 1)])
+        return to_device(rows, batch["image1"].device)
 
     def train_step(batch, lr: Optional[float] = None):
+        rows = None if preprocess is None else augment_rows(batch)
         model.train()
         if lr is not None:
             set_lr(optimizer, lr)
         optimizer.zero_grad(set_to_none=True)
-        logits = model(*inputs(batch))
+        logits = model(*inputs(batch, rows))
         loss = loss_fn(logits, batch["label"])
         loss.backward()
         zero_missing_grads(optimizer)

@@ -1,13 +1,63 @@
-"""Timing statistics for the inference CLIs (port of the host-side part of
-``xfmamba_tpu/utils/profiling.py``): the per-batch times and FPS written to
-``inference_timing.txt`` (the reference's ``2_inference_chexpert.py:233-266``),
-in the JAX package's text.  ``trace`` and ``do_bench`` wait for the
-utilities item of ROADMAP.md, queue 1."""
+"""Profiling and timing (port of ``xfmamba_tpu/utils/profiling.py``).
+
+- `trace`: a ``torch.profiler`` trace of the CPU and, with a card, CUDA
+  activity, written as a Chrome trace into ``logdir`` (the JAX package's
+  ``jax.profiler`` trace).  Once the port's kernel library is loaded the
+  profiler has been seen to lose the device events of short profiles
+  (PERF.md, section 7): read the trace's device rows before trusting them.
+- `do_bench`: ``triton.testing.do_bench``'s counterpart, the JAX keys:
+  warm-up calls, then each call timed on the host clock with
+  ``torch.cuda.synchronize()`` before and after it where CUDA is in use.
+- `timing_stats` / `format_timing_report`: the per-batch times and FPS of
+  ``inference_timing.txt`` (the reference's
+  ``2_inference_chexpert.py:233-266``), in the JAX package's text.
+"""
 
 from __future__ import annotations
 
+import contextlib
+import os
 import statistics
-from typing import Dict, Sequence
+import time
+from typing import Callable, Dict, Sequence
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str, filename: str = "trace.json"):
+    """``with trace(dir) as prof: run()``: profiles the block (CPU, and CUDA
+    where a card is present) and writes ``dir/filename`` as a Chrome trace;
+    yields the ``torch.profiler.profile`` for ``key_averages()``."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(logdir, filename))
+
+
+def do_bench(fn: Callable, *args, warmup: int = 2, iters: int = 10, **kwargs) -> Dict[str, float]:
+    """Median, mean, min and max seconds of ``fn(*args, **kwargs)`` over
+    ``iters`` calls after ``warmup``, each call between two
+    ``torch.cuda.synchronize()`` where CUDA has been initialised (its queued
+    work is in the time, another's is not)."""
+    sync = torch.cuda.synchronize if torch.cuda.is_initialized() else (lambda: None)
+    for _ in range(warmup):
+        fn(*args, **kwargs)
+    times = []
+    for _ in range(iters):
+        sync()
+        t0 = time.perf_counter()
+        fn(*args, **kwargs)
+        sync()
+        times.append(time.perf_counter() - t0)
+    return {"median_s": statistics.median(times), "mean_s": statistics.fmean(times),
+            "min_s": min(times), "max_s": max(times), "iters": iters}
 
 
 def timing_stats(times_s: Sequence[float], batch_size: int = 1) -> Dict[str, float]:

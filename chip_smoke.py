@@ -306,6 +306,26 @@ The device pipeline and the utilities:
    ``utils.profiling.do_bench`` and ``trace`` of the kernel, and whether
    the trace holds its device events.  It prints ``phase 14: N s``.
 
+Data parallelism (``xfmamba_tpu_torch/parallel``; no new kernel):
+15. (15a) XFMamba-S float32 at 224x224 through ``driver.fit`` (one epoch
+   of 3 steps at the global batch 16, then an eval pass of 12 pairs padded
+   to a batch) in two gloo ranks sharing the card, against one rank alone
+   from the same weights and batches: each step's loss and the ranks'
+   logits, the eval pass's gathered logits and loss, the BN running
+   statistics (1e-4), the parameters after 3 Adam steps (6e-4 at most, a
+   near-zero Adam input can flip; 1e-6 in the mean), the ranks' weights
+   bit for bit, each rank's launches per step (kernels 11 and 12 21 each),
+   the ms of a step of each; (15b) ``cli.train`` in two ranks under
+   torchrun's environment (gloo, both on card 0), one epoch on phase 11's
+   tree: rank 0's files only, equal weights, a resume of rank 0's
+   ``last.pt`` for epoch 1; at the same time (15c) ``cli.train_mutual
+   --coordinator_address`` in an NCCL world of one.  It prints ``phase 15:
+   N s``.
+
+``python3 chip_smoke.py --cards`` needs two cards or more and runs only
+15a over every visible card (NCCL, one rank a card) against one rank, then
+``cli.train`` started plainly, which starts one rank a card itself.
+
 The line before the last but one is one JSON object with the kernels'
 results (launches per main-path forward or step, errors, times, bounds;
 for kernels 1 and 4-6 also their route counts and phase 7e's device times
@@ -3736,18 +3756,18 @@ CLI_FILES = ("model_epoch_0.npz", "model_epoch_1.npz", "best.npz", "epoch_0/metr
 def recorded_batches(loader_cls):
     """The sample indices of every shuffled epoch that ``loader_cls`` draws
     while the context is open, in order."""
-    rec, orig = [], loader_cls._index_batches
+    rec, orig = [], loader_cls._global_batches
 
     def recording(self):
         out = orig(self)
         if self.shuffle:
             rec.append([b.copy() for b in out])
         return out
-    loader_cls._index_batches = recording
+    loader_cls._global_batches = recording
     try:
         yield rec
     finally:
-        loader_cls._index_batches = orig
+        loader_cls._global_batches = orig
 
 
 @contextlib.contextmanager
@@ -5129,7 +5149,8 @@ def phase_utilities(card, tmp, csvs, call):
     print(f"  do_bench: median {1e3 * bench['median_s']:.4f} ms, min {1e3 * bench['min_s']:.4f} "
           f"over {bench['iters']} calls (host clock, synchronised around each); trace "
           f"{len(events)} events, {len(kernel_events)} device events of the kernel"
-          + ("" if kernel_events else " (none: the profiler lost them, PERF.md section 7)")
+          + ("" if len(kernel_events) == 10 else " (the profiler dropped some: "
+                                                 "utils/profiling.py's docstring)")
           + f"; profiler rows with device time {device_rows}")
 
 
@@ -5196,7 +5217,314 @@ def phase_device_pipeline(errors, card):
     return launches, times
 
 
+# phase 15: data parallelism (two ranks share the card over gloo; NCCL in a
+# world of one)
+DP_WORLD, DP_STEPS, DP_LR = 2, 3, 1e-4
+DP_TRAIN_PAIRS, DP_VAL_PAIRS = DP_STEPS * TRAIN_BATCH, 12
+# losses, logits and BN statistics of two ranks against one: float32 on the
+# card, batches of 8 against 16 (other GEMM tilings) and the statistics
+# summed over the ranks
+DP_TOL = 1e-4
+DP_MUTUAL = ("twoviewxfmamba_tiny", "twoviewxfmamba")
+
+
+class DPViews:
+    """Load function of phase 15a: sample (i, label) -> two seeded float32
+    views (IMAGE, IMAGE, 1) and the label (picklable for spawned ranks)."""
+
+    def __call__(self, sample):
+        import numpy as np
+        i, label = sample
+        views = np.random.default_rng(1500 + i).standard_normal((2, IMAGE, IMAGE, 1),
+                                                                dtype=np.float32)
+        return views[0], views[1], np.int64(label)
+
+
+def dp_fit(world, rank=0, port=0, out=None, backend="gloo"):
+    """Phase 15a's run of ``driver.fit`` (one epoch of DP_STEPS steps of
+    XFMamba-S at the global batch TRAIN_BATCH, float32, then the eval pass
+    of DP_VAL_PAIRS pairs padded to a batch), as rank ``rank`` of a group
+    of ``world`` ranks (gloo: all on card 0; NCCL: rank r on card r), or
+    alone (``world`` 0).  Records
+    each step's loss, this rank's logits and launches, the eval pass's
+    (gathered) logits and loss, the final weights and the steps' ms; saved
+    to ``out/rank{rank}.pt`` by a rank, returned alone."""
+    from xfmamba_tpu_torch.data.loader import TwoViewLoader, TwoViewSamples
+    from xfmamba_tpu_torch.train import driver
+    if world:
+        if backend == "nccl":
+            torch.cuda.set_device(rank)
+        torch.distributed.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                                             world_size=world, rank=rank)
+    build.library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fns = {name: k["fn"] for name, k in (N1_KERNELS | TRAIN_KERNELS | KERNELS
+                                         | GROUPED_KERNELS).items()}
+    record = {"steps": []}
+    make_step, run_eval = driver.make_train_step, driver.run_eval_epoch
+
+    def counted_make(*args, **kw):
+        train_step, eval_step = make_step(*args, **kw)
+
+        def step(batch, lr=None, reduce=None):
+            for fn in fns.values():
+                fn.launches = 0
+            out = train_step(batch, lr, reduce=reduce)
+            torch.cuda.synchronize()
+            record["steps"].append({"loss": float(out["loss"]),
+                                    "logits": out["logits"].float().cpu(),
+                                    "launches": {n: f.launches for n, f in fns.items()
+                                                 if f.launches}})
+            return out
+        return step, eval_step
+
+    def recorded_eval(*args, **kw):
+        stats, logits, labels = run_eval(*args, **kw)
+        record["eval"] = (stats["loss"], logits, labels)
+        return stats, logits, labels
+
+    samples = [(i, i % 2) for i in range(DP_TRAIN_PAIRS + DP_VAL_PAIRS)]
+    train_loader = TwoViewLoader(TwoViewSamples(samples[:DP_TRAIN_PAIRS], DPViews()),
+                                 TRAIN_BATCH, drop_last=True, num_workers=2)
+    val_loader = TwoViewLoader(TwoViewSamples(samples[DP_TRAIN_PAIRS:], DPViews()), TRAIN_BATCH,
+                               num_workers=2)
+    cfg = TrainConfig(epochs=1, batch_size=TRAIN_BATCH, eval_batch_size=TRAIN_BATCH, lr=DP_LR,
+                      weight_decay=1e-5, scheduler="none", data_parallel=True)
+    driver.make_train_step, driver.run_eval_epoch = counted_make, recorded_eval
+    try:
+        model = two_view_xfmamba("small", seed=0)
+        state, history = driver.fit(model, cfg, train_loader, val_loader, out_dir=out or ".",
+                                    save_checkpoints=False, log_fn=lambda *a, **k: None)
+    finally:
+        driver.make_train_step, driver.run_eval_epoch = make_step, run_eval
+    record["state"] = {k: v.detach().cpu() for k, v in state["model"].items()}
+    record["step_ms"] = history[0]["train"].get("step_ms", [])
+    del model, state
+    if world:
+        torch.save(record, Path(out) / f"rank{rank}.pt")
+        torch.distributed.destroy_process_group()
+    return record
+
+
+def dp_rank(rank, world, port, out, backend="gloo"):
+    dp_fit(world, rank, port, out, backend)
+
+
+def phase_dp_fit(card, tmp, world=DP_WORLD, backend="gloo", phase="15a"):
+    """15a: ``world`` ranks (two gloo ranks sharing the card; with
+    ``--cards``, NCCL ranks, one a card) through ``parallel.mesh`` and
+    ``fit`` against one rank alone (`dp_fit`)."""
+    where = "sharing the card" if backend == "gloo" else "one a card"
+    print(f"phase {phase}: XFMamba-S float32 {IMAGE}x{IMAGE} through fit, global batch "
+          f"{TRAIN_BATCH}, {DP_STEPS} steps and an eval pass ({DP_VAL_PAIRS} pairs in a padded "
+          f"batch): {world} {backend} ranks {where} against one rank ({card})")
+    from xfmamba_tpu_torch.parallel.distributed import free_port
+    one = dp_fit(0)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    torch.multiprocessing.spawn(dp_rank, args=(world, free_port(), tmp, backend), nprocs=world)
+    ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    print(f"  {world} ranks in {time.time() - t0:.1f} s (start, build, {DP_STEPS} steps, eval)")
+    worst = {"loss": 0.0, "logits": 0.0, "eval": 0.0, "bn": 0.0}
+    for i, want in enumerate(one["steps"]):
+        got = [r["steps"][i] for r in ranks]
+        worst["loss"] = max(worst["loss"], *(abs(g["loss"] - want["loss"]) /
+                                             max(1.0, abs(want["loss"])) for g in got))
+        logits = torch.cat([g["logits"] for g in got])
+        worst["logits"] = max(worst["logits"], rel(logits, want["logits"])[1])
+        counts = [g["launches"] for g in got]
+        print(f"  step {i}: loss {want['loss']:.6f} one rank, "
+              f"{' / '.join(f'{g['loss']:.6f}' for g in got)} ranks 0-{world - 1}; launches per "
+              f"rank {counts[0]} (one rank at bs {TRAIN_BATCH}: {want['launches']})")
+        if any(c != counts[0] for c in counts) or any(
+                c.get(n) != 21 for c in counts for n in ("ss2d_core_n1_fwd", "ss2d_core_n1_bwd")):
+            raise PhaseFailure(f"step {i}: the ranks' launches {counts} differ or miss kernels "
+                               f"11 and 12 at 21 each")
+    want_loss, want_logits, want_labels = one["eval"]
+    for r in ranks:
+        loss, logits, labels = r["eval"]
+        worst["eval"] = max(worst["eval"], abs(loss - want_loss) / max(1.0, abs(want_loss)),
+                            rel(torch.from_numpy(logits), torch.from_numpy(want_logits))[1])
+        if labels.tolist() != want_labels.tolist():
+            raise PhaseFailure("the ranks' gathered eval labels are not one rank's")
+    params = {k: v for k, v in one["state"].items() if v.is_floating_point()}
+    for k, want in params.items():
+        if any(not torch.equal(ranks[0]["state"][k], r["state"][k]) for r in ranks[1:]):
+            raise PhaseFailure(f"the ranks' {k} differ")
+        if "running" in k:
+            worst["bn"] = max(worst["bn"], rel(ranks[0]["state"][k], want)[1])
+    diffs = [(ranks[0]["state"][k] - want).abs() for k, want in params.items()
+             if "running" not in k]
+    p_max = max(float(d.max()) for d in diffs)
+    p_mean = sum(float(d.sum()) for d in diffs) / sum(d.numel() for d in diffs)
+    print(f"  {world} ranks against one: loss rel {worst['loss']:.3e}, logits rel "
+          f"{worst['logits']:.3e}, eval loss and logits rel {worst['eval']:.3e}, BN running "
+          f"statistics rel {worst['bn']:.3e} (tol {DP_TOL:.0e}); parameters after {DP_STEPS} "
+          f"Adam steps max {p_max:.3e} (tol {2 * DP_STEPS * DP_LR:.0e}: a near-zero Adam input "
+          f"can flip), mean {p_mean:.3e} (tol 1e-6); ranks' weights bit for bit equal")
+    how = ("the steps of both ranks share the card, the gradients cross the host through gloo"
+           if backend == "gloo" else "a card each, NCCL")
+    print(f"  ms per step (CUDA events on each process's stream; {how}): one rank "
+          f"{', '.join(f'{v:.2f}' for v in one['step_ms'])}; "
+          + "; ".join(f"rank {r} " + ", ".join(f"{v:.2f}" for v in rk["step_ms"])
+                      for r, rk in enumerate(ranks)) + f" ({card})")
+    if max(worst.values()) > DP_TOL or p_max > 2 * DP_STEPS * DP_LR or p_mean > 1e-6:
+        raise PhaseFailure(f"two ranks disagree with one: {worst}, parameters {p_max}, {p_mean}")
+
+
+DP_CLI_CODE = (
+    "import sys, torch\n"
+    "from xfmamba_tpu_torch.cli import train\n"
+    "state, history = train.main(sys.argv[2:])\n"
+    "torch.save({'model': {k: v.cpu() for k, v in state['model'].items()},"
+    " 'history': history}, sys.argv[1])\n")
+
+
+def phase_dp_clis(card, tmp):
+    """15b: ``cli.train`` for one epoch in two ranks under torchrun's
+    environment (gloo, both on card 0), then a resume of rank 0's
+    ``last.pt``; 15c, at the same time: ``cli.train_mutual`` with
+    ``--coordinator_address`` in a world of one (NCCL)."""
+    import os
+    from torch_mura_tree import write_mura_tree
+    from xfmamba_tpu_torch.checkpoint import io as ckpt
+    from xfmamba_tpu_torch.cli import build_model_by_name
+    from xfmamba_tpu_torch.cli import train as cli_train
+    from xfmamba_tpu_torch.data import mura
+    from xfmamba_tpu_torch.parallel.distributed import BACKEND_ENV, free_port
+    from xfmamba_tpu_torch.train import driver
+
+    print(f"phase 15b: cli.train, {DP_WORLD} ranks under torchrun's environment sharing the "
+          f"card over gloo, one epoch of XFMamba-S on phase 11's tree; 15c at the same time: "
+          f"cli.train_mutual --coordinator_address in a world of one (NCCL) ({card})")
+    csvs, _ = write_mura_tree(tmp, n_studies=CLI_STUDIES, parts=CLI_PARTS,
+                              n_valid=CLI_VALID_STUDIES, kinds=CLI_KINDS, seed=11)
+    data = ["--image_size", str(IMAGE), "--batch_size", str(TRAIN_BATCH), "--data_root", tmp,
+            "--train_image_csv", csvs[0], "--train_label_csv", csvs[1], "--valid_image_csv",
+            csvs[2], "--valid_label_csv", csvs[3], "--num_workers", "4", "--epochs", "1",
+            "--device", CLI_DEVICE]
+    argv = ["--model_name", CLI_MODEL, "--seed", "42"] + data
+    port = free_port()
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items() if k != BACKEND_ENV}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DP_CLI_CODE, str(Path(tmp) / f"cli{r}.pt"), *argv,
+         "--savemodel_path", str(Path(tmp) / f"run{r}")],
+        env=env | {"RANK": str(r), "WORLD_SIZE": str(DP_WORLD), "LOCAL_RANK": "0",
+                   "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+                   BACKEND_ENV: "gloo"},
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(DP_WORLD)]
+    mutual = subprocess.Popen(
+        [sys.executable, "-m", "xfmamba_tpu_torch.cli.train_mutual", "--coordinator_address",
+         f"127.0.0.1:{free_port()}", "--num_processes", "1", "--process_id", "0",
+         "--savemodel_path", str(Path(tmp) / "mutual"), "--model_names", *DP_MUTUAL] + data,
+        env=env, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    t0 = time.time()
+    logs = [p.communicate(timeout=600)[0] for p in procs + [mutual]]
+    print(f"  {time.time() - t0:.1f} s for the three processes")
+    for p, log in zip(procs + [mutual], logs):
+        if p.returncode != 0:
+            raise PhaseFailure(f"a CLI process failed (rc {p.returncode}):\n{log[-3000:]}")
+    print("  " + "\n  ".join(line for line in logs[0].splitlines() if line.startswith(
+        ("device", "epoch", "done", "data-parallel"))))
+    runs = [torch.load(Path(tmp) / f"cli{r}.pt", weights_only=False) for r in range(DP_WORLD)]
+    files = sorted(str(f.relative_to(Path(tmp) / "run0")) for f in (Path(tmp) / "run0").rglob("*")
+                   if f.is_file())
+    differ = [k for k, v in runs[0]["model"].items() if not torch.equal(v, runs[1]["model"][k])]
+    print(f"  rank 0 wrote {files}; rank 1 wrote {'nothing' if not (Path(tmp) / 'run1').exists() else 'files'}; "
+          f"the ranks' weights differ in {len(differ)} tensors")
+    if (Path(tmp) / "run1").exists() or differ or "last.pt" not in files \
+            or "best.npz" not in files:
+        raise PhaseFailure(f"15b: rank 1 wrote files, the ranks' weights differ ({differ[:3]}) "
+                           f"or rank 0's files are missing ({files})")
+    # last.pt resumes: one more epoch, one rank
+    cfg, cfg_dict = cli_train.make_config(cli_train.parse_args(argv + ["--epochs", "2"]))
+    train_loader, val_loader, _ = mura.create_data_loaders(*csvs, cfg_dict)
+    model, _ = build_model_by_name(CLI_MODEL, 2, seed=42, device=CLI_DEVICE)
+    state = ckpt.load_state(str(Path(tmp) / "run0" / "last.pt"))
+    _, history = driver.fit(model, cfg, train_loader, val_loader, init_state=state,
+                            save_checkpoints=False, log_fn=lambda *a, **k: None)
+    print(f"  resumed from rank 0's last.pt: epochs {[h['epoch'] for h in history]}, epoch 1 "
+          f"train loss {history[-1]['train']['loss']:.6f}, val loss "
+          f"{history[-1]['val']['loss']:.6f}")
+    if [h["epoch"] for h in history] != [0, 1] or not math.isfinite(history[-1]["train"]["loss"]):
+        raise PhaseFailure(f"15b: the resumed run gave {history}")
+    del model
+    out = logs[-1]
+    lines = [line for line in out.splitlines() if line.startswith(("epoch", "data-parallel"))]
+    print("  15c: " + "\n  15c: ".join(lines))
+    written = list((Path(tmp) / "mutual").rglob("best_model_0.npz"))
+    if "nccl" not in out or len(written) != len(set(DP_MUTUAL)):
+        raise PhaseFailure(f"15c: no NCCL group or no best-ROC files ({written}):\n{out[-2000:]}")
+
+
+def phase_data_parallel(card):
+    """Phase 15: data parallelism on the card (15a-15c)."""
+    import shutil
+    import tempfile
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    tmp = tempfile.mkdtemp(prefix="xfm_phase15_")
+    try:
+        phase_dp_fit(card, tmp)
+        phase_dp_clis(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        sys.path.remove(str(Path(__file__).resolve().parent / "tests"))
+
+
+def main_cards() -> int:
+    """``python3 chip_smoke.py --cards``: phase 15a over every visible card
+    (NCCL, one rank a card) against one rank; needs two cards or more."""
+    import shutil
+    import tempfile
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"chip_smoke --cards: {n} CUDA device(s); needs two or more", file=sys.stderr)
+        return 1
+    card = card_line()
+    print(f"{n} cards: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    build.library()
+    tmp = tempfile.mkdtemp(prefix="xfm_cards_")
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    try:
+        phase_dp_fit(card, tmp, world=n, backend="nccl", phase="15a (cards)")
+        cli_over_cards(card, tmp, n)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"ok": True, "cards": n}))
+    return 0
+
+
+def cli_over_cards(card, tmp, n):
+    """``python -m xfmamba_tpu_torch.cli.train`` started plainly with ``n``
+    visible cards: it starts one NCCL rank a card itself; one epoch of
+    XFMamba-S on phase 11's tree at the global batch TRAIN_BATCH."""
+    from torch_mura_tree import write_mura_tree
+    print(f"cli.train started plainly over {n} cards, one epoch of XFMamba-S ({card})")
+    csvs, _ = write_mura_tree(tmp, n_studies=CLI_STUDIES, parts=CLI_PARTS,
+                              n_valid=CLI_VALID_STUDIES, kinds=CLI_KINDS, seed=11)
+    run = Path(tmp) / "run"
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "xfmamba_tpu_torch.cli.train", "--model_name", CLI_MODEL,
+         "--image_size", str(IMAGE), "--batch_size", str(TRAIN_BATCH), "--data_root", tmp,
+         "--train_image_csv", csvs[0], "--train_label_csv", csvs[1], "--valid_image_csv",
+         csvs[2], "--valid_label_csv", csvs[3], "--epochs", "1", "--savemodel_path", str(run)],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
+    out = proc.stdout + proc.stderr
+    print("  " + "\n  ".join(line for line in out.splitlines()
+                              if line.startswith(("device", "epoch", "done", "data-parallel"))))
+    print(f"  {time.time() - t0:.1f} s, rc {proc.returncode}")
+    if proc.returncode or f"rank 0 of {n} over nccl" not in out or \
+            not (run / "last.pt").is_file():
+        raise PhaseFailure(f"cli.train over {n} cards failed:\n{out[-3000:]}")
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--cards"]:
+        return main_cards()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -5277,6 +5605,9 @@ def main() -> int:
     launches |= pp_launches
     times |= pp_times
     print(f"  phase 14: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    phase_data_parallel(card)
+    print(f"  phase 15: {time.time() - t0:.1f} s")
     # library_ms: one PyTorch call computing the same function, where there
     # is one (kernels 19-21); none computes the scans
     print(json.dumps({"kernels": [

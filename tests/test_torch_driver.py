@@ -423,9 +423,3 @@ def test_resume_is_bitwise(tmp_path):
     strip_b = [{k: v for k, v in h[part].items() if k not in timings}
                for h in hist_b for part in ("train", "val")]
     assert strip == strip_b and len(hist_b) == 2
-
-
-def test_data_parallel_over_several_cards_raises(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="DDP"):
-        driver.fit(torch.nn.Linear(2, 2), TrainConfig(data_parallel=True), None, None)

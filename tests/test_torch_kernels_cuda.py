@@ -1549,3 +1549,120 @@ def test_device_preprocess_matches_plain(dev, stage_name, staged, size):
     with pytest.raises(RuntimeError, match="no gradient"):
         stage.train_batch(u8.to(dev), rows.to(dev).requires_grad_())
 
+
+
+# ---------------------------------------------------------------------------
+# utils.profiling.trace and data parallelism on the card
+# ---------------------------------------------------------------------------
+
+def test_trace_keeps_a_kernels_device_events_after_others(dev, tmp_path):
+    """``utils.profiling.trace`` of ten calls of the device preprocessing
+    kernel after a float32 XFMamba-T train step, a profile of three more
+    and, until the trace without its guard has lost one of its first events
+    (the profiler drops the first device events of a session, about one
+    more every 16 s of profiling on an H100 host) or 60 s have passed, more
+    calls: every call's kernel is in ``trace``'s trace, with its device time
+    in ``key_averages``."""
+    import json
+    import time
+    from torch.profiler import ProfilerActivity, profile
+    from xfmamba_tpu_torch.models.tops import two_view_xfmamba
+    from xfmamba_tpu_torch.train import loop
+    from xfmamba_tpu_torch.train.config import TrainConfig
+    from xfmamba_tpu_torch.utils import profiling
+    model = two_view_xfmamba("tiny", seed=0)
+    step, _ = loop.make_train_step(model, loop.make_optimizer(TrainConfig(), model.parameters()),
+                                   multilabel=False)
+    g = torch.Generator().manual_seed(1)
+    batch = {"image1": randn(g, 8, 224, 224, 1), "image2": randn(g, 8, 224, 224, 1),
+             "label": torch.zeros(8, dtype=torch.long, device=dev)}
+    step(batch)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for _ in range(3):
+            step(batch)
+        torch.cuda.synchronize()
+    stage = dp.mura_device_preprocess((224, 224), seed=1)
+    u8 = torch.randint(0, 256, (16, 224, 224, 1), generator=g, dtype=torch.uint8).to(dev)
+    rows = stage.rows(stage.draw_params(16, g)).to(dev)
+
+    def traced(edge):
+        with profiling.trace(str(tmp_path), edge=edge) as prof:
+            for _ in range(10):
+                stage.train_batch(u8, rows)
+        events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+        return prof, [e for e in events if e.get("cat") == "kernel"
+                      and "device_preprocess" in e.get("name", "")]
+
+    end = time.time() + 60
+    while time.time() < end and len(traced(0)[1]) == 10:
+        step(batch)
+        time.sleep(5)
+    prof, kernels = traced(profiling.EDGE)
+    assert len(kernels) == 10
+    assert any("device_preprocess" in r.key and getattr(
+        r, "device_time_total", getattr(r, "cuda_time_total", 0)) > 0
+        for r in prof.key_averages())
+
+
+def _gloo_rank_step(rank, world, port, out):
+    """One rank of `test_two_gloo_ranks_on_the_card_match_one_rank`."""
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                         world_size=world, rank=rank)
+    torch.save(_tiny_steps(rank, world), f"{out}/rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+TINY_DP = dict(model_type="tiny", hidden_dim=128, d_state=4, drop_path_rate=0.0,
+               backbone_overrides=dict(depths=(2, 2, 2, 2), dims=16, drop_path_rate=0.3))
+
+
+def _tiny_steps(rank=0, world=0):
+    """Two float32 train steps of a small XFMamba (dims 16, drop path 0.3)
+    at 64 x 64 on the card, global batch 8, on this rank's rows of a mesh of
+    ``world`` ranks (alone for 0): each step's loss and logits, the final
+    weights."""
+    from xfmamba_tpu_torch.parallel import mesh as pmesh
+    from xfmamba_tpu_torch.train import loop
+    from xfmamba_tpu_torch.train.config import TrainConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = TwoViewXFMamba(**TINY_DP, generator=torch.Generator().manual_seed(0),
+                           dropout_generator=torch.Generator().manual_seed(1)).cuda()
+    step, _ = loop.make_train_step(model, loop.make_optimizer(TrainConfig(lr=1e-3),
+                                                              model.parameters()), False)
+    mesh = pmesh.make_mesh(device="cuda") if world else None
+    if mesh is not None:
+        step = pmesh.make_parallel_train_step(step, mesh)
+    g = torch.Generator().manual_seed(2)
+    outs = []
+    for _ in range(2):
+        batch = {"image1": torch.randn(8, 64, 64, 1, generator=g),
+                 "image2": torch.randn(8, 64, 64, 1, generator=g),
+                 "label": torch.arange(8) % 2}
+        batch = pmesh.shard_batch(batch, mesh) if mesh else {k: v.cuda() for k, v in
+                                                             batch.items()}
+        out = step(batch)
+        outs.append((float(out["loss"]), out["logits"].cpu()))
+    return {"outs": outs, "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+
+
+def test_two_gloo_ranks_on_the_card_match_one_rank(dev, tmp_path):
+    """Two gloo ranks sharing the card (`parallel.mesh`, kernels 11 and 12,
+    global BatchNorm, drop path drawn for the global batch), two steps,
+    against one rank on the global batches: losses and logits within 1e-4
+    (batches of 4 against 8), the ranks' weights bit for bit equal, and
+    within 4 * lr of one rank's (a near-zero Adam input can flip), 1e-6 in
+    the mean."""
+    from xfmamba_tpu_torch.parallel.distributed import free_port
+    one = _tiny_steps()
+    torch.multiprocessing.spawn(_gloo_rank_step, args=(2, free_port(), str(tmp_path)), nprocs=2)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    for s, (loss, logits) in enumerate(one["outs"]):
+        for r in ranks:
+            assert abs(r["outs"][s][0] - loss) <= 1e-4 * max(1.0, abs(loss))
+        got = torch.cat([r["outs"][s][1] for r in ranks])
+        assert float((got - logits).abs().max()) <= 1e-4 * float(logits.abs().max())
+    for k, want in one["state"].items():
+        assert torch.equal(ranks[0]["state"][k], ranks[1]["state"][k]), k
+        diff = (ranks[0]["state"][k].double() - want.double()).abs()
+        assert float(diff.max()) <= 4e-3 and float(diff.mean()) <= 1e-6, k

@@ -313,19 +313,3 @@ def test_cli_flags_match_jax():
     ours, ref = vars(train_mutual.parse_args([])), vars(jax_cli.parse_args([]))
     assert {k: ours[k] for k in ref} == ref
     assert ours["device"] == "cuda" and set(ours) - set(ref) == {"device"}
-
-
-@pytest.mark.parametrize("argv,match", [
-    (["--coordinator_address", "localhost:1234"], "DDP"),
-    (["--num_processes", "2"], "DDP"),
-    (["--device", "cuda"], "over 2 CUDA devices"),
-])
-def test_cli_refuses_what_is_not_ported(tree, tmp_path, argv, match, monkeypatch):
-    """Multi-process runs and more than one visible CUDA device (two
-    reported here) raise; every dataset is ported
-    (tests/test_torch_cli_datasets.py)."""
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match=match):
-        train_mutual.main(["--model_names", "twoviewxfmamba_smoke", "twoviewxfmamba_smoke",
-                           "--device", "cpu", "--epochs", "1", "--savemodel_path",
-                           str(tmp_path)] + tree + argv)

@@ -166,27 +166,39 @@ def test_base_model_parameters_match_jax():
     assert model.fusemamba.blocks[0].self_attention.x_proj_weight.shape == (4, 64 + 32, 2048)
 
 
+def port_batch(batch):
+    """A numpy batch of `jax_train_step` as the port's tensors."""
+    label = T(batch["label"])
+    return {"image1": T(batch["image1"]), "image2": T(batch["image2"]),
+            "label": label if batch["label"].ndim == 2 else label.long()}
+
+
 def _check_train_step(jax_step, use_checkpoint, model_kw=TINY):
-    """Loss (1e-5), the step's logits (1e-5 of the largest), every
-    parameter gradient (2e-4 of the largest gradient of its tensor, float32
-    sums in other orders through the whole model), the BatchNorm
+    """The port's step from JAX's variables, on the same batch, held to
+    JAX's by `assert_step_matches_jax`.  A batch of float label vectors
+    trains multilabel."""
+    variables, batch = jax_step[:2]
+    model = TwoViewXFMamba(**model_kw, use_checkpoint=use_checkpoint)
+    load_jax_variables(model, variables)
+    optimizer = loop.make_optimizer(TrainConfig(lr=LR), model.parameters())
+    train_step, _ = loop.make_train_step(model, optimizer,
+                                         multilabel=batch["label"].ndim == 2)
+    assert_step_matches_jax(jax_step, model, train_step(port_batch(batch)))
+
+
+def assert_step_matches_jax(jax_step, model, out):
+    """``model`` after one step from JAX's variables, and the step's ``out``,
+    against JAX's: loss (1e-5), the step's logits (1e-5 of the largest),
+    every parameter gradient (2e-4 of the largest gradient of its tensor,
+    float32 sums in other orders through the whole model), the BatchNorm
     statistics (the running variance up to n/(n-1), see
     `test_batchnorm_training_statistics`) and the parameters after one Adam
     step.  The first Adam update is lr * s / (|s| + eps), about lr *
     sign(s), with s = g + 1e-5 * p (the weight decay): where |s| is above
     100 times the gradient tolerance the parameters agree to 1e-6;
     elsewhere an s within its tolerance of zero may flip the sign, so they
-    agree to 2 * lr.  A batch of float label vectors trains multilabel."""
+    agree to 2 * lr."""
     variables, batch, new_state, loss_ref, grads_ref, logits_ref = jax_step
-    multilabel = batch["label"].ndim == 2
-    model = TwoViewXFMamba(**model_kw, use_checkpoint=use_checkpoint)
-    load_jax_variables(model, variables)
-    optimizer = loop.make_optimizer(TrainConfig(lr=LR), model.parameters())
-    train_step, _ = loop.make_train_step(model, optimizer, multilabel=multilabel)
-    label = T(batch["label"])
-    tb = {"image1": T(batch["image1"]), "image2": T(batch["image2"]),
-          "label": label if multilabel else label.long()}
-    out = train_step(tb)
     assert abs(float(out["loss"]) - loss_ref) <= 1e-5 * max(1.0, abs(loss_ref))
     assert out["logits"].shape == logits_ref.shape
     assert_close(out["logits"], logits_ref, 1e-5 * max(1.0, np.abs(logits_ref).max()))
@@ -210,7 +222,7 @@ def _check_train_step(jax_step, use_checkpoint, model_kw=TINY):
     bn = model.shallow_mamba_fusion.norm
     stats = variables["batch_stats"]["shallow_mamba_fusion"]["norm"]
     new = new_state.batch_stats["shallow_mamba_fusion"]["norm"]
-    n = BATCH * 1 * 1          # one view's stage-3 map at 32x32 is 1x1
+    n = batch["label"].shape[0] * 1 * 1      # one view's stage-3 map at 32x32 is 1x1
     assert_close(bn.running_mean, new["mean"], 1e-5)
     # two updates (one per view): var = 0.81 var0 + 0.09 b1 + 0.1 b2
     assert_close(bn.running_var.numpy() - 0.81 * stats["var"],

@@ -25,6 +25,14 @@ uint8 too, where JAX's loader does not).  A single-view model
 (``singleviewmamba``) trains and is evaluated on ``image1`` alone.
 ``--pretrained_model_path`` is accepted and, as in the JAX package, not
 read by ``fit``.
+
+Data parallelism (``--data_parallel 1``, the default), one process a card:
+under torchrun (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``) each rank trains on ``cuda:LOCAL_RANK`` (NCCL; gloo for
+``--device cpu`` or where ``XFMAMBA_DIST_BACKEND`` names it) and ``fit``
+splits every global ``--batch_size`` over the ranks; started plainly with
+more than one visible card, the CLI starts one rank a card itself, as JAX's
+CLI shards over every local device.  Rank 0 alone prints and writes files.
 """
 
 from __future__ import annotations
@@ -32,8 +40,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 
 import torch
+import torch.distributed as dist
 
 from xfmamba_tpu_torch.cli import build_model_by_name
 from xfmamba_tpu_torch.train.config import TrainConfig
@@ -82,7 +92,7 @@ def parse_args(argv=None):
     p.add_argument("--use_checkpoint", type=int, default=0,
                    help="activation recomputation in the backbone")
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="one visible CUDA device trains as one device; more raise (no DDP)")
+                   help="split each batch over the ranks (torchrun's, or one a visible card)")
     p.add_argument("--device_preprocess", type=int, default=0,
                    help="stage uint8 on the host; resize, augment and normalize on the card")
     p.add_argument("--loader_processes", type=int, default=0,
@@ -148,10 +158,50 @@ def device_stage(args, seed: int):
     return make(size, seed=seed)
 
 
+def local_ranks(args) -> int:
+    """The ranks that `main` starts itself: one a visible card, where it is
+    started plainly (no torchrun environment) on CUDA with
+    ``--data_parallel 1`` and more than one card is visible; else 0."""
+    if (not args.data_parallel or "WORLD_SIZE" in os.environ
+            or torch.device(args.device).type != "cuda"):
+        return 0
+    n = torch.cuda.device_count()
+    return n if n > 1 else 0
+
+
+def _rank_main(rank: int, argv, world: int, port: int) -> None:
+    """One of `local_ranks`' processes: torchrun's environment, then `main`."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    main(argv)
+
+
 def main(argv=None):
     args = parse_args(argv)
+    from xfmamba_tpu_torch.parallel.distributed import (
+        ensure_initialized, free_port, is_primary, local_device)
+    world = local_ranks(args)
+    if world:
+        argv = sys.argv[1:] if argv is None else list(argv)
+        torch.multiprocessing.spawn(_rank_main, args=(argv, world, free_port()), nprocs=world)
+        from xfmamba_tpu_torch.checkpoint.io import load_state
+        state = load_state(os.path.join(args.savemodel_path, "last.pt"))
+        return state, state["history"]
+    started = False
+    if args.data_parallel and not dist.is_initialized():
+        ensure_initialized(backend="gloo" if torch.device(args.device).type == "cpu" else None)
+        started = dist.is_initialized()
+    try:
+        return _train(args, local_device(args.device), is_primary())
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(args, device, primary: bool):
     cfg, cfg_dict = make_config(args)
-    if cfg.wandb:
+    if cfg.wandb and primary:
         try:
             import wandb as _wandb
             _wandb.init(project=f"xfmamba-{cfg.dataset}", config=cfg_dict)
@@ -159,16 +209,20 @@ def main(argv=None):
             print(f"wandb disabled: {e}")
             cfg = dataclasses.replace(cfg, wandb=False)
     train_loader, val_loader, _ = build_loaders(args, cfg_dict)
-    model, two_view = build_model_by_name(cfg.model_name, cfg.num_classes, device=args.device,
+    model, two_view = build_model_by_name(cfg.model_name, cfg.num_classes, device=device,
                                           seed=cfg.seed, use_checkpoint=cfg.use_checkpoint)
     from xfmamba_tpu_torch.train.driver import fit
-    os.makedirs(cfg.savemodel_path, exist_ok=True)
     device = next(model.parameters()).device
-    print(f"device: {device}"
-          + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+    if primary:
+        os.makedirs(cfg.savemodel_path, exist_ok=True)
+        print(f"device: {device}"
+              + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+              + (f", rank 0 of {dist.get_world_size()} over {dist.get_backend()}"
+                 if dist.is_initialized() else ""))
     state, history = fit(model, cfg, train_loader, val_loader, out_dir=cfg.savemodel_path,
                          two_view=two_view, preprocess=device_stage(args, cfg.seed + 2))
-    print(f"done; best val loss {min(h['val']['loss'] for h in history):.4f}")
+    if primary:
+        print(f"done; best val loss {min(h['val']['loss'] for h in history):.4f}")
     return state, history
 
 

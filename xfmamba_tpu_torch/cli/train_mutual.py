@@ -17,10 +17,16 @@ Every dataset of ``cli.train`` (its ``build_loaders``).  CheXpert trains
 multilabel, as ``fit`` does (``--num_tasks`` above 1 or ``--dataset
 chexpert``), with ``fit``'s accuracy of the labels at sigmoid > 0.5; JAX's
 mutual CLI looks at ``--num_tasks`` alone and takes an argmax accuracy,
-which fails on multilabel batches.  One device
-only: ``--coordinator_address``, ``--num_processes`` above 1 and more than
-one visible CUDA device raise ``NotImplementedError`` (the JAX CLI shards
-the batch over a mesh; the port has no data parallelism yet).
+which fails on multilabel batches.
+
+Multi-process, as JAX's (one process a card): ``--coordinator_address``,
+``--num_processes`` and ``--process_id`` (or torchrun's environment) go to
+`parallel.distributed.ensure_initialized`; each rank loads its slice of
+every global ``--batch_size`` batch and steps through
+`parallel.mesh.make_parallel_train_step`.  The epoch's AUC and accuracy
+are those of the logits gathered from every rank, so W processes pick the
+checkpoint one would; JAX scores the primary process's own shard.  Rank 0
+alone prints and writes.
 
 Usage (the default pair, XFMamba-T and XFMamba-S, on MURA):
     python -m xfmamba_tpu_torch.cli.train_mutual --dataset mura \\
@@ -39,11 +45,11 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from xfmamba_tpu_torch.cli import build_model_by_name
 from xfmamba_tpu_torch.cli.train import build_loaders
 from xfmamba_tpu_torch.train.config import TrainConfig
-from xfmamba_tpu_torch.train.driver import DDP_ITEM
 
 
 def parse_args(argv=None):
@@ -76,21 +82,12 @@ def parse_args(argv=None):
     p.add_argument("--hip_images_dir", default=None)
     p.add_argument("--hip_csv", default=None)
     p.add_argument("--num_workers", type=int, default=4)
-    # multi-host bootstrap: not ported (raises)
+    # multi-process bootstrap (optional; torchrun's environment works too)
     p.add_argument("--coordinator_address", default=None)
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
-
-
-def _check_one_device(args):
-    if args.coordinator_address or (args.num_processes or 1) > 1:
-        raise NotImplementedError(f"multi-process mutual learning is not ported ({DDP_ITEM})")
-    if torch.device(args.device).type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"mutual learning over {torch.cuda.device_count()} CUDA devices is not ported "
-            f"({DDP_ITEM}); make one device visible")
 
 
 def _auc(logits: np.ndarray, labels: np.ndarray, multilabel: bool) -> float:
@@ -111,12 +108,30 @@ def main(argv=None):
     model's `MutualMeter` averages], "step_ms", "checkpoints": [paths
     written]}``."""
     args = parse_args(argv)
-    _check_one_device(args)
+    from xfmamba_tpu_torch.parallel.distributed import ensure_initialized
+    started = not dist.is_initialized()
+    ensure_initialized(args.coordinator_address, args.num_processes, args.process_id,
+                       backend="gloo" if torch.device(args.device).type == "cpu" else None)
+    started = started and dist.is_initialized()
+    try:
+        return _train(args)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(args):
+    from xfmamba_tpu_torch.parallel.distributed import (
+        is_primary, local_device, make_global_mesh, process_batch_slice)
+    from xfmamba_tpu_torch.parallel.mesh import make_parallel_train_step
     from xfmamba_tpu_torch.train.driver import _to_device
     from xfmamba_tpu_torch.train.loop import make_optimizer
     from xfmamba_tpu_torch.train.mutual import (
         MutualMeter, make_mutual_train_step, save_best_roc_checkpoint)
 
+    device = local_device(args.device)
+    mesh = make_global_mesh(device=device) if dist.is_initialized() else None
+    primary = is_primary()
     cfg = TrainConfig(
         dataset=args.dataset, data_root=args.data_root,
         image_size=(args.image_size, args.image_size),
@@ -133,10 +148,14 @@ def main(argv=None):
 
     train_loader, _, _ = build_loaders(args, cfg_dict)
     train_loader.drop_last = True
+    if mesh is not None:
+        # this rank decodes only its slice of each global batch; every rank
+        # shares the shuffle order (the seed)
+        train_loader.process_slice = process_batch_slice(args.batch_size)
     # each model its own seeds (JAX folds the model's index into its key)
     models, two_view = [], []
     for i, name in enumerate(args.model_names):
-        model, tv = build_model_by_name(name, cfg.num_classes, device=args.device,
+        model, tv = build_model_by_name(name, cfg.num_classes, device=device,
                                         seed=cfg.seed + 2 * i)
         models.append(model)
         two_view.append(tv)
@@ -144,10 +163,17 @@ def main(argv=None):
     optimizers = [make_optimizer(cfg, m.parameters()) for m in models]
     step = make_mutual_train_step(models, optimizers, multilabel=multilabel,
                                   two_view=two_view)
+    if mesh is not None:
+        mesh.broadcast_([t.detach() for m in models for t in (*m.parameters(), *m.buffers())])
+        step = make_parallel_train_step(step, mesh)
     device = next(models[0].parameters()).device
     cuda = device.type == "cuda"
 
-    os.makedirs(cfg.savemodel_path, exist_ok=True)
+    if primary:
+        os.makedirs(cfg.savemodel_path, exist_ok=True)
+        if mesh is not None:
+            print(f"data-parallel: {mesh.world} process(es) over {dist.get_backend()}, "
+                  f"rank 0 on {device}")
     best_roc = [-np.inf] * K
     history = []
     for epoch in range(cfg.epochs):
@@ -164,12 +190,21 @@ def main(argv=None):
                 t0 = time.perf_counter()
                 outs.append(step(dev, cfg.lr))
                 walls.append(1e3 * (time.perf_counter() - t0))
-            labels.append(np.asarray(batch["label"]))
-        # one fetch an epoch: the steps' losses and logits stay on the device
+            labels.append(dev["label"])
+        # one fetch an epoch: the steps' losses and logits stay on the device;
+        # the logits and labels of every rank, as one rank holds them
+        steps = len(outs)
         ce = torch.stack([o["ce_loss"] for o in outs]).cpu().numpy()
         kl = torch.stack([o["kl_loss"] for o in outs]).cpu().numpy()
         total = torch.stack([o["loss"] for o in outs]).float().cpu().numpy()
-        logits = [[o["logits"][i].cpu().numpy() for o in outs] for i in range(K)]
+        logits = [torch.cat([o["logits"][i].float() for o in outs]) if outs else None
+                  for i in range(K)]
+        label = torch.cat(labels) if labels else None
+        if mesh is not None and outs:
+            logits = [mesh.gather_steps(z, steps) for z in logits]
+            label = mesh.gather_steps(label, steps)
+        logits = [np.split(z.cpu().numpy(), steps) if outs else [] for z in logits]
+        labels = np.split(label.cpu().numpy(), steps) if outs else []
         step_ms = [s.elapsed_time(e) for s, e in events] if cuda else walls
         meters = [MutualMeter(max(len(train_loader), 1),
                               max(len(train_loader) * cfg.batch_size, 1)) for _ in range(K)]
@@ -186,6 +221,8 @@ def main(argv=None):
                 meters[i].update_auc(_auc(np.concatenate(logits[i]), np.concatenate(labels),
                                           multilabel))
             avg = meters[i].get_avg()
+            if not primary:
+                continue
             print(f"epoch {epoch} model[{i}] {args.model_names[i]}: ce={avg['ce_loss']:.4f} "
                   f"kl={avg['kl_loss']:.4f} auc={avg['auc']:.4f}")
             if avg["auc"] == avg["auc"] and avg["auc"] > best_roc[i]:
@@ -193,7 +230,7 @@ def main(argv=None):
                 checkpoints.append(save_best_roc_checkpoint(
                     cfg.savemodel_path, args.model_names[i], models[i], optimizers[i], epoch,
                     avg["auc"]))
-        if step_ms:
+        if step_ms and primary:
             print(f"epoch {epoch}: {len(step_ms)} mutual steps, median "
                   f"{statistics.median(step_ms):.2f} ms per step "
                   f"({'CUDA events' if cuda else 'host clock'})")

@@ -16,6 +16,12 @@ the model.  At most ``prefetch + num_workers`` batches are in flight.  Generator
 seed), the epoch's shuffle ``seed + epoch``, a batch's seed ``seed +
 1_000_003 * epoch + k``: both pool modes, and the JAX loader, give the
 same batches.
+
+``process_slice`` (JAX's, `parallel.distributed.process_batch_slice`):
+every process builds the same order of global batches and assembles only
+its slice of each, so the rows of W processes are those of one.  A padded
+eval batch whose real samples end before a process's slice gives that
+process a batch of padding only (``n_valid`` 0), where JAX's loader fails.
 """
 
 from __future__ import annotations
@@ -64,10 +70,15 @@ class TwoViewSamples:
 
 
 def _assemble_batch(dataset: TwoViewSamples, b: np.ndarray, base_seed: int,
-                    target: int, pad_to_batch: bool) -> Dict:
+                    target: int, pad_to_batch: bool, shape_from: np.ndarray = None) -> Dict:
     """Decode + transform one batch of sample indices (shared by the
     thread and process pools; per-sample rng keyed by (seed, index) so
-    both modes produce bit-identical batches)."""
+    both modes produce bit-identical batches).  An empty ``b`` gives a
+    batch of ``target`` zero rows shaped as the sample ``shape_from``."""
+    if len(b) == 0:
+        like = _assemble_batch(dataset, shape_from, base_seed, target, pad_to_batch)
+        return {k: np.zeros_like(like[k]) for k in ("image1", "image2", "label")} | {
+            "n_valid": 0}
     n_valid = len(b)
     outs1, outs2, labels = [], [], []
     for i in b:
@@ -103,9 +114,9 @@ def _pool_init(dataset: TwoViewSamples) -> None:
 
 
 def _pool_make_batch(b: np.ndarray, base_seed: int, target: int,
-                     pad_to_batch: bool) -> Dict:
+                     pad_to_batch: bool, shape_from: np.ndarray = None) -> Dict:
     return _assemble_batch(_WORKER_DATASET, b, base_seed, target,
-                           pad_to_batch)
+                           pad_to_batch, shape_from)
 
 
 class TwoViewLoader:
@@ -126,6 +137,9 @@ class TwoViewLoader:
         self.prefetch = prefetch
         self.use_processes = use_processes
         self._epoch = 0
+        # this process's slice of every global batch (see the module
+        # docstring); None: the whole batch
+        self.process_slice: Optional[slice] = None
 
     def __len__(self):
         n = len(self.dataset)
@@ -133,7 +147,7 @@ class TwoViewLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    def _index_batches(self) -> List[np.ndarray]:
+    def _global_batches(self) -> List[np.ndarray]:
         n = len(self.dataset)
         idx = np.arange(n)
         if self.shuffle:
@@ -147,9 +161,14 @@ class TwoViewLoader:
             batches.append(b)
         return batches
 
-    def _make_batch(self, b: np.ndarray, base_seed: int) -> Dict:
-        return _assemble_batch(self.dataset, b, base_seed, self.batch_size,
-                               self.pad_to_batch)
+    def _target_batch_size(self) -> int:
+        if self.process_slice is None:
+            return self.batch_size
+        return len(range(*self.process_slice.indices(self.batch_size)))
+
+    def _make_batch(self, b: np.ndarray, base_seed: int, shape_from=None) -> Dict:
+        return _assemble_batch(self.dataset, b, base_seed, self._target_batch_size(),
+                               self.pad_to_batch, shape_from)
 
     def _make_pool(self):
         if not self.use_processes:
@@ -168,18 +187,21 @@ class TwoViewLoader:
 
     def __iter__(self) -> Iterator[Dict]:
         self._epoch += 1
-        batches = self._index_batches()
+        batches = self._global_batches()
         base_seed = self.seed + 1_000_003 * self._epoch
+        target = self._target_batch_size()
         # pool creation AND submission happen on the calling thread:
         # ProcessPoolExecutor forks on first submit, and forking from a
         # worker thread is deprecated
         pool = self._make_pool()
 
         def submit(k, b):
+            local = b if self.process_slice is None else b[self.process_slice]
+            shape_from = None if len(local) else b[:1]
             if self.use_processes:
-                return pool.submit(_pool_make_batch, b, base_seed + k, self.batch_size,
-                                   self.pad_to_batch)
-            return pool.submit(self._make_batch, b, base_seed + k)
+                return pool.submit(_pool_make_batch, local, base_seed + k, target,
+                                   self.pad_to_batch, shape_from)
+            return pool.submit(self._make_batch, local, base_seed + k, shape_from)
 
         # at most prefetch + num_workers batches in flight: the workers stay
         # busy and hold a few batches ready, and a consumed batch is dropped

@@ -27,6 +27,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# nvcc links the CUDA runtime statically by default
+LINK_FLAGS: tuple = ()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -99,7 +101,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for f in sorted(CSRC_DIR.iterdir()):
         if f.suffix in (".cu", ".cuh"):
             h.update(f.name.encode())
@@ -129,7 +131,7 @@ def build() -> tuple[Path, str]:
         for cmd, proc, out in zip(cmds, procs, outs):
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{out}")
-        link = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+        link = [_nvcc(), "-shared", *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
         proc = subprocess.run(link, capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({' '.join(link)}):\n{proc.stdout}{proc.stderr}")

@@ -6,13 +6,26 @@ Like the JAX layers with ``dtype=bfloat16``, each layer computes in its
 input's dtype: matmul and conv weights are cast to it at the call, and the
 norms take float32 statistics and return the input's dtype.  Initialisers
 mirror the JAX ones and draw from an explicit ``torch.Generator``.
+
+Inside a data-parallel training step (`batch_shard`, which
+``parallel.mesh.make_parallel_train_step`` enters) each rank holds its rows
+of a global batch, and the two layers whose result depends on the whole
+batch compute what one rank computes on the global batch, as JAX's GSPMD
+step does: `BatchNorm` takes the global batch's statistics (all-reduced,
+`GlobalBatchNorm`) and `DropPath` draws the global batch's masks from its
+generator and keeps this rank's (`global_rows`).  Outside such a step, or
+in a world of one rank, both run the one-device code.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
+from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -110,6 +123,99 @@ class LayerNorm(nn.Module):
                             self.bias.float(), self.eps).to(x.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class BatchShard:
+    """This rank's place in a data-parallel step: ``rank`` of ``world``
+    ranks, each holding ``rows`` rows of every view of the global batch;
+    ``group`` is the process group (None: the default group)."""
+    rank: int
+    world: int
+    rows: int
+    group: Any = None
+
+
+_SHARD: Optional[BatchShard] = None
+
+
+@contextlib.contextmanager
+def batch_shard(shard: Optional[BatchShard]):
+    """Run the block as ``shard``'s rows of a global batch (see the module
+    docstring); None runs it as the whole batch."""
+    global _SHARD
+    outer, _SHARD = _SHARD, shard
+    try:
+        yield
+    finally:
+        _SHARD = outer
+
+
+def _sharded() -> Optional[BatchShard]:
+    return _SHARD if _SHARD is not None and _SHARD.world > 1 else None
+
+
+def global_rows(draw: Callable, batch: int):
+    """``draw(n)`` (a tensor, or a dict of tensors, of n leading rows) for
+    ``batch`` local rows: outside a data-parallel step ``draw(batch)``;
+    inside one, the draw for the global batch, of which this rank keeps its
+    rows, so that the generator stays in step across ranks and W ranks get
+    the rows one rank would.  ``batch`` is k times the shard's rows: the
+    models stack their views on the batch axis, so the global batch is k
+    blocks of ``world * rows`` and this rank's rows are its part of each."""
+    s = _sharded()
+    if s is None:
+        return draw(batch)
+    if batch % s.rows:
+        raise ValueError(f"{batch} rows are not whole views of this rank's {s.rows}")
+    k = batch // s.rows
+
+    def local(t):
+        return t.reshape(k, s.world, s.rows, *t.shape[1:])[:, s.rank].reshape(batch,
+                                                                           *t.shape[1:])
+
+    out = draw(batch * s.world)
+    return {key: local(v) for key, v in out.items()} if isinstance(out, dict) else local(out)
+
+
+class GlobalBatchNorm(torch.autograd.Function):
+    """Batch normalisation of this rank's rows x (n, C) float32 with the
+    statistics of every rank's rows: the count and sum are all-reduced for
+    the mean, then the sum of squared deviations from it for the (biased)
+    variance, two passes as one device computes them.  Backward all-reduces
+    the per-channel sums of dy and dy * x̂; the weight and bias gradients
+    stay this rank's sums, for the step's gradient reduction.  Returns (y,
+    mean, unbiased variance)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        C = x.shape[1]
+        first = torch.cat([x.sum(0), x.new_tensor([x.shape[0]])])
+        dist.all_reduce(first, group=group)
+        count = first[C]
+        mean = first[:C] / count
+        centred = x - mean
+        sq = (centred * centred).sum(0)
+        dist.all_reduce(sq, group=group)
+        var = sq / count
+        invstd = torch.rsqrt(var + eps)
+        xhat = centred * invstd
+        ctx.save_for_backward(xhat, weight, invstd, count)
+        ctx.group = group
+        unbiased = var * count / (count - 1)
+        ctx.mark_non_differentiable(mean, unbiased)
+        return xhat * weight + bias, mean, unbiased
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, weight, invstd, count = ctx.saved_tensors
+        C = xhat.shape[1]
+        dbias = dy.sum(0)
+        dweight = (dy * xhat).sum(0)
+        sums = torch.cat([dbias, dweight])
+        dist.all_reduce(sums, group=ctx.group)
+        dx = (weight * invstd) * (dy - sums[:C] / count - xhat * (sums[C:] / count))
+        return dx, dweight, dbias, None, None
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d on NHWC maps, in float32.  In eval mode it normalises
     with the running statistics; in training mode with the batch's, and
@@ -118,16 +224,30 @@ class BatchNorm(nn.BatchNorm2d):
     the biased one).  ``batch_stats`` overrides the mode: True takes the
     batch's statistics (and updates the running ones), False the running
     ones, as flax's ``use_running_average`` does.  State-dict names are
-    BatchNorm2d's."""
+    BatchNorm2d's.  Inside a data-parallel step the batch statistics are the
+    global batch's (`GlobalBatchNorm`), and the running ones move by the
+    global mean and unbiased variance."""
 
     def forward(self, x, batch_stats=None):
         batch_stats = self.training if batch_stats is None else batch_stats
         if batch_stats:
             self.num_batches_tracked.add_(1)
+            shard = _sharded()
+            if shard is not None:
+                return self._global_batch_stats(x, shard)
         y = F.batch_norm(x.float().permute(0, 3, 1, 2), self.running_mean,
                          self.running_var, self.weight.float(), self.bias.float(),
                          batch_stats, self.momentum, self.eps)
         return y.permute(0, 2, 3, 1).to(x.dtype)
+
+    def _global_batch_stats(self, x, shard: BatchShard):
+        y, mean, var = GlobalBatchNorm.apply(x.float().reshape(-1, x.shape[-1]),
+                                             self.weight.float(), self.bias.float(), self.eps,
+                                             shard.group)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return y.reshape(x.shape).to(x.dtype)
 
 
 def to_device(t: torch.Tensor, device=None) -> torch.Tensor:
@@ -141,8 +261,9 @@ def to_device(t: torch.Tensor, device=None) -> torch.Tensor:
 class DropPath(nn.Module):
     """Per-sample stochastic depth on a residual branch; identity at
     inference.  The keep masks are drawn from ``generator`` (a CPU
-    ``torch.Generator``).  Called with several tensors, it applies one mask
-    to all of them, as the JAX DropPath does on a tuple."""
+    ``torch.Generator``), the global batch's inside a data-parallel step
+    (`global_rows`).  Called with several tensors, it applies one mask to
+    all of them, as the JAX DropPath does on a tuple."""
 
     def __init__(self, rate: float = 0.0, generator=None):
         super().__init__()
@@ -157,7 +278,7 @@ class DropPath(nn.Module):
         if self.generator is None:
             raise RuntimeError("DropPath in training needs a torch.Generator")
         keep = 1.0 - self.rate
-        mask = torch.rand(batch, generator=self.generator) < keep
+        mask = global_rows(lambda n: torch.rand(n, generator=self.generator), batch) < keep
         return to_device(mask.float() / keep, device)
 
     def forward(self, *xs):

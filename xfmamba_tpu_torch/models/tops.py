@@ -11,8 +11,9 @@ fusion, a 1x1 conv, mean pooling and a linear head.  The baselines use the
 (batch statistics, drop-path masks from the model's ``dropout_generator``,
 the training kernels; see ``models/vssm.py`` and ``models/fusion.py``).
 Views are NHWC (B, H, W, 1) and the forward computes in their dtype.  The
-saliency hooks of the JAX model (``sow``/``perturb``) are not ported yet.
-Module names are JAX's, so ``checkpoint/convert.py`` maps every top.
+JAX model's saliency hooks (``sow``/``perturb`` of the stage-3 features)
+are forward hooks here, in ``utils/saliency.py``.  Module names are JAX's,
+so ``checkpoint/convert.py`` maps every top.
 """
 
 from __future__ import annotations

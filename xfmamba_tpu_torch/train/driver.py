@@ -25,6 +25,13 @@ Four faults of the JAX driver are not copied:
   pad rows of a short last batch into it;
 - ``last.pt`` holds the optimizer, the epoch and the generators, so a run
   resumes; JAX's ``fit`` checkpoints hold the weights only.
+
+Data parallelism (``cfg.data_parallel``, JAX's mesh over the local
+devices): in a process group (`parallel.distributed.ensure_initialized`),
+one process a card, each rank loads its slice of every global batch and
+runs `parallel.mesh`'s steps, so W ranks compute what one computes on the
+global batch; the epoch metrics come from the gathered logits, and only
+rank 0 logs and writes files.  `cli.train` starts the ranks.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from xfmamba_tpu_torch.checkpoint import io as ckpt
@@ -43,8 +51,6 @@ from xfmamba_tpu_torch.train import metrics as M
 from xfmamba_tpu_torch.train.config import TrainConfig
 from xfmamba_tpu_torch.train.loop import (
     EarlyStopping, lr_schedule, make_optimizer, make_train_step)
-
-DDP_ITEM = "ROADMAP.md, queue 1: data parallelism (DDP)"
 
 
 def _to_device(batch: Dict, device, dtype, multilabel: bool) -> Dict:
@@ -56,9 +62,10 @@ def _to_device(batch: Dict, device, dtype, multilabel: bool) -> Dict:
 
 
 def run_train_epoch(train_step, loader, lr, multilabel: bool, device, dtype=torch.float32,
-                    log_every: int = 50, log_fn: Callable = print):
+                    log_every: int = 50, log_fn: Callable = print, mesh=None):
     """One epoch; returns its stats: the metrics of `compute_epoch_metrics`
-    on the epoch's logits, the mean train loss, ``time_s``,
+    on the epoch's logits (with a `parallel.mesh.Mesh`, every rank's,
+    gathered as one rank would hold them), the mean train loss, ``time_s``,
     ``loader_wait_s`` (the host's wait for batches), ``first_batch_wait_s``
     (the part of it before the first batch: the pool's start and the first
     fill), ``steps`` and, on CUDA, ``step_ms`` (each step by CUDA events)."""
@@ -88,8 +95,12 @@ def run_train_epoch(train_step, loader, lr, multilabel: bool, device, dtype=torc
     if not losses:
         raise ValueError("the train loader gave no batch (fewer samples than one batch, "
                          "whose remainder it drops)")
-    logits = torch.cat(all_logits).float().cpu().numpy()
-    stats = compute_epoch_metrics(logits, np.concatenate(all_labels), multilabel)
+    logits, labels = torch.cat(all_logits).float(), np.concatenate(all_labels)
+    if mesh is not None:
+        logits = mesh.gather_steps(logits, len(losses))
+        labels = mesh.gather_steps(torch.from_numpy(labels).to(logits.device),
+                                   len(losses)).cpu().numpy()
+    stats = compute_epoch_metrics(logits.cpu().numpy(), labels, multilabel)
     stats["loss"] = float(torch.stack(losses).double().mean())
     stats["steps"] = len(losses)
     if cuda:
@@ -100,17 +111,29 @@ def run_train_epoch(train_step, loader, lr, multilabel: bool, device, dtype=torc
     return stats
 
 
-def run_eval_epoch(eval_step, loader, multilabel: bool, device, dtype=torch.float32):
+def run_eval_epoch(eval_step, loader, multilabel: bool, device, dtype=torch.float32,
+                   mesh=None):
     """Validation or test pass over zero-padded batches; logits and the
-    loss are those of each batch's ``n_valid`` rows only.  Returns (stats,
-    logits, labels)."""
+    loss are those of each batch's ``n_valid`` rows only.  With a
+    `parallel.mesh.Mesh` each rank runs its rows of every global batch
+    (`parallel.mesh.make_parallel_eval_step`) and the pass is the global
+    batches', as one rank gives it.  Returns (stats, logits, labels)."""
+    if mesh is not None:
+        from xfmamba_tpu_torch.parallel.mesh import make_parallel_eval_step
+        eval_step = make_parallel_eval_step(eval_step, mesh)
     loss_sum, count = None, 0
     all_logits, all_labels = [], []
     for batch in loader:
         nv = int(batch.get("n_valid", batch["label"].shape[0]))
         dev = _to_device(batch, device, dtype, multilabel)
-        logits = eval_step(dev)["logits"][:nv].float()
-        label = dev["label"][:nv]
+        if mesh is None:
+            logits = eval_step(dev)["logits"][:nv].float()
+            label = dev["label"][:nv]
+            all_labels.append(np.asarray(batch["label"])[:nv])
+        else:
+            out = eval_step(dict(dev, n_valid=nv))
+            logits, label = out["logits"], out["label"]
+            all_labels.append(label.cpu().numpy())
         if multilabel:
             part = F.binary_cross_entropy_with_logits(logits, label, reduction="sum")
         else:
@@ -118,7 +141,6 @@ def run_eval_epoch(eval_step, loader, multilabel: bool, device, dtype=torch.floa
         loss_sum = part if loss_sum is None else loss_sum + part
         count += label.numel()
         all_logits.append(logits)
-        all_labels.append(np.asarray(batch["label"])[:nv])
     if not all_logits:
         raise ValueError("the eval loader gave no batch")
     logits = torch.cat(all_logits).cpu().numpy()
@@ -208,25 +230,48 @@ def fit(model, cfg: TrainConfig, train_loader, val_loader, init_state: Optional[
     `data.device_pipeline.DevicePreprocess` (the loaders then stage uint8,
     ``device_preprocess`` in their config); ``last.pt`` keeps its
     generator.
-    One card runs as JAX's single-device branch; ``data_parallel`` with
-    more than one visible CUDA device raises (DDP is not ported)."""
-    if cfg.data_parallel and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"data_parallel over {torch.cuda.device_count()} CUDA devices is not ported "
-            f"({DDP_ITEM}); make one device visible or pass data_parallel=False")
+
+    ``cfg.data_parallel`` in a process group of W ranks (each calls
+    ``fit`` with the model on its card): the global ``batch_size`` and
+    ``eval_batch_size`` must divide by W; the loaders get this rank's
+    ``process_slice``, the weights rank 0's, and the steps are
+    `parallel.mesh`'s.  Every rank returns the same state; rank 0 alone logs
+    and writes.  Without a process group the model's device trains alone."""
     multilabel = cfg.num_tasks > 1 or cfg.dataset == "chexpert"
     device = next(model.parameters()).device
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    mesh = None
+    if cfg.data_parallel and dist.is_initialized():
+        from xfmamba_tpu_torch.parallel.distributed import process_batch_slice
+        from xfmamba_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(device=device)
+        for name, bs in (("batch_size", cfg.batch_size),
+                         ("eval_batch_size", cfg.eval_batch_size)):
+            if bs % mesh.world:
+                raise ValueError(
+                    f"data_parallel: {name}={bs} is not divisible by the {mesh.world} "
+                    f"processes; adjust the batch size or pass data_parallel=False")
+        train_loader.process_slice = process_batch_slice(train_loader.batch_size)
+        val_loader.process_slice = process_batch_slice(val_loader.batch_size)
+    primary = mesh is None or mesh.rank == 0
+    if not primary:
+        log_fn = lambda *args, **kw: None  # noqa: E731
     optimizer = make_optimizer(cfg, model.parameters())
     plateau = (torch.optim.lr_scheduler.ReduceLROnPlateau(optimizer, mode="min", factor=0.1,
                                                           patience=10)
                if cfg.scheduler == "reduce" else None)
     train_step, eval_step = make_train_step(model, optimizer, multilabel, two_view,
                                             preprocess, dtype)
+    if mesh is not None:
+        from xfmamba_tpu_torch.parallel.mesh import make_parallel_train_step
+        train_step = make_parallel_train_step(train_step, mesh)
+        log_fn(f"data-parallel: batches split over {mesh.world} processes")
     views = torch.uint8 if preprocess is not None else dtype
     sched = lr_schedule(cfg)
     out_dir = out_dir or cfg.savemodel_path
-    os.makedirs(out_dir, exist_ok=True)
+    save_checkpoints = save_checkpoints and primary
+    if primary:
+        os.makedirs(out_dir, exist_ok=True)
     seconds = {}
 
     def save_fn(m, epoch, improved):
@@ -255,24 +300,28 @@ def fit(model, cfg: TrainConfig, train_loader, val_loader, init_state: Optional[
         history = list(init_state["history"])
         first = init_state["epoch"] + 1
         log_fn(f"resuming at epoch {first} (best epoch {stopper.best_epoch})")
+    if mesh is not None:
+        mesh.broadcast_([t.detach() for t in (*model.parameters(), *model.buffers())])
     state = None
     for epoch in range(first, cfg.epochs):
         if stopper.early_stop:
             break
         lr = sched(epoch) if plateau is None else optimizer.param_groups[0]["lr"]
         tr = run_train_epoch(train_step, train_loader, lr, multilabel, device, views,
-                             log_every=cfg.log_every, log_fn=log_fn)
+                             log_every=cfg.log_every, log_fn=log_fn, mesh=mesh)
         t = time.perf_counter()
-        va, logits, labels = run_eval_epoch(eval_step, val_loader, multilabel, device, views)
+        va, logits, labels = run_eval_epoch(eval_step, val_loader, multilabel, device, views,
+                                            mesh=mesh)
         eval_s = time.perf_counter() - t
         log_fn(f"epoch {epoch}: lr={lr:.2e} train_loss={tr['loss']:.4f} "
                f"val_loss={va['loss']:.4f} val_auc={va.get('auc', float('nan')):.4f} "
                f"({tr['time_s']:.2f} s train, {tr['loader_wait_s']:.2f} s of it waiting for "
                f"batches, {tr['first_batch_wait_s']:.2f} s for the first; {eval_s:.2f} s eval)")
-        if getattr(cfg, "wandb", False):
+        if getattr(cfg, "wandb", False) and primary:
             _log_wandb(epoch, lr, tr, va)
         t = time.perf_counter()
-        write_epoch_artifacts(out_dir, epoch, va, logits, labels, multilabel)
+        if primary:
+            write_epoch_artifacts(out_dir, epoch, va, logits, labels, multilabel)
         seconds = {"train_s": tr["time_s"], "eval_s": eval_s,
                    "artifacts_s": time.perf_counter() - t}
         history.append({"epoch": epoch, "lr": lr, "train": tr, "val": va, "seconds": seconds})

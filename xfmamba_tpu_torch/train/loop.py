@@ -22,7 +22,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from xfmamba_tpu_torch.models.layers import to_device
+from xfmamba_tpu_torch.models.layers import global_rows, to_device
 from xfmamba_tpu_torch.train.config import TrainConfig
 
 
@@ -56,14 +56,15 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = float(lr)
 
 
-def cross_entropy_loss(logits, labels):
+def cross_entropy_loss(logits, labels, reduction: str = "mean"):
     """Mean cross-entropy with integer labels (``1_train_model.py:134-135``)."""
-    return F.cross_entropy(logits.float(), labels)
+    return F.cross_entropy(logits.float(), labels, reduction=reduction)
 
 
-def bce_with_logits_loss(logits, labels):
+def bce_with_logits_loss(logits, labels, reduction: str = "mean"):
     """Mean multi-label BCE on logits (``1_train_model.py:136-137``)."""
-    return F.binary_cross_entropy_with_logits(logits.float(), labels.float())
+    return F.binary_cross_entropy_with_logits(logits.float(), labels.float(),
+                                              reduction=reduction)
 
 
 def zero_missing_grads(optimizer: torch.optim.Optimizer) -> None:
@@ -81,11 +82,19 @@ def make_train_step(model, optimizer, multilabel: bool, two_view: bool = True,
     """(train_step, eval_step) for a batch dict with ``image1`` (and
     ``image2``) and ``label``.
 
-    ``train_step(batch, lr=None)`` puts the model in training
+    ``train_step(batch, lr=None, reduce=None)`` puts the model in training
     mode, runs forward, backward and one optimizer step (at ``lr`` when
     given) and returns ``{"loss", "logits"}``, detached; the parameters'
-    ``.grad`` keep the step's gradients.  ``eval_step(batch)`` runs in eval
-    mode without gradients and returns the same keys.
+    ``.grad`` keep the step's gradients.  ``reduce``: the gradient
+    reduction of a data-parallel step (a `parallel.mesh.Mesh`, which
+    `parallel.mesh.make_parallel_train_step` passes): the gradients are
+    averaged over the ranks after `zero_missing_grads` and before the
+    update, and the loss returned is the global mean.
+
+    ``eval_step(batch)`` runs in eval mode without gradients and returns,
+    for the batch's ``n_valid`` rows (all rows where it has no
+    ``n_valid``; the rest are padding): ``logits``, ``label``, ``loss`` (the
+    mean), ``loss_sum`` and ``count`` (the loss's terms).
 
     ``preprocess``: a `data.device_pipeline.DevicePreprocess`; the views
     then arrive as staged uint8 (B, Hs, Ws, 1) on the model's device, and
@@ -105,11 +114,11 @@ def make_train_step(model, optimizer, multilabel: bool, two_view: bool = True,
 
     def augment_rows(batch):
         B = batch["image1"].shape[0]
-        rows = torch.stack([preprocess.rows(preprocess.draw_params(B))
+        rows = torch.stack([preprocess.rows(global_rows(preprocess.draw_params, B))
                             for _ in range(2 if two_view else 1)])
         return to_device(rows, batch["image1"].device)
 
-    def train_step(batch, lr: Optional[float] = None):
+    def train_step(batch, lr: Optional[float] = None, reduce=None):
         rows = None if preprocess is None else augment_rows(batch)
         model.train()
         if lr is not None:
@@ -119,14 +128,22 @@ def make_train_step(model, optimizer, multilabel: bool, two_view: bool = True,
         loss = loss_fn(logits, batch["label"])
         loss.backward()
         zero_missing_grads(optimizer)
+        loss = loss.detach()
+        if reduce is not None:
+            reduce.mean_([p.grad for group in optimizer.param_groups for p in group["params"]])
+            loss = reduce.mean(loss)
         optimizer.step()
-        return {"loss": loss.detach(), "logits": logits.detach()}
+        return {"loss": loss, "logits": logits.detach()}
 
     @torch.no_grad()
     def eval_step(batch):
         model.eval()
-        logits = model(*inputs(batch))
-        return {"loss": loss_fn(logits, batch["label"]), "logits": logits}
+        nv = int(batch.get("n_valid", batch["label"].shape[0]))
+        logits = model(*inputs(batch))[:nv]
+        label = batch["label"][:nv]
+        loss_sum = loss_fn(logits, label, reduction="sum")
+        return {"loss": loss_sum / max(label.numel(), 1), "loss_sum": loss_sum,
+                "count": label.numel(), "logits": logits, "label": label}
 
     return train_step, eval_step
 

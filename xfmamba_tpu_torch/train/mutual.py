@@ -83,20 +83,23 @@ class MutualMeter:
 
 def make_mutual_train_step(models: Sequence, optimizers: Sequence, multilabel: bool = False,
                            two_view: Optional[Sequence[bool]] = None):
-    """The mutual step over K models: ``step(batch, lr=None)`` puts every
+    """The mutual step over K models: ``step(batch, lr=None, reduce=None)`` puts every
     model in training mode, runs the K forwards (model i on both views when
     ``two_view[i]``, else on ``image1``), one backward of the summed loss,
     then the K optimizer steps (at ``lr`` when given); each model's
     BatchNorm statistics move as its own top moves them.  Returns, detached:
     ``loss`` (the total), ``ce_loss`` and ``kl_loss`` (K,) and ``logits``
-    (a list of K).  The parameters' ``.grad`` keep the step's gradients."""
+    (a list of K).  The parameters' ``.grad`` keep the step's gradients.
+    ``reduce``: a data-parallel step's gradient reduction (as in
+    `train.loop.make_train_step`): every model's gradients averaged over the
+    ranks before the K updates, the losses returned the global means."""
     K = len(models)
     if K < 2:
         raise ValueError("mutual learning needs at least two models")
     two_view = list(two_view) if two_view is not None else [True] * K
     ce_fn = bce_with_logits_loss if multilabel else cross_entropy_loss
 
-    def step(batch, lr: Optional[float] = None):
+    def step(batch, lr: Optional[float] = None, reduce=None):
         logits = []
         for model, opt, tv in zip(models, optimizers, two_view):
             model.train()
@@ -114,9 +117,16 @@ def make_mutual_train_step(models: Sequence, optimizers: Sequence, multilabel: b
         total.backward()
         for opt in optimizers:
             zero_missing_grads(opt)
+        losses = torch.cat([total.detach()[None], torch.stack(ces).detach(),
+                            torch.stack(kls).detach()])
+        if reduce is not None:
+            reduce.mean_([p.grad for opt in optimizers for group in opt.param_groups
+                          for p in group["params"]])
+            losses = reduce.mean(losses)
+        for opt in optimizers:
             opt.step()
-        return {"loss": total.detach(), "ce_loss": torch.stack(ces).detach(),
-                "kl_loss": torch.stack(kls).detach(), "logits": [z.detach() for z in logits]}
+        return {"loss": losses[0], "ce_loss": losses[1:K + 1], "kl_loss": losses[K + 1:],
+                "logits": [z.detach() for z in logits]}
 
     return step
 

@@ -2,9 +2,13 @@
 
 - `trace`: a ``torch.profiler`` trace of the CPU and, with a card, CUDA
   activity, written as a Chrome trace into ``logdir`` (the JAX package's
-  ``jax.profiler`` trace).  Once the port's kernel library is loaded the
-  profiler has been seen to lose the device events of short profiles
-  (PERF.md, section 7): read the trace's device rows before trusting them.
+  ``jax.profiler`` trace).  The profiler drops the first device events of
+  a session, more of them the longer the process has been profiled (on an
+  H100 host one more every 16 s or so; a trace taken twelve minutes after
+  the process's first held none of its 20 kernels), whatever idle time
+  precedes them.  So ``EDGE`` launches of a spin kernel of no length open
+  each session and take that loss; `trace` warns when none of them is
+  left, as the block's first events may then be gone too.
 - `do_bench`: ``triton.testing.do_bench``'s counterpart, the JAX keys:
   warm-up calls, then each call timed on the host clock with
   ``torch.cuda.synchronize()`` before and after it where CUDA is in use.
@@ -19,26 +23,41 @@ import contextlib
 import os
 import statistics
 import time
+import warnings
 from typing import Callable, Dict, Sequence
 
 import torch
 
+# spin kernels of no length that open a trace's session (see the module
+# docstring): about four hours of a process's profiling on an H100 host
+EDGE = 1024
+
 
 @contextlib.contextmanager
-def trace(logdir: str, filename: str = "trace.json"):
+def trace(logdir: str, filename: str = "trace.json", edge: int = EDGE):
     """``with trace(dir) as prof: run()``: profiles the block (CPU, and CUDA
     where a card is present) and writes ``dir/filename`` as a Chrome trace;
-    yields the ``torch.profiler.profile`` for ``key_averages()``."""
+    yields the ``torch.profiler.profile`` for ``key_averages()``.  With a
+    card, ``edge`` launches of ``torch.cuda._sleep(0)`` (``spin_kernel``)
+    open the session, ahead of the block."""
     from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(logdir, exist_ok=True)
+    if cuda:
+        torch.cuda.synchronize()
     with profile(activities=activities) as prof:
+        if cuda and edge:
+            for _ in range(edge):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
         yield prof
-        if torch.cuda.is_available():
+        if cuda:
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, filename))
+    if cuda and edge and not any("spin_kernel" in r.key for r in prof.key_averages()):
+        warnings.warn(f"the profiler dropped all {edge} spin kernels that open the trace: "
+                      f"the block's first device events may be missing")
 
 
 def do_bench(fn: Callable, *args, warmup: int = 2, iters: int = 10, **kwargs) -> Dict[str, float]:

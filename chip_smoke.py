@@ -322,6 +322,26 @@ Data parallelism (``xfmamba_tpu_torch/parallel``; no new kernel):
    --coordinator_address`` in an NCCL world of one.  It prints ``phase 15:
    N s``.
 
+Vanilla VMamba and the other SS2D forward types (kernels 2, 7, 13, 14 at
+new geometries):
+16. (16a) vanilla VMamba-T (``vanilla_vmamba_tiny``: forward type v0,
+   d_state 16, no MLP, PatchEmbedV1, PatchMerging2D; depths 2/2/9/2, dims
+   96) at full width and depth, 224x224, seeded weights, float32
+   inference at bs 8, 32 and 1: each forward's launches against the
+   routing rule's (`vanilla_want`: kernel 13 at stage 0, kernel 2 at
+   stages 1-3 at bs 8 and 32; kernel 13 alone at bs 1), ms per batch, and
+   a bfloat16 bs-8 forward on the same route; (16b) its float32 training
+   at bs 16, 5 steps on one batch (finite, falling loss), the rule's
+   launches per step of kernels 2, 7, 13 and 14, ms per step and peak
+   memory; (16c) its widths at depths 2/2/2/2, batch 2: logits and one
+   step's gradients card against the CPU plain twins (1e-3); (16d) each
+   other forward type (v2, v3, v051d, v052d, v052dc, d_state 1 for the
+   unidi and bidi scans, every out-norm kind, ``_oact``, ``_nozact``,
+   d_conv 1 / 2 / 4, xv1a / xv2a / xv3a with their conv tags) as one
+   VSSBlock(96) on 2 images of 16 x 16, forward and backward, card against
+   the CPU (1e-3), with the kernels its route names launched.  It prints
+   ``phase 16: N s``.
+
 ``python3 chip_smoke.py --cards`` needs two cards or more and runs only
 15a over every visible card (NCCL, one rank a card) against one rank, then
 ``cli.train`` started plainly, which starts one rank a card itself.
@@ -346,8 +366,11 @@ kernel 2's device times, the SFU time and every geometry's times (10); for
 kernels 19-21 per bs-64 patch embed their device times, their first
 design's and a thread a pixel's, the plans and registers (10c); for every
 kernel its launches in phase 12c's float32 mutual run
-(``mutual_launches``), and for kernels 1, 5, 6, 11 and 12 their times,
-plain times and bounds at XFMamba-T's widths (``xfmamba_t``, 12a)),
+(``mutual_launches``), for kernels 1, 5, 6, 11 and 12 their times,
+plain times and bounds at XFMamba-T's widths (``xfmamba_t``, 12a), and for
+kernels 2, 7, 13 and 14 their launches per vanilla VMamba-T forward (bs 8,
+32, 1, bfloat16 bs 8) and bs-16 step with the forward and step ms
+(``vanilla_t``, 16a/16b)),
 the line before the last the card's name and power limit, the last
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it prints no result and exits 1.
@@ -370,7 +393,7 @@ import torch
 import torch.nn.functional as F
 
 from xfmamba_tpu_torch.kernels import build
-from xfmamba_tpu_torch.models.ss2d import SS2D
+from xfmamba_tpu_torch.models.ss2d import SS2D, XVMode
 from xfmamba_tpu_torch.models.tops import TwoViewXFMamba, two_view_xfmamba
 from xfmamba_tpu_torch.models.vssm import VSSBlock, vmamba_small_m2
 from xfmamba_tpu_torch.models import vssm
@@ -5474,6 +5497,319 @@ def phase_data_parallel(card):
         sys.path.remove(str(Path(__file__).resolve().parent / "tests"))
 
 
+# ---------------------------------------------------------------------------
+# phase 16: vanilla VMamba and the other SS2D forward types
+# ---------------------------------------------------------------------------
+
+VANILLA_BATCHES = (8, 32, 1)
+VANILLA_STEPS = 5
+# kernel by route of an SS2D core: forward, backward
+ROUTE_KERNELS = {"nk": ("nk_scan", "nk_scan_bwd"),
+                 "grouped": ("selective_scan_grouped_fwd", "selective_scan_grouped_bwd")}
+# (forward type, d_state, d_conv): each as one VSSBlock of phase 16d
+VARIANTS = [("v2", 16, 3), ("v3", 16, 3), ("v051d_noz", 16, 3), ("v052d_noz", 16, 3),
+            ("v052dc", 16, 3), ("v051d_noz", 1, 3), ("v052d_noz", 1, 3),
+            ("v05_onnone_noz", 16, 3), ("v05_ondwconv3_noz", 16, 3), ("v05_oncnorm_noz", 16, 3),
+            ("v05_onsoftmax_noz", 16, 3), ("v05_onsigmoid_noz", 16, 3), ("v05_oact", 16, 3),
+            ("v0_nozact", 16, 3), ("v0", 16, 1), ("v0", 16, 2), ("v0", 16, 4),
+            ("xv1a_ca", 16, 3), ("xv2a_ca1_ocov", 16, 3), ("xv3a_ocov2", 16, 3),
+            ("xv1a_mul_act_cpos", 16, 3), ("xv3a_mul", 16, 1)]
+VARIANT_MAP = 16                       # a 16 x 16 map: the nk rule groups 2 images (L, W x 2 = 0 mod 8)
+
+
+def core_route(op, batch, H):
+    """(route, calls) of one forward of the SS2D ``op``'s scan core on
+    ``batch`` H x H maps, by the port's routing rule: the nk pair where
+    ``nk_train_supported`` gives a group (one call), else the grouped scan
+    (one call a direction group: four for cross2d and cascade2d, one for
+    unidi and the xv family, two for bidi)."""
+    if isinstance(op.mode, XVMode):
+        return "grouped", 1
+    scan_mode = op.mode.scan_mode
+    if scan_mode == "cascade2d":
+        return "grouped", 4
+    if op.N == 1 and scan_mode == "cross2d":
+        raise ValueError("a d_state-1 cross2d core takes kernels 11 and 12")
+    if nk_scan_adjoint.nk_train_supported(batch, H * H, H, op.d_inner, 4, op.N, scan_mode):
+        return "nk", 1
+    return "grouped", {"cross2d": 4, "unidi": 1, "bidi": 2}[scan_mode]
+
+
+def vanilla_want(model, batch, train):
+    """The kernels' launches in one forward (``train``: one forward and
+    backward) of a vanilla VMamba at ``batch`` images of 224 x 224, by the
+    routing rule, stage by stage."""
+    want, H = {}, IMAGE // 4
+    for layer in model.layers:
+        route, calls = core_route(layer.blocks[0].op, batch, H)
+        for name in ROUTE_KERNELS[route][: 2 if train else 1]:
+            want[name] = want.get(name, 0) + calls * len(layer.blocks)
+        H = -(-H // 2)
+    return want
+
+
+# the device functions of the four kernels on vanilla VMamba's path
+VANILLA_FUNCS = {"nk_scan": ("fusion_scan_kernel", "fusion_scan_sum_kernel"),
+                 "nk_scan_bwd": ("nk_adjoint_kernel", "nk_adjoint_finish_kernel"),
+                 "selective_scan_grouped_fwd": ("lanes_fwd_kernel",),
+                 "selective_scan_grouped_bwd": ("lanes_bwd_kernel", "lanes_finish_kernel")}
+
+
+def vanilla_work(model, batch, train):
+    """{kernel: Work} of one forward (``train``: forward and backward) of a
+    vanilla VMamba at ``batch`` images of 224 x 224, over the calls of the
+    routing rule (`core_route`), float32."""
+    work, H = {}, IMAGE // 4
+    for layer in model.layers:
+        op = layer.blocks[0].op
+        route, calls = core_route(op, batch, H)
+        L, f32 = H * H, torch.float32
+        if route == "nk":
+            parts = [nk_work(batch, L, op.d_inner, 4, op.N, f32),
+                     nk_work(batch, L, op.d_inner, 4, op.N, f32, backward=True)]
+        else:
+            parts = [grouped_work(batch, L, 1, op.d_inner, op.N, f32),
+                     grouped_work(batch, L, 1, op.d_inner, op.N, f32, backward=True)]
+        for name, w in list(zip(ROUTE_KERNELS[route], parts))[: 2 if train else 1]:
+            work.setdefault(name, Work())
+            work[name] += w.times(calls * len(layer.blocks))
+        H = -(-H // 2)
+    return work
+
+
+def kernel_times(label, table, work):
+    """Each kernel's device ms in a profile's ``table`` beside the bound of
+    its ``work``; returns {kernel: (device ms, bound ms, bound by)}."""
+    out = {}
+    for name, w in work.items():
+        ms = sum(t for t, _, key in table if any(f + "<" in key or f + "(" in key
+                                                 for f in VANILLA_FUNCS[name]))
+        out[name] = (ms, *w.bound())
+        print(f"    {label} {name}: {ms:.3f} ms on the device, bound {out[name][1]:.4f} ms "
+              f"({out[name][2]})")
+    return out
+
+
+def profiled(fn, reps=3):
+    """(wall ms, device ms, the device rows [(ms, calls, name)] by device
+    time) per call of ``fn`` after a warm-up call, under
+    ``utils.profiling.trace`` (spin kernels open the session), wall from
+    CUDA events."""
+    import tempfile
+    from xfmamba_tpu_torch.utils.profiling import trace
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with tempfile.TemporaryDirectory() as tmp, trace(tmp) as prof:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+    rows = [r for r in prof.key_averages() if r.self_cpu_time_total == 0 and _device_us(r) > 0
+            and not getattr(r, "is_user_annotation", False) and "spin_kernel" not in r.key]
+    rows.sort(key=_device_us, reverse=True)
+    table = [(_device_us(r) / 1e3 / reps, r.count / reps, r.key) for r in rows]
+    return start.elapsed_time(end) / reps, sum(ms for ms, _, _ in table), table
+
+
+def print_profiled(label, wall, device, table, card, top=6):
+    print(f"  {label}: {wall:.3f} ms wall, {device:.3f} ms on the device (busy share "
+          f"{device / wall:.3f}; torch.profiler, {card}); top device rows:")
+    for ms, calls, name in table[:top]:
+        print(f"    {ms:9.3f} ms {calls:6.1f} calls  {name[:100]}")
+
+
+def phase_vanilla_inference(card):
+    """16a: vanilla VMamba-T (seeded weights, 1000 classes, depths 2/2/9/2)
+    float32 inference at bs 8, 32 and 1, each forward's launches against
+    the routing rule's, ms per batch; a bfloat16 bs-8 forward on the same
+    route."""
+    print(f"phase 16a: vanilla VMamba-T 224x224 inference, float32, seeded weights, TF32 off "
+          f"({card})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = vssm.vanilla_vmamba_tiny(seed=0)
+    fns = all_kernels()
+    inputs = {bs: images(bs, torch.float32, 300 + bs) for bs in VANILLA_BATCHES}
+    launches, ms = {}, {}
+    with torch.no_grad():
+        model(inputs[8])                                   # warm-up
+        torch.cuda.synchronize()
+        for bs, x in list(inputs.items()) + [("8 bfloat16", images(8, torch.bfloat16, 308))]:
+            want = vanilla_want(model, 8 if bs == "8 bfloat16" else bs, False)
+            counts = counted(fns)
+            logits = model(x)
+            torch.cuda.synchronize()
+            got = {n: c for n, c in counts().items() if c}
+            rows = 8 if bs == "8 bfloat16" else bs
+            if got != want or logits.shape != (rows, 1000) or \
+                    not torch.isfinite(logits.float()).all():
+                raise PhaseFailure(f"vanilla-T bs {bs}: logits {tuple(logits.shape)} or "
+                                   f"launches {got}, expected {want}")
+            launches[bs] = got
+            print(f"  bs {bs}: logits finite, first row [:4] {logits[0, :4].float().tolist()}; "
+                  f"launches per forward {got} (the routing rule's), every other kernel 0")
+        for bs in VANILLA_BATCHES:
+            samples = sorted(time_ms(lambda: model(inputs[bs]), 5) for _ in range(3))
+            ms[bs] = samples[1]
+            print(f"  bs {bs}: {samples[1]:.2f} ms per batch (median of 3 runs of 5: "
+                  f"{', '.join(f'{v:.2f}' for v in samples)}), {1000 * bs / samples[1]:.1f} "
+                  f"images/s ({card})")
+        for bs in (1, 32):
+            profile = profiled(lambda: model(inputs[bs]))
+            print_profiled(f"bs-{bs} forward", *profile, card)
+            kernels = kernel_times(f"bs-{bs} forward", profile[2], vanilla_work(model, bs, False))
+    return launches, ms, kernels
+
+
+def phase_vanilla_train(card):
+    """16b: vanilla VMamba-T float32 training at bs 16 through
+    ``make_train_step(..., two_view=False)``, Adam lr 1e-4 wd 1e-5, labels
+    0 as ``bench.py --train``: the loss finite at each of 5 steps on one
+    batch and lower at step 5 than at step 1, each step's launches against
+    the routing rule's, ms per step and peak memory."""
+    print(f"phase 16b: vanilla VMamba-T training, batch {TRAIN_BATCH}, 224x224, float32, Adam "
+          f"lr 1e-4 wd 1e-5, TF32 off ({card})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = vssm.vanilla_vmamba_tiny(seed=0)
+    optimizer = make_optimizer(TrainConfig(lr=1e-4, weight_decay=1e-5), model.parameters())
+    step, _ = make_train_step(model, optimizer, False, two_view=False)
+    batch = {"image1": images(TRAIN_BATCH, torch.float32, 316),
+             "label": torch.zeros(TRAIN_BATCH, dtype=torch.long, device="cuda")}
+    fns = all_kernels()
+    want = vanilla_want(model, TRAIN_BATCH, True)
+    losses = []
+    for _ in range(VANILLA_STEPS):
+        counts = counted(fns)
+        losses.append(float(step(batch)["loss"]))
+        torch.cuda.synchronize()
+        got = {n: c for n, c in counts().items() if c}
+        if got != want:
+            raise PhaseFailure(f"vanilla-T step launches {got}, expected {want}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise PhaseFailure(f"vanilla-T training loss not finite or not falling: {losses}")
+    torch.cuda.reset_peak_memory_stats()
+    samples = timed_steps(step, batch)
+    profile = profiled(lambda: step(batch), reps=2)
+    print_profiled(f"bs-{TRAIN_BATCH} step", *profile, card, top=8)
+    kernels = kernel_times(f"bs-{TRAIN_BATCH} step", profile[2],
+                           vanilla_work(model, TRAIN_BATCH, True))
+    print(f"  losses {', '.join(f'{v:.5f}' for v in losses)}; launches per step {want} (the "
+          f"routing rule's), every other kernel 0; {samples[1]:.2f} ms per step (median of 3 "
+          f"runs of 3: {', '.join(f'{v:.2f}' for v in samples)}), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})")
+    del model, optimizer, step
+    return want, samples[1], kernels
+
+
+def phase_vanilla_cpu_parity():
+    """16c: vanilla VMamba-T widths at depths 2/2/2/2, batch 2, float32, no
+    drop path: eval logits within 1e-3 of the largest and every gradient
+    of one train step within 1e-3 of its largest, card against the CPU
+    plain twins, with the routing rule's launches on the card."""
+    print("phase 16c: vanilla VMamba-T widths at depths (2, 2, 2, 2), batch 2, float32: logits "
+          "and one train step's gradients, card (kernels 2/7 and 13/14) vs CPU plain twins")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = vssm.vanilla_vmamba_tiny(device="cpu", seed=5, depths=(2, 2, 2, 2),
+                                     drop_path_rate=0.0)
+    g = torch.Generator().manual_seed(23)
+    x, label = torch.randn(2, IMAGE, IMAGE, 3, generator=g), torch.tensor([3, 7])
+    fns = all_kernels()
+    forward, step = vanilla_want(model, 2, False), vanilla_want(model, 2, True)
+    want = {n: c + forward.get(n, 0) for n, c in step.items()}
+    results = []
+    for device in ("cpu", "cuda"):
+        model.to(device).eval().zero_grad()
+        t0 = time.time()
+        counts = counted(fns)
+        with torch.no_grad():
+            logits = model(x.to(device)).cpu()
+        model.train()
+        loss = F.cross_entropy(model(x.to(device)), label.to(device))
+        loss.backward()
+        launches = {n: c for n, c in counts().items() if c}
+        results.append((logits, float(loss.detach()), {k: p.grad.cpu().clone()
+                                                       for k, p in model.named_parameters()}))
+        print(f"  {device}: {time.time() - t0:.1f} s, launches {launches}")
+    (l_c, loss_c, g_c), (l_g, loss_g, g_g) = results
+    err = float((l_g - l_c).abs().max())
+    tol = 1e-3 * float(l_c.abs().max())
+    worst = max(g_c, key=lambda k: rel(g_g[k], g_c[k])[1])
+    w_rel = rel(g_g[worst], g_c[worst])[1]
+    print(f"  logits max_abs_err {err:.3e} (tol {tol:.3e}); loss card {loss_g:.7f} cpu "
+          f"{loss_c:.7f}; {len(g_c)} gradients, worst relative error {w_rel:.3e} ({worst}), "
+          "tol 1e-03")
+    if launches != want or not err <= tol or not w_rel <= 1e-3:
+        raise PhaseFailure(f"vanilla-T on the card disagrees with the CPU plain path, or its "
+                           f"launches {launches} differ from {want}")
+
+
+def phase_ss2d_variants():
+    """16d: each other SS2D forward type as one VSSBlock (d_model 96, no
+    MLP, conv bias) on 2 images of VARIANT_MAP x VARIANT_MAP (16 x 16),
+    float32, forward and backward, card against the CPU (plain twins):
+    the output, the input gradient and every parameter gradient within 1e-3
+    of its largest, and the kernels the routing rule names launched on the
+    card, each once a call."""
+    print(f"phase 16d: the other SS2D forward types, one VSSBlock(96) at {VARIANT_MAP}x"
+          f"{VARIANT_MAP}, batch 2, float32, forward and backward, card vs CPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fns = all_kernels()
+    g = torch.Generator().manual_seed(24)
+    x = torch.randn(2, VARIANT_MAP, VARIANT_MAP, 96, generator=g)
+    gy = torch.randn(2, VARIANT_MAP, VARIANT_MAP, 96, generator=g)
+    failed = []
+    for ft, N, d_conv in VARIANTS:
+        block = VSSBlock(96, ssm_d_state=N, ssm_conv_bias=True, mlp_ratio=0.0,
+                         forward_type=ft, ssm_conv=d_conv,
+                         generator=torch.Generator().manual_seed(25))
+        route, calls = core_route(block.op, 2, VARIANT_MAP)
+        want = dict.fromkeys(ROUTE_KERNELS[route], calls)
+        results, seconds = [], []
+        for device in ("cpu", "cuda"):
+            block.to(device).zero_grad()
+            xl = x.to(device, copy=True).requires_grad_()
+            counts = counted(fns)
+            t0 = time.time()
+            y = block(xl)
+            y.backward(gy.to(device))
+            torch.cuda.synchronize()
+            seconds.append(time.time() - t0)
+            launches = {n: c for n, c in counts().items() if c}
+            results.append({"y": y.detach().cpu(), "dx": xl.grad.cpu()}
+                           | {k: p.grad.cpu().clone() for k, p in block.named_parameters()})
+        errs = {k: rel(results[1][k], w)[1] for k, w in results[0].items()}
+        worst = max(errs, key=errs.get)
+        ok = launches == want and errs[worst] <= 1e-3
+        print(f"  {ft:20s} N {N:2d} d_conv {d_conv}: {route} route, launches {launches}; worst "
+              f"relative error {errs[worst]:.3e} ({worst}) of {len(errs)}, tol 1e-03; cpu "
+              f"{seconds[0]:.1f} s {'OK' if ok else 'FAIL'}")
+        if not ok:
+            failed.append((ft, N, d_conv, launches, want, worst, errs[worst]))
+    if failed:
+        raise PhaseFailure(f"SS2D forward types on the card: {failed}")
+
+
+def phase_vanilla(card):
+    """Phase 16 (16a-16d); returns the launches and times of kernels 2, 7,
+    13 and 14 on vanilla VMamba-T's path for the kernels line."""
+    launches, ms, forward = phase_vanilla_inference(card)
+    step_want, step_ms, step = phase_vanilla_train(card)
+    phase_vanilla_cpu_parity()
+    phase_ss2d_variants()
+    names = [n for pair in ROUTE_KERNELS.values() for n in pair]
+    keys = ("device_ms", "bound_ms", "bound_by")
+    return {name: {"forward_launches": {str(bs): launches[bs].get(name, 0) for bs in launches},
+                   "step_launches": step_want.get(name, 0),
+                   "forward_ms": {str(bs): ms[bs] for bs in ms}, "step_ms": step_ms}
+            | ({"bs32_forward": dict(zip(keys, forward[name]))} if name in forward else {})
+            | {"step": dict(zip(keys, step[name]))}
+            for name in names}
+
+
 def main_cards() -> int:
     """``python3 chip_smoke.py --cards``: phase 15a over every visible card
     (NCCL, one rank a card) against one rank; needs two cards or more."""
@@ -5608,6 +5944,9 @@ def main() -> int:
     t0 = time.time()
     phase_data_parallel(card)
     print(f"  phase 15: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    vanilla = phase_vanilla(card)
+    print(f"  phase 16: {time.time() - t0:.1f} s")
     # library_ms: one PyTorch call computing the same function, where there
     # is one (kernels 19-21); none computes the scans
     print(json.dumps({"kernels": [
@@ -5621,6 +5960,7 @@ def main() -> int:
         | ssd_extra_line(name, ssd_extra)
         | V1_EXTRA.get(name, {})
         | {"mutual_launches": models["launches"][name]}
+        | ({"vanilla_t": vanilla[name]} if name in vanilla else {})
         | ({"xfmamba_t": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
                                   models["kernels"][name]))} if name in models["kernels"] else {})
         for name, k in kernel_table().items()]}))

@@ -750,6 +750,59 @@ def test_selective_scan_auto_card_matches_cpu(dev):
         assert rel_err(got, want) < 1e-4
 
 
+# vanilla VMamba-T's fusion-scan geometries at 224 x 224 (d_state 16, the
+# cross2d scan): stages 1-3 take the nk pair with groups 2, 4 and 8 at
+# batch 8; stage 0 (56 x 56, d_inner 192) takes no group, one grouped-scan
+# call a direction
+VANILLA_NK = [(8, 28, 384, 2), (8, 14, 768, 4), (8, 7, 1536, 8)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,D,group", VANILLA_NK)
+def test_vanilla_nk_pair(dev, dtype, B, H, D, group):
+    """Kernels 2 and 7 at vanilla VMamba-T's stage geometries (K 4 cross2d,
+    N 16) against their plain versions: the forward within TOL, every
+    gradient within 1e-4 of its largest (1e-2 for bfloat16 ddts); the
+    routing rule gives each stage its group."""
+    g = torch.Generator().manual_seed(60 + H)
+    kinds = nk_scan.scan_mode_kinds("cross2d")
+    assert nk_scan_adjoint.nk_train_supported(B, H * H, H, D, 4, 16, "cross2d") == group
+    args = _nk_case(g, dtype, B, H, H, D, kinds, 16)
+    before = (nk_scan.nk_scan.launches, nk_scan_adjoint.nk_scan_bwd.launches)
+    got = nk_scan.nk_scan(*args, group=group)
+    assert rel_err(got, nk_scan.nk_scan_plain(*args)) < TOL[dtype]
+    gy = randn(g, B, H * H, D)
+    grads = nk_scan_adjoint.nk_scan_bwd(*args[:7], gy, H, H, kinds)
+    want = nk_scan_adjoint.nk_scan_bwd_segments_plain(*args[:7], gy, H, H, kinds)
+    torch.cuda.synchronize()
+    assert (nk_scan.nk_scan.launches, nk_scan_adjoint.nk_scan_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for a, b in zip(grads, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert rel_err(a, b) < (1e-2 if a.dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_vanilla_stage0_grouped_scan(dev, reverse):
+    """Kernels 13 and 14 at vanilla VMamba-T's stage 0 (56 x 56, d_inner
+    192, one direction a call, batch 8, which the routing rule gives no nk
+    group) against their plain twins, float32, within 2e-5."""
+    g = torch.Generator().manual_seed(62)
+    B, L, C = 8, 3136, 192
+    assert nk_scan_adjoint.nk_train_supported(B, L, 56, C, 4, 16, "cross2d") is None
+    ssg = selective_scan_grouped
+    args = _grouped_case(g, torch.float32, B, L, 1, C, 16)
+    y, ck = ssg.grouped_scan_fwd(*args, reverse=reverse)
+    y_p, ck_p = ssg.grouped_scan_fwd_plain(*args, reverse=reverse)
+    gy = randn(g, B, L, C)
+    got = ssg.grouped_scan_bwd(*args, ck_p, gy, reverse=reverse)
+    want = ssg.grouped_scan_bwd_plain(*args, ck_p, gy, reverse=reverse)
+    torch.cuda.synchronize()
+    assert rel_err(y, y_p) < 2e-5 and rel_err(ck, ck_p) < 2e-5
+    for name, w in want.items():
+        assert rel_err(got[name], w) < 2e-5, name
+
+
 # ---------------------------------------------------------------------------
 # kernels 15 and 16: the chunked SSD scan and its adjoint
 # ---------------------------------------------------------------------------

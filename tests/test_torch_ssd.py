@@ -518,8 +518,7 @@ def _leaf(tree, path):
 
 
 def test_m0_refuses_what_is_not_ported():
-    for kw in (dict(forward_type="m0"), dict(forward_type="m0_noz", with_initial_state=True),
-               dict(forward_type="v2_noz")):
+    for kw in (dict(forward_type="m0"), dict(forward_type="m0_noz", with_initial_state=True)):
         with pytest.raises(ValueError):
             SS2D(16, d_state=8, ssm_ratio=1.0, **kw)
 

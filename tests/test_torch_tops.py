@@ -146,14 +146,6 @@ def test_factories_are_seeded_on_the_device_asked_and_eval():
     assert [tuple(o.shape) for o in outs] == [(2, 4, 4, 16), (2, 1, 1, 64)]
 
 
-def test_vanilla_factories_raise():
-    """The vanilla factories (v0, PatchEmbedV1, PatchMerging2D) name the
-    model-surface item."""
-    for fn in (vssm.vanilla_vmamba_tiny, vssm.vanilla_vmamba_small, vssm.vanilla_vmamba_base):
-        with pytest.raises(NotImplementedError, match="model surface"):
-            fn()
-
-
 # ---------------------------------------------------------------------------
 # the baselines at a tiny geometry against JAX
 # ---------------------------------------------------------------------------

@@ -7,8 +7,16 @@ dicts of numpy arrays (``{"params": ..., "batch_stats": ...}``; a
 port counterpart.  It works for the whole `TwoViewXFMamba` and for any
 submodule whose JAX twin has the matching tree (a VSSBlock, a fusion op).
 
-Names: a port key is renamed to the JAX path with the rules below, and the
-leaf follows the port module's type: a Dense ``weight`` (out, in) is the
+Names: a port key is renamed to the JAX path in two steps.  First each
+module on the path may rename its children through a ``JAX_NAMES`` dict
+(PatchEmbedV1's ``0`` / ``2`` are ``proj`` / ``norm``, PatchEmbedV2's ``0``
+/ ``2`` / ``5`` / ``7`` are ``conv1`` / ``norm1`` / ``conv2`` / ``norm2``,
+the downsamples' ``1`` / ``3`` are ``conv`` / ``norm``, an SS2D's
+LayerNorm ``out_norm`` is ``out_norm.norm``, an OutNorm's convs
+``dwconv``): the same index means another JAX name in another module, so
+the rule follows the module.  Then the rules of ``_RENAMES`` move whole
+levels (a stage's blocks and downsample up to the backbone).  The leaf
+follows the port module's type: a Dense ``weight`` (out, in) is the
 flax ``kernel`` (in, out); a conv ``weight`` (out, in/g, kh, kw) is the
 flax ``conv/kernel`` (kh, kw, in/g, out); norm ``weight`` is ``scale``; a
 BatchNorm's ``running_mean``/``running_var`` are ``batch_stats``
@@ -32,29 +40,28 @@ from torch import nn
 from xfmamba_tpu_torch.models.layers import BatchNorm, Conv2dSame, Dense, LayerNorm
 
 # port module path -> JAX module path, applied in order on the dotted path
+# after each module's JAX_NAMES
 _RENAMES = [
     # SingleViewMamba's classifier: the reference's attribute, a clone into
     # the top's own scope in JAX (no level of its own)
     (r"^singleviewmamba(\.|$)", ""),
     (r"(^|\.)layers\.(\d+)\.blocks\.(\d+)(?=\.|$)", r"\1stage\2_block\3"),
-    (r"(^|\.)layers\.(\d+)\.downsample\.1(?=\.|$)", r"\1downsample\2.conv"),
-    (r"(^|\.)layers\.(\d+)\.downsample\.3(?=\.|$)", r"\1downsample\2.norm"),
-    (r"(^|\.)patch_embed\.0(?=\.|$)", r"\1patch_embed.conv1"),
-    (r"(^|\.)patch_embed\.2(?=\.|$)", r"\1patch_embed.norm1"),
-    (r"(^|\.)patch_embed\.5(?=\.|$)", r"\1patch_embed.conv2"),
-    (r"(^|\.)patch_embed\.7(?=\.|$)", r"\1patch_embed.norm2"),
-    (r"(^|\.)op\.out_norm(?=\.|$)", r"\1op.out_norm.norm"),
+    (r"(^|\.)layers\.(\d+)\.downsample(?=\.|$)", r"\1downsample\2"),
     (r"(^|\.)fc1\.0(?=\.|$)", r"\1fc1_reduce"),
     (r"(^|\.)fc1\.2(?=\.|$)", r"\1fc1_expand"),
     (r"(^|\.)blocks\.(\d+)(?=\.|$)", r"\1block\2"),
     (r"(^|\.)classifier\.norm(?=\.|$)", r"\1classifier_norm"),
     (r"(^|\.)classifier\.head(?=\.|$)", r"\1classifier_head"),
 ]
-# VSSBlock's SS2D out-norm sits one level deeper in JAX; a bare VSSBlock
-# has the path "op.out_norm", matched by the rule above.
 
 
-def _jax_module_path(path: str) -> tuple:
+def _jax_module_path(model: nn.Module, path: str) -> tuple:
+    names = []
+    module = model
+    for name in (path.split(".") if path else []):
+        names.append(getattr(module, "JAX_NAMES", {}).get(name, name))
+        module = module._modules[name]
+    path = ".".join(names)
     for pattern, repl in _RENAMES:
         path = re.sub(pattern, repl, path)
     return tuple(p for p in path.split(".") if p)
@@ -96,7 +103,7 @@ def jax_paths(model: nn.Module) -> dict:
             continue
         parent, _, leaf = key.rpartition(".")
         coll, jleaf, to_port, to_jax = _leaf_rule(model.get_submodule(parent), leaf)
-        out[key] = ((coll,) + _jax_module_path(parent) + jleaf, to_port, to_jax)
+        out[key] = ((coll,) + _jax_module_path(model, parent) + jleaf, to_port, to_jax)
     return out
 
 

@@ -85,7 +85,10 @@ class Dense(nn.Module):
 class Conv2dSame(nn.Module):
     """Conv2d on NHWC maps with PyTorch's default init (kaiming-uniform
     a=sqrt(5) weight, uniform +-1/sqrt(fan_in) bias).  ``padding`` is
-    per-side, (ph, pw)."""
+    per-side, (ph, pw), or ``"same"``: flax's ``"SAME"``, which pads
+    (k - 1) // 2 before and k // 2 after at stride 1 (more after than
+    before for an even kernel, where torch's symmetric ``k // 2`` would
+    change the output's size)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size, stride=1,
                  padding=0, groups: int = 1, bias: bool = True,
@@ -93,7 +96,12 @@ class Conv2dSame(nn.Module):
         super().__init__()
         kh, kw = (kernel_size, kernel_size) if isinstance(kernel_size, int) else kernel_size
         self.stride = (stride, stride) if isinstance(stride, int) else tuple(stride)
-        self.padding = (padding, padding) if isinstance(padding, int) else tuple(padding)
+        if padding == "same":
+            self.same = True
+            self.padding = (0, 0)
+        else:
+            self.same = False
+            self.padding = (padding, padding) if isinstance(padding, int) else tuple(padding)
         self.groups = groups
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, kh, kw))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
@@ -102,10 +110,26 @@ class Conv2dSame(nn.Module):
         if self.bias is not None:
             uniform_init(self.bias, bound, generator)
 
+    def _same_pads(self, H, W):
+        """(left, right, top, bottom) of flax's "SAME" for an H x W map."""
+        pads = []
+        for n, k, s in ((W, self.weight.shape[3], self.stride[1]),
+                        (H, self.weight.shape[2], self.stride[0])):
+            total = max((-(-n // s) - 1) * s + k - n, 0)
+            pads += [total // 2, total - total // 2]
+        return pads
+
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), b,
-                     self.stride, self.padding, groups=self.groups)
+        xc = x.permute(0, 3, 1, 2)
+        padding = self.padding
+        if self.same:
+            left, right, top, bottom = self._same_pads(x.shape[1], x.shape[2])
+            if left == right and top == bottom:
+                padding = (top, left)
+            else:
+                xc = F.pad(xc, (left, right, top, bottom))
+        y = F.conv2d(xc, self.weight.to(x.dtype), b, self.stride, padding, groups=self.groups)
         return y.permute(0, 2, 3, 1)
 
 
@@ -302,3 +326,34 @@ class Mlp(nn.Module):
 
     def forward(self, x):
         return self.fc2(gelu(self.fc1(x)))
+
+
+class PatchMerging2D(nn.Module):
+    """The 2 x 2 neighbourhoods concatenated (x[0::2, 0::2], x[1::2, 0::2],
+    x[0::2, 1::2], x[1::2, 1::2]), LayerNorm, a linear reduction without
+    bias (``vmamba.py:60-98``; JAX ``layers.py:138``): downsample "v1",
+    which the vanilla VMamba configurations use.  An odd map is padded with
+    zeros at its bottom and right.  Names ``norm`` and ``reduction``, as
+    the reference's."""
+
+    def __init__(self, dim: int, out_dim: int = -1, generator=None):
+        super().__init__()
+        self.norm = LayerNorm(4 * dim)
+        self.reduction = Dense(4 * dim, out_dim if out_dim > 0 else 2 * dim, bias=False,
+                               init="trunc_normal", generator=generator)
+
+    def forward(self, x):
+        H, W = x.shape[1:3]
+        if H % 2 or W % 2:
+            x = F.pad(x, (0, 0, 0, W % 2, 0, H % 2))
+        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 1::2]],
+                      dim=-1)
+        return self.reduction(self.norm(x))
+
+
+def softmax_spatial(x):
+    """Softmax of (B, H, W, C) over its H * W positions, per channel
+    (``SoftmaxSpatial``, ``vmamba.py:152-161``; the ``_onsoftmax``
+    out-norm)."""
+    B, H, W, C = x.shape
+    return torch.softmax(x.reshape(B, H * W, C), dim=1).reshape(B, H, W, C)

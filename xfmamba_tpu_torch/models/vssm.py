@@ -1,26 +1,30 @@
-"""VSSM (port of ``xfmamba_tpu/models/vssm.py``): PatchEmbedV2,
-DownsampleV3, VSSBlock and VSSM, in backbone mode (``out_indices``: the
-LayerNorm'd features of those stages) or in classifier mode
-(``out_indices=None``: LayerNorm, mean over the map, linear head), and the
-model factories: the Mamba-2 classifiers `vmamba_tiny_m2`, `vmamba_small_m2`
-and `vmamba_base_m2` (forward type ``m0_noz``, d_state 64, GELU, whose SS2D
-runs the SSD kernels 15 and 16); the v05_noz classifiers
+"""VSSM (port of ``xfmamba_tpu/models/vssm.py``): PatchEmbedV1,
+PatchEmbedV2, DownsampleV2, DownsampleV3 (and ``models/layers.py``'s
+PatchMerging2D, downsample v1), VSSBlock and VSSM, in backbone mode
+(``out_indices``: the LayerNorm'd features of those stages) or in
+classifier mode (``out_indices=None``: LayerNorm, mean over the map, linear
+head), and the model factories: the vanilla VMamba classifiers
+`vanilla_vmamba_tiny`, `vanilla_vmamba_small` and `vanilla_vmamba_base`
+(forward type v0, d_state 16, no MLP, PatchEmbedV1, PatchMerging2D; their
+d_state-16 cores run the nk pair, kernels 2 and 7, where the routing rule
+gives a group, else kernels 13 and 14); the Mamba-2 classifiers
+`vmamba_tiny_m2`, `vmamba_small_m2` and `vmamba_base_m2` (forward type
+``m0_noz``, d_state 64, GELU, whose SS2D runs the SSD kernels 15 and 16);
+the v05_noz classifiers
 `vmamba_{tiny_s2l5,small_s2l15,base_s2l15,tiny_s1l8,small_s1l20,base_s1l20}`
 (d_state 1, the backbone kernels of XFMamba), `build_model` and
 `single_channel_feature_extract_mamba` (both VMamba-S s2l15), and the
-feature-pyramid `backbone_vssm`.  The ``vanilla_vmamba_*`` factories
-(forward type v0, PatchEmbedV1, PatchMerging2D) raise
-``NotImplementedError``.
+feature-pyramid `backbone_vssm`.
 
 Module and parameter names follow the reference PyTorch state dict
-(``patch_embed.{0,2,5,7}``, ``layers.{i}.blocks.{j}``,
-``layers.{i}.downsample.{1,3}``, ``outnorm{i}``, ``classifier.norm``,
+(``patch_embed.{0,2}`` or ``patch_embed.{0,2,5,7}``, ``layers.{i}.blocks.{j}``,
+``layers.{i}.downsample.{1,3}`` or ``.{norm,reduction}``, ``outnorm{i}``, ``classifier.norm``,
 ``classifier.head``), so a port ``state_dict()`` converts with
 ``xfmamba_tpu.checkpoint.convert.convert_vssm_state_dict``.
 
 A backbone of the configuration the stage kernels compute (XFMamba's:
-forward type v05_noz, d_state 1, SiLU; the port's blocks always have the
-3 x 3 conv and the GELU MLP) dispatches on the activation dtype as the JAX
+forward type v05_noz, d_state 1, SiLU, the 3 x 3 conv and the GELU MLP)
+dispatches on the activation dtype as the JAX
 ``VSSM`` does on an accelerator (`stage_kernels_apply`, `_uses_stage_route`);
 any other configuration, the m2 models included, takes the composable
 route in both dtypes:
@@ -63,7 +67,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from xfmamba_tpu_torch.models.layers import (
-    Conv2dSame, Dense, DropPath, LayerNorm, Mlp, gelu, to_device)
+    Conv2dSame, Dense, DropPath, LayerNorm, Mlp, PatchMerging2D, gelu, to_device)
 from xfmamba_tpu_torch.models.ss2d import SS2D
 from xfmamba_tpu_torch.ops.primitives import forward_only
 from xfmamba_tpu_torch.ops.vss_block import (
@@ -75,10 +79,30 @@ from xfmamba_tpu_torch.ops.vss_stage import stage_route, vss_stage
 from xfmamba_tpu_torch.ops.vss_stage_train import vss_stage_train
 
 
+class PatchEmbedV1(nn.Module):
+    """One stride-4 4x4 conv and LayerNorm (``vmamba.py:2196-2202``;
+    JAX ``PatchEmbedV1``, ``vssm.py:45``); submodules at the reference's
+    Sequential indices 0 (proj) and 2 (norm)."""
+
+    JAX_NAMES = {"0": "proj", "2": "norm"}
+
+    def __init__(self, in_chans: int, embed_dim: int, patch_size: int = 4,
+                 generator=None):
+        super().__init__()
+        self.add_module("0", Conv2dSame(in_chans, embed_dim, patch_size, patch_size,
+                                        generator=generator))
+        self.add_module("2", LayerNorm(embed_dim))
+
+    def forward(self, x):
+        return self._modules["2"](self._modules["0"](x))
+
+
 class PatchEmbedV2(nn.Module):
     """Two stride-2 3x3 convs with LayerNorm and exact GELU between
     (``vmamba.py:2204-2219``); submodules at the reference's Sequential
     indices 0 (conv1), 2 (norm1), 5 (conv2), 7 (norm2)."""
+
+    JAX_NAMES = {"0": "conv1", "2": "norm1", "5": "conv2", "7": "norm2"}
 
     def __init__(self, in_chans: int, embed_dim: int, patch_size: int = 4,
                  generator=None):
@@ -102,27 +126,40 @@ class DownsampleV3(nn.Module):
     """3x3 stride-2 conv + LayerNorm (``vmamba.py:2231-2239``); submodules
     at the reference's indices 1 (conv) and 3 (norm)."""
 
+    JAX_NAMES = {"1": "conv", "3": "norm"}
+    KERNEL, PADDING = 3, 1
+
     def __init__(self, in_dim: int, out_dim: int, generator=None):
         super().__init__()
-        self.add_module("1", Conv2dSame(in_dim, out_dim, 3, 2, 1, generator=generator))
+        self.add_module("1", Conv2dSame(in_dim, out_dim, self.KERNEL, 2, self.PADDING,
+                                        generator=generator))
         self.add_module("3", LayerNorm(out_dim))
 
     def forward(self, x):
         return self._modules["3"](self._modules["1"](x))
 
 
+class DownsampleV2(DownsampleV3):
+    """2x2 stride-2 conv + LayerNorm (``vmamba.py:2221-2229``; JAX
+    ``DownsampleV2``, ``vssm.py:95``), the reference's indices 1 and 3."""
+
+    KERNEL, PADDING = 2, 0
+
+
 class VSSBlock(nn.Module):
-    """Pre-norm residual SS2D + MLP (``vmamba.py:1955-2042``)."""
+    """Pre-norm residual SS2D + MLP (``vmamba.py:1955-2042``); no MLP half
+    (no ``norm2``, no ``mlp``) where ``mlp_ratio`` is 0."""
 
     def __init__(self, hidden_dim: int, drop_path: float = 0.0,
                  ssm_d_state: int = 1, ssm_ratio: float = 2.0,
                  ssm_dt_rank="auto", ssm_conv_bias: bool = False,
                  mlp_ratio: float = 4.0, generator=None, dropout_generator=None,
-                 forward_type: str = "v05_noz", ssm_act: str = "silu", ssm_init: str = "v0"):
+                 forward_type: str = "v05_noz", ssm_act: str = "silu", ssm_init: str = "v0",
+                 ssm_conv: int = 3):
         super().__init__()
         self.norm = LayerNorm(hidden_dim)
         self.op = SS2D(hidden_dim, d_state=ssm_d_state, ssm_ratio=ssm_ratio,
-                       dt_rank=ssm_dt_rank, conv_bias=ssm_conv_bias,
+                       dt_rank=ssm_dt_rank, d_conv=ssm_conv, conv_bias=ssm_conv_bias,
                        forward_type=forward_type, act=ssm_act, initialize=ssm_init,
                        generator=generator)
         self.drop_path = DropPath(drop_path, dropout_generator)
@@ -186,8 +223,14 @@ class VSSM(nn.Module):
     features of those stages (``fusion_vmamba.py:1653-1724``), with
     ``out_indices=None`` the logits of the classifier (``vssm.py:483-492``).
 
-    Patch embed v2 and downsample v3, blocks of forward type v05_noz or
-    m0_noz with a GELU MLP."""
+    ``patchembed_version`` "v1" (`PatchEmbedV1`) or "v2" (`PatchEmbedV2`);
+    ``downsample_version`` "v1" (`PatchMerging2D`), "v2" (`DownsampleV2`),
+    "v3" (`DownsampleV3`) or "none"; blocks of any SS2D forward type with
+    a depthwise conv of ``ssm_conv`` and a GELU MLP of ``mlp_ratio``, none
+    where it is 0."""
+
+    PATCH_EMBEDS = {"v1": PatchEmbedV1, "v2": PatchEmbedV2}
+    DOWNSAMPLES = {"v1": PatchMerging2D, "v2": DownsampleV2, "v3": DownsampleV3}
 
     def __init__(self, depths=(2, 2, 9, 2), dims=96, in_chans: int = 3,
                  patch_size: int = 4, ssm_d_state: int = 1,
@@ -196,26 +239,33 @@ class VSSM(nn.Module):
                  drop_path_rate: float = 0.2, out_indices=(0, 1, 2, 3),
                  use_checkpoint: bool = False, generator=None, dropout_generator=None,
                  forward_type: str = "v05_noz", ssm_act: str = "silu", ssm_init: str = "v0",
-                 num_classes: int = 1000):
+                 num_classes: int = 1000, ssm_conv: int = 3, patchembed_version: str = "v2",
+                 downsample_version: str = "v3"):
         super().__init__()
         self.use_checkpoint = use_checkpoint
         self._operands = None      # the inference blocks' packed operands (pack_for_inference)
         dims = [dims * 2 ** i for i in range(len(depths))] if isinstance(dims, int) else list(dims)
         self.depths = tuple(depths)
         self.out_indices = None if out_indices is None else tuple(out_indices)
-        self.stage_kernels = stage_kernels_apply(forward_type, ssm_d_state, ssm_act)
+        self.stage_kernels = stage_kernels_apply(forward_type, ssm_d_state, ssm_act, ssm_conv,
+                                                 mlp_ratio)
         n_blocks = sum(depths)
         dpr = [drop_path_rate * i / max(n_blocks - 1, 1) for i in range(n_blocks)]
-        self.patch_embed = PatchEmbedV2(in_chans, dims[0], patch_size, generator)
+        if downsample_version not in self.DOWNSAMPLES and downsample_version != "none":
+            raise ValueError(f"unknown downsample_version {downsample_version!r}")
+        self.patch_embed = self.PATCH_EMBEDS[patchembed_version](in_chans, dims[0], patch_size,
+                                                                  generator)
         layers = []
         for i, depth in enumerate(depths):
             blocks = [VSSBlock(dims[i], dpr[sum(depths[:i]) + j], ssm_d_state,
                                ssm_ratio, ssm_dt_rank, ssm_conv_bias, mlp_ratio,
                                generator=generator, dropout_generator=dropout_generator,
-                               forward_type=forward_type, ssm_act=ssm_act, ssm_init=ssm_init)
+                               forward_type=forward_type, ssm_act=ssm_act, ssm_init=ssm_init,
+                               ssm_conv=ssm_conv)
                       for j in range(depth)]
-            down = (DownsampleV3(dims[i], dims[i + 1], generator)
-                    if i < len(depths) - 1 else None)
+            down = (self.DOWNSAMPLES[downsample_version](dims[i], dims[i + 1],
+                                                         generator=generator)
+                    if i < len(depths) - 1 and downsample_version != "none" else None)
             layers.append(VSSStage(blocks, down))
         self.layers = nn.ModuleList(layers)
         if self.out_indices is None:
@@ -331,13 +381,18 @@ class VSSM(nn.Module):
         return outs if self.out_indices is not None else self.classifier(x)
 
 
-def stage_kernels_apply(forward_type: str, d_state: int, ssm_act: str) -> bool:
+def stage_kernels_apply(forward_type: str, d_state: int, ssm_act: str, ssm_conv: int = 3,
+                        mlp_ratio: float = 4.0) -> bool:
     """Whether the stage kernels compute this backbone's blocks: JAX's
     conditions for its megakernel paths (``vssm.py:149-153, :192-197,
-    :322-327, :364-370``), forward type v05_noz, d_state 1 and SiLU; the
-    port's blocks always have the 3 x 3 conv, no gated MLP and a GELU MLP,
-    the conditions' other terms."""
-    return forward_type == "v05_noz" and d_state == 1 and ssm_act == "silu"
+    :322-327, :364-370``), forward type v05_noz, d_state 1, SiLU and the
+    3 x 3 conv; the port's blocks have no gated MLP and a GELU MLP, the
+    conditions' other terms.  The port's stage kernels also need the MLP
+    half (JAX's kernels drop it where ``mlp_ratio`` is 0): a block without
+    one runs the composable route.  Every other forward type (vanilla
+    VMamba's v0 among them) runs block by block in both dtypes."""
+    return (forward_type == "v05_noz" and d_state == 1 and ssm_act == "silu" and ssm_conv == 3
+            and mlp_ratio > 0)
 
 
 def _uses_stage_route(dtype) -> bool:
@@ -355,8 +410,6 @@ def _mlp_half_train(x, m2, *mlp):
 # ---------------------------------------------------------------------------
 # the model factories (``vssm.py:495-595``)
 # ---------------------------------------------------------------------------
-
-MODEL_SURFACE_ITEM = "ROADMAP.md, queue 1: the model surface off the main path"
 
 def _vssm(num_classes, device, seed, **cfg) -> VSSM:
     """A classifier VSSM, weights from a ``torch.Generator`` seeded with
@@ -438,13 +491,32 @@ def vmamba_base_s1l20(num_classes=1000, *, device="cuda", seed=0, **kw) -> VSSM:
     return _vssm(num_classes, device, seed, **(_V05 | cfg | kw))
 
 
-def _vanilla(*args, **kw):
-    raise NotImplementedError(
-        "vanilla_vmamba_* (forward type v0, d_state 16, PatchEmbedV1, PatchMerging2D) is not "
-        f"ported yet ({MODEL_SURFACE_ITEM})")
+# what the vanilla VMamba classifiers share (``vssm.py:526-538``; the v0
+# configurations of arXiv 2401.10166): forward type v0 (a SiLU z-gate, the
+# LayerNorm out-norm, the cross2d scan), d_state 16, ssm_ratio 2, the conv
+# bias, no MLP, PatchEmbedV1 and PatchMerging2D
+_VANILLA = dict(ssm_d_state=16, ssm_ratio=2.0, ssm_act="silu", ssm_conv_bias=True, ssm_init="v0",
+                forward_type="v0", mlp_ratio=0.0, patchembed_version="v1",
+                downsample_version="v1")
 
 
-vanilla_vmamba_tiny = vanilla_vmamba_small = vanilla_vmamba_base = _vanilla
+def vanilla_vmamba_tiny(num_classes=1000, *, device="cuda", seed=0, **kw) -> VSSM:
+    """Vanilla VMamba-T: depths 2/2/9/2, dims 96; ``kw`` overrides any VSSM
+    argument."""
+    cfg = dict(depths=(2, 2, 9, 2), dims=96, drop_path_rate=0.2)
+    return _vssm(num_classes, device, seed, **(_VANILLA | cfg | kw))
+
+
+def vanilla_vmamba_small(num_classes=1000, *, device="cuda", seed=0, **kw) -> VSSM:
+    """Vanilla VMamba-S: depths 2/2/27/2, dims 96."""
+    cfg = dict(depths=(2, 2, 27, 2), dims=96, drop_path_rate=0.3)
+    return _vssm(num_classes, device, seed, **(_VANILLA | cfg | kw))
+
+
+def vanilla_vmamba_base(num_classes=1000, *, device="cuda", seed=0, **kw) -> VSSM:
+    """Vanilla VMamba-B: depths 2/2/27/2, dims 128."""
+    cfg = dict(depths=(2, 2, 27, 2), dims=128, drop_path_rate=0.6)
+    return _vssm(num_classes, device, seed, **(_VANILLA | cfg | kw))
 
 
 def build_model(num_classes=1000, **kw) -> VSSM:

@@ -138,10 +138,10 @@ Phases, in order; any failure exits non-zero:
    launches per step, the passes 36 / 36 / 18 / 18; 36 + 18 with
    ``use_checkpoint``), ms per step and peak memory; (9d) its widths at
    depths (2, 2, 2, 2), batch 2: logits and one step's gradients, card
-   against the CPU plain twins; (9e) the SSD scan past the kernels' limits
-   (d_state 128, head width 64: two width slices x two d_state tiles),
-   kernels 15/16 against the untiled plain twins, and an m0 SS2D layer of
-   that geometry, forward and backward, card against the CPU.
+   against the CPU plain twins; (9e) the SSD scan past one slab of a
+   block (d_state 128, head width 64: a block per slab, 2 x 2, the slabs'
+   parts summed), kernels 15/16 against the plain twins, and an m0 SS2D
+   layer of that geometry, forward and backward, card against the CPU.
 
 Single-study and unaligned-batch inference (kernels 8, 9 and 10):
 3c. kernel 8 (the v1 whole block, one cooperative launch of
@@ -342,6 +342,29 @@ new geometries):
    the CPU (1e-3), with the kernels its route names launched.  It prints
    ``phase 16: N s``.
 
+The rest of the model surface (kernels 1, 4, 6, 8 without the MLP half;
+kernels 15 and 16 over the whole SSD gate; kernels 2 / 7 for new callers):
+17. (17a) VMamba-S s2l15's geometry with ``mlp_ratio`` 0, bfloat16: a bs-32
+   forward on kernel 1 (4 launches), a bs-1 forward (kernel 1 at stage 0,
+   kernel 8 at stages 1-3), a bs-16 step on kernels 4 -> 6 once a block,
+   each against the rule's launches; kernel 1 (stage 0 at bs 32), kernel 8
+   (bs 1, its phases up to out_proj + residual) and kernels 4 / 6 (bs 16)
+   against their plain versions (5e-2) with times and bounds; (17b)
+   vmamba_tiny_m2's geometry with forward type m0 (the z-gate), float32:
+   a bs-32 forward and a bs-16 step (kernel 15 / 16 once a block), then
+   an m0 SS2D(96) layer at 56 x 56, batch 2, with a carried state over two
+   forwards, at d_state 128 / chunk 64, d_state 256 / chunk 128, head
+   width 64 / chunk 32 and d_state 512 / head width 128: card against the
+   CPU (1e-3), one launch of each kernel a call, and kernels 15 / 16 on its
+   scan call against the plain twins (1e-3) with times and bounds; (17c)
+   VMamba-T s2l5 with the gated SiLU MLP, post_norm, the position
+   embedding, no patch norm and drop rates 0.1: float32 logits card against
+   the CPU (1e-3), a bfloat16 forward and a bfloat16 bs-16 step with no
+   stage kernel launched; (17d) CrossSS2Dv2 and CrossSS2Dv3 (768, d_state
+   16) at 7 x 7, 16 studies, float32: output and every gradient card
+   against the CPU (1e-3), kernels 2 / 7 (or 13 / 14) as `core_dispatch`
+   routes them.  It prints ``phase 17: N s``.
+
 ``python3 chip_smoke.py --cards`` needs two cards or more and runs only
 15a over every visible card (NCCL, one rank a card) against one rank, then
 ``cli.train`` started plainly, which starts one rank a card itself.
@@ -370,7 +393,9 @@ kernel its launches in phase 12c's float32 mutual run
 plain times and bounds at XFMamba-T's widths (``xfmamba_t``, 12a), and for
 kernels 2, 7, 13 and 14 their launches per vanilla VMamba-T forward (bs 8,
 32, 1, bfloat16 bs 8) and bs-16 step with the forward and step ms
-(``vanilla_t``, 16a/16b)),
+(``vanilla_t``, 16a/16b), for kernels 1, 4, 6, 8, 15 and 16 phase 17's
+launches and, for 1, 8, 15 and 16, the new geometries' errors, times,
+plain times and bounds (``phase17``)),
 the line before the last the card's name and power limit, the last
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it prints no result and exits 1.
@@ -1890,11 +1915,12 @@ def phase_cross_n1_layer():
 
 def phase_ssd_past_limits(errors, card):
     """The SSD scan at d_state 128 and head width 64 (the gate admits it,
-    the kernels take 64 and 32): kernels 15 and 16, tiled (2 width slices x
-    2 d_state tiles), against the untiled plain twins in both dtypes; then
+    a block takes a slab of 64 x 32): kernels 15 and 16, a block per slab (2
+    x 2) and the slabs' parts summed, against the plain twins in both
+    dtypes; then
     an m0 SS2D layer of that geometry (d_model 96, ssm_ratio 4, 28 x 28,
     batch 2), forward and backward, card against the CPU plain twins."""
-    print(f"phase 9e: the SSD kernels past their limits, d_state 128, head width 64 ({card})")
+    print(f"phase 9e: the SSD kernels past one slab, d_state 128, head width 64 ({card})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator().manual_seed(33)
@@ -1907,20 +1933,20 @@ def phase_ssd_past_limits(errors, card):
                     randn(g, 2, 4, L, N, dtype=dtype), randn(g, 2, 4, L, N, dtype=dtype),
                     randn(g, 4 * R, P), randn(g, 4 * R, scale=0.5), None)
             counts = counted({n: k["fn"] for n, k in SSD_KERNELS.items()})
-            got = ssd_chunk.ssd_fwd_tiled(*args, save_states=True)
+            got = ssd_chunk.ssd_fwd(*args, save_states=True)
             want = ssd_chunk.ssd_fwd_plain(*args, save_states=True)
-            check_outputs(errors, "ssd_chunk_fwd", f"tiled L={L} R={R} P={P} N={N}", dtype,
+            check_outputs(errors, "ssd_chunk_fwd", f"slabs L={L} R={R} P={P} N={N}", dtype,
                           got, want, failed)
             dy = randn(g, *args[0].shape)
-            check_outputs(errors, "ssd_chunk_bwd", f"tiled L={L} R={R} P={P} N={N}", dtype,
-                          ssd_chunk.ssd_bwd_tiled(*args[:7], want[2], dy),
+            check_outputs(errors, "ssd_chunk_bwd", f"slabs L={L} R={R} P={P} N={N}", dtype,
+                          ssd_chunk.ssd_bwd(*args[:7], want[2], dy),
                           ssd_chunk.ssd_bwd_plain(*args[:7], want[2], dy), failed)
             torch.cuda.synchronize()
             launches = counts()
-            if launches != {"ssd_chunk_fwd": 4, "ssd_chunk_bwd": 4}:
+            if launches != {"ssd_chunk_fwd": 1, "ssd_chunk_bwd": 1}:
                 failed.append(("launches", launches))
     if failed:
-        raise PhaseFailure(f"the tiled SSD kernels disagree with the untiled plain twins: {failed}")
+        raise PhaseFailure(f"the SSD kernels' slab plan disagrees with the plain twins: {failed}")
     layer = SS2D(96, d_state=128, ssm_ratio=4.0, forward_type="m0_noz", act="gelu",
                  initialize="v2", conv_bias=False, generator=torch.Generator().manual_seed(34))
     x, gy = torch.randn(2, 28, 28, 96, generator=g), torch.randn(2, 28, 28, 96, generator=g)
@@ -1937,9 +1963,9 @@ def phase_ssd_past_limits(errors, card):
     worst = max(rel(a, b)[1] for a, b in zip(results[1], results[0]))
     print(f"  m0 SS2D(96, d_state=128, ssm_ratio=4) at 28x28, batch 2: {len(results[0])} outputs "
           f"and gradients, worst relative error {worst:.3e}, tol 1e-03; launches {launches}")
-    if launches != {"ssd_chunk_fwd": 4, "ssd_chunk_bwd": 4} or not worst <= 1e-3:
-        raise PhaseFailure("the m0 SS2D layer past the kernel limits disagrees with the CPU plain "
-                           "path, or did not launch kernels 15 and 16 four times each")
+    if launches != {"ssd_chunk_fwd": 1, "ssd_chunk_bwd": 1} or not worst <= 1e-3:
+        raise PhaseFailure("the m0 SS2D layer past one slab disagrees with the CPU plain path, or "
+                           "did not launch kernels 15 and 16 once each")
 
 
 # ---------------------------------------------------------------------------
@@ -5810,6 +5836,390 @@ def phase_vanilla(card):
             for name in names}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the rest of the model surface (no-MLP stage kernels, m0 with its
+# z-gate and carried state at the widened SSD gate, the block options, the
+# superseded fusion ops)
+# ---------------------------------------------------------------------------
+
+# 17b's m0 layers at 56 x 56, batch 2: (label, d_model, d_state, ssm_ratio,
+# dt_rank, chunk); head width d_inner / dt_rank
+M0_LAYERS = [("d_state 128, chunk 64", 96, 128, 1.0, "auto", 64),
+             ("d_state 256, chunk 128", 96, 256, 1.0, "auto", 128),
+             ("head width 64, chunk 32", 96, 64, 2.0, 3, 32),
+             ("d_state 512, head width 128", 96, 512, 4.0, 3, 64)]
+# 17c: VMamba-T s2l5 with the block options JAX's rule keeps off the kernels
+OPTIONS_17C = dict(gmlp=True, post_norm=True, posembed=True, patch_norm=False, mlp_act="silu",
+                   ssm_drop_rate=0.1, mlp_drop_rate=0.1)
+STAGE_KERNEL_NAMES = ("vss_stage", "vss_block_v1", "vss_block_train", "vss_block_bwd",
+                      "vss_stage_train")
+P17 = {}   # the kernels line's phase-17 entries of rows 1, 8, 15 and 16
+
+
+def nonzero(counts):
+    return {n: c for n, c in counts.items() if c}
+
+
+def no_mlp_want(model, batch):
+    """The launches of a bfloat16 eval forward of a no-MLP v05_noz VSSM at
+    ``batch`` images of 224 x 224, stage by stage by `stage_route`."""
+    want, H = {}, IMAGE // 4
+    for layer in model.layers:
+        blk = layer.blocks[0]
+        route = vss_stage.stage_route(batch, H, H, blk.norm.weight.shape[0], blk.op.d_inner, 0,
+                                      len(layer.blocks))
+        name = {"stage": "vss_stage", "v1": "vss_block_v1", "composable": "ss2d_core_n1_fwd"}[
+            route]
+        want[name] = want.get(name, 0) + (1 if route == "stage" else len(layer.blocks))
+        H = -(-H // 2)
+    return want
+
+
+def timed_pair(fn, plain, reps=5):
+    """(kernel ms, plain ms) by CUDA events, the kernel after a warm-up."""
+    return time_ms(fn, reps), time_ms(plain, 1, warmup=False)
+
+
+def phase_no_mlp(card):
+    """17a: VMamba-S s2l15's geometry with ``mlp_ratio`` 0, bfloat16: a
+    bs-32 forward on kernel 1, a bs-1 forward with kernel 8 where the rule
+    gives no aligned group, a bs-16 training step on kernels 4 -> 6 per
+    block, each forward's and the step's launches against the rule's; each
+    kernel at its main-path shape against its plain version (5e-2), with
+    its time beside the plain version's and its bound."""
+    print(f"phase 17a: VMamba-S s2l15 geometry, mlp_ratio 0, bfloat16 ({card})")
+    bf = torch.bfloat16
+    model = vssm.vmamba_small_s2l15(seed=0, mlp_ratio=0.0)
+    if not (model.stage_kernels and model.train_kernels) or model.stage_train_mlp:
+        raise PhaseFailure("the no-MLP backbone is not on the stage routes")
+    fns = all_kernels()
+    with torch.no_grad():
+        for bs in (32, 1):
+            x = images(bs, bf, 400 + bs)
+            model(x)
+            torch.cuda.synchronize()
+            counts = counted(fns)
+            logits = model(x)
+            torch.cuda.synchronize()
+            got, want = nonzero(counts()), no_mlp_want(model, bs)
+            if got != want or not torch.isfinite(logits.float()).all():
+                raise PhaseFailure(f"no-MLP bs {bs}: launches {got}, expected {want}")
+            print(f"  bs {bs}: logits finite, launches per forward {got} (the rule's), every "
+                  f"other kernel 0; {time_ms(lambda: model(x), 3):.2f} ms per batch")
+            P17.setdefault("vss_stage", {})[f"bs{bs}_forward_launches"] = got.get("vss_stage", 0)
+            P17.setdefault("vss_block_v1", {})[f"bs{bs}_forward_launches"] = \
+                got.get("vss_block_v1", 0)
+    optimizer = make_optimizer(TrainConfig(lr=1e-4, weight_decay=1e-5), model.parameters())
+    step, _ = make_train_step(model, optimizer, False, two_view=False)
+    batch = {"image1": images(TRAIN_BATCH, bf, 416),
+             "label": torch.zeros(TRAIN_BATCH, dtype=torch.long, device="cuda")}
+    model.train()
+    step(batch)
+    torch.cuda.synchronize()
+    counts = counted(fns)
+    loss = float(step(batch)["loss"])
+    torch.cuda.synchronize()
+    got, blocks = nonzero(counts()), sum(model.depths)
+    want = {"vss_block_train": blocks, "vss_block_bwd": blocks}
+    print(f"  bs-{TRAIN_BATCH} step: loss {loss:.5f}, launches {got}, every other kernel 0")
+    if got != want or not math.isfinite(loss):
+        raise PhaseFailure(f"no-MLP step launches {got}, expected {want}, loss {loss}")
+    P17["vss_block_train"] = {"bs16_step_launches": blocks}
+    P17["vss_block_bwd"] = {"bs16_step_launches": blocks}
+    model.eval()
+    g = torch.Generator().manual_seed(417)
+    failed = []
+    with torch.no_grad():
+        layer = model.layers[0]
+        packed = [pack_vss_block_params(b, bf) for b in layer.blocks]
+        x = randn(g, 32, 56 * 56, 96, dtype=bf)
+        args = (x, packed, 56, 56)
+        err, r = rel(vss_stage.vss_stage(*args), vss_stage.vss_stage_plain(*args))
+        ms, plain_ms = timed_pair(lambda: vss_stage.vss_stage(*args),
+                                  lambda: vss_stage.vss_stage_plain(*args))
+        work = block_work(32, 56, 96, bf, False).times(len(packed))
+        P17["vss_stage"] |= {"geometry": "stage 0, 32 x 56x56x96, depth 2, no MLP",
+                             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": work.bound()[0], "bound_by": work.bound()[1]}
+        print(f"  kernel 1, stage 0 at bs 32 (56x56x96, 2 blocks, no MLP): rel {r:.3e}, "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {work.bound()[0]:.4f} ms "
+              f"({work.bound()[1]})")
+        failed += [("kernel 1", r)] if not r <= 5e-2 else []
+        H, W = 56, 56
+        for layer in model.layers:
+            blk = layer.blocks[0]
+            d = blk.norm.weight.shape[0]
+            if vss_stage.stage_route(1, H, W, d, blk.op.d_inner, 0, len(layer.blocks)) == "v1":
+                break
+            H = W = -(-H // 2)
+        p8 = vss_block_v1.pack_vss_block_v1_params(blk, bf)
+        x = randn(g, 1, H * W, d, dtype=bf)
+        err, r = rel(vss_block_v1.vss_block_v1(x, p8, H, W),
+                     vss_block_v1.vss_block_v1_phases_plain(x, p8, H, W))
+        ms, plain_ms = timed_pair(lambda: vss_block_v1.vss_block_v1(x, p8, H, W),
+                                  lambda: vss_block_v1.vss_block_v1_phases_plain(x, p8, H, W))
+        work = block_work(1, H, d, bf, False)
+        phases = vss_block_v1.phase_ns(x, p8, H, W)
+        P17["vss_block_v1"] |= {"geometry": f"1 x {H}x{W}x{d}, no MLP", "max_abs_err": err,
+                                "ms": ms, "plain_ms": plain_ms, "bound_ms": work.bound()[0],
+                                "bound_by": work.bound()[1], "phases": list(phases)}
+        print(f"  kernel 8 at bs 1 ({H}x{W}x{d}, no MLP, phases {list(phases)}): rel {r:.3e}, "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {work.bound()[0]:.4f} ms "
+              f"({work.bound()[1]})")
+        failed += [("kernel 8", r)] if not r <= 5e-2 or "LN2" in phases else []
+        p = pack_vss_block_params(model.layers[0].blocks[0], bf)
+        x = randn(g, TRAIN_BATCH, 56 * 56, 96, dtype=bf)
+        m1 = torch.ones(TRAIN_BATCH, device="cuda")
+        gy = randn(g, TRAIN_BATCH, 56 * 56, 96)
+        fwd = rel(vss_block_train.vss_block_train(x, p, 56, 56, m1),
+                  vss_block_train.vss_block_train_plain(x, p, 56, 56, m1))[1]
+        dx, grads = vss_block_train.vss_block_bwd(x, p, 56, 56, m1, gy)
+        dx_p, grads_p = vss_block_train.vss_block_bwd_plain(x, p, 56, 56, m1, gy)
+        bwd = max([rel(dx, dx_p)[1]] + [rel(grads[k], grads_p[k])[1] for k in grads_p
+                                        if grads_p[k] is not None])
+        print(f"  kernels 4 / 6 at bs {TRAIN_BATCH} (56x56x96, the SS2D half): rel {fwd:.3e} / "
+              f"{bwd:.3e}")
+        failed += [("kernels 4/6", fwd, bwd)] if not max(fwd, bwd) <= 5e-2 else []
+    if failed:
+        raise PhaseFailure(f"17a: kernels against their plain versions: {failed}")
+    del model, optimizer, step
+
+
+def m0_layer_run(layer, x, gy, init, device, fns):
+    """Two forwards of an m0 SS2D with a carried state (the first inside
+    `carry_ssm_state`, no gradient), the second with its backward; returns
+    the outputs, the states after each forward and the gradients (CPU),
+    and the launches."""
+    from xfmamba_tpu_torch.models.ss2d import carry_ssm_state
+    layer.to(device).zero_grad()
+    with torch.no_grad():
+        layer.initial_state.copy_(init.to(device))
+    counts = counted(fns)
+    with torch.no_grad(), carry_ssm_state(layer):
+        y1 = layer(x[0].to(device))
+    s1 = layer.initial_state.cpu().clone()
+    xl = x[1].to(device, copy=True).requires_grad_()
+    with carry_ssm_state(layer):
+        y2 = layer(xl)
+    y2.backward(gy.to(device))
+    launches = nonzero(counts())
+    out = {"y1": y1.cpu(), "state1": s1, "y2": y2.detach().cpu(),
+           "state2": layer.initial_state.cpu().clone(), "dx": xl.grad.cpu()}
+    out |= {k: q.grad.cpu().clone() for k, q in layer.named_parameters()}
+    return out, launches
+
+
+def ssd_call_args(g, b, L, R, P, N):
+    return (randn(g, b, 4, L, R, P), randn(g, b, 4, L, R) - 4.0,
+            -torch.exp(1.5 * torch.rand(4 * R, generator=g)).cuda(),
+            randn(g, b, 4, L, N, scale=0.3), randn(g, b, 4, L, N, scale=0.3),
+            randn(g, 4 * R, P), randn(g, 4 * R, scale=0.5), randn(g, b, 4 * R, N, P))
+
+
+def phase_m0(card):
+    """17b: vmamba_tiny_m2's geometry with forward type m0 (the z-gate),
+    float32: a bs-32 forward (kernel 15 once a block) and a bs-16 step
+    (kernels 15 and 16 once a block); then one m0 SS2D layer at 56 x 56,
+    batch 2, at each of `M0_LAYERS` with a carried state over two forwards,
+    card against the CPU (outputs, states, every gradient within 1e-3),
+    one launch of each kernel a call whatever the slabs, and kernels 15 /
+    16 on that layer's scan call against the plain twins on the card
+    (1e-3) with their times and bounds."""
+    print(f"phase 17b: m0 with its z-gate at vmamba_tiny_m2's geometry, float32, and m0 layers "
+          f"at the widened SSD gate ({card})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = vssm.vmamba_tiny_m2(seed=0, forward_type="m0")
+    fns = all_kernels()
+    blocks = sum(model.depths)
+    with torch.no_grad():
+        x = images(32, torch.float32, 432)
+        model(x)
+        torch.cuda.synchronize()
+        counts = counted(fns)
+        logits = model(x)
+        torch.cuda.synchronize()
+        got = nonzero(counts())
+        ms = time_ms(lambda: model(x), 3)
+    print(f"  bs 32: logits finite {bool(torch.isfinite(logits).all())}, launches {got}, "
+          f"{ms:.2f} ms per batch")
+    if got != {"ssd_chunk_fwd": blocks} or not torch.isfinite(logits).all():
+        raise PhaseFailure(f"m0 bs-32 launches {got}, expected {blocks} of kernel 15")
+    optimizer = make_optimizer(TrainConfig(lr=1e-4, weight_decay=1e-5), model.parameters())
+    step, _ = make_train_step(model, optimizer, False, two_view=False)
+    batch = {"image1": images(TRAIN_BATCH, torch.float32, 433),
+             "label": torch.zeros(TRAIN_BATCH, dtype=torch.long, device="cuda")}
+    model.train()
+    counts = counted(fns)
+    loss = float(step(batch)["loss"])
+    torch.cuda.synchronize()
+    got = nonzero(counts())
+    print(f"  bs-{TRAIN_BATCH} step: loss {loss:.5f}, launches {got}")
+    if got != {"ssd_chunk_fwd": blocks, "ssd_chunk_bwd": blocks} or not math.isfinite(loss):
+        raise PhaseFailure(f"m0 step launches {got}, loss {loss}")
+    P17["ssd_chunk_fwd"] = {"m0_tiny_bs32_forward_launches": blocks}
+    P17["ssd_chunk_bwd"] = {"m0_tiny_bs16_step_launches": blocks}
+    del model, optimizer, step
+    g = torch.Generator().manual_seed(434)
+    failed = []
+    ssd_fns = {n: k["fn"] for n, k in SSD_KERNELS.items()}
+    for label, d, N, ratio, rank, chunk in M0_LAYERS:
+        layer = SS2D(d, d_state=N, ssm_ratio=ratio, dt_rank=rank, forward_type="m0",
+                     initialize="v2", with_initial_state=True, chunk_size=chunk,
+                     generator=torch.Generator().manual_seed(435))
+        R, P = layer.R, layer.d_inner // layer.R
+        x = [torch.randn(2, 56, 56, d, generator=g) for _ in range(2)]
+        gy = torch.randn(2, 56, 56, d, generator=g)
+        init = 0.1 * torch.randn(layer.initial_state.shape, generator=g)
+        t0 = time.time()
+        cpu, _ = m0_layer_run(layer, x, gy, init, "cpu", ssd_fns)
+        card_out, launches = m0_layer_run(layer, x, gy, init, "cuda", ssd_fns)
+        torch.cuda.synchronize()
+        ns, ps = ssd_chunk.slabs(N, P)
+        worst = max(cpu, key=lambda k: rel(card_out[k], cpu[k])[1])
+        w = rel(card_out[worst], cpu[worst])[1]
+        ok = launches == {"ssd_chunk_fwd": 2, "ssd_chunk_bwd": 1} and w <= 1e-3
+        print(f"  m0 SS2D({d}) {label} (R {R}, P {P}, N {N}): {len(cpu)} outputs, states and "
+              f"gradients, worst rel {w:.3e} ({worst}), tol 1e-03; launches {launches}; "
+              f"{time.time() - t0:.1f} s {'OK' if ok else 'FAIL'}")
+        if not ok:
+            failed.append((label, launches, worst, w))
+        with torch.no_grad():
+            args = ssd_call_args(g, 2, 56 * 56, R, P, N)
+            got = ssd_chunk.ssd_fwd(*args, chunk, save_states=True)
+            want = ssd_chunk.ssd_fwd_plain(*args, chunk=chunk, save_states=True)
+            dy = randn(g, *args[0].shape)
+            gb = ssd_chunk.ssd_bwd(*args[:7], want[2], dy, None, chunk)
+            gp = ssd_chunk.ssd_bwd_plain(*args[:7], want[2], dy, None, chunk)
+            rf = max(rel(a, b)[1] for a, b in zip(got, want))
+            rb = max(rel(gb[k], gp[k])[1] for k in gp)
+            ef = max(rel(a, b)[0] for a, b in zip(got, want))
+            eb = max(rel(gb[k], gp[k])[0] for k in gp)
+            fwd_ms, fwd_plain = timed_pair(
+                lambda: ssd_chunk.ssd_fwd(*args, chunk),
+                lambda: ssd_chunk.ssd_fwd_plain(*args, chunk=chunk))
+            bwd_ms, bwd_plain = timed_pair(
+                lambda: ssd_chunk.ssd_bwd(*args[:7], want[2], dy, None, chunk),
+                lambda: ssd_chunk.ssd_bwd_plain(*args[:7], want[2], dy, None, chunk))
+        pieces = min(chunk, ssd_chunk.PIECE)
+        wf = ssd_work(2, 56 * 56, R, torch.float32, P=P, N=N, chunk=pieces)
+        wb = ssd_work(2, 56 * 56, R, torch.float32, P=P, N=N, chunk=pieces, backward=True)
+        for name, ms_, plain_, work, err in (("ssd_chunk_fwd", fwd_ms, fwd_plain, wf, ef),
+                                             ("ssd_chunk_bwd", bwd_ms, bwd_plain, wb, eb)):
+            P17[name][label] = {"slabs": [ns, ps], "max_abs_err": err, "ms": ms_,
+                                "plain_ms": plain_, "bound_ms": work.bound()[0],
+                                "bound_by": work.bound()[1]}
+        print(f"    kernels 15 / 16 on its scan call (2 x 4 x 3136 x {R} x {P}, N {N}, chunk "
+              f"{chunk}, {ns} x {ps} slabs): rel {rf:.3e} / {rb:.3e}; {fwd_ms:.3f} / "
+              f"{bwd_ms:.3f} ms, plain {fwd_plain:.3f} / {bwd_plain:.3f} ms, bound "
+              f"{wf.bound()[0]:.4f} / {wb.bound()[0]:.4f} ms ({card})")
+        if not max(rf, rb) <= 1e-3:
+            failed.append((label, "kernels vs plain", rf, rb))
+    if failed:
+        raise PhaseFailure(f"17b: {failed}")
+
+
+def phase_options(card):
+    """17c: a VMamba-T s2l5 geometry with `OPTIONS_17C` (the gated MLP of
+    SiLU, post_norm, the position embedding, no patch norm, drop rates
+    0.1): float32 eval logits at batch 2, card against the CPU (1e-3); a
+    bfloat16 eval forward and a bfloat16 training step at bs 16 on the
+    composable route (no stage kernel launched, as JAX's rule keeps these
+    options off its megakernels), the loss finite."""
+    print(f"phase 17c: VMamba-T s2l5 with {OPTIONS_17C} ({card})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = vssm.vmamba_tiny_s2l5(seed=0, device="cpu", **OPTIONS_17C)
+    if model.stage_kernels or model.train_kernels:
+        raise PhaseFailure("the options' backbone is on a stage route")
+    x = torch.randn(2, IMAGE, IMAGE, 3, generator=torch.Generator().manual_seed(440))
+    with torch.no_grad():
+        t0 = time.time()
+        want = model(x)
+        cpu_s = time.time() - t0
+        model.cuda()
+        got = model(x.cuda()).cpu()
+    err = float((got - want).abs().max())
+    tol = 1e-3 * float(want.abs().max())
+    print(f"  float32 logits at batch 2: max_abs_err {err:.3e} (tol {tol:.3e}); cpu {cpu_s:.1f} s")
+    if not err <= tol:
+        raise PhaseFailure("17c: the options' logits on the card disagree with the CPU")
+    fns = all_kernels()
+    stage = {n: fns[n] for n in STAGE_KERNEL_NAMES}
+    with torch.no_grad():
+        counts = counted(stage)
+        logits = model(images(8, torch.bfloat16, 441))
+        torch.cuda.synchronize()
+        forward = nonzero(counts())
+    optimizer = make_optimizer(TrainConfig(lr=1e-4, weight_decay=1e-5), model.parameters())
+    step, _ = make_train_step(model, optimizer, False, two_view=False)
+    batch = {"image1": images(TRAIN_BATCH, torch.bfloat16, 442),
+             "label": torch.zeros(TRAIN_BATCH, dtype=torch.long, device="cuda")}
+    model.train()
+    counts, all_counts = counted(stage), counted(fns)
+    loss = float(step(batch)["loss"])
+    torch.cuda.synchronize()
+    launched = nonzero(all_counts())
+    print(f"  bfloat16 bs-8 forward: logits finite {bool(torch.isfinite(logits.float()).all())}, "
+          f"stage kernels {forward}; bs-{TRAIN_BATCH} step: loss {loss:.5f}, stage kernels "
+          f"{nonzero(counts())}, launched {launched}")
+    if forward or nonzero(counts()) or not math.isfinite(loss) or \
+            not torch.isfinite(logits.float()).all():
+        raise PhaseFailure("17c: a stage kernel ran for the options' backbone, or a result is "
+                           "not finite")
+    del model, optimizer, step
+
+
+def phase_cross_variants(card):
+    """17d: CrossSS2Dv2 and CrossSS2Dv3 at XFMamba-S's deep-fusion geometry
+    (d_model 768, 7 x 7, d_state 16, 16 studies), float32, training mode
+    (no dropout): the output, both inputs' gradients and every parameter
+    gradient, card against the CPU (1e-3), and the cores' launches of
+    kernels 2 / 7 or 13 / 14 as `core_dispatch` decides."""
+    from xfmamba_tpu_torch.models.fusion import CrossSS2Dv2, CrossSS2Dv3
+    print(f"phase 17d: CrossSS2Dv2 / v3 (768, d_state 16) at 7x7, 16 studies, float32 ({card})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fns = all_kernels()
+    g = torch.Generator().manual_seed(450)
+    x, x2, gy = (torch.randn(16, 7, 7, 768, generator=g) for _ in range(3))
+    group = nk_scan_adjoint.nk_train_supported(16, 49, 7, 1536, 4, 16, "cross2d")
+    for cls, cores in ((CrossSS2Dv2, 2), (CrossSS2Dv3, 3)):
+        op = cls(768, d_state=16, generator=torch.Generator().manual_seed(451)).train()
+        route = ROUTE_KERNELS["nk" if group else "grouped"]
+        want = dict.fromkeys(route, cores * (1 if group else 4))
+        results = []
+        for device in ("cpu", "cuda"):
+            op.to(device).zero_grad()
+            xa, xb = (v.to(device, copy=True).requires_grad_() for v in (x, x2))
+            counts = counted(fns)
+            t0 = time.time()
+            y = op(xa, xb)
+            y.backward(gy.to(device))
+            torch.cuda.synchronize()
+            launches = nonzero(counts())
+            results.append({"y": y.detach().cpu(), "dx": xa.grad.cpu(), "dx2": xb.grad.cpu()}
+                           | {k: q.grad.cpu().clone() for k, q in op.named_parameters()})
+            seconds = time.time() - t0
+        errs = {k: rel(results[1][k], w)[1] for k, w in results[0].items()}
+        worst = max(errs, key=errs.get)
+        ok = launches == want and errs[worst] <= 1e-3
+        print(f"  {cls.__name__}: launches {launches} ({'nk pair' if group else 'grouped'}); "
+              f"worst rel {errs[worst]:.3e} ({worst}) of {len(errs)}, tol 1e-03; card "
+              f"{seconds:.2f} s {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailure(f"17d {cls.__name__}: launches {launches}, expected {want}, "
+                               f"worst {worst} {errs[worst]}")
+
+
+def phase_surface(card):
+    """Phase 17 (17a-17d)."""
+    phase_no_mlp(card)
+    phase_m0(card)
+    phase_options(card)
+    phase_cross_variants(card)
+
+
 def main_cards() -> int:
     """``python3 chip_smoke.py --cards``: phase 15a over every visible card
     (NCCL, one rank a card) against one rank; needs two cards or more."""
@@ -5947,6 +6357,9 @@ def main() -> int:
     t0 = time.time()
     vanilla = phase_vanilla(card)
     print(f"  phase 16: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    phase_surface(card)
+    print(f"  phase 17: {time.time() - t0:.1f} s")
     # library_ms: one PyTorch call computing the same function, where there
     # is one (kernels 19-21); none computes the scans
     print(json.dumps({"kernels": [
@@ -5961,6 +6374,7 @@ def main() -> int:
         | V1_EXTRA.get(name, {})
         | {"mutual_launches": models["launches"][name]}
         | ({"vanilla_t": vanilla[name]} if name in vanilla else {})
+        | ({"phase17": P17[name]} if name in P17 else {})
         | ({"xfmamba_t": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
                                   models["kernels"][name]))} if name in models["kernels"] else {})
         for name, k in kernel_table().items()]}))

@@ -41,6 +41,8 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+enum { cudaFuncAttributePreferredSharedMemoryCarveout = 9, cudaSharedmemCarveoutMaxShared = 100 };
+enum cudaStreamCaptureStatus { cudaStreamCaptureStatusNone = 0 };
 enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
 struct cudaLaunchAttribute {
   cudaLaunchAttributeID id;
@@ -58,6 +60,10 @@ struct cudaLaunchConfig_t {
   unsigned numAttrs;
 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaStreamIsCapturing(cudaStream_t, cudaStreamCaptureStatus* status) {
+  *status = cudaStreamCaptureStatusNone;
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetDevice(int* dev) {
   *dev = 0;
   return cudaSuccess;
@@ -93,6 +99,7 @@ struct uint4 {
 };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 using std::max;
 using std::min;
 
@@ -148,6 +155,31 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
   const float r = emu_exchange[w][l ^ mask][0];
   __syncwarp();
   return r;
+}
+// lane l reads lane l - delta (up) or l + delta (down), or keeps its own
+// value where that lane is outside the warp
+inline float emu_shfl_by(float v, int delta) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32, src = l + delta;
+  emu_exchange[w][l][0] = v;
+  __syncwarp();
+  const float r = src >= 0 && src < 32 ? emu_exchange[w][src][0] : v;
+  __syncwarp();
+  return r;
+}
+inline float __shfl_up_sync(unsigned, float v, unsigned delta) {
+  return emu_shfl_by(v, -static_cast<int>(delta));
+}
+inline float __shfl_down_sync(unsigned, float v, unsigned delta) {
+  return emu_shfl_by(v, static_cast<int>(delta));
+}
+
+// one lock for every atomic of every block
+inline std::mutex emu_atomic_lock;
+inline float atomicAdd(float* a, float v) {
+  std::lock_guard<std::mutex> hold(emu_atomic_lock);
+  const float old = *a;
+  *a = old + v;
+  return old;
 }
 
 // The blocks of one cluster (cluster dims cx, cy, 1 from block (x0, y0, z0)),

@@ -1217,20 +1217,23 @@ def test_core_dispatch_n1_card_matches_cpu(dev):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_ssd_past_the_kernel_limits(dev, dtype):
-    """d_state 128 and head width 64, which the gate admits: the tiled
-    route (2 x 2 launches of each kernel) against the untiled plain twins."""
+    """d_state 128 and head width 64, which the gate admits: one call of
+    each kernel, a block per slab of the state (2 x 2), the slabs' parts of
+    y, dx, ddt, dB and dC summed by `ssd_slab_sum`, against the plain
+    twins."""
     g = torch.Generator().manual_seed(27)
     args = _ssd_case(g, dtype, 2, 4, 200, 2, 64, 128)
-    before = (ssd_chunk.ssd_fwd.launches, ssd_chunk.ssd_bwd.launches)
-    y, fin, states = ssd_chunk.ssd_fwd_tiled(*args, save_states=True)
+    before = (ssd_chunk.ssd_fwd.launches, ssd_chunk.ssd_bwd.launches,
+              ssd_chunk.ssd_slab_sum.launches)
+    y, fin, states = ssd_chunk.ssd_fwd(*args, save_states=True)
     want = ssd_chunk.ssd_fwd_plain(*args, save_states=True)
     for got, w in zip((y, fin, states), want):
         assert rel_err(got, w) < TOL[dtype]
     dy, dfin = randn(g, 2, 4, 200, 2, 64), randn(g, 2, 8, 128, 64)
-    got = ssd_chunk.ssd_bwd_tiled(*args[:7], want[2], dy, dfin)
+    got = ssd_chunk.ssd_bwd(*args[:7], want[2], dy, dfin)
     torch.cuda.synchronize()
-    assert (ssd_chunk.ssd_fwd.launches, ssd_chunk.ssd_bwd.launches) == \
-        (before[0] + 4, before[1] + 4)
+    assert (ssd_chunk.ssd_fwd.launches, ssd_chunk.ssd_bwd.launches,
+            ssd_chunk.ssd_slab_sum.launches) == (before[0] + 1, before[1] + 1, before[2] + 5)
     for name, w in ssd_chunk.ssd_bwd_plain(*args[:7], want[2], dy, dfin).items():
         assert rel_err(got[name], w) < TOL[dtype], name
 
@@ -1719,3 +1722,47 @@ def test_two_gloo_ranks_on_the_card_match_one_rank(dev, tmp_path):
         assert torch.equal(ranks[0]["state"][k], ranks[1]["state"][k]), k
         diff = (ranks[0]["state"][k].double() - want.double()).abs()
         assert float(diff.max()) <= 4e-3 and float(diff.mean()) <= 1e-6, k
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,d", [(28, 192), (7, 768)])
+def test_no_mlp_blocks_on_kernels_1_and_8(dev, dtype, H, d):
+    """A block without its MLP half (``mlp_ratio`` 0): kernel 8 (one
+    launch, its phases up to out_proj + residual) and kernel 1 (one stage
+    of two such blocks) against their plain versions (5e-2 in bfloat16,
+    1e-4 in float32)."""
+    g = torch.Generator().manual_seed(60 + H)
+    blocks = [VSSBlock(d, mlp_ratio=0.0, generator=g).eval().cuda() for _ in range(2)]
+    x = randn(g, 2, H * H, d, dtype=dtype)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    with torch.no_grad():
+        p = vss_block_v1.pack_vss_block_v1_params(blocks[0], dtype)
+        before = vss_block_v1.vss_block_v1.launches
+        got = vss_block_v1.vss_block_v1(x, p, H, H)
+        assert vss_block_v1.vss_block_v1.launches == before + 1
+        assert rel_err(got, vss_block_v1.vss_block_v1_phases_plain(x, p, H, H)) < tol
+        assert list(vss_block_v1.phase_ns(x, p, H, H))[-1] == "out_proj+residual"
+        packed = [pack_vss_block_params(b, dtype) for b in blocks]
+        got = vss_stage.vss_stage(x, packed, H, H)
+        assert rel_err(got, vss_stage.vss_stage_plain(x, packed, H, H)) < tol
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L,R,P,N,chunk", [(200, 2, 40, 80, 24), (300, 3, 64, 128, 72),
+                                           (150, 2, 16, 64, 128)])
+def test_ssd_any_chunk_and_slab(dev, dtype, L, R, P, N, chunk):
+    """Kernels 15 and 16 at chunks of 24, 72 and 128 (pieces of at most 64
+    rows, padded inside the tile) and slabs of the state past one block's
+    (80 x 40, 128 x 64), with an initial state and a final-state gradient,
+    against the plain twins."""
+    g = torch.Generator().manual_seed(L + chunk)
+    args = _ssd_case(g, dtype, 2, 4, L, R, P, N)
+    y, fin, states = ssd_chunk.ssd_fwd(*args, chunk, save_states=True)
+    want = ssd_chunk.ssd_fwd_plain(*args, chunk=chunk, save_states=True)
+    assert states.shape[2] == ssd_chunk.pieces(L, chunk)
+    for got, w in zip((y, fin, states), want):
+        assert rel_err(got, w) < TOL[dtype]
+    dy, dfin = randn(g, 2, 4, L, R, P), randn(g, 2, 4 * R, N, P)
+    got = ssd_chunk.ssd_bwd(*args[:7], want[2], dy, dfin, chunk)
+    for name, w in ssd_chunk.ssd_bwd_plain(*args[:7], want[2], dy, dfin, chunk).items():
+        assert rel_err(got[name], w) < TOL[dtype], name

@@ -175,12 +175,20 @@ def test_d_state_1_keeps_its_scan_mode(forward_type, monkeypatch):
 
 
 def test_m0_leftovers_name_their_item():
-    """m0 with its z-gate and with a carried initial state stay refused,
-    naming queue item 2.2."""
-    for kw in (dict(forward_type="m0"), dict(forward_type="m0_oact"),
-               dict(forward_type="m0_noz", with_initial_state=True)):
-        with pytest.raises(ValueError, match="item 2.2"):
-            SS2D(16, d_state=8, ssm_ratio=1.0, **kw)
+    """What queue item 2.2 left of m0 is ported: its z-gate (activated, or
+    with ``_oact``) widens in_proj to 2 d_inner, and a carried initial state
+    is a float32 buffer (1, 4 R, P, N) that a forward leaves as it is
+    (tests/test_torch_m0.py holds them against JAX)."""
+    for kw in (dict(forward_type="m0"), dict(forward_type="m0_oact")):
+        op = SS2D(16, d_state=8, ssm_ratio=1.0, **kw)
+        assert op.in_proj.weight.shape == (32, 16)
+        with torch.no_grad():
+            assert op(torch.randn(1, 4, 4, 16)).shape == (1, 4, 4, 16)
+    op = SS2D(16, d_state=8, ssm_ratio=1.0, forward_type="m0_noz", with_initial_state=True)
+    assert op.initial_state.shape == (1, 4, 16, 8) and op.initial_state.dtype == torch.float32
+    with torch.no_grad():
+        op(torch.randn(1, 4, 4, 16))
+    assert not op.initial_state.any()
 
 
 @pytest.mark.parametrize("initialize", ["v1", "v2"])

@@ -407,22 +407,22 @@ def test_ssd_supported_matches_jax():
 
 @pytest.mark.parametrize("P,N", [(64, 128), (40, 72)])
 def test_tiled_plain_twins_match_untiled_and_jax_vjp(P, N):
-    """`ssd_fwd_tiled` / `ssd_bwd_tiled` past the kernels' limits (width
-    slices of 32, d_state tiles of 64, composed from the plain twins)
-    against the untiled plain twins and the XLA form: y, the final state
-    and the checkpoints within 1e-5, the gradients within 1e-4; through
-    `ssd_chunk_scan_heads` under autograd every gradient within 1e-4 of
-    ``jax.vjp``."""
+    """`ssd_fwd` / `ssd_bwd` past one slab of the kernels' blocks (width
+    past 32, d_state past 64: on the card a block per slab, the slabs'
+    parts summed), on CPU tensors their plain twins, against the plain
+    passes and the XLA form: y, the final state and the checkpoints within
+    1e-5, the gradients within 1e-4; through `ssd_chunk_scan_heads` under
+    autograd every gradient within 1e-4 of ``jax.vjp``."""
     b, s, h, g, chunk = 1, 100, 4, 2, 64
     ops = _ssd_operands(P + N, b, s, h, P, g, N)
     x, dt, A, B, C, D, bias, init = args = _kernel_layout(ops)
-    y, fin, states = ssd_chunk.ssd_fwd_tiled(*args, save_states=True)
+    y, fin, states = ssd_chunk.ssd_fwd(*args, save_states=True)
     want = ssd_chunk.ssd_fwd_plain(*args, save_states=True)
     for got, w in zip((y, fin, states), want):
         assert _rel(got, w) <= 1e-5
     rng = np.random.default_rng(13)
     dy, dfin = (T(rng.standard_normal(t.shape).astype(np.float32)) for t in (x, fin))
-    got = ssd_chunk.ssd_bwd_tiled(x, dt, A, B, C, D, bias, states, dy, dfin)
+    got = ssd_chunk.ssd_bwd(x, dt, A, B, C, D, bias, states, dy, dfin)
     want = ssd_chunk.ssd_bwd_plain(x, dt, A, B, C, D, bias, want[2], dy, dfin)
     for name in NAMES:     # sums over the tiles' calls, reassociated
         assert _rel(got[name], want[name]) <= 1e-4, name
@@ -439,19 +439,24 @@ def test_tiled_plain_twins_match_untiled_and_jax_vjp(P, N):
 
 
 def test_kernel_limits():
-    """What the CUDA kernels refuse, checked before a launch: another chunk
-    than 64, or a state or head width beyond their shared memory."""
+    """What the CUDA kernels refuse, checked before a launch: a chunk below
+    one position, or a state or head width past the JAX gate's 512 and 128
+    (their blocks take slabs of 64 x 32, and a call every slab); any
+    positive chunk passes."""
     def args(L, R, P, N):
         return (torch.zeros(1, 1, L, R, P), torch.zeros(1, 1, L, R), torch.zeros(R),
                 torch.zeros(1, 1, L, N), torch.zeros(1, 1, L, N), None, None)
 
-    ssd_chunk._check(*args(70, 2, 16, 64), 64)
-    with pytest.raises(ValueError, match="chunk 64"):
-        ssd_chunk._check(*args(70, 2, 16, 64), 32)
-    with pytest.raises(ValueError, match="d_state 128"):
-        ssd_chunk._check(*args(70, 2, 16, 128), 64)
-    with pytest.raises(ValueError, match="head width 64"):
-        ssd_chunk._check(*args(70, 2, 64, 64), 64)
+    for chunk in (64, 32, 24, 128, 72):
+        assert ssd_chunk._check(*args(70, 2, 16, 64), chunk)[-1] == ssd_chunk.pieces(70, chunk)
+    with pytest.raises(ValueError, match="chunk 0"):
+        ssd_chunk._check(*args(70, 2, 16, 64), 0)
+    ssd_chunk._check(*args(70, 2, 128, 512), 64)
+    assert ssd_chunk.slabs(512, 128) == (8, 4) and ssd_chunk.slabs(64, 16) == (1, 1)
+    with pytest.raises(ValueError, match="d_state 520"):
+        ssd_chunk._check(*args(70, 2, 16, 520), 64)
+    with pytest.raises(ValueError, match="head width 136"):
+        ssd_chunk._check(*args(70, 2, 136, 64), 64)
 
 
 # ---------------------------------------------------------------------------
@@ -518,9 +523,15 @@ def _leaf(tree, path):
 
 
 def test_m0_refuses_what_is_not_ported():
+    """m0 with its z-gate and a carried state build (tests/test_torch_m0.py
+    holds them against JAX); a carried state on another forward type, or a
+    dt_rank that does not divide d_inner, is refused."""
     for kw in (dict(forward_type="m0"), dict(forward_type="m0_noz", with_initial_state=True)):
-        with pytest.raises(ValueError):
-            SS2D(16, d_state=8, ssm_ratio=1.0, **kw)
+        SS2D(16, d_state=8, ssm_ratio=1.0, **kw)
+    with pytest.raises(ValueError, match="carried state"):
+        SS2D(16, d_state=8, forward_type="v05_noz", with_initial_state=True)
+    with pytest.raises(ValueError, match="dt_rank"):
+        SS2D(16, d_state=8, ssm_ratio=1.0, dt_rank=3, forward_type="m0")
 
 
 TINY_M2 = dict(depths=(1, 1, 1, 1), dims=16, num_classes=10, ssm_d_state=8, ssm_ratio=1.0,

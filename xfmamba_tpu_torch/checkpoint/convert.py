@@ -2,10 +2,11 @@
 inverse of ``xfmamba_tpu/checkpoint/convert.py``), both ways.
 
 `load_jax_variables` takes the flax variables of a JAX module as nested
-dicts of numpy arrays (``{"params": ..., "batch_stats": ...}``; a
-``"perturbations"`` collection is ignored) and fills the state dict of its
-port counterpart.  It works for the whole `TwoViewXFMamba` and for any
-submodule whose JAX twin has the matching tree (a VSSBlock, a fusion op).
+dicts of numpy arrays (``{"params": ..., "batch_stats": ...,
+"ssm_state": ...}``; a ``"perturbations"`` collection is ignored) and fills
+the state dict of its port counterpart.  It works for the whole
+`TwoViewXFMamba` and for any submodule whose JAX twin has the matching
+tree (a VSSBlock, a fusion op).
 
 Names: a port key is renamed to the JAX path in two steps.  First each
 module on the path may rename its children through a ``JAX_NAMES`` dict
@@ -20,7 +21,9 @@ follows the port module's type: a Dense ``weight`` (out, in) is the
 flax ``kernel`` (in, out); a conv ``weight`` (out, in/g, kh, kw) is the
 flax ``conv/kernel`` (kh, kw, in/g, out); norm ``weight`` is ``scale``; a
 BatchNorm's ``running_mean``/``running_var`` are ``batch_stats``
-``mean``/``var``.  Any missing, extra or misshapen entry raises.
+``mean``/``var``; an m0 SS2D's carried ``initial_state`` buffer is the
+``ssm_state`` collection's ``initial_state``, in the same layout.  Any
+missing, extra or misshapen entry raises.
 
 `jax_paths` gives, for each port state-dict entry, its JAX path and both
 layout maps, so a test can hold port gradients against JAX ones leaf by
@@ -38,6 +41,10 @@ import torch
 from torch import nn
 
 from xfmamba_tpu_torch.models.layers import BatchNorm, Conv2dSame, Dense, LayerNorm
+from xfmamba_tpu_torch.models.ss2d import SS2D
+
+# the flax collections the port holds
+_COLLECTIONS = ("params", "batch_stats", "ssm_state")
 
 # port module path -> JAX module path, applied in order on the dotted path
 # after each module's JAX_NAMES
@@ -89,6 +96,8 @@ def _leaf_rule(module: nn.Module, leaf: str):
                  "running_var": ("batch_stats", "var")}
         coll, name = names[leaf]
         return coll, (name,), _same, _same
+    if isinstance(module, SS2D) and leaf == "initial_state":
+        return "ssm_state", (leaf,), _same, _same
     return "params", (leaf,), _same, _same
 
 
@@ -108,8 +117,8 @@ def jax_paths(model: nn.Module) -> dict:
 
 
 def export_jax_variables(model: nn.Module) -> dict:
-    """The port's ``params`` and ``batch_stats`` as nested dicts of float32
-    numpy arrays in the JAX package's layout."""
+    """The port's ``params``, ``batch_stats`` and ``ssm_state`` as nested
+    dicts of float32 numpy arrays in the JAX package's layout."""
     variables = {}
     state = model.state_dict()
     for key, (jpath, _, to_jax) in jax_paths(model).items():
@@ -133,9 +142,9 @@ def _flatten(tree, prefix=()):
 def load_jax_variables(model: nn.Module, variables) -> None:
     """Copy flax ``variables`` (nested dicts of arrays) into ``model``."""
     flat = {}
-    for coll in ("params", "batch_stats"):
+    for coll in _COLLECTIONS:
         flat.update({(coll,) + k: v for k, v in _flatten(variables.get(coll, {})).items()})
-    unknown = set(variables) - {"params", "batch_stats", "perturbations"}
+    unknown = set(variables) - {*_COLLECTIONS, "perturbations"}
     if unknown:
         raise ValueError(f"unexpected variable collections {sorted(unknown)}")
     used = set()

@@ -6,8 +6,7 @@
 // ::_ssd_bwd_kernel (:356, pallas_call :581).  Layout (group-major): x and
 // y (b, g, L, R, P), dt (b, g, L, R), B and C (b, g, L, N); head
 // h = k * R + r of group k reads B[b, k] and C[b, k].  Per head and chunk
-// j of c = 64 positions (rows past L: dt 0, so decay 1 and no
-// contribution):
+// j of c positions (rows past L: dt 0, so decay 1 and no contribution):
 //   dt  = softplus20(dt_raw + bias_h),  cum = inclusive cumsum of A_h dt,
 //   w   = cum[c - 1]
 //   M   = (C_j B_j^T) * exp(cum_i - cum_l) [i >= l]
@@ -15,6 +14,27 @@
 //   s_{j+1} = exp(w_j) s_j + B_j^T ((dt x) exp(w_j - cum))
 // with s_0 the initial state (or zeros) and s_j (N x P per head) the state
 // entering chunk j.
+//
+// Any d_state up to 512 and head width up to 128 (the JAX gate's): a
+// block holds a slab of the state, at most kMaxN = 64 rows of N by kMaxP =
+// 32 columns of P (one head's float32 state at 512 x 128 is 256 KiB, past
+// a block's shared memory), and the grid has a block per slab.  The
+// columns of P are independent, and y and every gradient are sums over n
+// (the gradients also over q) of products of one factor from each: each
+// slab computes its part, which it writes where it alone covers an output,
+// else into a float32 workspace of parts that ssd_sum_kernel adds in slab
+// order (no atomics between slabs); D's terms are the first slab of N's.
+// One slab (d_state 64, head width 32 or less: the m2 classifiers') is the
+// plan as it was, with the same launches.
+//
+// Chunks of any length: a block takes a piece of at most kC = 64 rows that
+// never crosses a chunk's end; a chunk of c <= 64 positions is one piece,
+// padded inside the 64-row tile (rows from c on are zero, as the last
+// chunk's rows past L are), and a longer chunk is cut into pieces of 64
+// and its remainder, in order.  Since the chunk's sums are the pieces'
+// sums carried from one piece to the next, the pieces stand where the
+// description below says chunks; the states array holds the state
+// entering each piece, among them the state entering each chunk.
 //
 // Design: the serial chunk walk (ssd_serial.cu) is cut into three
 // launches, so every chunk runs in parallel except a pass that only moves
@@ -80,7 +100,10 @@ constexpr int kC = 64;          // positions per chunk
 constexpr int kThreads = 256;   // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxTile = 8;     // heads per block
-constexpr int kMaxP = 32;       // head width
+constexpr int kMaxP = 32;       // head width of a block: a slab of P
+constexpr int kMaxN = 64;       // d_state of a block: a slab of N
+constexpr int kMaxNf = 512;     // the whole d_state and head width a call takes
+constexpr int kMaxPf = 128;
 constexpr int kPad = 4;         // floats of padding per shared row
 constexpr int kLdc = kC + kPad;
 constexpr size_t kMaxSmem = 232448;
@@ -108,7 +131,23 @@ struct Params {
   float* dbias;       // (g * R,), accumulated
   float* dD;          // (g * R, P), accumulated
   int L, g, R, P, N, nc, tile;
+  int chunk;          // positions per chunk; nc counts the pieces (pieces())
+  int ns, ps;         // slabs of N (kMaxN rows) and of P (kMaxP columns)
+  // the slabs' parts where more than one slab adds to an output, each a
+  // stride apart in slab order (see the kernels), else null
+  float* part;        // y (scan) or dx (grads): ns parts of (b, g, L, R, P)
+  float* part_dt;     // ddt: ns * ps parts of (b, g, L, R)
+  float* part_B;      // dB and dC: ps parts of (b, g, L, N) each, zeroed by the caller
+  float* part_C;
+  long long stride, stride_dt, stride_BC;
 };
+
+// The pieces of a sequence of L positions in chunks of c: per chunk
+// ceil(c / kC) pieces, the last chunk's only as far as L reaches.
+__host__ __device__ inline int pieces(int L, int c) {
+  const int ppc = (c + kC - 1) / kC, full = (L - 1) / c;  // chunks before the last
+  return full * ppc + (L - full * c + kC - 1) / kC;
+}
 
 // the products' precision for operands of type T
 template <typename T>
@@ -216,31 +255,43 @@ __device__ __forceinline__ void warp_cum(float2 raw, int cnt, float a_h, float b
 }
 
 // The tile's per-head parameters into shared memory: A, bias (0 where
-// absent) and, when D is given, D's rows (tile x P).
+// absent) and, when D is given, the slab's columns p0.. of D's rows
+// (tile x P; D's rows are Pf wide).
 __device__ __forceinline__ void stage_params(const float* A, const float* bias, const float* Dm,
-                                             long long h0, int tile, int P, float* A_s,
-                                             float* bias_s, float* D_s) {
+                                             long long h0, int tile, int P, int Pf, int p0,
+                                             float* A_s, float* bias_s, float* D_s) {
   for (int e = threadIdx.x; e < tile; e += blockDim.x) {
     A_s[e] = A[h0 + e];
     bias_s[e] = bias ? bias[h0 + e] : 0.f;
   }
   if (Dm && D_s)
-    for (int e = threadIdx.x; e < tile * P; e += blockDim.x) D_s[e] = Dm[h0 * P + e];
+    for (int e = threadIdx.x; e < tile * P; e += blockDim.x)
+      D_s[e] = Dm[(h0 + e / P) * Pf + p0 + e % P];
 }
 
-// The block's (group k, first head r0, image b, chunk ci) from the grid
-// (chunk, group x tile, image).
+// The block's (group k, first head r0, image b, piece ci: rows t0 to
+// t0 + cnt; slab: states rows n0 to n0 + N, head columns p0 to p0 + P) from
+// the grid (piece, (group x tile) x slab, image).
 struct Where {
-  int ci, k, r0, t0, cnt;
+  int ci, k, r0, t0, cnt, slab, nsl, psl, n0, p0, N, P;
   long long bg;
   __device__ Where(const Params& p) {
-    const int ntile = p.R / p.tile;
+    const int ntile = p.R / p.tile, nslab = p.ns * p.ps;
     ci = blockIdx.x;
-    k = blockIdx.y / ntile;
-    r0 = (blockIdx.y - k * ntile) * p.tile;
+    slab = blockIdx.y % nslab;
+    const int kt = blockIdx.y / nslab;
+    k = kt / ntile;
+    r0 = (kt - k * ntile) * p.tile;
+    nsl = slab / p.ps;
+    psl = slab - nsl * p.ps;
+    n0 = nsl * kMaxN;
+    p0 = psl * kMaxP;
+    N = min(kMaxN, p.N - n0);
+    P = min(kMaxP, p.P - p0);
     bg = static_cast<long long>(blockIdx.z) * p.g + k;
-    t0 = ci * kC;
-    cnt = min(kC, p.L - t0);
+    const int ppc = (p.chunk + kC - 1) / kC, j = ci / ppc, q = ci - j * ppc;
+    t0 = j * p.chunk + q * kC;
+    cnt = min(min(kC, p.chunk - q * kC), p.L - t0);
   }
 };
 
@@ -260,19 +311,19 @@ template <typename T, typename S, bool ADJ, int NT>
 __global__ void __launch_bounds__(kThreads) ssd_state_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   constexpr Prec PR = kPrec<T>;
-  const int N = p.N, P = p.P, R = p.R, ldn = N + kPad, ldp = P + kPad, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid & 31;
-  float* Ms = smem;                      // kC x ldn: B (or C) of the chunk
+  const Where w(p);
+  const int N = w.N, P = w.P, Nf = p.N, Pf = p.P, R = p.R, ldn = N + kPad, ldp = P + kPad;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
+  float* Ms = smem;                      // kC x ldn: the slab of B (or C) of the chunk
   float* heads = Ms + kC * ldn;          // per head: src kC x ldp, weights, dt, c2
   const int per_head = kC * ldp + 3 * kC;
-  const Where w(p);
-  const T* mat = static_cast<const T*>(ADJ ? p.Cm : p.Bm) + (w.bg * p.L + w.t0) * N;
-  load_rows(Ms, ldn, mat, N, kC, w.cnt, N);
+  const T* mat = static_cast<const T*>(ADJ ? p.Cm : p.Bm) + (w.bg * p.L + w.t0) * Nf + w.n0;
+  load_rows(Ms, ldn, mat, Nf, kC, w.cnt, N);
   const S* src = static_cast<const S*>(ADJ ? static_cast<const void*>(p.dy) : p.x);
   const long long row0 = (w.bg * p.L + w.t0) * R + w.r0;  // (first position, first head)
   for (int hh = 0; hh < p.tile; ++hh)
-    load_rows(heads + hh * per_head, ldp, src + (row0 + hh) * P, static_cast<long long>(R) * P,
-              kC, w.cnt, P);
+    load_rows(heads + hh * per_head, ldp, src + (row0 + hh) * Pf + w.p0,
+              static_cast<long long>(R) * Pf, kC, w.cnt, P);
   cp_async_commit();
   if (warp < p.tile) {
     const int hh = warp, head = w.k * R + w.r0 + hh;
@@ -284,7 +335,7 @@ __global__ void __launch_bounds__(kThreads) ssd_state_kernel(Params p) {
     __syncwarp();
     const float wt = c2[kC - 1];
     for (int i = lane; i < kC; i += 32) ws[i] = ADJ ? exp2f(c2[i]) : dts[i] * exp2f(wt - c2[i]);
-    if (lane == 0) p.decay[(w.bg * R + w.r0 + hh) * p.nc + w.ci] = exp2f(wt);
+    if (lane == 0 && w.slab == 0) p.decay[(w.bg * R + w.r0 + hh) * p.nc + w.ci] = exp2f(wt);
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -297,13 +348,14 @@ __global__ void __launch_bounds__(kThreads) ssd_state_kernel(Params p) {
     mma_tiles<PR, NT>(
         acc, [&](int n, int i) { return Ms[i * ldn + n]; },
         [&](int i, int q) { return Ss[i * ldp + q] * ws[i]; }, m0, 0, N, P, 0, w.cnt);
-    float* out = p.st + ((w.bg * R + w.r0 + hh) * p.nc + w.ci) * static_cast<long long>(N * P);
+    float* out = p.st + ((w.bg * R + w.r0 + hh) * p.nc + w.ci) * static_cast<long long>(Nf * Pf) +
+                 w.n0 * Pf + w.p0;
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int n = tile_row(m0, e), q = tile_col(8 * j, e);
-        if (n < N && q < P) out[n * P + q] = acc[j][e];
+        if (n < N && q < P) out[n * Pf + q] = acc[j][e];
       }
   }
 }
@@ -370,13 +422,18 @@ __device__ __forceinline__ void chunk_cb(const float* Cs, const float* Bs, int l
 // (c) y of each head of the tile from the state entering its chunk (st).
 // Every head is staged at once; then each warp takes (head, 16 rows)
 // units: M (dt x) with M = C B^T exp2(c2_i - c2_l) built in the A
-// fragment, and C s, over the NT column tiles of P.
+// fragment, and C s, over the NT column tiles of P.  y is linear in the
+// sum over n, so a slab of N gives its part of y (C B^T and C s over its
+// rows of N; D x in the first slab's): with one slab of N the block writes
+// y, else its part into p.part (float32, slab nsl at nsl * stride), which
+// ssd_sum_kernel adds in slab order.
 template <typename T, int NT>
 __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   constexpr Prec PR = kPrec<T>;
-  const int N = p.N, P = p.P, R = p.R, ldn = N + kPad, ldp = P + kPad, tid = threadIdx.x;
-  const int warp = tid / 32;
+  const Where w(p);
+  const int N = w.N, P = w.P, Nf = p.N, Pf = p.P, R = p.R, ldn = N + kPad, ldp = P + kPad;
+  const int tid = threadIdx.x, warp = tid / 32;
   float* Bs = smem;
   float* Cs = Bs + kC * ldn;
   float* CB = Cs + kC * ldn;       // kC x kLdc
@@ -385,17 +442,18 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(Params p) {
   float* bias_s = A_s + kMaxTile;
   float* heads = bias_s + kMaxTile;  // per head: x kC x ldp, s N x ldp, dt, c2
   const int per_head = kC * ldp + N * ldp + 2 * kC;
-  const Where w(p);
-  const long long rowBC = (w.bg * p.L + w.t0) * N;
+  const long long rowBC = (w.bg * p.L + w.t0) * Nf + w.n0;
   const long long row0 = (w.bg * p.L + w.t0) * R + w.r0;
-  const long long NP = static_cast<long long>(N) * P;
-  load_rows(Bs, ldn, static_cast<const T*>(p.Bm) + rowBC, N, kC, w.cnt, N);
-  load_rows(Cs, ldn, static_cast<const T*>(p.Cm) + rowBC, N, kC, w.cnt, N);
+  const long long NP = static_cast<long long>(Nf) * Pf;
+  const float* Dm = w.nsl == 0 ? p.Dm : nullptr;  // D x in the first slab of N alone
+  load_rows(Bs, ldn, static_cast<const T*>(p.Bm) + rowBC, Nf, kC, w.cnt, N);
+  load_rows(Cs, ldn, static_cast<const T*>(p.Cm) + rowBC, Nf, kC, w.cnt, N);
   for (int hh = 0; hh < p.tile; ++hh) {
     float* xs = heads + hh * per_head;
-    load_rows(xs, ldp, static_cast<const T*>(p.x) + (row0 + hh) * P,
-              static_cast<long long>(R) * P, kC, w.cnt, P);
-    load_rows(xs + kC * ldp, ldp, p.st + ((w.bg * R + w.r0 + hh) * p.nc + w.ci) * NP, P, N, N,
+    load_rows(xs, ldp, static_cast<const T*>(p.x) + (row0 + hh) * Pf + w.p0,
+              static_cast<long long>(R) * Pf, kC, w.cnt, P);
+    load_rows(xs + kC * ldp, ldp,
+              p.st + ((w.bg * R + w.r0 + hh) * p.nc + w.ci) * NP + w.n0 * Pf + w.p0, Pf, N, N,
               P);
   }
   cp_async_commit();
@@ -405,7 +463,7 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(Params p) {
     warp_cum(dt_pair(static_cast<const T*>(p.dt) + row0 + warp, w.cnt, R), w.cnt,
              p.A[h0 + warp], p.bias ? p.bias[h0 + warp] : 0.f, nullptr, dts, dts + kC);
   }
-  stage_params(p.A, p.bias, p.Dm, h0, p.tile, P, A_s, bias_s, D_s);
+  stage_params(p.A, p.bias, Dm, h0, p.tile, P, Pf, w.p0, A_s, bias_s, D_s);
   cp_async_wait<0>();
   __syncthreads();
   chunk_cb<PR, kWarps>(Cs, Bs, ldn, N, CB);
@@ -427,7 +485,8 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(Params p) {
     mma_tiles<PR, NT>(
         a2, [&](int i, int n) { return Cs[i * ldn + n]; },
         [&](int n, int q) { return sts[n * ldp + q]; }, m0, 0, kC, P, 0, N);
-    const float* Dh = p.Dm ? D_s + hh * P : nullptr;
+    const float* Dh = Dm ? D_s + hh * P : nullptr;
+    float* part = p.ns > 1 ? p.part + w.nsl * p.stride : nullptr;
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -436,7 +495,11 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(Params p) {
         if (i < w.cnt && q < P) {
           const float v = fmaf(a2[j][e], exp2f(c2[i]), a1[j][e]) +
                           (Dh ? Dh[q] * xs[i * ldp + q] : 0.f);
-          y[(row0 + hh + static_cast<long long>(i) * R) * P + q] = from_f32<T>(v);
+          const long long o = (row0 + hh + static_cast<long long>(i) * R) * Pf + w.p0 + q;
+          if (part)
+            part[o] = v;
+          else
+            y[o] = from_f32<T>(v);
         }
       }
   }
@@ -453,7 +516,13 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(Params p) {
 // columns in registers and whose dM * E they add to dCB in shared memory
 // (each warp its own rows); every warp adds its (16 x 16) tiles of the
 // chunk's dC and dB in registers.  After the heads: dC += dCB B,
-// dB += dCB^T C.
+// dB += dCB^T C.  A slab (of N and of P) gives its part of every gradient:
+// each is a sum over n and q of products of one factor from each, so the
+// parts of all the slabs sum to it.  Where one slab covers an output the
+// block writes it (dx with one slab of N, ddt with one slab, dB and dC
+// with one slab of P), else its part goes to p.part (dx), p.part_dt (ddt)
+// or p.part_B / p.part_C (dB, dC), which ssd_sum_kernel adds in slab
+// order; dD is the first slab of N's.
 constexpr int kGradThreads = 512;
 constexpr int kGradWarps = kGradThreads / 32;
 
@@ -461,8 +530,9 @@ template <typename T, int NT>
 __global__ void __launch_bounds__(kGradThreads) ssd_grad_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   constexpr Prec PR = kPrec<T>;
-  const int N = p.N, P = p.P, R = p.R, ldn = N + kPad, ldp = P + kPad, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid & 31;
+  const Where w(p);
+  const int N = w.N, P = w.P, Nf = p.N, Pf = p.P, R = p.R, ldn = N + kPad, ldp = P + kPad;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
   float* Bs = smem;
   float* Cs = Bs + kC * ldn;
   float* CB = Cs + kC * ldn;      // kC x kLdc each: C B^T, E of the head, dCB
@@ -498,25 +568,26 @@ __global__ void __launch_bounds__(kGradThreads) ssd_grad_kernel(Params p) {
     hb.c2 = hb.dts + kC;
     return hb;
   };
-  const Where w(p);
-  const long long rowBC = (w.bg * p.L + w.t0) * N;
+  const long long rowBC = (w.bg * p.L + w.t0) * Nf + w.n0;
   const long long row0 = (w.bg * p.L + w.t0) * R + w.r0;
-  const long long NP = static_cast<long long>(N) * P;
+  const long long NP = static_cast<long long>(Nf) * Pf, slab_at = w.n0 * Pf + w.p0;
+  const float* Dm = w.nsl == 0 ? p.Dm : nullptr;  // D's terms in the first slab of N alone
   // head hh's operands into buffer hh & 1 (the caller commits)
   auto stage = [&](int hh) {
     const HeadBuf hb = buf(hh & 1);
     const long long hrow = w.bg * R + w.r0 + hh;
-    load_rows(hb.xs, ldp, static_cast<const T*>(p.x) + (row0 + hh) * P,
-              static_cast<long long>(R) * P, kC, w.cnt, P);
-    load_rows(hb.ys, ldp, p.dy + (row0 + hh) * P, static_cast<long long>(R) * P, kC, w.cnt, P);
-    load_rows(hb.st, ldp, p.ck + (hrow * p.nc + w.ci) * NP, P, N, N, P);
-    load_rows(hb.ds, ldp, p.st + (hrow * p.nc + w.ci) * NP, P, N, N, P);
+    load_rows(hb.xs, ldp, static_cast<const T*>(p.x) + (row0 + hh) * Pf + w.p0,
+              static_cast<long long>(R) * Pf, kC, w.cnt, P);
+    load_rows(hb.ys, ldp, p.dy + (row0 + hh) * Pf + w.p0, static_cast<long long>(R) * Pf, kC,
+              w.cnt, P);
+    load_rows(hb.st, ldp, p.ck + (hrow * p.nc + w.ci) * NP + slab_at, Pf, N, N, P);
+    load_rows(hb.ds, ldp, p.st + (hrow * p.nc + w.ci) * NP + slab_at, Pf, N, N, P);
   };
   // the next head's cumsum: warp kCumWarp loads its raw dt early and scans late
   constexpr int kCumWarp = kGradWarps - 1;
   const long long h0 = static_cast<long long>(w.k) * R + w.r0;
-  load_rows(Bs, ldn, static_cast<const T*>(p.Bm) + rowBC, N, kC, w.cnt, N);
-  load_rows(Cs, ldn, static_cast<const T*>(p.Cm) + rowBC, N, kC, w.cnt, N);
+  load_rows(Bs, ldn, static_cast<const T*>(p.Bm) + rowBC, Nf, kC, w.cnt, N);
+  load_rows(Cs, ldn, static_cast<const T*>(p.Cm) + rowBC, Nf, kC, w.cnt, N);
   stage(0);
   cp_async_commit();
   if (warp == kCumWarp) {
@@ -524,7 +595,7 @@ __global__ void __launch_bounds__(kGradThreads) ssd_grad_kernel(Params p) {
     warp_cum(dt_pair(static_cast<const T*>(p.dt) + row0, w.cnt, R), w.cnt, p.A[h0],
              p.bias ? p.bias[h0] : 0.f, hb.zs, hb.dts, hb.c2);
   }
-  stage_params(p.A, p.bias, p.Dm, h0, p.tile, P, A_s, bs_s, D_s);
+  stage_params(p.A, p.bias, Dm, h0, p.tile, P, Pf, w.p0, A_s, bs_s, D_s);
   for (int e = tid; e < kC * kLdc; e += kGradThreads) dCB[e] = 0.f;
   for (int e = tid; e < 2 * kMaxTile + p.tile * P; e += kGradThreads) dA_s[e] = 0.f;
   // a head's exp(cum), exp(w - cum) and E from its c2, and zeroed dS sums,
@@ -665,7 +736,7 @@ __global__ void __launch_bounds__(kGradThreads) ssd_grad_kernel(Params p) {
       }
     }
     float u = 0.f;
-    for (long long e = tid; e < NP; e += kGradThreads) {
+    for (int e = tid; e < N * P; e += kGradThreads) {
       const int n = static_cast<int>(e / P), q = static_cast<int>(e - n * P);
       u = fmaf(dss[n * ldp + q], sts[n * ldp + q], u);
     }
@@ -697,7 +768,9 @@ __global__ void __launch_bounds__(kGradThreads) ssd_grad_kernel(Params p) {
       const float z = hb.zs[j];
       const float sig = z > 20.f ? 1.f : 1.f / (1.f + expf(-z));
       const float dsp = j < w.cnt ? gr * sig : 0.f;
-      if (j < w.cnt) p.ddt[row0 + hh + static_cast<long long>(j) * R] = dsp;
+      if (j < w.cnt)
+        (p.ns * p.ps > 1 ? p.part_dt + w.slab * p.stride_dt
+                         : p.ddt)[row0 + hh + static_cast<long long>(j) * R] = dsp;
       const float sA = warp_sum(dw * dts[j]), sb = warp_sum(dsp);
       if (lane == 0) {
         atomicAdd(dA_s + hh, sA);
@@ -705,10 +778,11 @@ __global__ void __launch_bounds__(kGradThreads) ssd_grad_kernel(Params p) {
       }
     } else if (warp < kCumWarp) {
       const int t = tid - kC, nt = (kCumWarp - 2) * 32;
-      const float* Dh = p.Dm ? D_s + hh * P : nullptr;
+      const float* Dh = Dm ? D_s + hh * P : nullptr;
+      float* dx = p.ns > 1 ? p.part + w.nsl * p.stride : p.dx;
       for (int e = t; e < w.cnt * P; e += nt) {
         const int i = e / P, q = e - i * P;
-        p.dx[(row0 + hh + static_cast<long long>(i) * R) * P + q] =
+        dx[(row0 + hh + static_cast<long long>(i) * R) * Pf + w.p0 + q] =
             fmaf(dds[i * ldp + q], dts[i], Dh ? dys[i * ldp + q] * Dh[q] : 0.f);
       }
       // dD: column sums of dy x over the chunk's rows
@@ -731,29 +805,45 @@ __global__ void __launch_bounds__(kGradThreads) ssd_grad_kernel(Params p) {
     mma_tiles<PR, 2>(
         accB, [&](int j, int i) { return dCB[i * kLdc + j]; },
         [&](int i, int n) { return Cs[i * ldn + n]; }, mc, nc0, kC, N, mc, kC);
-    const bool sole = p.tile == R;  // no other block adds to these rows
+    const bool sole = p.tile == R;  // no other block of this slab adds to these rows
+    float* dC = p.ps > 1 ? p.part_C + w.psl * p.stride_BC : p.dC;
+    float* dB = p.ps > 1 ? p.part_B + w.psl * p.stride_BC : p.dB;
 #pragma unroll
     for (int jt = 0; jt < 2; ++jt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = tile_row(mc, e), n = tile_col(nc0 + 8 * jt, e);
         if (i < w.cnt && n < N) {
-          const long long o = rowBC + static_cast<long long>(i) * N + n;
+          const long long o = rowBC + static_cast<long long>(i) * Nf + n;
           if (sole) {
-            p.dC[o] = accC[jt][e];
-            p.dB[o] = accB[jt][e];
+            dC[o] = accC[jt][e];
+            dB[o] = accB[jt][e];
           } else {
-            atomicAdd(p.dC + o, accC[jt][e]);
-            atomicAdd(p.dB + o, accB[jt][e]);
+            atomicAdd(dC + o, accC[jt][e]);
+            atomicAdd(dB + o, accB[jt][e]);
           }
         }
       }
   }
-  for (int e = tid; e < p.tile * P; e += kGradThreads) atomicAdd(p.dD + h0 * P + e, dD_s[e]);
+  if (w.nsl == 0)
+    for (int e = tid; e < p.tile * P; e += kGradThreads)
+      atomicAdd(p.dD + (h0 + e / P) * Pf + w.p0 + e % P, dD_s[e]);
   if (tid < p.tile) {
     atomicAdd(p.dA + h0 + tid, dA_s[tid]);
     atomicAdd(p.dbias + h0 + tid, dbias_s[tid]);
   }
+}
+
+// out[e] = the sum of parts[s * n + e] over the slabs s < parts, in slab
+// order, as T (float or bfloat16): the slabs' parts of y, dx, ddt, dB or dC.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ssd_sum_kernel(const float* part, long long n,
+                                                            int parts, T* out) {
+  const long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (e >= n) return;
+  float v = part[e];
+  for (int s = 1; s < parts; ++s) v += part[s * n + e];
+  out[e] = from_f32<T>(v);
 }
 
 // Shared memory of each block kernel, in bytes.
@@ -786,12 +876,16 @@ int pick_tile(long long blocks, int R, int sms, size_t (*smem)(int, int, int), i
   return best;
 }
 
-// Validates the geometry and fills nc; sms gets the SM count.
+// Validates the geometry and fills nc and the slab counts; sms gets the SM
+// count.
 cudaError_t prepare(Params& p, int b, int* sms) {
   if (b < 1 || b > 65535 || p.L < 1 || p.g < 1 || p.R < 1 || p.N < 2 || p.N % 2 ||
-      p.N > 64 || p.P < 2 || p.P % 2 || p.P > 32 || static_cast<long long>(p.g) * p.R > 65535)
+      p.N > kMaxNf || p.P < 2 || p.P % 2 || p.P > kMaxPf || p.chunk < 1)
     return cudaErrorInvalidValue;
-  p.nc = ceil_div(p.L, kC);
+  p.nc = pieces(p.L, p.chunk);
+  p.ns = ceil_div(p.N, kMaxN);
+  p.ps = ceil_div(p.P, kMaxP);
+  if (static_cast<long long>(p.g) * p.R * p.ns * p.ps > 65535) return cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
@@ -799,12 +893,14 @@ cudaError_t prepare(Params& p, int b, int* sms) {
 }
 
 // Picks the tile for a kernel with the given shared memory and budget,
-// and returns the grid (chunk, group x tile, image) and the bytes.
+// and returns the grid (piece, (group x tile) x slab, image) and the bytes.
 dim3 plan(Params& p, int b, int sms, size_t (*smem)(int, int, int), size_t budget,
           size_t* bytes) {
-  p.tile = pick_tile(static_cast<long long>(b) * p.g * p.nc, p.R, sms, smem, p.N, p.P, budget);
-  *bytes = smem(p.N, p.P, p.tile);
-  return dim3(p.nc, p.g * (p.R / p.tile), b);
+  const int N = min(p.N, kMaxN), P = min(p.P, kMaxP), slabs = p.ns * p.ps;
+  p.tile = pick_tile(static_cast<long long>(b) * p.g * p.nc * slabs, p.R, sms, smem, N, P,
+                     budget);
+  *bytes = smem(N, P, p.tile);
+  return dim3(p.nc, p.g * (p.R / p.tile) * slabs, b);
 }
 
 // Launches a block kernel.  At a kernel's first launch (outside any stream
@@ -881,7 +977,7 @@ using namespace xfm::ssd;
 
 extern "C" int xfm_ssd_chunk_state(const void* src, const void* dt, const void* mat,
                                    const float* A, const float* bias, float* st, float* decay,
-                                   int b, int L, int g, int R, int P, int N, int dtype,
+                                   int b, int L, int g, int R, int P, int N, int chunk, int dtype,
                                    int adjoint, void* stream) {
   Params p{};
   p.x = src;
@@ -897,6 +993,7 @@ extern "C" int xfm_ssd_chunk_state(const void* src, const void* dt, const void* 
   p.R = R;
   p.P = P;
   p.N = N;
+  p.chunk = chunk;
   int sms = 0;
   cudaError_t err = prepare(p, b, &sms);
   if (err != cudaSuccess) return err;
@@ -904,12 +1001,13 @@ extern "C" int xfm_ssd_chunk_state(const void* src, const void* dt, const void* 
   const dim3 grid = plan(p, b, sms, state_smem, kHalfSmem, &smem);
   auto s = static_cast<cudaStream_t>(stream);
   using BF = __nv_bfloat16;
+  const int t = min(P, kMaxP);
   if (dtype == kF32)
-    return adjoint ? by_tiles<StatePick<float, float, true>::At>(P, grid, kThreads, smem, s, p)
-                   : by_tiles<StatePick<float, float, false>::At>(P, grid, kThreads, smem, s, p);
+    return adjoint ? by_tiles<StatePick<float, float, true>::At>(t, grid, kThreads, smem, s, p)
+                   : by_tiles<StatePick<float, float, false>::At>(t, grid, kThreads, smem, s, p);
   if (dtype == kBF16)
-    return adjoint ? by_tiles<StatePick<BF, float, true>::At>(P, grid, kThreads, smem, s, p)
-                   : by_tiles<StatePick<BF, BF, false>::At>(P, grid, kThreads, smem, s, p);
+    return adjoint ? by_tiles<StatePick<BF, float, true>::At>(t, grid, kThreads, smem, s, p)
+                   : by_tiles<StatePick<BF, BF, false>::At>(t, grid, kThreads, smem, s, p);
   return cudaErrorInvalidValue;
 }
 
@@ -929,8 +1027,9 @@ extern "C" int xfm_ssd_state_pass(float* buf, const float* decay, const float* s
 
 extern "C" int xfm_ssd_chunk_scan(const void* x, const void* dt, const void* Bm, const void* Cm,
                                   const float* A, const float* bias, const float* Dm,
-                                  const float* states, void* y, int b, int L, int g, int R, int P,
-                                  int N, int dtype, void* stream) {
+                                  const float* states, void* y, float* part, int b, int L, int g,
+                                  int R, int P,
+                                  int N, int chunk, int dtype, void* stream) {
   Params p{};
   p.x = x;
   p.dt = dt;
@@ -941,19 +1040,25 @@ extern "C" int xfm_ssd_chunk_scan(const void* x, const void* dt, const void* Bm,
   p.Dm = Dm;
   p.st = const_cast<float*>(states);
   p.y = y;
+  p.part = part;
   p.L = L;
   p.g = g;
   p.R = R;
   p.P = P;
   p.N = N;
+  p.chunk = chunk;
   int sms = 0;
   cudaError_t err = prepare(p, b, &sms);
   if (err != cudaSuccess) return err;
   size_t smem = 0;
+  if (p.ns > 1 && !part) return cudaErrorInvalidValue;
+  p.stride = static_cast<long long>(b) * g * L * R * P;
   const dim3 grid = plan(p, b, sms, scan_smem, kHalfSmem, &smem);
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return by_tiles<ScanPick<float>::At>(P, grid, kThreads, smem, s, p);
-  if (dtype == kBF16) return by_tiles<ScanPick<__nv_bfloat16>::At>(P, grid, kThreads, smem, s, p);
+  const int tiles = min(P, kMaxP);
+  if (dtype == kF32) return by_tiles<ScanPick<float>::At>(tiles, grid, kThreads, smem, s, p);
+  if (dtype == kBF16)
+    return by_tiles<ScanPick<__nv_bfloat16>::At>(tiles, grid, kThreads, smem, s, p);
   return cudaErrorInvalidValue;
 }
 
@@ -961,8 +1066,9 @@ extern "C" int xfm_ssd_chunk_grads(const void* x, const void* dt, const void* Bm
                                    const float* A, const float* bias, const float* Dm,
                                    const float* states, const float* ds_out, const float* dy,
                                    float* dx, float* ddt, float* dB, float* dC, float* dA,
-                                   float* dbias, float* dD, int b, int L, int g, int R, int P,
-                                   int N, int dtype, void* stream) {
+                                   float* dbias, float* dD, float* part, float* part_dt,
+                                   float* part_B, float* part_C, int b, int L, int g, int R, int P,
+                                   int N, int chunk, int dtype, void* stream) {
   Params p{};
   p.x = x;
   p.dt = dt;
@@ -981,19 +1087,50 @@ extern "C" int xfm_ssd_chunk_grads(const void* x, const void* dt, const void* Bm
   p.dA = dA;
   p.dbias = dbias;
   p.dD = dD;
+  p.part = part;
+  p.part_dt = part_dt;
+  p.part_B = part_B;
+  p.part_C = part_C;
   p.L = L;
   p.g = g;
   p.R = R;
   p.P = P;
   p.N = N;
+  p.chunk = chunk;
   int sms = 0;
   cudaError_t err = prepare(p, b, &sms);
   if (err != cudaSuccess) return err;
   size_t smem = 0;
+  if ((p.ns > 1 && !part) || (p.ns * p.ps > 1 && !part_dt) || (p.ps > 1 && !(part_B && part_C)))
+    return cudaErrorInvalidValue;
+  p.stride = static_cast<long long>(b) * g * L * R * P;
+  p.stride_dt = static_cast<long long>(b) * g * L * R;
+  p.stride_BC = static_cast<long long>(b) * g * L * N;
   const dim3 grid = plan(p, b, sms, grad_smem, kMaxSmem, &smem);
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return by_tiles<GradPick<float>::At>(P, grid, kGradThreads, smem, s, p);
+  const int tiles = min(P, kMaxP);
+  if (dtype == kF32) return by_tiles<GradPick<float>::At>(tiles, grid, kGradThreads, smem, s, p);
   if (dtype == kBF16)
-    return by_tiles<GradPick<__nv_bfloat16>::At>(P, grid, kGradThreads, smem, s, p);
+    return by_tiles<GradPick<__nv_bfloat16>::At>(tiles, grid, kGradThreads, smem, s, p);
   return cudaErrorInvalidValue;
+}
+
+// out = the sum of `parts` float32 parts of n values each, in slab order
+// (ssd_sum_kernel), as float32 or bfloat16 (dtype).
+extern "C" int xfm_ssd_sum(const float* part, long long n, int parts, void* out, int dtype,
+                           void* stream) {
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  if (n < 1 || parts < 1 || blocks > 2147483647LL) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto grid = static_cast<unsigned>(blocks);
+  if (dtype == kF32) {
+    auto kernel = ssd_sum_kernel<float>;
+    kernel<<<grid, kThreads, 0, s>>>(part, n, parts, static_cast<float*>(out));
+  } else if (dtype == kBF16) {
+    auto kernel = ssd_sum_kernel<__nv_bfloat16>;
+    kernel<<<grid, kThreads, 0, s>>>(part, n, parts, static_cast<__nv_bfloat16*>(out));
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }

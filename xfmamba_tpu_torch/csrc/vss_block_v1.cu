@@ -24,6 +24,9 @@
 //   H. h2 = LN2(x1)                                  -> T
 //   I. f1 = gelu(h2 @ w_fc1^T + b_fc1)               -> T (M, hd)
 //   J. out = f1 @ w_fc2^T + b_fc2 + x1               -> T (M, d)
+// A block without its MLP half (hd 0, JAX's fuse_mlp off) ends at G, which
+// then writes out = yn @ w_out^T + x in T: every block of the grid skips
+// phases H-J and their barriers alike, since hd is the launch's.
 //
 // Design.  At one study a block is small (at XFMamba-S's stage 2, 392 rows,
 // 3.7 MB of bfloat16 weights, 1.45 GFLOP), so the eleven launches of the
@@ -551,7 +554,13 @@ __global__ void __launch_bounds__(kV1Threads, 2) vss_block_v1_kernel(V1Params p)
   v1_sync(p, gen0, 5);
   v1_merge_norm<T>(p, M, fsmem);                                                            // F
   v1_sync(p, gen0, 6);
-  v1_gemm<T, PR>({p.yn, p.w_out, nullptr, p.x, p.x1, M, d, di, 0, 0, 1}, p, smem);         // G
+  const bool mlp = p.hd > 0;
+  v1_gemm<T, PR>({p.yn, p.w_out, nullptr, p.x, mlp ? p.x1 : p.out, M, d, di, 0, 0, mlp}, p,
+                 smem);                                                                     // G
+  if (!mlp) {
+    if (p.stamps) v1_sync(p, gen0, 7);  // the clock of the last phase
+    return;
+  }
   v1_sync(p, gen0, 7);
   v1_layer_norm<float, T>(p.x1, p.ln2_w, p.ln2_b, static_cast<T*>(p.h2), M, d, p.eps);    // H
   v1_sync(p, gen0, 8);
@@ -575,6 +584,7 @@ inline V1Layout v1_layout(long long M, int d, int di, int R, int hd, int esize, 
   const long long nk[5][2] = {{di, d}, {P, di}, {d, di}, {hd, d}, {d, hd}};
   long long gpart = 0, tiles_max = 0;
   for (const auto& q : nk) {
+    if (q[0] == 0 || q[1] == 0) continue;  // no MLP (hd 0)
     const int bn = v1_bn(M, static_cast<int>(q[0]), grid);
     const int tiles = static_cast<int>((M + kV1BM - 1) / kV1BM * ((q[0] + bn - 1) / bn));
     const int nkt = static_cast<int>((q[1] + kV1BK - 1) / kV1BK);
@@ -665,7 +675,7 @@ extern "C" int xfm_vss_block_v1(const void* x, void* out, const float* ln1_w, co
                                 const void* w_fc2, const float* b_fc2, void* workspace,
                                 void* stamps, int n_img, int H, int W, int d, int di, int R,
                                 int hd, int segs, int dtype, void* stream) {
-  if (n_img < 1 || H < 1 || W < 1 || d < 1 || di < 1 || hd < 1 || R < 1 || R > kTLMaxR ||
+  if (n_img < 1 || H < 1 || W < 1 || d < 1 || di < 1 || hd < 0 || R < 1 || R > kTLMaxR ||
       segs < 1 || (H + segs - 1) / segs > kTLMaxChunks || (W + segs - 1) / segs > kTLMaxChunks ||
       (dtype != kF32 && dtype != kBF16))
     return cudaErrorInvalidValue;

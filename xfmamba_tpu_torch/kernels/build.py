@@ -54,10 +54,11 @@ _SIGNATURES = {
     "xfm_grouped_scan_bwd": [_P] * 20 + [_I] * 9 + [_P],
     "xfm_grouped_scan_fwd_v1": [_P] * 9 + [_I] * 8 + [_P],
     "xfm_grouped_scan_bwd_v1": [_P] * 17 + [_I] * 8 + [_P],
-    "xfm_ssd_chunk_state": [_P] * 7 + [_I] * 8 + [_P],
+    "xfm_ssd_chunk_state": [_P] * 7 + [_I] * 9 + [_P],
     "xfm_ssd_state_pass": [_P] * 4 + [_LL, _I, _I, _I, _P],
-    "xfm_ssd_chunk_scan": [_P] * 9 + [_I] * 7 + [_P],
-    "xfm_ssd_chunk_grads": [_P] * 17 + [_I] * 7 + [_P],
+    "xfm_ssd_chunk_scan": [_P] * 10 + [_I] * 8 + [_P],
+    "xfm_ssd_chunk_grads": [_P] * 21 + [_I] * 8 + [_P],
+    "xfm_ssd_sum": [_P, _LL, _I, _P, _I, _P],
     "xfm_ssd_fwd_serial": [_P] * 11 + [_I] * 7 + [_P],
     "xfm_ssd_bwd_serial": [_P] * 18 + [_I] * 7 + [_P],
     "xfm_scan_two_level": [_P] * 11 + [_I] * 17 + [_P],

@@ -1,6 +1,11 @@
 """XFMamba cross-view fusion (port of ``xfmamba_tpu/models/fusion.py``):
-`swapping_scan`, ShallowFuse_SS2Dv4 and its block, Cross_SS2Dv5, the fusion
-block and the CSSF layer.  Channels-last throughout.
+`swapping_scan` and `swapping_scan_adjoint`, `concat_scan` /
+`concat_merge`, ShallowFuse_SS2Dv4 and its block, Cross_SS2Dv5, the fusion
+block and the CSSF layer, and the superseded fusion ops `CrossSS2Dv2` and
+`CrossSS2Dv3`, whose scan cores go through `models.ss2d.core_dispatch` in
+both modes, as JAX's do (kernel 10 at d_state 1, else the nk pair,
+kernels 2 and 7, where the routing rule gives a group, else kernels 13 and
+14).  Channels-last throughout.
 
 The projections, depthwise convs, norms and the SE gate run in PyTorch, as
 the JAX package leaves them to XLA.  The scans go through the port's
@@ -45,9 +50,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from xfmamba_tpu_torch.models.layers import (
-    BatchNorm, Conv2dSame, Dense, DropPath, LayerNorm)
+    BatchNorm, Conv2dSame, Dense, DropPath, Dropout, LayerNorm, activation)
 from xfmamba_tpu_torch.models.ss2d import (
-    ScanParams, _project_kdirs, core_dispatch, dt_rank_of)
+    SS2D, ScanParams, _project_kdirs, core_dispatch, dt_rank_of)
 from xfmamba_tpu_torch.ops.nk_scan import nk_scan_x, scan_mode_kinds
 from xfmamba_tpu_torch.ops.nk_scan_adjoint import nk_scan_train, nk_train_supported
 from xfmamba_tpu_torch.ops.nk_scan_v1 import (
@@ -78,6 +83,30 @@ def swapping_scan(x, x2):
     *straight-through* one (``:216-221``, ``xfmamba_tpu/models/fusion.py:
     31-62``): the gradients pass through un-swapped, not the true adjoint."""
     return _SwappingScan.apply(x, x2)
+
+
+def swapping_scan_adjoint(x, x2):
+    """`swapping_scan`'s forward with the true adjoint: the gradients swap
+    back (``xfmamba_tpu/models/fusion.py:65``), as autograd of the swap
+    gives them."""
+    return _swap(x, x2)
+
+
+def concat_scan(x, x2):
+    """The two views as one sequence of 2L positions and its reverse
+    (``fusion_vmamba.py:244-262``): x, x2 (B, H, W, C) -> (seq,
+    seq reversed), each (B, 2L, C)."""
+    B, H, W, C = x.shape
+    seq = torch.cat([x.reshape(B, -1, C), x2.reshape(B, -1, C)], 1)
+    return seq, seq.flip(1)
+
+
+def concat_merge(y_fwd, y_rev, H, W):
+    """The inverse of `concat_scan` (``fusion_vmamba.py:265-273``): the two
+    traversals summed and split back into the views' maps."""
+    B, L2, C = y_fwd.shape
+    y = y_fwd + y_rev.flip(1)
+    return y[:, :L2 // 2].reshape(B, H, W, C), y[:, L2 // 2:].reshape(B, H, W, C)
 
 
 class ShallowFuseSS2Dv4(ScanParams):
@@ -257,3 +286,87 @@ class CSSFVSSLayer(nn.Module):
         for blk in self.blocks:
             x1 = blk(x1, x2)
         return x1
+
+
+class _CrossCore(ScanParams):
+    """What CrossSS2Dv2 and v3 share: the K = 4 scan parameters (the mamba
+    initialisers), the depthwise conv ``conv2d`` (none for d_conv <= 1),
+    the out-norm, out_proj, the activation and the dropout after out_proj;
+    `core` is one stream's SS2D core through `core_dispatch`, out-normed."""
+
+    def _init_core(self, d_model, d_state, ssm_ratio, dt_rank, act, d_conv, conv_bias,
+                   dropout, scan_mode, generator, dropout_generator):
+        d_inner = int(ssm_ratio * d_model)
+        self.d_inner = d_inner
+        self.R = dt_rank_of(d_model, dt_rank)
+        self.N = d_state
+        self.scan_mode = scan_mode
+        self.act = activation(act)
+        self.conv2d = SS2D._dwconv(d_inner, d_conv, conv_bias, generator)
+        self.init_scan_params(4, d_inner, self.R, d_state, generator)
+        self.out_norm = LayerNorm(d_inner)
+        self.out_proj = Dense(d_inner, d_model, bias=False, init="trunc_normal",
+                              generator=generator)
+        self.drop = Dropout(dropout, dropout_generator)
+
+    def _conv_act(self, v):
+        return self.act(v if self.conv2d is None else self.conv2d(v))
+
+    def core(self, v, dtype):
+        dts, Bs, Cs = _project_kdirs(v, self.x_proj_weight, self.dt_projs_weight, self.R,
+                                     self.N)
+        A, Dmat, bias = self.scan_operands(self.d_inner)
+        return self.out_norm(core_dispatch(v, dts, Bs, Cs, A, Dmat, bias,
+                                           self.scan_mode).to(dtype))
+
+
+class CrossSS2Dv2(_CrossCore):
+    """The superseded two-input fusion op (``vmamba.py:715-1005``, JAX
+    ``fusion.py:448-531``): x through ``in_proj`` (2 d_inner wide, split
+    into x and the gate z = act(z)), x2 through ``in_proj_sec`` (d_inner);
+    the shared depthwise conv and activation; each stream its own SS2D core
+    (its own C); out = out_proj(core(x) z + core(x2) z), then dropout."""
+
+    def __init__(self, d_model: int, d_state: int = 16, ssm_ratio: float = 2.0,
+                 dt_rank="auto", act: str = "silu", d_conv: int = 3, conv_bias: bool = True,
+                 dropout: float = 0.0, scan_mode: str = "cross2d", generator=None,
+                 dropout_generator=None):
+        super().__init__()
+        d_inner = int(ssm_ratio * d_model)
+        self.in_proj = Dense(d_model, 2 * d_inner, bias=False, init="trunc_normal",
+                             generator=generator)
+        self.in_proj_sec = Dense(d_model, d_inner, bias=False, init="trunc_normal",
+                                 generator=generator)
+        self._init_core(d_model, d_state, ssm_ratio, dt_rank, act, d_conv, conv_bias, dropout,
+                        scan_mode, generator, dropout_generator)
+
+    def forward(self, x, x2):
+        x_p, z = self.in_proj(x).chunk(2, -1)
+        z = self.act(z)
+        y = self.core(self._conv_act(x_p), x.dtype) * z
+        y2 = self.core(self._conv_act(self.in_proj_sec(x2)), x.dtype) * z
+        return self.drop(self.out_proj(y + y2))
+
+
+class CrossSS2Dv3(_CrossCore):
+    """The superseded three-stream fusion op (``vmamba.py:1134-1436``, JAX
+    ``fusion.py:534-611``): x_fuse = x + x2; the three streams through the
+    shared ``in_proj_sec``, depthwise conv and activation; three independent
+    SS2D cores; gate z = act(in_proj_sec(x_fuse)); out = out_proj((core(x)
+    + core(x2) + core(x_fuse)) z), then dropout."""
+
+    def __init__(self, d_model: int, d_state: int = 16, ssm_ratio: float = 2.0,
+                 dt_rank="auto", act: str = "silu", d_conv: int = 3, conv_bias: bool = True,
+                 dropout: float = 0.0, scan_mode: str = "cross2d", generator=None,
+                 dropout_generator=None):
+        super().__init__()
+        self.in_proj_sec = Dense(d_model, int(ssm_ratio * d_model), bias=False,
+                                 init="trunc_normal", generator=generator)
+        self._init_core(d_model, d_state, ssm_ratio, dt_rank, act, d_conv, conv_bias, dropout,
+                        scan_mode, generator, dropout_generator)
+
+    def forward(self, x, x2):
+        x_p, x2_p, xf_p = (self.in_proj_sec(v) for v in (x, x2, x + x2))
+        z = self.act(xf_p)
+        y = sum(self.core(self._conv_act(v), x.dtype) for v in (x_p, x2_p, xf_p))
+        return self.drop(self.out_proj(y * z))

@@ -38,8 +38,8 @@ def gelu(x):
     return F.gelu(x)
 
 
-# the SS2D activations by name (``vssm.py:26``)
-_ACTS = dict(silu=F.silu, gelu=gelu)
+# the SS2D and MLP activations by name (``vssm.py:26``)
+_ACTS = dict(silu=F.silu, gelu=gelu, relu=F.relu, sigmoid=torch.sigmoid)
 
 
 def activation(name: str):
@@ -313,19 +313,67 @@ class DropPath(nn.Module):
         return out[0] if len(out) == 1 else out
 
 
+class Dropout(nn.Module):
+    """Elementwise dropout (flax's ``nn.Dropout``): in training each value is
+    kept with probability 1 - rate and scaled by 1 / (1 - rate), else 0;
+    identity at inference or rate 0.  The masks are drawn from
+    ``generator`` (a CPU ``torch.Generator``, the model's dropout
+    generator), never from the global one; the global batch's inside a
+    data-parallel step (`global_rows`)."""
+
+    def __init__(self, rate: float = 0.0, generator=None):
+        super().__init__()
+        self.rate = rate
+        self.generator = generator
+
+    def forward(self, x):
+        if self.rate == 0.0 or not self.training:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in training needs a torch.Generator")
+        keep = 1.0 - self.rate
+        mask = global_rows(lambda n: torch.rand((n,) + tuple(x.shape[1:]),
+                                                generator=self.generator), x.shape[0]) < keep
+        return x * to_device(mask, x.device).to(x.dtype) / keep
+
+
 class Mlp(nn.Module):
-    """fc1 -> exact GELU -> fc2 (``vmamba.py:110-128``)."""
+    """fc1 -> act -> dropout -> fc2 -> dropout (``vmamba.py:110-128``); act
+    is ``activation``'s name, exact GELU by default."""
 
     def __init__(self, in_features: int, hidden_features: int,
-                 out_features: int, generator=None):
+                 out_features: int, generator=None, act: str = "gelu",
+                 drop_rate: float = 0.0, dropout_generator=None):
         super().__init__()
+        self.act = activation(act)
         self.fc1 = Dense(in_features, hidden_features, init="trunc_normal",
                          generator=generator)
         self.fc2 = Dense(hidden_features, out_features, init="trunc_normal",
                          generator=generator)
+        self.drop = Dropout(drop_rate, dropout_generator)
 
     def forward(self, x):
-        return self.fc2(gelu(self.fc1(x)))
+        return self.drop(self.fc2(self.drop(self.act(self.fc1(x)))))
+
+
+class GMlp(nn.Module):
+    """The gated MLP (``vmamba.py:131-149``): fc1 to twice the hidden width,
+    split into x and z, fc2 of x * act(z), then dropout."""
+
+    def __init__(self, in_features: int, hidden_features: int,
+                 out_features: int, generator=None, act: str = "gelu",
+                 drop_rate: float = 0.0, dropout_generator=None):
+        super().__init__()
+        self.act = activation(act)
+        self.fc1 = Dense(in_features, 2 * hidden_features, init="trunc_normal",
+                         generator=generator)
+        self.fc2 = Dense(hidden_features, out_features, init="trunc_normal",
+                         generator=generator)
+        self.drop = Dropout(drop_rate, dropout_generator)
+
+    def forward(self, x):
+        x, z = self.fc1(x).chunk(2, dim=-1)
+        return self.drop(self.fc2(x * self.act(z)))
 
 
 class PatchMerging2D(nn.Module):

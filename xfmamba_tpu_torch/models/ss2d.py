@@ -3,9 +3,9 @@
 v2 body (base types v0, v0seq, v01-v05, v051d, v052d, v052dc, v2, v3 with
 the postfixes ``_no32``, ``_oact``, ``_noz``, ``_nozact`` and the out-norm
 tags ``_onnone``, ``_ondwconv3``, ``_oncnorm``, ``_onsoftmax``,
-``_onsigmoid``), ``m0_noz`` (Mamba-2 / SSD) and the xv family (xv1a, xv2a,
-xv3a with ``_mul``, ``_act`` and the conv tags ``_ca``, ``_ca1``,
-``_ocov``, ``_ocov2``, ``_cpos``).  ``d_conv`` > 1 is a depthwise conv of
+``_onsigmoid``), ``m0`` (Mamba-2 / SSD, with its z-gate or ``_noz``) and
+the xv family (xv1a, xv2a, xv3a with ``_mul``, ``_act`` and the conv tags
+``_ca``, ``_ca1``, ``_ocov``, ``_ocov2``, ``_cpos``).  ``d_conv`` > 1 is a depthwise conv of
 that size with flax's "SAME" padding; d_conv <= 1 has none.
 
 The v2 body: in_proj (2 * d_inner wide with the z-gate, split, the gate
@@ -27,14 +27,22 @@ versions.  The backbone runs `SS2D` block by
 block in float32; in bfloat16 the v05_noz backbone runs the stage kernels
 instead (``models/vssm.py``).
 
-``m0_noz`` (`SS2D._forward_m0`, the JAX ``SS2D._forward_m0``) materialises
-the four cross2d traversals, projects each direction to one dt per head and
-a B and a C shared by the direction's heads, and runs the chunked SSD scan
-where ``ops.ssd_chunk.ssd_supported`` holds: kernel 15 alone without
-gradients, kernels 15 and 16 under autograd.  Outside that gate it runs
-``ops/ssd.py::ssd_chunk_scan``, the einsum form that JAX runs there too
-(counted in ``ssd_chunk_scan.calls``).  m0 with its z-gate or a carried
-initial state is not ported (`M0_ITEM`).
+``m0`` (`SS2D._forward_m0`, the JAX ``SS2D._forward_m0``) materialises
+the four traversals, projects each direction to one dt per head and a B and
+a C shared by the direction's heads, and runs the chunked SSD scan in
+chunks of ``chunk_size`` where ``ops.ssd_chunk.ssd_supported`` holds:
+kernel 15 alone without gradients, kernels 15 and 16 under autograd.
+Outside that gate it runs ``ops/ssd.py::ssd_chunk_scan``, the einsum form
+that JAX runs there too (counted in ``ssd_chunk_scan.calls``).  Its z-gate
+is the v2 body's.  With ``with_initial_state`` the scan starts from the
+float32 buffer ``initial_state`` (1, K * R, P, N) (JAX's ``ssm_state``
+collection), broadcast over the batch without a gradient; inside
+`carry_ssm_state` (JAX's ``mutable=["ssm_state"]``) each forward replaces
+it by the sum over the batch of the final state (over the global batch in a
+data-parallel step), and a plain forward leaves it as it is.
+
+``dropout`` is flax's ``nn.Dropout`` after out_proj, in every forward type,
+its masks from ``dropout_generator`` (`layers.Dropout`).
 
 Parameter layouts match the reference tensors.  The v2 body:
 ``x_proj_weight`` (K, R + 2N, D), ``dt_projs_weight`` (K, D, R),
@@ -50,16 +58,18 @@ them to the JAX tree for ``checkpoint/convert.py``).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from xfmamba_tpu_torch.models.layers import (
-    LN_EPS, Conv2dSame, Dense, LayerNorm, activation, gelu, softmax_spatial, trunc_normal_init,
-    uniform_init)
+    LN_EPS, Conv2dSame, Dense, Dropout, LayerNorm, _sharded, activation, gelu, softmax_spatial,
+    trunc_normal_init, uniform_init)
 from xfmamba_tpu_torch.ops.cross_scan import (
     cross_merge, cross_scan, cross_scan_1b1, directional_scan_2d)
 from xfmamba_tpu_torch.ops.fused_cross_scan import ss2d_core_fused
@@ -84,8 +94,6 @@ _BASE_TYPES = {
 _SCANS = {"cross2d": 0, "unidi": 1, "bidi": 2}
 _OUT_NORM_TAGS = [("_onnone", "none"), ("_ondwconv3", "dwconv3"), ("_oncnorm", "cnorm"),
                   ("_onsoftmax", "softmax"), ("_onsigmoid", "sigmoid")]
-# what the port leaves of the m0 path, and where it is queued
-M0_ITEM = "ROADMAP.md, queue 1, item 2.2: the m0 leftovers"
 
 
 @dataclass(frozen=True)
@@ -455,12 +463,14 @@ class SS2D(ScanParams):
     out_proj on NHWC maps, for every forward type of the JAX module (the
     module docstring).  ``initialize`` is the reference's ``ssm_init``
     (v0, v1, v2); m0 takes v1 or v2 (v0 reads as v2, as in the
-    reference)."""
+    reference).  ``chunk_size`` and ``with_initial_state`` are m0's (the
+    module docstring); ``dropout`` follows out_proj."""
 
     def __init__(self, d_model: int, d_state: int = 1, ssm_ratio: float = 2.0,
                  dt_rank="auto", d_conv: int = 3, conv_bias: bool = True,
                  forward_type: str = "v05_noz", act: str = "silu", initialize: str = "v0",
-                 with_initial_state: bool = False, generator=None):
+                 with_initial_state: bool = False, generator=None, dropout: float = 0.0,
+                 chunk_size: int = CHUNK, dropout_generator=None):
         super().__init__()
         d_inner = int(ssm_ratio * d_model)
         self.d_inner = d_inner
@@ -469,17 +479,17 @@ class SS2D(ScanParams):
         self.act = activation(act)
         self.forward_type = forward_type
         self.m0 = False
+        self.chunk_size = chunk_size
+        self.carry = False  # set by carry_ssm_state
+        self.drop = Dropout(dropout, dropout_generator)
         if forward_type.startswith("xv"):
             self.mode = parse_xv_type(forward_type, with_dconv=d_conv > 1)
             self._init_xv(d_model, d_conv, conv_bias, initialize, generator)
             return
         mode = self.mode = parse_forward_type(forward_type)
         self.m0 = mode.base == "m0"
-        if self.m0 and not mode.disable_z:
-            raise ValueError(f"forward_type {forward_type!r}: m0 with its z-gate is not ported "
-                             f"({M0_ITEM})")
-        if self.m0 and with_initial_state:
-            raise ValueError(f"m0 with a carried initial state is not ported ({M0_ITEM})")
+        if with_initial_state and not self.m0:
+            raise ValueError(f"forward_type {forward_type!r}: a carried state is m0's")
         self.scans = _SCANS.get(mode.scan_mode)
         d_proj = d_inner if mode.disable_z else 2 * d_inner
         self.in_proj = Dense(d_model, d_proj, bias=False, init="trunc_normal",
@@ -487,6 +497,9 @@ class SS2D(ScanParams):
         self.conv2d = self._dwconv(d_inner, d_conv, conv_bias, generator)
         if self.m0:
             self._init_m0_params(4, d_inner, initialize, generator)
+            if with_initial_state:
+                self.register_buffer("initial_state", torch.zeros(
+                    1, 4 * self.R, d_inner // self.R, d_state))
         else:
             self.init_scan_params(4, d_inner, self.R, d_state, generator, initialize)
         self.out_norm = make_out_norm(mode.out_norm, d_inner, generator)
@@ -580,16 +593,36 @@ class SS2D(ScanParams):
         A = -torch.exp(self.A_logs.float()).reshape(K * R)
         Dm = self.Ds.float().reshape(K * R, P)
         bias = self.dt_projs_bias.float().reshape(K * R)
-        if ssd_supported(L, K * R, P, N, K, CHUNK):
-            ys, _ = ssd_chunk_scan_heads(xs.view(B_, K, L, R, P), dts, A, Bs, Cs, Dm, bias)
-            ys = ys.view(B_, K, L, D)
+        init = getattr(self, "initial_state", None)
+        if init is not None:                                            # (1, K R, P, N)
+            init = init.detach().float().expand(B_, K * R, P, N)
+        if ssd_supported(L, K * R, P, N, K, self.chunk_size):
+            ys, fin = ssd_chunk_scan_heads(
+                xs.view(B_, K, L, R, P), dts, A, Bs, Cs, Dm, bias,
+                None if init is None else init.transpose(2, 3).contiguous(),
+                chunk=self.chunk_size)
+            ys, fin = ys.view(B_, K, L, D), fin.transpose(2, 3)
         else:
-            ys = ssd_chunk_scan(xs.transpose(1, 2).reshape(B_, L, K * R, P),
-                                dts.transpose(1, 2).reshape(B_, L, K * R), A,
-                                Bs.transpose(1, 2), Cs.transpose(1, 2), CHUNK,
-                                D=Dm, dt_bias=bias, dt_softplus=True)
+            ys, fin = ssd_chunk_scan(xs.transpose(1, 2).reshape(B_, L, K * R, P),
+                                     dts.transpose(1, 2).reshape(B_, L, K * R), A,
+                                     Bs.transpose(1, 2), Cs.transpose(1, 2), self.chunk_size,
+                                     D=Dm, dt_bias=bias, initial_states=init, dt_softplus=True,
+                                     return_final_states=True)
             ys = ys.reshape(B_, L, K, D).transpose(1, 2)
+        if init is not None and self.carry:
+            self._carry(fin)
         return cross_merge(ys, H, W, self.scans).view(B_, H, W, D)
+
+    @torch.no_grad()
+    def _carry(self, fin):
+        """initial_state <- the sum over the batch of the final state fin
+        (b, K R, P, N): the global batch's in a data-parallel step, as JAX's
+        GSPMD step sums it."""
+        total = fin.detach().float().sum(0, keepdim=True)
+        shard = _sharded()
+        if shard is not None:
+            dist.all_reduce(total, group=shard.group)
+        self.initial_state.copy_(total)
 
 
     def _forward_xv(self, x):
@@ -627,7 +660,7 @@ class SS2D(ScanParams):
             y = y * us
         if mode.oconv:
             y = y + self.cact(self.oconv2d(us))
-        return self.out_proj(y)
+        return self.drop(self.out_proj(y))
 
     def forward(self, x):
         if isinstance(self.mode, XVMode):
@@ -649,4 +682,20 @@ class SS2D(ScanParams):
             y = gelu(y)
         if z is not None:
             y = y * z
-        return self.out_proj(y)
+        return self.drop(self.out_proj(y))
+
+
+@contextlib.contextmanager
+def carry_ssm_state(model: nn.Module):
+    """JAX's ``apply(..., mutable=["ssm_state"])``: inside the block, every
+    m0 SS2D of ``model`` with a carried initial state replaces it after each
+    forward by the sum over the batch of its final state."""
+    layers = [m for m in model.modules() if isinstance(m, SS2D)]
+    saved = [m.carry for m in layers]
+    for m in layers:
+        m.carry = True
+    try:
+        yield model
+    finally:
+        for m, c in zip(layers, saved):
+            m.carry = c

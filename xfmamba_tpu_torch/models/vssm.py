@@ -22,12 +22,19 @@ Module and parameter names follow the reference PyTorch state dict
 ``classifier.head``), so a port ``state_dict()`` converts with
 ``xfmamba_tpu.checkpoint.convert.convert_vssm_state_dict``.
 
+VSSBlock and VSSM take every option of the JAX modules: ``ssm_drop_rate``
+and ``mlp_drop_rate`` (`layers.Dropout`, masks from the model's dropout
+generator), ``gmlp`` (`layers.GMlp`), ``mlp_act``, ``post_norm`` (VMamba's
+formula, see `VSSBlock`), ``ssm_ratio`` 0 (a block of the MLP half alone),
+``mlp_ratio`` 0 (a block of the SS2D half alone), ``patch_norm`` and
+``posembed`` / ``imgsize``.
+
 A backbone of the configuration the stage kernels compute (XFMamba's:
-forward type v05_noz, d_state 1, SiLU, the 3 x 3 conv and the GELU MLP)
-dispatches on the activation dtype as the JAX
-``VSSM`` does on an accelerator (`stage_kernels_apply`, `_uses_stage_route`);
-any other configuration, the m2 models included, takes the composable
-route in both dtypes:
+forward type v05_noz, d_state 1, SiLU, the 3 x 3 conv, no gated MLP and a
+GELU MLP or none) dispatches on the activation dtype as the JAX ``VSSM``
+does on an accelerator (`stage_kernels_apply`, `_uses_stage_route`), and
+in training only at zero drop rates; any other configuration, the m2
+models included, takes the composable route in both dtypes:
 
 - bfloat16, the stage route.  In eval mode each stage takes the kernels
   that the JAX accelerator path picks by its VMEM rule
@@ -36,13 +43,15 @@ route in both dtypes:
   8 sublanes; else, block by block, `ops.vss_block_v1.vss_block_v1`
   (kernel 8), or the composable blocks where JAX runs no whole-block
   kernel.  At one or two studies per batch XFMamba-S's stages 2 and 3 take
-  kernel 8.  In training mode
+  kernel 8.  Without the MLP half kernels 1 and 8 end each block after
+  out_proj + residual.  In training mode
   `VSSM._train_stage` packs the operands on the autograd graph, and a stage
-  of depth >= 2 then runs `ops.vss_stage_train.vss_stage_train` (kernel 5
-  forward, kernel 6 backward), as the JAX ``VSSM._fused_stage_train_path``
-  does.  With ``use_checkpoint`` (or a depth-1 stage) each block runs
+  of depth >= 2 with the MLP half then runs
+  `ops.vss_stage_train.vss_stage_train` (kernel 5 forward, kernel 6
+  backward), as the JAX ``VSSM._fused_stage_train_path`` does.  With
+  ``use_checkpoint``, a depth-1 stage or no MLP half each block runs
   `ops.vss_block_train.vss_block_train_op` (kernel 4 forward, kernel 6
-  backward) for its SS2D half, and its MLP half in torch, under
+  backward) for its SS2D half, and its MLP half, if any, in torch, under
   ``torch.utils.checkpoint`` with ``use_checkpoint``.
 - float32 (every JAX CLI's default, which never takes the megakernels),
   the composable route: each block runs `VSSBlock.forward`, LayerNorm, the
@@ -67,7 +76,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from xfmamba_tpu_torch.models.layers import (
-    Conv2dSame, Dense, DropPath, LayerNorm, Mlp, PatchMerging2D, gelu, to_device)
+    Conv2dSame, Dense, DropPath, GMlp, LayerNorm, Mlp, PatchMerging2D, gelu, to_device,
+    trunc_normal_init)
 from xfmamba_tpu_torch.models.ss2d import SS2D
 from xfmamba_tpu_torch.ops.primitives import forward_only
 from xfmamba_tpu_torch.ops.vss_block import (
@@ -79,47 +89,59 @@ from xfmamba_tpu_torch.ops.vss_stage import stage_route, vss_stage
 from xfmamba_tpu_torch.ops.vss_stage_train import vss_stage_train
 
 
+def _norm(m, name, x):
+    """The LayerNorm at index ``name`` of m, or x where m has none
+    (``patch_norm`` off)."""
+    norm = m._modules.get(name)
+    return x if norm is None else norm(x)
+
+
 class PatchEmbedV1(nn.Module):
     """One stride-4 4x4 conv and LayerNorm (``vmamba.py:2196-2202``;
     JAX ``PatchEmbedV1``, ``vssm.py:45``); submodules at the reference's
-    Sequential indices 0 (proj) and 2 (norm)."""
+    Sequential indices 0 (proj) and 2 (norm, absent without
+    ``patch_norm``)."""
 
     JAX_NAMES = {"0": "proj", "2": "norm"}
 
     def __init__(self, in_chans: int, embed_dim: int, patch_size: int = 4,
-                 generator=None):
+                 generator=None, patch_norm: bool = True):
         super().__init__()
         self.add_module("0", Conv2dSame(in_chans, embed_dim, patch_size, patch_size,
                                         generator=generator))
-        self.add_module("2", LayerNorm(embed_dim))
+        if patch_norm:
+            self.add_module("2", LayerNorm(embed_dim))
 
     def forward(self, x):
-        return self._modules["2"](self._modules["0"](x))
+        return _norm(self, "2", self._modules["0"](x))
 
 
 class PatchEmbedV2(nn.Module):
     """Two stride-2 3x3 convs with LayerNorm and exact GELU between
     (``vmamba.py:2204-2219``); submodules at the reference's Sequential
-    indices 0 (conv1), 2 (norm1), 5 (conv2), 7 (norm2)."""
+    indices 0 (conv1), 2 (norm1), 5 (conv2), 7 (norm2); the norms are absent
+    without ``patch_norm``."""
 
     JAX_NAMES = {"0": "conv1", "2": "norm1", "5": "conv2", "7": "norm2"}
 
     def __init__(self, in_chans: int, embed_dim: int, patch_size: int = 4,
-                 generator=None):
+                 generator=None, patch_norm: bool = True):
         super().__init__()
         stride = patch_size // 2
         k = stride + 1
         self.add_module("0", Conv2dSame(in_chans, embed_dim // 2, k, stride, 1,
                                         generator=generator))
-        self.add_module("2", LayerNorm(embed_dim // 2))
+        if patch_norm:
+            self.add_module("2", LayerNorm(embed_dim // 2))
         self.add_module("5", Conv2dSame(embed_dim // 2, embed_dim, k, stride, 1,
                                         generator=generator))
-        self.add_module("7", LayerNorm(embed_dim))
+        if patch_norm:
+            self.add_module("7", LayerNorm(embed_dim))
 
     def forward(self, x):
         m = self._modules
-        x = gelu(m["2"](m["0"](x)))
-        return m["7"](m["5"](x))
+        x = gelu(_norm(self, "2", m["0"](x)))
+        return _norm(self, "7", m["5"](x))
 
 
 class DownsampleV3(nn.Module):
@@ -147,25 +169,38 @@ class DownsampleV2(DownsampleV3):
 
 
 class VSSBlock(nn.Module):
-    """Pre-norm residual SS2D + MLP (``vmamba.py:1955-2042``); no MLP half
-    (no ``norm2``, no ``mlp``) where ``mlp_ratio`` is 0."""
+    """Residual SS2D + MLP (``vmamba.py:1955-2042``): no SS2D half (no
+    ``norm``, no ``op``) where ``ssm_ratio`` is 0, no MLP half (no ``norm2``,
+    no ``mlp``) where ``mlp_ratio`` is 0.  The MLP is `Mlp` of activation
+    ``mlp_act``, or `GMlp` with ``gmlp``; ``ssm_drop_rate`` is the SS2D's
+    dropout, ``mlp_drop_rate`` the MLP's.  Pre-norm: x + drop_path(op(norm(
+    x))); ``post_norm`` is VMamba's ``VSSBlock._forward``: x +
+    drop_path(norm(op(x))), and likewise for the MLP half with norm2.  (The
+    JAX block's post_norm creates a second submodule named ``norm``, which
+    flax refuses, and would norm both before and after the op: the port
+    follows the reference.)"""
 
     def __init__(self, hidden_dim: int, drop_path: float = 0.0,
                  ssm_d_state: int = 1, ssm_ratio: float = 2.0,
                  ssm_dt_rank="auto", ssm_conv_bias: bool = False,
                  mlp_ratio: float = 4.0, generator=None, dropout_generator=None,
                  forward_type: str = "v05_noz", ssm_act: str = "silu", ssm_init: str = "v0",
-                 ssm_conv: int = 3):
+                 ssm_conv: int = 3, ssm_drop_rate: float = 0.0, mlp_act: str = "gelu",
+                 mlp_drop_rate: float = 0.0, gmlp: bool = False, post_norm: bool = False):
         super().__init__()
-        self.norm = LayerNorm(hidden_dim)
-        self.op = SS2D(hidden_dim, d_state=ssm_d_state, ssm_ratio=ssm_ratio,
-                       dt_rank=ssm_dt_rank, d_conv=ssm_conv, conv_bias=ssm_conv_bias,
-                       forward_type=forward_type, act=ssm_act, initialize=ssm_init,
-                       generator=generator)
+        self.post_norm = post_norm
+        self.norm = LayerNorm(hidden_dim) if ssm_ratio > 0 else None
+        self.op = (SS2D(hidden_dim, d_state=ssm_d_state, ssm_ratio=ssm_ratio,
+                        dt_rank=ssm_dt_rank, d_conv=ssm_conv, conv_bias=ssm_conv_bias,
+                        forward_type=forward_type, act=ssm_act, initialize=ssm_init,
+                        generator=generator, dropout=ssm_drop_rate,
+                        dropout_generator=dropout_generator) if ssm_ratio > 0 else None)
         self.drop_path = DropPath(drop_path, dropout_generator)
         self.norm2 = LayerNorm(hidden_dim) if mlp_ratio > 0 else None
-        self.mlp = (Mlp(hidden_dim, int(hidden_dim * mlp_ratio), hidden_dim,
-                        generator=generator) if mlp_ratio > 0 else None)
+        self.mlp = ((GMlp if gmlp else Mlp)(
+            hidden_dim, int(hidden_dim * mlp_ratio), hidden_dim, generator=generator,
+            act=mlp_act, drop_rate=mlp_drop_rate, dropout_generator=dropout_generator)
+            if mlp_ratio > 0 else None)
 
     def forward(self, x, scales=None):
         """x (B, H, W, d).  ``scales`` (2, B) float32 are the drop-path
@@ -176,9 +211,13 @@ class VSSBlock(nn.Module):
                 return self.drop_path(h)
             return h * scales[i].to(h.dtype).view(-1, 1, 1, 1)
 
-        x = x + drop(self.op(self.norm(x)), 0)
+        def half(norm, f, x):
+            return norm(f(x)) if self.post_norm else f(norm(x))
+
+        if self.op is not None:
+            x = x + drop(half(self.norm, self.op, x), 0)
         if self.mlp is not None:
-            x = x + drop(self.mlp(self.norm2(x)), 1)
+            x = x + drop(half(self.norm2, self.mlp, x), 1)
         return x
 
 
@@ -226,8 +265,12 @@ class VSSM(nn.Module):
     ``patchembed_version`` "v1" (`PatchEmbedV1`) or "v2" (`PatchEmbedV2`);
     ``downsample_version`` "v1" (`PatchMerging2D`), "v2" (`DownsampleV2`),
     "v3" (`DownsampleV3`) or "none"; blocks of any SS2D forward type with
-    a depthwise conv of ``ssm_conv`` and a GELU MLP of ``mlp_ratio``, none
-    where it is 0."""
+    a depthwise conv of ``ssm_conv`` and an MLP of ``mlp_ratio`` (`Mlp` of
+    ``mlp_act``, or `GMlp`), none where it is 0, and every other `VSSBlock`
+    option; ``patch_norm`` the patch embed's LayerNorms; ``posembed`` a
+    learned position embedding ``pos_embed`` (1, imgsize / patch_size,
+    imgsize / patch_size, dims[0]), trunc-normal, added after the patch
+    embed."""
 
     PATCH_EMBEDS = {"v1": PatchEmbedV1, "v2": PatchEmbedV2}
     DOWNSAMPLES = {"v1": PatchMerging2D, "v2": DownsampleV2, "v3": DownsampleV3}
@@ -240,28 +283,42 @@ class VSSM(nn.Module):
                  use_checkpoint: bool = False, generator=None, dropout_generator=None,
                  forward_type: str = "v05_noz", ssm_act: str = "silu", ssm_init: str = "v0",
                  num_classes: int = 1000, ssm_conv: int = 3, patchembed_version: str = "v2",
-                 downsample_version: str = "v3"):
+                 downsample_version: str = "v3", ssm_drop_rate: float = 0.0,
+                 mlp_act: str = "gelu", mlp_drop_rate: float = 0.0, gmlp: bool = False,
+                 post_norm: bool = False, patch_norm: bool = True, posembed: bool = False,
+                 imgsize: int = 224):
         super().__init__()
         self.use_checkpoint = use_checkpoint
         self._operands = None      # the inference blocks' packed operands (pack_for_inference)
         dims = [dims * 2 ** i for i in range(len(depths))] if isinstance(dims, int) else list(dims)
         self.depths = tuple(depths)
         self.out_indices = None if out_indices is None else tuple(out_indices)
-        self.stage_kernels = stage_kernels_apply(forward_type, ssm_d_state, ssm_act, ssm_conv,
-                                                 mlp_ratio)
+        self.stage_kernels = stage_kernels_apply(
+            forward_type, ssm_d_state, ssm_act, ssm_conv, mlp_ratio, ssm_ratio=ssm_ratio,
+            gmlp=gmlp, mlp_act=mlp_act, post_norm=post_norm)
+        # training on the kernels also needs the drop rates at 0
+        self.train_kernels = self.stage_kernels and ssm_drop_rate == 0 and mlp_drop_rate == 0
+        self.stage_train_mlp = mlp_ratio > 0  # kernel 5 runs blocks with their MLP half
         n_blocks = sum(depths)
         dpr = [drop_path_rate * i / max(n_blocks - 1, 1) for i in range(n_blocks)]
         if downsample_version not in self.DOWNSAMPLES and downsample_version != "none":
             raise ValueError(f"unknown downsample_version {downsample_version!r}")
         self.patch_embed = self.PATCH_EMBEDS[patchembed_version](in_chans, dims[0], patch_size,
-                                                                  generator)
+                                                                  generator, patch_norm)
+        if posembed:
+            side = imgsize // patch_size
+            self.pos_embed = nn.Parameter(torch.empty(1, side, side, dims[0]))
+            trunc_normal_init(self.pos_embed, generator=generator)
+        else:
+            self.pos_embed = None
         layers = []
         for i, depth in enumerate(depths):
             blocks = [VSSBlock(dims[i], dpr[sum(depths[:i]) + j], ssm_d_state,
                                ssm_ratio, ssm_dt_rank, ssm_conv_bias, mlp_ratio,
                                generator=generator, dropout_generator=dropout_generator,
                                forward_type=forward_type, ssm_act=ssm_act, ssm_init=ssm_init,
-                               ssm_conv=ssm_conv)
+                               ssm_conv=ssm_conv, ssm_drop_rate=ssm_drop_rate, mlp_act=mlp_act,
+                               mlp_drop_rate=mlp_drop_rate, gmlp=gmlp, post_norm=post_norm)
                       for j in range(depth)]
             down = (self.DOWNSAMPLES[downsample_version](dims[i], dims[i + 1],
                                                          generator=generator)
@@ -288,11 +345,13 @@ class VSSM(nn.Module):
         blocks = layer.blocks
         packed = [pack_vss_block_train_params(blk, x.dtype) for blk in blocks]
         xl = x.reshape(B, H * W, d).contiguous()
-        if len(blocks) >= 2 and not self.use_checkpoint:
+        if len(blocks) >= 2 and not self.use_checkpoint and self.stage_train_mlp:
             m1, m2 = scales[:, 0].contiguous(), scales[:, 1].contiguous()
             return vss_stage_train(xl, packed, H, W, m1, m2).reshape(B, H, W, d)
         for p, (m1, m2) in zip(packed, scales):
             xl = vss_block_train_op(xl, p, H, W, m1)
+            if p.w_fc1 is None:  # no MLP half
+                continue
             mlp = [getattr(p, n) for n in MLP_FIELDS]
             if self.use_checkpoint:
                 xl = checkpoint(_mlp_half_train, xl, m2, *mlp, use_reentrant=False)
@@ -329,8 +388,8 @@ class VSSM(nn.Module):
         `stage_route` decides."""
         B, H, W, d = x.shape
         blk = layer.blocks[0]
-        route = stage_route(B, H, W, d, blk.op.d_inner, blk.mlp.fc1.weight.shape[0],
-                            len(layer.blocks))
+        hd = 0 if blk.mlp is None else blk.mlp.fc1.weight.shape[0]
+        route = stage_route(B, H, W, d, blk.op.d_inner, hd, len(layer.blocks))
         if route == "composable":
             return self._block_stage(x, layer, None)
         if x.is_cuda and torch.is_grad_enabled():
@@ -365,7 +424,10 @@ class VSSM(nn.Module):
         or (B, num_classes) logits in classifier mode."""
         scales = self._drop_path_scales(x.shape[0], x.device) if self.training else None
         x = self.patch_embed(x)
-        kernels = self.stage_kernels and _uses_stage_route(x.dtype)
+        if self.pos_embed is not None:
+            x = x + self.pos_embed.to(x.dtype)
+        kernels = _uses_stage_route(x.dtype) and (
+            self.train_kernels if self.training else self.stage_kernels)
         outs = []
         for i, layer in enumerate(self.layers):
             if not kernels:
@@ -382,17 +444,23 @@ class VSSM(nn.Module):
 
 
 def stage_kernels_apply(forward_type: str, d_state: int, ssm_act: str, ssm_conv: int = 3,
-                        mlp_ratio: float = 4.0) -> bool:
-    """Whether the stage kernels compute this backbone's blocks: JAX's
-    conditions for its megakernel paths (``vssm.py:149-153, :192-197,
-    :322-327, :364-370``), forward type v05_noz, d_state 1, SiLU and the
-    3 x 3 conv; the port's blocks have no gated MLP and a GELU MLP, the
-    conditions' other terms.  The port's stage kernels also need the MLP
-    half (JAX's kernels drop it where ``mlp_ratio`` is 0): a block without
-    one runs the composable route.  Every other forward type (vanilla
-    VMamba's v0 among them) runs block by block in both dtypes."""
-    return (forward_type == "v05_noz" and d_state == 1 and ssm_act == "silu" and ssm_conv == 3
-            and mlp_ratio > 0)
+                        mlp_ratio: float = 4.0, *, ssm_ratio: float = 2.0, gmlp: bool = False,
+                        mlp_act: str = "gelu", post_norm: bool = False) -> bool:
+    """Whether the stage kernels compute this backbone's blocks in eval
+    mode: JAX's conditions for its megakernel paths (``vssm.py:149-153,
+    :192-197, :322-327, :364-370``), forward type v05_noz, d_state 1, an
+    SS2D half (``ssm_ratio`` > 0), SiLU, the 3 x 3 conv, no gated MLP and a
+    GELU MLP, with or without the MLP half (``mlp_ratio`` 0: kernels 1 and
+    8 end each block after out_proj + residual, as JAX's do with
+    ``fuse_mlp`` off).  ``post_norm``, which the kernels do not compute,
+    sends a backbone to the composable route: JAX's block routes test it
+    and its stage routes do not, but JAX cannot build such a block at all
+    (`VSSBlock`).  Training also needs zero drop rates (`VSSM`), and kernel
+    5 an MLP half and no ``use_checkpoint``.  Every other configuration
+    (vanilla VMamba's v0 and the m2 models among them) runs block by block
+    in both dtypes."""
+    return (forward_type == "v05_noz" and d_state == 1 and ssm_ratio > 0 and ssm_act == "silu"
+            and ssm_conv == 3 and not gmlp and mlp_act == "gelu" and not post_norm)
 
 
 def _uses_stage_route(dtype) -> bool:

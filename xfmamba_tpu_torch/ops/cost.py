@@ -69,9 +69,9 @@ def vss_block_flops(B: int, L: int, p) -> int:
     """One VSS block on B maps of L positions from its packed operands
     (``ops.vss_block.VSSBlockOperands``, d_state 1, four directions): 2 per
     multiply-add of in_proj, the depthwise 3x3 conv, x_proj, the dt
-    projection, out_proj and the MLP, plus the scan."""
+    projection, out_proj and the MLP (where the block has one), plus the scan."""
     products = sum(t.numel() for t in (p.w_in, p.w_conv, p.w_xp, p.w_dt, p.w_out,
-                                       p.w_fc1, p.w_fc2))
+                                       p.w_fc1, p.w_fc2) if t is not None)
     return 2 * B * L * products + scan_flops(B, L, 4 * (p.w_conv.numel() // 9), 1)
 
 

@@ -14,9 +14,14 @@ the memory it takes is known: the (b, h, n_chunks, l, l) mask and products
 are the largest tensors, 0.6 GB each at 32 images of a 56 x 56 map with 24
 heads.  All arithmetic is float32; y returns in x's dtype.
 
-``selective_state_update``, the gated norms, ``swiglu``, ``causal_conv1d``
-and ``mamba_split_conv1d_scan`` of the JAX module are not on the m0 path
-and are not ported yet.
+The rest of the JAX module (:199-384), in plain torch as JAX's are XLA:
+``selective_state_update`` (one decode step, functional), the gated norms
+``layernorm_gated`` / ``rmsnorm_gated``, ``swiglu``, ``causal_conv1d``, and
+``mamba_split_conv1d_scan``, the fused split-conv1d entry, whose scan runs
+on kernels 15/16 (``ops/ssd_chunk.py::ssd_chunk_scan_heads``) wherever
+``ssd_supported`` holds, the SiLU gate applied to the kernels' y outside
+them, and on `ssd_chunk_scan` elsewhere.  None of them is on a model's
+path (the JAX package's models call none of them either).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from xfmamba_tpu_torch.ops import ssd_chunk
 from xfmamba_tpu_torch.ops.cost import flops_ssd_chunk_scan, reports_cost
 
 
@@ -129,3 +135,164 @@ def ssd_chunk_scan(x, dt, A, B, C, chunk_size, D=None, z=None, dt_bias=None,
 
 
 ssd_chunk_scan.calls = 0
+
+
+# the reference's public name (``ssd_minimal.py:144-146``)
+selective_scan_chunk_fn = ssd_chunk_scan
+
+
+def selective_state_update(state, x, dt, A, B, C, D=None, z=None, dt_bias=None,
+                           dt_softplus=False):
+    """One decode step, functional: state' = state exp(dt A) + dt B x,
+    y = state' . C + D x (times silu(z)).  state (batch, ..., dim, n);
+    x, dt (batch, ..., dim); A (..., dim, n) or (..., dim); B, C
+    (batch, ..., n), shared over dim.  Returns (state' float32, y in x's
+    dtype)."""
+    f32 = torch.float32
+    state, xf, dtf = state.to(f32), x.to(f32), dt.to(f32)
+    if dt_bias is not None:
+        dtf = dtf + dt_bias.to(f32)
+    if dt_softplus:
+        dtf = F.softplus(dtf)
+    Af = A.to(f32)
+    if Af.dim() == state.dim() - 2:
+        Af = Af[..., None]
+    new_state = state * torch.exp(dtf[..., None] * Af) + \
+        dtf[..., None] * B.to(f32)[..., None, :] * xf[..., None]
+    y = (new_state * C.to(f32)[..., None, :]).sum(-1)
+    if D is not None:
+        y = y + D.to(f32) * xf
+    if z is not None:
+        y = y * F.silu(z.to(f32))
+    return new_state, y.to(x.dtype)
+
+
+def layernorm_gated(x, weight, bias=None, z=None, eps: float = 1e-5, group_size=None,
+                    norm_before_gate: bool = True, is_rms_norm: bool = False):
+    """LayerNorm (or RMSNorm) over groups of ``group_size`` channels (all
+    by default), gated by silu(z): norm(x) silu(z) with
+    ``norm_before_gate``, else norm(x silu(z)).  Float32 inside, x's dtype
+    out."""
+    xf = x.to(torch.float32)
+    if z is not None and not norm_before_gate:
+        xf = xf * F.silu(z.to(torch.float32))
+    d = xf.shape[-1]
+    gs = group_size or d
+    if d % gs:
+        raise ValueError(f"group size {gs} does not divide {d} channels")
+    xg = xf.reshape(*xf.shape[:-1], d // gs, gs)
+    if is_rms_norm:
+        xg = xg * torch.rsqrt((xg * xg).mean(-1, keepdim=True) + eps)
+    else:
+        mu = xg.mean(-1, keepdim=True)
+        xg = (xg - mu) * torch.rsqrt(((xg - mu) ** 2).mean(-1, keepdim=True) + eps)
+    out = xg.reshape(xf.shape) * weight.to(torch.float32)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    if z is not None and norm_before_gate:
+        out = out * F.silu(z.to(torch.float32))
+    return out.to(x.dtype)
+
+
+def rmsnorm_gated(x, weight, z=None, eps: float = 1e-5, group_size=None,
+                  norm_before_gate: bool = True):
+    """`layernorm_gated` as an RMSNorm, no bias."""
+    return layernorm_gated(x, weight, None, z, eps, group_size, norm_before_gate,
+                           is_rms_norm=True)
+
+
+def swiglu(e, g):
+    """silu(e) g."""
+    return F.silu(e) * g
+
+
+def causal_conv1d(x, weight, bias=None, activation=None):
+    """Depthwise causal 1-D conv: x (batch, seqlen, d), weight (d, width),
+    bias (d,); left padding of width - 1, then SiLU for ``activation``
+    "silu" / "swish".  Float32 inside, x's dtype out."""
+    if activation not in (None, "silu", "swish"):
+        raise ValueError(f"activation {activation!r}: None, 'silu' or 'swish'")
+    d, width = weight.shape
+    out = F.conv1d(F.pad(x.to(torch.float32).transpose(1, 2), (width - 1, 0)),
+                   weight.to(torch.float32)[:, None], None if bias is None else
+                   bias.to(torch.float32), groups=d).transpose(1, 2)
+    if activation is not None:
+        out = F.silu(out)
+    return out.to(x.dtype)
+
+
+def _scan_on_kernels(x, dt, A, B, C, chunk_size, D, z, dt_bias, initial_states):
+    """`ssd_chunk_scan` with softplus, no dt limit, on kernels 15/16 (or
+    their plain twins for CPU tensors): the public layout packed for
+    `ssd_chunk.ssd_chunk_scan_heads`, z's SiLU gate on the kernels' y.
+    Returns (y, final state (b, h, p, n))."""
+    b, s, h, p = x.shape
+    args = ssd_chunk.pack_args(x, dt, A, B, C, D, dt_bias, initial_states)
+    y, fin = ssd_chunk.ssd_chunk_scan_heads(*args, chunk=chunk_size)
+    y = y.transpose(1, 2).reshape(b, s, h, p)
+    if z is not None:
+        y = (y.float() * F.silu(z.float())).to(x.dtype)
+    return y, fin.transpose(2, 3)
+
+
+def mamba_split_conv1d_scan(zxbcdt, conv1d_weight, conv1d_bias, dt_bias, A, D, chunk_size,
+                            initial_states=None, dt_limit=(0.0, math.inf),
+                            return_final_states=False, activation="silu",
+                            rmsnorm_weight=None, rmsnorm_eps=1e-6, outproj_weight=None,
+                            outproj_bias=None, headdim=None, ngroups=1,
+                            norm_before_gate=True):
+    """The fused split-conv1d SSD entry (``ssd_combined.py:760-984``
+    semantics): ``zxbcdt`` (batch, seqlen, 2 d_nonssm + 2 dim + 2 ngroups
+    dstate + nheads) splits into the swiglu pair, the gate z, the conv
+    input of x, B and C, and dt; a causal depthwise conv, the SSD scan
+    (kernels 15/16 where ``ssd_supported`` holds and dt is not limited),
+    the gated group RMSNorm when ``rmsnorm_weight`` is given (the scan is
+    then ungated), the swiglu channels in front, and the out projection
+    (torch's Linear layout).  D (nheads,) with ``headdim``, or
+    (nheads, headdim).  Returns out and, with ``return_final_states``, the
+    final state (batch, nheads, headdim, dstate) float32."""
+    if D.dim() == 1:
+        if headdim is None:
+            raise ValueError("a D of one value a head needs headdim")
+        nheads = D.shape[0]
+    else:
+        nheads, headdim = D.shape
+    batch, seqlen, packed = zxbcdt.shape
+    dim = nheads * headdim
+    if nheads % ngroups:
+        raise ValueError(f"{nheads} heads do not split into {ngroups} groups")
+    dstate = (conv1d_weight.shape[0] - dim) // ngroups // 2
+    d_nonssm = (packed - 2 * dim - 2 * ngroups * dstate - nheads) // 2
+    if d_nonssm < 0:
+        raise ValueError(f"zxbcdt's {packed} channels are too few")
+    zx0, z, xBC, dt = torch.split(
+        zxbcdt, [2 * d_nonssm, dim, dim + 2 * ngroups * dstate, nheads], dim=-1)
+    xBC = causal_conv1d(xBC, conv1d_weight, conv1d_bias, activation=activation)
+    x, B, C = torch.split(xBC, [dim, ngroups * dstate, ngroups * dstate], dim=-1)
+    x = x.reshape(batch, seqlen, nheads, headdim)
+    B = B.reshape(batch, seqlen, ngroups, dstate)
+    C = C.reshape(batch, seqlen, ngroups, dstate)
+    zh = z.reshape(batch, seqlen, nheads, headdim) if rmsnorm_weight is None else None
+    unlimited = dt_limit[0] <= 0.0 and math.isinf(dt_limit[1])
+    if unlimited and ssd_chunk.ssd_supported(seqlen, nheads, headdim, dstate, ngroups,
+                                             chunk_size):
+        out, final = _scan_on_kernels(x, dt, A, B, C, chunk_size, D, zh, dt_bias,
+                                      initial_states)
+    else:
+        out, final = ssd_chunk_scan(x, dt, A, B, C, chunk_size, D=D, z=zh, dt_bias=dt_bias,
+                                    initial_states=initial_states, dt_softplus=True,
+                                    dt_limit=dt_limit, return_final_states=True)
+    out = out.reshape(batch, seqlen, dim)
+    if rmsnorm_weight is not None:
+        out = rmsnorm_gated(out, rmsnorm_weight, z=z, eps=rmsnorm_eps,
+                            group_size=dim // ngroups, norm_before_gate=norm_before_gate)
+    if d_nonssm > 0:
+        out = torch.cat([swiglu(zx0[..., :d_nonssm], zx0[..., d_nonssm:]).to(out.dtype), out],
+                        dim=-1)
+    if outproj_weight is not None:
+        out = out @ outproj_weight.t().to(out.dtype)
+        if outproj_bias is not None:
+            out = out + outproj_bias.to(out.dtype)
+    elif outproj_bias is not None:
+        raise ValueError("an out-projection bias needs its weight")
+    return (out, final) if return_final_states else out

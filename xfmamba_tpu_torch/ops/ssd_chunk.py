@@ -31,21 +31,27 @@
   ``ssd_chunk_scan_pallas_train``, :629-695), which `ssd_chunk_scan_heads`
   takes where gradients are asked for; `pack_args` (``_pack_args``,
   :605-626) gives its arguments from the public layout of ``ops/ssd.py``.
-- `ssd_supported`: the JAX package's geometry gate (:228-237).
-- `ssd_fwd_tiled` / `ssd_bwd_tiled`: every geometry the gate admits on the
-  kernels, which take d_state up to `MAX_STATE` and head width up to
-  `MAX_HEADDIM`: the head width is cut into slices of at most 32 (the
-  columns of x, y and the state are independent) and d_state into tiles of
-  at most 64 (y is linear in the sum over n of the C B and C state terms,
-  so it is the sum of the tiles' outputs, the D skip carried by the first
-  tile alone).  Backward: dx, ddt, dA and dbias are sums over the calls,
-  dB and dC per tile sums over the slices, dD comes from the tile that
-  carried D.  Where d_state takes more than one tile the calls run in
-  float32 (the kernels' own arithmetic, on the same values), so y is
-  rounded once.  `SSDChunkScanTrain` and `ssd_chunk_scan_heads` run them.
+- `ssd_supported`: the JAX package's geometry gate (:228-237).  The
+  kernels take every geometry it admits, at any chunk: d_state up to
+  `MAX_STATE` and head width up to `MAX_HEADDIM` in one call each.  A
+  block holds a slab of the state, at most `SLAB_N` rows of N by `SLAB_P`
+  columns of P (one head's float32 state at d_state 512 and head width 128
+  is 256 KiB, past a block's shared memory), and the grid has a block per
+  slab.  The columns of P are independent; y, and every gradient, is a sum
+  over n (and the gradients over q) of products of one factor from each,
+  so each slab gives its part: where more than one slab adds to an output,
+  the parts go to float32 workspaces and `ssd_slab_sum` adds them in slab
+  order (one launch per output, no atomics), the D terms in the first slab
+  of N's; y is rounded to its dtype once.  The m2 classifiers' geometries
+  (d_state 64, head width 16) are one slab: the same launches as before.
+- A chunk of any length: the kernels' blocks take pieces of at most
+  `PIECE` rows that never cross a chunk's end (`pieces`): a shorter chunk
+  is padded inside the 64-row tile, a longer one is cut into pieces of 64
+  rows and its remainder, each carrying its state to the next.  The states
+  arrays hold the state entering each piece.
 - `ssd_fwd_serial` / `ssd_bwd_serial`: the serial kernels that walk every
-  chunk in one block (``csrc/ssd_serial.cu``), the design these kernels
-  replaced.  No model path calls them; they are kept so that
+  chunk in one block (``csrc/ssd_serial.cu``; chunk 64, one slab), the
+  design these kernels replaced.  No model path calls them; they are kept so that
   ``chip_smoke.py`` can time both designs in turns.
 
 The port's layout is group-major, as SS2D's cross-scan gives it, so no
@@ -53,7 +59,7 @@ operand is transposed on the way in or out: x (b, g, L, R, P), dt
 (b, g, L, R), B and C (b, g, L, N) for g groups of R heads (head
 h = k * R + r reads group k's B and C); A and bias (g * R,), D (g * R, P),
 float32.  States are (N, P) per head: the initial and final states
-(b, g * R, N, P) and the checkpoints (b, g * R, n_chunks, N, P), float32.
+(b, g * R, N, P) and the checkpoints (b, g * R, `pieces`, N, P), float32.
 x, dt, B and C share one dtype, float32 or bfloat16; y comes back in it and
 everything else in float32.  A sequence that the chunk does not divide is
 zero-padded (dt 0 past L: decay 1, contribution 0), as the Pallas kernel
@@ -63,7 +69,8 @@ rounding.
 Each wrapper takes its plain twin (``*_plain``, the same passes in
 PyTorch, the chunks batched) only for CPU tensors; on CUDA tensors it
 launches the kernel, adds one to its ``launches`` count, or raises.
-`ssd_fwd` and `ssd_bwd` count their calls (three kernel launches each).
+`ssd_fwd` and `ssd_bwd` count their calls (three kernel launches each, and
+one `ssd_slab_sum` launch per output that more than one slab adds to).
 """
 
 from __future__ import annotations
@@ -78,13 +85,18 @@ from xfmamba_tpu_torch.ops.fast_math import SOFTPLUS_THRESHOLD, softplus
 from xfmamba_tpu_torch.ops.primitives import (
     dtype_code, forward_only, needs_grad, on_cpu, ptr, require, require_cuda, stream)
 
-# positions per chunk: the m0 path's chunk_size, and the only one the
-# kernels take (their tiling of the chunk x chunk products is fixed)
+# positions per chunk: the default of the m0 path's chunk_size
 CHUNK = 64
-# the kernels' limits: the adjoint's shared memory per block
-# (csrc/ssd_chunk.cu) holds N = 64 and P = 32
-MAX_STATE = 64
-MAX_HEADDIM = 32
+# the kernels' rows per block: a chunk of at most PIECE positions is one
+# piece, padded inside the tile; a longer chunk is cut into pieces of
+# PIECE positions and its remainder (`pieces`)
+PIECE = 64
+# the kernels' limits, the JAX gate's (csrc/ssd_chunk.cu), and the slab of
+# the state a block holds: its shared memory takes N = 64 by P = 32
+MAX_STATE = 512
+MAX_HEADDIM = 128
+SLAB_N = 64
+SLAB_P = 32
 
 
 def _head_tile(R: int, P: int) -> int:
@@ -106,18 +118,41 @@ def ssd_supported(L, h, p, n, g, chunk=CHUNK) -> bool:
     return est < 60 * 1024 * 1024
 
 
-def _geometry(x, Bm, chunk):
-    """(b, g, L, R, P, N, n_chunks) of a call."""
-    b, g, L, R, P = x.shape
+def pieces(L: int, chunk: int) -> int:
+    """The kernels' pieces of L positions in chunks of ``chunk``: per chunk
+    ceil(chunk / PIECE), the last chunk's only as far as L reaches
+    (``csrc/ssd_chunk.cu::pieces``).  The states arrays hold one state a
+    piece: the state entering it."""
     if chunk < 1:
         raise ValueError(f"chunk {chunk} must be positive")
-    return b, g, L, R, P, Bm.shape[-1], -(-L // chunk)
+    ppc, full = -(-chunk // PIECE), (L - 1) // chunk
+    return full * ppc + -(-(L - full * chunk) // PIECE)
+
+
+class _Layout:
+    """The pieces of L positions in chunks of ``chunk``: ``idx`` (n, w) the
+    position of each piece's row (clamped), ``valid`` (n, w) the rows
+    before the piece's end, w = min(chunk, PIECE)."""
+
+    def __init__(self, L, chunk, device):
+        self.L, self.n, self.w = L, pieces(L, chunk), min(chunk, PIECE)
+        k = torch.arange(self.n, device=device)
+        ppc = -(-chunk // PIECE)
+        t0 = (k // ppc) * chunk + (k % ppc) * PIECE
+        cnt = torch.minimum(torch.clamp(chunk - (k % ppc) * PIECE, max=PIECE), L - t0)
+        r = torch.arange(self.w, device=device)
+        self.valid = r[None] < cnt[:, None]
+        self.idx = torch.clamp(t0[:, None] + r[None], max=L - 1)
+
+
+def _geometry(x, Bm, chunk):
+    """(b, g, L, R, P, N, n_pieces) of a call."""
+    b, g, L, R, P = x.shape
+    return b, g, L, R, P, Bm.shape[-1], pieces(L, chunk)
 
 
 def _check(x, dt, A, Bm, Cm, D, bias, chunk):
     b, g, L, R, P, N, nc = _geometry(x, Bm, chunk)
-    if chunk != CHUNK:
-        raise ValueError(f"the SSD kernels take chunk {CHUNK}, not {chunk}")
     if N > MAX_STATE or P > MAX_HEADDIM or N % 2 or P % 2:
         raise ValueError(f"d_state {N} / head width {P}: the kernels take even values up to "
                          f"{MAX_STATE} / {MAX_HEADDIM}")
@@ -138,43 +173,49 @@ def _check(x, dt, A, Bm, Cm, D, bias, chunk):
 # the plain twins: one function per kernel pass, all chunks at once
 # ---------------------------------------------------------------------------
 
-def _rows(t, nc, chunk):
-    """t (b, g, L, ...) as float32 (b, g, nc, chunk, ...), rows past L zero."""
-    b, g, L = t.shape[:3]
-    t = t.float()
-    if nc * chunk != L:
-        t = torch.cat([t, t.new_zeros(b, g, nc * chunk - L, *t.shape[3:])], dim=2)
-    return t.reshape(b, g, nc, chunk, *t.shape[3:])
+def _rows(t, lay):
+    """t (b, g, L, ...) as float32 (b, g, n, w, ...) by pieces, rows past a
+    piece's end zero."""
+    t = t.float()[:, :, lay.idx]
+    return torch.where(lay.valid.view(*lay.valid.shape, *([1] * (t.dim() - 4))), t,
+                       torch.zeros((), device=t.device))
 
 
-def _heads(t, nc, chunk):
-    """x-shaped t (b, g, L, R, P) as float32 (b, g, R, nc, chunk, P)."""
-    return _rows(t, nc, chunk).permute(0, 1, 4, 2, 3, 5)
+def _unrows(t, lay):
+    """(b, g, n, w, ...) by pieces back to (b, g, L, ...)."""
+    out = t.new_zeros(*t.shape[:2], lay.L, *t.shape[4:])
+    out[:, :, lay.idx[lay.valid]] = t[:, :, lay.valid]
+    return out
 
 
-def _unheads(t, L):
-    """(b, g, R, nc, chunk, P) back to (b, g, L, R, P)."""
-    b, g, R, nc, c, P = t.shape
-    return t.permute(0, 1, 3, 4, 2, 5).reshape(b, g, nc * c, R, P)[:, :, :L]
+def _heads(t, lay):
+    """x-shaped t (b, g, L, R, P) as float32 (b, g, R, n, w, P)."""
+    return _rows(t, lay).permute(0, 1, 4, 2, 3, 5)
+
+
+def _unheads(t, lay):
+    """(b, g, R, n, w, P) back to (b, g, L, R, P)."""
+    return _unrows(t.permute(0, 1, 3, 4, 2, 5), lay)
 
 
 class _Cum:
-    """A call's per-head chunk scalars, float32 (b, g, R, nc, c), rows past
-    L zero: z = dt_raw + bias, dt = softplus(z), cum = the inclusive cumsum
-    of A dt within each chunk; valid (nc, c)."""
+    """A call's per-head piece scalars, float32 (b, g, R, n, w), rows past a
+    piece's end zero: z = dt_raw + bias, dt = softplus(z), cum = the
+    inclusive cumsum of A dt within each piece; valid (n, w); ``lay`` the
+    pieces (`_Layout`)."""
 
     def __init__(self, dt, A, bias, chunk):
         b, g, L, R = dt.shape
-        nc = -(-L // chunk)
-        z = _rows(dt, nc, chunk).permute(0, 1, 4, 2, 3)
+        self.lay = lay = _Layout(L, chunk, dt.device)
+        z = _rows(dt, lay).permute(0, 1, 4, 2, 3)
         if bias is not None:
             z = z + bias.float().view(1, g, R, 1, 1)
         self.z = z
-        self.valid = (torch.arange(nc * chunk, device=dt.device) < L).float().view(nc, chunk)
+        self.valid = lay.valid.float()
         self.dt = softplus(z) * self.valid
         self.cum = torch.cumsum(self.dt * A.float().view(1, g, R, 1, 1), dim=-1)
         self.wt = self.cum[..., -1:]
-        self.nc = nc
+        self.nc = lay.n
 
     def decay(self):
         """exp(w) of each chunk, (b, g * R, nc)."""
@@ -183,17 +224,18 @@ class _Cum:
 
 
 class _Chunks(_Cum):
-    """Besides `_Cum`: x (b, g, R, nc, c, P), B and C (b, g, nc, c, N),
+    """Besides `_Cum`: x (b, g, R, n, w, P), B and C (b, g, n, w, N),
     CB = C B^T, the decay E = exp(cum_i - cum_l) [i >= l] and M = CB * E
-    (b, g, R, nc, c, c)."""
+    (b, g, R, n, w, w)."""
 
     def __init__(self, x, dt, A, Bm, Cm, bias, chunk):
         super().__init__(dt, A, bias, chunk)
         b, g, L, R, P, N, nc = _geometry(x, Bm, chunk)
-        self.x = _heads(x, nc, chunk)
-        self.B, self.C = _rows(Bm, nc, chunk), _rows(Cm, nc, chunk)
+        lay = self.lay
+        self.x = _heads(x, lay)
+        self.B, self.C = _rows(Bm, lay), _rows(Cm, lay)
         self.CB = self.C @ self.B.transpose(-1, -2)
-        lower = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+        lower = torch.ones(lay.w, lay.w, dtype=torch.bool, device=x.device).tril()
         diff = self.cum[..., :, None] - self.cum[..., None, :]
         self.E = torch.exp(torch.where(lower, diff, torch.full_like(diff, -math.inf)))
         self.M = self.CB[:, :, None] * self.E
@@ -202,16 +244,16 @@ class _Chunks(_Cum):
 
 @torch.no_grad()
 def ssd_chunk_states_plain(src, dt, A, mat, bias=None, chunk=CHUNK, adjoint=False):
-    """Pass (a): every chunk's local state and decay, (b, g * R, nc, N, P)
-    and (b, g * R, nc), float32.  Forward (src x, mat B):
+    """Pass (a): every piece's local state and decay, (b, g * R, n, N, P)
+    and (b, g * R, n), float32 (n = `pieces`).  Forward (src x, mat B):
     B_j^T ((dt x) exp(w_j - cum)); ``adjoint`` (src dy, mat C):
     C_j^T (exp(cum) dy)."""
     cs = _Cum(dt, A, bias, chunk)
     b, g, L, R, P = src.shape
     N = mat.shape[-1]
     weight = torch.exp(cs.cum) if adjoint else cs.dt * torch.exp(cs.wt - cs.cum)
-    s = _heads(src, cs.nc, chunk) * weight[..., None]
-    local = _rows(mat, cs.nc, chunk).transpose(-1, -2)[:, :, None] @ s
+    s = _heads(src, cs.lay) * weight[..., None]
+    local = _rows(mat, cs.lay).transpose(-1, -2)[:, :, None] @ s
     return local.reshape(b, g * R, cs.nc, N, P), cs.decay()
 
 
@@ -232,7 +274,7 @@ def ssd_state_pass_plain(local, decay, start=None, reverse=False):
 @torch.no_grad()
 def ssd_chunk_scan_plain(x, dt, A, Bm, Cm, D, bias, states, chunk=CHUNK):
     """Pass (c): y (b, g, L, R, P) in x's dtype from the state entering
-    each chunk, ``states`` (b, g * R, nc, N, P)."""
+    each piece, ``states`` (b, g * R, n, N, P)."""
     ch = _Chunks(x, dt, A, Bm, Cm, bias, chunk)
     b, g, L, R, P, N, nc = ch.shape
     st = states.float().view(b, g, R, nc, N, P)
@@ -240,21 +282,21 @@ def ssd_chunk_scan_plain(x, dt, A, Bm, Cm, D, bias, states, chunk=CHUNK):
         (ch.C[:, :, None] @ st) * torch.exp(ch.cum)[..., None]
     if D is not None:
         y = y + ch.x * D.float().view(1, g, R, 1, 1, P)
-    return _unheads(y, L).to(x.dtype).contiguous()
+    return _unheads(y, ch.lay).to(x.dtype).contiguous()
 
 
 @torch.no_grad()
 def ssd_chunk_grads_plain(x, dt, A, Bm, Cm, D, bias, states, ds_out, dy, chunk=CHUNK):
-    """Pass (c) of the adjoint: every chunk's gradients from the state
+    """Pass (c) of the adjoint: every piece's gradients from the state
     entering it (``states``) and the gradient of the state leaving it
-    (``ds_out``), both (b, g * R, nc, N, P), and dy (b, g, L, R, P).
+    (``ds_out``), both (b, g * R, n, N, P), and dy (b, g, L, R, P).
     Returns float32 dx, ddt (of the raw dt), dB, dC (b, g, L, N), dA,
     dbias (g * R,) and dD (g * R, P)."""
     ch = _Chunks(x, dt, A, Bm, Cm, bias, chunk)
     b, g, L, R, P, N, nc = ch.shape
     st = states.float().view(b, g, R, nc, N, P)
     ds = ds_out.float().view(b, g, R, nc, N, P)
-    dyc = _heads(dy, nc, chunk)
+    dyc = _heads(dy, ch.lay)
     Bc, Cc = ch.B[:, :, None], ch.C[:, :, None]
     e_ch = torch.exp(ch.cum)[..., None]
     e_wc = torch.exp(ch.wt - ch.cum)[..., None]
@@ -288,12 +330,10 @@ def ssd_chunk_grads_plain(x, dt, A, Bm, Cm, D, bias, states, ds_out, dy, chunk=C
     dsp = ddt_raw * ch.valid * sig
     dB = dB_h.sum(2) + dCB.transpose(-1, -2) @ ch.C
     dC = dC_h.sum(2) + dCB @ ch.B
-    Lp = nc * chunk
     return dict(
-        dx=_unheads(dx, L).contiguous(),
-        ddt=dsp.permute(0, 1, 3, 4, 2).reshape(b, g, Lp, R)[:, :, :L].contiguous(),
-        dB=dB.reshape(b, g, Lp, N)[:, :, :L].contiguous(),
-        dC=dC.reshape(b, g, Lp, N)[:, :, :L].contiguous(),
+        dx=_unheads(dx, ch.lay).contiguous(),
+        ddt=_unrows(dsp.permute(0, 1, 3, 4, 2), ch.lay).contiguous(),
+        dB=_unrows(dB, ch.lay).contiguous(), dC=_unrows(dC, ch.lay).contiguous(),
         dA=(dw * ch.dt).sum((0, 3, 4)).reshape(g * R), dbias=dsp.sum((0, 3, 4)).reshape(g * R),
         dD=(dyc * ch.x).sum((0, 3, 4)).reshape(g * R, P))
 
@@ -303,7 +343,7 @@ def ssd_fwd_plain(x, dt, A, Bm, Cm, D=None, bias=None, init=None, chunk=CHUNK,
                   save_states=False):
     """Returns y (b, g, L, R, P) in x's dtype and the final state
     (b, g * R, N, P) float32; with ``save_states`` also the state entering
-    each chunk, (b, g * R, n_chunks, N, P).  Passes (a), (b) and (c)."""
+    each piece, (b, g * R, `pieces`, N, P).  Passes (a), (b) and (c)."""
     local, decay = ssd_chunk_states_plain(x, dt, A, Bm, bias, chunk)
     states, fin = ssd_state_pass_plain(local, decay, init)
     y = ssd_chunk_scan_plain(x, dt, A, Bm, Cm, D, bias, states, chunk)
@@ -330,15 +370,15 @@ def ssd_bwd_plain(x, dt, A, Bm, Cm, D, bias, states, dy, dfin=None, chunk=CHUNK)
 # the kernels
 # ---------------------------------------------------------------------------
 
-def _launch_states(src, dt, A, mat, bias, adjoint):
+def _launch_states(src, dt, A, mat, bias, adjoint, chunk):
     b, g, L, R, P = src.shape
-    N, nc = mat.shape[-1], -(-L // CHUNK)
+    N, nc = mat.shape[-1], pieces(L, chunk)
     f32 = dict(dtype=torch.float32, device=src.device)
     st = torch.empty(b, g * R, nc, N, P, **f32)
     decay = torch.empty(b, g * R, nc, **f32)
     build.check(build.library().xfm_ssd_chunk_state(
         ptr(src), ptr(dt), ptr(mat), ptr(A), ptr(bias), ptr(st), ptr(decay), b, L, g, R, P, N,
-        dtype_code(dt), int(adjoint), stream(src)), "ssd_chunk_states")
+        chunk, dtype_code(dt), int(adjoint), stream(src)), "ssd_chunk_states")
     ssd_chunk_states.launches += 1
     return st, decay
 
@@ -355,38 +395,74 @@ def _launch_pass(local, decay, start, reverse):
     return local, fin
 
 
-def _launch_scan(x, dt, A, Bm, Cm, D, bias, states):
-    b, g, L, R, P = x.shape
-    y = torch.empty_like(x)
-    build.check(build.library().xfm_ssd_chunk_scan(
-        ptr(x), ptr(dt), ptr(Bm), ptr(Cm), ptr(A), ptr(bias), ptr(D), ptr(states), ptr(y), b, L,
-        g, R, P, Bm.shape[-1], dtype_code(x), stream(x)), "ssd_chunk_scan")
-    ssd_chunk_scan.launches += 1
-    return y
+def slabs(N: int, P: int) -> tuple[int, int]:
+    """The slabs of a (N, P) state the kernels' blocks take: (of N, of P)."""
+    return -(-N // SLAB_N), -(-P // SLAB_P)
 
 
-def _launch_grads(x, dt, A, Bm, Cm, D, bias, states, ds_out, dy):
+def _parts(count, *shape, device, zero=False):
+    """A float32 workspace of ``count`` slabs' parts, or None for one."""
+    if count == 1:
+        return None
+    return (torch.zeros if zero else torch.empty)(count, *shape, dtype=torch.float32,
+                                                  device=device)
+
+
+def ssd_slab_sum(part, out):
+    """out = the sum of ``part`` (slabs, *out.shape, float32) over its first
+    axis, in slab order, in out's dtype (float32 or bfloat16)."""
+    build.check(build.library().xfm_ssd_sum(ptr(part), out.numel(), part.shape[0], ptr(out),
+                                            dtype_code(out), stream(out)), "ssd_slab_sum")
+    ssd_slab_sum.launches += 1
+    return out
+
+
+ssd_slab_sum.launches = 0
+
+
+def _launch_scan(x, dt, A, Bm, Cm, D, bias, states, chunk):
     b, g, L, R, P = x.shape
     N = Bm.shape[-1]
+    y = torch.empty_like(x)
+    part = _parts(slabs(N, P)[0], *x.shape, device=x.device)
+    build.check(build.library().xfm_ssd_chunk_scan(
+        ptr(x), ptr(dt), ptr(Bm), ptr(Cm), ptr(A), ptr(bias), ptr(D), ptr(states), ptr(y),
+        ptr(part), b, L, g, R, P, N, chunk, dtype_code(x), stream(x)), "ssd_chunk_scan")
+    ssd_chunk_scan.launches += 1
+    return y if part is None else ssd_slab_sum(part, y)
+
+
+def _launch_grads(x, dt, A, Bm, Cm, D, bias, states, ds_out, dy, chunk):
+    b, g, L, R, P = x.shape
+    N = Bm.shape[-1]
+    ns, ps = slabs(N, P)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty(b, g, L, R, P, **f32)
     ddt = torch.empty(b, g, L, R, **f32)
     dB, dC = torch.zeros(b, g, L, N, **f32), torch.zeros(b, g, L, N, **f32)
     dA, dbias = torch.zeros(g * R, **f32), torch.zeros(g * R, **f32)
     dD = torch.zeros(g * R, P, **f32)
+    part = _parts(ns, *dx.shape, device=x.device)
+    part_dt = _parts(ns * ps, *ddt.shape, device=x.device)
+    part_B = _parts(ps, *dB.shape, device=x.device, zero=True)
+    part_C = _parts(ps, *dC.shape, device=x.device, zero=True)
     build.check(build.library().xfm_ssd_chunk_grads(
         ptr(x), ptr(dt), ptr(Bm), ptr(Cm), ptr(A), ptr(bias), ptr(D), ptr(states), ptr(ds_out),
-        ptr(dy), ptr(dx), ptr(ddt), ptr(dB), ptr(dC), ptr(dA), ptr(dbias), ptr(dD), b, L, g, R,
-        P, N, dtype_code(x), stream(x)), "ssd_chunk_grads")
+        ptr(dy), ptr(dx), ptr(ddt), ptr(dB), ptr(dC), ptr(dA), ptr(dbias), ptr(dD), ptr(part),
+        ptr(part_dt), ptr(part_B), ptr(part_C), b, L, g, R, P, N, chunk, dtype_code(x),
+        stream(x)), "ssd_chunk_grads")
     ssd_chunk_grads.launches += 1
+    for t, parts in ((dx, part), (ddt, part_dt), (dB, part_B), (dC, part_C)):
+        if parts is not None:
+            ssd_slab_sum(parts, t)
     return dict(dx=dx, ddt=ddt, dB=dB, dC=dC, dA=dA, dbias=dbias, dD=dD)
 
 
-def ssd_chunk_states(src, dt, A, mat, bias=None, adjoint=False):
+def ssd_chunk_states(src, dt, A, mat, bias=None, adjoint=False, chunk=CHUNK):
     """Pass (a) of kernel 15 (or 16, ``adjoint``: src dy float32, mat C);
     see `ssd_chunk_states_plain`."""
     if on_cpu(src, dt, A, mat, bias):
-        return ssd_chunk_states_plain(src, dt, A, mat, bias, adjoint=adjoint)
+        return ssd_chunk_states_plain(src, dt, A, mat, bias, chunk, adjoint=adjoint)
     require_cuda(src, dt, A, mat, bias)
     b, g, L, R, P = src.shape
     N = mat.shape[-1]
@@ -399,7 +475,7 @@ def ssd_chunk_states(src, dt, A, mat, bias=None, adjoint=False):
     require(A, (g * R,), torch.float32, name="A")
     if bias is not None:
         require(bias, (g * R,), torch.float32, name="bias")
-    return _launch_states(src, dt, A, mat, bias, adjoint)
+    return _launch_states(src, dt, A, mat, bias, adjoint, chunk)
 
 
 ssd_chunk_states.launches = 0
@@ -424,29 +500,29 @@ def ssd_state_pass(local, decay, start=None, reverse=False):
 ssd_state_pass.launches = 0
 
 
-def ssd_chunk_scan(x, dt, A, Bm, Cm, D, bias, states):
+def ssd_chunk_scan(x, dt, A, Bm, Cm, D, bias, states, chunk=CHUNK):
     """Pass (c) of kernel 15; see `ssd_chunk_scan_plain`."""
     if on_cpu(x, dt, A, Bm, Cm, D, bias, states):
-        return ssd_chunk_scan_plain(x, dt, A, Bm, Cm, D, bias, states)
+        return ssd_chunk_scan_plain(x, dt, A, Bm, Cm, D, bias, states, chunk)
     require_cuda(x, dt, A, Bm, Cm, D, bias, states)
-    b, g, L, R, P, N, nc = _check(x, dt, A, Bm, Cm, D, bias, CHUNK)
+    b, g, L, R, P, N, nc = _check(x, dt, A, Bm, Cm, D, bias, chunk)
     require(states, (b, g * R, nc, N, P), torch.float32, name="states")
-    return _launch_scan(x, dt, A, Bm, Cm, D, bias, states)
+    return _launch_scan(x, dt, A, Bm, Cm, D, bias, states, chunk)
 
 
 ssd_chunk_scan.launches = 0
 
 
-def ssd_chunk_grads(x, dt, A, Bm, Cm, D, bias, states, ds_out, dy):
+def ssd_chunk_grads(x, dt, A, Bm, Cm, D, bias, states, ds_out, dy, chunk=CHUNK):
     """Pass (c) of kernel 16; see `ssd_chunk_grads_plain`."""
     if on_cpu(x, dt, A, Bm, Cm, D, bias, states, ds_out, dy):
-        return ssd_chunk_grads_plain(x, dt, A, Bm, Cm, D, bias, states, ds_out, dy)
+        return ssd_chunk_grads_plain(x, dt, A, Bm, Cm, D, bias, states, ds_out, dy, chunk)
     require_cuda(x, dt, A, Bm, Cm, D, bias, states, ds_out, dy)
-    b, g, L, R, P, N, nc = _check(x, dt, A, Bm, Cm, D, bias, CHUNK)
+    b, g, L, R, P, N, nc = _check(x, dt, A, Bm, Cm, D, bias, chunk)
     require(states, (b, g * R, nc, N, P), torch.float32, name="states")
     require(ds_out, (b, g * R, nc, N, P), torch.float32, name="ds_out")
     require(dy, (b, g, L, R, P), torch.float32, name="dy")
-    return _launch_grads(x, dt, A, Bm, Cm, D, bias, states, ds_out, dy)
+    return _launch_grads(x, dt, A, Bm, Cm, D, bias, states, ds_out, dy, chunk)
 
 
 ssd_chunk_grads.launches = 0
@@ -465,9 +541,9 @@ def ssd_fwd(x, dt, A, Bm, Cm, D=None, bias=None, init=None, chunk=CHUNK, save_st
     b, g, L, R, P, N, nc = _check(x, dt, A, Bm, Cm, D, bias, chunk)
     if init is not None:
         require(init, (b, g * R, N, P), torch.float32, name="init")
-    local, decay = _launch_states(x, dt, A, Bm, bias, False)
+    local, decay = _launch_states(x, dt, A, Bm, bias, False, chunk)
     states, fin = _launch_pass(local, decay, init, False)
-    y = _launch_scan(x, dt, A, Bm, Cm, D, bias, states)
+    y = _launch_scan(x, dt, A, Bm, Cm, D, bias, states, chunk)
     ssd_fwd.launches += 1  # counted once launched
     return (y, fin, states) if save_states else (y, fin)
 
@@ -486,9 +562,9 @@ def ssd_bwd(x, dt, A, Bm, Cm, D, bias, states, dy, dfin=None, chunk=CHUNK):
     require(dy, (b, g, L, R, P), torch.float32, name="dy")
     if dfin is not None:
         require(dfin, (b, g * R, N, P), torch.float32, name="dfin")
-    q, decay = _launch_states(dy, dt, A, Cm, bias, True)
+    q, decay = _launch_states(dy, dt, A, Cm, bias, True, chunk)
     ds_out, dinit = _launch_pass(q, decay, dfin, True)
-    grads = _launch_grads(x, dt, A, Bm, Cm, D, bias, states, ds_out, dy)
+    grads = _launch_grads(x, dt, A, Bm, Cm, D, bias, states, ds_out, dy, chunk)
     ssd_bwd.launches += 1  # counted once launched
     grads["dinit"] = dinit
     return grads
@@ -501,9 +577,11 @@ def ssd_fwd_serial(x, dt, A, Bm, Cm, D=None, bias=None, init=None, save_states=F
     """The serial form of kernel 15 (``csrc/ssd_serial.cu``), for timing
     against `ssd_fwd`; returns what `ssd_fwd` returns."""
     if on_cpu(x, dt, A, Bm, Cm, D, bias, init):
-        return ssd_fwd_plain(x, dt, A, Bm, Cm, D, bias, init, save_states=save_states)
+        return ssd_fwd_plain(x, dt, A, Bm, Cm, D, bias, init, CHUNK, save_states)
     require_cuda(x, dt, A, Bm, Cm, D, bias, init)
     b, g, L, R, P, N, nc = _check(x, dt, A, Bm, Cm, D, bias, CHUNK)
+    if N > SLAB_N or P > SLAB_P:
+        raise ValueError(f"the serial kernels take one slab: d_state {N} / head width {P}")
     if init is not None:
         require(init, (b, g * R, N, P), torch.float32, name="init")
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -528,6 +606,8 @@ def ssd_bwd_serial(x, dt, A, Bm, Cm, D, bias, states, dy, dfin=None):
         return ssd_bwd_plain(x, dt, A, Bm, Cm, D, bias, states, dy, dfin)
     require_cuda(x, dt, A, Bm, Cm, D, bias, states, dy, dfin)
     b, g, L, R, P, N, nc = _check(x, dt, A, Bm, Cm, D, bias, CHUNK)
+    if N > SLAB_N or P > SLAB_P:
+        raise ValueError(f"the serial kernels take one slab: d_state {N} / head width {P}")
     require(states, (b, g * R, nc, N, P), torch.float32, name="states")
     require(dy, (b, g, L, R, P), torch.float32, name="dy")
     if dfin is not None:
@@ -552,86 +632,6 @@ ssd_bwd_serial.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# the gate's geometries on the kernels: head-width slices, d_state tiles
-# ---------------------------------------------------------------------------
-
-def _cuts(n: int, size: int) -> list[slice]:
-    """[0, n) in consecutive slices of at most ``size``."""
-    return [slice(i, min(i + size, n)) for i in range(0, n, size)]
-
-
-def _part(t, *index):
-    return None if t is None else t[index].contiguous()
-
-
-def ssd_fwd_tiled(x, dt, A, Bm, Cm, D=None, bias=None, init=None, save_states=False):
-    """`ssd_fwd` at any head width and d_state the gate admits; returns
-    what `ssd_fwd` returns (see the module docstring for the split)."""
-    b, g, L, R, P = x.shape
-    N = Bm.shape[-1]
-    ps, ns = _cuts(P, MAX_HEADDIM), _cuts(N, MAX_STATE)
-    if len(ps) == 1 and len(ns) == 1:
-        return ssd_fwd(x, dt, A, Bm, Cm, D, bias, init, save_states=save_states)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    cast = (lambda t: t.float()) if len(ns) > 1 else (lambda t: t)
-    xc, dtc, Bc, Cc = cast(x), cast(dt), cast(Bm), cast(Cm)
-    nc = -(-L // CHUNK)
-    fin = torch.empty(b, g * R, N, P, **f32)
-    states = torch.empty(b, g * R, nc, N, P, **f32) if save_states else None
-    ys = []
-    for pc in ps:
-        xp = xc[..., pc].contiguous()
-        y = None
-        for i, nt in enumerate(ns):
-            out = ssd_fwd(xp, dtc, A, _part(Bc, Ellipsis, nt), _part(Cc, Ellipsis, nt),
-                          _part(D, slice(None), pc) if i == 0 else None, bias,
-                          _part(init, slice(None), slice(None), nt, pc), save_states=save_states)
-            y = out[0] if y is None else y + out[0]
-            fin[:, :, nt, pc] = out[1]
-            if save_states:
-                states[:, :, :, nt, pc] = out[2]
-        ys.append(y)
-    y = torch.cat(ys, -1).to(x.dtype)
-    return (y, fin, states) if save_states else (y, fin)
-
-
-def ssd_bwd_tiled(x, dt, A, Bm, Cm, D, bias, states, dy, dfin=None):
-    """`ssd_bwd` at any head width and d_state the gate admits, from the
-    checkpoints of `ssd_fwd_tiled`; returns what `ssd_bwd` returns."""
-    b, g, L, R, P = x.shape
-    N = Bm.shape[-1]
-    ps, ns = _cuts(P, MAX_HEADDIM), _cuts(N, MAX_STATE)
-    if len(ps) == 1 and len(ns) == 1:
-        return ssd_bwd(x, dt, A, Bm, Cm, D, bias, states, dy, dfin)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.empty(b, g, L, R, P, **f32)
-    dB, dC = torch.zeros(b, g, L, N, **f32), torch.zeros(b, g, L, N, **f32)
-    dD = torch.zeros(g * R, P, **f32)
-    dinit = torch.empty(b, g * R, N, P, **f32)
-    ddt = dA = dbias = None
-    for pc in ps:
-        xp = x[..., pc].contiguous()
-        dyp = dy[..., pc].contiguous()
-        dxp = None
-        for i, nt in enumerate(ns):
-            r = ssd_bwd(xp, dt, A, _part(Bm, Ellipsis, nt), _part(Cm, Ellipsis, nt),
-                        _part(D, slice(None), pc) if i == 0 else None, bias,
-                        _part(states, Ellipsis, nt, pc), dyp,
-                        _part(dfin, slice(None), slice(None), nt, pc))
-            dxp = r["dx"] if dxp is None else dxp + r["dx"]
-            ddt = r["ddt"] if ddt is None else ddt + r["ddt"]
-            dA = r["dA"] if dA is None else dA + r["dA"]
-            dbias = r["dbias"] if dbias is None else dbias + r["dbias"]
-            dB[..., nt] += r["dB"]
-            dC[..., nt] += r["dC"]
-            if i == 0:
-                dD[:, pc] = r["dD"]
-            dinit[:, :, nt, pc] = r["dinit"]
-        dx[..., pc] = dxp
-    return dict(dx=dx, ddt=ddt, dB=dB, dC=dC, dA=dA, dbias=dbias, dD=dD, dinit=dinit)
-
-
-# ---------------------------------------------------------------------------
 # the autograd op and its entries
 # ---------------------------------------------------------------------------
 
@@ -641,10 +641,10 @@ class SSDChunkScanTrain(torch.autograd.Function):
     state, unused) counts as zeros."""
 
     @staticmethod
-    def forward(ctx, x, dt, A, Bm, Cm, D, bias, init):
-        y, fin, states = ssd_fwd_tiled(x, dt, A, Bm, Cm, D, bias, init, save_states=True)
+    def forward(ctx, x, dt, A, Bm, Cm, D, bias, init, chunk):
+        y, fin, states = ssd_fwd(x, dt, A, Bm, Cm, D, bias, init, chunk, save_states=True)
         ctx.save_for_backward(x, dt, A, Bm, Cm, D, bias, states)
-        ctx.has_init = init is not None
+        ctx.has_init, ctx.chunk = init is not None, chunk
         ctx.set_materialize_grads(False)
         return y, fin
 
@@ -654,29 +654,29 @@ class SSDChunkScanTrain(torch.autograd.Function):
         gy = torch.zeros(x.shape, dtype=torch.float32, device=x.device) if gy is None \
             else gy.float().contiguous()
         gfin = None if gfin is None else gfin.float().contiguous()
-        g = ssd_bwd_tiled(x, dt, A, Bm, Cm, D, bias, states, gy, gfin)
+        g = ssd_bwd(x, dt, A, Bm, Cm, D, bias, states, gy, gfin, ctx.chunk)
         return (g["dx"].to(x.dtype), g["ddt"].to(dt.dtype), g["dA"], g["dB"].to(Bm.dtype),
                 g["dC"].to(Cm.dtype), None if D is None else g["dD"],
-                None if bias is None else g["dbias"], g["dinit"] if ctx.has_init else None)
+                None if bias is None else g["dbias"], g["dinit"] if ctx.has_init else None, None)
 
 
-@reports_cost(lambda x, dt, A, Bm, *args, **kwargs: flops_ssd_chunk_scan(
-    x.shape[0], x.shape[2], x.shape[1] * x.shape[3], x.shape[4], Bm.shape[-1], CHUNK))
-def ssd_chunk_scan_heads(x, dt, A, Bm, Cm, D=None, bias=None, init=None):
+@reports_cost(lambda x, dt, A, Bm, *args, chunk=CHUNK, **kwargs: flops_ssd_chunk_scan(
+    x.shape[0], x.shape[2], x.shape[1] * x.shape[3], x.shape[4], Bm.shape[-1], chunk))
+def ssd_chunk_scan_heads(x, dt, A, Bm, Cm, D=None, bias=None, init=None, chunk=CHUNK):
     """The SSD scan in the kernel layout (see the module docstring): kernel
     15 alone where no gradient is asked for (``_ssd_call``), else
-    `SSDChunkScanTrain` (kernels 15 and 16), both tiled to the kernels'
-    limits.  x, dt, B and C are taken in
+    `SSDChunkScanTrain` (kernels 15 and 16).  x, dt, B and C are taken in
     x's dtype, A, D, bias and init in float32 (casts that autograd runs
-    back).  Returns (y in x's dtype, final state float32)."""
+    back); ``chunk`` positions a chunk.  Returns (y in x's dtype, final
+    state float32)."""
     def f32(t):
         return None if t is None else t.float().contiguous()
 
     args = (x.contiguous(), dt.to(x.dtype).contiguous(), f32(A), Bm.to(x.dtype).contiguous(),
             Cm.to(x.dtype).contiguous(), f32(D), f32(bias), f32(init))
     if needs_grad(*args):
-        return SSDChunkScanTrain.apply(*args)
-    return ssd_fwd_tiled(*args)
+        return SSDChunkScanTrain.apply(*args, chunk)
+    return ssd_fwd(*args, chunk=chunk)
 
 
 def pack_args(x, dt, A, B, C, D=None, dt_bias=None, initial_states=None):

@@ -77,8 +77,8 @@ def _pack(block, dtype, detach) -> VSSBlockOperands:
     xw = op.x_proj_weight.float()                          # (4, R + 2, di)
     K, _, di = xw.shape
     R = op.dt_projs_weight.shape[-1]
-    if K != 4 or op.A_logs.shape[1] != 1 or block.mlp is None:
-        raise ValueError("the VSS stage takes d_state-1 cross2d blocks with an MLP")
+    if K != 4 or op.A_logs.shape[1] != 1:
+        raise ValueError("the VSS stage takes d_state-1 cross2d blocks")
 
     def f32(t):
         return (t.detach() if detach else t).float().contiguous()
@@ -98,16 +98,18 @@ def _pack(block, dtype, detach) -> VSSBlockOperands:
         Dsum=f32(op.Ds.float().reshape(4, di).sum(0)),
         lno_w=f32(op.out_norm.weight), lno_b=f32(op.out_norm.bias),
         w_out=mm(op.out_proj.weight),
-        ln2_w=f32(block.norm2.weight), ln2_b=f32(block.norm2.bias),
-        w_fc1=mm(block.mlp.fc1.weight), b_fc1=f32(block.mlp.fc1.bias),
-        w_fc2=mm(block.mlp.fc2.weight), b_fc2=f32(block.mlp.fc2.bias))
+        **({} if block.mlp is None else dict(
+            ln2_w=f32(block.norm2.weight), ln2_b=f32(block.norm2.bias),
+            w_fc1=mm(block.mlp.fc1.weight), b_fc1=f32(block.mlp.fc1.bias),
+            w_fc2=mm(block.mlp.fc2.weight), b_fc2=f32(block.mlp.fc2.bias))))
 
 
 @torch.no_grad()
 def pack_vss_block_params(block, dtype) -> VSSBlockOperands:
     """Operands of a ``models.vssm.VSSBlock`` (forward_type v05_noz,
-    d_state 1, with MLP) for activations of ``dtype``, off the autograd
-    graph (inference)."""
+    d_state 1) for activations of ``dtype``, off the autograd graph
+    (inference); the MLP fields are None where the block has no MLP half
+    (``mlp_ratio`` 0)."""
     return _pack(block, dtype, detach=True)
 
 
@@ -158,8 +160,10 @@ def mlp_half(x1, p: VSSBlockOperands, ops, m2=None):
 def vss_block_body(x, p: VSSBlockOperands, H, W, ops, m1=None, m2=None):
     """One VSSBlock on x (B, L, d) with the kernel set ``ops`` (gemm,
     layer_norm, dwconv3_silu, selective_scan) and optional drop-path
-    scales m1, m2 (B,) at the two residual adds."""
-    return mlp_half(ss2d_half(x, p, H, W, ops, m1), p, ops, m2)
+    scales m1, m2 (B,) at the two residual adds; a block without its MLP
+    half ends after out_proj + residual."""
+    x1 = ss2d_half(x, p, H, W, ops, m1)
+    return x1 if p.w_fc1 is None else mlp_half(x1, p, ops, m2)
 
 
 # the plain twin of every kernel a block's forward and backward launch;

@@ -9,7 +9,11 @@ makes one cooperative launch per block of ``csrc/vss_block_v1.cu``, whose
 phases (`PHASES`), separated by grid-wide barriers, are LN1, in_proj,
 depthwise conv + SiLU, x_proj, the four d_state-1 cross2d scans (rank
 form, two-level along L), the merge with the out-norm, out_proj +
-residual, LN2, fc1 + GELU and fc2 + residual.  The block rounds where the
+residual, LN2, fc1 + GELU and fc2 + residual; a block without its MLP half
+(``mlp_ratio`` 0, JAX's ``fuse_mlp`` off: the operands' MLP fields None)
+ends at out_proj + residual, which then writes the output in the
+activation dtype, every block of the grid skipping the last three phases
+and their barriers alike.  The block rounds where the
 TPU kernel rounds: ``xin``, ``u``, B, C, y and the residual stream stay
 float32 (``:306-381``); LayerNorm outputs, the rank values, ``u`` for x_proj and
 the GELU output are rounded to the activation dtype for their products;
@@ -54,7 +58,7 @@ from xfmamba_tpu_torch.ops.primitives import (
     dtype_code, dwconv3_silu_cuda, dwconv3_silu_plain, forward_only, gemm_ab_cuda,
     gemm_ab_plain, layer_norm_cuda, layer_norm_plain, on_cpu, ptr, require, require_cuda,
     stream)
-from xfmamba_tpu_torch.ops.vss_block import VSSBlockOperands, pack_vss_block_params
+from xfmamba_tpu_torch.ops.vss_block import MLP_FIELDS, VSSBlockOperands, pack_vss_block_params
 
 # ---------------------------------------------------------------------------
 # the v1 routing helpers (``vss_block_pallas.py:633-683``)
@@ -139,6 +143,8 @@ def vss_block_v1_body(x, p: VSSBlockOperands, H, W, ops):
                  CROSS2D_KINDS, H, W, ranks=xdbl[..., :4 * R].unflatten(-1, (4, R)),
                  w_dt=p.w_dt, out_dtype=f32, round_rank=low)
     yn = ops.layer_norm(y.view(B * L, di), p.lno_w, p.lno_b, dtype)
+    if p.w_fc1 is None:  # no MLP half: the block ends at out_proj + residual
+        return ops.gemm_ab(yn, p.w_out, residual=rows, out_dtype=dtype).view(B, L, d)
     res = ops.gemm_ab(yn, p.w_out, residual=rows, out_dtype=f32)
     h2 = ops.layer_norm(res, p.ln2_w, p.ln2_b, dtype)
     f1 = ops.gemm_ab(h2, p.w_fc1, bias=p.b_fc1, gelu=True)
@@ -252,6 +258,8 @@ def vss_block_v1_phases_plain(x, p: VSSBlockOperands, H, W):
     for k in range(4):
         y = y + two_level_part_plain(u, xdbl, p, k, H, W, dtype != f32, segs)
     yn = layer_norm_plain(y.view(B * L, di), p.lno_w, p.lno_b, dtype)
+    if p.w_fc1 is None:  # no MLP half: G writes the output
+        return gemm_ab_plain(yn, p.w_out, residual=rows, out_dtype=dtype).view(B, L, d)
     x1 = gemm_ab_plain(yn, p.w_out, residual=rows, out_dtype=f32)               # G
     h2 = layer_norm_plain(x1, p.ln2_w, p.ln2_b, dtype)                          # H
     f1 = gemm_ab_plain(h2, p.w_fc1, bias=p.b_fc1, gelu=True)                    # I
@@ -307,11 +315,13 @@ def vss_block_v1(x, p: VSSBlockOperands, H, W):
 def phase_ns(x, p: VSSBlockOperands, H, W) -> dict:
     """One launch of kernel 8 with its phase clock on: {phase: ns from the
     start of the phase to the grid barrier after it} (the card's global
-    timer, read by one thread; the last phase ends at an extra barrier)."""
+    timer, read by one thread; the last phase ends at an extra barrier).
+    A block without its MLP half has the phases up to out_proj+residual."""
+    phases = PHASES if p.w_fc1 is not None else PHASES[:PHASES.index("LN2")]
     stamps = torch.zeros(len(PHASES) + 1, dtype=torch.int64, device=x.device)
     _launch(x, p, H, W, stamps)
     t = stamps.tolist()
-    return {name: t[i + 1] - t[i] for i, name in enumerate(PHASES)}
+    return {name: t[i + 1] - t[i] for i, name in enumerate(phases)}
 
 
 def _check_operands(p, dtype, d, di, R, hd):
@@ -326,7 +336,8 @@ def _check_operands(p, dtype, d, di, R, hd):
             ("ln2_w", p.ln2_w, (d,), f32), ("ln2_b", p.ln2_b, (d,), f32),
             ("w_fc1", p.w_fc1, (hd, d), dtype), ("b_fc1", p.b_fc1, (hd,), f32),
             ("w_fc2", p.w_fc2, (d, hd), dtype), ("b_fc2", p.b_fc2, (d,), f32)):
-        require(t, shape, dt, name=name)
+        if hd or name not in MLP_FIELDS:
+            require(t, shape, dt, name=name)
     if p.b_conv is not None:
         require(p.b_conv, (di,), f32, name="b_conv")
     require_cuda(*p.tensors())
@@ -339,9 +350,7 @@ def _launch(x, p, H, W, stamps):
         raise TypeError("block operands were packed for another dtype")
     B, L, d = x.shape
     di, R = p.w_in.shape[0], p.rank
-    if p.w_fc1 is None:
-        raise ValueError("kernel 8 runs whole blocks: the MLP operands are missing")
-    hd = p.w_fc1.shape[0]
+    hd = 0 if p.w_fc1 is None else p.w_fc1.shape[0]  # 0: no MLP half (phases H-J skipped)
     # the operands are checked once per operand set and activation shape
     # (their tensors cannot be swapped: the dataclass is frozen)
     if getattr(p, "_checked_for", None) != (x.dtype, x.device, d):

@@ -10,11 +10,13 @@ of `CUDA_OPS`: the LayerNorm and depthwise conv + SiLU of
 ``csrc/gemm_tc.cu`` for bfloat16, the SIMT kernel for float32) and the
 chunked rank-form cross2d scan (``ops/cross2d_scan.py``,
 ``csrc/ss2d_core_n1.cu``); the activation goes through device memory
-between them.  What bounds each kernel on the H100 is noted in its
-source; keeping a block's activations on chip (the TPU design) is later
-work.  `SERIAL_OPS` keeps the serial sequence (every GEMM on the SIMT
-kernel, the serial scans of ``csrc/nk_scan.cu`` and
-``csrc/nk_scan_bwd.cu``), which ``chip_smoke.py`` times beside this one.
+between them.  A block without its MLP half (``mlp_ratio`` 0) ends after
+out_proj + residual, as the JAX kernel does with ``fuse_mlp`` off.  What
+bounds each kernel on the H100 is noted in its source; keeping a block's
+activations on chip (the TPU design) is later work.  `SERIAL_OPS` keeps the
+serial sequence (every GEMM on the SIMT kernel, the serial scans of
+``csrc/nk_scan.cu`` and ``csrc/nk_scan_bwd.cu``), which ``chip_smoke.py``
+times beside this one.
 
 `vss_stage` takes `vss_stage_plain` only for CPU tensors; on CUDA tensors it
 launches the kernels, adds one to ``vss_stage.launches`` per stage, or
@@ -151,14 +153,18 @@ def stage_route(B, H, W, d, di, hd, depth) -> str:
     - "v1": kernel 8, block by block, where no v2 group exists and
       ``fused_vss_block_supported`` holds.
     - "composable": the composable blocks (kernel 11), where JAX runs no
-      whole-block kernel."""
+      whole-block kernel.
+
+    ``hd`` 0 is a block without its MLP half (JAX's ``fuse_mlp`` off,
+    ``mlp_ratio`` 0), whose working sets the rules then count without it."""
     if depth < 2:
         return "stage"
-    budget = _VMEM_BUDGET_V2 - stage_weight_bytes(d, di, hd)
-    if pick_group_v2(B, H, W, d, di, hd, budget_bytes=budget) is not None:
+    mlp = hd > 0
+    budget = _VMEM_BUDGET_V2 - stage_weight_bytes(d, di, hd, mlp)
+    if pick_group_v2(B, H, W, d, di, hd, mlp, budget_bytes=budget) is not None:
         return "stage"
-    if not fused_vss_block_supported(H, W, d, di, hd):
+    if not fused_vss_block_supported(H, W, d, di, hd, mlp):
         return "composable"
-    if pick_group_v2(B, H, W, d, di, hd) is not None:
+    if pick_group_v2(B, H, W, d, di, hd, mlp) is not None:
         return "stage"
     return "v1"

@@ -364,6 +364,24 @@ kernels 15 and 16 over the whole SSD gate; kernels 2 / 7 for new callers):
    16) at 7 x 7, 16 studies, float32: output and every gradient card
    against the CPU (1e-3), kernels 2 / 7 (or 13 / 14) as `core_dispatch`
    routes them.  It prints ``phase 17: N s``.
+18. the readers of every JPEG and PNG the JAX readers decode: (18a) the
+   host library built with g++; the numpy encoders' progressive (Huffman
+   and arithmetic-coded, 4:2:0 with restarts), arithmetic-coded sequential
+   (DAC), lossless (8 bits predictor 7 with a point transform, 5 bits) JPEGs
+   and Adam7 / 4-bit / 16-bit-colour PNGs at CheXpert's size (390 x 320)
+   and at 2,800 x 2,300 (encoded in spawned worker processes while the
+   earlier phases run) decode to the encoder's reconstruction (the islow
+   IDCT of the final coefficients, or the written samples), each with its
+   decode time on one host thread beside the baseline decoder's on the
+   same image; cut, corrupt, short-of-Al-0, CMYK, YCCK and RGB files at
+   390 x 320 decode to the SHA-256 digests tests/torch_codecs.py keeps
+   (pinned to cv2 by tests/test_torch_jpeg_formats.py); (18b) one float32
+   epoch of XFMamba-S through ``cli.train --dataset chexpert`` on a tree
+   whose JPEGs are progressive, arithmetic-coded, truncated and CMYK, and
+   one through ``cli.train --dataset mura`` on Adam7, 2- and 4-bit, 4-bit
+   palette and 16-bit-colour PNGs: phase 11's launches per step and per
+   eval forward, every loss and val AUC finite.  It prints ``phase 18: N
+   s``.
 
 ``python3 chip_smoke.py --cards`` needs two cards or more and runs only
 15a over every visible card (NCCL, one rank a card) against one rank, then
@@ -407,7 +425,9 @@ import contextlib
 import ctypes
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -4615,6 +4635,7 @@ HIP_IMAGES, HIP_SIZE = 195, (640, 512)
 DDSM_PATIENTS, DDSM_SIZE = 200, (1600, 1000)
 TREE_DISTINCT = {"chexpert": 48, "hipxray": 16, "ddsmxray": 8}
 FULL_XRAY, FULL_MAMMOGRAM = (2800, 2300), (5000, 3000)
+READER_DISTINCT = 10             # phase 18b's distinct CheXpert images (2 of each kind)
 DECODE_SAMPLES = 16
 
 
@@ -6268,12 +6289,181 @@ def cli_over_cards(card, tmp, n):
         raise PhaseFailure(f"cli.train over {n} cards failed:\n{out[-3000:]}")
 
 
+READER_SIZES = ((390, 320), FULL_XRAY)
+READER_WORKERS = 2
+
+
+def start_reader_files():
+    """Phase 18's encodings (numpy and pure Python, tests/torch_codecs.py),
+    started in spawned worker processes so that they run while the card
+    runs phases 2-17, at the lowest CPU priority so that they take only
+    the cores the host-bound phases leave idle: (directory, pool, {(name,
+    size): future})."""
+    import concurrent.futures
+    import multiprocessing
+    import tempfile
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_codecs
+
+    tmp = tempfile.mkdtemp(prefix="xfm_phase18_")
+    pool = concurrent.futures.ProcessPoolExecutor(
+        READER_WORKERS, mp_context=multiprocessing.get_context("spawn"), initializer=os.nice,
+        initargs=(19,))
+    # the big files first: they take longest
+    jobs = {(name, size): pool.submit(torch_codecs.corpus_job, name, size, 18,
+                                      os.path.join(tmp, f"{name}_{size[0]}"))
+            for size in reversed(READER_SIZES) for name in torch_codecs.CORPUS}
+    return tmp, pool, jobs
+
+
+def stop_reader_files(reader):
+    tmp, pool, _ = reader
+    procs = list((getattr(pool, "_processes", None) or {}).values())
+    pool.shutdown(wait=False, cancel_futures=True)
+    for proc in procs:
+        proc.terminate()
+        proc.join(10)
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_readers(card, reader):
+    """Phase 18 (see the module docstring)."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch_codecs
+    from torch_datasets_tree import encode_jpeg, write_chexpert_tree
+    from torch_mura_tree import encode_png, write_mura_tree
+    from xfmamba_tpu_torch import native
+    from xfmamba_tpu_torch.cli import train as cli_train
+    from xfmamba_tpu_torch.data import image, jpeg, png
+    from xfmamba_tpu_torch.train import driver
+
+    tmp, _, jobs = reader
+    t0 = time.perf_counter()
+    so = native.build()
+    native.library()
+    print(f"phase 18a: the readers; host library {so.name} built with g++ "
+          f"({time.perf_counter() - t0:.1f} s); {os.cpu_count()} host cores")
+    wrong = []
+    out = {}
+    for size in READER_SIZES:
+        t0 = time.perf_counter()
+        done = {name: jobs[(name, size)].result(timeout=900) for name in torch_codecs.CORPUS}
+        waited = time.perf_counter() - t0
+        # the baseline decoders on an image of the size: a baseline JPEG
+        # (quality 90) and a plain 8-bit gray PNG
+        plain = np.load(done["png-adam7-gray8"] + ".npy")
+        baseline = {"jpeg": time_calls(jpeg.decode_gray, [encode_jpeg(plain, 90)[0]], 3)[0],
+                    "png": time_calls(png.decode_gray, [encode_png(plain, 0, 8)], 3)[0]}
+        print(f"  {size[0]} x {size[1]} (the encoder's files ready after a further "
+              f"{waited:.1f} s):")
+        for name, path in done.items():
+            raw = Path(path).read_bytes()
+            want = np.load(path + ".npy")
+            per, (got,) = time_calls(image.decode_grayscale, [raw], repeat=3)
+            base_per = baseline["png" if name.startswith("png") else "jpeg"]
+            same = got.shape == want.shape and np.array_equal(got, want)
+            print(f"    {name}: {len(raw) / 2 ** 20:.2f} MiB, {1e3 * per:.2f} ms on one host "
+                  f"thread ({1e-6 * want.size / per:.1f} Mpixel/s; the baseline "
+                  f"{'PNG' if name.startswith('png') else 'JPEG'} decoder {1e3 * base_per:.2f} "
+                  f"ms on the same image); {'equal to' if same else 'DIFFERENT FROM'} the "
+                  f"encoder's reconstruction")
+            out[f"{name}_{size[0]}_ms"] = 1e3 * per
+            out[f"{name}_{size[0]}_baseline_ms"] = 1e3 * base_per
+            if not same:
+                wrong.append(f"{name} at {size}")
+    digests = []
+    for name in torch_codecs.DAMAGED:
+        got = jpeg.decode_gray(torch_codecs.damaged_file(name))
+        ok = torch_codecs.gray_digest(got) == torch_codecs.DAMAGED_SHA256[name]
+        digests.append(f"{name} {'held' if ok else 'DIFFERS'}")
+        if not ok:
+            wrong.append(name)
+    print(f"  cut, corrupt and colour-model files, 390 x 320, SHA-256 of the gray image: "
+          f"{'; '.join(digests)}")
+    if wrong:
+        raise PhaseFailure(f"phase 18a: decodes differ: {wrong}")
+
+    # 18b: one epoch on each tree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fns = all_kernels()
+    work = tempfile.mkdtemp(prefix="xfm_phase18b_", dir=tmp)
+    argv = ["--model_name", CLI_MODEL, "--image_size", str(IMAGE), "--batch_size",
+            str(TRAIN_BATCH), "--num_workers", "4", "--seed", "42", "--device", CLI_DEVICE,
+            "--epochs", "1"]
+    t0 = time.perf_counter()
+    chex_root = os.path.join(work, "chexpert")
+    chex_csv, chex_images = write_chexpert_tree(chex_root, CHEX_PATIENTS, CHEX_SIZE,
+                                                distinct=READER_DISTINCT, seed=18)
+    kinds = ("progressive", "arith", "arith-progressive", "truncated", "cmyk")
+    variants = {}
+    for path in (p for p in chex_images if p.endswith(".jpg")):
+        raw = Path(path).read_bytes()
+        if raw[:3] != jpeg.SIGNATURE:
+            continue
+        if raw not in variants:
+            kind = kinds[len(variants) % len(kinds)]
+            variants[raw] = torch_codecs.reencode_jpeg(jpeg.decode_gray(raw), kind)
+        Path(path).write_bytes(variants[raw])
+    mura_root = os.path.join(work, "mura")
+    csvs, mura_images = write_mura_tree(mura_root, n_studies=CLI_STUDIES, parts=CLI_PARTS,
+                                        n_valid=CLI_VALID_STUDIES, kinds=CLI_KINDS, seed=18)
+    png_kinds = ("adam7", "gray2", "gray4", "palette4", "rgb16")
+    for k, path in enumerate(mura_images):
+        gray = png.decode_gray(Path(path).read_bytes())
+        Path(path).write_bytes(torch_codecs.reencode_png(gray, png_kinds[k % len(png_kinds)]))
+    print(f"phase 18b: trees in {time.perf_counter() - t0:.1f} s: CheXpert {len(chex_images)} "
+          f"images, {len(variants)} distinct JPEGs as {'/'.join(kinds)} in turn; MURA "
+          f"{len(mura_images)} PNGs as {'/'.join(png_kinds)} in turn; XFMamba-S float32, "
+          f"{IMAGE}x{IMAGE}, bs {TRAIN_BATCH} ({card})")
+    runs = {"chexpert": ["--dataset", "chexpert", "--data_root", chex_root, "--chexpert_csv",
+                         chex_csv, "--num_classes", "14"],
+            "mura": ["--data_root", mura_root, "--train_image_csv", csvs[0],
+                     "--train_label_csv", csvs[1], "--valid_image_csv", csvs[2],
+                     "--valid_label_csv", csvs[3]]}
+    for label, data in runs.items():
+        with epoch_launches(driver, fns) as rec:
+            _, history = cli_train.main(argv + data + ["--savemodel_path",
+                                                       os.path.join(work, f"{label}_run")])
+        bad = check_epoch_launches(rec, F32_STEP["small"], F32_FORWARD)
+        steps = [v for h in history for v in h["train"]["step_ms"]]
+        for h in history:
+            tr, sec = h["train"], h["seconds"]
+            print(f"  {label} epoch {h['epoch']}: train loss {tr['loss']:.6f}, val loss "
+                  f"{h['val']['loss']:.6f}, val AUC {h['val'].get('auc', float('nan')):.4f}; "
+                  f"{sum(sec.values()):.2f} s (train {sec['train_s']:.2f}, waiting on the "
+                  f"loader {tr['loader_wait_s']:.2f}); {tr['steps']} steps, median "
+                  f"{statistics.median(steps) if steps else float('nan'):.2f} ms per step by "
+                  f"CUDA events")
+        print(f"  {label} launches: {[(k, n, {a: b for a, b in c.items() if b}) for k, n, c in rec]}")
+        if bad or not steps or not all(math.isfinite(h[k]["loss"]) for h in history
+                                       for k in ("train", "val")) \
+                or not all(math.isfinite(h["val"].get("auc", float("nan"))) for h in history):
+            raise PhaseFailure(f"phase 18b {label}: launches differ from {F32_STEP['small']} per "
+                               f"step and {F32_FORWARD} per eval forward ({bad}), no step, or a "
+                               f"loss or a val AUC is not finite")
+        out[f"{label}_step_ms"] = statistics.median(steps)
+    return out
+
+
 def main() -> int:
     if sys.argv[1:] == ["--cards"]:
         return main_cards()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    reader = start_reader_files()
+    try:
+        return run_phases(reader)
+    finally:
+        stop_reader_files(reader)
+
+
+def run_phases(reader) -> int:
     card = card_line()
     print(f"phase 1: card {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print("phase 2: building the kernels")
@@ -6360,6 +6550,9 @@ def main() -> int:
     t0 = time.time()
     phase_surface(card)
     print(f"  phase 17: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    phase_readers(card, reader)
+    print(f"  phase 18: {time.time() - t0:.1f} s")
     # library_ms: one PyTorch call computing the same function, where there
     # is one (kernels 19-21); none computes the scans
     print(json.dumps({"kernels": [

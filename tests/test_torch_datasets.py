@@ -170,7 +170,8 @@ def test_ddsm_subjects_split_and_loaders_match_jax(ddsm_tree):
 
 def test_ddsm_reads_png_at_its_depth(tmp_path):
     """Without a .dcm, `read_pixels` takes the .npy, else the .png at its
-    own depth (8 or 16 bits), as JAX's PIL does; a colour PNG raises."""
+    own depth (8 or 16 bits), as JAX's PIL does; a colour PNG gives PIL's
+    (H, W, 3) array, as JAX's fallback does."""
     from PIL import Image
     rng = np.random.default_rng(0)
     for dtype in (np.uint8, np.uint16):
@@ -179,8 +180,9 @@ def test_ddsm_reads_png_at_its_depth(tmp_path):
         np.testing.assert_array_equal(ddsm.read_pixels(str(tmp_path / "1-1.dcm")),
                                       jax_ddsm.read_pixels(str(tmp_path / "1-1.dcm")))
     Image.fromarray(rng.integers(0, 255, (4, 4, 3)).astype(np.uint8)).save(tmp_path / "1-1.png")
-    with pytest.raises(ValueError, match="colour type 2"):
-        ddsm.read_pixels(str(tmp_path / "1-1.dcm"))
+    got = ddsm.read_pixels(str(tmp_path / "1-1.dcm"))
+    assert got.shape == (4, 4, 3) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, jax_ddsm.read_pixels(str(tmp_path / "1-1.dcm")))
     with pytest.raises(FileNotFoundError):
         ddsm.read_pixels(str(tmp_path / "2-1.dcm"))
 

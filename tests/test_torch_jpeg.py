@@ -1,10 +1,11 @@
-"""The port's JPEG decoder (`data/jpeg.py` with `native/jpeg_scan.cc`)
+"""The port's JPEG decoder (`data/jpeg.py` with `native/jpeg_decode.cc`)
 against ``cv2.imread(..., IMREAD_GRAYSCALE)``, which the JAX package's
 ``load_grayscale`` calls, bit for bit: cv2-encoded files at qualities 30-100,
 gray and YCbCr at 4:4:4 / 4:2:2 / 4:2:0, optimised Huffman tables, restart
 intervals, odd sizes, EXIF orientations 1-8; the numpy encoder's files of
-tests/torch_datasets_tree.py; the formats it refuses; the loader's sniffing
-by content."""
+tests/torch_datasets_tree.py; the formats cv2 and PIL refuse; the loader's
+sniffing by content (tests/test_torch_jpeg_formats.py has the formats
+beyond baseline)."""
 
 import struct
 from concurrent.futures import ThreadPoolExecutor
@@ -150,54 +151,85 @@ def _cmyk():
     return buf.getvalue()
 
 
-def test_refused_formats_raise():
-    """Each format the port does not read raises a ValueError naming it."""
+def _oracle_gray(tmp_path, raw):
+    """The JAX package's ``load_grayscale`` of ``raw`` as a file (cv2, then
+    PIL), or None where it raises."""
+    path = tmp_path / "oracle.jpg"
+    path.write_bytes(raw)
+    try:
+        return jax_transforms.load_grayscale(str(path))
+    except Exception:
+        return None
+
+
+def test_refused_formats_raise(tmp_path):
+    """The formats cv2 and PIL refuse raise a ValueError naming them:
+    lossless and arithmetic-coded progressive frame markers on a baseline
+    file's scan (bad scan parameters for them), hierarchical frames, 12-bit
+    samples, a file that is not a JPEG.  The formats this list held before
+    the port read them (progressive files of cv2, an arithmetic-coded frame
+    marker on a baseline scan, CMYK, RGB by an Adobe marker or by ids R, G, B)
+    equal the JAX package's ``load_grayscale``."""
     rng = np.random.default_rng(0)
     gray = _cv2_jpeg(_image(rng, 40, 48, False))
     colour = _cv2_jpeg(_image(rng, 40, 48, True), sampling=SAMPLING["420"])
     cases = [
-        (_cv2_jpeg(_image(rng, 40, 48, False), progressive=1), "progressive"),
-        (_cv2_jpeg(_image(rng, 40, 48, True), progressive=1), "progressive"),
-        (_swap_sof(gray, 0xC3), "lossless"),
-        (_swap_sof(gray, 0xC9), "arithmetic-coded sequential"),
-        (_swap_sof(gray, 0xCA), "arithmetic-coded progressive"),
-        (_swap_sof(gray, 0xC5), "hierarchical"),
-        (_swap_sof(_set_precision(gray, 12), 0xC1), "12-bit samples"),
-        (_cmyk(), "CMYK"),
-        (_adobe(colour, 0), "RGB \\(Adobe marker with transform 0\\)"),
-        (_rgb_ids(_without(colour, 0xE0)), "RGB \\(component ids R, G, B\\)"),
+        (_cv2_jpeg(_image(rng, 40, 48, False), progressive=1), None),
+        (_cv2_jpeg(_image(rng, 40, 48, True), progressive=1), None),
+        (_swap_sof(gray, 0xC3), "corrupt JPEG \\(lossless scan parameters"),
+        (_swap_sof(gray, 0xC9), None),
+        (_swap_sof(gray, 0xCA), "corrupt JPEG \\(progressive scan parameters"),
+        (_swap_sof(gray, 0xC5), "unsupported JPEG format: hierarchical"),
+        (_swap_sof(_set_precision(gray, 12), 0xC1), "unsupported JPEG format: 12-bit samples"),
+        (_cmyk(), None),
+        (_adobe(colour, 0), None),
+        (_rgb_ids(_without(colour, 0xE0)), None),
         (b"\x89PNG\r\n\x1a\n", "not a JPEG"),
     ]
     for raw, match in cases:
-        with pytest.raises(ValueError, match=f"unsupported JPEG format: {match}|{match}"):
-            jpeg.decode_gray(raw, "x.jpg")
+        want = _oracle_gray(tmp_path, raw)
+        if match:
+            assert want is None, match
+            with pytest.raises(ValueError, match=match):
+                jpeg.decode_gray(raw, "x.jpg")
+        else:
+            np.testing.assert_array_equal(jpeg.decode_gray(raw, "x.jpg"), want)
     # an Adobe marker with transform 1 is YCbCr, which the port reads as cv2 does
     np.testing.assert_array_equal(jpeg.decode_gray(_adobe(colour, 1)),
                                   _cv2_gray(_adobe(colour, 1)))
 
 
 @pytest.mark.parametrize("restart", [0, 3])
-def test_truncated_and_corrupt_files_raise(restart):
-    """A file cut anywhere raises a ValueError that says truncated or
-    corrupt; so do a restart marker out of order and an all-ones Huffman
-    code."""
+def test_truncated_and_corrupt_files_raise(tmp_path, restart):
+    """A file cut before its first scan raises a ValueError that says
+    truncated or corrupt, as cv2 and PIL refuse it; one cut inside its scan
+    decodes as libjpeg decodes it (the rest of the file from a fake EOI
+    marker), and so do a restart marker out of order (resynchronised) and a
+    cut of the EOI marker alone.  A DC table of two codes of length 1, the
+    second all ones, is refused as libjpeg refuses it."""
     raw = _cv2_jpeg(_image(np.random.default_rng(1), 64, 64, True), 90,
                     SAMPLING["420"], restart=restart)
+    first_scan = raw.index(b"\xff\xda")
     for cut in sorted({4, 30, 200, len(raw) // 3, len(raw) // 2, len(raw) - 40, len(raw) - 2,
                        len(raw) - 1}):
-        with pytest.raises(ValueError, match="truncated|corrupt"):
-            jpeg.decode_gray(raw[:cut], "cut.jpg")
+        want = _oracle_gray(tmp_path, raw[:cut])
+        if cut <= first_scan:
+            assert want is None, cut
+            with pytest.raises(ValueError, match="truncated|corrupt"):
+                jpeg.decode_gray(raw[:cut], "cut.jpg")
+        else:
+            np.testing.assert_array_equal(jpeg.decode_gray(raw[:cut], "cut.jpg"), want)
     if restart:
         rst = raw.index(b"\xff\xd1")
         bad = raw[:rst + 1] + b"\xd5" + raw[rst + 2:]
-        with pytest.raises(ValueError, match="restart marker"):
-            jpeg.decode_gray(bad)
+        np.testing.assert_array_equal(jpeg.decode_gray(bad), _oracle_gray(tmp_path, bad))
     # a DC table of two codes of length 1, the second all ones
     ((_, pos), *_) = [(m, p) for m, p in _segments(raw) if m == 0xC4]
     (length,) = struct.unpack(">H", raw[pos + 2:pos + 4])
     body = b"\x00" + bytes([2] + [0] * 15) + b"\x00\x01"
     bad = raw[:pos] + b"\xff\xc4" + struct.pack(">H", len(body) + 2) + body + \
         raw[pos + 2 + length:]
+    assert _oracle_gray(tmp_path, bad) is None
     with pytest.raises(ValueError, match="Huffman table"):
         jpeg.decode_gray(bad)
 

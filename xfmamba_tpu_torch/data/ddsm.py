@@ -18,8 +18,9 @@ Behaviour follows ``libs/dataset_ddsmxray_twoview.py`` of the reference:
   shuffles (`:704-743`), the same stdlib-random recipe.
 
 `read_pixels` takes the ``.dcm`` where it exists, else a pre-converted
-``.npy``, else a ``.png`` at its own depth, beside it (as the JAX package
-does without pydicom).  One fault of the JAX package is not copied: with
+``.npy``, else a ``.png`` beside it as PIL's ``np.asarray(Image.open(...))``
+gives it (`png.decode_native`: any mode, at its own depth), as the JAX
+package does without pydicom.  One fault of the JAX package is not copied: with
 both the crop and the overlay, JAX blends nothing (its mask keeps the
 uncropped shape, so the shape test fails); here the mask is cropped with
 the image and the ROI blended into the crop.
@@ -122,7 +123,7 @@ def load_subjects(main_csv_files, metadata_csv, base_dir, check_exists: bool = T
 
 def read_pixels(dcm_path: str) -> np.ndarray:
     """A DICOM's stored pixel values as float32; where the ``.dcm`` does not
-    exist, the ``.npy`` or the ``.png`` (its own depth) beside it."""
+    exist, the ``.npy`` or the ``.png`` (PIL's array of it) beside it."""
     if os.path.exists(dcm_path):
         return dicom.read_pixels(dcm_path).astype(np.float32)
     base = os.path.splitext(dcm_path)[0]

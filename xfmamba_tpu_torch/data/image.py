@@ -1,7 +1,8 @@
 """Image files to 8-bit grayscale by their content, as ``cv2.imread(path,
 cv2.IMREAD_GRAYSCALE)`` reads them: the PNG signature goes to `png`, the
-JPEG SOI marker to `jpeg`, whatever the file's name (the JAX package's tests
-write PNG bytes under ``.jpg`` names)."""
+JPEG signature (SOI and the start of a marker) to `jpeg`, whatever the
+file's name (the JAX package's tests write PNG bytes under ``.jpg``
+names)."""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ def decode_grayscale(raw: bytes, path="<bytes>") -> np.ndarray:
     ``ValueError``."""
     if raw[:8] == png.SIGNATURE:
         return png.decode_gray(raw, path)
-    if raw[:2] == jpeg.SOI:
+    if raw[:3] == jpeg.SIGNATURE:
         return jpeg.decode_gray(raw, path)
     raise ValueError(f"{path}: not a PNG or JPEG file")
 

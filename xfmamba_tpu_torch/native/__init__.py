@@ -1,11 +1,12 @@
 """ctypes bindings for the port's host-side data-path kernels
-(``xfm_host.cc``, and ``jpeg_scan.cc`` for `data/jpeg.py`).
+(``xfm_host.cc``, and ``jpeg_decode.cc`` for `data/jpeg.py`).
 
 The sources are compiled with ``g++`` at the first call, not at import, into
 ``xfmamba_tpu_torch/_build/`` (git-ignored) under a name keyed on a hash of
 the sources and the flags.  A failed build raises: there is no silent numpy
-fallback.  `png_unfilter_plain` is the numpy twin of the C++ unfilter, for
-tests.  The calls release the GIL, so the loader's threads overlap them.
+fallback.  `png_unfilter_plain`, `png_adam7_plain` and `png_unpack_plain`
+are the numpy twins of the C++ PNG code, for tests.  The calls release the
+GIL, so the loader's threads overlap them.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import numpy as np
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCES = tuple(Path(__file__).resolve().parent / name
-                for name in ("xfm_host.cc", "jpeg_scan.cc"))
+                for name in ("xfm_host.cc", "jpeg_decode.cc"))
 BUILD_DIR = PACKAGE_DIR / "_build"
 # no -march=native: a library built on one host may be loaded on another
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
@@ -63,10 +64,17 @@ def _library() -> ctypes.CDLL:
     lib.png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                                  ctypes.c_int64, ctypes.c_int]
     lib.png_unfilter.restype = ctypes.c_int64
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.jpeg_scan.argtypes = [p, i64, i64, ctypes.c_int, p, p, i64, i64, i64, ctypes.c_int,
-                              p, p, i64]
-    lib.jpeg_scan.restype = i64
+    lib.png_adam7.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                              ctypes.c_int64, ctypes.c_int]
+    lib.png_adam7.restype = ctypes.c_int64
+    lib.png_unpack.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                               ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+    lib.png_unpack.restype = None
+    i64, pi64 = ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)
+    lib.jpeg_decode_gray.argtypes = [ctypes.c_char_p, i64, pi64, pi64, ctypes.c_char_p, i64]
+    lib.jpeg_decode_gray.restype = ctypes.c_void_p
+    lib.xfm_free.argtypes = [ctypes.c_void_p]
+    lib.xfm_free.restype = None
     return lib
 
 
@@ -148,34 +156,109 @@ def png_unfilter_plain(data: np.ndarray, height: int, rowbytes: int, bpp: int) -
     return out
 
 
-JPEG_STATUS = {-1: "a Huffman table that is not a prefix code",
-               -2: "a bit pattern that starts no Huffman code",
-               -3: "a scan that needs data past its end",
-               -4: "a restart marker missing or out of order",
-               -5: "no marker after a scan"}
+# Adam7's passes: (first row, first column, row step, column step)
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
+         (1, 0, 2, 1))
 
 
-def jpeg_scan(data: np.ndarray, pos: int, comps: np.ndarray, tables: np.ndarray, mcus_x: int,
-              mcus_y: int, restart_interval: int, target: int, quant: np.ndarray,
-              plane: np.ndarray) -> int:
-    """Decode one sequential Huffman scan of a JPEG (``data`` the whole file
-    as uint8, its entropy-coded data from ``pos``): ``comps`` (n, 4) int32
-    of (h, v, DC table, AC table) per scan component, ``tables`` (8, 272)
-    uint8 (DC 0-3 then AC 0-3: 16 code counts, 256 symbols), the scan's
-    MCU grid, the restart interval (0: none), and the scan component
-    ``target`` (-1: none) whose blocks are dequantised by ``quant`` (64
-    int32, natural order), inverse transformed by libjpeg's islow IDCT and
-    written into ``plane`` (uint8, C order, 8 x 8 blocks in MCU layout).
-    Returns the offset of the marker after the scan; a corrupt or truncated
-    scan raises ``ValueError``."""
-    assert data.dtype == np.uint8 and data.flags.c_contiguous
-    comps = np.ascontiguousarray(comps, dtype=np.int32)
-    tables = np.ascontiguousarray(tables, dtype=np.uint8)
-    quant = np.ascontiguousarray(quant, dtype=np.int32)
-    assert plane.dtype == np.uint8 and plane.flags.c_contiguous and plane.ndim == 2
-    end = library().jpeg_scan(data.ctypes.data, data.size, pos, len(comps), comps.ctypes.data,
-                              tables.ctypes.data, mcus_x, mcus_y, restart_interval, target,
-                              quant.ctypes.data, plane.ctypes.data, plane.shape[1])
-    if end < 0:
-        raise ValueError(JPEG_STATUS.get(end, f"status {end}"))
-    return end
+def adam7_passes(width: int, height: int, bits: int):
+    """[(pass, pass width, pass height, row bytes)] of the nonempty passes."""
+    out = []
+    for k, (y0, x0, dy, dx) in enumerate(ADAM7):
+        pw = -(-(width - x0) // dx) if width > x0 else 0
+        ph = -(-(height - y0) // dy) if height > y0 else 0
+        if pw and ph:
+            out.append((k, pw, ph, -(-pw * bits // 8)))
+    return out
+
+
+def adam7_size(width: int, height: int, bits: int) -> int:
+    """Bytes of the inflated stream of an interlaced image."""
+    return sum(ph * (rb + 1) for _, _, ph, rb in adam7_passes(width, height, bits))
+
+
+def png_adam7(data: np.ndarray, width: int, height: int, bits: int) -> np.ndarray:
+    """Undo the filters of an Adam7-interlaced image's inflated stream
+    ``data`` and put each pass's pixels in place: (height, ceil(width *
+    bits / 8)) uint8, packed as a plain image's rows.  ``bits`` is the bits
+    per pixel.  A short stream or a filter type past 4 raises."""
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    out = np.empty((height, -(-width * bits // 8)), np.uint8)
+    bad = library().png_adam7(data.ctypes.data, data.size, out.ctypes.data, width, height, bits)
+    if bad < 0:
+        raise ValueError(f"interlaced data holds {data.size} bytes, expected "
+                         f"{adam7_size(width, height, bits)}")
+    if bad:
+        raise ValueError(f"PNG interlaced row {bad - 1} has a filter type past 4")
+    return out
+
+
+def png_adam7_plain(data: np.ndarray, width: int, height: int, bits: int) -> np.ndarray:
+    """numpy twin of `png_adam7`: each pass through `png_unfilter_plain`,
+    its samples unpacked to one a byte, placed, and the rows packed again."""
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    if data.size < adam7_size(width, height, bits):
+        raise ValueError(f"interlaced data holds {data.size} bytes, expected "
+                         f"{adam7_size(width, height, bits)}")
+    unit = max(bits // 8, 1)
+    full = np.zeros((height, width * unit), np.uint8)
+    pos, row_index = 0, 0
+    for k, pw, ph, rb in adam7_passes(width, height, bits):
+        y0, x0, dy, dx = ADAM7[k]
+        chunk = data[pos:pos + ph * (rb + 1)]
+        try:
+            rows = png_unfilter_plain(chunk, ph, rb, unit)
+        except ValueError:
+            bad = int(np.flatnonzero(chunk.reshape(ph, rb + 1)[:, 0] > 4)[0])
+            raise ValueError(f"PNG interlaced row {row_index + bad} has a filter type past 4")
+        if bits < 8:
+            px = png_unpack_plain(rows, pw, bits, scale=False)
+        else:
+            px = rows.reshape(ph, pw * unit)
+        full.reshape(height, width, unit)[y0::dy, x0::dx] = px.reshape(ph, pw, unit)
+        pos += ph * (rb + 1)
+        row_index += ph
+    if bits >= 8:
+        return full
+    per = 8 // bits
+    padded = np.zeros((height, -(-width // per) * per), np.uint8)
+    padded[:, :width] = full
+    shifts = (8 - bits * (np.arange(per) + 1)).astype(np.uint8)
+    return np.bitwise_or.reduce(padded.reshape(height, -1, per) << shifts, axis=2).astype(np.uint8)
+
+
+def png_unpack(rows: np.ndarray, width: int, depth: int, scale: bool) -> np.ndarray:
+    """(H, rowbytes) packed ``depth``-bit samples (1, 2 or 4) -> (H, width)
+    uint8, each scaled to 0-255 when ``scale`` (libpng's gray expansion)."""
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    out = np.empty((rows.shape[0], width), np.uint8)
+    library().png_unpack(rows.ctypes.data, out.ctypes.data, rows.shape[0], width, rows.shape[1],
+                         depth, int(scale))
+    return out
+
+
+def png_unpack_plain(rows: np.ndarray, width: int, depth: int, scale: bool) -> np.ndarray:
+    """numpy twin of `png_unpack`."""
+    bits = np.unpackbits(np.ascontiguousarray(rows, dtype=np.uint8), axis=1)
+    bits = bits[:, :width * depth].reshape(rows.shape[0], width, depth)
+    v = (bits * (1 << np.arange(depth - 1, -1, -1))).sum(axis=2).astype(np.uint8)
+    return v * np.uint8(255 // ((1 << depth) - 1)) if scale else v
+
+
+def jpeg_decode_gray(raw: bytes) -> np.ndarray:
+    """Decode a whole JPEG file (bytes) to (H, W) uint8 gray as
+    ``cv2.imread(path, IMREAD_GRAYSCALE)`` does, EXIF orientation aside (see
+    ``jpeg_decode.cc``).  A file libjpeg or cv2 would not read raises
+    ``ValueError`` naming the format or the fault."""
+    lib = library()
+    h, w = ctypes.c_int64(), ctypes.c_int64()
+    err = ctypes.create_string_buffer(256)
+    ptr = lib.jpeg_decode_gray(raw, len(raw), ctypes.byref(h), ctypes.byref(w), err, len(err))
+    if not ptr:
+        raise ValueError(err.value.decode(errors="replace"))
+    try:
+        out = np.empty((h.value, w.value), np.uint8)
+        ctypes.memmove(out.ctypes.data, ptr, out.size)
+    finally:
+        lib.xfm_free(ptr)
+    return out

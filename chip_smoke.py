@@ -382,6 +382,29 @@ kernels 15 and 16 over the whole SSD gate; kernels 2 / 7 for new callers):
    palette and 16-bit-colour PNGs: phase 11's launches per step and per
    eval forward, every loss and val AUC finite.  It prints ``phase 18: N
    s``.
+19. the TIFF, BMP, Netpbm and Sun raster readers and reference
+   checkpoints: (19b) the numpy encoders' files of every reader at 390 x
+   320 (TIFF: LZW + predictor 16-bit big-endian, Deflate tiles, PackBits
+   planar 16-bit RGB, min-is-white BigTIFF, 4-bit palette, CMYK, CCITT
+   Group 4 / Group 3 2D / RLE, JPEG YCbCr 4:2:0 and gray, float and int32
+   samples through PIL's rules, orientation 3 tiles, a corrupt LZW file;
+   BMP RLE8 / RLE4 with deltas, top-down 24-bit, 5-6-5, V5 bitfields,
+   OS/2, broken RLE; PGM / PPM / PBM raw and ASCII, PAM, PFM; Sun raster
+   with a map, 24 / 32-bit, byte-encoded, RGB), encoded in the worker
+   processes, decode on the card's host to the SHA-256 digests
+   tests/torch_codecs.py keeps (pinned to cv2 and PIL by
+   tests/test_torch_raster_formats.py), and a 2,800 x 2,300 16-bit LZW
+   TIFF, P5 PGM and 8-bit BMP decode to their image, each timed beside the
+   plain PNG of it; (19c) one float32 epoch of XFMamba-S through
+   ``cli.train`` on a MURA tree whose views are 16-bit LZW TIFFs, PGMs and
+   BMPs in turn (phase 11's launches per step and per eval forward), then
+   ``cli.infer_mura`` with its ``best.npz`` (the counts reset before, and
+   F32_FORWARD a forward after); (19a) that model written as the reference
+   writes a ``.pth`` (legacy names, 4-D ``Linear2d`` weights, the dead
+   fusion ``in_proj``, thop counters, an ``argparse.Namespace``), loaded by
+   ``cli.load_variables`` (every tensor equal, logits equal to the direct
+   load bit for bit) and scored by ``cli.infer_mura`` (AUCs equal to
+   ``best.npz``'s).  It prints ``phase 19: N s``.
 
 ``python3 chip_smoke.py --cards`` needs two cards or more and runs only
 15a over every visible card (NCCL, one rank a card) against one rank, then
@@ -6294,9 +6317,9 @@ READER_WORKERS = 2
 
 
 def start_reader_files():
-    """Phase 18's encodings (numpy and pure Python, tests/torch_codecs.py),
-    started in spawned worker processes so that they run while the card
-    runs phases 2-17, at the lowest CPU priority so that they take only
+    """Phase 18's and 19's encodings (numpy and pure Python,
+    tests/torch_codecs.py), started in spawned worker processes so that they
+    run while the card runs phases 2-17, at the lowest CPU priority so that they take only
     the cores the host-bound phases leave idle: (directory, pool, {(name,
     size): future})."""
     import concurrent.futures
@@ -6311,9 +6334,15 @@ def start_reader_files():
         READER_WORKERS, mp_context=multiprocessing.get_context("spawn"), initializer=os.nice,
         initargs=(19,))
     # the big files first: they take longest
-    jobs = {(name, size): pool.submit(torch_codecs.corpus_job, name, size, 18,
-                                      os.path.join(tmp, f"{name}_{size[0]}"))
-            for size in reversed(READER_SIZES) for name in torch_codecs.CORPUS}
+    jobs = {("timing", kind): pool.submit(torch_codecs.timing_job, kind, FULL_XRAY, 19,
+                                          os.path.join(tmp, f"timing.{kind}"))
+            for kind in TIMED_KINDS}
+    jobs |= {(name, size): pool.submit(torch_codecs.corpus_job, name, size, 18,
+                                       os.path.join(tmp, f"{name}_{size[0]}"))
+             for size in reversed(READER_SIZES) for name in torch_codecs.CORPUS}
+    jobs |= {("raster", name): pool.submit(torch_codecs.raster_job, name, RASTER_SIZE, 25,
+                                           os.path.join(tmp, f"raster_{name}"))
+             for name in torch_codecs.RASTER}
     return tmp, pool, jobs
 
 
@@ -6450,6 +6479,161 @@ def phase_readers(card, reader):
     return out
 
 
+RASTER_SIZE = (390, 320)
+TIMED_KINDS = ("tiff", "pgm", "bmp", "png")
+RASTER_KINDS = ("tiff16", "pgm", "bmp8")
+RASTER_STUDIES, RASTER_VALID = 24, 8
+
+
+def checked_forwards(label, counts, fns):
+    """The launches of a run of eval forwards: F32_FORWARD per forward for
+    some number of forwards, no other kernel; returns that number."""
+    n = counts["ss2d_core_n1_fwd"] // F32_FORWARD["ss2d_core_n1_fwd"]
+    want = dict.fromkeys(fns, 0) | {k: v * n for k, v in F32_FORWARD.items()}
+    if n < 1 or any(counts[k] != want[k] for k in fns):
+        raise PhaseFailure(f"phase 19 {label}: launches {({k: v for k, v in counts.items() if v})} "
+                           f"are not {F32_FORWARD} per forward")
+    return n
+
+
+def phase_rasters(card, reader):
+    """Phase 19 (see the module docstring)."""
+    import argparse
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch_codecs
+    from torch_mura_tree import write_mura_tree
+    from torch_reference_form import reference_form
+    from xfmamba_tpu_torch.cli import build_model_by_name, infer_mura, load_variables
+    from xfmamba_tpu_torch.cli import train as cli_train
+    from xfmamba_tpu_torch.data import image, png
+    from xfmamba_tpu_torch.train import driver
+
+    tmp, _, jobs = reader
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fns = all_kernels()
+    work = tempfile.mkdtemp(prefix="xfm_phase19_", dir=tmp)
+
+    # 19b first: the decodes (the tree below needs the readers)
+    t0 = time.perf_counter()
+    done = {name: jobs[("raster", name)].result(timeout=900) for name in torch_codecs.RASTER}
+    timing = {kind: jobs[("timing", kind)].result(timeout=900) for kind in TIMED_KINDS}
+    waited = time.perf_counter() - t0
+    wrong = []
+    results = []
+    for name, path in done.items():
+        got = image.decode_grayscale(Path(path).read_bytes(), path)
+        ok = torch_codecs.gray_digest(got) == torch_codecs.RASTER_SHA256[name]
+        results.append(f"{name} {'held' if ok else 'DIFFERS'}")
+        if not ok:
+            wrong.append(name)
+    print(f"phase 19b: the TIFF, BMP, Netpbm and Sun raster readers on the card's host "
+          f"(files ready after a further {waited:.1f} s); {len(done)} variants at "
+          f"{RASTER_SIZE[0]} x {RASTER_SIZE[1]}, SHA-256 of the gray image against the "
+          f"digests tests/torch_codecs.py keeps: {'; '.join(results)}")
+    times = {}
+    for kind, path in timing.items():
+        raw = Path(path).read_bytes()
+        want = np.load(path + ".npy")
+        per, (got,) = time_calls(image.decode_grayscale, [raw], repeat=3)
+        times[kind] = per
+        if got.shape != want.shape or not np.array_equal(got, want):
+            wrong.append(f"timing {kind}")
+    label = {"tiff": "16-bit LZW TIFF, horizontal predictor", "pgm": "P5 PGM",
+             "bmp": "8-bit BMP", "png": "8-bit gray PNG (the baseline)"}
+    for kind in TIMED_KINDS:
+        print(f"  {FULL_XRAY[0]} x {FULL_XRAY[1]} {label[kind]}: "
+              f"{len(Path(timing[kind]).read_bytes()) / 2 ** 20:.2f} MiB, "
+              f"{1e3 * times[kind]:.2f} ms a decode on one host thread "
+              f"({1e-6 * FULL_XRAY[0] * FULL_XRAY[1] / times[kind]:.1f} Mpixel/s; "
+              f"{times[kind] / times['png']:.2f} x the PNG's)")
+    if wrong:
+        raise PhaseFailure(f"phase 19b: decodes differ: {wrong}")
+
+    # 19c: one epoch on a tree of TIFF, PGM and BMP views, then scoring
+    t0 = time.perf_counter()
+    root = os.path.join(work, "mura")
+    csvs, images = write_mura_tree(root, n_studies=RASTER_STUDIES, parts=CLI_PARTS,
+                                   n_valid=RASTER_VALID, kinds=(), seed=19)
+    for k, path in enumerate(images):
+        gray = png.decode_gray(Path(path).read_bytes())
+        Path(path).write_bytes(torch_codecs.reencode_raster(gray, RASTER_KINDS[k % 3]))
+    argv = ["--model_name", CLI_MODEL, "--image_size", str(IMAGE), "--batch_size",
+            str(TRAIN_BATCH), "--num_workers", "4", "--seed", "42", "--device", CLI_DEVICE,
+            "--epochs", "1", "--data_root", root, "--train_image_csv", csvs[0],
+            "--train_label_csv", csvs[1], "--valid_image_csv", csvs[2],
+            "--valid_label_csv", csvs[3]]
+    print(f"phase 19c: a MURA tree of {len(images)} views as {'/'.join(RASTER_KINDS)} in turn "
+          f"({time.perf_counter() - t0:.1f} s); XFMamba-S float32, {IMAGE}x{IMAGE}, bs "
+          f"{TRAIN_BATCH} ({card})")
+    run = os.path.join(work, "run")
+    with epoch_launches(driver, fns) as rec:
+        _, history = cli_train.main(argv + ["--savemodel_path", run])
+    bad = check_epoch_launches(rec, F32_STEP["small"], F32_FORWARD)
+    steps = [v for h in history for v in h["train"]["step_ms"]]
+    h = history[0]
+    print(f"  epoch: train loss {h['train']['loss']:.6f}, val loss {h['val']['loss']:.6f}, val "
+          f"AUC {h['val'].get('auc', float('nan')):.4f}; {h['train']['steps']} steps, median "
+          f"{statistics.median(steps) if steps else float('nan'):.2f} ms per step by CUDA events; "
+          f"launches {[(k, n, {a: b for a, b in c.items() if b}) for k, n, c in rec]}")
+    if bad or not steps or not all(math.isfinite(h[k]["loss"]) for k in ("train", "val")):
+        raise PhaseFailure(f"phase 19c: launches differ from {F32_STEP['small']} per step and "
+                           f"{F32_FORWARD} per eval forward ({bad}), no step, or a loss is not "
+                           f"finite")
+    score = ["--model_name", CLI_MODEL, "--data_root", root, "--valid_image_csv", csvs[2],
+             "--valid_label_csv", csvs[3], "--image_size", str(IMAGE), "--batch_size",
+             str(TRAIN_BATCH), "--body_parts", *CLI_PARTS, "--device", CLI_DEVICE]
+    torch.cuda.synchronize()
+    counts = counted(fns)
+    aucs = infer_mura.main(score + ["--pretrained_model_path", os.path.join(run, "best.npz"),
+                                    "--out_dir", os.path.join(work, "infer")])
+    torch.cuda.synchronize()
+    n = checked_forwards("19c", counts(), fns)
+    print(f"  infer_mura with best.npz: AUCs {aucs}; {n} forwards at {F32_FORWARD} each")
+    if not all(math.isfinite(v) for v in aucs.values()):
+        raise PhaseFailure(f"phase 19c: infer_mura gave {aucs}")
+
+    # 19a: the reference-format checkpoint of the trained model
+    model, _ = build_model_by_name(CLI_MODEL, 2, device=CLI_DEVICE, seed=0)
+    load_variables(os.path.join(run, "best.npz"), model)
+    ref = os.path.join(work, "xfmamba.pth")
+    torch.save({"model": reference_form({k: v.cpu() for k, v in model.state_dict().items()},
+                                        np.random.default_rng(19)),
+                "args": argparse.Namespace(model_name=CLI_MODEL, epochs=1)}, ref)
+    fresh, _ = build_model_by_name(CLI_MODEL, 2, device=CLI_DEVICE, seed=1)
+    load_variables(ref, fresh)
+    same_state = all(torch.equal(v, fresh.state_dict()[k]) for k, v in model.state_dict().items()
+                     if not k.endswith("num_batches_tracked"))
+    g = torch.Generator().manual_seed(19)
+    xa, xb = (torch.randn(TRAIN_BATCH, IMAGE, IMAGE, 1, generator=g).cuda() for _ in range(2))
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        counts = counted(fns)
+        direct, via_pth = model(xa, xb), fresh(xa, xb)
+        torch.cuda.synchronize()
+    checked_forwards("19a logits", counts(), fns)
+    equal = torch.equal(direct, via_pth)
+    torch.cuda.synchronize()
+    counts = counted(fns)
+    ref_aucs = infer_mura.main(score + ["--pretrained_model_path", ref,
+                                        "--out_dir", os.path.join(work, "infer_pth")])
+    torch.cuda.synchronize()
+    n = checked_forwards("19a", counts(), fns)
+    print(f"phase 19a: best.npz written as a reference checkpoint ({os.path.getsize(ref) / 2 ** 20:.1f} "
+          f"MiB: legacy backbone names, 4-D Linear2d weights, the dead fusion in_proj, thop "
+          f"counters, no num_batches_tracked, an argparse.Namespace beside \"model\"); loaded "
+          f"through cli.load_variables: every tensor equal {same_state}, bs-{TRAIN_BATCH} logits "
+          f"equal to the direct load bit for bit {equal}; infer_mura with it: AUCs {ref_aucs} "
+          f"({n} forwards), equal to best.npz's {ref_aucs == aucs}")
+    if not (same_state and equal and ref_aucs == aucs):
+        raise PhaseFailure("phase 19a: the reference checkpoint does not load as the model")
+    del model, fresh
+    return {f"{kind}_decode_ms": 1e3 * t for kind, t in times.items()}
+
+
 def main() -> int:
     if sys.argv[1:] == ["--cards"]:
         return main_cards()
@@ -6553,6 +6737,9 @@ def run_phases(reader) -> int:
     t0 = time.time()
     phase_readers(card, reader)
     print(f"  phase 18: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    phase_rasters(card, reader)
+    print(f"  phase 19: {time.time() - t0:.1f} s")
     # library_ms: one PyTorch call computing the same function, where there
     # is one (kernels 19-21); none computes the scans
     print(json.dumps({"kernels": [

@@ -6,6 +6,7 @@ stage (``--device_preprocess 1`` on the MURA and hip trees, the stage JAX's
 CLI picks for each dataset), ``--cal_flops 1`` and ``--gradcam 1``, and the
 helpers against JAX's ``collect_scores`` / ``write_roc_artifacts``."""
 
+import argparse
 import os
 
 import jax
@@ -16,6 +17,7 @@ import torch
 
 from torch_datasets_tree import write_hip_tree
 from torch_mura_tree import write_mura_tree
+from torch_reference_form import reference_form
 from xfmamba_tpu import cli as jax_cli
 from xfmamba_tpu.data import device_pipeline as jax_dp
 from xfmamba_tpu.cli import infer_mura as jax_infer
@@ -234,10 +236,14 @@ def test_infer_without_checkpoint_warns(tree, tmp_path, capsys):
 
 def test_load_variables_formats(tmp_path):
     """A torch file holding the state dict bare, under "model" (the port's
-    ``last.pt``) or under "state_dict"; other suffixes raise."""
+    ``last.pt``) or under "state_dict", or in the reference's form (legacy
+    names, 4-D linear weights, the dead fusion ``in_proj``, thop counters,
+    an ``argparse.Namespace`` beside it); other suffixes raise."""
     src, _ = cli.build_model_by_name("twoviewxfmamba_smoke", 2, device="cpu", seed=1)
+    reference = {"model": reference_form(src.state_dict(), np.random.default_rng(0)),
+                 "args": argparse.Namespace(epochs=3)}
     for i, wrap in enumerate((lambda sd: sd, lambda sd: {"model": sd, "epoch": 3},
-                              lambda sd: {"state_dict": sd})):
+                              lambda sd: {"state_dict": sd}, lambda sd: reference)):
         path = str(tmp_path / f"w{i}.pth")
         torch.save(wrap(src.state_dict()), path)
         dst, _ = cli.build_model_by_name("twoviewxfmamba_smoke", 2, device="cpu", seed=2)

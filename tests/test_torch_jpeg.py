@@ -237,17 +237,21 @@ def test_truncated_and_corrupt_files_raise(tmp_path, restart):
 def test_load_grayscale_sniffs_content(tmp_path):
     """`data.image.load_grayscale` goes by the bytes, as cv2.imread does: PNG
     bytes under a .jpg name and JPEG bytes under a .png name read as the
-    JAX package's load_grayscale reads them; anything else raises."""
+    JAX package's load_grayscale reads them; a GIF raises naming the format,
+    unknown bytes as no format the readers know."""
     rng = np.random.default_rng(2)
     g = _image(rng, 30, 20, False)
     (tmp_path / "a.jpg").write_bytes(encode_png(g, 0, 8))
     (tmp_path / "b.png").write_bytes(_cv2_jpeg(g, 70))
     (tmp_path / "c.jpg").write_bytes(b"GIF89a")
+    (tmp_path / "d.jpg").write_bytes(b"\x01\x02 not an image")
     for name in ("a.jpg", "b.png"):
         np.testing.assert_array_equal(image.load_grayscale(tmp_path / name),
                                       jax_transforms.load_grayscale(str(tmp_path / name)))
-    with pytest.raises(ValueError, match="not a PNG or JPEG"):
+    with pytest.raises(ValueError, match="GIF image, a format the port does not read yet"):
         image.load_grayscale(tmp_path / "c.jpg")
+    with pytest.raises(ValueError, match="not a PNG or JPEG"):
+        image.load_grayscale(tmp_path / "d.jpg")
 
 
 def test_decoder_threads_agree():

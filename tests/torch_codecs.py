@@ -1036,3 +1036,835 @@ def corpus_job(name: str, size, seed: int, out: str) -> str:
         f.write(raw)
     np.save(out + ".npy", want)
     return out
+
+
+# ---- TIFF -------------------------------------------------------------------
+
+TIFF_TYPES = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("I", 4), 5: ("I", 8), 11: ("f", 4),
+              12: ("d", 8), 16: ("Q", 8)}
+
+
+def lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW (MSB-first codes, 9-12 bits, the width growing one code
+    early, Clear first and whenever the table fills, EOI last)."""
+    out, acc, nacc = bytearray(), 0, 0
+    nbits, free, table = 9, 258, {}
+
+    def emit(code):
+        nonlocal acc, nacc
+        acc = (acc << nbits) | code
+        nacc += nbits
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 255)
+        acc &= (1 << nacc) - 1
+
+    emit(256)
+    w = None
+    for b in data:
+        if w is None:
+            w = b
+            continue
+        k = (w, b)
+        if k in table:
+            w = table[k]
+            continue
+        emit(w)
+        table[k] = free
+        free += 1
+        if free >= 4094:
+            emit(256)
+            nbits, free, table = 9, 258, {}
+        elif free > (1 << nbits) - 1:
+            nbits += 1
+        w = b
+    if w is not None:
+        emit(w)
+        free += 1
+        if free > (1 << nbits) - 1 and nbits < 12:
+            nbits += 1
+    emit(257)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 255)
+    return bytes(out)
+
+
+def packbits_encode(data: bytes) -> bytes:
+    """PackBits: runs of 3 to 128 equal bytes, literals of up to 128."""
+    out, i, n = bytearray(), 0, len(data)
+    lit = bytearray()
+
+    def flush():
+        while lit:
+            part = lit[:128]
+            out.append(len(part) - 1)
+            out.extend(part)
+            del lit[:128]
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            flush()
+            out.append((257 - (j - i)) & 255)
+            out.append(data[i])
+            i = j
+        else:
+            lit.append(data[i])
+            i += 1
+    flush()
+    return bytes(out)
+
+
+def _pack_rows(samples: np.ndarray, bits: int, order: str, kind: str) -> np.ndarray:
+    """(rows, width, spp) samples -> (rows, row bytes) uint8."""
+    h, w, s = samples.shape
+    if bits >= 8:
+        if bits == 12:
+            raise ValueError("12-bit samples: use _pack12")
+        dt = np.dtype(f"{order}{kind}{bits // 8}")
+        return np.ascontiguousarray(samples.astype(dt)).view(np.uint8).reshape(h, -1)
+    flat = samples.reshape(h, w * s).astype(np.uint8)
+    bitsarr = ((flat[:, :, None] >> np.arange(bits - 1, -1, -1)) & 1).reshape(h, -1)
+    return np.packbits(bitsarr.astype(np.uint8), axis=1)
+
+
+def _pack12(samples: np.ndarray) -> np.ndarray:
+    h, w, s = samples.shape
+    v = samples.reshape(h, w * s).astype(np.uint16)
+    bitsarr = ((v[:, :, None] >> np.arange(11, -1, -1)) & 1).reshape(h, -1).astype(np.uint8)
+    return np.packbits(bitsarr, axis=1)
+
+
+def _predict(rows: np.ndarray, predictor: int, bits: int, spp: int, order: str, kind: str):
+    """Horizontal (2) or floating-point (3) differencing of packed rows."""
+    if predictor == 1:
+        return rows
+    h = rows.shape[0]
+    k = bits // 8
+    if predictor == 2:
+        dt = np.dtype(f"{order}{'u' if kind != 'f' else 'u'}{k}")
+        v = rows.copy().view(dt).reshape(h, -1, spp).astype(np.uint64)
+        d = v.copy()
+        d[:, 1:] = (v[:, 1:] - v[:, :-1]) & np.uint64((1 << bits) - 1)
+        return np.ascontiguousarray(d.astype(dt)).view(np.uint8).reshape(h, -1)
+    # floating point: host little-endian values -> big-endian byte planes,
+    # then byte differencing a pixel's samples apart
+    n = rows.shape[1] // k
+    vals = rows.copy().view(np.dtype(f"{order}u{k}")).astype(np.dtype(f">u{k}"))
+    planes = vals.view(np.uint8).reshape(h, n, k).transpose(0, 2, 1).reshape(h, -1)
+    d = planes.astype(np.int64)
+    d[:, spp:] = (planes[:, spp:].astype(np.int64) - planes[:, :-spp]) & 255
+    return d.astype(np.uint8)
+
+
+def write_tiff(samples, *, bits=8, kind="u", photometric=1, compression=1, predictor=1,
+               order="<", bigtiff=False, rows_per_strip=None, tile=None, planar=1,
+               fill_order=1, extra_samples=None, colormap=None, orientation=None,
+               tags=None, ifd_first=True, pages=1, codec=None) -> bytes:
+    """A TIFF of the (H, W) or (H, W, samples) array ``samples``: ``bits``
+    per sample (1-64; ``kind`` "u", "i" or "f"), strips of
+    ``rows_per_strip`` rows or ``tile`` = (height, width) tiles, contiguous
+    or planar, compression 1 (none), 5 (LZW), 8 / 32946 (Deflate) or 32773
+    (PackBits) with predictor 1-3, either byte order, classic or BigTIFF,
+    FillOrder 2 (the compressed bytes' bits reversed), the directory before
+    or after the data, ``pages`` copies of the image (each its own
+    directory).  ``codec`` replaces the compressor (bytes -> bytes);
+    ``tags`` adds or overrides entries {tag: (type, values)}."""
+    px = np.asarray(samples)
+    if px.ndim == 2:
+        px = px[:, :, None]
+    h, w, spp = px.shape
+    planes = [px] if planar == 1 else [px[:, :, i:i + 1] for i in range(spp)]
+    s_pp = spp if planar == 1 else 1
+
+    def encode(block):
+        rows = _pack12(block) if bits == 12 else _pack_rows(block, bits, order, kind)
+        rows = _predict(rows, predictor, bits, s_pp, order, kind)
+        data = rows.tobytes()
+        if codec is not None:
+            data = codec(data)
+        elif compression == 5:
+            data = lzw_encode(data)
+        elif compression in (8, 32946):
+            data = zlib.compress(data)
+        elif compression == 32773:
+            data = b"".join(packbits_encode(r.tobytes()) for r in rows)
+        if fill_order == 2:
+            data = np.unpackbits(np.frombuffer(data, np.uint8), bitorder="little")
+            data = np.packbits(data).tobytes()
+        return data
+
+    chunks = []
+    if tile is None:
+        rps = rows_per_strip or h
+        for p in planes:
+            for y in range(0, h, rps):
+                chunks.append(encode(p[y:y + rps]))
+    else:
+        th, tw = tile
+        for p in planes:
+            for y in range(0, h, th):
+                for x in range(0, w, tw):
+                    t = np.zeros((th, tw, p.shape[2]), p.dtype)
+                    part = p[y:y + th, x:x + tw]
+                    t[:part.shape[0], :part.shape[1]] = part
+                    chunks.append(encode(t))
+    sf = {"u": 1, "i": 2, "f": 3}[kind]
+    entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [compression]),
+               262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar]),
+               339: (3, [sf] * spp)}
+    if predictor != 1:
+        entries[317] = (3, [predictor])
+    if fill_order != 1:
+        entries[266] = (3, [fill_order])
+    if extra_samples is not None:
+        entries[338] = (3, list(extra_samples))
+    if colormap is not None:
+        entries[320] = (3, [int(v) for v in np.asarray(colormap).T.reshape(-1)])
+    if orientation is not None:
+        entries[274] = (3, [orientation])
+    off_type = 16 if bigtiff else 4
+    if tile is None:
+        entries[278] = (4, [rows_per_strip or h])
+        entries[279] = (off_type, [len(c) for c in chunks])
+        where, counts = 273, 279
+    else:
+        entries[322] = (4, [tile[1]])
+        entries[323] = (4, [tile[0]])
+        entries[325] = (off_type, [len(c) for c in chunks])
+        where, counts = 324, 325
+    entries.update(tags or {})
+    entries[where] = (off_type, [0] * len(chunks))
+    head_size = 16 if bigtiff else 8
+    ent_size, count_fmt, off_fmt = (20, "Q", "Q") if bigtiff else (12, "H", "I")
+    inline = 8 if bigtiff else 4
+
+    def ifd_bytes(base, data_offsets, next_ifd):
+        entries[where] = (entries[where][0], data_offsets)
+        n = len(entries)
+        size = (8 if bigtiff else 2) + n * ent_size + (8 if bigtiff else 4)
+        extra = b""
+        body = b""
+        for tag in sorted(entries):
+            typ, vals = entries[tag]
+            fmt, unit = TIFF_TYPES[typ]
+            if typ == 5:
+                payload = b"".join(struct.pack(order + "II", *v) for v in vals)
+            elif typ == 2:
+                payload = bytes(vals)
+            else:
+                payload = struct.pack(order + fmt * len(vals), *vals)
+            count = len(vals)
+            if len(payload) <= inline:
+                val = payload + b"\0" * (inline - len(payload))
+            else:
+                val = struct.pack(order + off_fmt, base + size + len(extra))
+                extra += payload + b"\0" * (len(payload) % 2)
+            body += struct.pack(order + ("HHQ" if bigtiff else "HHI"), tag, typ, count) + val
+        return (struct.pack(order + count_fmt, n) + body + struct.pack(order + off_fmt, next_ifd)
+                + extra)
+
+    mark = b"II" if order == "<" else b"MM"
+    out = bytearray(head_size)
+    first = None
+    for page in range(pages):
+        # lay out the directory (its size does not depend on the offsets)
+        probe = ifd_bytes(0, [0] * len(chunks), 0)
+        if ifd_first:
+            ifd_at = len(out)
+            data_at = ifd_at + len(probe) + len(probe) % 2
+        else:
+            data_at = len(out)
+        offsets, pos = [], data_at
+        for c in chunks:
+            offsets.append(pos)
+            pos += len(c) + len(c) % 2
+        if not ifd_first:
+            ifd_at = pos
+        nxt = 0
+        if page + 1 < pages:
+            nxt = (max(ifd_at + len(probe) + len(probe) % 2, pos) if ifd_first
+                   else ifd_at + len(probe) + len(probe) % 2)
+        ifd = ifd_bytes(ifd_at, offsets, nxt)
+        data = b"".join(c + b"\0" * (len(c) % 2) for c in chunks)
+        if ifd_first:
+            out += ifd + b"\0" * (len(ifd) % 2) + data
+        else:
+            out += data + ifd + b"\0" * (len(ifd) % 2)
+        if first is None:
+            first = ifd_at
+    if bigtiff:
+        out[:16] = mark + struct.pack(order + "HHHQ", 43, 8, 0, first)
+    else:
+        out[:8] = mark + struct.pack(order + "HI", 42, first)
+    return bytes(out)
+
+
+# ---- BMP --------------------------------------------------------------------
+
+def bmp_rows(values: np.ndarray, bits: int) -> bytes:
+    """(H, W) indices or 16-bit words, or (H, W, 3 | 4) B, G, R(, A)
+    bytes, as bottom-up... no: as the rows given, each padded to 4 bytes."""
+    v = np.asarray(values)
+    h = v.shape[0]
+    if bits < 8:
+        flat = v.reshape(h, -1).astype(np.uint8)
+        bitsarr = ((flat[:, :, None] >> np.arange(bits - 1, -1, -1)) & 1).reshape(h, -1)
+        rows = np.packbits(bitsarr.astype(np.uint8), axis=1)
+    elif bits == 16:
+        rows = np.ascontiguousarray(v.astype("<u2")).view(np.uint8).reshape(h, -1)
+    else:
+        rows = v.reshape(h, -1).astype(np.uint8)
+    pad = -rows.shape[1] % 4
+    return np.concatenate([rows, np.zeros((h, pad), np.uint8)], axis=1).tobytes()
+
+
+def rle_bmp(indices: np.ndarray, rle4: bool, rng=None, eob=True, deltas=False) -> bytes:
+    """RLE8 / RLE4 data for the (H, W) index rows given in file order:
+    runs of equal indices as encoded runs (pairs of indices for RLE4),
+    the rest as absolute runs (3 or more) or short runs; end of line after
+    each row, end of bitmap at the end.  With ``rng``, run lengths and
+    absolute lengths vary; with ``deltas``, runs of index 0 may become
+    deltas (which a reader fills with entry 0)."""
+    out = bytearray()
+    h, w = indices.shape
+    for y in range(h):
+        row = [int(v) for v in indices[y]]
+        x = 0
+        while x < w:
+            if deltas and row[x] == 0 and rng is not None and rng.random() < .5:
+                n = 1
+                while x + n < w and row[x + n] == 0 and n < 255:
+                    n += 1
+                out += bytes([0, 2, n, 0])
+                x += n
+                continue
+            n = 1
+            limit = 255 if rng is None else int(rng.integers(1, 256))
+            if rle4:
+                while x + n < w and n < limit and row[x + n] == row[x + (n % 2)]:
+                    n += 1
+                if n >= 2 or x + 1 >= w or rng is None or rng.random() < .5:
+                    hi, lo = row[x], row[x + 1] if x + 1 < w and n > 1 else row[x]
+                    out += bytes([n, (hi << 4) | lo])
+                    x += n
+                    continue
+            else:
+                while x + n < w and n < limit and row[x + n] == row[x]:
+                    n += 1
+                if n >= 3 or w - x < 3 or (rng is not None and rng.random() < .5):
+                    out += bytes([n, row[x]])
+                    x += n
+                    continue
+            k = min(w - x, 255 if rng is None else int(rng.integers(3, 256)))
+            if k < 3:
+                out += bytes([1, (row[x] << 4) | row[x] if rle4 else row[x]])
+                x += 1
+                continue
+            seg = row[x:x + k]
+            if rle4:
+                packed = bytes(((seg[i] << 4) | (seg[i + 1] if i + 1 < k else 0))
+                               for i in range(0, k, 2))
+                packed += b"\0" * (len(packed) % 2)
+            else:
+                packed = bytes(seg) + b"\0" * (k % 2)
+            out += bytes([0, k]) + packed
+            x += k
+        if y + 1 < h or not eob:
+            out += b"\0\0"
+    if eob:
+        out += b"\0\1"
+    return bytes(out)
+
+
+def write_bmp(data: bytes, width: int, height: int, bits: int, compression: int = 0,
+              header: int = 40, palette=None, masks=None, top_down: bool = False,
+              colors_used: int = 0, offset=None) -> bytes:
+    """A BMP around pixel ``data`` (rows as stored, bottom row first unless
+    ``top_down``): ``header`` 12 (OS/2 core, 3-byte palette entries) or
+    40-124 bytes, ``masks`` (R, G, B[, A]) after a 40-byte header or inside
+    a longer one, ``palette`` (n, 3) R, G, B."""
+    pal = b""
+    if palette is not None:
+        entry = 3 if header == 12 else 4
+        pal = b"".join(bytes([int(b), int(g), int(r)]) + b"\0" * (entry - 3)
+                       for r, g, b in np.asarray(palette))
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, width, height, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, width, -height if top_down else height, 1,
+                           bits, compression, len(data), 2835, 2835, colors_used, 0)
+        if header >= 52 and masks is not None:
+            info += struct.pack("<III", *masks[:3])
+            if header >= 56:
+                info += struct.pack("<I", masks[3] if len(masks) > 3 else 0)
+        info += b"\0" * (header - len(info))
+    after = struct.pack("<III", *masks[:3]) if header == 40 and masks is not None else b""
+    body = info + after + pal
+    off = 14 + len(body) if offset is None else offset
+    head = b"BM" + struct.pack("<IHHI", off + len(data), 0, 0, off)
+    return (head + body).ljust(off, b"\0")[:off] + data
+
+
+# ---- Netpbm -----------------------------------------------------------------
+
+def write_pnm(samples, kind: int, maxval: int = 255, comments=(), sep: bytes = b" ",
+              line: int = 0) -> bytes:
+    """P1-P6 of (H, W) or (H, W, 3) samples: the header's numbers with
+    ``comments`` between them, ASCII samples joined by ``sep`` (a newline
+    every ``line`` samples when given), raw samples as bytes or big-endian
+    16-bit words past maxval 255, PBM rows packed."""
+    v = np.asarray(samples)
+    h, w = v.shape[:2]
+    head = [f"P{kind}".encode(), str(w).encode(), str(h).encode()]
+    if kind not in (1, 4):
+        head.append(str(maxval).encode())
+    out = bytearray(head[0])
+    for k, tok in enumerate(head[1:]):
+        out += b"\n"
+        if k < len(comments) and comments[k]:
+            out += b"#" + comments[k].encode() + b"\n"
+        out += tok
+    out += b"\n"
+    if kind in (1, 2, 3):
+        toks = [str(int(x)).encode() for x in v.reshape(-1)]
+        if line:
+            out += b"\n".join(sep.join(toks[i:i + line]) for i in range(0, len(toks), line))
+        else:
+            out += sep.join(toks)
+        out += b"\n"
+    elif kind == 4:
+        out += np.packbits(v.astype(np.uint8), axis=1).tobytes()
+    else:
+        out += v.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+    return bytes(out)
+
+
+def write_pam(samples, maxval: int, tupltype=None, comment: bool = False) -> bytes:
+    """P7 of (H, W, depth) samples."""
+    v = np.asarray(samples)
+    h, w, d = v.shape
+    head = f"P7\nWIDTH {w}\nHEIGHT {h}\n" + ("# a comment\n" if comment else "")
+    head += f"DEPTH {d}\nMAXVAL {maxval}\n" + (f"TUPLTYPE {tupltype}\n" if tupltype else "")
+    return (head + "ENDHDR\n").encode() + v.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+
+
+def write_pfm(values, scale: float = -1.0, colour: bool = False) -> bytes:
+    """Pf / PF of (H, W[, 3]) floats, rows bottom to top, little-endian for
+    a negative scale."""
+    v = np.asarray(values, np.float32)
+    h, w = v.shape[:2]
+    head = f"{'PF' if colour else 'Pf'}\n{w} {h}\n{scale!r}\n".encode()
+    return head + v[::-1].astype("<f4" if scale < 0 else ">f4").tobytes()
+
+
+# ---- Sun raster ---------------------------------------------------------------
+
+def sunras_rle(data: bytes, runs: bool = True) -> bytes:
+    """Byte-encoded (type 2) data: runs of 3 or more (up to 256) as 0x80
+    n v, a literal 0x80 as 0x80 0."""
+    out, i = bytearray(), 0
+    while i < len(data):
+        j = i
+        while j < len(data) and j - i < 256 and data[j] == data[i]:
+            j += 1
+        if runs and j - i >= 3:
+            out += bytes([0x80, j - i - 1, data[i]])
+            i = j
+        else:
+            out += b"\x80\x00" if data[i] == 0x80 else bytes([data[i]])
+            i += 1
+    return bytes(out)
+
+
+def write_sunras(data: bytes, width: int, height: int, depth: int, kind: int = 1,
+                 colormap=None) -> bytes:
+    """A Sun raster around ``data`` (rows as stored): ``kind`` 0 old, 1
+    standard, 2 byte-encoded, 3 RGB; ``colormap`` (3, n) R, G, B planes."""
+    cmap = b"" if colormap is None else np.asarray(colormap, np.uint8).tobytes()
+    head = struct.pack(">8I", 0x59A66A95, width, height, depth, len(data), kind,
+                       1 if cmap else 0, len(cmap))
+    return head + cmap + data
+
+
+def sunras_rows(values: np.ndarray, depth: int, pad: bool = True) -> bytes:
+    """(H, W) indices or (H, W, 3 | 4) bytes as rows, padded to 16 bits
+    unless ``pad`` is false."""
+    v = np.asarray(values)
+    h = v.shape[0]
+    if depth < 8:
+        flat = v.reshape(h, -1).astype(np.uint8)
+        bits = ((flat[:, :, None] >> np.arange(depth - 1, -1, -1)) & 1).reshape(h, -1)
+        rows = np.packbits(bits.astype(np.uint8), axis=1)
+    else:
+        rows = v.reshape(h, -1).astype(np.uint8)
+    if pad and rows.shape[1] % 2:
+        rows = np.concatenate([rows, np.zeros((h, 1), np.uint8)], axis=1)
+    return rows.tobytes()
+
+
+# ---- CCITT --------------------------------------------------------------------
+
+# T.4's run codes: {run: bits} for white and black terminating and make-up
+# codes, and the extended make-up codes both colours share
+FAX_TERM_WHITE = {
+    0: "00110101", 1: "000111", 2: "0111", 3: "1000", 4: "1011", 5: "1100", 6: "1110",
+    7: "1111", 8: "10011", 9: "10100", 10: "00111", 11: "01000", 12: "001000", 13: "000011",
+    14: "110100", 15: "110101", 16: "101010", 17: "101011", 18: "0100111", 19: "0001100",
+    20: "0001000", 21: "0010111", 22: "0000011", 23: "0000100", 24: "0101000", 25: "0101011",
+    26: "0010011", 27: "0100100", 28: "0011000", 29: "00000010", 30: "00000011",
+    31: "00011010", 32: "00011011", 33: "00010010", 34: "00010011", 35: "00010100",
+    36: "00010101", 37: "00010110", 38: "00010111", 39: "00101000", 40: "00101001",
+    41: "00101010", 42: "00101011", 43: "00101100", 44: "00101101", 45: "00000100",
+    46: "00000101", 47: "00001010", 48: "00001011", 49: "01010010", 50: "01010011",
+    51: "01010100", 52: "01010101", 53: "00100100", 54: "00100101", 55: "01011000",
+    56: "01011001", 57: "01011010", 58: "01011011", 59: "01001010", 60: "01001011",
+    61: "00110010", 62: "00110011", 63: "00110100"}
+FAX_MAKEUP_WHITE = {
+    64: "11011", 128: "10010", 192: "010111", 256: "0110111", 320: "00110110", 384: "00110111",
+    448: "01100100", 512: "01100101", 576: "01101000", 640: "01100111", 704: "011001100",
+    768: "011001101", 832: "011010010", 896: "011010011", 960: "011010100", 1024: "011010101",
+    1088: "011010110", 1152: "011010111", 1216: "011011000", 1280: "011011001",
+    1344: "011011010", 1408: "011011011", 1472: "010011000", 1536: "010011001",
+    1600: "010011010", 1664: "011000", 1728: "010011011"}
+FAX_TERM_BLACK = {
+    0: "0000110111", 1: "010", 2: "11", 3: "10", 4: "011", 5: "0011", 6: "0010", 7: "00011",
+    8: "000101", 9: "000100", 10: "0000100", 11: "0000101", 12: "0000111", 13: "00000100",
+    14: "00000111", 15: "000011000", 16: "0000010111", 17: "0000011000", 18: "0000001000",
+    19: "00001100111", 20: "00001101000", 21: "00001101100", 22: "00000110111",
+    23: "00000101000", 24: "00000010111", 25: "00000011000", 26: "000011001010",
+    27: "000011001011", 28: "000011001100", 29: "000011001101", 30: "000001101000",
+    31: "000001101001", 32: "000001101010", 33: "000001101011", 34: "000011010010",
+    35: "000011010011", 36: "000011010100", 37: "000011010101", 38: "000011010110",
+    39: "000011010111", 40: "000001101100", 41: "000001101101", 42: "000011011010",
+    43: "000011011011", 44: "000001010100", 45: "000001010101", 46: "000001010110",
+    47: "000001010111", 48: "000001100100", 49: "000001100101", 50: "000001010010",
+    51: "000001010011", 52: "000000100100", 53: "000000110111", 54: "000000111000",
+    55: "000000100111", 56: "000000101000", 57: "000001011000", 58: "000001011001",
+    59: "000000101011", 60: "000000101100", 61: "000001011010", 62: "000001100110",
+    63: "000001100111"}
+FAX_MAKEUP_BLACK = {
+    64: "0000001111", 128: "000011001000", 192: "000011001001", 256: "000001011011",
+    320: "000000110011", 384: "000000110100", 448: "000000110101", 512: "0000001101100",
+    576: "0000001101101", 640: "0000001001010", 704: "0000001001011", 768: "0000001001100",
+    832: "0000001001101", 896: "0000001110010", 960: "0000001110011", 1024: "0000001110100",
+    1088: "0000001110101", 1152: "0000001110110", 1216: "0000001110111", 1280: "0000001010010",
+    1344: "0000001010011", 1408: "0000001010100", 1472: "0000001010101", 1536: "0000001011010",
+    1600: "0000001011011", 1664: "0000001100100", 1728: "0000001100101"}
+FAX_MAKEUP = {
+    1792: "00000001000", 1856: "00000001100", 1920: "00000001101", 1984: "000000010010",
+    2048: "000000010011", 2112: "000000010100", 2176: "000000010101", 2240: "000000010110",
+    2304: "000000010111", 2368: "000000011100", 2432: "000000011101", 2496: "000000011110",
+    2560: "000000011111"}
+
+
+def _fax_run(run: int, black: bool) -> str:
+    """A run's code: make-up codes of 2560 while longer, one make-up code,
+    then the terminating code."""
+    term = FAX_TERM_BLACK if black else FAX_TERM_WHITE
+    makeup = {**(FAX_MAKEUP_BLACK if black else FAX_MAKEUP_WHITE), **FAX_MAKEUP}
+    out = ""
+    while run >= 2624:
+        out += FAX_MAKEUP[2560]
+        run -= 2560
+    if run >= 64:
+        out += makeup[run // 64 * 64]
+        run %= 64
+    return out + term[run]
+
+
+def _row_runs(row) -> list:
+    """Alternating white / black run lengths of a row of 0 (white) and 1
+    (black) pixels, starting with white."""
+    runs, colour, n = [], 0, 0
+    for v in row:
+        if int(v) == colour:
+            n += 1
+        else:
+            runs.append(n)
+            colour, n = 1 - colour, 1
+    runs.append(n)
+    return runs
+
+
+def fax_encode(pixels: np.ndarray, codec: int, two_d: bool = False) -> bytes:
+    """CCITT data of (H, W) bits (1 black): codec 2 (modified Huffman, rows
+    byte-aligned), 3 (Group 3, EOL before each row, ``two_d``: a 1D / 2D tag
+    bit and every row in 2D horizontal mode) or 4 (Group 4, horizontal mode
+    throughout, EOFB at the end)."""
+    bits = ""
+    for row in np.asarray(pixels):
+        runs = _row_runs(row)
+        if codec == 3:
+            bits += "000000000001" + ("0" if two_d else "")
+        if codec == 4 or (codec == 3 and two_d):
+            if len(runs) % 2:
+                runs.append(0)
+            for k in range(0, len(runs), 2):
+                bits += "001" + _fax_run(runs[k], False) + _fax_run(runs[k + 1], True)
+        else:
+            bits += "".join(_fax_run(r, bool(k % 2)) for k, r in enumerate(runs))
+        if codec == 2:
+            bits += "0" * (-len(bits) % 8)
+    if codec == 4:
+        bits += "000000000001" * 2
+    elif codec == 3:
+        bits += "000000000001" * 6
+    bits += "0" * (-len(bits) % 8)
+    return bytes(int(bits[k:k + 8], 2) for k in range(0, len(bits), 8))
+
+
+# ---- Files the raster readers check on the card (chip_smoke.py phase 19) -------
+
+def _jpeg_strips(planes, sampling, rows: int) -> list:
+    """One JPEG datastream a strip of ``rows`` rows of the planes."""
+    out = []
+    for y in range(0, planes[0].shape[0], rows):
+        fr, q = jpeg_frame([p[y:y + rows] for p in planes], sampling)
+        comps = tuple(range(len(planes)))
+        out.append(write_jpeg(fr, q, [(comps, 0, 63, 0, 0)]))
+    return out
+
+
+def raster_file(name: str, size=(390, 320), seed: int = 25) -> bytes:
+    """One of `RASTER`'s files (TIFF, BMP, Netpbm, Sun raster) of an x-ray
+    like image ``size`` = (height, width); their gray images' digests are
+    `RASTER_SHA256` at 390 x 320."""
+    from torch_mura_tree import xray_like
+    h, w = size
+    rng = np.random.default_rng(seed)
+    g = xray_like(rng, h, w)
+    g16 = g.astype(np.uint16) * 257 + rng.integers(0, 256, g.shape).astype(np.uint16)
+    rgb = np.stack([g, np.roll(g, 7, 1), 255 - g], axis=2)
+    bits = (g > 120).astype(np.uint8)
+    pal = np.stack([np.arange(16) * 17, 255 - np.arange(16) * 9, np.arange(16) * 5], 1)
+    if name == "tiff-lzw-pred2-gray16-be":
+        return write_tiff(g16, bits=16, compression=5, predictor=2, order=">", rows_per_strip=8)
+    if name == "tiff-deflate-tiles-rgb8":
+        return write_tiff(rgb, photometric=2, compression=8, predictor=2, tile=(64, 64))
+    if name == "tiff-packbits-planar-rgb16":
+        return write_tiff(rgb.astype(np.uint16) * 257, bits=16, photometric=2, planar=2,
+                          compression=32773, rows_per_strip=32)
+    if name == "tiff-raw-miniswhite-bigtiff":
+        return write_tiff(g, photometric=0, bigtiff=True, rows_per_strip=17)
+    if name == "tiff-lzw-palette4":
+        return write_tiff(g >> 4, bits=4, photometric=3, compression=5,
+                          colormap=pal.astype(np.int64) * 257)
+    if name == "tiff-cmyk-lzw":
+        cmyk = np.stack([255 - g, g // 2, np.roll(g, 3, 0), g // 4], axis=2)
+        return write_tiff(cmyk, photometric=5, compression=5, rows_per_strip=40)
+    if name == "tiff-g4-fillorder2":
+        it = iter([fax_encode(bits[y:y + 64], 4) for y in range(0, h, 64)])
+        return write_tiff(bits, bits=1, photometric=0, compression=4, fill_order=2,
+                          rows_per_strip=64, codec=lambda d: next(it))
+    if name == "tiff-g3-2d":
+        it = iter([fax_encode(bits, 3, two_d=True)])
+        return write_tiff(bits, bits=1, photometric=0, compression=3, tags={292: (4, [1])},
+                          codec=lambda d: next(it))
+    if name == "tiff-ccitt-rle":
+        it = iter([fax_encode(bits[y:y + 50], 2) for y in range(0, h, 50)])
+        return write_tiff(bits, bits=1, photometric=0, compression=2, rows_per_strip=50,
+                          codec=lambda d: next(it))
+    if name == "tiff-jpeg-ycbcr420":
+        ycc = [g, np.roll(g, 5, 1), 255 - g]
+        it = iter(_jpeg_strips(ycc, [(2, 2), (1, 1), (1, 1)], 64))
+        return write_tiff(np.stack(ycc, 2), photometric=6, compression=7, rows_per_strip=64,
+                          tags={530: (3, [2, 2])}, codec=lambda d: next(it))
+    if name == "tiff-jpeg-gray":
+        it = iter(_jpeg_strips([g], [(1, 1)], 48))
+        return write_tiff(g, compression=7, rows_per_strip=48, codec=lambda d: next(it))
+    if name == "tiff-float32-pred3":
+        return write_tiff(g.astype(np.float32) * 1.25 - 20, bits=32, kind="f", compression=8,
+                          predictor=3, rows_per_strip=32)
+    if name == "tiff-int32":
+        return write_tiff(g.astype(np.int64) - 40, bits=32, kind="i", rows_per_strip=64)
+    if name == "tiff-orient3-tiles":
+        return write_tiff(g, compression=5, tile=(48, 80), orientation=3)
+    if name == "tiff-lzw-corrupt":
+        raw = bytearray(write_tiff(g, compression=5, predictor=2, rows_per_strip=24))
+        r = np.random.default_rng(seed + 1)
+        for pos in r.integers(len(raw) // 3, len(raw) - 64, 3):
+            raw[int(pos)] = int(r.integers(0, 256))
+        return bytes(raw)
+    if name == "bmp-8-rle8":
+        idx = g >> 2
+        return write_bmp(rle_bmp(idx[::-1], False), w, h, 8, 1,
+                         palette=np.stack([np.arange(256)] * 3, 1)[::4][:64], colors_used=64)
+    if name == "bmp-4-rle4-delta":
+        idx = g >> 4
+        idx[idx < 3] = 0
+        return write_bmp(rle_bmp(idx[::-1], True, rng=np.random.default_rng(seed), deltas=True),
+                         w, h, 4, 2, palette=pal)
+    if name == "bmp-24-topdown":
+        return write_bmp(bmp_rows(rgb[..., ::-1], 24), w, h, 24, top_down=True)
+    if name == "bmp-16-565":
+        v = ((g.astype(np.uint16) >> 3) << 11) | ((np.roll(g, 3, 1).astype(np.uint16) >> 2) << 5) \
+            | (g.astype(np.uint16) >> 3)
+        return write_bmp(bmp_rows(v[::-1], 16), w, h, 16, 3, masks=(0xF800, 0x7E0, 0x1F))
+    if name == "bmp-32-v5-bitfields":
+        bgra = np.concatenate([rgb[..., ::-1], g[..., None]], axis=2)
+        return write_bmp(bmp_rows(bgra[::-1], 32), w, h, 32, 3, header=124,
+                         masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000))
+    if name == "bmp-1-os2":
+        return write_bmp(bmp_rows(bits[::-1], 1), w, h, 1, header=12,
+                         palette=np.array([[10, 20, 30], [240, 230, 220]]))
+    if name == "bmp-8-rle8-no-eob":
+        return write_bmp(rle_bmp((g >> 4)[::-1], False, eob=False), w, h, 8, 1, palette=pal,
+                         colors_used=16)
+    if name == "pgm-p5-maxval50":
+        return write_pnm((g.astype(np.int64) * 50 // 255), 5, maxval=50)
+    if name == "pgm-p5-16":
+        return write_pnm(g16, 5, maxval=65535)
+    if name == "pgm-p2-ascii":
+        return write_pnm(g.astype(np.int64) * 1000 // 255, 2, maxval=1000, comments=["x-ray"])
+    if name == "ppm-p6":
+        return write_pnm(rgb, 6)
+    if name == "ppm-p3-200":
+        return write_pnm(rgb.astype(np.int64) * 200 // 255, 3, maxval=200, line=17)
+    if name == "pbm-p4":
+        return write_pnm(bits, 4)
+    if name == "pbm-p1":
+        return write_pnm(bits, 1, sep=b"", line=70)
+    if name == "pam-gray":
+        return write_pam(g[..., None], 255, "GRAYSCALE", comment=True)
+    if name == "pam-rgb16":
+        return write_pam(rgb.astype(np.int64) * 257, 65535, "RGB")
+    if name == "pfm-gray":
+        return write_pfm(g.astype(np.float32) / 255, scale=-1.0 / 255)
+    if name == "sun-8-map":
+        return write_sunras(sunras_rows(g >> 4, 8), w, h, 8, 1, colormap=pal.T)
+    if name == "sun-24":
+        return write_sunras(sunras_rows(rgb[..., ::-1], 24), w, h, 24, 1)
+    if name == "sun-32":
+        return write_sunras(sunras_rows(np.concatenate([g[..., None], rgb[..., ::-1]], 2), 32),
+                            w, h, 32, 1)
+    if name == "sun-rle-8":
+        return write_sunras(sunras_rle(sunras_rows(g >> 3, 8, pad=False)), w, h, 8, 2)
+    if name == "sun-rgb-24":
+        return write_sunras(sunras_rows(rgb, 24), w, h, 24, 3)
+    raise ValueError(name)
+
+
+RASTER = ("tiff-lzw-pred2-gray16-be", "tiff-deflate-tiles-rgb8", "tiff-packbits-planar-rgb16",
+          "tiff-raw-miniswhite-bigtiff", "tiff-lzw-palette4", "tiff-cmyk-lzw", "tiff-g4-fillorder2",
+          "tiff-g3-2d", "tiff-ccitt-rle", "tiff-jpeg-ycbcr420", "tiff-jpeg-gray",
+          "tiff-float32-pred3", "tiff-int32", "tiff-orient3-tiles", "tiff-lzw-corrupt",
+          "bmp-8-rle8", "bmp-4-rle4-delta", "bmp-24-topdown", "bmp-16-565",
+          "bmp-32-v5-bitfields", "bmp-1-os2", "bmp-8-rle8-no-eob", "pgm-p5-maxval50",
+          "pgm-p5-16", "pgm-p2-ascii", "ppm-p6", "ppm-p3-200", "pbm-p4", "pbm-p1",
+          "pam-gray", "pam-rgb16", "pfm-gray", "sun-8-map", "sun-24", "sun-32",
+          "sun-rle-8", "sun-rgb-24")
+
+
+def raster_job(name: str, size, seed: int, out: str) -> str:
+    """Write `raster_file`'s file as ``out`` (for chip_smoke.py's worker
+    processes)."""
+    with open(out, "wb") as f:
+        f.write(raster_file(name, size, seed))
+    return out
+
+
+def timing_file(kind: str, size, seed: int = 25):
+    """(file bytes, the gray image) of phase 19's timed files: a 16-bit LZW
+    TIFF with the horizontal predictor ("tiff"), a P5 PGM ("pgm") or an
+    8-bit BMP ("bmp") of an x-ray like image, and the plain PNG ("png") of
+    its 8 bits."""
+    from torch_mura_tree import encode_png, xray_like
+    g = xray_like(np.random.default_rng(seed), *size)
+    if kind == "tiff":
+        g16 = g.astype(np.uint16) * 256 + 128
+        return write_tiff(g16, bits=16, compression=5, predictor=2, rows_per_strip=16), g
+    if kind == "pgm":
+        return write_pnm(g, 5), g
+    if kind == "bmp":
+        gray_pal = np.stack([np.arange(256)] * 3, 1)
+        return write_bmp(bmp_rows(g[::-1], 8), size[1], size[0], 8, palette=gray_pal), g
+    if kind == "png":
+        return encode_png(g, 0, 8), g
+    raise ValueError(kind)
+
+
+def timing_job(kind: str, size, seed: int, out: str) -> str:
+    raw, want = timing_file(kind, size, seed)
+    with open(out, "wb") as f:
+        f.write(raw)
+    np.save(out + ".npy", want)
+    return out
+
+
+def reencode_raster(gray: np.ndarray, kind: str) -> bytes:
+    """The (H, W) uint8 image ``gray`` as a file of ``kind``: tiff16 (a
+    16-bit LZW TIFF with the horizontal predictor, big-endian), pgm (P5)
+    or bmp8 (8-bit, a gray palette); each reads back as ``gray``."""
+    h, w = gray.shape
+    if kind == "tiff16":
+        return write_tiff(gray.astype(np.uint16) * 257, bits=16, compression=5, predictor=2,
+                          order=">", rows_per_strip=8)
+    if kind == "pgm":
+        return write_pnm(gray, 5)
+    if kind == "bmp8":
+        return write_bmp(bmp_rows(gray[::-1], 8), w, h, 8,
+                         palette=np.stack([np.arange(256)] * 3, 1))
+    raise ValueError(kind)
+
+# sha256 of load_grayscale's gray image (cv2, then PIL) for `raster_file`'s files
+# at 390 x 320 (tests/test_torch_raster_formats.py pins them to the JAX package's
+# reader)
+RASTER_SHA256 = {
+    "tiff-lzw-pred2-gray16-be": "98e88cb7cfc59e44ec32a714541b5babe6db6767bde42cc60e12ac3bd7c8e90d",
+    "tiff-deflate-tiles-rgb8": "55e3dd2291fed206a864d3777336e59bec0f3e1708614561e1f29c84d4af3065",
+    "tiff-packbits-planar-rgb16": "55e3dd2291fed206a864d3777336e59bec0f3e1708614561e1f29c84d4af3065",
+    "tiff-raw-miniswhite-bigtiff": "1e18779a048df7fe6a969993c187f2d6804b45e625334f126dbb99bdecfa39b8",
+    "tiff-lzw-palette4": "b68f02fc5da99010af55d5155f5be3e75dd51f3f09c67cb4513e16795f8f625a",
+    "tiff-cmyk-lzw": "728a05950d98841eb43f004f2f8a544f72cf9b81bcaa18149ecb7939432ba54b",
+    "tiff-g4-fillorder2": "acd837e8dead5d5db8a029142f899c1b4b28df42c76b6dfee0472065d7d326c2",
+    "tiff-g3-2d": "acd837e8dead5d5db8a029142f899c1b4b28df42c76b6dfee0472065d7d326c2",
+    "tiff-ccitt-rle": "acd837e8dead5d5db8a029142f899c1b4b28df42c76b6dfee0472065d7d326c2",
+    "tiff-jpeg-ycbcr420": "b9dbb89332e2861c6b9a6da32f00451a3a3bcf73ecfa308e38e36d0c474f65a8",
+    "tiff-jpeg-gray": "d9dbfb54cfb28d4fd8682616eb45103204e2246a2d17b93344e075d5ddec6f4d",
+    "tiff-float32-pred3": "99413bc5ac244cd094887eafbd471991be48b8eacb1b06a223718f7b78018edb",
+    "tiff-int32": "553276f3db4d6d04ac0841895b94c32c17f16cf0034e8de58ee143782db0681b",
+    "tiff-orient3-tiles": "c7433d88cd81f7e6881b681f193e5ee88788de8d5f6afb4ef1e85a6d3e514f5f",
+    "tiff-lzw-corrupt": "8722d0ca1baf8c0a064e41b7f98feaae26534d09a4e2ad89d49b2c9d4b9417b6",
+    "bmp-8-rle8": "3563199c33e35a3cd4c39f5b073f7ea67cc379ba83c37ea46b6756c873c85995",
+    "bmp-4-rle4-delta": "53bba62f7e27b2faf1765f9e8353a56c90aac074e2d5ce4781f762b7e1abd053",
+    "bmp-24-topdown": "55e3dd2291fed206a864d3777336e59bec0f3e1708614561e1f29c84d4af3065",
+    "bmp-16-565": "de8d9ab4046a87c3684db4345389b5225331b8604a79a4973ac62ae1dfb15eba",
+    "bmp-32-v5-bitfields": "bf3c0f318bb2b0dbc2febd7f4d43696019d596dee6c36e5e6e27c96e10577164",
+    "bmp-1-os2": "cac3b9dcbbee2b91d1c2a7fcbf815bb037957d9f1dd057bd10c1ec4b75832735",
+    "bmp-8-rle8-no-eob": "b68f02fc5da99010af55d5155f5be3e75dd51f3f09c67cb4513e16795f8f625a",
+    "pgm-p5-maxval50": "56f3f35c3b47ec79b51524c8020507143621c88298a6af810f0bab08f146ad32",
+    "pgm-p5-16": "98e88cb7cfc59e44ec32a714541b5babe6db6767bde42cc60e12ac3bd7c8e90d",
+    "pgm-p2-ascii": "851dc3477de3720596404a1ba12ec742191dc27199e2d3604be6d73700d2b249",
+    "ppm-p6": "55e3dd2291fed206a864d3777336e59bec0f3e1708614561e1f29c84d4af3065",
+    "ppm-p3-200": "c55b959f302218604234521545f191da4008bf4a26b65a986d8b89c29f1179a8",
+    "pbm-p4": "acd837e8dead5d5db8a029142f899c1b4b28df42c76b6dfee0472065d7d326c2",
+    "pbm-p1": "acd837e8dead5d5db8a029142f899c1b4b28df42c76b6dfee0472065d7d326c2",
+    "pam-gray": "adf2c2e723f6b7146d7a2ff8a75d319311683ca54b472ed4cd3d34e588f9040e",
+    "pam-rgb16": "55e3dd2291fed206a864d3777336e59bec0f3e1708614561e1f29c84d4af3065",
+    "pfm-gray": "adf2c2e723f6b7146d7a2ff8a75d319311683ca54b472ed4cd3d34e588f9040e",
+    "sun-8-map": "b68f02fc5da99010af55d5155f5be3e75dd51f3f09c67cb4513e16795f8f625a",
+    "sun-24": "55e3dd2291fed206a864d3777336e59bec0f3e1708614561e1f29c84d4af3065",
+    "sun-32": "55e3dd2291fed206a864d3777336e59bec0f3e1708614561e1f29c84d4af3065",
+    "sun-rle-8": "5c7fc4c016f0cb43f7e38dd6a05b43c22a4b4942699fc63ca3a53161f5a5e306",
+    "sun-rgb-24": "56644ca41cc0eb41dcdfac4f95f28a0cb1df925687abe53b006e647301c020bd",
+}
+
+
+def ycbcr_blocks(ycc: np.ndarray, hs: int, vs: int, rows: int) -> list:
+    """Uncompressed subsampled YCbCr strips of ``rows`` rows of the (H, W, 3)
+    planes: blocks of hs x vs lumas then the block's first Cb and Cr."""
+    h, w, _ = ycc.shape
+    strips = []
+    for y0 in range(0, h, rows):
+        out = bytearray()
+        part = ycc[y0:y0 + rows]
+        for by in range(0, part.shape[0], vs):
+            for bx in range(0, w, hs):
+                blk = np.zeros((vs, hs), np.uint8)
+                sub = part[by:by + vs, bx:bx + hs, 0]
+                blk[:sub.shape[0], :sub.shape[1]] = sub
+                out += blk.tobytes() + bytes([int(part[by, bx, 1]), int(part[by, bx, 2])])
+        strips.append(bytes(out))
+    return strips

@@ -64,11 +64,28 @@ def load_variables(path: str, model: torch.nn.Module) -> torch.nn.Module:
     """Load a checkpoint into ``model``: a ``.npz`` in the JAX layout
     (either package's ``best.npz``), or a ``.pth`` / ``.pt`` / ``.bin``
     torch file holding a state dict with the reference's names (bare, or
-    under ``"model"`` as in the port's ``last.pt``, or ``"state_dict"``)."""
+    under ``"model"`` as in the port's ``last.pt``, or ``"state_dict"``).
+
+    For an XFMamba top (T, S, B) the torch file goes through the JAX
+    package's rules (`checkpoint.convert.load_pth_state_dict` and
+    `convert_xfmamba_state_dict`): a checkpoint of the reference loads as
+    JAX loads it, and the file is unpickled with ``weights_only=False``, as
+    in JAX, so it must be one you trust; a ``num_batches_tracked`` the file
+    carries is kept.  The other tops load their state dict strictly, with
+    ``weights_only=True``; JAX refuses their ``.pth`` files."""
     if path.endswith(".npz"):
         from xfmamba_tpu_torch.checkpoint.io import load_model_npz
         return load_model_npz(path, model)
     if path.endswith((".pth", ".pt", ".bin")):
+        from xfmamba_tpu_torch.models.tops import TwoViewXFMamba
+        if isinstance(model, TwoViewXFMamba):
+            from xfmamba_tpu_torch.checkpoint import convert
+            sd = convert.load_pth_state_dict(path)
+            own = model.state_dict()
+            counts = {k: v for k, v in sd.items() if k.endswith("num_batches_tracked") and k in own}
+            convert.load_reference_state_dict(
+                model, {**convert.convert_xfmamba_state_dict(sd), **counts})
+            return model
         sd = torch.load(path, map_location="cpu", weights_only=True)
         if isinstance(sd, dict) and "model" in sd:
             sd = sd["model"]

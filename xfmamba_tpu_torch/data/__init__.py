@@ -1,5 +1,5 @@
-"""The host data path (port of ``xfmamba_tpu.data``): PNG and JPEG decoding
-by content, the DICOM reader, the transforms, the prefetching loader, and
+"""The host data path (port of ``xfmamba_tpu.data``): image decoding by
+content (PNG, JPEG, TIFF, BMP, Netpbm, Sun raster), the DICOM reader, the transforms, the prefetching loader, and
 the MURA, CheXpert, hip X-ray and CBIS-DDSM tables, splits and loaders (with
 the NYU breast crop)."""
 

@@ -28,8 +28,10 @@ output needs sampled at a fractional ratio of the frame's maximum, more than
 ten blocks in an MCU, a file whose first three bytes are not SOI and a
 marker, files cut or corrupt before their first scan (no frame header or no
 scan, a bad table or segment length, an unknown marker), a progressive or
-lossless scan whose Huffman table no segment defines, and a multi-scan file
-whose markers after a scan are corrupt.
+lossless scan whose Huffman table no segment defines, a multi-scan file
+whose markers after a scan are corrupt, and a frame of more than 2^30
+pixels (cv2 asserts there and PIL's bomb check refuses; the port refuses
+before it allocates anything).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import struct
 import numpy as np
 
 from xfmamba_tpu_torch import native
+from xfmamba_tpu_torch.data import limits
 
 SOI = b"\xff\xd8"
 SIGNATURE = b"\xff\xd8\xff"          # what cv2 and PIL take for a JPEG file
@@ -124,10 +127,34 @@ def orientation(raw: bytes) -> int:
     return value
 
 
+def frame_size(raw: bytes):
+    """(height, width) of the first frame header before the first scan, or
+    None."""
+    pos = 2
+    while True:
+        marker, pos = _next_marker(raw, pos)
+        if marker is None or marker in (SOS, EOI):
+            return None
+        if marker in STANDALONE:
+            continue
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            if pos + 7 > len(raw):
+                return None
+            return struct.unpack(">HH", raw[pos + 3:pos + 7])
+        if pos + 2 > len(raw):
+            return None
+        pos += struct.unpack(">H", raw[pos:pos + 2])[0]
+
+
 def decode_gray(raw: bytes, path="<bytes>") -> np.ndarray:
     """Decode JPEG bytes to (H, W) uint8 gray (see the module docstring)."""
     if raw[:3] != SIGNATURE:
         _fail(path, "not a JPEG file (no SOI marker and marker after it)")
+    size = frame_size(raw)
+    if size and size[0] * size[1] > limits.CV2_MAX_PIXELS:
+        # cv2 asserts (or refuses past 65,500 a side) and PIL's bomb check
+        # refuses: the JAX reader raises; decoding would take gigabytes
+        _fail(path, f"{size[1]} x {size[0]} pixels, past cv2's limit of 2^30")
     try:
         img = native.jpeg_decode_gray(raw)
     except ValueError as e:

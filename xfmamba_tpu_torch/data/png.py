@@ -28,8 +28,9 @@ PIL's modes: ``1`` (bool) for 1-bit gray, ``L`` (2- and 4-bit gray scaled to
 0-255), ``I;16`` (uint16), ``P`` (the palette indices), ``LA``, ``RGB``,
 ``RGBA``; 16-bit colour to its high byte; 16-bit gray + alpha as ``RGBA``.
 PIL does not check the CRCs of IDAT chunks and needs no IEND, only every
-image row; its ``convert("L")`` is ``(19595 R + 38470 G + 7471 B + 32768) >>
-16``, 255 for a set ``1`` pixel and 16-bit values clipped to 255.
+image row; its ``convert("L")`` is `gray.pil_l24`, ``(19595 R + 38470 G +
+7471 B + 32768) >> 16``, 255 for a set ``1`` pixel and 16-bit values
+clipped to 255.
 
 Refused, with a ``ValueError`` naming the file and the fault, exactly what
 both refuse: not a PNG (no signature), a bad IHDR chunk (its CRC, length or
@@ -48,6 +49,7 @@ import zlib
 import numpy as np
 
 from xfmamba_tpu_torch import native
+from xfmamba_tpu_torch.data.gray import pil_l24
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -367,8 +369,7 @@ def _pil_l(img, arr: np.ndarray) -> np.ndarray:
     if arr.ndim == 3 and arr.shape[2] == 2:                  # LA
         return np.ascontiguousarray(arr[:, :, 0])
     rgb = _palette(img, arr) if arr.ndim == 2 else arr[:, :, :3]
-    r, g, b = (rgb[:, :, k].astype(np.int64) for k in range(3))
-    return ((19595 * r + 38470 * g + 7471 * b + 32768) >> 16).astype(np.uint8)
+    return pil_l24(rgb[:, :, 0], rgb[:, :, 1], rgb[:, :, 2])
 
 
 def _read(raw: bytes, path):

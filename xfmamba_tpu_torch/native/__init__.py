@@ -1,5 +1,7 @@
 """ctypes bindings for the port's host-side data-path kernels
-(``xfm_host.cc``, and ``jpeg_decode.cc`` for `data/jpeg.py`).
+(``xfm_host.cc``, ``jpeg_decode.cc`` for `data/jpeg.py`, ``tiff_decode.cc``
+for `data/tiff.py` and ``raster_decode.cc`` for `data/bmp.py` and
+`data/sunras.py`).
 
 The sources are compiled with ``g++`` at the first call, not at import, into
 ``xfmamba_tpu_torch/_build/`` (git-ignored) under a name keyed on a hash of
@@ -23,15 +25,17 @@ import numpy as np
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCES = tuple(Path(__file__).resolve().parent / name
-                for name in ("xfm_host.cc", "jpeg_decode.cc"))
+                for name in ("xfm_host.cc", "jpeg_decode.cc", "tiff_decode.cc",
+                             "raster_decode.cc"))
 BUILD_DIR = PACKAGE_DIR / "_build"
 # no -march=native: a library built on one host may be loaded on another
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+LIBS = ("-ldl",)          # tiff_decode.cc loads the system zlib with dlopen
 _lock = threading.Lock()
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h = hashlib.sha256(" ".join(CXX_FLAGS + LIBS).encode())
     for source in SOURCES:
         h.update(source.read_bytes())
     return BUILD_DIR / f"libxfm_host_{h.hexdigest()[:16]}.so"
@@ -44,7 +48,7 @@ def build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES), *LIBS]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
         if proc.returncode != 0:
@@ -73,8 +77,22 @@ def _library() -> ctypes.CDLL:
     i64, pi64 = ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)
     lib.jpeg_decode_gray.argtypes = [ctypes.c_char_p, i64, pi64, pi64, ctypes.c_char_p, i64]
     lib.jpeg_decode_gray.restype = ctypes.c_void_p
+    lib.jpeg_decode_samples.argtypes = [ctypes.c_char_p, i64, ctypes.c_int, pi64, pi64,
+                                        ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, i64]
+    lib.jpeg_decode_samples.restype = ctypes.c_void_p
     lib.xfm_free.argtypes = [ctypes.c_void_p]
     lib.xfm_free.restype = None
+    p = ctypes.c_void_p
+    lib.tiff_decode_chunks.argtypes = [p, i64, i64, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_int, i64, ctypes.c_int, ctypes.c_int,
+                                       i64, ctypes.c_int, p]
+    lib.tiff_decode_chunks.restype = i64
+    lib.bmp_rle_cv2.argtypes = [p, i64, i64, ctypes.c_int, p, i64, i64, p]
+    lib.bmp_rle_cv2.restype = ctypes.c_int
+    lib.bmp_rle_pil.argtypes = [p, i64, i64, ctypes.c_int, i64, i64, p, i64]
+    lib.bmp_rle_pil.restype = i64
+    lib.sunras_rle.argtypes = [p, i64, p, i64]
+    lib.sunras_rle.restype = i64
     return lib
 
 
@@ -258,6 +276,85 @@ def jpeg_decode_gray(raw: bytes) -> np.ndarray:
         raise ValueError(err.value.decode(errors="replace"))
     try:
         out = np.empty((h.value, w.value), np.uint8)
+        ctypes.memmove(out.ctypes.data, ptr, out.size)
+    finally:
+        lib.xfm_free(ptr)
+    return out
+
+
+def tiff_decode_chunks(raw: bytes, offsets, counts, wants, out_offsets, out_size: int, *,
+                       codec: int, predictor: int = 1, sample_bytes: int = 1, stride: int = 1,
+                       row_bytes: int = 0, swap: bool = False, reverse_bits: bool = False,
+                       width: int = 0, fax_options: int = 0):
+    """Decode TIFF strips or tiles as libtiff's TIFFReadEncodedStrip /
+    TIFFReadEncodedTile leave them (``tiff_decode.cc``): chunk i is
+    ``counts[i]`` raw bytes at ``offsets[i]`` of the file ``raw``,
+    decoded to ``wants[i]`` bytes at ``out_offsets[i]`` of a zeroed
+    ``out_size``-byte buffer.  Returns (buffer as uint8, status per chunk:
+    0 decoded, 1 the codec failed, 2 the strip could not be read)."""
+    lib = library()
+    arrays = [np.ascontiguousarray(a, dtype=np.int64) for a in (offsets, counts, wants,
+                                                                  out_offsets)]
+    n = len(arrays[0])
+    if any(len(a) != n for a in arrays) or (arrays[2] < 0).any() or (arrays[3] < 0).any() or \
+            (n and (arrays[3] + arrays[2] > out_size).any()):
+        raise ValueError("chunk outputs outside the buffer")
+    out = np.zeros(out_size, np.uint8)
+    status = np.zeros(n, np.int8)
+    ret = lib.tiff_decode_chunks(raw, len(raw), n, *(a.ctypes.data for a in arrays[:3]),
+                                 out.ctypes.data, arrays[3].ctypes.data, codec, predictor,
+                                 sample_bytes, stride, row_bytes, int(swap), int(reverse_bits),
+                                 width, fax_options, status.ctypes.data)
+    if ret < 0:
+        raise RuntimeError("Deflate-compressed TIFF data needs the system zlib (libz.so.1), "
+                           "which could not be loaded")
+    return out, status
+
+
+def bmp_rle_cv2(raw: bytes, pos: int, rle4: bool, gray_palette: np.ndarray, width: int,
+                height: int):
+    """cv2's RLE8 / RLE4 decoding of a BMP from byte ``pos`` of ``raw``
+    (``raster_decode.cc``): (status, (height, width) uint8 rows in decoding
+    order).  Status 0: decoded; 1: a run passes a row's end; 2: the data
+    ends first."""
+    gray = np.zeros(256, np.uint8)
+    gray[:len(gray_palette)] = gray_palette[:256]
+    out = np.zeros((height, width), np.uint8)
+    status = library().bmp_rle_cv2(raw, len(raw), pos, int(rle4), gray.ctypes.data, width,
+                                   height, out.ctypes.data)
+    return status, out
+
+
+def bmp_rle_pil(raw: bytes, pos: int, rle4: bool, width: int, height: int):
+    """Pillow's BmpRleDecoder from byte ``pos``: (pixels produced, -1 where
+    it raises; the first width x height of them, uint8)."""
+    out = np.zeros(width * height, np.uint8)
+    n = library().bmp_rle_pil(raw, len(raw), pos, int(rle4), width, height, out.ctypes.data,
+                              out.size)
+    return n, out
+
+
+def sunras_rle(data: bytes, capacity: int) -> np.ndarray:
+    """Expand a byte-encoded Sun raster's data, at most ``capacity`` bytes."""
+    out = np.zeros(capacity, np.uint8)
+    n = library().sunras_rle(data, len(data), out.ctypes.data, capacity)
+    return out[:n]
+
+
+def jpeg_decode_samples(raw: bytes, rgb: bool) -> np.ndarray:
+    """A JPEG datastream's samples as libtiff's JPEG codec gets them from
+    libjpeg: (H, W, components) uint8, YCbCr converted to RGB when ``rgb``
+    (JPEGCOLORMODE_RGB), else every component as it is.  A datastream
+    libjpeg would not decode raises ``ValueError``."""
+    lib = library()
+    h, w, nc = ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int()
+    err = ctypes.create_string_buffer(256)
+    ptr = lib.jpeg_decode_samples(raw, len(raw), 2 if rgb else 1, ctypes.byref(h),
+                                  ctypes.byref(w), ctypes.byref(nc), err, len(err))
+    if not ptr:
+        raise ValueError(err.value.decode(errors="replace"))
+    try:
+        out = np.empty((h.value, w.value, nc.value), np.uint8)
         ctypes.memmove(out.ctypes.data, ptr, out.size)
     finally:
         lib.xfm_free(ptr)

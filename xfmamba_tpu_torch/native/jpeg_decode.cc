@@ -238,7 +238,9 @@ void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int64_t st
 class Decoder {
  public:
   Decoder(const uint8_t* d, int64_t n) : src_{d, n} {}
-  std::vector<uint8_t> run(int64_t* height, int64_t* width);
+  // out: 0 cv2's gray; 1 every component as it is (libtiff's JCS_UNKNOWN),
+  // interleaved; 2 YCbCr converted to RGB (libtiff's JPEGCOLORMODE_RGB)
+  std::vector<uint8_t> run(int64_t* height, int64_t* width, int out = 0, int* ncomp = nullptr);
 
  private:
   Source src_;
@@ -1631,7 +1633,7 @@ std::vector<uint8_t> Decoder::upsample(const Comp& c, const std::vector<uint8_t>
   return out;
 }
 
-std::vector<uint8_t> Decoder::run(int64_t* height, int64_t* width) {
+std::vector<uint8_t> Decoder::run(int64_t* height, int64_t* width, int out, int* ncomp) {
   // jpeg_read_header: markers up to the first SOS
   if (read_markers() != SOS) {
     if (saw_sof_) fail("truncated or corrupt JPEG (no scan after the frame header)");
@@ -1659,16 +1661,24 @@ std::vector<uint8_t> Decoder::run(int64_t* height, int64_t* width) {
   } else if (n == 4) {
     space = adobe_ ? (adobe_transform_ == 0 ? CMYK : YCCK) : CMYK;
   }
+  if (out == 1) space = UNKNOWN;
+  if (out == 2) {
+    if (n != 3) fail("a YCbCr JPEG with %d components", n);
+    space = YCC;
+  }
   const char* kind = lossless_ ? (arith_ ? "arithmetic-coded lossless" : "lossless")
                      : progressive_ ? (arith_ ? "arithmetic-coded progressive" : "progressive")
                      : arith_ ? "arithmetic-coded sequential"
                      : sof_ == SOF0 ? "baseline" : "extended sequential";
-  if (space == UNKNOWN) fail("unsupported JPEG format: %d components", n);
+  if (space == UNKNOWN && out != 1) fail("unsupported JPEG format: %d components", n);
   if (!lossless_ && precision_ == 12) fail("unsupported JPEG format: 12-bit samples (%s)", kind);
   if (lossless_ && precision_ > 8)
     fail("unsupported JPEG format: %d-bit samples (%s)", precision_, kind);
   if (lossless_ && arith_) fail("unsupported JPEG format: arithmetic-coded lossless");
-  for (Comp& c : comps_) c.needed = !(space == YCC && c.index > 0);
+  for (Comp& c : comps_) c.needed = out != 0 || !(space == YCC && c.index > 0);
+  if (out == 1)
+    for (Comp& c : comps_)
+      if (c.h != hmax_ || c.v != vmax_) fail("a subsampled JPEG read without colour conversion");
   for (Comp& c : comps_) {
     if (!c.needed) continue;
     // jinit_upsampler's refusal, before any data is read
@@ -1700,6 +1710,36 @@ std::vector<uint8_t> Decoder::run(int64_t* height, int64_t* width) {
   for (Comp& c : comps_)
     if (c.needed) full[c.index] = upsample(c, plane(c));
   const int64_t npx = width_ * height_;
+  *height = height_;
+  *width = width_;
+  if (out == 1) {
+    std::vector<uint8_t> px((size_t)(npx * n));
+    for (int64_t i = 0; i < npx; ++i)
+      for (int k = 0; k < n; ++k) px[(size_t)(i * n + k)] = full[k][(size_t)i];
+    if (ncomp) *ncomp = n;
+    return px;
+  }
+  if (out == 2) {
+    // jdcolor.c's ycc_rgb_convert
+    int crr[256], cbb[256];
+    int64_t crg[256], cbg[256];
+    for (int i = 0, x = -128; i < 256; ++i, ++x) {
+      crr[i] = (int)((91881 * (int64_t)x + 32768) >> 16);
+      cbb[i] = (int)((116130 * (int64_t)x + 32768) >> 16);
+      crg[i] = -46802 * (int64_t)x;
+      cbg[i] = -22554 * (int64_t)x + 32768;
+    }
+    auto clamp = [](int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); };
+    std::vector<uint8_t> px((size_t)(npx * 3));
+    for (int64_t i = 0; i < npx; ++i) {
+      const int y = full[0][(size_t)i], cb = full[1][(size_t)i], cr = full[2][(size_t)i];
+      px[(size_t)(3 * i)] = clamp(y + crr[cr]);
+      px[(size_t)(3 * i + 1)] = clamp(y + (int)((cbg[cb] + crg[cr]) >> 16));
+      px[(size_t)(3 * i + 2)] = clamp(y + cbb[cb]);
+    }
+    if (ncomp) *ncomp = 3;
+    return px;
+  }
   std::vector<uint8_t> gray((size_t)npx);
   if (space == GRAY || space == YCC) {
     gray = std::move(full[0]);
@@ -1755,6 +1795,26 @@ uint8_t* jpeg_decode_gray(const uint8_t* data, int64_t n, int64_t* height, int64
     if (!out) throw Failure{"out of memory"};
     std::memcpy(out, gray.data(), gray.size());
     return out;
+  } catch (const Failure& f) {
+    std::snprintf(err, (size_t)errlen, "%s", f.msg.c_str());
+  } catch (const std::exception& e) {
+    std::snprintf(err, (size_t)errlen, "corrupt JPEG (%s)", e.what());
+  }
+  return nullptr;
+}
+
+// The samples of a JPEG datastream for libtiff's JPEG codec: `out` 1 gives
+// every component as it is, 2 YCbCr converted to RGB; interleaved, *ncomp a
+// pixel.  Null with a message in err on failure.
+uint8_t* jpeg_decode_samples(const uint8_t* data, int64_t n, int out, int64_t* height,
+                             int64_t* width, int* ncomp, char* err, int64_t errlen) {
+  try {
+    Decoder dec(data, n);
+    std::vector<uint8_t> px = dec.run(height, width, out, ncomp);
+    uint8_t* buf = (uint8_t*)std::malloc(px.size() ? px.size() : 1);
+    if (!buf) throw Failure{"out of memory"};
+    std::memcpy(buf, px.data(), px.size());
+    return buf;
   } catch (const Failure& f) {
     std::snprintf(err, (size_t)errlen, "%s", f.msg.c_str());
   } catch (const std::exception& e) {
